@@ -1,0 +1,36 @@
+"""Naive torch oracles for the port's kernels (the allclose targets).
+
+Counterpart of ``repro/kernels/ref.py``: materialise the full score matrix,
+slow but obviously correct, for the kernel test sweeps.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+NEG_INF = -1e30
+
+
+def flash_attention_ref(q, k, v, *, causal: bool = True, window=None):
+    """q (B,Sq,H,hd), k/v (B,Sk,KH,hd) -> (B,Sq,H,hd). GQA by head repeat."""
+    b, sq, h, hd = q.shape
+    sk, kh = k.shape[1], k.shape[2]
+    rep = h // kh
+    if rep > 1:
+        k = k.repeat_interleave(rep, dim=2)
+        v = v.repeat_interleave(rep, dim=2)
+    scale = 1.0 / math.sqrt(hd)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    qpos = torch.arange(sq, device=q.device)[:, None]
+    kpos = torch.arange(sk, device=q.device)[None, :]
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    s = torch.where(mask[None, None], s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhqk,bkhd->bqhd", p, v.float())
+    return out.to(q.dtype)

@@ -1,0 +1,344 @@
+"""Dense decoder-only transformer family (qwen3, starcoder2, tinyllama, the
+gemma3 local:global pattern), counterpart of ``repro/models/transformer.py``.
+
+Parameters are a dict of tensors with the JAX package's tree and layouts:
+per-layer weights stacked on a leading superblock dim under
+``blocks/global`` (and ``blocks/local`` with a second stack dim), plus
+``emb``, ``ln_f`` and, untied, ``lm_head``.  Where JAX scans over the stack
+this module loops in Python over views of it.
+
+Entry points:
+    init_params(cfg, generator, device)
+    forward(cfg, params, tokens) -> logits
+    prefill(cfg, params, tokens, max_len) -> (last_logits, caches)
+    decode_step(cfg, params, caches, token, pos) -> (logits, caches)
+
+``decode_step`` takes ``pos`` as an int or as a (B,) tensor, one position
+per row (the paged decode batch), and writes the caches in place.  The
+layered/streamed decomposition of the JAX module belongs to the training
+slice and is not here.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from repro_torch.models import common as cm
+
+DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
+          "float16": torch.float16}
+
+
+def torch_dtype(cfg) -> torch.dtype:
+    return DTYPES[cfg.dtype]
+
+
+def _index(tree, i):
+    """The i-th slice of every leaf of a stacked param or cache tree."""
+    if isinstance(tree, dict):
+        return {k: _index(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+# ---------------------------------------------------------------------------
+# Structure helpers
+# ---------------------------------------------------------------------------
+
+def superblock_layout(cfg):
+    """(n_superblocks, locals_per_block, has_global) covering cfg.n_layers."""
+    if cfg.local_per_global > 0:
+        k = cfg.local_per_global
+        if cfg.n_layers % (k + 1):
+            raise ValueError(f"{cfg.n_layers} layers are not a multiple of "
+                             f"{k + 1} (local_per_global={k})")
+        return cfg.n_layers // (k + 1), k, True
+    if cfg.sliding_window is not None:
+        return cfg.n_layers, 1, False       # uniform windowed
+    return cfg.n_layers, 0, True            # uniform global
+
+
+def norm_apply(cfg, x, p):
+    if cfg.norm == "ln":
+        x32 = x.float()
+        mu = x32.mean(-1, keepdim=True)
+        var = x32.var(-1, keepdim=True, unbiased=False)
+        out = (x32 - mu) * torch.rsqrt(var + cfg.norm_eps)
+        return (out * (1.0 + p["scale"].float())
+                + p["bias"].float()).to(x.dtype)
+    return cm.rms_norm(x, p["scale"], cfg.norm_eps)
+
+
+# ---------------------------------------------------------------------------
+# Params
+# ---------------------------------------------------------------------------
+
+def _param_tree(cfg, leaf):
+    """The param tree with each leaf made by ``leaf(shape, std)``: std is
+    the init's standard deviation, or None for a zero-initialised leaf."""
+    n_sb, n_local, has_global = superblock_layout(cfg)
+    d, h, kh, hd, ff = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
+                        cfg.d_ff)
+
+    def normal(shape, std):
+        return leaf(shape, std)
+
+    def zeros(shape):
+        return leaf(shape, None)
+
+    def norm(lead, width):
+        p = {"scale": zeros(lead + (width,))}
+        if cfg.norm == "ln":
+            p["bias"] = zeros(lead + (width,))
+        return p
+
+    def dense(lead, d_in, d_out):
+        return normal(lead + (d_in, d_out), 1.0 / math.sqrt(d_in))
+
+    def layers(lead):
+        p = {
+            "ln1": norm(lead, d), "ln2": norm(lead, d),
+            "attn": {"wq": dense(lead, d, h * hd), "wk": dense(lead, d, kh * hd),
+                     "wv": dense(lead, d, kh * hd), "wo": dense(lead, h * hd, d)},
+            "mlp": {"w1": dense(lead, d, ff), "w2": dense(lead, ff, d)},
+        }
+        if cfg.gated_mlp:
+            p["mlp"]["w3"] = dense(lead, d, ff)
+        if cfg.qk_norm:
+            p["attn"]["q_norm"] = zeros(lead + (hd,))
+            p["attn"]["k_norm"] = zeros(lead + (hd,))
+        return p
+
+    blocks = {}
+    if n_local:
+        blocks["local"] = layers((n_sb, n_local))
+    if has_global:
+        blocks["global"] = layers((n_sb,))
+    params = {"emb": normal((cfg.vocab_padded, d), 0.02), "blocks": blocks,
+              "ln_f": norm((), d)}
+    if not cfg.tie_embeddings:
+        params["lm_head"] = normal((cfg.vocab_padded, d), 0.02)
+    return params
+
+
+def param_shapes(cfg):
+    """The param tree with each leaf's shape tuple in place of a tensor."""
+    return _param_tree(cfg, lambda shape, std: tuple(shape))
+
+
+def init_params(cfg, generator: torch.Generator, device="cuda"):
+    """Random weights with the JAX init's distributions: N(0, 1/d_in) dense
+    kernels, N(0, 0.02^2) embeddings, zero norm scales.  Numbers are drawn
+    on the generator's device, one leaf at a time, and cast to cfg.dtype."""
+    dtype = torch_dtype(cfg)
+
+    def leaf(shape, std):
+        if std is None:
+            return torch.zeros(shape, dtype=dtype, device=device)
+        x = torch.randn(shape, generator=generator, dtype=torch.float32,
+                        device=generator.device) * std
+        return x.to(device=device, dtype=dtype)
+
+    return _param_tree(cfg, leaf)
+
+
+# ---------------------------------------------------------------------------
+# Layer compute
+# ---------------------------------------------------------------------------
+
+def _qkv(cfg, p, h):
+    b, s, _ = h.shape
+    q = (h @ p["wq"]).reshape(b, s, cfg.n_heads, cfg.hd)
+    k = (h @ p["wk"]).reshape(b, s, cfg.n_kv_heads, cfg.hd)
+    v = (h @ p["wv"]).reshape(b, s, cfg.n_kv_heads, cfg.hd)
+    if cfg.qk_norm:
+        q = cm.rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = cm.rms_norm(k, p["k_norm"], cfg.norm_eps)
+    return q, k, v
+
+
+def mlp(cfg, p, h):
+    act = cm.act_fn(cfg.act)
+    if cfg.gated_mlp:
+        return (act(h @ p["w1"]) * (h @ p["w3"])) @ p["w2"]
+    return act(h @ p["w1"]) @ p["w2"]
+
+
+def _attn_block(cfg, p, x, positions, window, causal):
+    """One layer over a whole sequence; returns (x, k, v) with k/v after
+    rope, as the cache stores them."""
+    b, s, _ = x.shape
+    h = norm_apply(cfg, x, p["ln1"])
+    q, k, v = _qkv(cfg, p["attn"], h)
+    q = cm.apply_rope(q, positions, cfg.rope_theta)
+    k = cm.apply_rope(k, positions, cfg.rope_theta)
+    out = cm.blocked_attention(q, k, v, causal=causal, window=window,
+                               block_q=cfg.attn_block_q,
+                               block_k=cfg.attn_block_k)
+    x = x + out.reshape(b, s, -1) @ p["attn"]["wo"]
+    x = x + mlp(cfg, p["mlp"], norm_apply(cfg, x, p["ln2"]))
+    return x, k, v
+
+
+def attn_layer(cfg, p, x, positions, window: Optional[int]):
+    return _attn_block(cfg, p, x, positions, window, cfg.causal)[0]
+
+
+def embed(cfg, params, tokens):
+    x = params["emb"][tokens]
+    if cfg.emb_scale:
+        x = x * torch.tensor(math.sqrt(float(cfg.d_model)),
+                             dtype=torch.float32).to(x.dtype)
+    return x
+
+
+def unembed(cfg, params, x):
+    table = params.get("lm_head", params["emb"])
+    return x @ table.T
+
+
+def _positions(x):
+    b, s = x.shape[:2]
+    return torch.arange(s, device=x.device).expand(b, s)
+
+
+# ---------------------------------------------------------------------------
+# Forward (scoring)
+# ---------------------------------------------------------------------------
+
+@torch.no_grad()
+def forward(cfg, params, tokens):
+    """tokens (B,S) -> logits (B,S,V)."""
+    x = embed(cfg, params, tokens)
+    positions = _positions(x)
+    n_sb, n_local, has_global = superblock_layout(cfg)
+    for i in range(n_sb):
+        for j in range(n_local):
+            lp = _index(_index(params["blocks"]["local"], i), j)
+            x = attn_layer(cfg, lp, x, positions, cfg.sliding_window)
+        if has_global:
+            x = attn_layer(cfg, _index(params["blocks"]["global"], i), x,
+                           positions, None)
+    x = norm_apply(cfg, x, params["ln_f"])
+    return unembed(cfg, params, x)
+
+
+# ---------------------------------------------------------------------------
+# Serving: prefill + single-token decode with KV caches
+# ---------------------------------------------------------------------------
+
+def init_caches(cfg, batch: int, max_len: int, device="cuda"):
+    """Per-superblock caches: ring buffers for local, full for global."""
+    dtype = torch_dtype(cfg)
+    n_sb, n_local, has_global = superblock_layout(cfg)
+    caches = {}
+    if n_local:
+        w = min(cfg.sliding_window, max_len)
+        c = cm.init_kv_cache(n_sb * n_local, batch, w, cfg.n_kv_heads, cfg.hd,
+                             dtype, device)
+        caches["local"] = {n: a.reshape((n_sb, n_local) + a.shape[1:])
+                           for n, a in c.items()}
+    if has_global:
+        caches["global"] = cm.init_kv_cache(n_sb, batch, max_len,
+                                            cfg.n_kv_heads, cfg.hd, dtype,
+                                            device)
+    return caches
+
+
+def _decode_layer(cfg, p, x, ck, cv, pos, window: Optional[int]):
+    """One decode layer; x (B,1,d); cache (B,S,KH,hd) written in place."""
+    b = x.shape[0]
+    h = norm_apply(cfg, x, p["ln1"])
+    q, k, v = _qkv(cfg, p["attn"], h)
+    posv = pos.reshape(-1, 1).expand(b, 1)
+    q = cm.apply_rope(q, posv, cfg.rope_theta)
+    k = cm.apply_rope(k, posv, cfg.rope_theta)
+    cm.cache_update(ck, cv, k, v, pos, ring=window is not None)
+    length = torch.clamp(pos + 1, max=ck.shape[1])
+    out = cm.decode_attention(q, ck, cv, length=length, window=window)
+    x = x + out.reshape(b, 1, -1) @ p["attn"]["wo"]
+    x = x + mlp(cfg, p["mlp"], norm_apply(cfg, x, p["ln2"]))
+    return x
+
+
+@torch.no_grad()
+def decode_step(cfg, params, caches, token, pos):
+    """token (B,1) int; pos an int or a (B,) int tensor -> (logits (B,1,V),
+    caches).  The caches are updated in place and returned."""
+    x = embed(cfg, params, token)
+    pos = torch.as_tensor(pos, device=x.device).to(torch.int64)
+    n_sb, n_local, has_global = superblock_layout(cfg)
+    for i in range(n_sb):
+        for j in range(n_local):
+            lp = _index(_index(params["blocks"]["local"], i), j)
+            x = _decode_layer(cfg, lp, x, caches["local"]["k"][i, j],
+                              caches["local"]["v"][i, j], pos,
+                              cfg.sliding_window)
+        if has_global:
+            x = _decode_layer(cfg, _index(params["blocks"]["global"], i), x,
+                              caches["global"]["k"][i],
+                              caches["global"]["v"][i], pos, None)
+    x = norm_apply(cfg, x, params["ln_f"])
+    return unembed(cfg, params, x), caches
+
+
+@torch.no_grad()
+def prefill(cfg, params, tokens, max_len: Optional[int] = None):
+    """Fill caches for tokens (B,S); returns (last-token logits, caches).
+
+    The cache is the product of the forward pass: each layer's K/V after
+    rope.  Global caches are padded to ``max_len`` after attention, so the
+    prompt itself is never padded; local layers keep the trailing window in
+    ring order.
+    """
+    x = embed(cfg, params, tokens)
+    b, s, _ = x.shape
+    max_len = max_len or s
+    positions = _positions(x)
+    n_sb, n_local, has_global = superblock_layout(cfg)
+    dev = x.device
+
+    def ring(a, window):
+        # slot j holds the latest position p with p % w == j, i.e.
+        # p_j = s-1 - ((s-1-j) % w); slots without a position are zero
+        w = min(window, max_len)
+        j = torch.arange(w, device=dev)
+        p_j = (s - 1) - torch.remainder(s - 1 - j, w)
+        taken = a[:, torch.clamp(p_j, 0, s - 1)]
+        return torch.where((p_j >= 0)[None, :, None, None], taken,
+                           torch.zeros((), dtype=a.dtype, device=dev))
+
+    def pad(a):
+        if max_len == s:
+            return a
+        out = a.new_zeros((b, max_len) + a.shape[2:])
+        out[:, :s] = a
+        return out
+
+    local_k, local_v, global_k, global_v = [], [], [], []
+    for i in range(n_sb):
+        lk, lv = [], []
+        for j in range(n_local):
+            lp = _index(_index(params["blocks"]["local"], i), j)
+            x, k, v = _attn_block(cfg, lp, x, positions, cfg.sliding_window,
+                                  True)
+            lk.append(ring(k, cfg.sliding_window))
+            lv.append(ring(v, cfg.sliding_window))
+        if n_local:
+            local_k.append(torch.stack(lk))
+            local_v.append(torch.stack(lv))
+        if has_global:
+            x, k, v = _attn_block(cfg, _index(params["blocks"]["global"], i),
+                                  x, positions, None, True)
+            global_k.append(pad(k))
+            global_v.append(pad(v))
+    caches = {}
+    if n_local:
+        caches["local"] = {"k": torch.stack(local_k), "v": torch.stack(local_v)}
+    if has_global:
+        caches["global"] = {"k": torch.stack(global_k),
+                            "v": torch.stack(global_v)}
+    x = norm_apply(cfg, x, params["ln_f"])
+    return unembed(cfg, params, x[:, -1:]), caches

@@ -1,0 +1,11 @@
+from repro_torch.serve.decode import build_serve_step, build_prefill
+from repro_torch.serve.kv_cache import (BlockPool, OutOfBlocks, init_paged_pool,
+                                        build_paged_decode, build_paged_prefill)
+from repro_torch.serve.scheduler import Request, ServeScheduler
+
+__all__ = [
+    "build_serve_step", "build_prefill",
+    "BlockPool", "OutOfBlocks", "init_paged_pool",
+    "build_paged_decode", "build_paged_prefill",
+    "Request", "ServeScheduler",
+]

@@ -1,0 +1,103 @@
+"""The port's flash attention (K3) against the JAX package.
+
+On the CPU the port's dispatcher takes the plain torch version; it and the
+naive oracle are held against the Pallas kernel (interpret mode, as
+tests/test_kernels.py runs it) and the model's ``blocked_attention`` on the
+same numpy inputs.  Tolerances are those of tests/test_kernels.py: 2e-4 in
+float32, 3e-2 in bfloat16.  The kernel itself runs only on a CUDA card:
+tests/test_torch_kernels_cuda.py holds it against the plain version there.
+"""
+
+import sys
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as jops
+from repro.models.common import blocked_attention as jax_blocked
+from repro_torch.kernels import _build, ops
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import ref
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+from chip_smoke import ATTN_CASES, TOL  # noqa: E402  (tests/test_kernels.py's)
+
+
+def _inputs(case, seed=0):
+    b, sq, sk, h, kh, hd = case[:6]
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((b, sq, h, hd)).astype(np.float32),
+            rng.standard_normal((b, sk, kh, hd)).astype(np.float32),
+            rng.standard_normal((b, sk, kh, hd)).astype(np.float32))
+
+
+def _torch(a, dtype, device="cpu"):
+    return torch.from_numpy(a).to(device=device, dtype=getattr(torch, dtype))
+
+
+def _np(x):
+    return np.asarray(x.float().cpu() if isinstance(x, torch.Tensor)
+                      else jnp.asarray(x, jnp.float32))
+
+
+@pytest.mark.parametrize("case", ATTN_CASES)
+def test_plain_and_ref_match_pallas_and_blocked(case):
+    causal, window, dtype = case[6:]
+    qn, kn, vn = _inputs(case)
+    jq, jk, jv = (jnp.asarray(a, getattr(jnp, dtype)) for a in (qn, kn, vn))
+    tq, tk, tv = (_torch(a, dtype) for a in (qn, kn, vn))
+    pallas = _np(jops.flash_attention(jq, jk, jv, causal=causal,
+                                      window=window, block_q=64, block_k=64))
+    blocked = _np(jax_blocked(jq, jk, jv, causal=causal, window=window,
+                              block_q=64, block_k=64))
+    plain = ops.flash_attention(tq, tk, tv, causal=causal, window=window,
+                                block_q=64, block_k=64)
+    oracle = ref.flash_attention_ref(tq, tk, tv, causal=causal, window=window)
+    assert plain.dtype == tq.dtype and plain.shape == tq.shape
+    tol = TOL[dtype]
+    for got in (_np(plain), _np(oracle)):
+        np.testing.assert_allclose(got, pallas, rtol=tol, atol=tol)
+        np.testing.assert_allclose(got, blocked, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("q_offset,window", [(40, None), (40, 24)])
+def test_plain_q_offset_matches_blocked(q_offset, window):
+    qn, kn, vn = _inputs((1, 24, 64, 4, 2, 32))
+    want = jax_blocked(jnp.asarray(qn), jnp.asarray(kn), jnp.asarray(vn),
+                       causal=True, window=window, block_q=16, block_k=16,
+                       q_offset=q_offset)
+    got = fa.flash_attention_plain(
+        torch.from_numpy(qn), torch.from_numpy(kn), torch.from_numpy(vn),
+        causal=True, window=window, block_q=16, block_k=16, q_offset=q_offset)
+    np.testing.assert_allclose(_np(got), np.asarray(want), rtol=2e-4, atol=2e-4)
+
+
+def test_plain_fully_masked_rows_are_zero():
+    """A row that sees no key (its window lies past the cache) is 0, not
+    NaN: masked scores add an exact zero and the denominator is clamped."""
+    qn, kn, vn = _inputs((1, 8, 16, 2, 1, 16))
+    out = fa.flash_attention_plain(
+        torch.from_numpy(qn), torch.from_numpy(kn), torch.from_numpy(vn),
+        causal=True, window=4, q_offset=100)
+    assert torch.equal(out, torch.zeros_like(out))
+
+
+def test_cpu_dispatch_takes_plain_path_and_counts_nothing():
+    ops.reset_launch_counts()
+    qn, kn, vn = _inputs((1, 16, 16, 2, 1, 16))
+    ops.flash_attention(torch.from_numpy(qn), torch.from_numpy(kn),
+                        torch.from_numpy(vn))
+    assert ops.launch_counts() == {"flash_attention": 0}
+    with pytest.raises(ValueError):
+        ops.flash_attention(*(torch.from_numpy(a).to("meta")
+                              for a in (qn, kn, vn)))
+
+
+def test_build_is_lazy_and_targets_sm90a():
+    assert _build.sources() == ["flash_attention"]
+    assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+    assert _build._libs == {}           # importing compiled nothing
+    assert _build.BUILD_DIR.parts[-2:] == ("build", "kernels")
