@@ -5,20 +5,39 @@
 
 1. Prints the card's name and power limit (``nvidia-smi``).
 2. Builds every kernel of ``src/repro_torch/kernels/csrc`` with ``nvcc`` for
-   sm_90a into the git-ignored ``build/kernels/``.
-3. Kernel phase: the flash-attention kernel K3 against its plain torch
+   sm_90a into the git-ignored ``build/kernels/``, one ``nvcc`` per source,
+   all started together.
+3. Kernel phase, K3: the flash-attention kernel against its plain torch
    version on the card (f32 to 2e-4, bf16 to 3e-2) over the kernel test
    shapes and the serving slice's prefill shapes; times the kernel, the
    plain version and ``F.scaled_dot_product_attention`` (the library
    yardstick, used nowhere in the port) against the roofline bound.
-4. Slice phase: ``ServeScheduler`` serves tinyllama-1.1b at full width in
+4. Kernel phase, K1/K2: the butterfly combine kernels against their plain
+   versions, bit-identical (``torch.equal``), in f32 and bf16 at scales 1
+   and 0.25, over small and lane-unaligned sizes, the training slice's
+   real stacked bucket sizes and ragged pair lists of both pointer
+   alignments; times each against the HBM bound ``3*n*itemsize/3.35e12 s``,
+   the plain version and, at scale 1, ``torch.add``/``torch._foreach_add``.
+5. Serving phase: ``ServeScheduler`` serves tinyllama-1.1b at full width in
    bf16 (random weights from a seeded torch generator) over 8 ragged
    requests with a pool small enough to force a recompute preemption; checks
    that every prefill attention went through K3, that every request
    finishes with in-vocab tokens, and, for 2 requests, that the first token
    and the first paged decode step's logits match the dense uncontended
-   serving path.
-5. Prints a ``kernels`` JSON line, then ``{"ok": true, "device": ...}`` last.
+   serving path.  Two profiler windows.
+6. Training phase: the port's ``Trainer`` runs the WAGMA step on
+   tinyllama-1.1b at full width cut to 6 layers, bf16, 8 replicas as rows
+   of one state, group size 4, tau 5, SGD with momentum 0.9, seq 512,
+   global batch 64, for 12 steps (all 3 phase offsets and the syncs at t=4
+   and t=9).  Checks (a) each group step's K1 + K2 launches equal what the
+   wavefront schedule predicts for the plan's bucket count, with at least
+   one multi-pair K2 launch; (b) after a group step each group's replicas
+   are bit-identical and the groups differ, after a sync all rows are;
+   (c) on the first step's pre-averaging params the fused K1/K2 average is
+   bit-identical to the plan's per-leaf path; (d) every loss is finite and
+   no update is skipped.  Prints losses, step time, tokens/s, the host
+   split, peak memory and a profiler window over one group step.
+7. Prints a ``kernels`` JSON line, then ``{"ok": true, "device": ...}`` last.
 
 Exits non-zero, printing no result, without CUDA or without the repo's
 ``src/`` beside it.  TF32 is off for matmuls and cuDNN so float32 means
@@ -27,11 +46,14 @@ float32.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
+import statistics
 import subprocess
 import sys
 import time
+from collections import Counter
 from pathlib import Path
 
 import numpy as np
@@ -61,7 +83,24 @@ SLICE_LENGTHS = (1, 100, 1024, 2048)
 SLICE_SHAPE_FOR_LINE = 1024          # the kernels line reports this shape
 TOL = {"float32": 2e-4, "bfloat16": 3e-2}
 
-# slice phase
+# K1/K2 kernel phase: sizes in elements (0 returns w unlaunched; 127, 1000
+# and 2**20+3 leave a scalar tail), both storage dtypes, both scales the
+# butterfly uses; ragged lists for K2, each pair also taken at an offset of
+# one element so that its pointers are not 16-byte aligned
+GA_SIZES = (0, 1, 127, 128, 1000, 2 ** 20 + 3)
+GA_RAGGED = (1000, 1, 128, 127, 0, 4099, 2 ** 20 + 3, 77)
+GA_SCALES = (1.0, 0.25)
+GA_DTYPES = ("float32", "bfloat16")
+
+# training phase: tinyllama-1.1b at full width, depth cut to 6 layers so
+# that 8 replicas' bf16 params, fp32 momentum and the fp32 averaging
+# buffers fit one 80 GB card
+TRAIN_LAYERS, TRAIN_P, TRAIN_S, TRAIN_TAU = 6, 8, 4, 5
+TRAIN_SEQ, TRAIN_GB, TRAIN_STEPS, TRAIN_LR = 512, 64, 12, 0.1
+K1, K2, K3 = ("group_average_combine", "group_average_combine_multi",
+              "flash_attention")
+
+# serving phase
 ARCH = "tinyllama-1.1b"
 N_REQUESTS, PROMPT_MIN, PROMPT_MAX, MAX_NEW = 8, 64, 1024, 32
 BLOCK_SIZE, MAX_BLOCKS_PER_REQ, MAX_BATCH = 16, 96, 8
@@ -168,6 +207,315 @@ def kernel_phase(device="cuda"):
                      "library_ms": library_ms, "bound_ms": bound_ms,
                      "bound_by": bound_by})
     return rows
+
+
+def combine_bound_ms(n_total: int, itemsize: int) -> float:
+    """Least time for the combine: each of w, recv read once and out
+    written once, over the HBM rate (2 flops per element is far below the
+    operation bound)."""
+    return 3 * n_total * itemsize / PEAK_BYTES * 1e3
+
+
+def train_config():
+    from repro_torch.configs import get_config
+    return get_config(ARCH).variant(n_layers=TRAIN_LAYERS)
+
+
+def slice_plan(cfg):
+    """The training slice's compiled plan (one replica's tree structure)."""
+    from repro_torch.core import plan as plan_mod
+    from repro_torch.models import transformer as tfm
+    return plan_mod.compile_plan(plan_mod.Topology.flat(("data",), (TRAIN_P,)),
+                                 tfm.param_specs(cfg),
+                                 plan_mod.AveragingConfig(group_size=TRAIN_S,
+                                                          tau=TRAIN_TAU))
+
+
+def scale_groups(n_buckets: int, n_stages: int):
+    """The combine launches of one group step's overlapped butterfly: per
+    wavefront batch, one group of bucket indices per distinct scale (the
+    last stage's scale is 1/S, the others' 1.0).  A group of one pair is a
+    K1 launch, a larger one a K2 launch."""
+    from repro_torch.core import overlap
+    out = []
+    for batch in overlap.combine_batches(
+            overlap.pipeline_schedule(n_buckets, n_stages)):
+        by_scale = {}
+        for k, stage in batch:
+            by_scale.setdefault(stage == n_stages - 1, []).append(k)
+        out.extend((last, ks) for last, ks in by_scale.items())
+    return out
+
+
+def expected_combine_launches(n_buckets: int, n_stages: int):
+    """(K1, K2) launches of one group step."""
+    sizes = Counter(len(ks) > 1 for _, ks in scale_groups(n_buckets,
+                                                          n_stages))
+    return sizes[False], sizes[True]
+
+
+def combine_kernel_phase(device="cuda"):
+    """K1/K2 against their plain versions on every case; returns (rows,
+    line entries for K1 and K2)."""
+    import torch
+    from repro_torch.kernels import group_average as ga
+
+    plan = slice_plan(train_config())
+    layout = plan.class_layout(0)
+    real = sorted(set(TRAIN_P * n for n in layout.bucket_sizes))
+    stages = len(plan.runs_for_offset(0)[0].bits)
+    tail = next(ks for _, ks in scale_groups(layout.n_buckets, stages)
+                if len(ks) > 1)
+    tail_sizes = [TRAIN_P * layout.bucket_sizes[k] for k in tail]
+    gen = torch.Generator(device=device).manual_seed(1)
+
+    def operands(n, dtype, offset=0):
+        base = torch.randn(2, n + offset, generator=gen, device=device,
+                           dtype=torch.float32).to(getattr(torch, dtype))
+        return base[0, offset:], base[1, offset:]
+
+    rows = []
+    line = {}
+    for dtype in GA_DTYPES:
+        item = 4 if dtype == "float32" else 2
+        for scale in GA_SCALES:
+            # K1: one pair per case
+            for n, offset in ([(n, 0) for n in GA_SIZES + tuple(real)]
+                              + [(1000, 1), (2 ** 20 + 3, 1)]):
+                w, r = operands(n, dtype, offset)
+                got = ga.group_average_combine_cuda(w, r, scale)
+                want = ga.group_average_combine_plain(w, r, scale)
+                torch.cuda.synchronize()
+                row = {"kernel": "K1", "dtype": dtype, "scale": scale,
+                       "n": [n], "aligned": offset == 0,
+                       "equal": bool(torch.equal(got, want)),
+                       "max_abs_err": float((got.float() - want.float()
+                                             ).abs().max()) if n else 0.0,
+                       "bound_ms": combine_bound_ms(n, item)}
+                if n:                      # n == 0 launches nothing
+                    o = torch.empty_like(w)
+                    row["ms"] = time_ms(lambda: ga.group_average_combine_cuda(
+                        w, r, scale, out=o))
+                    row["plain_ms"] = time_ms(
+                        lambda: ga.group_average_combine_plain(w, r, scale),
+                        iters=5, warmup=1)
+                    row["library_ms"] = (time_ms(lambda: torch.add(
+                        w, r, out=o)) if scale == 1.0 else None)
+                rows.append(row)
+                if (dtype, scale, n) == ("float32", 1.0, real[-1]):
+                    line["K1"] = row
+                del w, r, got, want
+            # K2: the slice's real multi-pair batch, ragged lists of both
+            # alignments, and a list longer than one launch's table
+            for name, sizes, offsets in (
+                    ("slice tail batch", tail_sizes, [0] * len(tail_sizes)),
+                    ("ragged aligned", GA_RAGGED, [0] * len(GA_RAGGED)),
+                    ("ragged mixed", GA_RAGGED,
+                     [i % 2 for i in range(len(GA_RAGGED))]),
+                    ("70 pairs", [97 + 13 * i for i in range(70)],
+                     [i % 2 for i in range(70)])):
+                pairs = [operands(n, dtype, off)
+                         for n, off in zip(sizes, offsets)]
+                ws, rs = [p[0] for p in pairs], [p[1] for p in pairs]
+                got = ga.group_average_combine_multi_cuda(ws, rs, scale)
+                want = ga.group_average_combine_multi_plain(ws, rs, scale)
+                torch.cuda.synchronize()
+                row = {"kernel": "K2", "case": name, "dtype": dtype,
+                       "scale": scale, "n": list(sizes),
+                       "equal": all(torch.equal(a, b)
+                                    for a, b in zip(got, want)),
+                       "max_abs_err": max(float((a.float() - b.float()
+                                                 ).abs().max())
+                                          for a, b in zip(got, want)
+                                          if a.numel()),
+                       "bound_ms": combine_bound_ms(sum(sizes), item)}
+                os_ = [torch.empty_like(w) for w in ws]
+                row["ms"] = time_ms(
+                    lambda: ga.group_average_combine_multi_cuda(
+                        ws, rs, scale, outs=os_))
+                row["plain_ms"] = time_ms(
+                    lambda: ga.group_average_combine_multi_plain(
+                        ws, rs, scale), iters=5, warmup=1)
+                row["library_ms"] = (time_ms(
+                    lambda: torch._foreach_add(ws, rs))
+                    if scale == 1.0 else None)
+                if (name, dtype, scale) == ("slice tail batch", "float32",
+                                            1.0):
+                    line["K2"] = row
+                rows.append(row)
+                del pairs, ws, rs, got, want, os_
+    torch.cuda.empty_cache()
+    bad = [r for r in rows if not r["equal"]]
+    if bad:
+        raise AssertionError(f"K1/K2 differ from their plain versions: {bad}")
+    return rows, line
+
+
+def group_rows_agree(params, groups) -> tuple:
+    """(every group's rows bit-identical, at least two groups differ)."""
+    import torch
+    from repro_torch.core import tree as tr
+    leaves = tr.tree_leaves(params)
+    same = all(torch.equal(leaf[m], leaf[g[0]]) for leaf in leaves
+               for g in groups for m in g[1:])
+    differ = len(groups) > 1 and any(
+        not torch.equal(leaf[groups[0][0]], leaf[groups[1][0]])
+        for leaf in leaves)
+    return same, differ
+
+
+def train_phase(cfg, device="cuda", steps: int = TRAIN_STEPS,
+                seq_len: int = TRAIN_SEQ, global_batch: int = TRAIN_GB,
+                topology=None):
+    """Drive the port's ``Trainer`` for ``steps`` steps with checks (b),
+    (c) and (d); returns the run's numbers, the per-step launch counts for
+    check (a) and the trainer (for the profile window)."""
+    import torch
+    from repro_torch.core import grouping
+    from repro_torch.core import plan as plan_mod
+    from repro_torch.core import tree as tr
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import Trainer
+    from repro_torch.optim.sgd import Optimizer
+    from repro_torch.train import train_step
+
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, TRAIN_P, device=device, group_size=TRAIN_S,
+                      tau=TRAIN_TAU, learning_rate=TRAIN_LR, seq_len=seq_len,
+                      global_batch=global_batch, seed=0, topology=topology)
+    _sync(device)
+    init_s = time.perf_counter() - t0
+    plan = trainer.plan()
+    n_buckets = plan.class_layout(0).n_buckets
+    n_stages = len(plan.runs_for_offset(0)[0].bits)
+    split = {"grads": 0.0, "update": 0.0, "average": 0.0}
+
+    def timed(key, fn):
+        def run(*args):
+            _sync(device)
+            t = time.perf_counter()
+            out = fn(*args)
+            _sync(device)
+            split[key] += time.perf_counter() - t
+            return out
+        return run
+
+    trainer.opt = Optimizer(trainer.opt.init,
+                            timed("update", trainer.opt.update))
+    checked = {}
+    comm = timed("average", trainer.averager.comm)
+
+    def comm_checked(tree, phase):
+        out = comm(tree, phase)
+        if "fused_equals_per_leaf" not in checked:     # check (c), once
+            ref_plan = plan_mod.compile_plan(
+                plan.topology, plan.storage_struct,
+                dataclasses.replace(plan.cfg, fused=False))
+            ref = ref_plan.average(tree, phase)
+            checked["fused_equals_per_leaf"] = all(
+                torch.equal(a, b) for a, b in zip(tr.tree_leaves(out),
+                                                  tr.tree_leaves(ref)))
+            del ref
+        return out
+
+    trainer.averager.comm = comm_checked
+    trainer.averager.sync = timed("average", trainer.averager.sync)
+
+    value_and_grad = train_step.value_and_grad
+    train_step.value_and_grad = timed("grads", value_and_grad)
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    log = []
+    ops.reset_launch_counts()
+    for t in range(steps):
+        split.update(grads=0.0, update=0.0, average=0.0)
+        before = ops.launch_counts()
+        _sync(device)
+        t_start = time.perf_counter()
+        loss = trainer.step_once(t)
+        _sync(device)
+        step_s = time.perf_counter() - t_start
+        after = ops.launch_counts()
+        sync = trainer.averager.sync_due(t)
+        offset = None if sync else plan.offsets[trainer.averager.phase_for_step(t)]
+        groups = ((tuple(range(TRAIN_P)),) if sync else
+                  grouping.groups_for_offset(TRAIN_P, TRAIN_S, offset))
+        same, differ = group_rows_agree(trainer.state.params, groups)
+        if not same or (not sync and not differ):          # check (b)
+            raise AssertionError(
+                f"step {t} ({'sync' if sync else f'offset {offset}'}): "
+                f"rows of a group bit-identical {same}, groups differ "
+                f"{differ}, groups {groups}")
+        log.append({"t": t, "loss": loss, "sync": sync, "offset": offset,
+                    "step_ms": step_s * 1e3,
+                    "update_ms": split["update"] * 1e3,
+                    "average_ms": split["average"] * 1e3,
+                    "grads_ms": split["grads"] * 1e3,
+                    # the batch's host-to-device copy, the finite checks,
+                    # the row writes and the metrics
+                    "other_ms": (step_s - split["grads"] - split["update"]
+                                 - split["average"]) * 1e3,
+                    "skipped": trainer.last_metrics["skipped_nonfinite"],
+                    "k1": after[K1] - before[K1],
+                    "k2": after[K2] - before[K2]})
+    train_step.value_and_grad = value_and_grad
+    launches = ops.launch_counts()
+    peak = (torch.cuda.max_memory_allocated()
+            if torch.device(device).type == "cuda" else None)
+    if not checked.get("fused_equals_per_leaf"):                # check (c)
+        raise AssertionError("the fused K1/K2 average differs from the "
+                             "plan's per-leaf path")
+    bad = [e for e in log if not math.isfinite(e["loss"]) or e["skipped"]]
+    if bad:                                                     # check (d)
+        raise AssertionError(f"non-finite losses or skipped updates: {bad}")
+    steady = log[1:] or log
+    med = lambda key: statistics.median(e[key] for e in steady)
+    return {
+        "arch": cfg.name, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+        "dtype": cfg.dtype, "replicas": TRAIN_P, "group_size": TRAIN_S,
+        "tau": TRAIN_TAU, "seq_len": seq_len, "global_batch": global_batch,
+        "params_per_replica": sum(l.numel() for l in tr.tree_leaves(
+            trainer.state.params)) // TRAIN_P,
+        "n_buckets": n_buckets, "bucket_bytes": plan.class_bucket_bytes[0],
+        "expected_k1_k2_per_group_step": expected_combine_launches(
+            n_buckets, n_stages),
+        "init_s": init_s, "losses": [e["loss"] for e in log],
+        "steps": log, "launches": launches,
+        "median_step_ms": med("step_ms"),
+        "tokens_per_s": global_batch * seq_len / (med("step_ms") / 1e3),
+        "median_split_ms": {k: med(k + "_ms")
+                            for k in ("grads", "update", "average",
+                                      "other")},
+        "max_memory_allocated": peak,
+        "fused_equals_per_leaf": checked["fused_equals_per_leaf"],
+    }, trainer
+
+
+def check_train_launches(stats):
+    """Check (a): every group step launched the predicted K1 and K2
+    counts, at least one K2 launch combined several pairs, and no sync step
+    launched either."""
+    want_k1, want_k2 = stats["expected_k1_k2_per_group_step"]
+    for e in stats["steps"]:
+        want = (0, 0) if e["sync"] else (want_k1, want_k2)
+        if (e["k1"], e["k2"]) != want:
+            raise AssertionError(f"step {e['t']}: K1/K2 launched "
+                                 f"{(e['k1'], e['k2'])}, the schedule "
+                                 f"predicts {want}")
+    if want_k2 < 1 or stats["launches"][K2] < 1:
+        raise AssertionError("no multi-pair K2 launch on the training path")
+
+
+def train_profile(trainer, t: int, device="cuda"):
+    """One group step (global step ``t``) under the profiler."""
+    from torch.profiler import profile
+    with profile(activities=_activities(device)) as prof:
+        t0 = time.perf_counter()
+        trainer.step_once(t)
+        _sync(device)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    return _window(prof, wall_ms)
 
 
 def make_requests(cfg, seed: int = 0):
@@ -320,9 +668,7 @@ def profile_phase(model, params, device="cuda", seed: int = 0,
     a fresh scheduler on the same requests: the first step (every prefill
     plus one decode step at batch 8) and the next ``decode_steps`` decode
     steps.  Device numbers are None where the profiler saw no CUDA kernel."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import profile
     from repro_torch.serve import Request, ServeScheduler
 
     prompts = make_requests(model.cfg, seed)
@@ -332,33 +678,54 @@ def profile_phase(model, params, device="cuda", seed: int = 0,
                            max_batch=MAX_BATCH)
     for i, p in enumerate(prompts):
         sched.submit(Request(i, p, MAX_NEW))
-    activities = [ProfilerActivity.CPU]
-    if torch.device(device).type == "cuda":
-        activities.append(ProfilerActivity.CUDA)
     windows = {}
     for name, n_steps in (("admit_all_prefills_plus_1_decode", 1),
                           (f"{decode_steps}_decode_steps_batch_8",
                            decode_steps)):
         _sync(device)
-        with profile(activities=activities) as prof:
+        with profile(activities=_activities(device)) as prof:
             t = time.perf_counter()
             for _ in range(n_steps):
                 sched.step()
             _sync(device)
             wall_ms = (time.perf_counter() - t) * 1e3
-        kernels = [e for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA]
-        busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-        top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
-        windows[name] = {
-            "wall_ms": wall_ms,
-            "device_busy_ms": busy_ms if kernels else None,
-            "device_idle_share": 1 - busy_ms / wall_ms if kernels else None,
-            "top_kernels": [{"name": e.key[:90], "calls": e.count,
-                             "ms": e.self_device_time_total / 1e3}
-                            for e in top],
-        }
+        windows[name] = _window(prof, wall_ms)
     return windows
+
+
+def _activities(device):
+    import torch
+    from torch.profiler import ProfilerActivity
+    activities = [ProfilerActivity.CPU]
+    if torch.device(device).type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    return activities
+
+
+def _window(prof, wall_ms: float, top_n: int = 8) -> dict:
+    """Device busy time and idle share of a profiled window, and its
+    largest kernels; device numbers are None where no CUDA kernel ran."""
+    from torch.autograd import DeviceType
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:top_n]
+    return {
+        "wall_ms": wall_ms,
+        "device_busy_ms": busy_ms if kernels else None,
+        "device_idle_share": 1 - busy_ms / wall_ms if kernels else None,
+        "top_kernels": [{"name": e.key[:90], "calls": e.count,
+                         "ms": e.self_device_time_total / 1e3}
+                        for e in top],
+    }
+
+
+def _print_window(name, w, card):
+    print(f"profile {name} [{card}]: wall {w['wall_ms']:.2f} ms, device "
+          f"busy {w['device_busy_ms']} ms, idle share "
+          f"{w['device_idle_share']}", flush=True)
+    for k in w["top_kernels"]:
+        print(f"    {k['ms']:9.3f} ms {k['calls']:6d}x {k['name']}")
 
 
 def main() -> int:
@@ -382,6 +749,7 @@ def main() -> int:
     for name, report in reports.items():
         print(f"--- nvcc {name}.cu ---\n{report}", file=sys.stderr)
 
+    # -- kernel phase: K3 ---------------------------------------------------
     rows = kernel_phase()
     for r in rows:
         print(f"K3 {r['shape']} causal={r['causal']} window={r['window']} "
@@ -391,6 +759,21 @@ def main() -> int:
               f"({r['bound_by']}) [{card}]", flush=True)
     print(json.dumps({"k3_shapes": rows, "card": card}), flush=True)
 
+    # -- kernel phase: K1/K2 ------------------------------------------------
+    ga_rows, ga_line = combine_kernel_phase()
+    for r in ga_rows:
+        if "ms" in r:
+            n = r["n"] if len(r["n"]) < 3 else f"{len(r['n'])} pairs"
+            print(f"{r['kernel']} {r.get('case', '')} {r['dtype']} scale "
+                  f"{r['scale']} n={n} aligned={r.get('aligned', '')}: "
+                  f"equal {r['equal']} kernel {r['ms']:.4f} ms plain "
+                  f"{r['plain_ms']:.4f} ms library {r['library_ms']} ms "
+                  f"bound {r['bound_ms']:.4f} ms [{card}]", flush=True)
+    print(f"K1/K2: {len(ga_rows)} cases bit-identical to the plain versions",
+          flush=True)
+    print(json.dumps({"k1_k2_cases": ga_rows, "card": card}), flush=True)
+
+    # -- serving phase (K3) -------------------------------------------------
     cfg = get_config(ARCH)
     model, params, init_s = load_model(cfg)
     print(f"weights: {cfg.name} initialised on the card in {init_s:.2f} s",
@@ -398,41 +781,71 @@ def main() -> int:
     stats = serve_phase(model, params)
     n_sb = cfg.n_layers
     want = n_sb * stats["n_prefills"]
-    got = stats["launches"]["flash_attention"]
-    if got != want:
-        raise AssertionError(f"K3 launched {got} times on the serving path; "
-                             f"expected {n_sb} layers x {stats['n_prefills']}"
-                             f" prefills = {want}")
+    served = stats["launches"]
+    if served[K3] != want or served[K1] or served[K2]:
+        raise AssertionError(f"kernels launched on the serving path "
+                             f"{served}; expected K3 {n_sb} layers x "
+                             f"{stats['n_prefills']} prefills = {want}")
     print(json.dumps({"slice": stats, "card": card}), flush=True)
     print(f"slice [{card}]: {cfg.name} full width bf16, "
           f"{stats['n_prefills']} prefills ({stats['evictions']} evictions), "
           f"prefill {stats['prefill_tok_per_s']:.0f} tok/s, "
           f"TTFT max {max(stats['ttft_s']):.3f} s, decode ms/step by bucket "
           f"{stats['decode_ms_per_step']}", flush=True)
-
     windows = profile_phase(model, params)
     for name, w in windows.items():
-        print(f"profile {name} [{card}]: wall {w['wall_ms']:.2f} ms, device "
-              f"busy {w['device_busy_ms']} ms, idle share "
-              f"{w['device_idle_share']}", flush=True)
-        for k in w["top_kernels"]:
-            print(f"    {k['ms']:9.3f} ms {k['calls']:6d}x {k['name']}")
+        _print_window(name, w, card)
     print(json.dumps({"profile": windows, "card": card}), flush=True)
+    del model, params
+    torch.cuda.empty_cache()
+
+    # -- training phase (K1, K2) --------------------------------------------
+    tcfg = train_config()
+    train, trainer = train_phase(tcfg)
+    check_train_launches(train)
+    window = train_profile(trainer, TRAIN_STEPS)
+    del trainer
+    print(json.dumps({"train": train, "train_profile": window,
+                      "card": card}), flush=True)
+    print(f"train [{card}]: {tcfg.name} full width, {tcfg.n_layers} layers, "
+          f"{TRAIN_P} replicas S={TRAIN_S} tau={TRAIN_TAU}, "
+          f"{train['params_per_replica']} params/replica, "
+          f"{train['n_buckets']} buckets of "
+          f"{train['bucket_bytes'] >> 20} MiB", flush=True)
+    print(f"train losses: {[round(x, 4) for x in train['losses']]}",
+          flush=True)
+    print(f"train: median step {train['median_step_ms']:.1f} ms after the "
+          f"first, {train['tokens_per_s']:.0f} tokens/s, host split "
+          f"{ {k: round(v, 1) for k, v in train['median_split_ms'].items()} }"
+          f" ms, peak memory {train['max_memory_allocated'] / 2**30:.2f} GiB,"
+          f" launches {train['launches']}", flush=True)
+    _print_window(f"train group step {TRAIN_STEPS}", window, card)
 
     main_row = next(r for r in rows if r["shape"] == [
         1, SLICE_SHAPE_FOR_LINE, SLICE_SHAPE_FOR_LINE, 32, 4, 64])
-    kernels = [{
-        "name": "flash_attention",
-        "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
-        "replaces": "src/repro/kernels/flash_attention.py:26",
-        "launches": got,
-        "max_abs_err": max(r["max_abs_err"] for r in rows),
-        "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
-        "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
-        "library_ms": main_row["library_ms"],
-        "shape": main_row["shape"], "dtype": main_row["dtype"],
-    }]
+    ga_err = {k: max(r["max_abs_err"] for r in ga_rows if r["kernel"] == k)
+              for k in ("K1", "K2")}
+    entry = lambda name, source, replaces, launches, row, err, **kw: {
+        "name": name, "route": "cuda", "source": source,
+        "replaces": replaces, "launches": launches, "max_abs_err": err,
+        "ms": row["ms"], "plain_ms": row["plain_ms"],
+        "bound_ms": row["bound_ms"], "bound_by": kw.pop("bound_by", "bytes"),
+        "library_ms": row["library_ms"], **kw}
+    kernels = [
+        entry(K1, "src/repro_torch/kernels/csrc/group_average.cu",
+              "src/repro/kernels/group_average.py:68",
+              train["launches"][K1], ga_line["K1"], ga_err["K1"],
+              n=ga_line["K1"]["n"], dtype="float32", scale=1.0),
+        entry(K2, "src/repro_torch/kernels/csrc/group_average.cu",
+              "src/repro/kernels/group_average.py:80",
+              train["launches"][K2], ga_line["K2"], ga_err["K2"],
+              n=ga_line["K2"]["n"], dtype="float32", scale=1.0),
+        entry(K3, "src/repro_torch/kernels/csrc/flash_attention.cu",
+              "src/repro/kernels/flash_attention.py:70", served[K3],
+              main_row, max(r["max_abs_err"] for r in rows),
+              bound_by=main_row["bound_by"], shape=main_row["shape"],
+              dtype=main_row["dtype"]),
+    ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

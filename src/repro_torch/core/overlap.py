@@ -1,0 +1,189 @@
+"""Software-pipelined bucket scheduler — hide the combine behind the wire.
+
+The port's own copy of ``repro/core/overlap.py``: the schedule functions
+are pure Python and identical to the JAX package's (pinned by tests); the
+drivers run on torch buffers (``numel()`` where JAX reads ``size``).
+
+The serial bucketed path walks buckets one at a time: bucket k's exchange
+must land, then its combine runs, then bucket k+1's exchange is issued, so
+combine time adds directly to wire time.  This module restructures the
+butterfly into a **wavefront over the (bucket, stage) grid** (DESIGN.md
+§8): within a stage, bucket k+1's exchange is issued before bucket k's
+combine runs, and across stages there is no global barrier.
+
+Only inter-bucket interleaving changes.  Each bucket still sees exactly the
+serial per-bucket program — ``log2(S)`` exchange+add stages in order, scale
+on the last — and buckets never read each other's data, so the overlapped
+path is bit-compatible with the serial bucketed path and the per-leaf
+reference.
+
+Cell ``(k, s)`` (bucket k, butterfly stage s) issues its exchange at tick
+``k + 2s`` and combines at tick ``k + 2s + 1``; within a tick all
+exchanges are emitted before any combine.  Combines that fall between two
+exchange runs are mutually independent and are handed to the caller *as a
+batch*, which the fused path feeds to the multi-pair kernel K2 (one launch
+per batch and scale) instead of one launch per bucket.
+
+``overlapped_stage_seconds`` models the throughput claim: the per-stage
+alpha-beta cost becomes ``launch + max(wire, combine) + fill/drain``.
+"""
+
+from __future__ import annotations
+
+from functools import lru_cache
+from typing import Callable, Dict, List, Sequence, Tuple
+
+EXCHANGE = "exchange"
+COMBINE = "combine"
+
+# (phase, bucket, stage): phase is EXCHANGE or COMBINE
+Event = Tuple[str, int, int]
+
+
+@lru_cache(maxsize=None)
+def pipeline_schedule(n_buckets: int, n_stages: int) -> Tuple[Event, ...]:
+    """Wavefront emission order over the (bucket, stage) grid.
+
+    Cell (k, s) exchanges at tick ``k + 2s`` and combines at tick
+    ``k + 2s + 1``; per tick, exchanges are emitted before combines.  The
+    schedule therefore satisfies, in emission order:
+
+    * per-bucket stage chain: exchange(k, s) < combine(k, s)
+      < exchange(k, s+1)   (correctness — stage order unchanged);
+    * overlap: exchange(k+1, s) < combine(k, s)   (bucket k+1's payload is
+      on the wire before bucket k's arithmetic runs);
+    * no stage barrier: exchange(k, s+1) < combine(k', s) for all
+      k' >= k + 2 (bucket k advances while later buckets still combine
+      the previous stage).
+    """
+    if n_buckets <= 0 or n_stages <= 0:
+        return ()
+    events: List[Event] = []
+    last_tick = (n_buckets - 1) + 2 * (n_stages - 1) + 1
+    for tick in range(last_tick + 1):
+        for k in range(min(n_buckets - 1, tick), -1, -1):
+            rem = tick - k
+            if rem % 2 == 0 and rem // 2 < n_stages:
+                events.append((EXCHANGE, k, rem // 2))
+        for k in range(min(n_buckets - 1, tick - 1), -1, -1):
+            rem = tick - 1 - k
+            if rem % 2 == 0 and rem // 2 < n_stages:
+                events.append((COMBINE, k, rem // 2))
+    return tuple(events)
+
+
+def validate_schedule(events: Sequence[Event], n_buckets: int,
+                      n_stages: int) -> None:
+    """Assert the three schedule invariants (used by tests; cheap, pure)."""
+    pos = {(ph, k, s): i for i, (ph, k, s) in enumerate(events)}
+    assert len(pos) == len(events) == 2 * n_buckets * n_stages, \
+        "every cell must exchange exactly once and combine exactly once"
+    for k in range(n_buckets):
+        for s in range(n_stages):
+            assert pos[(EXCHANGE, k, s)] < pos[(COMBINE, k, s)], (k, s)
+            if s + 1 < n_stages:
+                assert pos[(COMBINE, k, s)] < pos[(EXCHANGE, k, s + 1)], (k, s)
+            if k + 1 < n_buckets:
+                # the tentpole property: next bucket's wire before my combine
+                assert pos[(EXCHANGE, k + 1, s)] < pos[(COMBINE, k, s)], (k, s)
+
+
+def combine_batches(events: Sequence[Event]) -> List[List[Tuple[int, int]]]:
+    """Group consecutive combine events into batches of independent cells.
+
+    Each batch is every combine emitted between two exchange runs; cells in
+    a batch touch distinct buckets, so the fused path hands a whole batch to
+    one multi-bucket kernel launch instead of one launch per bucket.
+    """
+    batches: List[List[Tuple[int, int]]] = []
+    cur: List[Tuple[int, int]] = []
+    for ph, k, s in events:
+        if ph == COMBINE:
+            cur.append((k, s))
+        elif cur:
+            batches.append(cur)
+            cur = []
+    if cur:
+        batches.append(cur)
+    return batches
+
+
+def overlapped_butterfly(bufs: Sequence, bits: Sequence[int], inv_s: float,
+                         exchange: Callable, combine_many: Callable) -> list:
+    """Run the butterfly over flat buckets in wavefront order.
+
+    ``bufs``          per-bucket buffers (``(P, n_b)`` on the stacked
+                      path; zero-size buffers pass through untouched).
+    ``bits``          the log2(S) XOR mask bits, in per-bucket stage order.
+    ``inv_s``         final scale, applied inside the *last* combine only —
+                      exactly the serial path's arithmetic.
+    ``exchange(buf, bit) -> recv``
+                      one butterfly wire step (the XOR partner's buffer).
+    ``combine_many(accs, recvs, scale) -> list``
+                      combine a batch of independent (acc, recv) pairs —
+                      the fused path maps this to ONE multi-pair kernel
+                      launch; the reference path does per-pair torch math.
+    """
+    state = list(bufs)
+    if not bits:
+        return state
+    live = [i for i, b in enumerate(state) if b.numel()]
+    n_stages = len(bits)
+    inflight: Dict[int, object] = {}
+    pending: List[Tuple[int, int]] = []   # current combine batch
+
+    def flush():
+        if not pending:
+            return
+        by_scale: Dict[float, List[int]] = {}
+        for k, s in pending:
+            scale = inv_s if s == n_stages - 1 else 1.0
+            by_scale.setdefault(scale, []).append(k)
+        for scale, ks in by_scale.items():
+            outs = combine_many([state[live[k]] for k in ks],
+                                [inflight.pop(k) for k in ks], scale)
+            for k, out in zip(ks, outs):
+                state[live[k]] = out
+        pending.clear()
+
+    for ph, k, s in pipeline_schedule(len(live), n_stages):
+        if ph == EXCHANGE:
+            flush()
+            inflight[k] = exchange(state[live[k]], bits[s])
+        else:
+            pending.append((k, s))
+    flush()
+    return state
+
+
+def overlapped_mix(bufs: Sequence, issue: Callable,
+                   combine: Callable) -> list:
+    """Single-stage pipeline for gossip/psum-style mixes.
+
+    Issues every bucket's collective(s) before running any bucket's combine
+    arithmetic, so the wire of bucket k+1 overlaps the combine of bucket k.
+    ``issue(buf)`` returns whatever the collective(s) deliver (a buffer or a
+    tuple of buffers); ``combine(buf, recv)`` is the local arithmetic.
+    """
+    recvs = [issue(b) if b.numel() else None for b in bufs]
+    return [combine(b, r) if b.numel() else b for b, r in zip(bufs, recvs)]
+
+
+# ---------------------------------------------------------------------------
+# Analytic model of the schedule (used by group_allreduce and plan)
+# ---------------------------------------------------------------------------
+
+def overlapped_stage_seconds(wire_s: float, combine_s: float,
+                             n_buckets: int, alpha: float) -> float:
+    """Seconds for ONE butterfly stage under the wavefront schedule.
+
+    With B equal buckets, per-bucket wire w = wire_s/B and combine
+    c = combine_s/B, the stage is a two-resource pipeline: fill (first
+    bucket's wire), B-1 overlapped slots at max(w, c), drain (last bucket's
+    combine).  Launch latency alpha is paid per bucket regardless — issuing
+    a collective is serial on the core.  Serial reference for the same
+    inputs: ``n_buckets * alpha + wire_s + combine_s``.
+    """
+    b = max(n_buckets, 1)
+    w, c = wire_s / b, combine_s / b
+    return b * alpha + w + (b - 1) * max(w, c) + c

@@ -1,0 +1,491 @@
+"""Topology-aware compiled averaging plans (DESIGN.md §9), replicated.
+
+Counterpart of ``repro/core/plan.py``:
+
+    topology = Topology.flat(("data",), (P,))
+    plan     = compile_plan(topology, one_replica_tree, AveragingConfig(group_size=S))
+    new      = plan.average(stacked_tree, phase)   # wait-avoiding group step
+    new      = plan.sync(stacked_tree)             # tau-periodic global step
+
+``compile_plan`` runs once per (topology, config, tree structure), cached,
+and precomputes what every step reuses: which link class each butterfly
+bit rides, each class's bucket budget (``choose_class_bucket_bytes``, the
+JAX package's cost model copied exactly, since the layout depends on it)
+and each class's bucket layout.
+
+**The one-card realisation.**  The replicas are the rows of one tensor:
+every leaf of the trees ``average``/``sync`` take has the JAX global layout
+``(P, ...)``.  A butterfly stage's exchange (a ``ppermute`` in JAX) is a
+gather along dim 0, ``recv[i] = buf[i ^ (1 << bit)]``
+(:func:`butterfly_exchange`), kept a callable so that a send/recv across
+ranks can take its place.  Each bucket is a ``(P, n_b)`` buffer padded per
+replica, as JAX pads per device; the combines run through K1/K2
+(``kernels/ops.py``).  ``sync`` is a float32 mean over dim 0 written back
+to every row.
+
+Per element the arithmetic is the JAX plan's: the tree is cast to the
+accumulation dtype (here while packing), ``log2(S)`` adds run in stage
+order and the last combine scales by ``1/S``, so the fused path is
+bit-identical to the per-leaf path and to the JAX plan under ``shard_map``
+on every phase offset (pinned by tests).
+
+Not here: the hierarchical (ICI/DCN) topology (slice 4), the
+FSDP-within-pod paths (slice 7), the baselines' ``mix`` (slice 5),
+measured link constants and the step-time models (ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from functools import lru_cache
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import torch
+
+from repro_torch.core import bucketing, grouping
+from repro_torch.core import overlap as pipeline
+from repro_torch.core import tree as tr
+from repro_torch.core.replica import REPLICATED, ShardingPolicy
+
+
+# ---------------------------------------------------------------------------
+# Link classes and topologies
+# ---------------------------------------------------------------------------
+
+# Default network constants (the JAX package's; Piz Daint-scale Aries).
+DEFAULT_ALPHA = 20e-6          # seconds per collective launch
+DEFAULT_BETA = 1.0 / 10e9      # seconds per wire byte
+# Combine throughput: 2 reads + 1 write at P100-scale HBM (~700 GB/s) —
+# seconds per *payload* byte per stage.
+DEFAULT_GAMMA = 3.0 / 700e9
+
+
+@dataclass(frozen=True)
+class LinkClass:
+    """One class of physical link with its own cost constants.
+
+    ``alpha`` seconds per collective launch; ``beta`` seconds per wire
+    byte; ``gamma`` combine seconds per payload byte; ``bucket_bytes`` pins
+    this class's bucket budget, ``None`` lets
+    :func:`choose_class_bucket_bytes` pick the modeled argmin.
+    """
+    name: str
+    alpha: float = DEFAULT_ALPHA
+    beta: float = DEFAULT_BETA
+    gamma: float = DEFAULT_GAMMA
+    bucket_bytes: Optional[int] = None
+
+
+DEFAULT_LINK = LinkClass("link")
+
+
+@dataclass(frozen=True)
+class Topology:
+    """Frozen map from dp axes (minor-to-major) to link classes.
+
+    Global dp-rank bit b lives on the axis whose cumulative log2 size spans
+    b (``grouping.split_bit_over_axes``); ``axis_class[i]`` indexes
+    ``link_classes`` for axis i.  On one card the dp rank is the row.
+    """
+    axis_names: Tuple[str, ...]
+    axis_sizes: Tuple[int, ...]
+    link_classes: Tuple[LinkClass, ...]
+    axis_class: Tuple[int, ...]
+
+    def __post_init__(self):
+        if not (len(self.axis_names) == len(self.axis_sizes)
+                == len(self.axis_class)):
+            raise ValueError("axis_names/axis_sizes/axis_class length mismatch")
+        for s in self.axis_sizes:
+            grouping.ilog2(s)          # powers of two only
+        for c in self.axis_class:
+            if not 0 <= c < len(self.link_classes):
+                raise ValueError(f"axis_class index {c} out of range")
+
+    @classmethod
+    def flat(cls, axis_names: Sequence[str], axis_sizes: Sequence[int],
+             link: LinkClass = DEFAULT_LINK) -> "Topology":
+        """Single link class for every axis."""
+        names = tuple(axis_names)
+        return cls(names, tuple(int(s) for s in axis_sizes), (link,),
+                   (0,) * len(names))
+
+    @property
+    def P(self) -> int:
+        p = 1
+        for s in self.axis_sizes:
+            p *= s
+        return p
+
+    def class_of_bit(self, bit: int) -> int:
+        ax, _ = grouping.split_bit_over_axes(bit, self.axis_sizes)
+        return self.axis_class[ax]
+
+    def axis_of_bit(self, bit: int) -> str:
+        ax, _ = grouping.split_bit_over_axes(bit, self.axis_sizes)
+        return self.axis_names[ax]
+
+    def classes_in_use(self) -> Tuple[int, ...]:
+        return tuple(sorted(set(self.axis_class)))
+
+    def describe(self) -> str:
+        parts = []
+        for i, link in enumerate(self.link_classes):
+            axes = [f"{n}={s}" for n, s, c in
+                    zip(self.axis_names, self.axis_sizes, self.axis_class)
+                    if c == i]
+            parts.append(f"{link.name}({', '.join(axes)}; "
+                         f"a={link.alpha:.1e} b={link.beta:.1e})")
+        return " | ".join(parts)
+
+
+def butterfly_exchange(buf: torch.Tensor, bit: int) -> torch.Tensor:
+    """One butterfly stage on stacked rows: ``recv[i] = buf[i ^ (1 << bit)]``
+    for the global dp-rank ``bit`` (a new tensor; ``buf`` is untouched)."""
+    m = 1 << bit
+    p = buf.shape[0]
+    if p % (2 * m):
+        raise ValueError(f"bit {bit} exceeds the {p} stacked replicas")
+    # rows i and i ^ m are the two halves of a (2, m) block: swap them
+    return buf.reshape((p // (2 * m), 2, m) + tuple(buf.shape[1:])).flip(1
+           ).reshape(buf.shape)
+
+
+# ---------------------------------------------------------------------------
+# Configuration
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class AveragingConfig:
+    """Everything about the averaging math that is not the topology.
+
+    ``bucket_bytes`` is a global override of every class's budget.  The
+    fused path always combines through K1/K2 (``kernels/ops.py`` picks the
+    kernel or its plain version by device).
+    """
+    group_size: Optional[int] = None      # None -> sqrt(P) rounded to pow2
+    tau: int = 10                         # global sync period (paper §V-B)
+    average_dtype: Optional[str] = "float32"   # accumulation dtype
+    dynamic_groups: bool = True           # False -> fixed groups (ablation 2)
+    fused: bool = True                    # bucketed flat-buffer path
+    bucket_bytes: Optional[int] = None    # global budget override
+    overlap: bool = True                  # wavefront bucket pipeline (§8)
+
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+           "float16": torch.float16}
+
+
+# ---------------------------------------------------------------------------
+# Per-class cost model + budget choice (copied exactly: layouts depend on it)
+# ---------------------------------------------------------------------------
+
+def class_stage_seconds(payload_bytes: float, link: LinkClass,
+                        n_buckets: int, *, overlap: bool = True) -> float:
+    """Modeled seconds for ONE butterfly stage on ``link`` with B buckets."""
+    wire = payload_bytes * link.beta
+    combine = payload_bytes * link.gamma
+    if overlap:
+        return pipeline.overlapped_stage_seconds(wire, combine, n_buckets,
+                                                 link.alpha)
+    return max(n_buckets, 1) * link.alpha + wire + combine
+
+
+@lru_cache(maxsize=None)
+def choose_class_bucket_bytes(
+        payload_bytes: int, link: LinkClass, *, overlap: bool = True,
+        candidates: Tuple[int, ...] = bucketing.BUCKET_BYTES_CANDIDATES
+        ) -> int:
+    """Bucket budget minimising THIS link class's modeled stage time."""
+    if link.bucket_bytes is not None:
+        return link.bucket_bytes
+    payload = max(int(payload_bytes), 1)
+    best, best_t = None, None
+    for cand in candidates:
+        n_buckets = max(1, -(-payload // cand))
+        t = class_stage_seconds(payload, link, n_buckets, overlap=overlap)
+        if best_t is None or t < best_t:
+            best, best_t = cand, t
+    return best
+
+
+# ---------------------------------------------------------------------------
+# Combines
+# ---------------------------------------------------------------------------
+
+def _stage_combine(acc, recv, scale: float):
+    """(acc + recv) * scale through K1, in place into ``acc``."""
+    from repro_torch.kernels import ops
+    return ops.group_average_combine(acc, recv, scale, out=acc)
+
+
+def _combine_many(accs, recvs, scale: float):
+    """Batch of independent (acc, recv) combines — one wavefront tick.
+
+    Groups the batch by dtype and feeds each group to ONE K2 launch (K1 for
+    a single pair), in place into the accumulators.
+    """
+    from repro_torch.kernels import ops
+    outs = [None] * len(accs)
+    by_dtype: Dict[torch.dtype, List[int]] = {}
+    for i, a in enumerate(accs):
+        by_dtype.setdefault(a.dtype, []).append(i)
+    for idxs in by_dtype.values():
+        group = [accs[i] for i in idxs]
+        res = ops.group_average_combine_multi(
+            group, [recvs[i] for i in idxs], scale, outs=group)
+        for i, o in zip(idxs, res):
+            outs[i] = o
+    return outs
+
+
+# ---------------------------------------------------------------------------
+# The compiled plan
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class StageRun:
+    """A maximal run of consecutive butterfly stages on one link class."""
+    class_index: int
+    bits: Tuple[int, ...]
+
+
+class AveragingPlan:
+    """Compiled realisation of group + global averaging on one topology.
+
+        plan.average(tree, phase)    group butterfly for a phase index
+        plan.sync(tree)              tau-periodic global mean
+
+    on stacked trees, plus the stacked-simulator twins
+    (``average_stacked``/``sync_stacked``) and accounting (``describe``,
+    ``butterfly_summary``).
+    """
+
+    def __init__(self, topology: Topology, cfg: AveragingConfig,
+                 storage_struct, work_struct, payload_bytes: int,
+                 sharding: ShardingPolicy = REPLICATED):
+        self.topology = topology
+        self.cfg = cfg
+        self.sharding = sharding
+        self.P = self.P_eff = topology.P
+        self.S = cfg.group_size or grouping.default_group_size(self.P_eff)
+        if self.S > self.P_eff:
+            raise ValueError(f"group size {self.S} exceeds replica world "
+                             f"{self.P_eff}")
+        self.avg_dtype = (None if cfg.average_dtype is None
+                          else _DTYPES[cfg.average_dtype])
+        if cfg.dynamic_groups:
+            self.offsets: Tuple[int, ...] = grouping.distinct_offsets(
+                self.P_eff, self.S)
+        else:
+            self.offsets = (0,)
+        self.storage_struct = storage_struct    # Spec tree, storage dtypes
+        self.work_struct = work_struct          # Spec tree, accumulation dtype
+        self.payload_bytes = payload_bytes      # bytes of the work tree
+        self.class_bucket_bytes: Dict[int, int] = {}
+        for ci in topology.classes_in_use():
+            if cfg.bucket_bytes is not None:
+                self.class_bucket_bytes[ci] = cfg.bucket_bytes
+            else:
+                self.class_bucket_bytes[ci] = choose_class_bucket_bytes(
+                    payload_bytes, topology.link_classes[ci],
+                    overlap=cfg.overlap)
+        self.sync_bucket_bytes = (cfg.bucket_bytes
+                                  or bucketing.DEFAULT_BUCKET_BYTES)
+        self._runs: Dict[int, Tuple[StageRun, ...]] = {}
+
+    # -- static schedule ---------------------------------------------------
+    @property
+    def n_phases(self) -> int:
+        return len(self.offsets)
+
+    def runs_for_offset(self, offset: int) -> Tuple[StageRun, ...]:
+        """The offset's stages as maximal runs of equal link class."""
+        cached = self._runs.get(offset)
+        if cached is not None:
+            return cached
+        bits = grouping.mask_bits_for_offset(self.P_eff, self.S, offset)
+        runs: List[StageRun] = []
+        for bit in bits:
+            ci = self.topology.class_of_bit(bit)
+            if runs and runs[-1].class_index == ci:
+                runs[-1] = StageRun(ci, runs[-1].bits + (bit,))
+            else:
+                runs.append(StageRun(ci, (bit,)))
+        self._runs[offset] = tuple(runs)
+        return self._runs[offset]
+
+    def class_layout(self, class_index: int) -> bucketing.BucketLayout:
+        """The (cached) bucket layout the class's stages pack into."""
+        return bucketing.layout_for(
+            self.work_struct,
+            max_bucket_bytes=self.class_bucket_bytes[class_index])
+
+    # -- execution: the paper's group butterfly ----------------------------
+    def average(self, tree, phase: int):
+        """Wait-avoiding group model averaging for phase index ``phase``."""
+        return self.average_offset(tree, self.offsets[phase])
+
+    def average_offset(self, tree, offset: int):
+        """Group averaging of a stacked tree for an explicit phase offset.
+
+        Returns a new tree; ``tree`` is not modified."""
+        bits = grouping.mask_bits_for_offset(self.P_eff, self.S, offset)
+        inv_s = 1.0 / self.S
+        exchange = butterfly_exchange
+
+        if not self.cfg.fused:
+            def avg_leaf(w):
+                acc = w.to(self.avg_dtype) if self.avg_dtype is not None \
+                    else w
+                for bit in bits:
+                    acc = acc + exchange(acc, bit)
+                return (acc * inv_s).to(w.dtype)
+
+            return tr.tree_map(avg_leaf, tree)
+
+        runs = self.runs_for_offset(offset)
+        # Cast once (while packing) and keep the accumulation dtype across
+        # runs, so multi-class butterflies stay bit-identical to the
+        # per-leaf reference.
+        work = tree
+        for ri, run in enumerate(runs):
+            scale = inv_s if ri == len(runs) - 1 else 1.0
+            layout = self.class_layout(run.class_index)
+            bufs = bucketing.pack(work, layout, dtype=self.avg_dtype)
+            if self.cfg.overlap:
+                bufs = pipeline.overlapped_butterfly(
+                    bufs, run.bits, scale, exchange=exchange,
+                    combine_many=_combine_many)
+            else:
+                def mix(acc, run=run, scale=scale):
+                    for i, bit in enumerate(run.bits):
+                        recv = exchange(acc, bit)
+                        s = scale if i == len(run.bits) - 1 else 1.0
+                        acc = _stage_combine(acc, recv, s)
+                    return acc
+                bufs = [mix(b) if b.numel() else b for b in bufs]
+            work = bucketing.unpack(bufs, layout, cast=False)
+        return tr.tree_map(lambda w, o: w.to(o.dtype), work, tree)
+
+    # -- execution: tau-periodic global sync -------------------------------
+    def sync(self, tree):
+        """Synchronous mean over all replicas (Alg. 2 line 16), in float32,
+        written back to every row."""
+        def mean_rows(buf):
+            return buf.copy_(buf.mean(0, keepdim=True).expand_as(buf))
+
+        if not self.cfg.fused:
+            return tr.tree_map(lambda w: mean_rows(w.float().clone()).to(
+                w.dtype), tree)
+        return bucketing.tree_map_bucketed(
+            mean_rows, tree, compute_dtype=torch.float32,
+            max_bucket_bytes=self.sync_bucket_bytes)
+
+    # -- stacked-simulator twins -------------------------------------------
+    def average_stacked(self, stacked_tree, *, t: int):
+        """Simulator twin: W[i] <- mean over i's group by the averaging
+        matrix of iteration ``t``."""
+        from repro_torch.core import group_allreduce as ga
+        return ga.group_average_stacked(stacked_tree, P=self.P_eff,
+                                        S=self.S, t=t)
+
+    def sync_stacked(self, stacked_tree):
+        from repro_torch.core import group_allreduce as ga
+        return ga.global_average_stacked(stacked_tree, P=self.P_eff)
+
+    # -- accounting ----------------------------------------------------------
+    def n_leaves(self) -> int:
+        return len(tr.tree_leaves(self.work_struct))
+
+    def butterfly_summary(self, offset: int = 0) -> List[dict]:
+        """One dict per stage run: link class, bits, budget, exchanges."""
+        out = []
+        for run in self.runs_for_offset(offset):
+            link = self.topology.link_classes[run.class_index]
+            units = (self.class_layout(run.class_index).n_buckets
+                     if self.cfg.fused else self.n_leaves())
+            out.append({
+                "link": link.name,
+                "bits": run.bits,
+                "axes": tuple(self.topology.axis_of_bit(b) for b in run.bits),
+                "stages": len(run.bits),
+                "bucket_bytes": self.class_bucket_bytes[run.class_index],
+                "n_buckets": units,
+                "exchanges": len(run.bits) * units,
+            })
+        return out
+
+    def describe(self) -> str:
+        """Human-readable plan summary (stages, classes, budgets)."""
+        lines = [
+            f"AveragingPlan P={self.P} S={self.S} tau={self.cfg.tau} "
+            f"payload={self.payload_bytes / 2**20:.2f}MiB "
+            f"avg_dtype={self.avg_dtype} fused={self.cfg.fused} "
+            f"overlap={self.cfg.overlap}",
+            f"  topology: {self.topology.describe()}",
+            f"  sharding: {self.sharding.describe()}",
+        ]
+        for ci in self.topology.classes_in_use():
+            link = self.topology.link_classes[ci]
+            bb = self.class_bucket_bytes[ci]
+            nb = self.class_layout(ci).n_buckets if self.cfg.fused else 0
+            lines.append(f"  class {link.name}: budget "
+                         f"{bb / 2**20:.0f}MiB -> {nb} buckets")
+        for ph, off in enumerate(self.offsets):
+            runs = ", ".join(
+                f"{r['link']}[bits={list(r['bits'])} x{r['n_buckets']}buk]"
+                for r in self.butterfly_summary(off))
+            lines.append(f"  phase {ph} (offset {off}): {runs}")
+        lines.append(f"  sync: mean budget "
+                     f"{self.sync_bucket_bytes / 2**20:.0f}MiB")
+        stats = bucketing.layout_cache_stats()
+        lines.append(f"  layout cache: {stats['hits']} hits / "
+                     f"{stats['misses']} misses")
+        return "\n".join(lines)
+
+
+# ---------------------------------------------------------------------------
+# Compilation (cached on topology x config x tree structure)
+# ---------------------------------------------------------------------------
+
+_PLAN_CACHE: Dict[tuple, AveragingPlan] = {}
+
+
+def clear_plan_cache() -> None:
+    """Drop every compile-time cache: plans, the per-class budget sweep,
+    and ``bucketing``'s layout cache and budget sweep."""
+    _PLAN_CACHE.clear()
+    choose_class_bucket_bytes.cache_clear()
+    bucketing.clear_layout_cache()
+
+
+def _structure_key(tree) -> tuple:
+    leaves, treedef = tr.tree_flatten(tree)
+    return (treedef, tuple((tuple(l.shape), l.dtype) for l in leaves))
+
+
+def compile_plan(topology: Topology, tree_shapes,
+                 config: AveragingConfig = AveragingConfig(),
+                 sharding: ShardingPolicy = REPLICATED) -> AveragingPlan:
+    """Compile the averaging once for ONE replica's tree structure.
+
+    ``tree_shapes`` may be tensors or :class:`~repro_torch.core.tree.Spec`
+    leaves (only shapes and dtypes are read; a stacked tree's
+    ``tree.struct(t, drop=1)`` gives them).  Cached on (topology, config,
+    sharding, structure).
+    """
+    key = (topology, config, sharding, _structure_key(tree_shapes))
+    plan = _PLAN_CACHE.get(key)
+    if plan is not None:
+        return plan
+    storage = tr.struct(tree_shapes)
+    avg = None if config.average_dtype is None \
+        else _DTYPES[config.average_dtype]
+    work = storage if avg is None else tr.tree_map(
+        lambda l: tr.Spec(l.shape, avg), storage)
+    payload = bucketing.tree_payload_bytes(work)
+    plan = AveragingPlan(topology, config, storage, work, payload,
+                         sharding=sharding)
+    _PLAN_CACHE[key] = plan
+    return plan

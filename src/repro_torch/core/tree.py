@@ -1,0 +1,96 @@
+"""Pytrees of tensors with the JAX package's canonical leaf order.
+
+JAX flattens a dict in sorted key order and tuples, lists and NamedTuples
+in order; ``None`` holds no leaf.  Bucket layouts (``core/bucketing.py``)
+are a function of that order, so the port flattens the same way
+(``torch.utils._pytree`` keeps a dict's insertion order instead).
+
+A treedef here is a hashable nested tuple, so layouts and plans can be
+cached on it as the JAX package caches on ``PyTreeDef``.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, List, NamedTuple, Tuple
+
+import torch
+
+_LEAF = "*"
+
+
+class Spec(NamedTuple):
+    """Shape and dtype of a leaf: the port's ``jax.ShapeDtypeStruct``."""
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
+
+
+def _is_namedtuple(x) -> bool:
+    return isinstance(x, tuple) and hasattr(x, "_fields")
+
+
+def tree_flatten(tree) -> Tuple[List[Any], Any]:
+    """(leaves in JAX order, hashable treedef)."""
+    leaves: List[Any] = []
+
+    def walk(node):
+        if node is None:
+            return ("none",)
+        if isinstance(node, Spec):
+            leaves.append(node)
+            return _LEAF
+        if isinstance(node, dict):
+            keys = tuple(sorted(node))
+            return ("dict", keys, tuple(walk(node[k]) for k in keys))
+        if _is_namedtuple(node):
+            return ("namedtuple", type(node), tuple(walk(c) for c in node))
+        if isinstance(node, (tuple, list)):
+            return (type(node).__name__, tuple(walk(c) for c in node))
+        leaves.append(node)
+        return _LEAF
+
+    treedef = walk(tree)
+    return leaves, treedef
+
+
+def tree_unflatten(treedef, leaves):
+    it = iter(leaves)
+
+    def build(d):
+        if d == _LEAF:
+            return next(it)
+        kind = d[0]
+        if kind == "none":
+            return None
+        if kind == "dict":
+            return {k: build(c) for k, c in zip(d[1], d[2])}
+        if kind == "namedtuple":
+            return d[1](*(build(c) for c in d[2]))
+        children = [build(c) for c in d[1]]
+        return tuple(children) if kind == "tuple" else children
+
+    out = build(treedef)
+    if next(it, None) is not None:
+        raise ValueError("tree_unflatten: more leaves than the treedef holds")
+    return out
+
+
+def tree_leaves(tree) -> List[Any]:
+    return tree_flatten(tree)[0]
+
+
+def tree_map(fn: Callable, tree, *rest):
+    """``fn`` over the leaves of ``tree`` and the same-structured ``rest``."""
+    leaves, treedef = tree_flatten(tree)
+    others = []
+    for r in rest:
+        r_leaves, r_def = tree_flatten(r)
+        if r_def != treedef:
+            raise ValueError("tree_map: trees of different structure")
+        others.append(r_leaves)
+    return tree_unflatten(treedef, [fn(*xs) for xs in zip(leaves, *others)])
+
+
+def struct(tree, drop: int = 0):
+    """The tree's leaves as :class:`Spec`; ``drop`` leading dims removed
+    (``drop=1`` turns a stacked ``(P, ...)`` tree into one replica's)."""
+    return tree_map(lambda a: Spec(tuple(a.shape[drop:]), a.dtype), tree)

@@ -1,0 +1,92 @@
+"""WAGMA-SGD (paper Algorithm 2) — the averager.
+
+Counterpart of ``repro/core/wagma.py``.  The training step
+(``train/train_step.py``) is, per replica:
+
+    G     = grad(loss)(W, local_batch)          # local gradients, no dp mean
+    W'    = W + U(G)                            # local optimiser step
+    if (t+1) % tau != 0:
+        W <- plan.average(W', phase(t))         # wait-avoiding group allreduce
+    else:
+        W <- plan.sync(W')                      # synchronous allreduce (line 16)
+
+The averager owns the phase/sync bookkeeping and delegates every
+collective to the :class:`~repro_torch.core.plan.AveragingPlan` its
+topology compiles to for the current tree structure.  The trees it is
+handed are stacked ``(P, ...)``.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+from repro_torch.core import grouping
+from repro_torch.core import plan as plan_mod
+from repro_torch.core import tree as tr
+from repro_torch.core.replica import REPLICATED, ShardingPolicy
+
+# WagmaConfig(group_size=..., tau=..., fused=...) is the plan's config.
+WagmaConfig = plan_mod.AveragingConfig
+
+
+class WagmaAverager:
+    """The paper's contribution as a composable averaging strategy."""
+
+    name = "wagma"
+    grad_comm = False   # averages *models*, not gradients
+
+    def __init__(self, dp_axis_names: Sequence[str], dp_axis_sizes: Sequence[int],
+                 cfg: WagmaConfig = WagmaConfig(),
+                 topology: Optional[plan_mod.Topology] = None,
+                 sharding: ShardingPolicy = REPLICATED):
+        # minor-to-major layout (see group_allreduce.dp_axis_layout)
+        self.axis_names = tuple(dp_axis_names)
+        self.axis_sizes = tuple(int(s) for s in dp_axis_sizes)
+        if topology is None:
+            topology = plan_mod.Topology.flat(self.axis_names, self.axis_sizes)
+        if (topology.axis_names != self.axis_names
+                or topology.axis_sizes != self.axis_sizes):
+            raise ValueError(
+                f"topology axes {topology.axis_names}/{topology.axis_sizes} "
+                f"do not match dp axes {self.axis_names}/{self.axis_sizes}")
+        self.topology = topology
+        self.sharding = sharding
+        self.P = self.P_eff = topology.P
+        self.S = cfg.group_size or grouping.default_group_size(self.P_eff)
+        if self.S > self.P_eff:
+            raise ValueError(f"group size {self.S} exceeds replica world "
+                             f"{self.P_eff}")
+        self.cfg = cfg
+        if cfg.dynamic_groups:
+            self.offsets = grouping.distinct_offsets(self.P_eff, self.S)
+        else:
+            self.offsets = (0,)   # ablation 2: fixed groups
+
+    # -- step-variant bookkeeping -------------------------------------------
+    @property
+    def n_phases(self) -> int:
+        return len(self.offsets)
+
+    def phase_for_step(self, t: int) -> int:
+        if not self.cfg.dynamic_groups:
+            return 0
+        return self.offsets.index(
+            grouping.phase_offset(self.P_eff, self.S, t))
+
+    def sync_due(self, t: int) -> bool:
+        return (t + 1) % self.cfg.tau == 0
+
+    # -- the compiled plan ----------------------------------------------------
+    def plan_for(self, tree) -> plan_mod.AveragingPlan:
+        """The compiled plan for a stacked tree's structure (cached)."""
+        return plan_mod.compile_plan(self.topology, tr.struct(tree, drop=1),
+                                     self.cfg, self.sharding)
+
+    # -- collective bodies ----------------------------------------------------
+    def comm(self, tree, phase: int):
+        """Wait-avoiding group model averaging (Alg. 2 line 9 + 11)."""
+        return self.plan_for(tree).average(tree, phase)
+
+    def sync(self, tree):
+        """Synchronous global allreduce (Alg. 2 line 16)."""
+        return self.plan_for(tree).sync(tree)

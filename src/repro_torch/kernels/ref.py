@@ -1,7 +1,8 @@
 """Naive torch oracles for the port's kernels (the allclose targets).
 
 Counterpart of ``repro/kernels/ref.py``: materialise the full score matrix,
-slow but obviously correct, for the kernel test sweeps.
+slow but obviously correct, for the kernel test sweeps; the butterfly
+combine written as its definition.
 """
 
 from __future__ import annotations
@@ -34,3 +35,8 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window=None):
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bhqk,bkhd->bqhd", p, v.float())
     return out.to(q.dtype)
+
+
+def group_average_ref(w, recv, inv_s: float):
+    """Butterfly combine step: (w + recv) * inv_s in fp32, back to w.dtype."""
+    return ((w.float() + recv.float()) * inv_s).to(w.dtype)

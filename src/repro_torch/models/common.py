@@ -1,6 +1,7 @@
 """Shared building blocks of the dense decoder: norms, RoPE, attention for
-prefill (through the flash-attention kernel) and for one-token decode
-against a cache, and the KV cache helpers.
+prefill (through the flash-attention kernel), for training (differentiable
+torch) and for one-token decode against a cache, the KV cache helpers and
+the cross-entropy loss.
 
 Counterpart of ``repro/models/common.py``.  The sharding helpers (``wsc``,
 the spec tables) have no counterpart: the port runs on one device.
@@ -78,6 +79,74 @@ def blocked_attention(q, k, v, *, causal: bool = True,
                                q_offset=q_offset)
 
 
+def differentiable_blocked_attention(q, k, v, *, causal: bool = True,
+                                     window: Optional[int] = None,
+                                     block_q: int = 512, block_k: int = 1024):
+    """The training attention: the JAX package's ``blocked_attention``
+    algorithm in plain torch, differentiable by autograd.
+
+    q (B,Sq,H,hd), k/v (B,Sk,KH,hd) -> (B,Sq,H,hd).  KV heads are repeated
+    to H, sequences zero-padded to block multiples, and each q block runs an
+    online softmax in fp32 over the KV blocks it can see (for a window only
+    ``(window + block_q) // block_k + 1`` of them, from the window's left
+    edge).  JAX differentiates the same code in its training loss; no
+    kernel runs here, in either package.
+    """
+    b, sq, h, hd = q.shape
+    sk, kh = k.shape[1], k.shape[2]
+    n_rep = h // kh
+    k = k.repeat_interleave(n_rep, dim=2)
+    v = v.repeat_interleave(n_rep, dim=2)
+    block_q, block_k = min(block_q, sq), min(block_k, sk)
+    pq, pk = (-sq) % block_q, (-sk) % block_k
+    qp = F.pad(q, (0, 0, 0, 0, 0, pq))
+    kp = F.pad(k, (0, 0, 0, 0, 0, pk))
+    vp = F.pad(v, (0, 0, 0, 0, 0, pk))
+    nq, nk = qp.shape[1] // block_q, kp.shape[1] // block_k
+    scale = 1.0 / math.sqrt(hd)
+    dev = q.device
+    q_blocks = qp.reshape(b, nq, block_q, h, hd).permute(1, 0, 3, 2, 4)
+    k_all = kp.permute(0, 2, 1, 3).float()                 # (B,H,Sk,hd)
+    v_all = vp.permute(0, 2, 1, 3).float()
+    n_vis = (window + block_q) // block_k + 1 if window is not None else nk
+
+    outs = []
+    for qi in range(nq):
+        qblk = q_blocks[qi].float()                         # (B,H,bq,hd)
+        q_pos = qi * block_q + torch.arange(block_q, device=dev)
+        m = torch.full((b, h, block_q), NEG_INF, dtype=torch.float32,
+                       device=dev)
+        l = torch.zeros((b, h, block_q), dtype=torch.float32, device=dev)
+        acc = torch.zeros((b, h, block_q, hd), dtype=torch.float32,
+                          device=dev)
+        first = (max((qi * block_q - (window - 1)) // block_k, 0)
+                 if window is not None else 0)
+        for kj_rel in range(n_vis):
+            kj_unclipped = first + kj_rel
+            kj = min(max(kj_unclipped, 0), nk - 1)
+            kblk = k_all[:, :, kj * block_k:(kj + 1) * block_k]
+            vblk = v_all[:, :, kj * block_k:(kj + 1) * block_k]
+            s = torch.einsum("bhqd,bhkd->bhqk", qblk, kblk) * scale
+            k_pos = kj * block_k + torch.arange(block_k, device=dev)
+            mask = (k_pos[None, :] < sk) & (kj_unclipped < nk)
+            if causal:
+                mask = mask & (k_pos[None, :] <= q_pos[:, None])
+            if window is not None:
+                mask = mask & (k_pos[None, :] > q_pos[:, None] - window)
+            s = torch.where(mask, s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(-1)
+            acc = acc * corr[..., None] + torch.einsum("bhqk,bhkd->bhqd", p,
+                                                       vblk)
+            m = m_new
+        outs.append(acc / torch.clamp(l, min=1e-30)[..., None])
+    out = torch.stack(outs).permute(1, 0, 3, 2, 4).reshape(
+        b, nq * block_q, h, hd)
+    return out[:, :sq].to(q.dtype)
+
+
 def decode_attention(q, k_cache, v_cache, *, length, window: Optional[int] = None):
     """One-token attention against a cache. q (B,1,H,hd); cache (B,S,KH,hd).
 
@@ -122,3 +191,20 @@ def cache_update(cache_k, cache_v, k_new, v_new, pos, ring: bool = False):
     cache_k[rows, idx] = k_new[:, 0]
     cache_v[rows, idx] = v_new[:, 0]
     return cache_k, cache_v
+
+
+# ---------------------------------------------------------------------------
+# Losses
+# ---------------------------------------------------------------------------
+
+def softmax_cross_entropy(logits, labels, mask=None):
+    """logits (B,S,V), labels (B,S) int -> mean NLL in float32 (over the
+    mask's weight when given)."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    lab = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = lse - lab
+    if mask is not None:
+        nll = nll * mask
+        return nll.sum() / torch.clamp(mask.sum(), min=1.0)
+    return nll.mean()

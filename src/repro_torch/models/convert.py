@@ -1,4 +1,4 @@
-"""Weights across the two packages.
+"""Weights and training state across the two packages.
 
 ``jax.random`` cannot be reproduced in torch, so tests that hold the port
 against the JAX package draw the weights once with the JAX init and carry
@@ -14,14 +14,17 @@ import torch
 from repro_torch.models import transformer as tfm
 
 
-def params_from_jax(cfg, tree, device="cuda"):
+def params_from_jax(cfg, tree, device="cuda", *, lead=(), dtype=None):
     """JAX param tree (leaves as numpy arrays, or anything ``np.asarray``
-    takes) -> the port's params on ``device`` in ``cfg.dtype``.
+    takes) -> the port's params on ``device`` in ``cfg.dtype`` (or
+    ``dtype``).  ``lead`` is the shape of leading dims every leaf carries
+    (``(P,)`` for a stacked replica tree).
 
     Checks every leaf's shape against the port's own init, so a tree of
     another config or family fails here and not inside a matmul.
     """
-    dtype = tfm.torch_dtype(cfg)
+    dtype = dtype or tfm.torch_dtype(cfg)
+    lead = tuple(lead)
 
     def conv(node, spec, path):
         if isinstance(spec, dict):
@@ -31,9 +34,45 @@ def params_from_jax(cfg, tree, device="cuda"):
                                  f"{got}, expected {sorted(spec)}")
             return {k: conv(node[k], spec[k], f"{path}/{k}") for k in spec}
         arr = np.array(node, dtype=np.float32)
+        spec = lead + spec
         if arr.shape != spec:
             raise ValueError(f"params_from_jax: {path} has shape "
                              f"{arr.shape}, expected {spec}")
         return torch.from_numpy(arr).to(device=device, dtype=dtype)
 
     return conv(tree, tfm.param_shapes(cfg), "")
+
+
+def replica_state_from_jax(cfg, state, device="cuda"):
+    """A JAX replicated ``ReplicaState`` (leaves as numpy, e.g. after
+    ``jax.device_get``) -> the port's :class:`ReplicaState` on ``device``.
+
+    Params are stacked ``(P, ...)`` in ``cfg.dtype``; the SGD or AdamW
+    moments float32 of the same shapes; ``count`` an int32 ``(P,)`` vector
+    on the CPU; ``step`` and ``phase`` ints.
+    """
+    from repro_torch.core.replica import ReplicaState
+    from repro_torch.optim.adamw import AdamWState
+    from repro_torch.optim.sgd import SGDState
+
+    # optimiser states by their fields (the JAX NamedTuples cross as such)
+    by_fields = {SGDState._fields: SGDState, AdamWState._fields: AdamWState}
+
+    lead = (np.asarray(state.params["emb"]).shape[0],)
+    params = params_from_jax(cfg, state.params, device, lead=lead)
+    fields = tuple(getattr(state.opt_state, "_fields", ()))
+    if fields not in by_fields:
+        raise TypeError(f"replica_state_from_jax: optimiser state with "
+                        f"fields {fields}; expected one of "
+                        f"{sorted(by_fields)}")
+    opt = {}
+    for f in fields:
+        val = getattr(state.opt_state, f)
+        if f == "count":
+            opt[f] = torch.from_numpy(np.array(val, dtype=np.int32))
+        else:
+            opt[f] = params_from_jax(cfg, val, device, lead=lead,
+                                     dtype=torch.float32)
+    return ReplicaState(params, by_fields[fields](**opt),
+                        step=int(np.asarray(state.step)),
+                        phase=int(np.asarray(state.phase)))

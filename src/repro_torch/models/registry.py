@@ -1,14 +1,16 @@
 """Uniform model API: build_model(cfg, device) -> ModelAPI.
 
-Counterpart of ``repro/models/registry.py`` for the dense family, the one
-this slice of the port serves.  The training entry points (``loss``,
-``layered``) come with the training slice.
+Counterpart of ``repro/models/registry.py`` for the dense family.  The
+``layered`` decomposition belongs to the FSDP slice; the chunked
+cross-entropy of vocabularies of 65536 and more (``_chunked_ce``) to
+slice 3 (ROADMAP.md), whose recurrentgemma needs it.
 """
 
 from __future__ import annotations
 
 from typing import Any, Callable, NamedTuple
 
+from repro_torch.models import common as cm
 from repro_torch.models import transformer as tfm
 
 
@@ -17,18 +19,41 @@ class ModelAPI(NamedTuple):
     device: Any
     init: Callable                  # torch.Generator -> params
     forward: Callable               # (params, batch) -> (logits, aux)
+    loss: Callable                  # (params, batch, remat=True) -> (loss, metrics)
     init_caches: Callable           # (batch, max_len) -> caches
     prefill: Callable               # (params, batch, max_len) -> (logits, caches)
     decode_step: Callable           # (params, caches, token, pos) -> (logits, caches)
 
 
 _LATER = {
-    "moe": "slice 8 (models/moe.py)",
-    "ssm": "slice 8 (models/xlstm.py)",
-    "hybrid": "slice 8 (models/rglru.py with kernel K4)",
-    "vlm": "slice 8 (models/vlm.py)",
-    "audio": "slice 4 (models/encdec.py)",
+    "moe": "slice 9 (models/moe.py)",
+    "ssm": "slice 9 (models/xlstm.py)",
+    "hybrid": "slice 3 (models/rglru.py with kernel K4)",
+    "vlm": "slice 9 (models/vlm.py)",
+    "audio": "slice 5 (models/encdec.py)",
 }
+
+
+CHUNKED_CE_VOCAB = 65536
+
+
+def _dense_loss(cfg):
+    """``ModelAPI.loss`` of the dense family, the JAX loss's unchunked
+    branch: cross-entropy of the training forward's logits.  A vocab that
+    needs the chunked branch raises when the loss is called, so that such
+    a model still serves."""
+    def loss_fn(params, batch, remat=True):
+        if cfg.vocab_padded >= CHUNKED_CE_VOCAB:
+            raise NotImplementedError(
+                f"{cfg.name}: the chunked cross-entropy for a vocab of "
+                f"{cfg.vocab_padded} (>= {CHUNKED_CE_VOCAB}) is not ported "
+                f"yet (ROADMAP.md, slice 3)")
+        logits = tfm.forward_train(cfg, params, batch["tokens"], remat=remat)
+        ce = cm.softmax_cross_entropy(logits, batch["labels"],
+                                      batch.get("mask"))
+        return ce, {"ce": ce, "loss": ce}
+
+    return loss_fn
 
 
 def build_model(cfg, device="cuda") -> ModelAPI:
@@ -46,6 +71,7 @@ def build_model(cfg, device="cuda") -> ModelAPI:
         init=lambda generator: tfm.init_params(cfg, generator, device),
         forward=lambda params, batch: (
             tfm.forward(cfg, params, batch["tokens"]), {}),
+        loss=_dense_loss(cfg),
         init_caches=lambda batch, max_len: tfm.init_caches(
             cfg, batch, max_len, device),
         prefill=lambda params, batch, max_len: tfm.prefill(

@@ -9,14 +9,15 @@ this module loops in Python over views of it.
 
 Entry points:
     init_params(cfg, generator, device)
-    forward(cfg, params, tokens) -> logits
+    forward(cfg, params, tokens) -> logits (scoring, no autograd)
+    forward_train(cfg, params, tokens, remat) -> logits (with autograd)
     prefill(cfg, params, tokens, max_len) -> (last_logits, caches)
     decode_step(cfg, params, caches, token, pos) -> (logits, caches)
 
 ``decode_step`` takes ``pos`` as an int or as a (B,) tensor, one position
 per row (the paged decode batch), and writes the caches in place.  The
-layered/streamed decomposition of the JAX module belongs to the training
-slice and is not here.
+layered/streamed decomposition of the JAX module belongs to the FSDP slice
+and is not here.
 """
 
 from __future__ import annotations
@@ -25,7 +26,9 @@ import math
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
+from repro_torch.core.tree import Spec
 from repro_torch.models import common as cm
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
@@ -128,6 +131,13 @@ def param_shapes(cfg):
     return _param_tree(cfg, lambda shape, std: tuple(shape))
 
 
+def param_specs(cfg):
+    """The param tree with each leaf's shape and dtype (``Spec``): what a
+    plan or a bucket layout is compiled from."""
+    dtype = torch_dtype(cfg)
+    return _param_tree(cfg, lambda shape, std: Spec(tuple(shape), dtype))
+
+
 def init_params(cfg, generator: torch.Generator, device="cuda"):
     """Random weights with the JAX init's distributions: N(0, 1/d_in) dense
     kernels, N(0, 0.02^2) embeddings, zero norm scales.  Numbers are drawn
@@ -166,17 +176,18 @@ def mlp(cfg, p, h):
     return act(h @ p["w1"]) @ p["w2"]
 
 
-def _attn_block(cfg, p, x, positions, window, causal):
+def _attn_block(cfg, p, x, positions, window, causal,
+                attention=cm.blocked_attention):
     """One layer over a whole sequence; returns (x, k, v) with k/v after
-    rope, as the cache stores them."""
+    rope, as the cache stores them.  ``attention`` is the prefill kernel's
+    route, or the differentiable one for training."""
     b, s, _ = x.shape
     h = norm_apply(cfg, x, p["ln1"])
     q, k, v = _qkv(cfg, p["attn"], h)
     q = cm.apply_rope(q, positions, cfg.rope_theta)
     k = cm.apply_rope(k, positions, cfg.rope_theta)
-    out = cm.blocked_attention(q, k, v, causal=causal, window=window,
-                               block_q=cfg.attn_block_q,
-                               block_k=cfg.attn_block_k)
+    out = attention(q, k, v, causal=causal, window=window,
+                    block_q=cfg.attn_block_q, block_k=cfg.attn_block_k)
     x = x + out.reshape(b, s, -1) @ p["attn"]["wo"]
     x = x + mlp(cfg, p["mlp"], norm_apply(cfg, x, p["ln2"]))
     return x, k, v
@@ -221,6 +232,37 @@ def forward(cfg, params, tokens):
         if has_global:
             x = attn_layer(cfg, _index(params["blocks"]["global"], i), x,
                            positions, None)
+    x = norm_apply(cfg, x, params["ln_f"])
+    return unembed(cfg, params, x)
+
+
+def forward_train(cfg, params, tokens, remat: bool = True):
+    """tokens (B,S) -> logits (B,S,V) with autograd: the JAX ``forward``.
+
+    Attention is ``cm.differentiable_blocked_attention`` (no kernel, as in
+    the JAX training loss).  ``remat`` recomputes each superblock in the
+    backward (``torch.utils.checkpoint``), as ``jax.remat`` wraps the
+    superblock body that JAX scans.
+    """
+    x = embed(cfg, params, tokens)
+    positions = _positions(x)
+    n_sb, n_local, has_global = superblock_layout(cfg)
+
+    def layer(lp, x, window):
+        return _attn_block(cfg, lp, x, positions, window, cfg.causal,
+                           attention=cm.differentiable_blocked_attention)[0]
+
+    def superblock(x, bp):
+        for j in range(n_local):
+            x = layer(_index(bp["local"], j), x, cfg.sliding_window)
+        if has_global:
+            x = layer(bp["global"], x, None)
+        return x
+
+    for i in range(n_sb):
+        bp = _index(params["blocks"], i)
+        x = (checkpoint(superblock, x, bp, use_reentrant=False) if remat
+             else superblock(x, bp))
     x = norm_apply(cfg, x, params["ln_f"])
     return unembed(cfg, params, x)
 

@@ -1,0 +1,164 @@
+"""WAGMA-SGD train step, replicated, on one device.
+
+Counterpart of the replicated branch of ``repro/train/train_step.py``.
+Per replica: local gradients, a local optimiser step guarded against
+non-finite gradients, then the averager's collective over all replicas
+(group butterfly, or the global mean every tau steps).
+
+**The one-card realisation.**  The :class:`ReplicaState` holds every
+replica as a row: params and moments ``(P, ...)``, the optimiser's count
+``(P,)``.  Where JAX runs one replica per device inside ``shard_map``, the
+step here loops over the rows: each replica's gradients are computed on
+its own rows of the global batch (replica r takes rows ``[r*b, (r+1)*b)``)
+and its update is written into its rows in place before the next
+replica's gradients are taken, so only one replica's gradients and
+activations are live.  The finite check and the guarded update are per
+replica, as each device does its own in JAX.  Metrics are the mean over
+replicas, as ``pmean`` gives them.  The step consumes the state it is
+given (its optimiser state is updated in place), as the JAX step donates
+its state.
+
+Step variants: the host loop (``launch/train.py`` ``Trainer._step_fn``)
+calls ``averager.phase_for_step(t)``/``sync_due(t)`` and runs one of
+``averager.n_phases + 1`` cached step functions, as JAX dispatches its
+compiled variants.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.core import tree as tr
+from repro_torch.core.replica import ReplicaState, map_opt_state
+
+
+def stacked_init(model, n_replicas: int, generator: torch.Generator):
+    """One init, broadcast to ``n_replicas`` rows: (P, ...) leaves."""
+    params0 = model.init(generator)
+    return tr.tree_map(
+        lambda a: a[None].expand((n_replicas,) + tuple(a.shape)).clone(),
+        params0)
+
+
+def init_replica_state(model, optimizer, averager,
+                       generator: torch.Generator) -> ReplicaState:
+    """The :class:`ReplicaState` the train step operates on: stacked
+    params identical in every row, the optimiser state of the stacked tree
+    with a ``(P,)`` count."""
+    if averager.sharding.is_sharded:
+        raise NotImplementedError("only the replicated policy is ported")
+    params = stacked_init(model, averager.P, generator)
+    opt = map_opt_state(optimizer.init(params), lambda t: t,
+                        lambda c: torch.zeros(averager.P, dtype=torch.int32))
+    return ReplicaState(params, opt)
+
+
+def tree_all_finite(tree) -> torch.Tensor:
+    """Bool tensor: every leaf of ``tree`` is NaN/Inf-free."""
+    leaves = tr.tree_leaves(tree)
+    if not leaves:
+        return torch.tensor(True)
+    return torch.stack([torch.isfinite(l).all() for l in leaves]).all()
+
+
+def guarded_update(optimizer, grads, opt_state, params, *, finite=None):
+    """Optimiser update with the non-finite gradient guard (DESIGN.md §13).
+
+    When ``grads`` hold a NaN/Inf the update is skipped: params and
+    optimiser state come back as they were, bit-exact, so a diverging
+    replica contributes its last good weights to the average.  Returns
+    ``(new_params, new_opt_state, skipped)``.
+    """
+    if finite is None:
+        finite = tree_all_finite(grads)
+    if not bool(finite):
+        return params, opt_state, True
+    new_params, new_opt = optimizer.update(grads, opt_state, params)
+    return new_params, new_opt, False
+
+
+def _row(tree, r: int):
+    """Replica r's rows: views into the stacked leaves."""
+    return tr.tree_map(lambda a: a[r], tree)
+
+
+def _write(dst_tree, src_tree):
+    tr.tree_map(lambda dst, src: dst.copy_(src), dst_tree, src_tree)
+
+
+def value_and_grad(model, params, batch):
+    """One replica's ``(grads, metrics)`` of ``model.loss`` with remat."""
+    leaves, treedef = tr.tree_flatten(params)
+    leaves = [l.detach().requires_grad_(True) for l in leaves]
+    loss, metrics = model.loss(tr.tree_unflatten(treedef, leaves), batch,
+                               remat=True)
+    grads = torch.autograd.grad(loss, leaves)
+    return (tr.tree_unflatten(treedef, list(grads)),
+            {k: v.detach().float() for k, v in metrics.items()})
+
+
+def build_train_step(model, optimizer, averager, *, phase: int, sync: bool,
+                     microbatch: Optional[int] = None):
+    """Returns ``step(state, batch) -> (state, metrics)`` for one variant:
+    group averaging at ``phase``, or the global sync.  The loss recomputes
+    each superblock in the backward (``remat``), as the JAX step does."""
+    n_rep = averager.P
+
+    def grads_and_metrics(params, batch):
+        if not (microbatch and microbatch > 1):
+            return value_and_grad(model, params, batch)
+        b_local = next(iter(batch.values())).shape[0]
+        if b_local % microbatch or b_local < microbatch:
+            raise ValueError(
+                f"microbatch={microbatch} must divide the per-replica "
+                f"batch {b_local}")
+        n = b_local // microbatch
+        acc, metrics_all = None, []
+        for i in range(microbatch):
+            g, m = value_and_grad(
+                model, params, {k: v[i * n:(i + 1) * n] for k, v in batch.items()})
+            acc = (tr.tree_map(lambda a: a.float(), g) if acc is None
+                   else tr.tree_map(lambda a, b: a + b.float(), acc, g))
+            metrics_all.append(m)
+        grads = tr.tree_map(lambda a: a / microbatch, acc)
+        metrics = {k: torch.stack([m[k] for m in metrics_all]).mean()
+                   for k in metrics_all[0]}
+        return grads, metrics
+
+    def step(state: ReplicaState, batch):
+        rows = next(iter(batch.values())).shape[0]
+        if rows % n_rep:
+            raise ValueError(f"global batch {rows} does not split over "
+                             f"{n_rep} replicas")
+        b = rows // n_rep
+        per_replica = []
+        for r in range(n_rep):
+            params_r = _row(state.params, r)
+            opt_r = map_opt_state(state.opt_state, lambda t: _row(t, r),
+                                  lambda c: c[r])
+            grads, metrics = grads_and_metrics(
+                params_r, {k: v[r * b:(r + 1) * b] for k, v in batch.items()})
+            new_p, new_o, skipped = guarded_update(optimizer, grads, opt_r,
+                                                   params_r)
+            if not skipped:
+                # write replica r's update into its rows
+                _write(params_r, new_p)
+                for f in opt_r._fields:
+                    if f == "count":
+                        state.opt_state.count[r] = new_o.count
+                    else:
+                        _write(getattr(opt_r, f), getattr(new_o, f))
+            metrics = dict(metrics)
+            metrics["skipped_nonfinite"] = torch.tensor(float(skipped))
+            per_replica.append(metrics)
+            del grads, new_p, new_o
+        params = (averager.sync(state.params) if sync
+                  else averager.comm(state.params, phase))
+        metrics = {k: torch.stack([m[k].cpu() for m in per_replica]).mean()
+                   for k in per_replica[0]}
+        return ReplicaState(params, state.opt_state, state.step + 1,
+                            -1 if sync else phase), metrics
+
+    return step

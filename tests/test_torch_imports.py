@@ -63,21 +63,36 @@ def _has_cuda() -> bool:
     return torch.cuda.is_available()
 
 
-def test_chip_smoke_phases_at_smoke_size_on_cpu():
-    """chip_smoke's serving and profile phases, rehearsed on the CPU with
-    the smoke config: every request finishes, the pool preempts, the paged
-    path agrees with the dense one, and no kernel launches off the card."""
+def _chip_smoke():
     import importlib.util
-
-    import torch
-
-    from repro_torch.configs import get_config
-
     spec = importlib.util.spec_from_file_location("chip_smoke",
                                                   ROOT / "chip_smoke.py")
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
+    return smoke
+
+
+NO_LAUNCHES = {"flash_attention": 0, "group_average_combine": 0,
+               "group_average_combine_multi": 0}
+
+
+def test_chip_smoke_phases_at_smoke_size_on_cpu():
+    """chip_smoke's serving, training and profile phases, rehearsed on the
+    CPU with the smoke config: every request finishes, the pool preempts,
+    the paged path agrees with the dense one; the training phase's checks
+    (b)-(d) hold over 6 steps (3 phases and a sync) with a bucket budget
+    small enough for multi-pair K2 batches; and no kernel launches off the
+    card, so check (a) refuses the CPU run."""
+    import pytest
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import plan
+
+    smoke = _chip_smoke()
     cfg = get_config(smoke.ARCH, smoke=True)
+    topology = plan.Topology.flat(("data",), (smoke.TRAIN_P,), link=(
+        plan.LinkClass("link", bucket_bytes=16 << 10)))
     threads = torch.get_num_threads()
     torch.set_num_threads(1)         # thousands of tiny ops: threads only contend
     try:
@@ -85,11 +100,36 @@ def test_chip_smoke_phases_at_smoke_size_on_cpu():
         stats = smoke.serve_phase(model, params, device="cpu")
         windows = smoke.profile_phase(model, params, device="cpu",
                                       decode_steps=1)
+        train, trainer = smoke.train_phase(cfg, device="cpu", steps=6,
+                                           seq_len=16, global_batch=16,
+                                           topology=topology)
+        windows["train"] = smoke.train_profile(trainer, 6, device="cpu")
     finally:
         torch.set_num_threads(threads)
+    assert train["n_buckets"] >= 3 and train["fused_equals_per_leaf"]
+    k1, k2 = train["expected_k1_k2_per_group_step"]
+    assert k1 > 0 and k2 > 0
+    assert [e["sync"] for e in train["steps"]] == [False] * 4 + [True, False]
+    assert train["launches"] == NO_LAUNCHES
+    with pytest.raises(AssertionError):
+        smoke.check_train_launches(train)
     assert stats["evictions"] > 0 and stats["n_prefills"] > smoke.N_REQUESTS
-    assert stats["launches"] == {"flash_attention": 0}
+    assert stats["launches"] == NO_LAUNCHES
     assert {tuple(s) for s in stats["decode_shapes"]} <= \
         {(b, smoke.MAX_BLOCKS_PER_REQ) for b in (1, 2, 4, 8)}
     assert [c["rid"] for c in stats["checks"]] == list(smoke.CHECKED_REQUESTS)
     assert all(w["device_busy_ms"] is None for w in windows.values())
+
+
+def test_chip_smoke_predicts_the_slice_launches():
+    """The full-size slice: 10 buckets of 64 MiB, two stages, so a group
+    step launches K1 18 times and K2 once (the tail batch of the two last
+    buckets' stage-1 combines)."""
+    smoke = _chip_smoke()
+    plan = smoke.slice_plan(smoke.train_config())
+    assert plan.class_bucket_bytes == {0: 64 << 20}
+    assert plan.class_layout(0).n_buckets == 10
+    assert smoke.expected_combine_launches(10, 2) == (18, 1)
+    assert [ks for _, ks in smoke.scale_groups(10, 2) if len(ks) > 1] == \
+        [[8, 9]]
+    assert smoke.expected_combine_launches(1, 2) == (2, 0)

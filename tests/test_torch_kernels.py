@@ -90,14 +90,31 @@ def test_cpu_dispatch_takes_plain_path_and_counts_nothing():
     qn, kn, vn = _inputs((1, 16, 16, 2, 1, 16))
     ops.flash_attention(torch.from_numpy(qn), torch.from_numpy(kn),
                         torch.from_numpy(vn))
-    assert ops.launch_counts() == {"flash_attention": 0}
+    assert ops.launch_counts() == {"flash_attention": 0,
+                                   "group_average_combine": 0,
+                                   "group_average_combine_multi": 0}
     with pytest.raises(ValueError):
         ops.flash_attention(*(torch.from_numpy(a).to("meta")
                               for a in (qn, kn, vn)))
 
 
+def test_flash_attention_refuses_inputs_that_need_a_gradient():
+    """K3 is forward only: its CUDA output carries no gradient, so the
+    dispatcher raises on either device when grad is enabled and an input
+    requires grad, instead of silently cutting the graph."""
+    q, k, v = (torch.from_numpy(a) for a in _inputs((1, 8, 8, 2, 1, 16)))
+    for needs in (q, k, v):
+        needs.requires_grad_(True)
+        with pytest.raises(RuntimeError, match="no backward"):
+            ops.flash_attention(q, k, v)
+        with torch.no_grad():
+            assert ops.flash_attention(q, k, v).grad_fn is None
+        needs.requires_grad_(False)
+    assert ops.flash_attention(q, k, v).shape == q.shape
+
+
 def test_build_is_lazy_and_targets_sm90a():
-    assert _build.sources() == ["flash_attention"]
+    assert _build.sources() == ["flash_attention", "group_average"]
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert _build._libs == {}           # importing compiled nothing
     assert _build.BUILD_DIR.parts[-2:] == ("build", "kernels")

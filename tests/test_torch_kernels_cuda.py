@@ -1,4 +1,5 @@
-"""K3 on the card: the CUDA kernel against its plain torch version.
+"""K3, K1 and K2 on the card: the CUDA kernels against their plain torch
+versions.
 
 Imports neither JAX nor the JAX package, so it runs where the card is:
 
@@ -6,7 +7,9 @@ Imports neither JAX nor the JAX package, so it runs where the card is:
 
 Every test here needs a CUDA card and skips without one.  The shapes are
 chip_smoke.py's: tests/test_kernels.py's ATTN_CASES in float32 and
-bfloat16, and the serving slice's prefill shapes.
+bfloat16, and the serving slice's prefill shapes, for K3; the butterfly
+combine's sizes, ragged lists and scales for K1/K2, which must be
+bit-identical to their plain versions.
 """
 
 import sys
@@ -17,10 +20,12 @@ import pytest
 import torch
 
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import group_average as ga
 from repro_torch.kernels import ops
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
-from chip_smoke import KERNEL_CASES, SLICE_LENGTHS, TOL  # noqa: E402
+from chip_smoke import (GA_DTYPES, GA_RAGGED, GA_SCALES,  # noqa: E402
+                        GA_SIZES, KERNEL_CASES, SLICE_LENGTHS, TOL)
 
 CASES = KERNEL_CASES + [(1, L, L, 32, 4, 64, True, None, "bfloat16")
                         for L in SLICE_LENGTHS]
@@ -72,3 +77,65 @@ def test_kernel_rejects_what_it_does_not_take(cuda_device):
         ops.flash_attention(q.half(), k.half(), v.half())
     with pytest.raises(ValueError):             # not contiguous
         ops.flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2), k, v)
+
+
+def _pair(n, dtype, device, offset=0, seed=0):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    base = torch.randn(2, n + offset, generator=gen, device=device).to(
+        getattr(torch, dtype))
+    return base[0, offset:], base[1, offset:]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", GA_DTYPES)
+@pytest.mark.parametrize("scale", GA_SCALES)
+def test_k1_bit_identical_to_plain_on_card(dtype, scale, cuda_device):
+    for n, offset in [(n, 0) for n in GA_SIZES] + [(1000, 1), (4099, 1)]:
+        w, r = _pair(n, dtype, cuda_device, offset)
+        before = ops.launch_counts()["group_average_combine"]
+        got = ops.group_average_combine(w, r, scale)
+        want = ga.group_average_combine_plain(w, r, scale)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (n, offset)
+        assert ops.launch_counts()["group_average_combine"] == \
+            before + (1 if n else 0)
+        inplace = w.clone()                        # out may alias w
+        ops.group_average_combine(inplace, r, scale, out=inplace)
+        assert torch.equal(inplace, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", GA_DTYPES)
+@pytest.mark.parametrize("scale", GA_SCALES)
+def test_k2_bit_identical_to_plain_on_card(dtype, scale, cuda_device):
+    for sizes, offsets, launches in (
+            (GA_RAGGED, [0] * len(GA_RAGGED), 1),
+            (GA_RAGGED, [i % 2 for i in range(len(GA_RAGGED))], 1),
+            ([97 + 13 * i for i in range(70)], [i % 2 for i in range(70)],
+             2)):
+        pairs = [_pair(n, dtype, cuda_device, off, seed=i)
+                 for i, (n, off) in enumerate(zip(sizes, offsets))]
+        ws, rs = [p[0] for p in pairs], [p[1] for p in pairs]
+        before = ops.launch_counts()["group_average_combine_multi"]
+        got = ops.group_average_combine_multi(ws, rs, scale)
+        want = ga.group_average_combine_multi_plain(ws, rs, scale)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+        assert ops.launch_counts()["group_average_combine_multi"] == \
+            before + launches
+        for g, w, r in zip(got, ws, rs):          # K2 == K1 on each pair
+            assert torch.equal(g, ops.group_average_combine(w, r, scale))
+
+
+@pytest.mark.cuda
+def test_k1_k2_reject_what_they_do_not_take(cuda_device):
+    w, r = _pair(64, "float32", cuda_device)
+    with pytest.raises(ValueError):               # sizes differ
+        ops.group_average_combine(w, r[:32], 0.5)
+    with pytest.raises(ValueError):               # f16 is not a kernel dtype
+        ops.group_average_combine(w.half(), r.half(), 0.5)
+    with pytest.raises(ValueError):               # not contiguous
+        ops.group_average_combine(w.reshape(8, 8).t(), r.reshape(8, 8), 0.5)
+    with pytest.raises(ValueError):               # one dtype per launch
+        ops.group_average_combine_multi([w, w.bfloat16()],
+                                        [r, r.bfloat16()], 0.5)
