@@ -9,15 +9,22 @@
    all started together.
 3. Kernel phase, K3: the flash-attention kernel against its plain torch
    version on the card (f32 to 2e-4, bf16 to 3e-2) over the kernel test
-   shapes and the serving slice's prefill shapes; times the kernel, the
-   plain version and ``F.scaled_dot_product_attention`` (the library
-   yardstick, used nowhere in the port) against the roofline bound.
+   shapes, head dim 256 cases and the serving slices' prefill shapes
+   (tinyllama; recurrentgemma's windowed hd-256 attention); times the
+   kernel, the plain version and ``F.scaled_dot_product_attention`` (the
+   library yardstick, used nowhere in the port; a boolean mask for a
+   window) against the roofline bound.
 4. Kernel phase, K1/K2: the butterfly combine kernels against their plain
    versions, bit-identical (``torch.equal``), in f32 and bf16 at scales 1
    and 0.25, over small and lane-unaligned sizes, the training slice's
    real stacked bucket sizes and ragged pair lists of both pointer
    alignments; times each against the HBM bound ``3*n*itemsize/3.35e12 s``,
    the plain version and, at scale 1, ``torch.add``/``torch._foreach_add``.
+   Kernel phase, K4: the RG-LRU scan kernel against its plain version,
+   bit-identical, over tests/test_kernels.py's RGLRU_CASES in f32 and bf16,
+   the recurrentgemma slice's prefill shape with and without h0, its decode
+   shape and a ragged W; times each against the HBM bound (no single
+   PyTorch call computes the recurrence, so no library time).
 5. Serving phase: ``ServeScheduler`` serves tinyllama-1.1b at full width in
    bf16 (random weights from a seeded torch generator) over 8 ragged
    requests with a pool small enough to force a recompute preemption; checks
@@ -37,7 +44,19 @@
    bit-identical to the plan's per-leaf path; (d) every loss is finite and
    no update is skipped.  Prints losses, step time, tokens/s, the host
    split, peak memory and a profiler window over one group step.
-7. Prints a ``kernels`` JSON line, then ``{"ok": true, "device": ...}`` last.
+7. recurrentgemma phase: recurrentgemma-2b at full width and all 26 layers
+   in bf16 (random weights from a seeded torch generator) serves a batch of
+   4 prompts of 3000 tokens (past the 2048-token window, not a multiple of
+   64) and 32 greedy new tokens through ``build_prefill`` and
+   ``build_serve_step``.  Checks (a) K4 runs 18 times and K3 8 times per
+   prefill, K4 18 times and K3 never per decode step; (b) the last decode
+   step's logits match a fresh prefill over prompt + fed tokens to 5% of
+   the largest reference logit; (c) a float32 copy of the model (batch 1, a
+   2100-token prompt, 4 decode steps) matches its own ``forward`` at every
+   step to 2e-3; (d) every logit finite, every token in the vocab.  Prints
+   prefill tokens/s, TTFT, decode ms/step, peak memory and two profiler
+   windows (a prefill, a decode step) with K4's and K3's shares.
+8. Prints a ``kernels`` JSON line, then ``{"ok": true, "device": ...}`` last.
 
 Exits non-zero, printing no result, without CUDA or without the repo's
 ``src/`` beside it.  TF32 is off for matmuls and cuDNN so float32 means
@@ -82,6 +101,34 @@ KERNEL_CASES = list(dict.fromkeys(c[:8] + (dt,) for c in ATTN_CASES
 SLICE_LENGTHS = (1, 100, 1024, 2048)
 SLICE_SHAPE_FOR_LINE = 1024          # the kernels line reports this shape
 TOL = {"float32": 2e-4, "bfloat16": 3e-2}
+# bf16 K3 is also held element by element to the float32 result on the same
+# bf16 inputs: |got - want| <= BF16_RTOL * mag + BF16_ATOL, with mag the
+# attention over |v| (sum_k p_k |v_k|), which scales the weighted sum's
+# rounding (P and the output each rounded to bf16: <= 2^-8 * mag together).
+# An absolute 3e-2 is the size of a typical output at 2048 visible keys;
+# this bound rejects the planted faults of bf16_faults.
+BF16_RTOL, BF16_ATOL = 1e-2, 1e-3
+FAULT_TILE = 64                      # K3's KV tile
+# K3 at head dim 256, each in both dtypes, then recurrentgemma-2b's
+# attention: the bf16 serving prefill and the f32 check's prefill
+HD256_CASES = [c + (dt,) for c in ((1, 128, 128, 2, 1, 256, True, None),
+                                   (2, 100, 100, 4, 2, 256, False, None),
+                                   (1, 300, 300, 2, 1, 256, True, 64))
+               for dt in ("float32", "bfloat16")]
+RG_ATTN_SHAPE = (4, 3000, 3000, 10, 1, 256, True, 2048, "bfloat16")
+HD256_CASES += [RG_ATTN_SHAPE, (1, 2100, 2100, 10, 1, 256, True, 2048,
+                                "float32")]
+
+# K4 kernel phase: tests/test_kernels.py RGLRU_CASES (b, s, w, with_h0) in
+# both dtypes, recurrentgemma-2b's prefill scan with and without h0, its
+# decode scan and a ragged W
+RGLRU_CASES = [(3, 200, 96, True), (1, 17, 130, False), (8, 128, 128, True),
+               (2, 300, 64, False)]
+RG_SCAN_SHAPE = (4, 3000, 2560, False, "float32")
+K4_CASES = ([c + (dt,) for c in RGLRU_CASES for dt in ("float32", "bfloat16")]
+            + [RG_SCAN_SHAPE, (4, 3000, 2560, True, "float32"),
+               (4, 1, 2560, True, "float32"), (2, 37, 1001, True, "float32"),
+               (2, 37, 1001, True, "bfloat16")])
 
 # K1/K2 kernel phase: sizes in elements (0 returns w unlaunched; 127, 1000
 # and 2**20+3 leave a scalar tail), both storage dtypes, both scales the
@@ -97,8 +144,8 @@ GA_DTYPES = ("float32", "bfloat16")
 # buffers fit one 80 GB card
 TRAIN_LAYERS, TRAIN_P, TRAIN_S, TRAIN_TAU = 6, 8, 4, 5
 TRAIN_SEQ, TRAIN_GB, TRAIN_STEPS, TRAIN_LR = 512, 64, 12, 0.1
-K1, K2, K3 = ("group_average_combine", "group_average_combine_multi",
-              "flash_attention")
+K1, K2, K3, K4 = ("group_average_combine", "group_average_combine_multi",
+                  "flash_attention", "rglru_scan")
 
 # serving phase
 ARCH = "tinyllama-1.1b"
@@ -110,6 +157,13 @@ CHECKED_REQUESTS = (0, 1)
 # runs other matmul tilings, so the results round differently in bf16 across
 # 22 layers.  Held to 5% of the largest reference logit.
 LOGIT_RTOL = 0.05
+
+# recurrentgemma phase: batch, prompt length (past the 2048 window, not a
+# multiple of 64), new tokens; the float32 check's prompt and decode steps,
+# held to the JAX package's test_decode_matches_forward tolerance
+RG_ARCH = "recurrentgemma-2b"
+RG_BATCH, RG_PROMPT, RG_NEW = 4, 3000, 32
+RG_F32_PROMPT, RG_F32_STEPS, RG_F32_TOL = 2100, 4, 2e-3
 
 
 def _sync(device):
@@ -165,6 +219,53 @@ def attention_bound(b, sq, sk, h, kh, hd, causal, window, dtype):
     return (t_bytes, "bytes") if t_bytes >= t_flops else (t_flops, "operations")
 
 
+def bf16_bound(q, k, v, causal, window):
+    """``excess(out)``: max |out - want| / (BF16_RTOL * mag + BF16_ATOL)
+    over the elements, want and mag from K3's plain version in float32 on
+    the same inputs; a result passes when its excess is <= 1."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    qf, kf, vf = q.float(), k.float(), v.float()
+    want = fa.flash_attention_plain(qf, kf, vf, causal=causal, window=window)
+    mag = fa.flash_attention_plain(qf, kf, vf.abs(), causal=causal,
+                                   window=window)
+    denom = BF16_RTOL * mag + BF16_ATOL
+    del qf, kf, vf, mag
+
+    def excess(out):
+        e = ((out.float() - want).abs() / denom).max()
+        return float(e) if bool(torch.isfinite(e)) else math.inf
+    return excess
+
+
+def bf16_faults(q, k, v, causal, window):
+    """What a faulty K3 would return, in bf16: the window one key short,
+    and the middle KV tile skipped (SDPA in float32 over a boolean mask)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    sq, sk, rep = q.shape[1], k.shape[1], q.shape[2] // k.shape[2]
+    faults = {}
+    if window is not None and window > 1:
+        faults["window_minus_1"] = fa.flash_attention_plain(
+            q, k, v, causal=causal, window=window - 1)
+    qpos = torch.arange(sq, device=q.device)[:, None]
+    kpos = torch.arange(sk, device=q.device)[None, :]
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    t0 = sk // 2 // FAULT_TILE * FAULT_TILE
+    mask[:, t0:t0 + FAULT_TILE] = False
+    mask[~mask.any(-1), 0] = True      # keep every row's softmax defined
+    qt, kt, vt = (t.float().transpose(1, 2) for t in (q, k, v))
+    kt, vt = (t.repeat_interleave(rep, dim=1) for t in (kt, vt))
+    faults[f"tile_{t0}_skipped"] = F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask).transpose(1, 2).to(q.dtype)
+    return faults
+
+
 def kernel_phase(device="cuda"):
     """K3 against its plain version at every listed shape; returns rows."""
     import torch
@@ -172,7 +273,7 @@ def kernel_phase(device="cuda"):
     from repro_torch.kernels import flash_attention as fa
 
     cases = KERNEL_CASES + [(1, L, L, 32, 4, 64, True, None, "bfloat16")
-                            for L in SLICE_LENGTHS]
+                            for L in SLICE_LENGTHS] + HD256_CASES
     gen = torch.Generator(device=device).manual_seed(0)
     rows = []
     for b, sq, sk, h, kh, hd, causal, window, dtype in cases:
@@ -190,20 +291,46 @@ def kernel_phase(device="cuda"):
             raise AssertionError(f"K3 disagrees with its plain version at "
                                  f"{(b, sq, sk, h, kh, hd, causal, window, dtype)}:"
                                  f" max abs err {err} > {TOL[dtype]}")
+        scaled = faults = None
+        if dtype == "bfloat16":
+            excess = bf16_bound(q, k, v, causal, window)
+            scaled = excess(out)
+            if scaled > 1:
+                raise AssertionError(
+                    f"K3 bf16 exceeds {BF16_RTOL} * mag + {BF16_ATOL} at "
+                    f"{(b, sq, sk, h, kh, hd, causal, window)}: "
+                    f"excess {scaled}")
+            if (b, sq, sk, h, kh, hd, causal, window, dtype) == RG_ATTN_SHAPE:
+                faults = {name: excess(o) for name, o in
+                          bf16_faults(q, k, v, causal, window).items()}
+                if min(faults.values()) <= 1:
+                    raise AssertionError(f"the bf16 bound accepts a planted "
+                                         f"fault at {RG_ATTN_SHAPE}: {faults}")
+            del excess
         kernel_ms = time_ms(lambda: fa.flash_attention_cuda(
             q, k, v, causal=causal, window=window))
         plain_ms = time_ms(lambda: fa.flash_attention_plain(
             q, k, v, causal=causal, window=window), iters=5, warmup=1)
         library_ms = None
-        if window is None and (not causal or sq == sk):
+        if not causal or sq == sk:
             qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+            mask = None                # a window needs an explicit mask
+            if window is not None:
+                pos = torch.arange(sq, device=device)
+                mask = pos[None, :] > pos[:, None] - window
+                if causal:
+                    mask &= pos[None, :] <= pos[:, None]
             library_ms = time_ms(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=causal, enable_gqa=kh != h))
+                qt, kt, vt, attn_mask=mask, is_causal=causal and mask is None,
+                enable_gqa=kh != h))
+            del qt, kt, vt, mask
         bound_ms, bound_by = attention_bound(b, sq, sk, h, kh, hd, causal,
                                              window, dtype)
         rows.append({"shape": [b, sq, sk, h, kh, hd], "causal": causal,
                      "window": window, "dtype": dtype, "max_abs_err": err,
-                     "tol": TOL[dtype], "ms": kernel_ms, "plain_ms": plain_ms,
+                     "tol": TOL[dtype], "bf16_excess": scaled,
+                     "fault_excess": faults, "ms": kernel_ms,
+                     "plain_ms": plain_ms,
                      "library_ms": library_ms, "bound_ms": bound_ms,
                      "bound_by": bound_by})
     return rows
@@ -349,6 +476,50 @@ def combine_kernel_phase(device="cuda"):
     if bad:
         raise AssertionError(f"K1/K2 differ from their plain versions: {bad}")
     return rows, line
+
+
+def scan_bound_ms(b, s, w, a_item, x_item, with_h0) -> float:
+    """Least time for the scan: a and x read once, h written once in x's
+    type, h0 read once, over the HBM rate (2 flops per element is far below
+    the operation bound)."""
+    nbytes = b * s * w * (a_item + 2 * x_item) + (4 * b * w if with_h0 else 0)
+    return nbytes / PEAK_BYTES * 1e3
+
+
+def rglru_kernel_phase(device="cuda"):
+    """K4 against its plain version on every case, bit for bit; returns
+    rows.  a is uniform in [0.5, 0.999) and x normal * 0.1, as
+    tests/test_kernels.py draws them."""
+    import torch
+    from repro_torch.kernels import rglru_scan as rg
+
+    gen = torch.Generator(device=device).manual_seed(2)
+    rows = []
+    for b, s, w, with_h0, dtype in K4_CASES:
+        dt = getattr(torch, dtype)
+        a = (torch.rand((b, s, w), generator=gen, device=device) * 0.499
+             + 0.5).to(dt)
+        x = (torch.randn((b, s, w), generator=gen, device=device) * 0.1
+             ).to(dt)
+        h0 = (torch.randn((b, w), generator=gen, device=device)
+              if with_h0 else None)
+        got = rg.rglru_scan_cuda(a, x, h0)
+        want = rg.rglru_scan_plain(a, x, h0)
+        torch.cuda.synchronize()
+        item = 4 if dtype == "float32" else 2
+        rows.append({
+            "shape": [b, s, w], "h0": with_h0, "dtype": dtype,
+            "equal": bool(torch.equal(got, want)),
+            "max_abs_err": float((got.float() - want.float()).abs().max()),
+            "ms": time_ms(lambda: rg.rglru_scan_cuda(a, x, h0)),
+            "plain_ms": time_ms(lambda: rg.rglru_scan_plain(a, x, h0)),
+            "bound_ms": scan_bound_ms(b, s, w, item, item, with_h0),
+            "bound_by": "bytes", "library_ms": None})
+        del a, x, h0, got, want
+    bad = [r for r in rows if not r["equal"]]
+    if bad:
+        raise AssertionError(f"K4 differs from its plain version: {bad}")
+    return rows
 
 
 def group_rows_agree(params, groups) -> tuple:
@@ -693,6 +864,173 @@ def profile_phase(model, params, device="cuda", seed: int = 0,
     return windows
 
 
+def _masked_argmax(logits, vocab: int):
+    """Greedy pick over (..., V) logits, vocab-padding columns excluded."""
+    return logits[..., :vocab].argmax(-1)
+
+
+def rg_serve_phase(model, params, device="cuda", batch: int = RG_BATCH,
+                   prompt_len: int = RG_PROMPT, new: int = RG_NEW,
+                   seed: int = 0):
+    """Prefill ``batch`` equal prompts and decode ``new`` greedy tokens
+    through ``build_prefill``/``build_serve_step`` with checks (b) and (d);
+    returns the run's numbers with each prefill's and decode step's kernel
+    launches for check (a)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.serve import build_prefill, build_serve_step
+
+    cfg = model.cfg
+    prompts = np.random.default_rng(seed).integers(
+        0, cfg.vocab, (batch, prompt_len))
+    tokens = torch.as_tensor(prompts, dtype=torch.int64, device=device)
+    max_len = prompt_len + new
+    prefill = build_prefill(model, max_len)
+    step = build_serve_step(model)
+    if torch.device(device).type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+
+    _sync(device)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    logits, caches = prefill(params, {"tokens": tokens})
+    fed = [_masked_argmax(logits[:, -1], cfg.vocab)[:, None]]
+    _sync(device)
+    ttft_s = time.perf_counter() - t0
+    prefill_launches = ops.launch_counts()
+    finite = bool(torch.isfinite(logits[..., :cfg.vocab]).all())
+    step_ms, step_launches = [], []
+    for j in range(new - 1):
+        _sync(device)
+        ops.reset_launch_counts()
+        t = time.perf_counter()
+        nxt, logits, caches = step(params, caches, fed[-1], prompt_len + j)
+        _sync(device)
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        step_launches.append(ops.launch_counts())
+        finite &= bool(torch.isfinite(logits[..., :cfg.vocab]).all())
+        fed.append(nxt)
+    peak = (torch.cuda.max_memory_allocated()
+            if torch.device(device).type == "cuda" else None)
+    generated = torch.cat(fed, dim=1)                        # (B, new)
+    if not finite:                                           # check (d)
+        raise AssertionError("non-finite logits on the recurrentgemma path")
+    if not bool(((generated >= 0) & (generated < cfg.vocab)).all()):
+        raise AssertionError(f"tokens outside the vocab: {generated}")
+
+    # check (b): the last decode step against a fresh prefill over the
+    # prompt and every token the steps were fed
+    last = logits[:, -1, :cfg.vocab].float()
+    del caches
+    ref_logits, _ = prefill(params, {"tokens": torch.cat(
+        [tokens, generated[:, :-1]], dim=1)})
+    ref = ref_logits[:, -1, :cfg.vocab].float()
+    diff = float((last - ref).abs().max())
+    scale = float(ref.abs().max())
+    if not math.isfinite(diff) or diff > LOGIT_RTOL * scale:
+        raise AssertionError(f"recurrentgemma decode vs fresh prefill logits "
+                             f"differ by {diff} > {LOGIT_RTOL} * {scale}")
+    steady = step_ms[1:] or step_ms
+    return {
+        "arch": cfg.name, "dtype": cfg.dtype, "n_layers": cfg.n_layers,
+        "d_model": cfg.d_model, "batch": batch, "prompt_len": prompt_len,
+        "new_tokens": new, "ttft_s": ttft_s,
+        "prefill_tok_per_s": batch * prompt_len / ttft_s,
+        "decode_ms_per_step": statistics.median(steady),
+        "decode_ms": step_ms, "max_memory_allocated": peak,
+        "prefill_launches": prefill_launches, "step_launches": step_launches,
+        "logits_max_abs_diff": diff, "logits_max_abs": scale,
+        "tokens": generated.cpu().tolist(),
+    }
+
+
+def check_rg_launches(stats, n_rec: int, n_attn: int):
+    """Check (a): each prefill ran K4 once per recurrent layer and K3 once
+    per attention layer; each decode step K4 once per recurrent layer and
+    K3 never; K1/K2 never."""
+    runs = [("prefill", stats["prefill_launches"], n_attn)] + [
+        (f"decode step {i}", got, 0)
+        for i, got in enumerate(stats["step_launches"])]
+    for name, got, k3 in runs:
+        if (got[K4], got[K3], got[K1], got[K2]) != (n_rec, k3, 0, 0):
+            raise AssertionError(f"{name}: launched {got}; expected K4 "
+                                 f"{n_rec}, K3 {k3}")
+
+
+def rg_f32_check(cfg, params, device="cuda", prompt_len: int = RG_F32_PROMPT,
+                 steps: int = RG_F32_STEPS, seed: int = 1):
+    """Check (c): a float32 copy of the model, batch 1: prefill, ``steps``
+    greedy decode steps, each step's logits against the model's own
+    ``forward`` over prompt + fed tokens at that position, to RG_F32_TOL
+    (rtol and atol).  Returns the largest difference."""
+    import torch
+    from repro_torch.core import tree as tr
+    from repro_torch.models.registry import build_model
+    from repro_torch.serve import build_prefill, build_serve_step
+
+    cfg32 = cfg.variant(dtype="float32")
+    model = build_model(cfg32, device=device)
+    p32 = tr.tree_map(lambda a: a.float(), params)
+    toks = torch.as_tensor(np.random.default_rng(seed).integers(
+        0, cfg.vocab, (1, prompt_len)), dtype=torch.int64, device=device)
+    logits, caches = build_prefill(model, prompt_len + steps)(
+        p32, {"tokens": toks})
+    got = [logits[0, -1, :cfg.vocab]]
+    fed = [_masked_argmax(logits[:, -1], cfg.vocab)[:, None]]
+    step = build_serve_step(model)
+    for j in range(steps):
+        nxt, logits, caches = step(p32, caches, fed[-1], prompt_len + j)
+        got.append(logits[0, -1, :cfg.vocab])
+        fed.append(nxt)
+    del caches
+    full, _ = model.forward(p32, {"tokens": torch.cat([toks] + fed[:-1],
+                                                      dim=1)})
+    worst = 0.0
+    for j, g in enumerate(got):
+        ref = full[0, prompt_len - 1 + j, :cfg.vocab]
+        excess = float(((g - ref).abs() - RG_F32_TOL * ref.abs()).max())
+        worst = max(worst, float((g - ref).abs().max()))
+        if not math.isfinite(excess) or excess > RG_F32_TOL:
+            raise AssertionError(f"float32 recurrentgemma: decode step {j} "
+                                 f"logits differ from forward by more than "
+                                 f"{RG_F32_TOL} (rtol and atol)")
+    return {"prompt_len": prompt_len, "steps": steps,
+            "logits_max_abs_diff": worst, "tol": RG_F32_TOL}
+
+
+def rg_profile(model, params, device="cuda", batch: int = RG_BATCH,
+               prompt_len: int = RG_PROMPT, seed: int = 0):
+    """Two profiler windows: one prefill of the phase's prompts and one
+    decode step after it, each with K4's and K3's share of device time."""
+    import torch
+    from torch.profiler import profile
+    from repro_torch.serve import build_prefill, build_serve_step
+
+    tokens = torch.as_tensor(np.random.default_rng(seed).integers(
+        0, model.cfg.vocab, (batch, prompt_len)), dtype=torch.int64,
+        device=device)
+    prefill = build_prefill(model, prompt_len + 1)
+    step = build_serve_step(model)
+    shares = {"K4": "rglru_scan", "K3": "attn_fwd"}
+    windows = {}
+    _sync(device)
+    with profile(activities=_activities(device)) as prof:
+        t = time.perf_counter()
+        logits, caches = prefill(params, {"tokens": tokens})
+        _sync(device)
+        wall_ms = (time.perf_counter() - t) * 1e3
+    windows["prefill"] = _window(prof, wall_ms, shares=shares)
+    token = _masked_argmax(logits[:, -1], model.cfg.vocab)[:, None]
+    _sync(device)
+    with profile(activities=_activities(device)) as prof:
+        t = time.perf_counter()
+        step(params, caches, token, prompt_len)
+        _sync(device)
+        wall_ms = (time.perf_counter() - t) * 1e3
+    windows["decode_step"] = _window(prof, wall_ms, shares=shares)
+    return windows
+
+
 def _activities(device):
     import torch
     from torch.profiler import ProfilerActivity
@@ -702,15 +1040,23 @@ def _activities(device):
     return activities
 
 
-def _window(prof, wall_ms: float, top_n: int = 8) -> dict:
+def _window(prof, wall_ms: float, top_n: int = 8, shares=None) -> dict:
     """Device busy time and idle share of a profiled window, and its
-    largest kernels; device numbers are None where no CUDA kernel ran."""
+    largest kernels; with ``shares`` ({label: substring of a kernel name}),
+    each label's share of the busy time.  Device numbers are None where no
+    CUDA kernel ran."""
     from torch.autograd import DeviceType
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:top_n]
-    return {
+    extra = {}
+    if shares:
+        extra["shares"] = {
+            label: (sum(e.self_device_time_total for e in kernels
+                        if key in e.key) / 1e3 / busy_ms if kernels else None)
+            for label, key in shares.items()}
+    return {**extra,
         "wall_ms": wall_ms,
         "device_busy_ms": busy_ms if kernels else None,
         "device_idle_share": 1 - busy_ms / wall_ms if kernels else None,
@@ -723,7 +1069,8 @@ def _window(prof, wall_ms: float, top_n: int = 8) -> dict:
 def _print_window(name, w, card):
     print(f"profile {name} [{card}]: wall {w['wall_ms']:.2f} ms, device "
           f"busy {w['device_busy_ms']} ms, idle share "
-          f"{w['device_idle_share']}", flush=True)
+          f"{w['device_idle_share']}"
+          + (f", shares {w['shares']}" if "shares" in w else ""), flush=True)
     for k in w["top_kernels"]:
         print(f"    {k['ms']:9.3f} ms {k['calls']:6d}x {k['name']}")
 
@@ -754,6 +1101,7 @@ def main() -> int:
     for r in rows:
         print(f"K3 {r['shape']} causal={r['causal']} window={r['window']} "
               f"{r['dtype']}: err {r['max_abs_err']:.3g} (tol {r['tol']}) "
+              f"bf16 excess {r['bf16_excess']} faults {r['fault_excess']} "
               f"kernel {r['ms']:.4f} ms plain {r['plain_ms']:.4f} ms "
               f"sdpa {r['library_ms']} ms bound {r['bound_ms']:.4f} ms "
               f"({r['bound_by']}) [{card}]", flush=True)
@@ -773,6 +1121,14 @@ def main() -> int:
           flush=True)
     print(json.dumps({"k1_k2_cases": ga_rows, "card": card}), flush=True)
 
+    # -- kernel phase: K4 ---------------------------------------------------
+    k4_rows = rglru_kernel_phase()
+    for r in k4_rows:
+        print(f"K4 {r['shape']} h0={r['h0']} {r['dtype']}: equal {r['equal']} "
+              f"kernel {r['ms']:.4f} ms plain {r['plain_ms']:.4f} ms bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}) [{card}]", flush=True)
+    print(json.dumps({"k4_cases": k4_rows, "card": card}), flush=True)
+
     # -- serving phase (K3) -------------------------------------------------
     cfg = get_config(ARCH)
     model, params, init_s = load_model(cfg)
@@ -782,7 +1138,7 @@ def main() -> int:
     n_sb = cfg.n_layers
     want = n_sb * stats["n_prefills"]
     served = stats["launches"]
-    if served[K3] != want or served[K1] or served[K2]:
+    if served[K3] != want or served[K1] or served[K2] or served[K4]:
         raise AssertionError(f"kernels launched on the serving path "
                              f"{served}; expected K3 {n_sb} layers x "
                              f"{stats['n_prefills']} prefills = {want}")
@@ -820,9 +1176,46 @@ def main() -> int:
           f" ms, peak memory {train['max_memory_allocated'] / 2**30:.2f} GiB,"
           f" launches {train['launches']}", flush=True)
     _print_window(f"train group step {TRAIN_STEPS}", window, card)
+    torch.cuda.empty_cache()
+
+    # -- recurrentgemma phase (K4, K3 at head dim 256) ---------------------
+    from repro_torch.models import rglru
+    rcfg = get_config(RG_ARCH)
+    model, params, init_s = load_model(rcfg)
+    print(f"weights: {rcfg.name} ({rcfg.n_layers} layers) initialised on the "
+          f"card in {init_s:.2f} s", flush=True)
+    rg = rg_serve_phase(model, params)
+    n_sb, tail = rglru.layout(rcfg)
+    check_rg_launches(rg, 2 * n_sb + tail, n_sb)
+    rg_windows = rg_profile(model, params)
+    f32 = rg_f32_check(rcfg, params)
+    del model, params
+    torch.cuda.empty_cache()
+    print(json.dumps({"recurrentgemma": rg, "profile": rg_windows,
+                      "float32_check": f32, "card": card}), flush=True)
+    print(f"recurrentgemma [{card}]: {rcfg.name} full width, "
+          f"{rcfg.n_layers} layers, bf16, batch {RG_BATCH} x {RG_PROMPT} "
+          f"tokens: prefill {rg['prefill_tok_per_s']:.0f} tok/s, TTFT "
+          f"{rg['ttft_s']:.3f} s, decode {rg['decode_ms_per_step']:.2f} "
+          f"ms/step (median of {RG_NEW - 2} after the first), peak memory "
+          f"{rg['max_memory_allocated'] / 2**30:.2f} GiB; launches per "
+          f"prefill {rg['prefill_launches']}, per decode step "
+          f"{rg['step_launches'][0]}", flush=True)
+    print(f"recurrentgemma checks: decode vs fresh prefill max abs diff "
+          f"{rg['logits_max_abs_diff']:.4g} (limit {LOGIT_RTOL} x "
+          f"{rg['logits_max_abs']:.4g}); float32 decode vs forward max abs "
+          f"diff {f32['logits_max_abs_diff']:.3g} (tol {RG_F32_TOL})",
+          flush=True)
+    for name, w in rg_windows.items():
+        _print_window(f"recurrentgemma {name}", w, card)
 
     main_row = next(r for r in rows if r["shape"] == [
         1, SLICE_SHAPE_FOR_LINE, SLICE_SHAPE_FOR_LINE, 32, 4, 64])
+    rg_row = next(r for r in rows if r["shape"] == list(RG_ATTN_SHAPE[:6])
+                  and r["dtype"] == RG_ATTN_SHAPE[8])
+    k4_row = next(r for r in k4_rows if r["shape"] == list(RG_SCAN_SHAPE[:3])
+                  and r["h0"] == RG_SCAN_SHAPE[3])
+    rg_launches = [rg["prefill_launches"]] + rg["step_launches"]
     ga_err = {k: max(r["max_abs_err"] for r in ga_rows if r["kernel"] == k)
               for k in ("K1", "K2")}
     entry = lambda name, source, replaces, launches, row, err, **kw: {
@@ -844,7 +1237,20 @@ def main() -> int:
               "src/repro/kernels/flash_attention.py:70", served[K3],
               main_row, max(r["max_abs_err"] for r in rows),
               bound_by=main_row["bound_by"], shape=main_row["shape"],
-              dtype=main_row["dtype"]),
+              dtype=main_row["dtype"], path=f"{ARCH} serving"),
+        entry(K3, "src/repro_torch/kernels/csrc/flash_attention.cu",
+              "src/repro/kernels/flash_attention.py:70",
+              sum(c[K3] for c in rg_launches), rg_row,
+              max(r["max_abs_err"] for r in rows),
+              bound_by=rg_row["bound_by"], shape=rg_row["shape"],
+              dtype=rg_row["dtype"], window=rg_row["window"],
+              path=f"{RG_ARCH} serving"),
+        entry(K4, "src/repro_torch/kernels/csrc/rglru_scan.cu",
+              "src/repro/kernels/rglru_scan.py:48",
+              sum(c[K4] for c in rg_launches), k4_row,
+              max(r["max_abs_err"] for r in k4_rows),
+              shape=k4_row["shape"], dtype=k4_row["dtype"],
+              path=f"{RG_ARCH} serving"),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

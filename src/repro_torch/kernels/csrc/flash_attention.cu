@@ -7,12 +7,13 @@
 // and accumulator acc, output = acc / max(l, 1e-30) cast to the input type.
 //
 // Layouts are the JAX package's: q/o (B, Sq, H, hd), k/v (B, Sk, KH, hd),
-// contiguous.  f32 and bf16 inputs; hd a multiple of 16, at most 128.
+// contiguous.  f32 and bf16 inputs; hd a multiple of 16 up to 128, or 256.
 //
 // Translation from the TPU kernel.  There the K dimension is the innermost,
 // sequential grid axis and m/l/acc persist in VMEM scratch across grid steps.
-// Blocks on the GPU run in no order, so one block owns a tile of BQ = 64
-// query rows of one (batch, head) and walks the KV tiles in a loop, with
+// Blocks on the GPU run in no order, so one block owns a tile of query rows
+// (64 in bf16; 64 or 32 in f32) of one (batch, head) and walks the KV tiles
+// in a loop, with
 // m/l/acc in registers.  Causal masking stops the loop at the diagonal tile;
 // a window starts it at the first tile the window reaches.  Ragged Sq/Sk
 // edges are masked in the kernel, so the wrapper pads nothing.  A masked
@@ -32,21 +33,32 @@
 //   in shared memory row-major and V tiles transposed, each row padded by 8
 //   elements so that the fragment loads hit 32 distinct banks.  No cp.async
 //   pipeline, no TMA, no wgmma yet: loads and products of a tile do not
-//   overlap, which is the next step.
-// * float32: scalar fp32 FMAs (tensor cores would round to TF32).  Two
-//   threads share a query row, each owning half of hd, so a warp's
-//   shared-memory reads hit two addresses as 16-byte vectors and the two
-//   halves of a dot product meet by one shuffle.
+//   overlap, which is the next step.  Shared memory is dynamic.
+// * float32: scalar fp32 FMAs (tensor cores would round to TF32).  SPLIT
+//   threads share a query row, each owning every SPLIT-th 16-byte vector of
+//   hd, so the threads of a row read neighbouring vectors of a shared-memory
+//   K/V row (no bank conflict) and the parts of a dot product meet by
+//   shuffles.
+//
+// Head dim 256 (recurrentgemma-2b: 10 heads, 1 KV head, window 2048).  In
+// bf16 the Q fragments (HD/16 x 4 registers) and the output accumulators
+// (HD/8 x 4) would take 192 registers before the S tile, so above hd 128
+// the block's Q tile waits in shared memory (row-padded like K) and each
+// 16-deep chunk's A fragment is read from there once per KV tile; sK, sVt
+// and sQ take 104 KB, above the 48 KB static limit, so the kernel opts in to
+// the larger dynamic size.  In f32 a row is split over 4 threads (64 floats
+// each of q and acc a thread) instead of 2, 32 rows a block, and a K/V tile
+// holds 16 keys so that the static 32 KB of sk/sv stays under 48 KB.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <atomic>
 #include <cstddef>
 #include <cstdint>
 
 namespace {
 
-constexpr int BQ = 64;        // query rows per block
 constexpr int THREADS = 128;  // 4 warps
 constexpr float NEG_INF = -1e30f;
 
@@ -54,15 +66,23 @@ constexpr float NEG_INF = -1e30f;
 // float32: scalar FMAs
 // ---------------------------------------------------------------------------
 
-constexpr int BK_F32 = 32;    // keys per shared-memory tile
+template <int HD>
+struct F32Tile {
+  static constexpr int SPLIT = HD > 128 ? 4 : 2;      // threads per query row
+  static constexpr int BQ = THREADS / SPLIT;          // query rows per block
+  static constexpr int BK = HD > 128 ? 16 : 32;       // keys per shared tile
+};
 
 template <int HD>
 __global__ void __launch_bounds__(THREADS)
 attn_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
              const float* __restrict__ v, float* __restrict__ o, int Sq,
              int Sk, int H, int KH, float scale, int causal, int window) {
-  constexpr int HALF = HD / 2;
-  constexpr int BK = BK_F32;
+  constexpr int SPLIT = F32Tile<HD>::SPLIT;
+  constexpr int BQ = F32Tile<HD>::BQ;
+  constexpr int BK = F32Tile<HD>::BK;
+  constexpr int PART = HD / SPLIT;  // dims of q and acc a thread owns
+  constexpr int NV = PART / 4;      // its 16-byte vectors: SPLIT*i + part
   __shared__ __align__(16) float sk[BK][HD];
   __shared__ __align__(16) float sv[BK][HD];
 
@@ -72,21 +92,26 @@ attn_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   const int kh = h / (H / KH);
   const int q0 = blockIdx.x * BQ;
   const int tid = threadIdx.x;
-  const int row = tid >> 1;
-  const int half = tid & 1;
+  const int row = tid / SPLIT;
+  const int part = tid % SPLIT;
   const int qi = q0 + row;
   const bool q_valid = qi < Sq;
 
-  float qr[HALF];
-  float acc[HALF];
+  float qr[PART];
+  float acc[PART];
   {
-    const float* qp = q + ((static_cast<size_t>(b) * Sq + (q_valid ? qi : 0)) * H + h) * HD
-                      + half * HALF;
+    const float4* qp = reinterpret_cast<const float4*>(
+        q + ((static_cast<size_t>(b) * Sq + (q_valid ? qi : 0)) * H + h) * HD);
 #pragma unroll
-    for (int d = 0; d < HALF; ++d) {
-      qr[d] = q_valid ? qp[d] : 0.f;
-      acc[d] = 0.f;
+    for (int i = 0; i < NV; ++i) {
+      const float4 qq = q_valid ? qp[SPLIT * i + part] : make_float4(0.f, 0.f, 0.f, 0.f);
+      qr[4 * i + 0] = qq.x;
+      qr[4 * i + 1] = qq.y;
+      qr[4 * i + 2] = qq.z;
+      qr[4 * i + 3] = qq.w;
     }
+#pragma unroll
+    for (int d = 0; d < PART; ++d) acc[d] = 0.f;
   }
   float m = NEG_INF;
   float l = 0.f;
@@ -118,17 +143,20 @@ attn_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
     float tile_max = NEG_INF;
 #pragma unroll
     for (int j = 0; j < BK; ++j) {
-      const float4* kr4 = reinterpret_cast<const float4*>(&sk[j][half * HALF]);
+      const float4* kr4 = reinterpret_cast<const float4*>(&sk[j][0]);
       float dot = 0.f;
 #pragma unroll
-      for (int d4 = 0; d4 < HALF / 4; ++d4) {
-        const float4 kk = kr4[d4];
-        dot = fmaf(qr[4 * d4 + 0], kk.x, dot);
-        dot = fmaf(qr[4 * d4 + 1], kk.y, dot);
-        dot = fmaf(qr[4 * d4 + 2], kk.z, dot);
-        dot = fmaf(qr[4 * d4 + 3], kk.w, dot);
+      for (int i = 0; i < NV; ++i) {
+        const float4 kk = kr4[SPLIT * i + part];
+        dot = fmaf(qr[4 * i + 0], kk.x, dot);
+        dot = fmaf(qr[4 * i + 1], kk.y, dot);
+        dot = fmaf(qr[4 * i + 2], kk.z, dot);
+        dot = fmaf(qr[4 * i + 3], kk.w, dot);
       }
-      dot += __shfl_xor_sync(0xffffffffu, dot, 1);
+      // the row's SPLIT lanes are adjacent; every lane ends with one sum
+#pragma unroll
+      for (int off = 1; off < SPLIT; off <<= 1)
+        dot += __shfl_xor_sync(0xffffffffu, dot, off);
       const int kp = kt + j;
       bool ok = kp < Sk;
       if (causal) ok = ok && kp <= qi;
@@ -148,18 +176,18 @@ attn_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
     }
     l = l * corr + psum;
 #pragma unroll
-    for (int d = 0; d < HALF; ++d) acc[d] *= corr;
+    for (int d = 0; d < PART; ++d) acc[d] *= corr;
 #pragma unroll
     for (int j = 0; j < BK; ++j) {
-      const float4* vr4 = reinterpret_cast<const float4*>(&sv[j][half * HALF]);
+      const float4* vr4 = reinterpret_cast<const float4*>(&sv[j][0]);
       const float p = s[j];
 #pragma unroll
-      for (int d4 = 0; d4 < HALF / 4; ++d4) {
-        const float4 vv = vr4[d4];
-        acc[4 * d4 + 0] = fmaf(p, vv.x, acc[4 * d4 + 0]);
-        acc[4 * d4 + 1] = fmaf(p, vv.y, acc[4 * d4 + 1]);
-        acc[4 * d4 + 2] = fmaf(p, vv.z, acc[4 * d4 + 2]);
-        acc[4 * d4 + 3] = fmaf(p, vv.w, acc[4 * d4 + 3]);
+      for (int i = 0; i < NV; ++i) {
+        const float4 vv = vr4[SPLIT * i + part];
+        acc[4 * i + 0] = fmaf(p, vv.x, acc[4 * i + 0]);
+        acc[4 * i + 1] = fmaf(p, vv.y, acc[4 * i + 1]);
+        acc[4 * i + 2] = fmaf(p, vv.z, acc[4 * i + 2]);
+        acc[4 * i + 3] = fmaf(p, vv.w, acc[4 * i + 3]);
       }
     }
     m = m_new;
@@ -167,9 +195,12 @@ attn_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
 
   if (q_valid) {
     const float denom = fmaxf(l, 1e-30f);
-    float* op = o + ((static_cast<size_t>(b) * Sq + qi) * H + h) * HD + half * HALF;
+    float4* op = reinterpret_cast<float4*>(
+        o + ((static_cast<size_t>(b) * Sq + qi) * H + h) * HD);
 #pragma unroll
-    for (int d = 0; d < HALF; ++d) op[d] = acc[d] / denom;
+    for (int i = 0; i < NV; ++i)
+      op[SPLIT * i + part] = make_float4(acc[4 * i + 0] / denom, acc[4 * i + 1] / denom,
+                                         acc[4 * i + 2] / denom, acc[4 * i + 3] / denom);
   }
 }
 
@@ -177,7 +208,20 @@ attn_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
 // bf16: tensor cores through mma.sync m16n8k16
 // ---------------------------------------------------------------------------
 
+constexpr int BQ_BF16 = 64;   // query rows per block: 16 per warp
 constexpr int BK_BF16 = 64;   // keys per shared-memory tile
+
+// Dynamic shared memory of the bf16 kernel: sK, sVt and, above hd 128, the
+// block's Q tile.
+template <int HD>
+struct Bf16Tile {
+  static constexpr bool Q_IN_SMEM = HD > 128;
+  static constexpr int KSTRIDE = HD + 8;       // sK/sQ row, padded
+  static constexpr int VSTRIDE = BK_BF16 + 8;  // sVt row, padded
+  static constexpr size_t SMEM =
+      sizeof(__nv_bfloat16) * (BK_BF16 * KSTRIDE + HD * VSTRIDE +
+                               (Q_IN_SMEM ? BQ_BF16 * KSTRIDE : 0));
+};
 
 __device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
@@ -205,14 +249,18 @@ attn_fwd_bf16(const __nv_bfloat16* __restrict__ q,
               const __nv_bfloat16* __restrict__ v,
               __nv_bfloat16* __restrict__ o, int Sq, int Sk, int H, int KH,
               float scale, int causal, int window) {
+  constexpr int BQ = BQ_BF16;
   constexpr int BK = BK_BF16;
-  constexpr int KSTRIDE = HD + 8;   // sK row, padded: conflict-free fragments
-  constexpr int VSTRIDE = BK + 8;   // sVt row, padded the same way
+  constexpr bool Q_IN_SMEM = Bf16Tile<HD>::Q_IN_SMEM;
+  constexpr int KSTRIDE = Bf16Tile<HD>::KSTRIDE;  // conflict-free fragments
+  constexpr int VSTRIDE = Bf16Tile<HD>::VSTRIDE;
   constexpr int KC = HD / 16;       // 16-deep chunks of the QK^T product
   constexpr int NO = HD / 8;        // 8-wide column tiles of the output
-  constexpr int VEC = HD / 8;       // 16-byte vectors per K/V row
-  __shared__ __align__(16) __nv_bfloat16 sK[BK * KSTRIDE];
-  __shared__ __align__(16) __nv_bfloat16 sVt[HD * VSTRIDE];
+  constexpr int VEC = HD / 8;       // 16-byte vectors per Q/K/V row
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* sVt = sK + BK * KSTRIDE;
+  __nv_bfloat16* sQ = sVt + HD * VSTRIDE;   // Q_IN_SMEM only
 
   const int bh = blockIdx.y;
   const int b = bh / H;
@@ -227,18 +275,30 @@ attn_fwd_bf16(const __nv_bfloat16* __restrict__ q,
   const int row0 = q0 + warp * 16 + g;
   const int row1 = row0 + 8;
 
-  // Q as A fragments: rows row0/row1, zero past Sq.
-  uint32_t qa[KC][4];
+  // Q as A fragments (rows row0/row1, zero past Sq) in registers, or the
+  // block's Q tile in shared memory (zero past Sq); the first barrier of the
+  // KV loop publishes it.
+  uint32_t qa[Q_IN_SMEM ? 1 : KC][4];
   {
     const size_t qs = static_cast<size_t>(H) * HD;
     const __nv_bfloat16* qb = q + static_cast<size_t>(b) * Sq * qs + static_cast<size_t>(h) * HD;
+    if constexpr (Q_IN_SMEM) {
+      for (int idx = tid; idx < BQ * VEC; idx += THREADS) {
+        const int r = idx / VEC;
+        const int c = (idx - r * VEC) * 8;
+        uint4 qv = make_uint4(0u, 0u, 0u, 0u);
+        if (q0 + r < Sq) qv = *reinterpret_cast<const uint4*>(qb + (q0 + r) * qs + c);
+        *reinterpret_cast<uint4*>(&sQ[r * KSTRIDE + c]) = qv;
+      }
+    } else {
 #pragma unroll
-    for (int kc = 0; kc < KC; ++kc) {
-      const int d = kc * 16 + 2 * t;
-      qa[kc][0] = row0 < Sq ? ld32(qb + row0 * qs + d) : 0u;
-      qa[kc][1] = row1 < Sq ? ld32(qb + row1 * qs + d) : 0u;
-      qa[kc][2] = row0 < Sq ? ld32(qb + row0 * qs + d + 8) : 0u;
-      qa[kc][3] = row1 < Sq ? ld32(qb + row1 * qs + d + 8) : 0u;
+      for (int kc = 0; kc < KC; ++kc) {
+        const int d = kc * 16 + 2 * t;
+        qa[kc][0] = row0 < Sq ? ld32(qb + row0 * qs + d) : 0u;
+        qa[kc][1] = row1 < Sq ? ld32(qb + row1 * qs + d) : 0u;
+        qa[kc][2] = row0 < Sq ? ld32(qb + row0 * qs + d + 8) : 0u;
+        qa[kc][3] = row1 < Sq ? ld32(qb + row1 * qs + d + 8) : 0u;
+      }
     }
   }
   float oacc[NO][4];
@@ -275,15 +335,31 @@ attn_fwd_bf16(const __nv_bfloat16* __restrict__ q,
     }
     __syncthreads();
 
-    // S = Q K^T for this warp's 16 rows and the tile's 64 keys.
+    // S = Q K^T for this warp's 16 rows and the tile's 64 keys; each s[j]
+    // sums its 16-deep chunks in order kc = 0, 1, ...
     float s[BK / 8][4];
 #pragma unroll
-    for (int j = 0; j < BK / 8; ++j) {
-      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-      const __nv_bfloat16* kr = &sK[(8 * j + g) * KSTRIDE + 2 * t];
+    for (int j = 0; j < BK / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
 #pragma unroll
-      for (int kc = 0; kc < KC; ++kc)
-        mma_bf16(s[j], qa[kc], ld32(kr + kc * 16), ld32(kr + kc * 16 + 8));
+    for (int kc = 0; kc < KC; ++kc) {
+      uint32_t a[4];
+      if constexpr (Q_IN_SMEM) {
+        const __nv_bfloat16* qr = &sQ[(warp * 16 + g) * KSTRIDE + kc * 16 + 2 * t];
+        a[0] = ld32(qr);
+        a[1] = ld32(qr + 8 * KSTRIDE);
+        a[2] = ld32(qr + 8);
+        a[3] = ld32(qr + 8 * KSTRIDE + 8);
+      } else {
+        a[0] = qa[kc][0];
+        a[1] = qa[kc][1];
+        a[2] = qa[kc][2];
+        a[3] = qa[kc][3];
+      }
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j) {
+        const __nv_bfloat16* kr = &sK[(8 * j + g) * KSTRIDE + kc * 16 + 2 * t];
+        mma_bf16(s[j], a, ld32(kr), ld32(kr + 8));
+      }
     }
 
     // Mask, scale and the tile's row maxima (a row lives in 4 lanes).
@@ -378,14 +454,31 @@ template <int HD>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B,
                    int Sq, int Sk, int H, int KH, float scale, int causal,
                    int window, int dtype, cudaStream_t stream) {
-  const dim3 grid((Sq + BQ - 1) / BQ, B * H);
   if (dtype == 0) {
+    constexpr int BQ = F32Tile<HD>::BQ;
+    const dim3 grid((Sq + BQ - 1) / BQ, B * H);
     attn_fwd_f32<HD><<<grid, THREADS, 0, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<float*>(o), Sq, Sk, H, KH,
         scale, causal, window);
   } else {
-    attn_fwd_bf16<HD><<<grid, THREADS, 0, stream>>>(
+    constexpr size_t smem = Bf16Tile<HD>::SMEM;
+    if (smem > 48 * 1024) {  // above the static limit: opt in, once per device
+      static std::atomic<uint64_t> opted{0};  // bit d: device d has opted in
+      int dev = 0;
+      cudaError_t err = cudaGetDevice(&dev);
+      if (err != cudaSuccess) return err;
+      const uint64_t bit = dev < 64 ? uint64_t{1} << dev : 0;  // 0: always
+      if (!(opted.load(std::memory_order_relaxed) & bit)) {
+        err = cudaFuncSetAttribute(attn_fwd_bf16<HD>,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   static_cast<int>(smem));
+        if (err != cudaSuccess) return err;
+        opted.fetch_or(bit, std::memory_order_relaxed);
+      }
+    }
+    const dim3 grid((Sq + BQ_BF16 - 1) / BQ_BF16, B * H);
+    attn_fwd_bf16<HD><<<grid, THREADS, smem, stream>>>(
         static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
         static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
         Sq, Sk, H, KH, scale, causal, window);
@@ -419,6 +512,7 @@ extern "C" int repro_flash_attention_fwd(const void* q, const void* k,
     REPRO_HD_CASE(96)
     REPRO_HD_CASE(112)
     REPRO_HD_CASE(128)
+    REPRO_HD_CASE(256)
 #undef REPRO_HD_CASE
     default:
       return static_cast<int>(cudaErrorInvalidValue);

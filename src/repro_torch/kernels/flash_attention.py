@@ -3,8 +3,8 @@
 ``flash_attention_cuda`` launches ``csrc/flash_attention.cu``, the
 hand-written replacement of ``repro/kernels/flash_attention.py::
 _attn_kernel``: tensor-core products (``mma.sync``) for bfloat16, scalar
-FMAs for float32 (see the source's note for the design and what bounds
-it).
+FMAs for float32, head dims 16-128 in steps of 16 and 256 (see the
+source's note for the design and what bounds it).
 ``flash_attention_plain`` computes the same function in torch with the
 algorithm of ``repro.models.common.blocked_attention``: an online softmax
 over KV blocks with fp32 m/l/acc, visiting only the blocks a causal mask or
@@ -25,7 +25,7 @@ import torch
 from repro_torch.kernels import _build
 
 NEG_INF = -1e30
-HD_SUPPORTED = tuple(range(16, 129, 16))
+HD_SUPPORTED = tuple(range(16, 129, 16)) + (256,)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 # Launches of the CUDA kernel since the last reset (kernels/ops.py reads it).

@@ -13,12 +13,24 @@ import torch
 
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import group_average as _ga
+from repro_torch.kernels import rglru_scan as _rg
 
 
 def _device_kind(t) -> str:
     if t.device.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {t.device}")
     return t.device.type
+
+
+def _refuse_grad(name: str, *ts) -> None:
+    """The kernels are forward only, as the JAX package's: with grad enabled
+    and an input that requires grad, raise on either device, since a CUDA
+    output would carry no gradient."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                       for t in ts):
+        raise RuntimeError(
+            f"{name} has no backward: call it under torch.no_grad() or with "
+            f"inputs that do not require grad")
 
 
 def flash_attention(q, k, v, *, causal: bool = True,
@@ -33,10 +45,7 @@ def flash_attention(q, k, v, *, causal: bool = True,
     raises on either device, since the kernel's output carries no gradient
     (training attention is ``models.common.differentiable_blocked_attention``).
     """
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise RuntimeError(
-            "flash_attention has no backward: call it under torch.no_grad() "
-            "or with inputs that do not require grad")
+    _refuse_grad("flash_attention", q, k, v)
     if _device_kind(q) == "cuda":
         if q_offset:
             raise NotImplementedError(
@@ -77,14 +86,27 @@ def group_average_combine_multi(ws: Sequence, rs: Sequence, inv_s: float, *,
     return _ga.group_average_combine_multi_plain(ws, rs, inv_s, outs=outs)
 
 
+def rglru_scan(a, x, h0=None):
+    """h_t = a_t * h_{t-1} + x_t over a, x (B,S,W) with an fp32 carry from
+    h0 (B,W) or 0; returns h (B,S,W) in x's dtype.  Forward only: the
+    training slice decides how the scan is differentiated, so with grad
+    enabled and an input that requires grad it raises on either device."""
+    _refuse_grad("rglru_scan", a, x, h0)
+    if _device_kind(x) == "cuda":
+        return _rg.rglru_scan_cuda(a, x, h0)
+    return _rg.rglru_scan_plain(a, x, h0)
+
+
 def launch_counts() -> Dict[str, int]:
     """Kernel launches since the last :func:`reset_launch_counts`."""
     return {"flash_attention": _fa.launches,
             "group_average_combine": _ga.launches,
-            "group_average_combine_multi": _ga.multi_launches}
+            "group_average_combine_multi": _ga.multi_launches,
+            "rglru_scan": _rg.launches}
 
 
 def reset_launch_counts() -> None:
     _fa.launches = 0
+    _rg.launches = 0
     _ga.launches = 0
     _ga.multi_launches = 0

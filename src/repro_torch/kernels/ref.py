@@ -2,7 +2,8 @@
 
 Counterpart of ``repro/kernels/ref.py``: materialise the full score matrix,
 slow but obviously correct, for the kernel test sweeps; the butterfly
-combine written as its definition.
+combine written as its definition; the RG-LRU recurrence as a sequential
+fp32 carry.
 """
 
 from __future__ import annotations
@@ -40,3 +41,15 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window=None):
 def group_average_ref(w, recv, inv_s: float):
     """Butterfly combine step: (w + recv) * inv_s in fp32, back to w.dtype."""
     return ((w.float() + recv.float()) * inv_s).to(w.dtype)
+
+
+def rglru_scan_ref(a, x, h0=None):
+    """Sequential linear recurrence h_t = a_t*h_{t-1} + x_t; a,x (B,S,W)."""
+    b, s, w = x.shape
+    h = (torch.zeros((b, w), dtype=torch.float32, device=x.device)
+         if h0 is None else h0.float())
+    out = torch.empty_like(x)
+    for t in range(s):
+        h = a[:, t].float() * h + x[:, t].float()
+        out[:, t] = h                   # each h_t cast to x's dtype
+    return out

@@ -1,0 +1,84 @@
+"""RG-LRU linear recurrence ``h_t = a_t * h_{t-1} + x_t``: the Hopper kernel
+K4 and its plain version.
+
+``rglru_scan_cuda`` launches ``csrc/rglru_scan.cu``, the hand-written
+replacement of ``repro/kernels/rglru_scan.py::rglru_scan`` (see the
+source's note for the design and what bounds it).  ``rglru_scan_plain``
+computes the same function in torch, a loop over time with an fp32 carry;
+every result of the kernel is bit-identical to it.
+
+Both take a, x (B,S,W), each float32 or bfloat16, and an optional h0 (B,W)
+(the carry before step 0), and return h (B,S,W) in x's dtype.  Channels are
+independent; time is sequential.  The kernel carries no gradient.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build, ref
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+# Launches of the CUDA kernel since the last reset (kernels/ops.py reads it).
+launches = 0
+
+
+def rglru_scan_plain(a, x, h0=None):
+    """The recurrence as a loop over t in fp32, each h_t cast to x's dtype:
+    the oracle ``ref.rglru_scan_ref`` (torch multiplies and adds in separate
+    kernels, so nothing is contracted into an FMA)."""
+    return ref.rglru_scan_ref(a, x, h0)
+
+
+def _check(a, x, h0):
+    if not (x.is_cuda and a.device == x.device
+            and (h0 is None or h0.device == x.device)):
+        raise ValueError("rglru_scan_cuda: a, x, h0 must be on one CUDA device")
+    if a.dtype not in _DTYPE_CODE or x.dtype not in _DTYPE_CODE:
+        raise ValueError(f"rglru_scan_cuda: dtypes {a.dtype}/{x.dtype}; need "
+                         f"float32 or bfloat16")
+    if x.dim() != 3 or a.shape != x.shape:
+        raise ValueError(f"rglru_scan_cuda: shapes {tuple(a.shape)}, "
+                         f"{tuple(x.shape)}; need two equal (B,S,W)")
+    b, s, w = x.shape
+    if min(b, s, w) < 1 or b > 65535:
+        raise ValueError(f"rglru_scan_cuda: (B,S,W) = {(b, s, w)}; need each "
+                         f">= 1 and B <= 65535")
+    if h0 is not None and (h0.dtype != torch.float32 or h0.shape != (b, w)):
+        raise ValueError(f"rglru_scan_cuda: h0 {h0.dtype} {tuple(h0.shape)}; "
+                         f"need float32 {(b, w)}")
+    if not all(t.is_contiguous() for t in (a, x) + ((h0,) if h0 is not None
+                                                     else ())):
+        raise ValueError("rglru_scan_cuda: inputs must be contiguous")
+
+
+def _entry():
+    fn = _build.load("rglru_scan").repro_rglru_scan
+    if fn.argtypes is None:
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+                       + [ctypes.c_void_p])
+    return fn
+
+
+def rglru_scan_cuda(a, x, h0=None):
+    """Launch K4 on x's current stream; raises on any input it does not
+    take and on a failed launch."""
+    global launches
+    _check(a, x, h0)
+    b, s, w = x.shape
+    out = torch.empty_like(x)
+    fn = _entry()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = fn(a.data_ptr(), x.data_ptr(),
+                 h0.data_ptr() if h0 is not None else None, out.data_ptr(),
+                 b, s, w, _DTYPE_CODE[a.dtype], _DTYPE_CODE[x.dtype], stream)
+    if err != 0:
+        raise RuntimeError(f"rglru_scan kernel launch failed: CUDA error {err} "
+                           f"at {(b, s, w)} a {a.dtype} x {x.dtype}")
+    launches += 1
+    return out

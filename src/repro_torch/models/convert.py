@@ -11,19 +11,26 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.models import rglru
 from repro_torch.models import transformer as tfm
+
+PARAM_SPECS = {"dense": tfm.param_specs, "hybrid": rglru.param_specs}
 
 
 def params_from_jax(cfg, tree, device="cuda", *, lead=(), dtype=None):
     """JAX param tree (leaves as numpy arrays, or anything ``np.asarray``
-    takes) -> the port's params on ``device`` in ``cfg.dtype`` (or
-    ``dtype``).  ``lead`` is the shape of leading dims every leaf carries
-    (``(P,)`` for a stacked replica tree).
+    takes) -> the port's params on ``device``, each leaf in the dtype of the
+    port's own init (``cfg.dtype``; recurrentgemma's ``lam`` float32), or
+    all in ``dtype``.  ``lead`` is the shape of leading dims every leaf
+    carries (``(P,)`` for a stacked replica tree).
 
-    Checks every leaf's shape against the port's own init, so a tree of
-    another config or family fails here and not inside a matmul.
+    Checks every leaf's shape against the port's own init of ``cfg``'s
+    family, so a tree of another config or family fails here and not inside
+    a matmul.
     """
-    dtype = dtype or tfm.torch_dtype(cfg)
+    if cfg.family not in PARAM_SPECS:
+        raise NotImplementedError(f"params_from_jax: family {cfg.family!r} "
+                                  f"is not ported")
     lead = tuple(lead)
 
     def conv(node, spec, path):
@@ -34,13 +41,14 @@ def params_from_jax(cfg, tree, device="cuda", *, lead=(), dtype=None):
                                  f"{got}, expected {sorted(spec)}")
             return {k: conv(node[k], spec[k], f"{path}/{k}") for k in spec}
         arr = np.array(node, dtype=np.float32)
-        spec = lead + spec
-        if arr.shape != spec:
+        shape = lead + spec.shape
+        if arr.shape != shape:
             raise ValueError(f"params_from_jax: {path} has shape "
-                             f"{arr.shape}, expected {spec}")
-        return torch.from_numpy(arr).to(device=device, dtype=dtype)
+                             f"{arr.shape}, expected {shape}")
+        return torch.from_numpy(arr).to(device=device,
+                                        dtype=dtype or spec.dtype)
 
-    return conv(tree, tfm.param_shapes(cfg), "")
+    return conv(tree, PARAM_SPECS[cfg.family](cfg), "")
 
 
 def replica_state_from_jax(cfg, state, device="cuda"):

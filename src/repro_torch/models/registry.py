@@ -1,9 +1,10 @@
 """Uniform model API: build_model(cfg, device) -> ModelAPI.
 
-Counterpart of ``repro/models/registry.py`` for the dense family.  The
-``layered`` decomposition belongs to the FSDP slice; the chunked
-cross-entropy of vocabularies of 65536 and more (``_chunked_ce``) to
-slice 3 (ROADMAP.md), whose recurrentgemma needs it.
+Counterpart of ``repro/models/registry.py`` for the dense family and, for
+serving, the hybrid family (recurrentgemma).  The ``layered``
+decomposition belongs to the FSDP slice; the chunked cross-entropy of
+vocabularies of 65536 and more (``_chunked_ce``) and the hybrid loss to
+slice 3b (ROADMAP.md), recurrentgemma's training.
 """
 
 from __future__ import annotations
@@ -11,6 +12,7 @@ from __future__ import annotations
 from typing import Any, Callable, NamedTuple
 
 from repro_torch.models import common as cm
+from repro_torch.models import rglru
 from repro_torch.models import transformer as tfm
 
 
@@ -28,7 +30,6 @@ class ModelAPI(NamedTuple):
 _LATER = {
     "moe": "slice 9 (models/moe.py)",
     "ssm": "slice 9 (models/xlstm.py)",
-    "hybrid": "slice 3 (models/rglru.py with kernel K4)",
     "vlm": "slice 9 (models/vlm.py)",
     "audio": "slice 5 (models/encdec.py)",
 }
@@ -47,7 +48,7 @@ def _dense_loss(cfg):
             raise NotImplementedError(
                 f"{cfg.name}: the chunked cross-entropy for a vocab of "
                 f"{cfg.vocab_padded} (>= {CHUNKED_CE_VOCAB}) is not ported "
-                f"yet (ROADMAP.md, slice 3)")
+                f"yet (ROADMAP.md, slice 3b)")
         logits = tfm.forward_train(cfg, params, batch["tokens"], remat=remat)
         ce = cm.softmax_cross_entropy(logits, batch["labels"],
                                       batch.get("mask"))
@@ -56,26 +57,42 @@ def _dense_loss(cfg):
     return loss_fn
 
 
+def _hybrid_loss(cfg):
+    """recurrentgemma serves but does not train yet."""
+    def loss_fn(params, batch, remat=True):
+        raise NotImplementedError(
+            f"{cfg.name}: the hybrid loss (the chunked cross-entropy of its "
+            f"{cfg.vocab_padded} vocab and a gradient through the RG-LRU scan) "
+            f"is not ported yet (ROADMAP.md, slice 3b: recurrentgemma "
+            f"training)")
+
+    return loss_fn
+
+
 def build_model(cfg, device="cuda") -> ModelAPI:
-    """The dense family's API; entry points run on ``device`` (CUDA unless
-    the caller asks for the CPU)."""
-    if cfg.family != "dense":
-        if cfg.family in _LATER:
-            raise NotImplementedError(
-                f"family {cfg.family!r} ({cfg.name}) is not ported yet; "
-                f"ROADMAP.md: {_LATER[cfg.family]}")
+    """The dense or hybrid family's API; entry points run on ``device``
+    (CUDA unless the caller asks for the CPU)."""
+    if cfg.family == "dense":
+        mod, loss = tfm, _dense_loss(cfg)
+    elif cfg.family == "hybrid":
+        mod, loss = rglru, _hybrid_loss(cfg)
+    elif cfg.family in _LATER:
+        raise NotImplementedError(
+            f"family {cfg.family!r} ({cfg.name}) is not ported yet; "
+            f"ROADMAP.md: {_LATER[cfg.family]}")
+    else:
         raise ValueError(f"unknown family {cfg.family!r}")
     return ModelAPI(
         cfg=cfg,
         device=device,
-        init=lambda generator: tfm.init_params(cfg, generator, device),
+        init=lambda generator: mod.init_params(cfg, generator, device),
         forward=lambda params, batch: (
-            tfm.forward(cfg, params, batch["tokens"]), {}),
-        loss=_dense_loss(cfg),
-        init_caches=lambda batch, max_len: tfm.init_caches(
+            mod.forward(cfg, params, batch["tokens"]), {}),
+        loss=loss,
+        init_caches=lambda batch, max_len: mod.init_caches(
             cfg, batch, max_len, device),
-        prefill=lambda params, batch, max_len: tfm.prefill(
+        prefill=lambda params, batch, max_len: mod.prefill(
             cfg, params, batch["tokens"], max_len=max_len),
-        decode_step=lambda params, caches, token, pos: tfm.decode_step(
+        decode_step=lambda params, caches, token, pos: mod.decode_step(
             cfg, params, caches, token, pos),
     )

@@ -1,0 +1,284 @@
+"""RecurrentGemma / Griffin (arXiv:2402.19427): RG-LRU + local attention, 1:2,
+counterpart of ``repro/models/rglru.py``.
+
+26 layers, pattern (recurrent, recurrent, local-attention) x 8 + a trailing
+(recurrent, recurrent) pair. Each residual block = temporal mixing + gated MLP.
+
+RG-LRU recurrence (linear, gated):
+    r_t = sigmoid(W_r u_t);  i_t = sigmoid(W_i u_t)
+    a_t = exp(-c * softplus(Lambda) * r_t)              (c = 8)
+    h_t = a_t * h_{t-1} + sqrt(1 - a_t^2) * (i_t * u_t)
+
+The JAX model scans with ``jax.lax.associative_scan``; here the recurrence
+runs through ``kernels.ops.rglru_scan``: the Hopper kernel K4 on CUDA
+tensors, its plain sequential loop on CPU tensors.  The local-attention
+layers are the dense family's (``transformer._attn_block``, whose prefill
+attention is K3, and ``transformer._decode_layer``) with a window of
+``ATTN_WINDOW``.
+
+Parameters are a dict with the JAX package's tree and layouts: ``emb``,
+``blocks/{rec1,rec2,attn}`` stacked over the 8 superblocks, ``ln_f`` and
+``tail`` stacked over the trailing recurrent layers.  ``lam`` is float32
+whatever ``cfg.dtype`` is.  Serving state per recurrent layer is
+``(h (B,w) fp32, conv (B,K-1,w) in cfg.dtype)``; ``decode_step`` writes
+every cache in place and returns them.  Forward only: the training loss
+is a later slice (ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.tree import Spec
+from repro_torch.kernels import ops
+from repro_torch.models import common as cm
+from repro_torch.models import transformer as tfm
+
+C_FACTOR = 8.0
+ATTN_WINDOW = 2048    # Griffin's local attention window
+LAM = "lam"           # init of Lambda: fp32 linspace(0.9, 0.999, w)
+
+
+def layout(cfg):
+    """(superblocks, trailing recurrent layers) covering cfg.n_layers."""
+    n_sb = cfg.n_layers // 3
+    return n_sb, cfg.n_layers - 3 * n_sb
+
+
+# ---------------------------------------------------------------------------
+# Params
+# ---------------------------------------------------------------------------
+
+def _param_tree(cfg, leaf):
+    """The param tree with each leaf made by ``leaf(shape, init)``: init is
+    the std of a normal init, None for a zero leaf, or ``LAM``."""
+    d, ff = cfg.d_model, cfg.d_ff
+    w = cfg.lru_width or d
+    n_sb, tail = layout(cfg)
+
+    def dense(lead, d_in, d_out, std=None):
+        return leaf(lead + (d_in, d_out), std or 1.0 / math.sqrt(d_in))
+
+    def recurrent(lead):
+        return {
+            "ln": {"scale": leaf(lead + (d,), None)},
+            "w_x": dense(lead, d, w),
+            "w_gate": dense(lead, d, w),
+            "conv_w": leaf(lead + (cfg.conv_width, w), 0.1),
+            "w_r": dense(lead, w, w, 0.01),
+            "w_i": dense(lead, w, w, 0.01),
+            "lam": leaf(lead + (w,), LAM),
+            "w_out": dense(lead, w, d),
+            "mlp": {"ln": {"scale": leaf(lead + (d,), None)},
+                    "w1": dense(lead, d, ff), "w3": dense(lead, d, ff),
+                    "w2": dense(lead, ff, d)},
+        }
+
+    params = {
+        "emb": leaf((cfg.vocab_padded, d), 0.02),
+        "blocks": {"rec1": recurrent((n_sb,)), "rec2": recurrent((n_sb,)),
+                   "attn": tfm.layer_tree(cfg, (n_sb,), leaf)},
+        "ln_f": {"scale": leaf((d,), None)},
+    }
+    if tail:
+        params["tail"] = recurrent((tail,))
+    return params
+
+
+def param_shapes(cfg):
+    """The param tree with each leaf's shape tuple in place of a tensor."""
+    return _param_tree(cfg, lambda shape, init: tuple(shape))
+
+
+def param_specs(cfg):
+    """The param tree with each leaf's shape and dtype (``lam`` float32)."""
+    dtype = tfm.torch_dtype(cfg)
+    return _param_tree(cfg, lambda shape, init: Spec(
+        tuple(shape), torch.float32 if init == LAM else dtype))
+
+
+def init_params(cfg, generator: torch.Generator, device="cuda"):
+    """Random weights with the JAX init's distributions (N(0, 1/d_in) dense
+    kernels, N(0, 0.01^2) gate kernels, N(0, 0.1^2) conv taps, N(0, 0.02^2)
+    embeddings, zero norm scales) and its deterministic ``lam``.  Numbers
+    are drawn on the generator's device, one leaf at a time."""
+    dtype = tfm.torch_dtype(cfg)
+
+    def leaf(shape, init):
+        if init == LAM:
+            lam = np.linspace(0.9, 0.999, shape[-1], dtype=np.float32)
+            return torch.from_numpy(lam).to(device).expand(shape).clone()
+        if init is None:
+            return torch.zeros(shape, dtype=dtype, device=device)
+        x = torch.randn(shape, generator=generator, dtype=torch.float32,
+                        device=generator.device) * init
+        return x.to(device=device, dtype=dtype)
+
+    return _param_tree(cfg, leaf)
+
+
+# ---------------------------------------------------------------------------
+# RG-LRU core
+# ---------------------------------------------------------------------------
+
+def _gates(p, u):
+    r = torch.sigmoid((u @ p["w_r"]).float())
+    i = torch.sigmoid((u @ p["w_i"]).float())
+    log_a = -C_FACTOR * F.softplus(p["lam"]) * r             # (B,S,w) fp32
+    a = torch.exp(log_a)
+    gated_in = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), 1e-12,
+                                      1.0)) * (i * u.float())
+    return a, gated_in
+
+
+def conv1d_causal(u, w, state=None):
+    """Depthwise causal conv, width K. u (B,S,w); state (B,K-1,w) history.
+    The K products are summed in order from 0, in u's dtype."""
+    K = w.shape[0]
+    if state is None:
+        pad = u.new_zeros((u.shape[0], K - 1, u.shape[2]))
+    else:
+        pad = state.to(u.dtype)
+    up = torch.cat([pad, u], dim=1)
+    out = sum(up[:, k:k + u.shape[1]] * w[k] for k in range(K))
+    # a copy: a view would keep the whole (B, S+K-1, w) buffer alive in the
+    # cache
+    new_state = up[:, -(K - 1):].clone()
+    return out, new_state
+
+
+def recurrent_block(cfg, p, x, state=None):
+    """state = (h (B,w) fp32, conv (B,K-1,w)) or None. Returns (x, state)."""
+    h = cm.rms_norm(x, p["ln"]["scale"], cfg.norm_eps)
+    gate = cm.act_fn("gelu")(h @ p["w_gate"])
+    u = h @ p["w_x"]
+    h0, conv_state = (None, None) if state is None else state
+    u, conv_state = conv1d_causal(u, p["conv_w"], conv_state)
+    a, gin = _gates(p, u)
+    hs = ops.rglru_scan(a, gin, h0)                           # (B,S,w) fp32
+    y = (hs.to(x.dtype) * gate) @ p["w_out"]
+    x = x + y
+    x = x + tfm.mlp(cfg, p["mlp"], cm.rms_norm(x, p["mlp"]["ln"]["scale"],
+                                               cfg.norm_eps))
+    return x, (hs[:, -1].clone(), conv_state)     # a copy, as for conv
+
+
+def _final(cfg, params, x):
+    x = cm.rms_norm(x, params["ln_f"]["scale"], cfg.norm_eps)
+    return tfm.unembed(cfg, params, x)
+
+
+# ---------------------------------------------------------------------------
+# Forward (scoring)
+# ---------------------------------------------------------------------------
+
+@torch.no_grad()
+def forward(cfg, params, tokens):
+    """tokens (B,S) -> logits (B,S,V)."""
+    x = tfm.embed(cfg, params, tokens)
+    positions = tfm._positions(x)
+    n_sb, tail = layout(cfg)
+    for i in range(n_sb):
+        bp = tfm._index(params["blocks"], i)
+        x, _ = recurrent_block(cfg, bp["rec1"], x)
+        x, _ = recurrent_block(cfg, bp["rec2"], x)
+        x = tfm.attn_layer(cfg, bp["attn"], x, positions, ATTN_WINDOW)
+    for i in range(tail):
+        x, _ = recurrent_block(cfg, tfm._index(params["tail"], i), x)
+    return _final(cfg, params, x)
+
+
+# ---------------------------------------------------------------------------
+# Serving
+# ---------------------------------------------------------------------------
+
+def init_caches(cfg, batch: int, max_len: int, device="cuda"):
+    """Zero state for every recurrent layer and a ring of
+    ``min(ATTN_WINDOW, max_len)`` positions for every attention layer."""
+    n_sb, tail = layout(cfg)
+    w = cfg.lru_width or cfg.d_model
+    K = cfg.conv_width
+    dtype = tfm.torch_dtype(cfg)
+
+    def rec_state(n):
+        return (torch.zeros((n, batch, w), dtype=torch.float32, device=device),
+                torch.zeros((n, batch, K - 1, w), dtype=dtype, device=device))
+
+    caches = {
+        "rec1": rec_state(n_sb),
+        "rec2": rec_state(n_sb),
+        "attn": cm.init_kv_cache(n_sb, batch, min(ATTN_WINDOW, max_len),
+                                 cfg.n_kv_heads, cfg.hd, dtype, device),
+    }
+    if tail:
+        caches["tail"] = rec_state(tail)
+    return caches
+
+
+def _decode_recurrent(cfg, p, x, state, i):
+    """One recurrent layer of a decode step; writes layer i of the stacked
+    state ``(h, conv)`` in place."""
+    h, conv = state
+    x, (h_new, conv_new) = recurrent_block(cfg, p, x, state=(h[i], conv[i]))
+    h[i] = h_new
+    conv[i] = conv_new
+    return x
+
+
+@torch.no_grad()
+def decode_step(cfg, params, caches, token, pos):
+    """token (B,1) int; pos an int or a (B,) int tensor -> (logits (B,1,V),
+    caches).  The caches are updated in place and returned."""
+    x = tfm.embed(cfg, params, token)
+    pos = torch.as_tensor(pos, device=x.device).to(torch.int64)
+    n_sb, tail = layout(cfg)
+    for i in range(n_sb):
+        bp = tfm._index(params["blocks"], i)
+        x = _decode_recurrent(cfg, bp["rec1"], x, caches["rec1"], i)
+        x = _decode_recurrent(cfg, bp["rec2"], x, caches["rec2"], i)
+        x = tfm._decode_layer(cfg, bp["attn"], x, caches["attn"]["k"][i],
+                              caches["attn"]["v"][i], pos, ATTN_WINDOW)
+    for i in range(tail):
+        x = _decode_recurrent(cfg, tfm._index(params["tail"], i), x,
+                              caches["tail"], i)
+    return _final(cfg, params, x), caches
+
+
+@torch.no_grad()
+def prefill(cfg, params, tokens, max_len: Optional[int] = None):
+    """Fill the caches for tokens (B,S); returns (last-token logits,
+    caches): each recurrent layer's last h and conv history, each attention
+    layer's trailing window of K/V (after rope) in ring order."""
+    x = tfm.embed(cfg, params, tokens)
+    max_len = max_len or x.shape[1]
+    positions = tfm._positions(x)
+    n_sb, tail = layout(cfg)
+
+    def stack(states):
+        return tuple(torch.stack(parts) for parts in zip(*states))
+
+    r1, r2, ks, vs = [], [], [], []
+    for i in range(n_sb):
+        bp = tfm._index(params["blocks"], i)
+        x, st = recurrent_block(cfg, bp["rec1"], x)
+        r1.append(st)
+        x, st = recurrent_block(cfg, bp["rec2"], x)
+        r2.append(st)
+        x, k, v = tfm._attn_block(cfg, bp["attn"], x, positions, ATTN_WINDOW,
+                                  True)
+        ks.append(tfm.window_ring(k, ATTN_WINDOW, max_len))
+        vs.append(tfm.window_ring(v, ATTN_WINDOW, max_len))
+    caches = {"rec1": stack(r1), "rec2": stack(r2),
+              "attn": {"k": torch.stack(ks), "v": torch.stack(vs)}}
+    if tail:
+        ts = []
+        for i in range(tail):
+            x, st = recurrent_block(cfg, tfm._index(params["tail"], i), x)
+            ts.append(st)
+        caches["tail"] = stack(ts)
+    return _final(cfg, params, x[:, -1:]), caches

@@ -78,51 +78,51 @@ def norm_apply(cfg, x, p):
 # Params
 # ---------------------------------------------------------------------------
 
+def layer_tree(cfg, lead, leaf):
+    """One attention layer's params (norms, attention, MLP), each leaf made
+    by ``leaf(lead + shape, std)`` (std None: a zero-initialised leaf)."""
+    d, h, kh, hd, ff = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
+                        cfg.d_ff)
+
+    def norm(width):
+        p = {"scale": leaf(lead + (width,), None)}
+        if cfg.norm == "ln":
+            p["bias"] = leaf(lead + (width,), None)
+        return p
+
+    def dense(d_in, d_out):
+        return leaf(lead + (d_in, d_out), 1.0 / math.sqrt(d_in))
+
+    p = {
+        "ln1": norm(d), "ln2": norm(d),
+        "attn": {"wq": dense(d, h * hd), "wk": dense(d, kh * hd),
+                 "wv": dense(d, kh * hd), "wo": dense(h * hd, d)},
+        "mlp": {"w1": dense(d, ff), "w2": dense(ff, d)},
+    }
+    if cfg.gated_mlp:
+        p["mlp"]["w3"] = dense(d, ff)
+    if cfg.qk_norm:
+        p["attn"]["q_norm"] = leaf(lead + (hd,), None)
+        p["attn"]["k_norm"] = leaf(lead + (hd,), None)
+    return p
+
+
 def _param_tree(cfg, leaf):
     """The param tree with each leaf made by ``leaf(shape, std)``: std is
     the init's standard deviation, or None for a zero-initialised leaf."""
     n_sb, n_local, has_global = superblock_layout(cfg)
-    d, h, kh, hd, ff = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
-                        cfg.d_ff)
-
-    def normal(shape, std):
-        return leaf(shape, std)
-
-    def zeros(shape):
-        return leaf(shape, None)
-
-    def norm(lead, width):
-        p = {"scale": zeros(lead + (width,))}
-        if cfg.norm == "ln":
-            p["bias"] = zeros(lead + (width,))
-        return p
-
-    def dense(lead, d_in, d_out):
-        return normal(lead + (d_in, d_out), 1.0 / math.sqrt(d_in))
-
-    def layers(lead):
-        p = {
-            "ln1": norm(lead, d), "ln2": norm(lead, d),
-            "attn": {"wq": dense(lead, d, h * hd), "wk": dense(lead, d, kh * hd),
-                     "wv": dense(lead, d, kh * hd), "wo": dense(lead, h * hd, d)},
-            "mlp": {"w1": dense(lead, d, ff), "w2": dense(lead, ff, d)},
-        }
-        if cfg.gated_mlp:
-            p["mlp"]["w3"] = dense(lead, d, ff)
-        if cfg.qk_norm:
-            p["attn"]["q_norm"] = zeros(lead + (hd,))
-            p["attn"]["k_norm"] = zeros(lead + (hd,))
-        return p
-
+    d = cfg.d_model
     blocks = {}
     if n_local:
-        blocks["local"] = layers((n_sb, n_local))
+        blocks["local"] = layer_tree(cfg, (n_sb, n_local), leaf)
     if has_global:
-        blocks["global"] = layers((n_sb,))
-    params = {"emb": normal((cfg.vocab_padded, d), 0.02), "blocks": blocks,
-              "ln_f": norm((), d)}
+        blocks["global"] = layer_tree(cfg, (n_sb,), leaf)
+    params = {"emb": leaf((cfg.vocab_padded, d), 0.02), "blocks": blocks,
+              "ln_f": {"scale": leaf((d,), None)}}
+    if cfg.norm == "ln":
+        params["ln_f"]["bias"] = leaf((d,), None)
     if not cfg.tie_embeddings:
-        params["lm_head"] = normal((cfg.vocab_padded, d), 0.02)
+        params["lm_head"] = leaf((cfg.vocab_padded, d), 0.02)
     return params
 
 
@@ -326,6 +326,20 @@ def decode_step(cfg, params, caches, token, pos):
     return unembed(cfg, params, x), caches
 
 
+def window_ring(a, window: int, max_len: int):
+    """A prefill's K or V (B,S,KH,hd) -> the ring cache of a windowed layer,
+    (B, min(window, max_len), KH, hd): slot j holds the latest position p
+    with p % w == j, i.e. p_j = S-1 - ((S-1-j) % w); slots without a
+    position are zero."""
+    s = a.shape[1]
+    w = min(window, max_len)
+    j = torch.arange(w, device=a.device)
+    p_j = (s - 1) - torch.remainder(s - 1 - j, w)
+    taken = a[:, torch.clamp(p_j, 0, s - 1)]
+    return torch.where((p_j >= 0)[None, :, None, None], taken,
+                       torch.zeros((), dtype=a.dtype, device=a.device))
+
+
 @torch.no_grad()
 def prefill(cfg, params, tokens, max_len: Optional[int] = None):
     """Fill caches for tokens (B,S); returns (last-token logits, caches).
@@ -340,17 +354,6 @@ def prefill(cfg, params, tokens, max_len: Optional[int] = None):
     max_len = max_len or s
     positions = _positions(x)
     n_sb, n_local, has_global = superblock_layout(cfg)
-    dev = x.device
-
-    def ring(a, window):
-        # slot j holds the latest position p with p % w == j, i.e.
-        # p_j = s-1 - ((s-1-j) % w); slots without a position are zero
-        w = min(window, max_len)
-        j = torch.arange(w, device=dev)
-        p_j = (s - 1) - torch.remainder(s - 1 - j, w)
-        taken = a[:, torch.clamp(p_j, 0, s - 1)]
-        return torch.where((p_j >= 0)[None, :, None, None], taken,
-                           torch.zeros((), dtype=a.dtype, device=dev))
 
     def pad(a):
         if max_len == s:
@@ -366,8 +369,8 @@ def prefill(cfg, params, tokens, max_len: Optional[int] = None):
             lp = _index(_index(params["blocks"]["local"], i), j)
             x, k, v = _attn_block(cfg, lp, x, positions, cfg.sliding_window,
                                   True)
-            lk.append(ring(k, cfg.sliding_window))
-            lv.append(ring(v, cfg.sliding_window))
+            lk.append(window_ring(k, cfg.sliding_window, max_len))
+            lv.append(window_ring(v, cfg.sliding_window, max_len))
         if n_local:
             local_k.append(torch.stack(lk))
             local_v.append(torch.stack(lv))

@@ -73,7 +73,7 @@ def _chip_smoke():
 
 
 NO_LAUNCHES = {"flash_attention": 0, "group_average_combine": 0,
-               "group_average_combine_multi": 0}
+               "group_average_combine_multi": 0, "rglru_scan": 0}
 
 
 def test_chip_smoke_phases_at_smoke_size_on_cpu():
@@ -133,3 +133,40 @@ def test_chip_smoke_predicts_the_slice_launches():
     assert [ks for _, ks in smoke.scale_groups(10, 2) if len(ks) > 1] == \
         [[8, 9]]
     assert smoke.expected_combine_launches(1, 2) == (2, 0)
+
+
+def test_chip_smoke_recurrentgemma_phase_at_smoke_size_on_cpu(monkeypatch):
+    """chip_smoke's recurrentgemma phase, rehearsed on the CPU with the
+    smoke config and a window of 16 tokens so that the ring wraps: checks
+    (b)-(d) hold, the profile windows run, and with no kernel launched off
+    the card check (a) refuses the CPU run."""
+    import pytest
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import rglru
+
+    smoke = _chip_smoke()
+    monkeypatch.setattr(rglru, "ATTN_WINDOW", 16)
+    cfg = get_config(smoke.RG_ARCH, smoke=True)
+    model, params, _ = smoke.load_model(cfg, "cpu")
+    stats = smoke.rg_serve_phase(model, params, device="cpu", batch=2,
+                                 prompt_len=21, new=4)
+    windows = smoke.rg_profile(model, params, device="cpu", batch=2,
+                               prompt_len=21)
+    f32 = smoke.rg_f32_check(cfg, params, device="cpu", prompt_len=19,
+                             steps=3)
+    assert len(stats["tokens"]) == 2 and len(stats["tokens"][0]) == 4
+    assert stats["logits_max_abs_diff"] <= smoke.LOGIT_RTOL * \
+        stats["logits_max_abs"]
+    assert f32["logits_max_abs_diff"] < smoke.RG_F32_TOL
+    assert stats["prefill_launches"] == NO_LAUNCHES
+    assert stats["step_launches"] == [NO_LAUNCHES] * 3
+    n_sb, tail = rglru.layout(cfg)
+    with pytest.raises(AssertionError, match="prefill"):
+        smoke.check_rg_launches(stats, 2 * n_sb + tail, n_sb)
+    on_card = dict(stats, prefill_launches=dict(NO_LAUNCHES, rglru_scan=2,
+                                                flash_attention=1),
+                   step_launches=[dict(NO_LAUNCHES, rglru_scan=2)] * 3)
+    smoke.check_rg_launches(on_card, 2 * n_sb + tail, n_sb)
+    assert all(w["device_busy_ms"] is None for w in windows.values())
+    assert all(set(w["shares"]) == {"K4", "K3"} for w in windows.values())

@@ -23,7 +23,8 @@ from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ref
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
-from chip_smoke import ATTN_CASES, TOL  # noqa: E402  (tests/test_kernels.py's)
+from chip_smoke import (ATTN_CASES, TOL,  # noqa: E402
+                        bf16_bound, bf16_faults)  # (tests/test_kernels.py's)
 
 
 def _inputs(case, seed=0):
@@ -85,6 +86,23 @@ def test_plain_fully_masked_rows_are_zero():
     assert torch.equal(out, torch.zeros_like(out))
 
 
+@pytest.mark.parametrize("case", [(2, 128, 128, 4, 2, 64, True, None),
+                                  (1, 300, 300, 2, 1, 256, True, 64)])
+def test_bf16_bound_passes_plain_and_rejects_planted_faults(case):
+    """chip_smoke's element-wise bf16 bound for K3: the plain version's bf16
+    result passes it; an off-by-one window and a skipped KV tile do not."""
+    causal, window = case[6:]
+    q, k, v = (_torch(a, "bfloat16") for a in _inputs(case))
+    excess = bf16_bound(q, k, v, causal, window)
+    assert excess(fa.flash_attention_plain(q, k, v, causal=causal,
+                                           window=window)) <= 0.5
+    faults = bf16_faults(q, k, v, causal, window)
+    assert len(faults) == (2 if window else 1)
+    for name, out in faults.items():
+        assert out.shape == q.shape and out.dtype == q.dtype
+        assert excess(out) > 1, name
+
+
 def test_cpu_dispatch_takes_plain_path_and_counts_nothing():
     ops.reset_launch_counts()
     qn, kn, vn = _inputs((1, 16, 16, 2, 1, 16))
@@ -92,7 +110,8 @@ def test_cpu_dispatch_takes_plain_path_and_counts_nothing():
                         torch.from_numpy(vn))
     assert ops.launch_counts() == {"flash_attention": 0,
                                    "group_average_combine": 0,
-                                   "group_average_combine_multi": 0}
+                                   "group_average_combine_multi": 0,
+                                   "rglru_scan": 0}
     with pytest.raises(ValueError):
         ops.flash_attention(*(torch.from_numpy(a).to("meta")
                               for a in (qn, kn, vn)))
@@ -114,7 +133,8 @@ def test_flash_attention_refuses_inputs_that_need_a_gradient():
 
 
 def test_build_is_lazy_and_targets_sm90a():
-    assert _build.sources() == ["flash_attention", "group_average"]
+    assert _build.sources() == ["flash_attention", "group_average",
+                                "rglru_scan"]
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert _build._libs == {}           # importing compiled nothing
     assert _build.BUILD_DIR.parts[-2:] == ("build", "kernels")

@@ -1,5 +1,5 @@
-"""K3, K1 and K2 on the card: the CUDA kernels against their plain torch
-versions.
+"""K3, K1, K2 and K4 on the card: the CUDA kernels against their plain
+torch versions.
 
 Imports neither JAX nor the JAX package, so it runs where the card is:
 
@@ -7,9 +7,11 @@ Imports neither JAX nor the JAX package, so it runs where the card is:
 
 Every test here needs a CUDA card and skips without one.  The shapes are
 chip_smoke.py's: tests/test_kernels.py's ATTN_CASES in float32 and
-bfloat16, and the serving slice's prefill shapes, for K3; the butterfly
-combine's sizes, ragged lists and scales for K1/K2, which must be
-bit-identical to their plain versions.
+bfloat16, the head dim 256 cases and the serving slices' prefill shapes,
+for K3; the butterfly combine's sizes, ragged lists and scales for K1/K2,
+and RGLRU_CASES, recurrentgemma's scan shapes and a ragged W in both
+dtypes, with and without h0, for K4: K1, K2 and K4 must be bit-identical to
+their plain versions.
 """
 
 import sys
@@ -22,13 +24,15 @@ import torch
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import group_average as ga
 from repro_torch.kernels import ops
+from repro_torch.kernels import rglru_scan as rg
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 from chip_smoke import (GA_DTYPES, GA_RAGGED, GA_SCALES,  # noqa: E402
-                        GA_SIZES, KERNEL_CASES, SLICE_LENGTHS, TOL)
+                        GA_SIZES, HD256_CASES, K4_CASES, KERNEL_CASES,
+                        SLICE_LENGTHS, TOL, bf16_bound)
 
 CASES = KERNEL_CASES + [(1, L, L, 32, 4, 64, True, None, "bfloat16")
-                        for L in SLICE_LENGTHS]
+                        for L in SLICE_LENGTHS] + HD256_CASES
 
 
 @pytest.fixture
@@ -63,6 +67,8 @@ def test_kernel_matches_plain_on_card(case, cuda_device):
     np.testing.assert_allclose(got.float().cpu().numpy(),
                                want.float().cpu().numpy(),
                                rtol=TOL[dtype], atol=TOL[dtype])
+    if dtype == "bfloat16":     # and element by element, scaled to the output
+        assert bf16_bound(q, k, v, causal, window)(got) <= 1
 
 
 @pytest.mark.cuda
@@ -139,3 +145,43 @@ def test_k1_k2_reject_what_they_do_not_take(cuda_device):
     with pytest.raises(ValueError):               # one dtype per launch
         ops.group_average_combine_multi([w, w.bfloat16()],
                                         [r, r.bfloat16()], 0.5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", K4_CASES)
+def test_k4_bit_identical_to_plain_on_card(case, cuda_device):
+    b, s, w, with_h0, dtype = case
+    rng = np.random.default_rng(0)
+    dt = getattr(torch, dtype)
+    a = torch.from_numpy(rng.uniform(0.5, 0.999, (b, s, w)).astype(
+        np.float32)).to(device=cuda_device, dtype=dt)
+    x = torch.from_numpy((rng.standard_normal((b, s, w)) * 0.1).astype(
+        np.float32)).to(device=cuda_device, dtype=dt)
+    h0 = (torch.from_numpy(rng.standard_normal((b, w)).astype(np.float32)
+                           ).to(cuda_device) if with_h0 else None)
+    before = ops.launch_counts()["rglru_scan"]
+    got = ops.rglru_scan(a, x, h0)
+    want = rg.rglru_scan_plain(a, x, h0)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["rglru_scan"] == before + 1
+    assert got.dtype == x.dtype and got.shape == x.shape
+    assert torch.equal(got, want)
+    if dtype == "float32":                   # mixed: bf16 a, f32 x
+        assert torch.equal(ops.rglru_scan(a.bfloat16(), x, h0),
+                           rg.rglru_scan_plain(a.bfloat16(), x, h0))
+
+
+@pytest.mark.cuda
+def test_k4_rejects_what_it_does_not_take(cuda_device):
+    a = torch.rand(2, 5, 8, device=cuda_device)
+    x = torch.rand(2, 5, 8, device=cuda_device)
+    with pytest.raises(ValueError):               # h0 must be float32
+        ops.rglru_scan(a, x, torch.zeros(2, 8, device=cuda_device).bfloat16())
+    with pytest.raises(ValueError):               # h0 of another shape
+        ops.rglru_scan(a, x, torch.zeros(2, 7, device=cuda_device))
+    with pytest.raises(ValueError):               # f16 is not a kernel dtype
+        ops.rglru_scan(a.half(), x.half())
+    with pytest.raises(ValueError):               # not contiguous
+        ops.rglru_scan(a.transpose(0, 1).contiguous().transpose(0, 1), x)
+    with pytest.raises(ValueError):               # shapes differ
+        ops.rglru_scan(a[:, :4], x)
