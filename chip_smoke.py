@@ -7,13 +7,20 @@
 2. Builds every kernel of ``src/repro_torch/kernels/csrc`` with ``nvcc`` for
    sm_90a into the git-ignored ``build/kernels/``, one ``nvcc`` per source,
    all started together.
-3. Kernel phase, K3: the flash-attention kernel against its plain torch
-   version on the card (f32 to 2e-4, bf16 to 3e-2) over the kernel test
-   shapes, head dim 256 cases and the serving slices' prefill shapes
-   (tinyllama; recurrentgemma's windowed hd-256 attention); times the
-   kernel, the plain version and ``F.scaled_dot_product_attention`` (the
-   library yardstick, used nowhere in the port; a boolean mask for a
-   window) against the roofline bound.
+3. Kernel phase, K3: checks ptxas's report of the build (every bf16
+   kernel without a spill), then holds the flash-attention kernel against
+   its plain torch version on the card (f32 to 2e-4, bf16 to 3e-2 and
+   element-wise to ``bf16_bound``, which must reject the planted
+   ``bf16_faults`` at both serving shapes) over the kernel test shapes,
+   head dim 256 cases, the serving slices' prefill shapes (tinyllama;
+   recurrentgemma's windowed hd-256 attention) and the edges of the
+   TMA/wgmma kernel (``TMA_EDGE_CASES``); times the kernel, the plain
+   version and ``F.scaled_dot_product_attention`` (the library yardstick,
+   used nowhere in the port; a boolean mask for a window, and at the
+   recurrentgemma shape also the unwindowed causal call) against the
+   roofline bound.  Every kernel time is taken with the queue filled first
+   (``timed``), so that it is the device's and not the wrapper's host
+   time, which is printed on its own line.
 4. Kernel phase, K1/K2: the butterfly combine kernels against their plain
    versions, bit-identical (``torch.equal``), in f32 and bf16 at scales 1
    and 0.25, over small and lane-unaligned sizes, the training slice's
@@ -68,6 +75,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -108,7 +116,7 @@ TOL = {"float32": 2e-4, "bfloat16": 3e-2}
 # An absolute 3e-2 is the size of a typical output at 2048 visible keys;
 # this bound rejects the planted faults of bf16_faults.
 BF16_RTOL, BF16_ATOL = 1e-2, 1e-3
-FAULT_TILE = 64                      # K3's KV tile
+FAULT_TILE = 64    # keys: K3's KV tile at hd 256, half of one at hd 64
 # K3 at head dim 256, each in both dtypes, then recurrentgemma-2b's
 # attention: the bf16 serving prefill and the f32 check's prefill
 HD256_CASES = [c + (dt,) for c in ((1, 128, 128, 2, 1, 256, True, None),
@@ -118,6 +126,33 @@ HD256_CASES = [c + (dt,) for c in ((1, 128, 128, 2, 1, 256, True, None),
 RG_ATTN_SHAPE = (4, 3000, 3000, 10, 1, 256, True, 2048, "bfloat16")
 HD256_CASES += [RG_ATTN_SHAPE, (1, 2100, 2100, 10, 1, 256, True, 2048,
                                 "float32")]
+# the tinyllama prefill shape the kernels line reports
+TL_ATTN_SHAPE = (1, SLICE_SHAPE_FOR_LINE, SLICE_SHAPE_FOR_LINE, 32, 4, 64,
+                 True, None, "bfloat16")
+# Edges of the TMA/wgmma bf16 kernel (tiles of 128 keys and a 4-stage ring
+# at hd 64, 64 keys and 2 stages at hd 256; 128 query rows a block), at
+# both serving head dims: Sk under one tile; Sk past a ring wrap and not a
+# tile multiple; B = 3 with a ragged Sq; a window under a tile, also
+# non-causal with Sq > Sk so that whole blocks see no key; windows of at
+# least Sk; GQA at rep 8 and 10; non-causal with Sq != Sk both ways.  Then
+# bf16 head dims that the TMA's zero fill pads to 64 or 128 columns.
+TMA_EDGE_CASES = [c[:5] + (hd,) + c[5:] + ("bfloat16",) for hd in (64, 256)
+                  for c in ((2, 40, 40, 4, 2, True, None),
+                            (1, 130, 1100, 4, 1, False, None),
+                            (1, 1100, 1100, 2, 1, True, None),
+                            (3, 200, 200, 4, 2, True, None),
+                            (1, 300, 300, 4, 2, True, 16),
+                            (1, 300, 100, 2, 1, False, 16),
+                            (1, 300, 300, 4, 2, True, 300),
+                            (1, 300, 300, 4, 2, True, 1000),
+                            (1, 256, 256, 8, 1, True, None),
+                            (2, 256, 256, 10, 1, True, None),
+                            (2, 100, 300, 4, 2, False, None),
+                            (1, 300, 100, 4, 2, False, None))] + [
+    (1, 100, 100, 4, 2, hd, True, None, "bfloat16") for hd in (16, 80, 96, 112)]
+# card cycles per second used to size the queue-filling sleep (above the
+# H100's 1.98 GHz boost clock, so the sleep is never shorter than asked)
+SLEEP_CYCLES_PER_S = 2.0e9
 
 # K4 kernel phase: tests/test_kernels.py RGLRU_CASES (b, s, w, with_h0) in
 # both dtypes, recurrentgemma-2b's prefill scan with and without h0, its
@@ -180,31 +215,50 @@ def gpu_identity() -> str:
     return out.splitlines()[0]
 
 
-def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean device time of ``fn()`` over ``iters`` back-to-back calls."""
+def timed(fn, iters: int = 20, warmup: int = 3):
+    """(device ms, host us) per call of ``fn()`` over ``iters`` back-to-back
+    calls.  The host time is that of enqueueing the calls.  Before the
+    timed calls the card is put to sleep for twice that time, so the queue
+    holds every timed launch when the start event runs: the events then
+    measure the device, even where a call costs the host more than the
+    kernel costs the card."""
     import torch
     for _ in range(warmup):
         fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host_s = (time.perf_counter() - t) / iters
+    torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(2 * host_s * iters * SLEEP_CYCLES_PER_S))
     start.record()
     for _ in range(iters):
         fn()
     end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    return start.elapsed_time(end) / iters, host_s * 1e6
 
 
-def visible_pairs(sq, sk, causal, window) -> int:
-    """(query, key) pairs the mask lets through: the work this input needs."""
-    q = np.arange(sq)[:, None]
-    k = np.arange(sk)[None, :]
-    ok = np.ones((sq, sk), bool)
+def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Device ms per call of ``fn()`` (see :func:`timed`)."""
+    return timed(fn, iters, warmup)[0]
+
+
+def visible_mask(sq, sk, causal, window, device, leak: int = 0):
+    """(sq, sk) bool: key j visible to query i; ``leak`` moves the causal
+    edge that many keys past the diagonal."""
+    import torch
+    qpos = torch.arange(sq, device=device)[:, None]
+    kpos = torch.arange(sk, device=device)[None, :]
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=device)
     if causal:
-        ok &= k <= q
+        mask &= kpos <= qpos + leak
     if window is not None:
-        ok &= k > q - window
-    return int(ok.sum())
+        mask &= kpos > qpos - window
+    return mask
 
 
 def attention_bound(b, sq, sk, h, kh, hd, causal, window, dtype):
@@ -213,7 +267,8 @@ def attention_bound(b, sq, sk, h, kh, hd, causal, window, dtype):
     per visible (query, key) pair and head dim (QK^T and PV)."""
     item = 2 if dtype == "bfloat16" else 4
     nbytes = item * (2 * b * sq * h * hd + 2 * b * sk * kh * hd)
-    flops = 4.0 * b * h * hd * visible_pairs(sq, sk, causal, window)
+    pairs = int(visible_mask(sq, sk, causal, window, "cpu").sum())
+    flops = 4.0 * b * h * hd * pairs
     t_bytes = nbytes / PEAK_BYTES * 1e3
     t_flops = flops / PEAK_FLOPS[dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_flops else (t_flops, "operations")
@@ -238,31 +293,35 @@ def bf16_bound(q, k, v, causal, window):
     return excess
 
 
+def _masked_sdpa(q, k, v, mask):
+    """Attention over ``mask`` in float32 by SDPA, returned in q's dtype;
+    a row with no visible key sees key 0, so its softmax stays defined."""
+    import torch.nn.functional as F
+    rep = q.shape[2] // k.shape[2]
+    mask[~mask.any(-1), 0] = True
+    qt, kt, vt = (t.float().transpose(1, 2) for t in (q, k, v))
+    kt, vt = (t.repeat_interleave(rep, dim=1) for t in (kt, vt))
+    return F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask).transpose(1, 2).to(q.dtype)
+
+
 def bf16_faults(q, k, v, causal, window):
     """What a faulty K3 would return, in bf16: the window one key short,
-    and the middle KV tile skipped (SDPA in float32 over a boolean mask)."""
-    import torch
-    import torch.nn.functional as F
+    the causal edge one key late (key q+1 visible), and the middle KV tile
+    skipped (SDPA in float32 over a boolean mask)."""
     from repro_torch.kernels import flash_attention as fa
-    sq, sk, rep = q.shape[1], k.shape[1], q.shape[2] // k.shape[2]
+    sq, sk = q.shape[1], k.shape[1]
     faults = {}
     if window is not None and window > 1:
         faults["window_minus_1"] = fa.flash_attention_plain(
             q, k, v, causal=causal, window=window - 1)
-    qpos = torch.arange(sq, device=q.device)[:, None]
-    kpos = torch.arange(sk, device=q.device)[None, :]
-    mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
     if causal:
-        mask &= kpos <= qpos
-    if window is not None:
-        mask &= kpos > qpos - window
+        faults["causal_leak"] = _masked_sdpa(
+            q, k, v, visible_mask(sq, sk, causal, window, q.device, leak=1))
+    mask = visible_mask(sq, sk, causal, window, q.device)
     t0 = sk // 2 // FAULT_TILE * FAULT_TILE
     mask[:, t0:t0 + FAULT_TILE] = False
-    mask[~mask.any(-1), 0] = True      # keep every row's softmax defined
-    qt, kt, vt = (t.float().transpose(1, 2) for t in (q, k, v))
-    kt, vt = (t.repeat_interleave(rep, dim=1) for t in (kt, vt))
-    faults[f"tile_{t0}_skipped"] = F.scaled_dot_product_attention(
-        qt, kt, vt, attn_mask=mask).transpose(1, 2).to(q.dtype)
+    faults[f"tile_{t0}_skipped"] = _masked_sdpa(q, k, v, mask)
     return faults
 
 
@@ -273,10 +332,12 @@ def kernel_phase(device="cuda"):
     from repro_torch.kernels import flash_attention as fa
 
     cases = KERNEL_CASES + [(1, L, L, 32, 4, 64, True, None, "bfloat16")
-                            for L in SLICE_LENGTHS] + HD256_CASES
+                            for L in SLICE_LENGTHS] + HD256_CASES \
+        + TMA_EDGE_CASES
     gen = torch.Generator(device=device).manual_seed(0)
     rows = []
-    for b, sq, sk, h, kh, hd, causal, window, dtype in cases:
+    for case in cases:
+        b, sq, sk, h, kh, hd, causal, window, dtype = case
         dt = getattr(torch, dtype)
 
         def randn(*shape):
@@ -289,8 +350,7 @@ def kernel_phase(device="cuda"):
         err = float((out.float() - want.float()).abs().max())
         if not math.isfinite(err) or err > TOL[dtype]:
             raise AssertionError(f"K3 disagrees with its plain version at "
-                                 f"{(b, sq, sk, h, kh, hd, causal, window, dtype)}:"
-                                 f" max abs err {err} > {TOL[dtype]}")
+                                 f"{case}: max abs err {err} > {TOL[dtype]}")
         scaled = faults = None
         if dtype == "bfloat16":
             excess = bf16_bound(q, k, v, causal, window)
@@ -298,31 +358,34 @@ def kernel_phase(device="cuda"):
             if scaled > 1:
                 raise AssertionError(
                     f"K3 bf16 exceeds {BF16_RTOL} * mag + {BF16_ATOL} at "
-                    f"{(b, sq, sk, h, kh, hd, causal, window)}: "
-                    f"excess {scaled}")
-            if (b, sq, sk, h, kh, hd, causal, window, dtype) == RG_ATTN_SHAPE:
+                    f"{case}: excess {scaled}")
+            if case in (TL_ATTN_SHAPE, RG_ATTN_SHAPE):
                 faults = {name: excess(o) for name, o in
                           bf16_faults(q, k, v, causal, window).items()}
                 if min(faults.values()) <= 1:
                     raise AssertionError(f"the bf16 bound accepts a planted "
-                                         f"fault at {RG_ATTN_SHAPE}: {faults}")
+                                         f"fault at {case}: {faults}")
             del excess
-        kernel_ms = time_ms(lambda: fa.flash_attention_cuda(
+        kernel_ms, host_us = timed(lambda: fa.flash_attention_cuda(
             q, k, v, causal=causal, window=window))
         plain_ms = time_ms(lambda: fa.flash_attention_plain(
             q, k, v, causal=causal, window=window), iters=5, warmup=1)
-        library_ms = None
+        library_ms = library_causal_ms = None
         if not causal or sq == sk:
             qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
             mask = None                # a window needs an explicit mask
             if window is not None:
-                pos = torch.arange(sq, device=device)
-                mask = pos[None, :] > pos[:, None] - window
-                if causal:
-                    mask &= pos[None, :] <= pos[:, None]
+                mask = visible_mask(sq, sk, causal, window, device)
             library_ms = time_ms(lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, attn_mask=mask, is_causal=causal and mask is None,
                 enable_gqa=kh != h))
+            if case == RG_ATTN_SHAPE:
+                # the flash backend's causal call, no window: more work
+                # (every causal pair) than the window leaves, not the same
+                # function; a tighter yardstick than the masked call
+                library_causal_ms = time_ms(
+                    lambda: F.scaled_dot_product_attention(
+                        qt, kt, vt, is_causal=True, enable_gqa=kh != h))
             del qt, kt, vt, mask
         bound_ms, bound_by = attention_bound(b, sq, sk, h, kh, hd, causal,
                                              window, dtype)
@@ -330,10 +393,48 @@ def kernel_phase(device="cuda"):
                      "window": window, "dtype": dtype, "max_abs_err": err,
                      "tol": TOL[dtype], "bf16_excess": scaled,
                      "fault_excess": faults, "ms": kernel_ms,
-                     "plain_ms": plain_ms,
-                     "library_ms": library_ms, "bound_ms": bound_ms,
-                     "bound_by": bound_by})
+                     "host_us": host_us, "plain_ms": plain_ms,
+                     "library_ms": library_ms,
+                     "library_causal_ms": library_causal_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by})
     return rows
+
+
+def ptxas_report(report: str) -> dict:
+    """{kernel: {"registers", "stack", "spill_stores", "spill_loads"}} from
+    the output of ``nvcc -Xptxas -v``."""
+    out, name = {}, None
+    for line in report.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            name = m.group(1)
+            out[name] = {}
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and name:
+            out[name].update(zip(("stack", "spill_stores", "spill_loads"),
+                                 map(int, m.groups())))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out[name]["registers"] = int(m.group(1))
+            name = None
+    return out
+
+
+def check_k3_build(report: str) -> dict:
+    """K3's bf16 kernels (``attn_fwd_wgmma``, one per padded head dim) as
+    ptxas built them; raises if any spills."""
+    kernels = {n: r for n, r in ptxas_report(report).items()
+               if "attn_fwd_wgmma" in n}
+    if not kernels:
+        raise AssertionError("no bf16 K3 kernel in the ptxas report")
+    spilled = {n: r for n, r in kernels.items()
+               if r.get("spill_stores") or r.get("spill_loads")}
+    if spilled:
+        raise AssertionError(f"bf16 K3 kernels spill: {spilled}")
+    return kernels
 
 
 def combine_bound_ms(n_total: int, itemsize: int) -> float:
@@ -421,8 +522,9 @@ def combine_kernel_phase(device="cuda"):
                        "bound_ms": combine_bound_ms(n, item)}
                 if n:                      # n == 0 launches nothing
                     o = torch.empty_like(w)
-                    row["ms"] = time_ms(lambda: ga.group_average_combine_cuda(
-                        w, r, scale, out=o))
+                    row["ms"], row["host_us"] = timed(
+                        lambda: ga.group_average_combine_cuda(w, r, scale,
+                                                              out=o))
                     row["plain_ms"] = time_ms(
                         lambda: ga.group_average_combine_plain(w, r, scale),
                         iters=5, warmup=1)
@@ -457,7 +559,7 @@ def combine_kernel_phase(device="cuda"):
                                           if a.numel()),
                        "bound_ms": combine_bound_ms(sum(sizes), item)}
                 os_ = [torch.empty_like(w) for w in ws]
-                row["ms"] = time_ms(
+                row["ms"], row["host_us"] = timed(
                     lambda: ga.group_average_combine_multi_cuda(
                         ws, rs, scale, outs=os_))
                 row["plain_ms"] = time_ms(
@@ -507,11 +609,12 @@ def rglru_kernel_phase(device="cuda"):
         want = rg.rglru_scan_plain(a, x, h0)
         torch.cuda.synchronize()
         item = 4 if dtype == "float32" else 2
+        kernel_ms, host_us = timed(lambda: rg.rglru_scan_cuda(a, x, h0))
         rows.append({
             "shape": [b, s, w], "h0": with_h0, "dtype": dtype,
             "equal": bool(torch.equal(got, want)),
             "max_abs_err": float((got.float() - want.float()).abs().max()),
-            "ms": time_ms(lambda: rg.rglru_scan_cuda(a, x, h0)),
+            "ms": kernel_ms, "host_us": host_us,
             "plain_ms": time_ms(lambda: rg.rglru_scan_plain(a, x, h0)),
             "bound_ms": scan_bound_ms(b, s, w, item, item, with_h0),
             "bound_by": "bytes", "library_ms": None})
@@ -1095,6 +1198,15 @@ def main() -> int:
     print(f"build: {_build.sources()} in {build_s:.1f} s", flush=True)
     for name, report in reports.items():
         print(f"--- nvcc {name}.cu ---\n{report}", file=sys.stderr)
+    k3_report = _build.report("flash_attention")
+    for line in k3_report.splitlines():
+        if "warning" in line.lower():
+            print(f"nvcc flash_attention.cu: {line.strip()}", flush=True)
+    k3_build = check_k3_build(k3_report)
+    for name, r in sorted(k3_build.items()):
+        print(f"ptxas {name}: {r}", flush=True)
+    print(f"ptxas: {len(k3_build)} bf16 K3 kernels, 0 spill bytes",
+          flush=True)
 
     # -- kernel phase: K3 ---------------------------------------------------
     rows = kernel_phase()
@@ -1103,8 +1215,13 @@ def main() -> int:
               f"{r['dtype']}: err {r['max_abs_err']:.3g} (tol {r['tol']}) "
               f"bf16 excess {r['bf16_excess']} faults {r['fault_excess']} "
               f"kernel {r['ms']:.4f} ms plain {r['plain_ms']:.4f} ms "
-              f"sdpa {r['library_ms']} ms bound {r['bound_ms']:.4f} ms "
-              f"({r['bound_by']}) [{card}]", flush=True)
+              f"sdpa {r['library_ms']} ms"
+              + (f" sdpa causal, no window {r['library_causal_ms']} ms"
+                 if r["library_causal_ms"] is not None else "")
+              + f" bound {r['bound_ms']:.4f} ms ({r['bound_by']}) [{card}]",
+              flush=True)
+        print(f"K3 host {r['shape']} {r['dtype']}: wrapper "
+              f"{r['host_us']:.1f} us per call", flush=True)
     print(json.dumps({"k3_shapes": rows, "card": card}), flush=True)
 
     # -- kernel phase: K1/K2 ------------------------------------------------
@@ -1117,6 +1234,8 @@ def main() -> int:
                   f"equal {r['equal']} kernel {r['ms']:.4f} ms plain "
                   f"{r['plain_ms']:.4f} ms library {r['library_ms']} ms "
                   f"bound {r['bound_ms']:.4f} ms [{card}]", flush=True)
+            print(f"{r['kernel']} host n={n}: wrapper {r['host_us']:.1f} us "
+                  f"per call", flush=True)
     print(f"K1/K2: {len(ga_rows)} cases bit-identical to the plain versions",
           flush=True)
     print(json.dumps({"k1_k2_cases": ga_rows, "card": card}), flush=True)
@@ -1127,6 +1246,8 @@ def main() -> int:
         print(f"K4 {r['shape']} h0={r['h0']} {r['dtype']}: equal {r['equal']} "
               f"kernel {r['ms']:.4f} ms plain {r['plain_ms']:.4f} ms bound "
               f"{r['bound_ms']:.4f} ms ({r['bound_by']}) [{card}]", flush=True)
+        print(f"K4 host {r['shape']} {r['dtype']}: wrapper "
+              f"{r['host_us']:.1f} us per call", flush=True)
     print(json.dumps({"k4_cases": k4_rows, "card": card}), flush=True)
 
     # -- serving phase (K3) -------------------------------------------------
@@ -1209,8 +1330,8 @@ def main() -> int:
     for name, w in rg_windows.items():
         _print_window(f"recurrentgemma {name}", w, card)
 
-    main_row = next(r for r in rows if r["shape"] == [
-        1, SLICE_SHAPE_FOR_LINE, SLICE_SHAPE_FOR_LINE, 32, 4, 64])
+    main_row = next(r for r in rows if r["shape"] == list(TL_ATTN_SHAPE[:6])
+                    and r["dtype"] == TL_ATTN_SHAPE[8])
     rg_row = next(r for r in rows if r["shape"] == list(RG_ATTN_SHAPE[:6])
                   and r["dtype"] == RG_ATTN_SHAPE[8])
     k4_row = next(r for r in k4_rows if r["shape"] == list(RG_SCAN_SHAPE[:3])
@@ -1223,7 +1344,7 @@ def main() -> int:
         "replaces": replaces, "launches": launches, "max_abs_err": err,
         "ms": row["ms"], "plain_ms": row["plain_ms"],
         "bound_ms": row["bound_ms"], "bound_by": kw.pop("bound_by", "bytes"),
-        "library_ms": row["library_ms"], **kw}
+        "library_ms": row["library_ms"], "host_us": row["host_us"], **kw}
     kernels = [
         entry(K1, "src/repro_torch/kernels/csrc/group_average.cu",
               "src/repro/kernels/group_average.py:68",
@@ -1244,6 +1365,7 @@ def main() -> int:
               max(r["max_abs_err"] for r in rows),
               bound_by=rg_row["bound_by"], shape=rg_row["shape"],
               dtype=rg_row["dtype"], window=rg_row["window"],
+              library_causal_ms=rg_row["library_causal_ms"],
               path=f"{RG_ARCH} serving"),
         entry(K4, "src/repro_torch/kernels/csrc/rglru_scan.cu",
               "src/repro/kernels/rglru_scan.py:48",

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled on first
 CUDA use by ``nvcc`` for ``sm_90a`` into ``build/kernels/`` at the
 repository root (git-ignored), as ``lib<name>-<hash of the source>.so`` so
-that an edited source is never served by a stale library.  Nothing is
-compiled when this module is imported: the CPU tests import every module.
+that an edited source is never served by a stale library; the compiler's
+output (ptxas registers and spills) is kept beside it as ``.log``.  Nothing
+is compiled when this module is imported: the CPU tests import every module.
 """
 
 from __future__ import annotations
@@ -68,10 +69,18 @@ def build(names: Iterable[str]) -> Dict[str, str]:
             failed.append(f"{name}.cu (nvcc exit {proc.returncode}):\n{out}")
             tmp.unlink(missing_ok=True)
         else:
+            _lib_path(name).with_suffix(".log").write_text(out)
             os.replace(tmp, _lib_path(name))
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
     return reports
+
+
+def report(name: str) -> str:
+    """The compiler's output for the current library of ``csrc/<name>.cu``
+    (built first if need be)."""
+    build([name])
+    return _lib_path(name).with_suffix(".log").read_text()
 
 
 def load(name: str) -> ctypes.CDLL:

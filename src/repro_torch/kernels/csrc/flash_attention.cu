@@ -4,7 +4,9 @@
 // kernel behind repro.kernels.ops.flash_attention).  Same function: causal
 // and sliding-window masks, GQA with query head h reading KV head
 // h / (H / KH) (no repeat materialised), fp32 running max m, denominator l
-// and accumulator acc, output = acc / max(l, 1e-30) cast to the input type.
+// and accumulator acc, P rounded to the input type before the PV product
+// (as the Pallas kernel rounds p to v's dtype), output = acc / max(l, 1e-30)
+// cast to the input type, so a row that sees no key gives 0.
 //
 // Layouts are the JAX package's: q/o (B, Sq, H, hd), k/v (B, Sk, KH, hd),
 // contiguous.  f32 and bf16 inputs; hd a multiple of 16 up to 128, or 256.
@@ -12,54 +14,82 @@
 // Translation from the TPU kernel.  There the K dimension is the innermost,
 // sequential grid axis and m/l/acc persist in VMEM scratch across grid steps.
 // Blocks on the GPU run in no order, so one block owns a tile of query rows
-// (64 in bf16; 64 or 32 in f32) of one (batch, head) and walks the KV tiles
-// in a loop, with
-// m/l/acc in registers.  Causal masking stops the loop at the diagonal tile;
-// a window starts it at the first tile the window reaches.  Ragged Sq/Sk
-// edges are masked in the kernel, so the wrapper pads nothing.  A masked
-// score contributes an exact 0, so a row that sees no key gives 0.
+// of one (batch, head) and walks the KV tiles in a loop, with m/l/acc in
+// registers.  Causal masking stops the loop at the diagonal tile; a window
+// starts it at the first tile the window reaches.  Ragged Sq/Sk edges are
+// handled in the kernel, so the wrapper pads nothing.  A masked score
+// contributes an exact 0.
 //
 // What bounds it on the H100.  At the serving shapes (tinyllama prefill,
-// H = 32, hd = 64, L up to 2k) attention does ~L/2 operations per byte of
-// q/k/v/o, so from L ~ 600 on the bf16 tensor-core rate (989 TFLOP/s), not
-// the 3.35 TB/s of HBM, is the bound.  Two kernels:
+// H = 32, hd = 64, L up to 2k; recurrentgemma, hd = 256, window 2048)
+// attention does ~L/2 operations per byte of q/k/v/o, so the bf16
+// tensor-core rate (989 TFLOP/s), not the 3.35 TB/s of HBM, is the bound.
+// Two kernels:
 //
-// * bf16 (the serving path): the products run on the tensor cores with
-//   mma.sync m16n8k16 (bf16 in, fp32 accumulate).  Each of the 4 warps owns
-//   16 query rows; its S = QK^T tile stays in registers, is turned into P
-//   there (the accumulator layout of two adjacent 8-column tiles is the
-//   A-operand layout of one 16-deep product), and P is rounded to bf16 for
-//   the PV product, as the Pallas kernel rounds p to v's dtype.  K tiles sit
-//   in shared memory row-major and V tiles transposed, each row padded by 8
-//   elements so that the fragment loads hit 32 distinct banks.  No cp.async
-//   pipeline, no TMA, no wgmma yet: loads and products of a tile do not
-//   overlap, which is the next step.  Shared memory is dynamic.
+// * bf16 (the serving paths): attn_fwd_wgmma, built the Hopper way, for
+//   every head dim: the template's width HD is the head dim padded to 64,
+//   128 or 256, and the TMA's out-of-bounds zero fill supplies the padding
+//   columns (they add 0 to every score and are never stored).
+//   - A block is three warpgroups: two consumers, each owning 64 query
+//     rows (128 a block), and one producer.  One producer thread loads the
+//     block's Q tile once, then K and V tiles into a ring of shared-memory
+//     stages (4 at HD 64, 2 above) with TMA: cp.async.bulk.tensor over 4-D
+//     maps (hd, heads, S, B), so one map per tensor covers every (batch,
+//     head), and the out-of-bounds zero fill also takes the ragged Sq and
+//     Sk edges.  K and V of a stage each have a full and an empty
+//     mbarrier, so a K slot is refilled as soon as its S product is done.
+//     Tiles are 64-column boxes with the 128-byte swizzle (a box's inner
+//     dimension is at most 64 bf16 values, so HD 256 is four boxes).
+//   - The consumers run both products on wgmma.  S = Q K^T reads Q and K
+//     from shared memory (both K-major).  O += P V takes P from the S
+//     accumulator, rounded to bf16 (for m64nNk16 the accumulator layout of
+//     two adjacent 8-key column tiles is the A-fragment layout), and reads
+//     V in place as a transposed (MN-major) operand, so V is never
+//     transposed by hand.  Tile i's S product is issued before tile i-1's
+//     PV product and waited for alone, so tile i's softmax runs while the
+//     tensor cores do tile i-1's PV.  setmaxnreg moves registers from the
+//     producer (24) to the consumers (240): at HD 256 the O accumulator
+//     alone is 128 fp32 registers a thread, with S (32) and P (16) beside
+//     it.
+//   - The softmax runs in base 2, scale * log2(e) folded into one FMA
+//     before exp2f; the mask is applied only on tiles that cross the
+//     diagonal, the window's edge or the end of Sk.
+//   - Blocks are launched heaviest query tile first, so the long causal
+//     rows do not form the tail.  Rows are written with plain stores,
+//     masked at Sq.  Shared memory: HD 256 is Q 64 KB + 2 stages x (K 32
+//     KB + V 32 KB) = 192 KB; HD 64 is Q 16 KB + 4 x 32 KB.
+//   What bounds it now: at (4, 3000, 10, 1, 256) window 2048 it reaches
+//   about half the bf16 tensor-core peak; the rest goes to the softmax
+//   (exp2 and the max and sum shuffles, not hidden behind the products of
+//   the other warpgroup), the waits of each warpgroup on its own products,
+//   and the masked edge tiles.  At tinyllama's L = 1024 the grid is 256
+//   blocks of at most 8 tiles, so filling the card and the serial
+//   prologue of each block dominate.
 // * float32: scalar fp32 FMAs (tensor cores would round to TF32).  SPLIT
 //   threads share a query row, each owning every SPLIT-th 16-byte vector of
 //   hd, so the threads of a row read neighbouring vectors of a shared-memory
 //   K/V row (no bank conflict) and the parts of a dot product meet by
-//   shuffles.
+//   shuffles.  At hd 256 a row is split over 4 threads, 32 rows a block,
+//   and a K/V tile holds 16 keys so that the static 32 KB of sk/sv stays
+//   under 48 KB.
 //
-// Head dim 256 (recurrentgemma-2b: 10 heads, 1 KV head, window 2048).  In
-// bf16 the Q fragments (HD/16 x 4 registers) and the output accumulators
-// (HD/8 x 4) would take 192 registers before the S tile, so above hd 128
-// the block's Q tile waits in shared memory (row-padded like K) and each
-// 16-deep chunk's A fragment is read from there once per KV tile; sK, sVt
-// and sQ take 104 KB, above the 48 KB static limit, so the kernel opts in to
-// the larger dynamic size.  In f32 a row is split over 4 threads (64 floats
-// each of q and acc a thread) instead of 2, 32 rows a block, and a K/V tile
-// holds 16 keys so that the static 32 KB of sk/sv stays under 48 KB.
+// The TMA tensor maps are encoded on the host at each launch
+// (cuTensorMapEncodeTiled, reached through cudaGetDriverEntryPoint so the
+// library links nothing beyond the CUDA runtime) and passed as
+// __grid_constant__ parameters.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <atomic>
+#include <cmath>
 #include <cstddef>
 #include <cstdint>
 
 namespace {
 
-constexpr int THREADS = 128;  // 4 warps
+constexpr int THREADS = 128;  // 4 warps (f32 kernel)
 constexpr float NEG_INF = -1e30f;
 
 // ---------------------------------------------------------------------------
@@ -205,244 +235,447 @@ attn_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// bf16: tensor cores through mma.sync m16n8k16
+// bf16: TMA ring + wgmma, warp-specialised
 // ---------------------------------------------------------------------------
-
-constexpr int BQ_BF16 = 64;   // query rows per block: 16 per warp
-constexpr int BK_BF16 = 64;   // keys per shared-memory tile
-
-// Dynamic shared memory of the bf16 kernel: sK, sVt and, above hd 128, the
-// block's Q tile.
-template <int HD>
-struct Bf16Tile {
-  static constexpr bool Q_IN_SMEM = HD > 128;
-  static constexpr int KSTRIDE = HD + 8;       // sK/sQ row, padded
-  static constexpr int VSTRIDE = BK_BF16 + 8;  // sVt row, padded
-  static constexpr size_t SMEM =
-      sizeof(__nv_bfloat16) * (BK_BF16 * KSTRIDE + HD * VSTRIDE +
-                               (Q_IN_SMEM ? BQ_BF16 * KSTRIDE : 0));
-};
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// c += a (16x16, row) * b (16x8, col); bf16 inputs, fp32 accumulators.
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// HD is the head dim padded to a multiple of 64 (64, 128 or 256); the
+// TMA's out-of-bounds fill zeroes the columns past the real head dim.
+template <int HD>
+struct WgTile {
+  static constexpr int NWG = 2;                    // consumer warpgroups
+  static constexpr int THREADS = 128 * (NWG + 1);  // and one producer warpgroup
+  static constexpr int BQ = 64 * NWG;              // query rows per block
+  static constexpr int BK = HD > 128 ? 64 : 128;   // keys per stage
+  static constexpr int STAGES = HD > 64 ? 2 : 4;
+  static constexpr int BOXES = HD / 64;            // 64-column (128-byte) boxes
+  static constexpr uint32_t Q_BYTES = BQ * HD * 2;
+  static constexpr uint32_t KV_BYTES = BK * HD * 2;  // K or V of one stage
+  static constexpr uint32_t BAR_OFF = Q_BYTES + STAGES * 2 * KV_BYTES;
+  // + 1 KB to align the tiles to the 1024-byte period of the swizzle;
+  // barriers: full and empty of K and of V for each stage, and Q's
+  static constexpr size_t SMEM = 1024 + BAR_OFF + 8 * (4 * STAGES + 1);
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-template <int HD>
-__global__ void __launch_bounds__(THREADS)
-attn_fwd_bf16(const __nv_bfloat16* __restrict__ q,
-              const __nv_bfloat16* __restrict__ k,
-              const __nv_bfloat16* __restrict__ v,
-              __nv_bfloat16* __restrict__ o, int Sq, int Sk, int H, int KH,
-              float scale, int causal, int window) {
-  constexpr int BQ = BQ_BF16;
-  constexpr int BK = BK_BF16;
-  constexpr bool Q_IN_SMEM = Bf16Tile<HD>::Q_IN_SMEM;
-  constexpr int KSTRIDE = Bf16Tile<HD>::KSTRIDE;  // conflict-free fragments
-  constexpr int VSTRIDE = Bf16Tile<HD>::VSTRIDE;
-  constexpr int KC = HD / 16;       // 16-deep chunks of the QK^T product
-  constexpr int NO = HD / 8;        // 8-wide column tiles of the output
-  constexpr int VEC = HD / 8;       // 16-byte vectors per Q/K/V row
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* sVt = sK + BK * KSTRIDE;
-  __nv_bfloat16* sQ = sVt + HD * VSTRIDE;   // Q_IN_SMEM only
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
 
-  const int bh = blockIdx.y;
-  const int b = bh / H;
-  const int h = bh % H;
-  const int kh = h / (H / KH);
-  const int q0 = blockIdx.x * BQ;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;          // fragment row (and B-fragment column)
-  const int t = lane & 3;           // fragment column pair
-  const int row0 = q0 + warp * 16 + g;
-  const int row1 = row0 + 8;
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
 
-  // Q as A fragments (rows row0/row1, zero past Sq) in registers, or the
-  // block's Q tile in shared memory (zero past Sq); the first barrier of the
-  // KV loop publishes it.
-  uint32_t qa[Q_IN_SMEM ? 1 : KC][4];
-  {
-    const size_t qs = static_cast<size_t>(H) * HD;
-    const __nv_bfloat16* qb = q + static_cast<size_t>(b) * Sq * qs + static_cast<size_t>(h) * HD;
-    if constexpr (Q_IN_SMEM) {
-      for (int idx = tid; idx < BQ * VEC; idx += THREADS) {
-        const int r = idx / VEC;
-        const int c = (idx - r * VEC) * 8;
-        uint4 qv = make_uint4(0u, 0u, 0u, 0u);
-        if (q0 + r < Sq) qv = *reinterpret_cast<const uint4*>(qb + (q0 + r) * qs + c);
-        *reinterpret_cast<uint4*>(&sQ[r * KSTRIDE + c]) = qv;
-      }
-    } else {
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// Wait until the phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// One box of a 4-D tensor map into shared memory, completing on `bar`.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keeps the compiler from moving reads or writes of wgmma accumulators
+// across the asynchronous products.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
 #pragma unroll
-      for (int kc = 0; kc < KC; ++kc) {
-        const int d = kc * 16 + 2 * t;
-        qa[kc][0] = row0 < Sq ? ld32(qb + row0 * qs + d) : 0u;
-        qa[kc][1] = row1 < Sq ? ld32(qb + row1 * qs + d) : 0u;
-        qa[kc][2] = row0 < Sq ? ld32(qb + row0 * qs + d + 8) : 0u;
-        qa[kc][3] = row1 < Sq ? ld32(qb + row1 * qs + d + 8) : 0u;
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+template <int R>
+__device__ __forceinline__ void regs_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+
+template <int R>
+__device__ __forceinline__ void regs_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+
+// wgmma shared-memory descriptor of a 128-byte-swizzled operand: start
+// address, leading and stride byte offsets (each >> 4), layout type 1.
+// K-major (Q, K): rows 128 bytes apart, 8-row groups at sbo = 1024, lbo
+// unused; a 16-deep step advances the start by 32 bytes inside the row.
+// MN-major (V read as the transposed B): 8-key groups at sbo = 1024, the
+// next 64-column box at lbo.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFFu) >> 4) |
+         static_cast<uint64_t>((lbo >> 4) & 0x3FFFu) << 16 |
+         static_cast<uint64_t>((sbo >> 4) & 0x3FFFu) << 32 | static_cast<uint64_t>(1) << 62;
+}
+
+// wgmma.mma_async m64nNk16, bf16 in, fp32 accumulators d (N/2 a thread):
+// ss() with A and B from shared memory, both K-major; rs() with A from
+// registers (the mma.sync m16n8k16 A-fragment layout, per warp) and B
+// MN-major (transposed).  scale_d = 0 overwrites d.
+#define WG_D8(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), \
+                 "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+
+template <int N>
+struct Wgmma;
+
+template <>
+struct Wgmma<64> {
+  __device__ __forceinline__ static void ss(float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31},"
+      " %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : WG_D8(0), WG_D8(8), WG_D8(16), WG_D8(24)
+      : "l"(da), "l"(db), "r"(scale_d));
+  }
+  __device__ __forceinline__ static void rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db, int scale_d) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31},"
+      " {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : WG_D8(0), WG_D8(8), WG_D8(16), WG_D8(24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+  }
+};
+
+template <>
+struct Wgmma<128> {
+  __device__ __forceinline__ static void ss(float (&d)[64], uint64_t da, uint64_t db, int scale_d) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63},"
+      " %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : WG_D8(0), WG_D8(8), WG_D8(16), WG_D8(24), WG_D8(32), WG_D8(40), WG_D8(48), WG_D8(56)
+      : "l"(da), "l"(db), "r"(scale_d));
+  }
+  __device__ __forceinline__ static void rs(float (&d)[64], const uint32_t (&a)[4], uint64_t db, int scale_d) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63},"
+      " {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : WG_D8(0), WG_D8(8), WG_D8(16), WG_D8(24), WG_D8(32), WG_D8(40), WG_D8(48), WG_D8(56)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+  }
+};
+
+template <>
+struct Wgmma<256> {
+  __device__ __forceinline__ static void rs(float (&d)[128], const uint32_t (&a)[4], uint64_t db, int scale_d) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127},"
+      " {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : WG_D8(0), WG_D8(8), WG_D8(16), WG_D8(24), WG_D8(32), WG_D8(40), WG_D8(48), WG_D8(56), WG_D8(64), WG_D8(72), WG_D8(80), WG_D8(88), WG_D8(96), WG_D8(104), WG_D8(112), WG_D8(120)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+  }
+};
+
+#undef WG_D8
+
+// One tile's online-softmax step for a thread's two rows r0 and r0 + 8
+// (BK / 2 scores in the wgmma accumulator layout): the mask, only on a
+// tile that crosses the diagonal, the window's edge or the end of Sk; the
+// new row maxima m of the raw scores; p = 2^(s * scale * log2 e - m) in
+// place of the scores; the sums l; and in c the factors by which the
+// earlier output rows are to be scaled.  A row that has seen no key yet
+// keeps max -inf, so its offset is 0 and its p and c are exactly 0.
+template <int BK>
+__device__ __forceinline__ void softmax_tile(float (&sacc)[BK / 2], int kt, int Sk, int r0,
+                                             int c2, int row_lo, int row_hi, int causal,
+                                             int window, float scale_log2, float (&m)[2],
+                                             float (&l)[2], float (&c)[2]) {
+  if (kt + BK > Sk || (causal && kt + BK - 1 > row_lo) || (window > 0 && kt <= row_hi - window)) {
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = kt + 8 * j + c2 + (e & 1);
+        const int row = r0 + (e < 2 ? 0 : 8);
+        if (key >= Sk || (causal && key > row) || (window > 0 && key <= row - window))
+          sacc[4 * j + e] = -INFINITY;
       }
     }
   }
-  float oacc[NO][4];
+  float mx[2] = {m[0], m[1]};
 #pragma unroll
-  for (int n = 0; n < NO; ++n) oacc[n][0] = oacc[n][1] = oacc[n][2] = oacc[n][3] = 0.f;
-  float m0 = NEG_INF, m1 = NEG_INF;   // running max of rows row0, row1
-  float l0 = 0.f, l1 = 0.f;           // this thread's share of the denominators
+  for (int j = 0; j < BK / 8; ++j) {
+    mx[0] = fmaxf(mx[0], fmaxf(sacc[4 * j], sacc[4 * j + 1]));
+    mx[1] = fmaxf(mx[1], fmaxf(sacc[4 * j + 2], sacc[4 * j + 3]));
+  }
+  float ms[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    ms[r] = mx[r] == -INFINITY ? 0.f : mx[r] * scale_log2;
+    c[r] = exp2f(m[r] * scale_log2 - ms[r]);
+    m[r] = mx[r];
+  }
+  float sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      sacc[4 * j + e] = exp2f(fmaf(sacc[4 * j + e], scale_log2, -ms[e / 2]));
+      sum[e / 2] += sacc[4 * j + e];
+    }
+  }
+  l[0] = l[0] * c[0] + sum[0];
+  l[1] = l[1] * c[1] + sum[1];
+}
 
+template <int HD>
+__global__ void __launch_bounds__(WgTile<HD>::THREADS, 1)
+attn_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
+               const __grid_constant__ CUtensorMap tm_k,
+               const __grid_constant__ CUtensorMap tm_v,
+               __nv_bfloat16* __restrict__ o, int BH, int Sq, int Sk, int H,
+               int KH, int hd, float scale_log2, int causal, int window,
+               int n_qt) {
+  using T = WgTile<HD>;
+  constexpr int BQ = T::BQ;
+  constexpr int BK = T::BK;
+  constexpr int STAGES = T::STAGES;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t sQ = (smem_u32(smem_raw) + 1023u) & ~1023u;  // box c at c * BQ * 128
+  const uint32_t sKV = sQ + T::Q_BYTES;   // stage s: K at 2 s KV_BYTES, V after it
+  // Barriers of stage s: K full at 8 s, V full at 8 (STAGES + s), K empty
+  // at 8 (2 STAGES + s), V empty at 8 (3 STAGES + s); then Q's.
+  const uint32_t bar = sQ + T::BAR_OFF;
+  const uint32_t q_bar = bar + 32 * STAGES;
+  auto k_full = [&](int s) { return bar + 8 * s; };
+  auto v_full = [&](int s) { return bar + 8 * (STAGES + s); };
+  auto k_empty = [&](int s) { return bar + 8 * (2 * STAGES + s); };
+  auto v_empty = [&](int s) { return bar + 8 * (3 * STAGES + s); };
+
+  // Heaviest query tiles first: block i takes tile n_qt - 1 - i / BH.
+  const int bh = static_cast<int>(blockIdx.x) % BH;
+  const int q0 = (n_qt - 1 - static_cast<int>(blockIdx.x) / BH) * BQ;
+  const int b = bh / H;
+  const int h = bh % H;
+  const int kh = h / (H / KH);
   const int q_last = min(q0 + BQ, Sq) - 1;
   const int k_end = causal ? min(Sk, q_last + 1) : Sk;
   int k_begin = window > 0 ? max(0, q0 - window + 1) : 0;
   k_begin -= k_begin % BK;
+  const int n_tiles = k_end > k_begin ? (k_end - k_begin + BK - 1) / BK : 0;
 
-  const size_t rs = static_cast<size_t>(KH) * HD;
-  const __nv_bfloat16* kb = k + static_cast<size_t>(b) * Sk * rs + static_cast<size_t>(kh) * HD;
-  const __nv_bfloat16* vb = v + static_cast<size_t>(b) * Sk * rs + static_cast<size_t>(kh) * HD;
-
-  for (int kt = k_begin; kt < k_end; kt += BK) {
-    __syncthreads();  // every warp is done with the previous tile
-    for (int idx = tid; idx < BK * VEC; idx += THREADS) {
-      const int r = idx / VEC;
-      const int c = (idx - r * VEC) * 8;
-      const int key = kt + r;
-      uint4 kv = make_uint4(0u, 0u, 0u, 0u);
-      uint4 vv = make_uint4(0u, 0u, 0u, 0u);
-      if (key < Sk) {
-        kv = *reinterpret_cast<const uint4*>(kb + key * rs + c);
-        vv = *reinterpret_cast<const uint4*>(vb + key * rs + c);
-      }
-      *reinterpret_cast<uint4*>(&sK[r * KSTRIDE + c]) = kv;
-      const __nv_bfloat16* ve = reinterpret_cast<const __nv_bfloat16*>(&vv);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) sVt[(c + i) * VSTRIDE + r] = ve[i];
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(k_full(s), 1);                // the producer's expect_tx
+      mbar_init(v_full(s), 1);
+      mbar_init(k_empty(s), 4 * T::NWG);      // every consumer warp
+      mbar_init(v_empty(s), 4 * T::NWG);
     }
-    __syncthreads();
-
-    // S = Q K^T for this warp's 16 rows and the tile's 64 keys; each s[j]
-    // sums its 16-deep chunks in order kc = 0, 1, ...
-    float s[BK / 8][4];
-#pragma unroll
-    for (int j = 0; j < BK / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-    for (int kc = 0; kc < KC; ++kc) {
-      uint32_t a[4];
-      if constexpr (Q_IN_SMEM) {
-        const __nv_bfloat16* qr = &sQ[(warp * 16 + g) * KSTRIDE + kc * 16 + 2 * t];
-        a[0] = ld32(qr);
-        a[1] = ld32(qr + 8 * KSTRIDE);
-        a[2] = ld32(qr + 8);
-        a[3] = ld32(qr + 8 * KSTRIDE + 8);
-      } else {
-        a[0] = qa[kc][0];
-        a[1] = qa[kc][1];
-        a[2] = qa[kc][2];
-        a[3] = qa[kc][3];
-      }
-#pragma unroll
-      for (int j = 0; j < BK / 8; ++j) {
-        const __nv_bfloat16* kr = &sK[(8 * j + g) * KSTRIDE + kc * 16 + 2 * t];
-        mma_bf16(s[j], a, ld32(kr), ld32(kr + 8));
-      }
-    }
-
-    // Mask, scale and the tile's row maxima (a row lives in 4 lanes).
-    uint32_t ok = 0u;
-    float mx0 = NEG_INF, mx1 = NEG_INF;
-#pragma unroll
-    for (int j = 0; j < BK / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = kt + 8 * j + 2 * t + (e & 1);
-        const int row = e < 2 ? row0 : row1;
-        bool in = key < Sk;
-        if (causal) in = in && key <= row;
-        if (window > 0) in = in && key > row - window;
-        s[j][e] = in ? s[j][e] * scale : NEG_INF;
-        ok |= in ? (1u << (4 * j + e)) : 0u;
-        if (e < 2) mx0 = fmaxf(mx0, s[j][e]);
-        else mx1 = fmaxf(mx1, s[j][e]);
-      }
-    }
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
-    const float mn0 = fmaxf(m0, mx0);
-    const float mn1 = fmaxf(m1, mx1);
-    const float c0 = expf(m0 - mn0);
-    const float c1 = expf(m1 - mn1);
-    float sum0 = 0.f, sum1 = 0.f;
-#pragma unroll
-    for (int j = 0; j < BK / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = ((ok >> (4 * j + e)) & 1u)
-                            ? expf(s[j][e] - (e < 2 ? mn0 : mn1)) : 0.f;
-        s[j][e] = p;
-        if (e < 2) sum0 += p;
-        else sum1 += p;
-      }
-    }
-    l0 = l0 * c0 + sum0;
-    l1 = l1 * c1 + sum1;
-    m0 = mn0;
-    m1 = mn1;
-#pragma unroll
-    for (int n = 0; n < NO; ++n) {
-      oacc[n][0] *= c0;
-      oacc[n][1] *= c0;
-      oacc[n][2] *= c1;
-      oacc[n][3] *= c1;
-    }
-
-    // O += P V: two adjacent 8-key accumulator tiles form one A fragment.
-#pragma unroll
-    for (int kc = 0; kc < BK / 16; ++kc) {
-      const uint32_t pa[4] = {pack_bf16(s[2 * kc][0], s[2 * kc][1]),
-                              pack_bf16(s[2 * kc][2], s[2 * kc][3]),
-                              pack_bf16(s[2 * kc + 1][0], s[2 * kc + 1][1]),
-                              pack_bf16(s[2 * kc + 1][2], s[2 * kc + 1][3])};
-#pragma unroll
-      for (int n = 0; n < NO; ++n) {
-        const __nv_bfloat16* vr = &sVt[(8 * n + g) * VSTRIDE + kc * 16 + 2 * t];
-        mma_bf16(oacc[n], pa, ld32(vr), ld32(vr + 8));
-      }
-    }
+    mbar_init(q_bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  __syncthreads();
 
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
-  const float d0 = fmaxf(l0, 1e-30f);
-  const float d1 = fmaxf(l1, 1e-30f);
-  const size_t os = static_cast<size_t>(H) * HD;
-  __nv_bfloat16* ob = o + static_cast<size_t>(b) * Sq * os + static_cast<size_t>(h) * HD + 2 * t;
+  if (threadIdx.x >= 128 * T::NWG) {
+    // Producer warpgroup: one thread keeps the rings full.  A K slot frees
+    // when S = Q K^T of its tile is done, a V slot when O += P V is.
+    regs_dec<24>();
+    if (threadIdx.x == 128 * T::NWG && n_tiles > 0) {
+      mbar_expect_tx(q_bar, T::Q_BYTES);
 #pragma unroll
-  for (int n = 0; n < NO; ++n) {
-    if (row0 < Sq)
-      *reinterpret_cast<uint32_t*>(ob + row0 * os + 8 * n) =
-          pack_bf16(oacc[n][0] / d0, oacc[n][1] / d0);
-    if (row1 < Sq)
-      *reinterpret_cast<uint32_t*>(ob + row1 * os + 8 * n) =
-          pack_bf16(oacc[n][2] / d1, oacc[n][3] / d1);
+      for (int c = 0; c < T::BOXES; ++c)
+        tma_load(sQ + c * BQ * 128, &tm_q, q_bar, 64 * c, h, q0, b);
+      for (int i = 0; i < n_tiles; ++i) {
+        const int s = i % STAGES;
+        const uint32_t free_parity = ((i / STAGES) & 1) ^ 1;
+        const uint32_t sk = sKV + 2 * s * T::KV_BYTES;
+        const int kt = k_begin + i * BK;
+        mbar_wait(k_empty(s), free_parity);
+        mbar_expect_tx(k_full(s), T::KV_BYTES);
+#pragma unroll
+        for (int c = 0; c < T::BOXES; ++c)
+          tma_load(sk + c * BK * 128, &tm_k, k_full(s), 64 * c, kh, kt, b);
+        mbar_wait(v_empty(s), free_parity);
+        mbar_expect_tx(v_full(s), T::KV_BYTES);
+#pragma unroll
+        for (int c = 0; c < T::BOXES; ++c)
+          tma_load(sk + T::KV_BYTES + c * BK * 128, &tm_v, v_full(s), 64 * c, kh, kt, b);
+      }
+    }
+  } else {
+    // Consumer warpgroup wg: query rows q0 + 64 wg .. + 63.  Tile i's
+    // S = Q K^T is issued before tile i-1's O += P V, so the softmax of
+    // tile i runs while the tensor cores do the PV product.
+    regs_inc<240>();
+    const int wg = threadIdx.x / 128;
+    const int lane = threadIdx.x % 32;
+    const int row_lo = q0 + 64 * wg;
+    const int row_hi = row_lo + 63;
+    const int r0 = row_lo + 16 * ((threadIdx.x / 32) % 4) + lane / 4;  // rows r0, r0 + 8
+    const int c2 = 2 * (lane % 4);                 // its columns in an 8-wide tile
+    const uint32_t sq = sQ + 64 * 128 * wg;
+
+    float oacc[HD / 2];
+    float sacc[BK / 2];
+    uint32_t pa[BK / 16][4];  // P of the previous tile, bf16 A fragments
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) oacc[i] = 0.f;
+    float m[2] = {-INFINITY, -INFINITY};  // running row maxima of raw scores
+    float l[2] = {0.f, 0.f};              // this thread's share of the sums
+    float c[2];
+
+    // S = Q K^T over HD / 16 steps of 16, Q and K both K-major.
+    auto issue_qk = [&](int s) {
+      const uint32_t sk = sKV + 2 * s * T::KV_BYTES;
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        const uint32_t col = (kk % 4) * 32;  // bytes into the 128-byte row
+        Wgmma<BK>::ss(sacc, sw128_desc(sq + (kk / 4) * BQ * 128 + col, 16, 1024),
+                      sw128_desc(sk + (kk / 4) * BK * 128 + col, 16, 1024), kk > 0);
+      }
+      wgmma_commit();
+    };
+    // O += P V, V the MN-major (transposed) B.
+    auto issue_pv = [&](int s) {
+      const uint32_t sv = sKV + 2 * s * T::KV_BYTES + T::KV_BYTES;
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+        Wgmma<HD>::rs(oacc, pa[kk], sw128_desc(sv + kk * 16 * 128, BK * 128, 1024), 1);
+      wgmma_commit();
+    };
+    auto pack_p = [&]() {
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        pa[kk][0] = pack_bf16(sacc[8 * kk], sacc[8 * kk + 1]);
+        pa[kk][1] = pack_bf16(sacc[8 * kk + 2], sacc[8 * kk + 3]);
+        pa[kk][2] = pack_bf16(sacc[8 * kk + 4], sacc[8 * kk + 5]);
+        pa[kk][3] = pack_bf16(sacc[8 * kk + 6], sacc[8 * kk + 7]);
+      }
+    };
+    // This warp is done with a slot.
+    auto release = [&](uint32_t empty) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty);
+    };
+
+    if (n_tiles > 0) {
+      mbar_wait(q_bar, 0);
+      mbar_wait(k_full(0), 0);
+      wgmma_fence();
+      issue_qk(0);
+      wgmma_wait<0>();
+      fence_regs(sacc);
+      release(k_empty(0));
+      softmax_tile<BK>(sacc, k_begin, Sk, r0, c2, row_lo, row_hi, causal, window, scale_log2,
+                       m, l, c);
+      pack_p();
+      for (int i = 1; i < n_tiles; ++i) {
+        const int s = i % STAGES;
+        const int sp = (i - 1) % STAGES;
+        mbar_wait(k_full(s), (i / STAGES) & 1);
+        fence_regs(oacc);
+        wgmma_fence();
+        issue_qk(s);
+        mbar_wait(v_full(sp), ((i - 1) / STAGES) & 1);
+        issue_pv(sp);
+        wgmma_wait<1>();  // S of tile i is in; P V of tile i-1 may run on
+        fence_regs(sacc);
+        release(k_empty(s));
+        softmax_tile<BK>(sacc, k_begin + i * BK, Sk, r0, c2, row_lo, row_hi, causal, window,
+                         scale_log2, m, l, c);
+        wgmma_wait<0>();
+        fence_regs(oacc);
+        release(v_empty(sp));
+#pragma unroll
+        for (int n = 0; n < HD / 8; ++n) {
+          oacc[4 * n] *= c[0];
+          oacc[4 * n + 1] *= c[0];
+          oacc[4 * n + 2] *= c[1];
+          oacc[4 * n + 3] *= c[1];
+        }
+        pack_p();
+      }
+      const int s = (n_tiles - 1) % STAGES;
+      mbar_wait(v_full(s), ((n_tiles - 1) / STAGES) & 1);
+      fence_regs(oacc);
+      wgmma_fence();
+      issue_pv(s);
+      wgmma_wait<0>();
+      fence_regs(oacc);
+      release(v_empty(s));
+    }
+
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+      l[r] = fmaxf(l[r], 1e-30f);
+    }
+    const size_t os = static_cast<size_t>(H) * hd;
+    __nv_bfloat16* ob = o + static_cast<size_t>(b) * Sq * os + static_cast<size_t>(h) * hd + c2;
+#pragma unroll
+    for (int n = 0; n < HD / 8; ++n) {
+      if (8 * n >= hd) continue;  // padding columns
+      if (r0 < Sq)
+        *reinterpret_cast<uint32_t*>(ob + r0 * os + 8 * n) =
+            pack_bf16(oacc[4 * n] / l[0], oacc[4 * n + 1] / l[0]);
+      if (r0 + 8 < Sq)
+        *reinterpret_cast<uint32_t*>(ob + (r0 + 8) * os + 8 * n) =
+            pack_bf16(oacc[4 * n + 2] / l[1], oacc[4 * n + 3] / l[1]);
+    }
   }
 }
 
@@ -450,39 +683,93 @@ attn_fwd_bf16(const __nv_bfloat16* __restrict__ q,
 // Launch
 // ---------------------------------------------------------------------------
 
-template <int HD>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B,
-                   int Sq, int Sk, int H, int KH, float scale, int causal,
-                   int window, int dtype, cudaStream_t stream) {
-  if (dtype == 0) {
-    constexpr int BQ = F32Tile<HD>::BQ;
-    const dim3 grid((Sq + BQ - 1) / BQ, B * H);
-    attn_fwd_f32<HD><<<grid, THREADS, 0, stream>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<float*>(o), Sq, Sk, H, KH,
-        scale, causal, window);
-  } else {
-    constexpr size_t smem = Bf16Tile<HD>::SMEM;
-    if (smem > 48 * 1024) {  // above the static limit: opt in, once per device
-      static std::atomic<uint64_t> opted{0};  // bit d: device d has opted in
-      int dev = 0;
-      cudaError_t err = cudaGetDevice(&dev);
-      if (err != cudaSuccess) return err;
-      const uint64_t bit = dev < 64 ? uint64_t{1} << dev : 0;  // 0: always
-      if (!(opted.load(std::memory_order_relaxed) & bit)) {
-        err = cudaFuncSetAttribute(attn_fwd_bf16<HD>,
-                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   static_cast<int>(smem));
-        if (err != cudaSuccess) return err;
-        opted.fetch_or(bit, std::memory_order_relaxed);
-      }
-    }
-    const dim3 grid((Sq + BQ_BF16 - 1) / BQ_BF16, B * H);
-    attn_fwd_bf16<HD><<<grid, THREADS, smem, stream>>>(
-        static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-        Sq, Sk, H, KH, scale, causal, window);
+using EncodeTiled = decltype(&cuTensorMapEncodeTiled);
+
+// cuTensorMapEncodeTiled, looked up once through the CUDA runtime.
+EncodeTiled encode_tiled() {
+  static std::atomic<EncodeTiled> cached{nullptr};
+  EncodeTiled fn = cached.load(std::memory_order_acquire);
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess || p == nullptr) return nullptr;
+    fn = reinterpret_cast<EncodeTiled>(p);
+    cached.store(fn, std::memory_order_release);
   }
+  return fn;
+}
+
+// A bf16 (B, S, heads, hd) tensor as the 4-D map (hd, heads, S, B) whose
+// box is 64 columns of `rows` rows of one (batch, head), 128-byte swizzled.
+bool make_map(CUtensorMap* map, const void* ptr, int batch, int seq, int heads, int hd,
+              int rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t row = static_cast<cuuint64_t>(hd) * 2;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(hd), static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(seq), static_cast<cuuint64_t>(batch)};
+  const cuuint64_t strides[3] = {row, row * heads, row * heads * seq};
+  const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+                strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// Lets `kernel` take `bytes` of dynamic shared memory (above the 48 KB
+// static limit), once per device: bit d of `opted` marks device d.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t bytes, std::atomic<uint64_t>& opted) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const uint64_t bit = dev < 64 ? uint64_t{1} << dev : 0;  // 0: always
+  if (opted.load(std::memory_order_relaxed) & bit) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(bytes));
+  if (err == cudaSuccess) opted.fetch_or(bit, std::memory_order_relaxed);
+  return err;
+}
+
+template <int HD>
+cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o, int B,
+                         int Sq, int Sk, int H, int KH, int hd, float scale, int causal,
+                         int window, cudaStream_t stream) {
+  using T = WgTile<HD>;
+  static std::atomic<uint64_t> opted{0};
+  cudaError_t err = allow_smem(attn_fwd_wgmma<HD>, T::SMEM, opted);
+  if (err != cudaSuccess) return err;
+  CUtensorMap tm_q, tm_k, tm_v;
+  if (!make_map(&tm_q, q, B, Sq, H, hd, T::BQ) || !make_map(&tm_k, k, B, Sk, KH, hd, T::BK) ||
+      !make_map(&tm_v, v, B, Sk, KH, hd, T::BK))
+    return cudaErrorInvalidValue;
+  const int n_qt = (Sq + T::BQ - 1) / T::BQ;
+  const long long blocks = static_cast<long long>(n_qt) * B * H;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  attn_fwd_wgmma<HD><<<static_cast<unsigned>(blocks), T::THREADS, T::SMEM, stream>>>(
+      tm_q, tm_k, tm_v, static_cast<__nv_bfloat16*>(o), B * H, Sq, Sk, H, KH, hd,
+      scale * 1.4426950408889634f, causal, window, n_qt);
+  return cudaGetLastError();
+}
+
+template <int HD>
+cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, int B,
+                       int Sq, int Sk, int H, int KH, float scale, int causal,
+                       int window, cudaStream_t stream) {
+  constexpr int BQ = F32Tile<HD>::BQ;
+  const dim3 grid((Sq + BQ - 1) / BQ, B * H);
+  attn_fwd_f32<HD><<<grid, THREADS, 0, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), Sq, Sk, H, KH,
+      scale, causal, window);
   return cudaGetLastError();
 }
 
@@ -500,10 +787,19 @@ extern "C" int repro_flash_attention_fwd(const void* q, const void* k,
       (dtype != 0 && dtype != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 1) {
+    if (hd < 16 || hd % 16 != 0 || (hd > 128 && hd != 256))
+      return static_cast<int>(cudaErrorInvalidValue);
+    if (hd <= 64)
+      return static_cast<int>(launch_wgmma<64>(q, k, v, o, B, Sq, Sk, H, KH, hd, scale, causal, window, s));
+    if (hd <= 128)
+      return static_cast<int>(launch_wgmma<128>(q, k, v, o, B, Sq, Sk, H, KH, hd, scale, causal, window, s));
+    return static_cast<int>(launch_wgmma<256>(q, k, v, o, B, Sq, Sk, H, KH, hd, scale, causal, window, s));
+  }
   switch (hd) {
 #define REPRO_HD_CASE(N) \
   case N:                \
-    return static_cast<int>(launch<N>(q, k, v, o, B, Sq, Sk, H, KH, scale, causal, window, dtype, s));
+    return static_cast<int>(launch_f32<N>(q, k, v, o, B, Sq, Sk, H, KH, scale, causal, window, s));
     REPRO_HD_CASE(16)
     REPRO_HD_CASE(32)
     REPRO_HD_CASE(48)

@@ -2,8 +2,9 @@
 
 ``flash_attention_cuda`` launches ``csrc/flash_attention.cu``, the
 hand-written replacement of ``repro/kernels/flash_attention.py::
-_attn_kernel``: tensor-core products (``mma.sync``) for bfloat16, scalar
-FMAs for float32, head dims 16-128 in steps of 16 and 256 (see the
+_attn_kernel``: for bfloat16 a warp-specialised kernel that loads tiles by
+TMA through an mbarrier ring and runs both products on ``wgmma``; scalar
+FMAs for float32; head dims 16-128 in steps of 16 and 256 (see the
 source's note for the design and what bounds it).
 ``flash_attention_plain`` computes the same function in torch with the
 algorithm of ``repro.models.common.blocked_attention``: an online softmax
@@ -97,8 +98,13 @@ def _check(q, k, v, window):
                          "B*H <= 65535")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention_cuda: inputs must be contiguous")
-    if any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError("flash_attention_cuda: inputs must be 16-byte aligned")
+    # TMA (bf16) and the 16-byte vector loads (f32) need a 16-byte-aligned
+    # base and row strides in multiples of 16 bytes; contiguous rows are
+    # hd * itemsize apart
+    if (any(t.data_ptr() % 16 for t in (q, k, v))
+            or hd * q.element_size() % 16):
+        raise ValueError("flash_attention_cuda: inputs must be 16-byte "
+                         "aligned with 16-byte row strides")
     if window is not None and window < 1:
         raise ValueError(f"flash_attention_cuda: window {window} < 1")
 

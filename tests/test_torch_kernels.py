@@ -24,7 +24,8 @@ from repro_torch.kernels import ref
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 from chip_smoke import (ATTN_CASES, TOL,  # noqa: E402
-                        bf16_bound, bf16_faults)  # (tests/test_kernels.py's)
+                        bf16_bound, bf16_faults,  # (tests/test_kernels.py's)
+                        check_k3_build, ptxas_report)
 
 
 def _inputs(case, seed=0):
@@ -90,14 +91,16 @@ def test_plain_fully_masked_rows_are_zero():
                                   (1, 300, 300, 2, 1, 256, True, 64)])
 def test_bf16_bound_passes_plain_and_rejects_planted_faults(case):
     """chip_smoke's element-wise bf16 bound for K3: the plain version's bf16
-    result passes it; an off-by-one window and a skipped KV tile do not."""
+    result passes it; an off-by-one window, a causal edge one key late
+    (key q+1 visible) and a skipped KV tile do not."""
     causal, window = case[6:]
     q, k, v = (_torch(a, "bfloat16") for a in _inputs(case))
     excess = bf16_bound(q, k, v, causal, window)
     assert excess(fa.flash_attention_plain(q, k, v, causal=causal,
                                            window=window)) <= 0.5
     faults = bf16_faults(q, k, v, causal, window)
-    assert len(faults) == (2 if window else 1)
+    assert "causal_leak" in faults
+    assert len(faults) == (3 if window else 2)
     for name, out in faults.items():
         assert out.shape == q.shape and out.dtype == q.dtype
         assert excess(out) > 1, name
@@ -138,3 +141,40 @@ def test_build_is_lazy_and_targets_sm90a():
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert _build._libs == {}           # importing compiled nothing
     assert _build.BUILD_DIR.parts[-2:] == ("build", "kernels")
+
+
+# ptxas -v lines as nvcc prints them for two K3 kernels (sm_90a)
+_PTXAS = """\
+ptxas info    : Compiling entry function '_ZN4_GLOBAL__N_114attn_fwd_wgmmaILi64EEEv' for 'sm_90a'
+ptxas info    : Function properties for _ZN4_GLOBAL__N_114attn_fwd_wgmmaILi64EEEv
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 168 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN4_GLOBAL__N_112attn_fwd_f32ILi64EEEv' for 'sm_90a'
+ptxas info    : Function properties for _ZN4_GLOBAL__N_112attn_fwd_f32ILi64EEEv
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 140 registers, used 1 barriers, 16384 bytes smem
+ptxas info    : Compiling entry function '_ZN4_GLOBAL__N_114attn_fwd_wgmmaILi256EEEv' for 'sm_90a'
+ptxas info    : Function properties for _ZN4_GLOBAL__N_114attn_fwd_wgmmaILi256EEEv
+    8 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads
+ptxas info    : Used 168 registers, used 1 barriers
+"""
+
+
+def test_ptxas_report_parses_kernels_and_k3_check_refuses_spills():
+    """chip_smoke reads K3's ptxas report: registers and spills per kernel;
+    any spill of a bf16 (wgmma) kernel fails the run, the f32 kernel is not
+    held to it."""
+    got = ptxas_report(_PTXAS)
+    assert got["_ZN4_GLOBAL__N_114attn_fwd_wgmmaILi64EEEv"] == {
+        "stack": 0, "spill_stores": 0, "spill_loads": 0, "registers": 168}
+    assert got["_ZN4_GLOBAL__N_114attn_fwd_wgmmaILi256EEEv"]["spill_loads"] == 4
+    assert len(got) == 3
+    with pytest.raises(AssertionError, match="spill"):
+        check_k3_build(_PTXAS)
+    clean = _PTXAS.replace("4 bytes spill stores, 4 bytes spill loads",
+                           "0 bytes spill stores, 0 bytes spill loads")
+    assert sorted(check_k3_build(clean)) == [
+        "_ZN4_GLOBAL__N_114attn_fwd_wgmmaILi256EEEv",
+        "_ZN4_GLOBAL__N_114attn_fwd_wgmmaILi64EEEv"]
+    with pytest.raises(AssertionError, match="no bf16"):
+        check_k3_build("")

@@ -7,9 +7,10 @@ Imports neither JAX nor the JAX package, so it runs where the card is:
 
 Every test here needs a CUDA card and skips without one.  The shapes are
 chip_smoke.py's: tests/test_kernels.py's ATTN_CASES in float32 and
-bfloat16, the head dim 256 cases and the serving slices' prefill shapes,
-for K3; the butterfly combine's sizes, ragged lists and scales for K1/K2,
-and RGLRU_CASES, recurrentgemma's scan shapes and a ragged W in both
+bfloat16, the head dim 256 cases, the serving slices' prefill shapes and
+the edges of the TMA/wgmma bf16 kernel (TMA_EDGE_CASES), for K3; the
+butterfly combine's sizes, ragged lists and scales for K1/K2, and
+RGLRU_CASES, recurrentgemma's scan shapes and a ragged W in both
 dtypes, with and without h0, for K4: K1, K2 and K4 must be bit-identical to
 their plain versions.
 """
@@ -29,10 +30,10 @@ from repro_torch.kernels import rglru_scan as rg
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 from chip_smoke import (GA_DTYPES, GA_RAGGED, GA_SCALES,  # noqa: E402
                         GA_SIZES, HD256_CASES, K4_CASES, KERNEL_CASES,
-                        SLICE_LENGTHS, TOL, bf16_bound)
+                        SLICE_LENGTHS, TMA_EDGE_CASES, TOL, bf16_bound)
 
 CASES = KERNEL_CASES + [(1, L, L, 32, 4, 64, True, None, "bfloat16")
-                        for L in SLICE_LENGTHS] + HD256_CASES
+                        for L in SLICE_LENGTHS] + HD256_CASES + TMA_EDGE_CASES
 
 
 @pytest.fixture
