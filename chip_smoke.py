@@ -7,8 +7,9 @@
 2. Builds every kernel of ``src/repro_torch/kernels/csrc`` with ``nvcc`` for
    sm_90a into the git-ignored ``build/kernels/``, one ``nvcc`` per source,
    all started together.
-3. Kernel phase, K3: checks ptxas's report of the build (every bf16
-   kernel without a spill), then holds the flash-attention kernel against
+3. Kernel phase, K3: checks ptxas's report of the build (every bf16 K3
+   kernel and every TMA-route K4 kernel without a spill), then holds the
+   flash-attention kernel against
    its plain torch version on the card (f32 to 2e-4, bf16 to 3e-2 and
    element-wise to ``bf16_bound``, which must reject the planted
    ``bf16_faults`` at both serving shapes) over the kernel test shapes,
@@ -26,12 +27,19 @@
    and 0.25, over small and lane-unaligned sizes, the training slice's
    real stacked bucket sizes and ragged pair lists of both pointer
    alignments; times each against the HBM bound ``3*n*itemsize/3.35e12 s``,
-   the plain version and, at scale 1, ``torch.add``/``torch._foreach_add``.
+   the plain version and, at scale 1, ``torch.add``/``torch._foreach_add``;
+   every case also in place (``out`` is ``w``), and K1 against
+   ``torch.add`` in turns at the slice's largest bucket, out of place and
+   in place (K1, add, K1 in place, add in place, repeated).
    Kernel phase, K4: the RG-LRU scan kernel against its plain version,
    bit-identical, over tests/test_kernels.py's RGLRU_CASES in f32 and bf16,
    the recurrentgemma slice's prefill shape with and without h0, its decode
-   shape and a ragged W; times each against the HBM bound (no single
-   PyTorch call computes the recurrence, so no library time).
+   shape and a ragged W, each on the route the rule picks (printed); times
+   each against the HBM bound (no single PyTorch call computes the
+   recurrence, so no library time).  Then ``K4_EDGE_CASES``, the TMA
+   route's edges, on the rule's route and the walk route (a TMA request the
+   rule turns down must be refused), and the two routes in turns (walk,
+   tma, tma, walk) at the prefill shape.
 5. Serving phase: ``ServeScheduler`` serves tinyllama-1.1b at full width in
    bf16 (random weights from a seeded torch generator) over 8 ragged
    requests with a pool small enough to force a recompute preemption; checks
@@ -55,15 +63,20 @@
    in bf16 (random weights from a seeded torch generator) serves a batch of
    4 prompts of 3000 tokens (past the 2048-token window, not a multiple of
    64) and 32 greedy new tokens through ``build_prefill`` and
-   ``build_serve_step``.  Checks (a) K4 runs 18 times and K3 8 times per
-   prefill, K4 18 times and K3 never per decode step; (b) the last decode
+   ``build_serve_step``.  Checks (a) K4 runs 18 times, all on the TMA
+   route, and K3 8 times per prefill, K4 18 times, all on the walk route,
+   and K3 never per decode step; (b) the last decode
    step's logits match a fresh prefill over prompt + fed tokens to 5% of
    the largest reference logit; (c) a float32 copy of the model (batch 1, a
    2100-token prompt, 4 decode steps) matches its own ``forward`` at every
    step to 2e-3; (d) every logit finite, every token in the vocab.  Prints
    prefill tokens/s, TTFT, decode ms/step, peak memory and two profiler
    windows (a prefill, a decode step) with K4's and K3's shares.
-8. Prints a ``kernels`` JSON line, then ``{"ok": true, "device": ...}`` last.
+8. Prints a ``kernels`` JSON line (K4 twice: ``rglru_scan`` on its TMA
+   route at the prefill shape, with all of its main-path launches and
+   their split by route, and ``rglru_scan_decode`` on the walk route at the
+   decode shape, with the walk route's launches), then ``{"ok": true,
+   "device": ...}`` last.
 
 Exits non-zero, printing no result, without CUDA or without the repo's
 ``src/`` beside it.  TF32 is off for matmuls and cuDNN so float32 means
@@ -160,10 +173,28 @@ SLEEP_CYCLES_PER_S = 2.0e9
 RGLRU_CASES = [(3, 200, 96, True), (1, 17, 130, False), (8, 128, 128, True),
                (2, 300, 64, False)]
 RG_SCAN_SHAPE = (4, 3000, 2560, False, "float32")
+RG_DECODE_SCAN_SHAPE = (4, 1, 2560, True, "float32")
 K4_CASES = ([c + (dt,) for c in RGLRU_CASES for dt in ("float32", "bfloat16")]
             + [RG_SCAN_SHAPE, (4, 3000, 2560, True, "float32"),
-               (4, 1, 2560, True, "float32"), (2, 37, 1001, True, "float32"),
+               RG_DECODE_SCAN_SHAPE, (2, 37, 1001, True, "float32"),
                (2, 37, 1001, True, "bfloat16")])
+# K4's dtypes by name: (a's, x's); "mixed" is a bf16 gate on an f32 input
+K4_DTYPES = {"float32": ("float32", "float32"),
+             "bfloat16": ("bfloat16", "bfloat16"),
+             "mixed": ("bfloat16", "float32")}
+# Edges of K4's TMA route (slots of 32 steps, boxes of 64 channels): S one
+# under a slot, one slot, one over, the same about two slots, the
+# prefill's; W under one box, a ragged box, the prefill's, one box and 8
+# channels past it; each at B 1 and 5, with and without h0, in every dtype
+# pair.  Each runs the route the rule picks and the walk route, both
+# bit-identical to the plain loop.
+K4_EDGE_CASES = [(b, s, w, h0, dt) for s in (31, 32, 33, 63, 64, 65, 3000)
+                 for w in (32, 40, 2560, 2568) for b in (1, 5)
+                 for h0 in (False, True) for dt in K4_DTYPES]
+# paired timings, in turns within one call: K4's routes at the prefill
+# shape (walk, tma, tma, walk); K1 and torch.add at the slice's largest
+# stacked bucket, out of place and in place
+PAIR_ROUNDS = 4
 
 # K1/K2 kernel phase: sizes in elements (0 returns w unlaunched; 127, 1000
 # and 2**20+3 leave a scalar tail), both storage dtypes, both scales the
@@ -181,6 +212,7 @@ TRAIN_LAYERS, TRAIN_P, TRAIN_S, TRAIN_TAU = 6, 8, 4, 5
 TRAIN_SEQ, TRAIN_GB, TRAIN_STEPS, TRAIN_LR = 512, 64, 12, 0.1
 K1, K2, K3, K4 = ("group_average_combine", "group_average_combine_multi",
                   "flash_attention", "rglru_scan")
+K4_TMA, K4_WALK = "rglru_scan_tma", "rglru_scan_walk"    # K4's route counts
 
 # serving phase
 ARCH = "tinyllama-1.1b"
@@ -423,18 +455,38 @@ def ptxas_report(report: str) -> dict:
     return out
 
 
-def check_k3_build(report: str) -> dict:
-    """K3's bf16 kernels (``attn_fwd_wgmma``, one per padded head dim) as
-    ptxas built them; raises if any spills."""
-    kernels = {n: r for n, r in ptxas_report(report).items()
-               if "attn_fwd_wgmma" in n}
+def check_no_spills(report: str, key: str, what: str) -> dict:
+    """The kernels whose name holds ``key`` as ptxas built them; raises if
+    there is none or any spills."""
+    kernels = {n: r for n, r in ptxas_report(report).items() if key in n}
     if not kernels:
-        raise AssertionError("no bf16 K3 kernel in the ptxas report")
+        raise AssertionError(f"no {what} kernel in the ptxas report")
     spilled = {n: r for n, r in kernels.items()
                if r.get("spill_stores") or r.get("spill_loads")}
     if spilled:
-        raise AssertionError(f"bf16 K3 kernels spill: {spilled}")
+        raise AssertionError(f"{what} kernels spill: {spilled}")
     return kernels
+
+
+def check_k3_build(report: str) -> dict:
+    """K3's bf16 kernels (``attn_fwd_wgmma``, one per padded head dim)."""
+    return check_no_spills(report, "attn_fwd_wgmma", "bf16 K3")
+
+
+def check_k4_build(report: str) -> dict:
+    """K4's TMA-route kernels (one per dtype pair)."""
+    return check_no_spills(report, "rglru_scan_tma_kernel", "K4 TMA")
+
+
+def paired_ms(fns: dict, order, rounds: int = PAIR_ROUNDS) -> dict:
+    """Mean device ms of each named call, timed in turns (``order`` of the
+    names, repeated ``rounds`` times) within one call, and each timing."""
+    times = {name: [] for name in fns}
+    for _ in range(rounds):
+        for name in order:
+            times[name].append(time_ms(fns[name]))
+    return {name: {"mean_ms": statistics.fmean(t), "ms": t}
+            for name, t in times.items()}
 
 
 def combine_bound_ms(n_total: int, itemsize: int) -> float:
@@ -513,10 +565,13 @@ def combine_kernel_phase(device="cuda"):
                 w, r = operands(n, dtype, offset)
                 got = ga.group_average_combine_cuda(w, r, scale)
                 want = ga.group_average_combine_plain(w, r, scale)
+                inplace = w.clone()                 # out is w, as in training
+                ga.group_average_combine_cuda(inplace, r, scale, out=inplace)
                 torch.cuda.synchronize()
                 row = {"kernel": "K1", "dtype": dtype, "scale": scale,
                        "n": [n], "aligned": offset == 0,
-                       "equal": bool(torch.equal(got, want)),
+                       "equal": bool(torch.equal(got, want)
+                                     and torch.equal(inplace, want)),
                        "max_abs_err": float((got.float() - want.float()
                                              ).abs().max()) if n else 0.0,
                        "bound_ms": combine_bound_ms(n, item)}
@@ -533,7 +588,19 @@ def combine_kernel_phase(device="cuda"):
                 rows.append(row)
                 if (dtype, scale, n) == ("float32", 1.0, real[-1]):
                     line["K1"] = row
-                del w, r, got, want
+                    # out of place, then in place as training calls it
+                    # (w grows by r each call; the time does not depend
+                    # on the values)
+                    order = ("K1", "torch.add", "K1 in place",
+                             "torch.add in place")
+                    line["K1_vs_add"] = paired_ms(
+                        {"K1": lambda: ga.group_average_combine_cuda(
+                            w, r, scale, out=o),
+                         "torch.add": lambda: torch.add(w, r, out=o),
+                         "K1 in place": lambda: ga.group_average_combine_cuda(
+                            w, r, scale, out=w),
+                         "torch.add in place": lambda: w.add_(r)}, order)
+                del w, r, got, want, inplace
             # K2: the slice's real multi-pair batch, ragged lists of both
             # alignments, and a list longer than one launch's table
             for name, sizes, offsets in (
@@ -548,11 +615,14 @@ def combine_kernel_phase(device="cuda"):
                 ws, rs = [p[0] for p in pairs], [p[1] for p in pairs]
                 got = ga.group_average_combine_multi_cuda(ws, rs, scale)
                 want = ga.group_average_combine_multi_plain(ws, rs, scale)
+                inplace = [w.clone() for w in ws]
+                ga.group_average_combine_multi_cuda(inplace, rs, scale,
+                                                    outs=inplace)
                 torch.cuda.synchronize()
                 row = {"kernel": "K2", "case": name, "dtype": dtype,
                        "scale": scale, "n": list(sizes),
-                       "equal": all(torch.equal(a, b)
-                                    for a, b in zip(got, want)),
+                       "equal": all(torch.equal(a, b) and torch.equal(c, b)
+                                    for a, b, c in zip(got, want, inplace)),
                        "max_abs_err": max(float((a.float() - b.float()
                                                  ).abs().max())
                                           for a, b in zip(got, want)
@@ -572,7 +642,7 @@ def combine_kernel_phase(device="cuda"):
                                             1.0):
                     line["K2"] = row
                 rows.append(row)
-                del pairs, ws, rs, got, want, os_
+                del pairs, ws, rs, got, want, os_, inplace
     torch.cuda.empty_cache()
     bad = [r for r in rows if not r["equal"]]
     if bad:
@@ -588,30 +658,50 @@ def scan_bound_ms(b, s, w, a_item, x_item, with_h0) -> float:
     return nbytes / PEAK_BYTES * 1e3
 
 
+def k4_inputs(gen, b, s, w, with_h0, dtype, device="cuda"):
+    """a uniform in [0.5, 0.999) and x normal * 0.1, as
+    tests/test_kernels.py draws them, in the dtypes ``K4_DTYPES`` names
+    (or ``dtype`` for both); h0 normal float32 or None."""
+    import torch
+    a_dt, x_dt = K4_DTYPES.get(dtype, (dtype, dtype))
+    a = (torch.rand((b, s, w), generator=gen, device=device) * 0.499
+         + 0.5).to(getattr(torch, a_dt))
+    x = (torch.randn((b, s, w), generator=gen, device=device) * 0.1
+         ).to(getattr(torch, x_dt))
+    h0 = (torch.randn((b, w), generator=gen, device=device)
+          if with_h0 else None)
+    return a, x, h0
+
+
+def k4_launch(a, x, h0, via=None):
+    """K4 on route ``via`` (the rule's by default): (out, the route its
+    launch was counted on)."""
+    from repro_torch.kernels import rglru_scan as rg
+    before = dict(rg.route_launches)
+    out = rg.rglru_scan_cuda(a, x, h0, via=via)
+    return out, next(k for k, n in rg.route_launches.items()
+                     if n != before[k])
+
+
 def rglru_kernel_phase(device="cuda"):
-    """K4 against its plain version on every case, bit for bit; returns
-    rows.  a is uniform in [0.5, 0.999) and x normal * 0.1, as
-    tests/test_kernels.py draws them."""
+    """K4 against its plain version, bit for bit: the timed cases on the
+    route the rule picks; the TMA route's edges on both routes (a TMA
+    request the rule turns down must be refused); and the two routes timed
+    in turns at the prefill shape.  Returns (rows, edge rows, pair)."""
     import torch
     from repro_torch.kernels import rglru_scan as rg
 
     gen = torch.Generator(device=device).manual_seed(2)
     rows = []
     for b, s, w, with_h0, dtype in K4_CASES:
-        dt = getattr(torch, dtype)
-        a = (torch.rand((b, s, w), generator=gen, device=device) * 0.499
-             + 0.5).to(dt)
-        x = (torch.randn((b, s, w), generator=gen, device=device) * 0.1
-             ).to(dt)
-        h0 = (torch.randn((b, w), generator=gen, device=device)
-              if with_h0 else None)
-        got = rg.rglru_scan_cuda(a, x, h0)
+        a, x, h0 = k4_inputs(gen, b, s, w, with_h0, dtype, device)
+        got, via = k4_launch(a, x, h0)
         want = rg.rglru_scan_plain(a, x, h0)
         torch.cuda.synchronize()
         item = 4 if dtype == "float32" else 2
         kernel_ms, host_us = timed(lambda: rg.rglru_scan_cuda(a, x, h0))
         rows.append({
-            "shape": [b, s, w], "h0": with_h0, "dtype": dtype,
+            "shape": [b, s, w], "h0": with_h0, "dtype": dtype, "route": via,
             "equal": bool(torch.equal(got, want)),
             "max_abs_err": float((got.float() - want.float()).abs().max()),
             "ms": kernel_ms, "host_us": host_us,
@@ -619,10 +709,41 @@ def rglru_kernel_phase(device="cuda"):
             "bound_ms": scan_bound_ms(b, s, w, item, item, with_h0),
             "bound_by": "bytes", "library_ms": None})
         del a, x, h0, got, want
-    bad = [r for r in rows if not r["equal"]]
+    edges = []
+    for b, s, w, with_h0, dtype in K4_EDGE_CASES:
+        a, x, h0 = k4_inputs(gen, b, s, w, with_h0, dtype, device)
+        want = rg.rglru_scan_plain(a, x, h0)
+        got, via = k4_launch(a, x, h0)
+        walk, _ = k4_launch(a, x, h0, via="walk")
+        refused = None
+        if via == "walk":
+            try:
+                k4_launch(a, x, h0, via="tma")
+                refused = False
+            except RuntimeError:
+                refused = True
+        torch.cuda.synchronize()
+        edges.append({"shape": [b, s, w], "h0": with_h0, "dtype": dtype,
+                      "route": via, "equal": bool(torch.equal(got, want)),
+                      "walk_equal": bool(torch.equal(walk, want)),
+                      "tma_refused": refused,
+                      "max_abs_err": float((got.float() - want.float()
+                                            ).abs().max())})
+        del a, x, h0, got, walk, want
+    b, s, w, with_h0, dtype = RG_SCAN_SHAPE
+    a, x, h0 = k4_inputs(gen, b, s, w, with_h0, dtype, device)
+    pair = paired_ms({via: (lambda via=via: rg.rglru_scan_cuda(a, x, h0,
+                                                                 via=via))
+                      for via in ("walk", "tma")},
+                     ("walk", "tma", "tma", "walk"))
+    del a, x, h0
+    torch.cuda.empty_cache()
+    bad = [r for r in rows + edges if not r["equal"]
+           or not r.get("walk_equal", True) or r.get("tma_refused") is False]
     if bad:
-        raise AssertionError(f"K4 differs from its plain version: {bad}")
-    return rows
+        raise AssertionError(f"K4 differs from its plain version or took a "
+                             f"TMA request it must refuse: {bad}")
+    return rows, edges, pair
 
 
 def group_rows_agree(params, groups) -> tuple:
@@ -1048,16 +1169,18 @@ def rg_serve_phase(model, params, device="cuda", batch: int = RG_BATCH,
 
 
 def check_rg_launches(stats, n_rec: int, n_attn: int):
-    """Check (a): each prefill ran K4 once per recurrent layer and K3 once
-    per attention layer; each decode step K4 once per recurrent layer and
-    K3 never; K1/K2 never."""
-    runs = [("prefill", stats["prefill_launches"], n_attn)] + [
-        (f"decode step {i}", got, 0)
+    """Check (a): each prefill ran K4 once per recurrent layer, all on the
+    TMA route, and K3 once per attention layer; each decode step K4 once
+    per recurrent layer, all on the walk route, and K3 never; K1/K2
+    never."""
+    runs = [("prefill", stats["prefill_launches"], n_attn, K4_TMA)] + [
+        (f"decode step {i}", got, 0, K4_WALK)
         for i, got in enumerate(stats["step_launches"])]
-    for name, got, k3 in runs:
-        if (got[K4], got[K3], got[K1], got[K2]) != (n_rec, k3, 0, 0):
+    for name, got, k3, route in runs:
+        if (got[K4], got[route], got[K3], got[K1], got[K2]) != (
+                n_rec, n_rec, k3, 0, 0):
             raise AssertionError(f"{name}: launched {got}; expected K4 "
-                                 f"{n_rec}, K3 {k3}")
+                                 f"{n_rec}, all {route}, K3 {k3}")
 
 
 def rg_f32_check(cfg, params, device="cuda", prompt_len: int = RG_F32_PROMPT,
@@ -1207,6 +1330,11 @@ def main() -> int:
         print(f"ptxas {name}: {r}", flush=True)
     print(f"ptxas: {len(k3_build)} bf16 K3 kernels, 0 spill bytes",
           flush=True)
+    k4_build = check_k4_build(_build.report("rglru_scan"))
+    for name, r in sorted(k4_build.items()):
+        print(f"ptxas {name}: {r}", flush=True)
+    print(f"ptxas: {len(k4_build)} K4 TMA-route kernels, 0 spill bytes",
+          flush=True)
 
     # -- kernel phase: K3 ---------------------------------------------------
     rows = kernel_phase()
@@ -1236,19 +1364,42 @@ def main() -> int:
                   f"bound {r['bound_ms']:.4f} ms [{card}]", flush=True)
             print(f"{r['kernel']} host n={n}: wrapper {r['host_us']:.1f} us "
                   f"per call", flush=True)
-    print(f"K1/K2: {len(ga_rows)} cases bit-identical to the plain versions",
-          flush=True)
-    print(json.dumps({"k1_k2_cases": ga_rows, "card": card}), flush=True)
+    print(f"K1/K2: {len(ga_rows)} cases bit-identical to the plain versions, "
+          f"out of place and in place", flush=True)
+    vs_add = ga_line["K1_vs_add"]
+    for mode in ("", " in place"):
+        k1, add = vs_add[f"K1{mode}"], vs_add[f"torch.add{mode}"]
+        print(f"K1 vs torch.add{mode} in turns at n={ga_line['K1']['n']} "
+              f"f32: K1 {k1['ms']} ms, torch.add {add['ms']} ms; means "
+              f"{k1['mean_ms']:.4f} / {add['mean_ms']:.4f} ms [{card}]",
+              flush=True)
+    print(json.dumps({"k1_k2_cases": ga_rows, "k1_vs_add": vs_add,
+                      "card": card}), flush=True)
 
     # -- kernel phase: K4 ---------------------------------------------------
-    k4_rows = rglru_kernel_phase()
+    k4_rows, k4_edges, k4_pair = rglru_kernel_phase()
     for r in k4_rows:
-        print(f"K4 {r['shape']} h0={r['h0']} {r['dtype']}: equal {r['equal']} "
-              f"kernel {r['ms']:.4f} ms plain {r['plain_ms']:.4f} ms bound "
-              f"{r['bound_ms']:.4f} ms ({r['bound_by']}) [{card}]", flush=True)
+        print(f"K4 {r['shape']} h0={r['h0']} {r['dtype']} route {r['route']}: "
+              f"equal {r['equal']} kernel {r['ms']:.4f} ms plain "
+              f"{r['plain_ms']:.4f} ms bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}) [{card}]", flush=True)
         print(f"K4 host {r['shape']} {r['dtype']}: wrapper "
               f"{r['host_us']:.1f} us per call", flush=True)
-    print(json.dumps({"k4_cases": k4_rows, "card": card}), flush=True)
+    for r in k4_edges:
+        print(f"K4 edge {r['shape']} h0={r['h0']} {r['dtype']}: route "
+              f"{r['route']} equal {r['equal']}, walk route equal "
+              f"{r['walk_equal']}"
+              + (f", TMA request refused {r['tma_refused']}"
+                 if r["tma_refused"] is not None else ""), flush=True)
+    print(f"K4: {len(k4_edges)} TMA-route edge cases bit-identical on both "
+          f"routes ({Counter(r['route'] for r in k4_edges)})", flush=True)
+    print(f"K4 routes in turns (walk, tma, tma, walk) at "
+          f"{list(RG_SCAN_SHAPE[:3])} f32: walk {k4_pair['walk']['ms']} ms, "
+          f"tma {k4_pair['tma']['ms']} ms; means "
+          f"{k4_pair['walk']['mean_ms']:.4f} / {k4_pair['tma']['mean_ms']:.4f}"
+          f" ms [{card}]", flush=True)
+    print(json.dumps({"k4_cases": k4_rows, "k4_edges": k4_edges,
+                      "k4_routes": k4_pair, "card": card}), flush=True)
 
     # -- serving phase (K3) -------------------------------------------------
     cfg = get_config(ARCH)
@@ -1334,8 +1485,11 @@ def main() -> int:
                     and r["dtype"] == TL_ATTN_SHAPE[8])
     rg_row = next(r for r in rows if r["shape"] == list(RG_ATTN_SHAPE[:6])
                   and r["dtype"] == RG_ATTN_SHAPE[8])
-    k4_row = next(r for r in k4_rows if r["shape"] == list(RG_SCAN_SHAPE[:3])
-                  and r["h0"] == RG_SCAN_SHAPE[3])
+    k4_row, k4_decode_row = (
+        next(r for r in k4_rows if r["shape"] == list(shape[:3])
+             and r["h0"] == shape[3] and r["dtype"] == shape[4])
+        for shape in (RG_SCAN_SHAPE, RG_DECODE_SCAN_SHAPE))
+    k4_err = max(r["max_abs_err"] for r in k4_rows + k4_edges)
     rg_launches = [rg["prefill_launches"]] + rg["step_launches"]
     ga_err = {k: max(r["max_abs_err"] for r in ga_rows if r["kernel"] == k)
               for k in ("K1", "K2")}
@@ -1369,10 +1523,18 @@ def main() -> int:
               path=f"{RG_ARCH} serving"),
         entry(K4, "src/repro_torch/kernels/csrc/rglru_scan.cu",
               "src/repro/kernels/rglru_scan.py:48",
-              sum(c[K4] for c in rg_launches), k4_row,
-              max(r["max_abs_err"] for r in k4_rows),
+              sum(c[K4] for c in rg_launches), k4_row, k4_err,
               shape=k4_row["shape"], dtype=k4_row["dtype"],
+              k4_route=k4_row["route"], launches_by_route={
+                  route: sum(c[key] for c in rg_launches)
+                  for route, key in (("tma", K4_TMA), ("walk", K4_WALK))},
               path=f"{RG_ARCH} serving"),
+        entry(f"{K4}_decode", "src/repro_torch/kernels/csrc/rglru_scan.cu",
+              "src/repro/kernels/rglru_scan.py:48",
+              sum(c[K4_WALK] for c in rg_launches), k4_decode_row, k4_err,
+              shape=k4_decode_row["shape"], dtype=k4_decode_row["dtype"],
+              h0=True, k4_route=k4_decode_row["route"],
+              path=f"{RG_ARCH} decode"),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

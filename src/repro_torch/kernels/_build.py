@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled on first
 CUDA use by ``nvcc`` for ``sm_90a`` into ``build/kernels/`` at the
-repository root (git-ignored), as ``lib<name>-<hash of the source>.so`` so
-that an edited source is never served by a stale library; the compiler's
+repository root (git-ignored), as ``lib<name>-<hash>.so``.  The hash covers
+the source, every shared header ``csrc/*.cuh`` and the flags, so an edited
+source or header is never served by a stale library; the compiler's
 output (ptxas registers and spills) is kept beside it as ``.log``.  Nothing
 is compiled when this module is imported: the CPU tests import every module.
 """
@@ -39,9 +40,11 @@ def nvcc_path() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
 def build(names: Iterable[str]) -> Dict[str, str]:
@@ -59,18 +62,18 @@ def build(names: Iterable[str]) -> Dict[str, str]:
         final = _lib_path(name)
         tmp = final.with_name(f"{final.stem}.{os.getpid()}.tmp.so")
         cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        procs[name] = (tmp, subprocess.Popen(
+        procs[name] = (final, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     failed, reports = [], {}
-    for name, (tmp, proc) in procs.items():
+    for name, (final, tmp, proc) in procs.items():
         out, _ = proc.communicate()
         reports[name] = out
         if proc.returncode != 0:
             failed.append(f"{name}.cu (nvcc exit {proc.returncode}):\n{out}")
             tmp.unlink(missing_ok=True)
         else:
-            _lib_path(name).with_suffix(".log").write_text(out)
-            os.replace(tmp, _lib_path(name))
+            final.with_suffix(".log").write_text(out)
+            os.replace(tmp, final)
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
     return reports

@@ -87,7 +87,11 @@
 #include <cstddef>
 #include <cstdint>
 
+#include "hopper.cuh"
+
 namespace {
+
+using namespace hopper;
 
 constexpr int THREADS = 128;  // 4 warps (f32 kernel)
 constexpr float NEG_INF = -1e30f;
@@ -260,47 +264,6 @@ struct WgTile {
   // barriers: full and empty of K and of V for each stage, and Q's
   static constexpr size_t SMEM = 1024 + BAR_OFF + 8 * (4 * STAGES + 1);
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-// Wait until the phase of parity `parity` has completed.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// One box of a 4-D tensor map into shared memory, completing on `bar`.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                         int c0, int c1, int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
 
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
@@ -525,7 +488,7 @@ attn_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
       mbar_init(v_empty(s), 4 * T::NWG);
     }
     mbar_init(q_bar, 1);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_init_fence();
   }
   __syncthreads();
 
@@ -683,29 +646,6 @@ attn_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
 // Launch
 // ---------------------------------------------------------------------------
 
-using EncodeTiled = decltype(&cuTensorMapEncodeTiled);
-
-// cuTensorMapEncodeTiled, looked up once through the CUDA runtime.
-EncodeTiled encode_tiled() {
-  static std::atomic<EncodeTiled> cached{nullptr};
-  EncodeTiled fn = cached.load(std::memory_order_acquire);
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess || p == nullptr) return nullptr;
-    fn = reinterpret_cast<EncodeTiled>(p);
-    cached.store(fn, std::memory_order_release);
-  }
-  return fn;
-}
-
 // A bf16 (B, S, heads, hd) tensor as the 4-D map (hd, heads, S, B) whose
 // box is 64 columns of `rows` rows of one (batch, head), 128-byte swizzled.
 bool make_map(CUtensorMap* map, const void* ptr, int batch, int seq, int heads, int hd,
@@ -722,21 +662,6 @@ bool make_map(CUtensorMap* map, const void* ptr, int batch, int seq, int heads, 
                 strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-// Lets `kernel` take `bytes` of dynamic shared memory (above the 48 KB
-// static limit), once per device: bit d of `opted` marks device d.
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t bytes, std::atomic<uint64_t>& opted) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  const uint64_t bit = dev < 64 ? uint64_t{1} << dev : 0;  // 0: always
-  if (opted.load(std::memory_order_relaxed) & bit) return cudaSuccess;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(bytes));
-  if (err == cudaSuccess) opted.fetch_or(bit, std::memory_order_relaxed);
-  return err;
 }
 
 template <int HD>

@@ -102,11 +102,14 @@ def launch_counts() -> Dict[str, int]:
     return {"flash_attention": _fa.launches,
             "group_average_combine": _ga.launches,
             "group_average_combine_multi": _ga.multi_launches,
-            "rglru_scan": _rg.launches}
+            "rglru_scan": _rg.launches,
+            "rglru_scan_tma": _rg.route_launches["tma"],
+            "rglru_scan_walk": _rg.route_launches["walk"]}
 
 
 def reset_launch_counts() -> None:
     _fa.launches = 0
     _rg.launches = 0
+    _rg.route_launches.update(tma=0, walk=0)
     _ga.launches = 0
     _ga.multi_launches = 0

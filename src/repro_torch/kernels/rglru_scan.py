@@ -3,9 +3,13 @@ K4 and its plain version.
 
 ``rglru_scan_cuda`` launches ``csrc/rglru_scan.cu``, the hand-written
 replacement of ``repro/kernels/rglru_scan.py::rglru_scan`` (see the
-source's note for the design and what bounds it).  ``rglru_scan_plain``
+source's note for the design and what bounds it), on one of two routes
+that :func:`route` picks from the shape, the dtypes and the pointers: the
+TMA route (a producer warp feeds a shared-memory ring by TMA; the prefill)
+or the walk route (one thread walks a channel from global memory; decode's
+single step, ragged widths, misaligned views).  ``rglru_scan_plain``
 computes the same function in torch, a loop over time with an fp32 carry;
-every result of the kernel is bit-identical to it.
+every result of either route is bit-identical to it.
 
 Both take a, x (B,S,W), each float32 or bfloat16, and an optional h0 (B,W)
 (the carry before step 0), and return h (B,S,W) in x's dtype.  Channels are
@@ -21,9 +25,27 @@ import torch
 from repro_torch.kernels import _build, ref
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_ROUTE_CODE = {"walk": 0, "tma": 1}
 
-# Launches of the CUDA kernel since the last reset (kernels/ops.py reads it).
+# The TMA route's time steps per shared-memory slot: csrc/rglru_scan.cu's
+# kT, which the library reports (repro_rglru_scan_tma_steps).
+TMA_STEPS = 32
+
+# Launches of the CUDA kernel since the last reset, in all and by route
+# (kernels/ops.py reads them).
 launches = 0
+route_launches = {"tma": 0, "walk": 0}
+
+
+def route(s: int, w: int, a_dtype, x_dtype, ptrs) -> str:
+    """The kernel's route for a (B, s, w) scan: ``"tma"`` where the TMA
+    route takes it (at least ``TMA_STEPS`` steps, rows of a and x a
+    multiple of 16 bytes, every pointer in ``ptrs`` -- a, x, out --
+    16-byte aligned), else ``"walk"``."""
+    rows_ok = all(w * d.itemsize % 16 == 0 for d in (a_dtype, x_dtype))
+    if s >= TMA_STEPS and rows_ok and all(p % 16 == 0 for p in ptrs):
+        return "tma"
+    return "walk"
 
 
 def rglru_scan_plain(a, x, h0=None):
@@ -56,29 +78,45 @@ def _check(a, x, h0):
 
 
 def _entry():
-    fn = _build.load("rglru_scan").repro_rglru_scan
+    lib = _build.load("rglru_scan")
+    fn = lib.repro_rglru_scan
     if fn.argtypes is None:
+        steps = lib.repro_rglru_scan_tma_steps()
+        if steps != TMA_STEPS:
+            raise RuntimeError(f"rglru_scan library takes {steps} steps a "
+                               f"slot, the route rule {TMA_STEPS}")
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
                        + [ctypes.c_void_p])
     return fn
 
 
-def rglru_scan_cuda(a, x, h0=None):
-    """Launch K4 on x's current stream; raises on any input it does not
-    take and on a failed launch."""
+def rglru_scan_cuda(a, x, h0=None, *, via=None):
+    """Launch K4 on x's current stream, on route ``via`` (``"tma"`` or
+    ``"walk"``; by default the one :func:`route` picks).  Raises on any
+    input it does not take, on a TMA request the shape cannot take and on
+    a failed launch."""
     global launches
     _check(a, x, h0)
     b, s, w = x.shape
     out = torch.empty_like(x)
+    if via is None:
+        via = route(s, w, a.dtype, x.dtype,
+                    (a.data_ptr(), x.data_ptr(), out.data_ptr()))
+    if via not in _ROUTE_CODE:
+        raise ValueError(f"rglru_scan_cuda: route {via!r}; need one of "
+                         f"{sorted(_ROUTE_CODE)}")
     fn = _entry()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(a.data_ptr(), x.data_ptr(),
                  h0.data_ptr() if h0 is not None else None, out.data_ptr(),
-                 b, s, w, _DTYPE_CODE[a.dtype], _DTYPE_CODE[x.dtype], stream)
+                 b, s, w, _DTYPE_CODE[a.dtype], _DTYPE_CODE[x.dtype],
+                 _ROUTE_CODE[via], stream)
     if err != 0:
-        raise RuntimeError(f"rglru_scan kernel launch failed: CUDA error {err} "
-                           f"at {(b, s, w)} a {a.dtype} x {x.dtype}")
+        raise RuntimeError(f"rglru_scan kernel launch failed on the {via} "
+                           f"route: CUDA error {err} at {(b, s, w)} a "
+                           f"{a.dtype} x {x.dtype}")
     launches += 1
+    route_launches[via] += 1
     return out

@@ -92,7 +92,8 @@ def test_empty_input_returns_w_and_cpu_launches_nothing():
     assert ops.launch_counts() == {"flash_attention": 0,
                                    "group_average_combine": 0,
                                    "group_average_combine_multi": 0,
-                                   "rglru_scan": 0}
+                                   "rglru_scan": 0, "rglru_scan_tma": 0,
+                                   "rglru_scan_walk": 0}
 
 
 def test_multi_validation_errors_like_jax():

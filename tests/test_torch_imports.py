@@ -73,7 +73,8 @@ def _chip_smoke():
 
 
 NO_LAUNCHES = {"flash_attention": 0, "group_average_combine": 0,
-               "group_average_combine_multi": 0, "rglru_scan": 0}
+               "group_average_combine_multi": 0, "rglru_scan": 0,
+               "rglru_scan_tma": 0, "rglru_scan_walk": 0}
 
 
 def test_chip_smoke_phases_at_smoke_size_on_cpu():
@@ -165,8 +166,20 @@ def test_chip_smoke_recurrentgemma_phase_at_smoke_size_on_cpu(monkeypatch):
     with pytest.raises(AssertionError, match="prefill"):
         smoke.check_rg_launches(stats, 2 * n_sb + tail, n_sb)
     on_card = dict(stats, prefill_launches=dict(NO_LAUNCHES, rglru_scan=2,
+                                                rglru_scan_tma=2,
                                                 flash_attention=1),
-                   step_launches=[dict(NO_LAUNCHES, rglru_scan=2)] * 3)
+                   step_launches=[dict(NO_LAUNCHES, rglru_scan=2,
+                                       rglru_scan_walk=2)] * 3)
     smoke.check_rg_launches(on_card, 2 * n_sb + tail, n_sb)
+    # a prefill scan on the walk route, or a decode step on the TMA route,
+    # fails check (a)
+    walked = dict(on_card, prefill_launches=dict(
+        on_card["prefill_launches"], rglru_scan_tma=1, rglru_scan_walk=1))
+    with pytest.raises(AssertionError, match="prefill"):
+        smoke.check_rg_launches(walked, 2 * n_sb + tail, n_sb)
+    piped = dict(on_card, step_launches=on_card["step_launches"][:2] + [
+        dict(NO_LAUNCHES, rglru_scan=2, rglru_scan_tma=2)])
+    with pytest.raises(AssertionError, match="decode step 2"):
+        smoke.check_rg_launches(piped, 2 * n_sb + tail, n_sb)
     assert all(w["device_busy_ms"] is None for w in windows.values())
     assert all(set(w["shares"]) == {"K4", "K3"} for w in windows.values())

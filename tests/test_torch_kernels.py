@@ -25,7 +25,7 @@ from repro_torch.kernels import ref
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 from chip_smoke import (ATTN_CASES, TOL,  # noqa: E402
                         bf16_bound, bf16_faults,  # (tests/test_kernels.py's)
-                        check_k3_build, ptxas_report)
+                        check_k3_build, check_k4_build, ptxas_report)
 
 
 def _inputs(case, seed=0):
@@ -114,7 +114,8 @@ def test_cpu_dispatch_takes_plain_path_and_counts_nothing():
     assert ops.launch_counts() == {"flash_attention": 0,
                                    "group_average_combine": 0,
                                    "group_average_combine_multi": 0,
-                                   "rglru_scan": 0}
+                                   "rglru_scan": 0, "rglru_scan_tma": 0,
+                                   "rglru_scan_walk": 0}
     with pytest.raises(ValueError):
         ops.flash_attention(*(torch.from_numpy(a).to("meta")
                               for a in (qn, kn, vn)))
@@ -141,6 +142,30 @@ def test_build_is_lazy_and_targets_sm90a():
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert _build._libs == {}           # importing compiled nothing
     assert _build.BUILD_DIR.parts[-2:] == ("build", "kernels")
+
+
+def test_lib_path_follows_source_and_shared_header(tmp_path, monkeypatch):
+    """A library is named by a hash of its source, every shared header
+    beside it and the flags: editing any of them names a new library, so a
+    stale build is never loaded."""
+    (tmp_path / "k.cu").write_text('#include "hopper.cuh"\n')
+    (tmp_path / "hopper.cuh").write_text("// v1\n")
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    first = _build._lib_path("k")
+    assert _build._lib_path("k") == first
+    (tmp_path / "hopper.cuh").write_text("// v2\n")
+    second = _build._lib_path("k")
+    assert second != first
+    (tmp_path / "other.cuh").write_text("// new header\n")
+    third = _build._lib_path("k")
+    assert third != second
+    flags = _build.NVCC_FLAGS
+    monkeypatch.setattr(_build, "NVCC_FLAGS", (*flags, "-G"))
+    assert _build._lib_path("k") not in (first, second, third)
+    monkeypatch.setattr(_build, "NVCC_FLAGS", flags)
+    assert _build._lib_path("k") == third
+    (tmp_path / "k.cu").write_text("// edited\n")
+    assert _build._lib_path("k") != third
 
 
 # ptxas -v lines as nvcc prints them for two K3 kernels (sm_90a)
@@ -178,3 +203,30 @@ def test_ptxas_report_parses_kernels_and_k3_check_refuses_spills():
         "_ZN4_GLOBAL__N_114attn_fwd_wgmmaILi64EEEv"]
     with pytest.raises(AssertionError, match="no bf16"):
         check_k3_build("")
+
+
+# ptxas -v lines for K4's library: a walk-route kernel and two TMA-route ones
+_PTXAS_K4 = """\
+ptxas info    : Function properties for _ZN4_GLOBAL__N_117rglru_scan_kernelIffEEvPKT_PKT0_PKfPS3_ii
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 40 registers
+ptxas info    : Function properties for _ZN4_GLOBAL__N_121rglru_scan_tma_kernelIffEEv14CUtensorMap_stS1_PKfPT0_ii
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 64 registers
+ptxas info    : Function properties for _ZN4_GLOBAL__N_121rglru_scan_tma_kernelI13__nv_bfloat16fEEv14CUtensorMap_stS2_PKfPT0_ii
+    16 bytes stack frame, 8 bytes spill stores, 8 bytes spill loads
+ptxas info    : Used 255 registers
+"""
+
+
+def test_k4_build_check_covers_only_tma_kernels_and_refuses_spills():
+    """chip_smoke fails the run if ptxas spills in any TMA-route K4
+    kernel; the walk-route kernel is not counted among them."""
+    with pytest.raises(AssertionError, match="K4 TMA kernels spill"):
+        check_k4_build(_PTXAS_K4)
+    clean = _PTXAS_K4.replace("8 bytes spill stores, 8 bytes spill loads",
+                              "0 bytes spill stores, 0 bytes spill loads")
+    got = check_k4_build(clean)
+    assert len(got) == 2 and all("rglru_scan_tma_kernel" in n for n in got)
+    with pytest.raises(AssertionError, match="no K4 TMA kernel"):
+        check_k4_build(_PTXAS)

@@ -9,10 +9,11 @@ Every test here needs a CUDA card and skips without one.  The shapes are
 chip_smoke.py's: tests/test_kernels.py's ATTN_CASES in float32 and
 bfloat16, the head dim 256 cases, the serving slices' prefill shapes and
 the edges of the TMA/wgmma bf16 kernel (TMA_EDGE_CASES), for K3; the
-butterfly combine's sizes, ragged lists and scales for K1/K2, and
-RGLRU_CASES, recurrentgemma's scan shapes and a ragged W in both
-dtypes, with and without h0, for K4: K1, K2 and K4 must be bit-identical to
-their plain versions.
+butterfly combine's sizes, ragged lists and scales for K1/K2 (also in
+place, ``out`` is ``w``), and RGLRU_CASES, recurrentgemma's scan shapes
+and a ragged W in both dtypes, with and without h0, and the edges of K4's
+TMA route (K4_EDGE_CASES) on both routes, with the route asserted, for
+K4: K1, K2 and K4 must be bit-identical to their plain versions.
 """
 
 import sys
@@ -29,8 +30,9 @@ from repro_torch.kernels import rglru_scan as rg
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 from chip_smoke import (GA_DTYPES, GA_RAGGED, GA_SCALES,  # noqa: E402
-                        GA_SIZES, HD256_CASES, K4_CASES, KERNEL_CASES,
-                        SLICE_LENGTHS, TMA_EDGE_CASES, TOL, bf16_bound)
+                        GA_SIZES, HD256_CASES, K4_CASES, K4_DTYPES,
+                        K4_EDGE_CASES, KERNEL_CASES, SLICE_LENGTHS,
+                        TMA_EDGE_CASES, TOL, bf16_bound)
 
 CASES = KERNEL_CASES + [(1, L, L, 32, 4, 64, True, None, "bfloat16")
                         for L in SLICE_LENGTHS] + HD256_CASES + TMA_EDGE_CASES
@@ -132,6 +134,9 @@ def test_k2_bit_identical_to_plain_on_card(dtype, scale, cuda_device):
             before + launches
         for g, w, r in zip(got, ws, rs):          # K2 == K1 on each pair
             assert torch.equal(g, ops.group_average_combine(w, r, scale))
+        inplace = [w.clone() for w in ws]          # outs are the ws
+        ops.group_average_combine_multi(inplace, rs, scale, outs=inplace)
+        assert all(torch.equal(a, b) for a, b in zip(inplace, want))
 
 
 @pytest.mark.cuda
@@ -148,18 +153,24 @@ def test_k1_k2_reject_what_they_do_not_take(cuda_device):
                                         [r, r.bfloat16()], 0.5)
 
 
+def _k4_inputs(case, device):
+    b, s, w, with_h0, dtype = case
+    a_dt, x_dt = K4_DTYPES.get(dtype, (dtype, dtype))
+    rng = np.random.default_rng(0)
+    a = torch.from_numpy(rng.uniform(0.5, 0.999, (b, s, w)).astype(
+        np.float32)).to(device=device, dtype=getattr(torch, a_dt))
+    x = torch.from_numpy((rng.standard_normal((b, s, w)) * 0.1).astype(
+        np.float32)).to(device=device, dtype=getattr(torch, x_dt))
+    h0 = (torch.from_numpy(rng.standard_normal((b, w)).astype(np.float32)
+                           ).to(device) if with_h0 else None)
+    return a, x, h0
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", K4_CASES)
 def test_k4_bit_identical_to_plain_on_card(case, cuda_device):
-    b, s, w, with_h0, dtype = case
-    rng = np.random.default_rng(0)
-    dt = getattr(torch, dtype)
-    a = torch.from_numpy(rng.uniform(0.5, 0.999, (b, s, w)).astype(
-        np.float32)).to(device=cuda_device, dtype=dt)
-    x = torch.from_numpy((rng.standard_normal((b, s, w)) * 0.1).astype(
-        np.float32)).to(device=cuda_device, dtype=dt)
-    h0 = (torch.from_numpy(rng.standard_normal((b, w)).astype(np.float32)
-                           ).to(cuda_device) if with_h0 else None)
+    dtype = case[4]
+    a, x, h0 = _k4_inputs(case, cuda_device)
     before = ops.launch_counts()["rglru_scan"]
     got = ops.rglru_scan(a, x, h0)
     want = rg.rglru_scan_plain(a, x, h0)
@@ -186,3 +197,43 @@ def test_k4_rejects_what_it_does_not_take(cuda_device):
         ops.rglru_scan(a.transpose(0, 1).contiguous().transpose(0, 1), x)
     with pytest.raises(ValueError):               # shapes differ
         ops.rglru_scan(a[:, :4], x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", K4_EDGE_CASES)
+def test_k4_tma_edges_bit_identical_on_both_routes(case, cuda_device):
+    """The dispatcher takes the route the rule names (asserted by the
+    per-route counts); the walk route agrees too; a TMA request on a shape
+    the rule sends down the walk route raises."""
+    b, s, w = case[:3]
+    a, x, h0 = _k4_inputs(case, cuda_device)
+    want = rg.rglru_scan_plain(a, x, h0)
+    route = "tma" if s >= rg.TMA_STEPS else "walk"   # every edge W is 16-byte
+    assert rg.route(s, w, a.dtype, x.dtype,
+                    (a.data_ptr(), x.data_ptr(), x.data_ptr())) == route
+    before = ops.launch_counts()
+    got = ops.rglru_scan(a, x, h0)
+    after = ops.launch_counts()
+    assert after["rglru_scan"] == before["rglru_scan"] + 1
+    assert after[f"rglru_scan_{route}"] == before[f"rglru_scan_{route}"] + 1
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(rg.rglru_scan_cuda(a, x, h0, via="walk"), want)
+    if route == "walk":
+        with pytest.raises(RuntimeError, match="tma route"):
+            rg.rglru_scan_cuda(a, x, h0, via="tma")
+
+
+@pytest.mark.cuda
+def test_k4_misaligned_view_takes_the_walk_route(cuda_device):
+    buf = torch.rand(2 * 256 * 64 + 1, device=cuda_device) * 0.5 + 0.5
+    a = buf[1:].view(2, 256, 64)                   # 4 bytes past alignment
+    x = torch.rand(2, 256, 64, device=cuda_device)
+    before = ops.launch_counts()["rglru_scan_walk"]
+    got = ops.rglru_scan(a, x)
+    assert ops.launch_counts()["rglru_scan_walk"] == before + 1
+    assert torch.equal(got, rg.rglru_scan_plain(a, x))
+    with pytest.raises(RuntimeError, match="tma route"):
+        rg.rglru_scan_cuda(a, x, via="tma")
+    with pytest.raises(ValueError, match="route"):
+        rg.rglru_scan_cuda(a, x, via="scan")

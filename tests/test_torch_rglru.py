@@ -99,11 +99,49 @@ def test_scan_plain_bfloat16_casts_each_step_of_an_fp32_carry():
     assert torch.equal(got, ref.rglru_scan_ref(ta, tx, th))
 
 
+F32, BF16 = torch.float32, torch.bfloat16
+ALIGNED = (1 << 20, 2 << 20, 3 << 20)          # a, x, out base pointers
+
+
+@pytest.mark.parametrize("args, want", [
+    ((3000, 2560, F32, F32, ALIGNED), "tma"),        # the prefill
+    ((3000, 2560, BF16, BF16, ALIGNED), "tma"),
+    ((3000, 2560, BF16, F32, ALIGNED), "tma"),       # mixed
+    ((1, 2560, F32, F32, ALIGNED), "walk"),          # decode: S = 1
+    ((rg.TMA_STEPS - 1, 2560, F32, F32, ALIGNED), "walk"),
+    ((rg.TMA_STEPS, 32, F32, F32, ALIGNED), "tma"),
+    ((3000, 1001, F32, F32, ALIGNED), "walk"),       # rows of 4004 bytes
+    ((3000, 2564, F32, F32, ALIGNED), "tma"),        # 10256-byte rows
+    ((3000, 2564, BF16, F32, ALIGNED), "walk"),      # a's rows 5128 bytes
+    ((3000, 2560, F32, F32, (1 << 20, (2 << 20) + 4, 3 << 20)), "walk"),
+    ((3000, 2560, F32, F32, (1 << 20, 2 << 20, (3 << 20) + 8)), "walk"),
+], ids=["prefill", "prefill-bf16", "prefill-mixed", "decode", "S-under-slot",
+        "one-slot-one-box", "W1001", "W2564", "W2564-bf16-a", "x-misaligned",
+        "out-misaligned"])
+def test_scan_route_rule(args, want):
+    """The wrapper's route: TMA for S >= one slot, 16-byte rows of a and x
+    and 16-byte-aligned pointers; the walk route for everything else."""
+    assert rg.route(*args) == want
+
+
+def test_scan_route_of_a_view_follows_its_pointer():
+    """A contiguous view one element into its buffer is not 16-byte
+    aligned, so the rule sends it down the walk route."""
+    buf = torch.zeros(2 * 3000 * 2560 + 1)
+    view = buf[1:].view(2, 3000, 2560)
+    whole = buf[:-1].view(2, 3000, 2560)
+    for t, want in ((view, "walk"), (whole, "tma")):
+        assert rg.route(3000, 2560, t.dtype, t.dtype,
+                        (t.data_ptr(), t.data_ptr(), whole.data_ptr())) == want
+
+
 def test_scan_cpu_dispatch_counts_nothing_and_refuses_gradients():
     (_, (ta, tx, th)) = _jax_and_torch(*_scan_inputs((2, 9, 8, True)))
     ops.reset_launch_counts()
     ops.rglru_scan(ta, tx, th)
-    assert ops.launch_counts()["rglru_scan"] == 0
+    counts = ops.launch_counts()
+    assert counts["rglru_scan"] == counts["rglru_scan_tma"] == \
+        counts["rglru_scan_walk"] == 0
     for needs in (ta, tx, th):
         needs.requires_grad_(True)
         with pytest.raises(RuntimeError, match="no backward"):
