@@ -72,11 +72,28 @@
    step to 2e-3; (d) every logit finite, every token in the vocab.  Prints
    prefill tokens/s, TTFT, decode ms/step, peak memory and two profiler
    windows (a prefill, a decode step) with K4's and K3's shares.
-8. Prints a ``kernels`` JSON line (K4 twice: ``rglru_scan`` on its TMA
-   route at the prefill shape, with all of its main-path launches and
-   their split by route, and ``rglru_scan_decode`` on the walk route at the
-   decode shape, with the walk route's launches), then ``{"ok": true,
-   "device": ...}`` last.
+8. recurrentgemma training phase: first check (e), ``rglru_scan_train`` at
+   one training layer's shape (8, 512, 2560) f32 with h0, its output and
+   its gradients for a, x and h0 bit-identical between K4 and the plain
+   scan on the same CUDA tensors, with the forward K4 launch, the whole
+   backward, its K4 launch and its flips timed against the byte bound.
+   Then the port's ``Trainer`` on recurrentgemma-2b at full width and the
+   published vocab (256000, tied, bf16), depth cut to 5 layers (one
+   superblock and both trailing recurrent layers), 4 replicas, group size
+   2, tau 5, SGD with momentum 0.9, lr 0.1, seq 512, global batch 32, 12
+   steps.  Checks (a) K1/K2 launches as the schedule predicts; (b) K4
+   launched 3 times per superblock recurrent layer (forward, recompute,
+   backward) and 2 per trailing one, per replica and step, all on the TMA
+   route, K3 never; (c) each group's rows bit-identical after each step
+   (and the fused average equal to the per-leaf one); (d) finite losses, no
+   skipped update.  Prints the step time, tokens/s, the host split, peak
+   memory and a profiler window over one group step.
+9. Prints a ``kernels`` JSON line (K4 twice: ``rglru_scan`` on its TMA
+   route at the prefill shape, with all of its main-path launches, serving
+   and training, and their split by route and path, and its training
+   scan's times; ``rglru_scan_decode`` on the walk route at the decode
+   shape, with the walk route's launches; K1/K2 with their launches on both
+   training paths), then ``{"ok": true, "device": ...}`` last.
 
 Exits non-zero, printing no result, without CUDA or without the repo's
 ``src/`` beside it.  TF32 is off for matmuls and cuDNN so float32 means
@@ -231,6 +248,16 @@ LOGIT_RTOL = 0.05
 RG_ARCH = "recurrentgemma-2b"
 RG_BATCH, RG_PROMPT, RG_NEW = 4, 3000, 32
 RG_F32_PROMPT, RG_F32_STEPS, RG_F32_TOL = 2100, 4, 2e-3
+
+# recurrentgemma training phase: full width and the published vocab (256000,
+# tied), depth cut to 5 layers (one superblock and both trailing recurrent
+# layers, so that every block type runs), 4 replicas (each holds ~10 bytes a
+# param: bf16 params, fp32 momentum, the fp32 averaging bucket; at 8 the
+# 655,360,000-param embedding alone needs 52 GB), group size 2; tau, lr,
+# sequence and steps as the tinyllama phase, 8 rows a replica
+RG_TRAIN_LAYERS, RG_TRAIN_P, RG_TRAIN_S, RG_TRAIN_GB = 5, 4, 2, 32
+# one training layer's scan: (rows a replica, TRAIN_SEQ, lru_width)
+SCAN_TRAIN_SHAPE = (RG_TRAIN_GB // RG_TRAIN_P, TRAIN_SEQ, 2560)
 
 
 def _sync(device):
@@ -761,7 +788,8 @@ def group_rows_agree(params, groups) -> tuple:
 
 def train_phase(cfg, device="cuda", steps: int = TRAIN_STEPS,
                 seq_len: int = TRAIN_SEQ, global_batch: int = TRAIN_GB,
-                topology=None):
+                topology=None, replicas: int = TRAIN_P,
+                group_size: int = TRAIN_S):
     """Drive the port's ``Trainer`` for ``steps`` steps with checks (b),
     (c) and (d); returns the run's numbers, the per-step launch counts for
     check (a) and the trainer (for the profile window)."""
@@ -775,7 +803,7 @@ def train_phase(cfg, device="cuda", steps: int = TRAIN_STEPS,
     from repro_torch.train import train_step
 
     t0 = time.perf_counter()
-    trainer = Trainer(cfg, TRAIN_P, device=device, group_size=TRAIN_S,
+    trainer = Trainer(cfg, replicas, device=device, group_size=group_size,
                       tau=TRAIN_TAU, learning_rate=TRAIN_LR, seq_len=seq_len,
                       global_batch=global_batch, seed=0, topology=topology)
     _sync(device)
@@ -819,9 +847,11 @@ def train_phase(cfg, device="cuda", steps: int = TRAIN_STEPS,
     value_and_grad = train_step.value_and_grad
     train_step.value_and_grad = timed("grads", value_and_grad)
 
-    if torch.device(device).type == "cuda":
+    on_card = torch.device(device).type == "cuda"
+    if on_card:
         torch.cuda.reset_peak_memory_stats()
     log = []
+    peak_first = None
     ops.reset_launch_counts()
     for t in range(steps):
         split.update(grads=0.0, update=0.0, average=0.0)
@@ -834,8 +864,8 @@ def train_phase(cfg, device="cuda", steps: int = TRAIN_STEPS,
         after = ops.launch_counts()
         sync = trainer.averager.sync_due(t)
         offset = None if sync else plan.offsets[trainer.averager.phase_for_step(t)]
-        groups = ((tuple(range(TRAIN_P)),) if sync else
-                  grouping.groups_for_offset(TRAIN_P, TRAIN_S, offset))
+        groups = ((tuple(range(replicas)),) if sync else
+                  grouping.groups_for_offset(replicas, group_size, offset))
         same, differ = group_rows_agree(trainer.state.params, groups)
         if not same or (not sync and not differ):          # check (b)
             raise AssertionError(
@@ -852,12 +882,16 @@ def train_phase(cfg, device="cuda", steps: int = TRAIN_STEPS,
                     "other_ms": (step_s - split["grads"] - split["update"]
                                  - split["average"]) * 1e3,
                     "skipped": trainer.last_metrics["skipped_nonfinite"],
-                    "k1": after[K1] - before[K1],
-                    "k2": after[K2] - before[K2]})
+                    **{key: after[name] - before[name] for key, name in (
+                        ("k1", K1), ("k2", K2), ("k3", K3), ("k4", K4),
+                        ("k4_tma", K4_TMA), ("k4_walk", K4_WALK))}})
+        if on_card and t == 0:
+            # the first step also runs check (c)'s per-leaf average
+            peak_first = torch.cuda.max_memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
     train_step.value_and_grad = value_and_grad
     launches = ops.launch_counts()
-    peak = (torch.cuda.max_memory_allocated()
-            if torch.device(device).type == "cuda" else None)
+    peak_rest = torch.cuda.max_memory_allocated() if on_card else None
     if not checked.get("fused_equals_per_leaf"):                # check (c)
         raise AssertionError("the fused K1/K2 average differs from the "
                              "plan's per-leaf path")
@@ -868,10 +902,10 @@ def train_phase(cfg, device="cuda", steps: int = TRAIN_STEPS,
     med = lambda key: statistics.median(e[key] for e in steady)
     return {
         "arch": cfg.name, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
-        "dtype": cfg.dtype, "replicas": TRAIN_P, "group_size": TRAIN_S,
+        "dtype": cfg.dtype, "replicas": replicas, "group_size": group_size,
         "tau": TRAIN_TAU, "seq_len": seq_len, "global_batch": global_batch,
         "params_per_replica": sum(l.numel() for l in tr.tree_leaves(
-            trainer.state.params)) // TRAIN_P,
+            trainer.state.params)) // replicas,
         "n_buckets": n_buckets, "bucket_bytes": plan.class_bucket_bytes[0],
         "expected_k1_k2_per_group_step": expected_combine_launches(
             n_buckets, n_stages),
@@ -882,7 +916,9 @@ def train_phase(cfg, device="cuda", steps: int = TRAIN_STEPS,
         "median_split_ms": {k: med(k + "_ms")
                             for k in ("grads", "update", "average",
                                       "other")},
-        "max_memory_allocated": peak,
+        "max_memory_allocated": (max(peak_first, peak_rest)
+                                 if on_card else None),
+        "max_memory_allocated_after_first": peak_rest,
         "fused_equals_per_leaf": checked["fused_equals_per_leaf"],
     }, trainer
 
@@ -902,15 +938,101 @@ def check_train_launches(stats):
         raise AssertionError("no multi-pair K2 launch on the training path")
 
 
-def train_profile(trainer, t: int, device="cuda"):
-    """One group step (global step ``t``) under the profiler."""
+def train_profile(trainer, t: int, device="cuda", shares=None):
+    """One group step (global step ``t``) under the profiler; ``shares`` as
+    :func:`_window` takes them."""
     from torch.profiler import profile
     with profile(activities=_activities(device)) as prof:
         t0 = time.perf_counter()
         trainer.step_once(t)
         _sync(device)
         wall_ms = (time.perf_counter() - t0) * 1e3
-    return _window(prof, wall_ms)
+    return _window(prof, wall_ms, shares=shares)
+
+
+def rg_train_config():
+    from repro_torch.configs import get_config
+    return get_config(RG_ARCH).variant(n_layers=RG_TRAIN_LAYERS)
+
+
+def rg_train_k4_per_step(cfg, replicas: int) -> int:
+    """K4 launches of one training step: each superblock recurrent layer
+    scans forward, again when its superblock is recomputed, and backward (3
+    a replica); each trailing recurrent layer forward and backward (2)."""
+    from repro_torch.models import rglru
+    n_sb, tail = rglru.layout(cfg)
+    return replicas * (3 * 2 * n_sb + 2 * tail)
+
+
+def check_rg_train_launches(stats, k4_per_step: int):
+    """Check (b) of the recurrentgemma training phase: every step launched
+    K4 ``k4_per_step`` times, all on the TMA route, and K3 never."""
+    for e in stats["steps"]:
+        got = (e["k4"], e["k4_tma"], e["k4_walk"], e["k3"])
+        if got != (k4_per_step, k4_per_step, 0, 0):
+            raise AssertionError(f"step {e['t']}: K4 / TMA / walk / K3 "
+                                 f"launched {got}; expected K4 "
+                                 f"{k4_per_step}, all TMA, and no K3")
+
+
+def scan_train_phase(device="cuda", shape=SCAN_TRAIN_SHAPE):
+    """Check (e): ``rglru_scan_train`` at one training layer's shape, f32
+    with h0: its output and its gradients for a, x and h0 bit-identical
+    between K4 and the plain scan on the same CUDA tensors; then the times
+    of the forward K4 launch, of the whole backward (autograd), of the
+    backward's K4 launch and of its flips, and the plain version's forward
+    and backward, against the scan's byte bound."""
+    import torch
+    from repro_torch.kernels import rglru_scan as rg
+
+    b, s, w = shape
+    gen = torch.Generator(device=device).manual_seed(3)
+    a, x, h0 = k4_inputs(gen, b, s, w, True, "float32", device)
+    dh = torch.randn((b, s, w), generator=gen, device=device)
+
+    def graph(scan):
+        ins = [t.clone().requires_grad_(True) for t in (a, x, h0)]
+        return ins, rg.rglru_scan_train(*ins, scan=scan)
+
+    def run(scan):
+        ins, h = graph(scan)
+        return [h.detach()] + list(torch.autograd.grad(h, ins, dh))
+
+    got, want = run(rg.rglru_scan_cuda), run(rg.rglru_scan_plain)
+    torch.cuda.synchronize()
+    names = ("h", "da", "dx", "dh0")
+    equal = {n: bool(torch.equal(g, v)) for n, g, v in zip(names, got, want)}
+    err = max(float((g - v).abs().max()) for g, v in zip(got, want))
+    if not all(equal.values()):
+        raise AssertionError(f"rglru_scan_train through K4 differs from the "
+                             f"plain scan at {shape}: {equal}, max abs err "
+                             f"{err}")
+    del got, want
+    a_rev, dh_rev = rg.reverse_inputs(a, dh)
+    g_rev = rg.rglru_scan_cuda(a_rev, dh_rev)
+    ins, h = graph(rg.rglru_scan_cuda)
+    plain_ins, plain_h = graph(rg.rglru_scan_plain)
+    out = {
+        "shape": [b, s, w], "dtype": "float32", "h0": True, "equal": equal,
+        "max_abs_err": err,
+        "forward_ms": time_ms(lambda: rg.rglru_scan_cuda(a, x, h0)),
+        "backward_ms": time_ms(lambda: torch.autograd.grad(
+            h, ins, dh, retain_graph=True)),
+        "backward_scan_ms": time_ms(lambda: rg.rglru_scan_cuda(a_rev,
+                                                               dh_rev)),
+        # the reversed inputs (a shifted and flipped, dh flipped) and the
+        # flip of the reversed scan's result
+        "flips_ms": time_ms(lambda: (rg.reverse_inputs(a, dh),
+                                     g_rev.flip(1))),
+        "plain_forward_ms": time_ms(lambda: rg.rglru_scan_plain(a, x, h0),
+                                    iters=5, warmup=1),
+        "plain_backward_ms": time_ms(lambda: torch.autograd.grad(
+            plain_h, plain_ins, dh, retain_graph=True), iters=5, warmup=1),
+        "bound_ms": scan_bound_ms(b, s, w, 4, 4, True), "bound_by": "bytes",
+    }
+    del a, x, h0, dh, a_rev, dh_rev, g_rev, ins, h, plain_ins, plain_h
+    torch.cuda.empty_cache()
+    return out
 
 
 def make_requests(cfg, seed: int = 0):
@@ -1481,6 +1603,49 @@ def main() -> int:
     for name, w in rg_windows.items():
         _print_window(f"recurrentgemma {name}", w, card)
 
+    # -- recurrentgemma training phase (K4 forward and backward, K1, K2) ---
+    scan_train = scan_train_phase()
+    print(json.dumps({"scan_train": scan_train, "card": card}), flush=True)
+    print(f"K4 training scan {scan_train['shape']} f32 + h0 [{card}]: "
+          f"output and grads bit-identical to the plain scan "
+          f"{scan_train['equal']}; forward {scan_train['forward_ms']:.4f} ms, "
+          f"backward {scan_train['backward_ms']:.4f} ms (its K4 launch "
+          f"{scan_train['backward_scan_ms']:.4f} ms, flips "
+          f"{scan_train['flips_ms']:.4f} ms), bound "
+          f"{scan_train['bound_ms']:.4f} ms a scan (bytes); plain forward "
+          f"{scan_train['plain_forward_ms']:.3f} ms, backward "
+          f"{scan_train['plain_backward_ms']:.3f} ms", flush=True)
+    rtcfg = rg_train_config()
+    rg_train, trainer = train_phase(rtcfg, replicas=RG_TRAIN_P,
+                                    group_size=RG_TRAIN_S,
+                                    global_batch=RG_TRAIN_GB)
+    check_train_launches(rg_train)                              # check (a)
+    k4_per_step = rg_train_k4_per_step(rtcfg, RG_TRAIN_P)
+    check_rg_train_launches(rg_train, k4_per_step)              # check (b)
+    rg_train_window = train_profile(trainer, TRAIN_STEPS, shares={
+        "K4": "rglru_scan", "K1/K2": "group_average_combine"})
+    del trainer
+    torch.cuda.empty_cache()
+    print(json.dumps({"rg_train": rg_train, "rg_train_profile":
+                      rg_train_window, "card": card}), flush=True)
+    print(f"rg train [{card}]: {rtcfg.name} full width, vocab "
+          f"{rtcfg.vocab}, {rtcfg.n_layers} layers, {RG_TRAIN_P} replicas "
+          f"S={RG_TRAIN_S} tau={TRAIN_TAU}, "
+          f"{rg_train['params_per_replica']} params/replica, "
+          f"{rg_train['n_buckets']} buckets of "
+          f"{rg_train['bucket_bytes'] >> 20} MiB; K4 {k4_per_step} launches "
+          f"a step, all TMA", flush=True)
+    print(f"rg train losses: {[round(x, 4) for x in rg_train['losses']]}",
+          flush=True)
+    print(f"rg train [{card}]: median step {rg_train['median_step_ms']:.1f} "
+          f"ms after the first, {rg_train['tokens_per_s']:.0f} tokens/s, host "
+          f"split { {k: round(v, 1) for k, v in rg_train['median_split_ms'].items()} }"
+          f" ms, peak memory {rg_train['max_memory_allocated'] / 2**30:.2f} "
+          f"GiB (after the first step "
+          f"{rg_train['max_memory_allocated_after_first'] / 2**30:.2f} GiB), "
+          f"launches {rg_train['launches']}", flush=True)
+    _print_window(f"rg train group step {TRAIN_STEPS}", rg_train_window, card)
+
     main_row = next(r for r in rows if r["shape"] == list(TL_ATTN_SHAPE[:6])
                     and r["dtype"] == TL_ATTN_SHAPE[8])
     rg_row = next(r for r in rows if r["shape"] == list(RG_ATTN_SHAPE[:6])
@@ -1493,6 +1658,10 @@ def main() -> int:
     rg_launches = [rg["prefill_launches"]] + rg["step_launches"]
     ga_err = {k: max(r["max_abs_err"] for r in ga_rows if r["kernel"] == k)
               for k in ("K1", "K2")}
+    by_path = lambda name, serving=0: {
+        f"{ARCH} training": train["launches"][name],
+        f"{RG_ARCH} serving": serving,
+        f"{RG_ARCH} training": rg_train["launches"][name]}
     entry = lambda name, source, replaces, launches, row, err, **kw: {
         "name": name, "route": "cuda", "source": source,
         "replaces": replaces, "launches": launches, "max_abs_err": err,
@@ -1502,12 +1671,14 @@ def main() -> int:
     kernels = [
         entry(K1, "src/repro_torch/kernels/csrc/group_average.cu",
               "src/repro/kernels/group_average.py:68",
-              train["launches"][K1], ga_line["K1"], ga_err["K1"],
-              n=ga_line["K1"]["n"], dtype="float32", scale=1.0),
+              sum(by_path(K1).values()), ga_line["K1"], ga_err["K1"],
+              n=ga_line["K1"]["n"], dtype="float32", scale=1.0,
+              launches_by_path=by_path(K1)),
         entry(K2, "src/repro_torch/kernels/csrc/group_average.cu",
               "src/repro/kernels/group_average.py:80",
-              train["launches"][K2], ga_line["K2"], ga_err["K2"],
-              n=ga_line["K2"]["n"], dtype="float32", scale=1.0),
+              sum(by_path(K2).values()), ga_line["K2"], ga_err["K2"],
+              n=ga_line["K2"]["n"], dtype="float32", scale=1.0,
+              launches_by_path=by_path(K2)),
         entry(K3, "src/repro_torch/kernels/csrc/flash_attention.cu",
               "src/repro/kernels/flash_attention.py:70", served[K3],
               main_row, max(r["max_abs_err"] for r in rows),
@@ -1523,12 +1694,19 @@ def main() -> int:
               path=f"{RG_ARCH} serving"),
         entry(K4, "src/repro_torch/kernels/csrc/rglru_scan.cu",
               "src/repro/kernels/rglru_scan.py:48",
-              sum(c[K4] for c in rg_launches), k4_row, k4_err,
+              sum(c[K4] for c in rg_launches) + rg_train["launches"][K4],
+              k4_row, max(k4_err, scan_train["max_abs_err"]),
               shape=k4_row["shape"], dtype=k4_row["dtype"],
               k4_route=k4_row["route"], launches_by_route={
                   route: sum(c[key] for c in rg_launches)
+                  + rg_train["launches"][key]
                   for route, key in (("tma", K4_TMA), ("walk", K4_WALK))},
-              path=f"{RG_ARCH} serving"),
+              launches_by_path=by_path(K4, sum(c[K4] for c in rg_launches)),
+              train_scan={k: scan_train[k] for k in (
+                  "shape", "forward_ms", "backward_ms", "backward_scan_ms",
+                  "flips_ms", "plain_forward_ms", "plain_backward_ms",
+                  "bound_ms")},
+              path=f"{RG_ARCH} serving and training"),
         entry(f"{K4}_decode", "src/repro_torch/kernels/csrc/rglru_scan.cu",
               "src/repro/kernels/rglru_scan.py:48",
               sum(c[K4_WALK] for c in rg_launches), k4_decode_row, k4_err,

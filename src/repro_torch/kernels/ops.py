@@ -88,13 +88,23 @@ def group_average_combine_multi(ws: Sequence, rs: Sequence, inv_s: float, *,
 
 def rglru_scan(a, x, h0=None):
     """h_t = a_t * h_{t-1} + x_t over a, x (B,S,W) with an fp32 carry from
-    h0 (B,W) or 0; returns h (B,S,W) in x's dtype.  Forward only: the
-    training slice decides how the scan is differentiated, so with grad
-    enabled and an input that requires grad it raises on either device."""
+    h0 (B,W) or 0; returns h (B,S,W) in x's dtype.  Forward only: with grad
+    enabled and an input that requires grad it raises on either device
+    (training calls :func:`rglru_scan_train`)."""
     _refuse_grad("rglru_scan", a, x, h0)
     if _device_kind(x) == "cuda":
         return _rg.rglru_scan_cuda(a, x, h0)
     return _rg.rglru_scan_plain(a, x, h0)
+
+
+def rglru_scan_train(a, x, h0=None):
+    """:func:`rglru_scan` with a gradient for a, x and h0: the forward scan
+    and the backward scan (the same recurrence reversed in time) are both
+    K4 on CUDA tensors and both the plain loop on CPU tensors; each K4
+    launch is counted as :func:`rglru_scan`'s are."""
+    scan = (_rg.rglru_scan_cuda if _device_kind(x) == "cuda"
+            else _rg.rglru_scan_plain)
+    return _rg.rglru_scan_train(a, x, h0, scan=scan)
 
 
 def launch_counts() -> Dict[str, int]:

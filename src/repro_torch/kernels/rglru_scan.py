@@ -13,7 +13,10 @@ every result of either route is bit-identical to it.
 
 Both take a, x (B,S,W), each float32 or bfloat16, and an optional h0 (B,W)
 (the carry before step 0), and return h (B,S,W) in x's dtype.  Channels are
-independent; time is sequential.  The kernel carries no gradient.
+independent; time is sequential.  The kernel carries no gradient:
+:func:`rglru_scan_train` differentiates the recurrence with a second scan,
+run backwards in time through the same kernel (the JAX package has no
+backward kernel, so none is written here).
 """
 
 from __future__ import annotations
@@ -120,3 +123,45 @@ def rglru_scan_cuda(a, x, h0=None, *, via=None):
     launches += 1
     route_launches[via] += 1
     return out
+
+
+def reverse_inputs(a, dh):
+    """The backward scan's inputs, reversed in time: ``flip(a_next)``, where
+    ``a_next[:, t] = a[:, t+1]`` and its last step is 0, and ``flip(dh)``."""
+    a_rev = torch.cat([torch.zeros_like(a[:, :1]), a[:, 1:].flip(1)], dim=1)
+    return a_rev, dh.flip(1)
+
+
+class _ScanTrain(torch.autograd.Function):
+    """h = scan(a, x, h0) with the gradient of the linear recurrence: the
+    total gradient g_t = dh_t + a_{t+1} g_{t+1} is the same recurrence
+    backwards in time, ``g = flip(scan(flip(a_next), flip(dh)))``; then
+    dx = g, da_t = g_t * h_{t-1} (h_{-1} = h0 or 0), dh0 = a_0 * g_0."""
+
+    @staticmethod
+    def forward(ctx, a, x, h0, scan):
+        h = scan(a, x, h0)
+        ctx.scan = scan
+        ctx.save_for_backward(a, h, h0)
+        return h
+
+    @staticmethod
+    def backward(ctx, dh):
+        a, h, h0 = ctx.saved_tensors
+        g = ctx.scan(*reverse_inputs(a, dh)).flip(1)
+        da = dh0 = None
+        if ctx.needs_input_grad[0]:
+            da = torch.empty_like(g)
+            torch.mul(g[:, 1:], h[:, :-1], out=da[:, 1:])
+            da[:, 0] = g[:, 0] * h0 if h0 is not None else 0.0
+            da = da.to(a.dtype)
+        if h0 is not None and ctx.needs_input_grad[2]:
+            dh0 = (a[:, 0] * g[:, 0]).to(h0.dtype)
+        return da, g if ctx.needs_input_grad[1] else None, dh0, None
+
+
+def rglru_scan_train(a, x, h0=None, *, scan):
+    """The recurrence with autograd: forward ``scan(a, x, h0)`` and the
+    backward scan through the same ``scan`` (:func:`rglru_scan_cuda` or
+    :func:`rglru_scan_plain`, which ``kernels.ops`` picks by device)."""
+    return _ScanTrain.apply(a, x, h0, scan)

@@ -1,15 +1,16 @@
 """Uniform model API: build_model(cfg, device) -> ModelAPI.
 
-Counterpart of ``repro/models/registry.py`` for the dense family and, for
-serving, the hybrid family (recurrentgemma).  The ``layered``
-decomposition belongs to the FSDP slice; the chunked cross-entropy of
-vocabularies of 65536 and more (``_chunked_ce``) and the hybrid loss to
-slice 3b (ROADMAP.md), recurrentgemma's training.
+Counterpart of ``repro/models/registry.py`` for the dense family and the
+hybrid family (recurrentgemma).  The ``layered`` decomposition belongs to
+the FSDP slice (ROADMAP.md).
 """
 
 from __future__ import annotations
 
 from typing import Any, Callable, NamedTuple
+
+import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import common as cm
 from repro_torch.models import rglru
@@ -38,33 +39,53 @@ _LATER = {
 CHUNKED_CE_VOCAB = 65536
 
 
-def _dense_loss(cfg):
-    """``ModelAPI.loss`` of the dense family, the JAX loss's unchunked
-    branch: cross-entropy of the training forward's logits.  A vocab that
-    needs the chunked branch raises when the loss is called, so that such
-    a model still serves."""
+def _chunked_ce(cfg, params, hidden, labels, mask):
+    """The JAX package's big-vocab cross-entropy: the (B,S,V) float32
+    logits never exist, forward or backward.  The sequence runs in 8 chunks
+    (one fewer until the count divides S), in order from 0; each chunk's
+    unembed, logsumexp, label gather and masked NLL sum recompute in the
+    backward (``checkpoint``), as ``jax.remat`` wraps the JAX scan body.
+    Returns the NLL sum over the mask's sum (at least 1)."""
+    b, s = labels.shape
+    chunks = 8
+    while s % chunks:
+        chunks -= 1
+    sc = s // chunks
+    if mask is None:
+        mask = torch.ones((b, s), dtype=torch.float32, device=hidden.device)
+
+    def body(xc, lc, mc):
+        logits = tfm.unembed(cfg, params, xc).float()
+        lse = torch.logsumexp(logits, dim=-1)
+        lab = torch.gather(logits, -1, lc.long()[..., None])[..., 0]
+        return ((lse - lab) * mc).sum(), mc.sum()
+
+    tot = cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for c in range(chunks):
+        cols = slice(c * sc, (c + 1) * sc)
+        nll, n = checkpoint(body, hidden[:, cols], labels[:, cols],
+                            mask[:, cols], use_reentrant=False)
+        tot, cnt = tot + nll, cnt + n
+    return tot / torch.clamp(cnt, min=1.0)
+
+
+def _loss(cfg, forward_train):
+    """``ModelAPI.loss`` of the dense and hybrid families, the JAX loss's
+    two branches: at a vocab of ``CHUNKED_CE_VOCAB`` or more the chunked
+    cross-entropy of the training forward's hidden state, else the
+    cross-entropy of its logits."""
+    chunked = cfg.vocab_padded >= CHUNKED_CE_VOCAB
+
     def loss_fn(params, batch, remat=True):
-        if cfg.vocab_padded >= CHUNKED_CE_VOCAB:
-            raise NotImplementedError(
-                f"{cfg.name}: the chunked cross-entropy for a vocab of "
-                f"{cfg.vocab_padded} (>= {CHUNKED_CE_VOCAB}) is not ported "
-                f"yet (ROADMAP.md, slice 3b)")
-        logits = tfm.forward_train(cfg, params, batch["tokens"], remat=remat)
-        ce = cm.softmax_cross_entropy(logits, batch["labels"],
-                                      batch.get("mask"))
+        out = forward_train(cfg, params, batch["tokens"], remat=remat,
+                            return_hidden=chunked)
+        if chunked:
+            ce = _chunked_ce(cfg, params, out, batch["labels"],
+                             batch.get("mask"))
+        else:
+            ce = cm.softmax_cross_entropy(out, batch["labels"],
+                                          batch.get("mask"))
         return ce, {"ce": ce, "loss": ce}
-
-    return loss_fn
-
-
-def _hybrid_loss(cfg):
-    """recurrentgemma serves but does not train yet."""
-    def loss_fn(params, batch, remat=True):
-        raise NotImplementedError(
-            f"{cfg.name}: the hybrid loss (the chunked cross-entropy of its "
-            f"{cfg.vocab_padded} vocab and a gradient through the RG-LRU scan) "
-            f"is not ported yet (ROADMAP.md, slice 3b: recurrentgemma "
-            f"training)")
 
     return loss_fn
 
@@ -73,9 +94,9 @@ def build_model(cfg, device="cuda") -> ModelAPI:
     """The dense or hybrid family's API; entry points run on ``device``
     (CUDA unless the caller asks for the CPU)."""
     if cfg.family == "dense":
-        mod, loss = tfm, _dense_loss(cfg)
+        mod = tfm
     elif cfg.family == "hybrid":
-        mod, loss = rglru, _hybrid_loss(cfg)
+        mod = rglru
     elif cfg.family in _LATER:
         raise NotImplementedError(
             f"family {cfg.family!r} ({cfg.name}) is not ported yet; "
@@ -88,7 +109,7 @@ def build_model(cfg, device="cuda") -> ModelAPI:
         init=lambda generator: mod.init_params(cfg, generator, device),
         forward=lambda params, batch: (
             mod.forward(cfg, params, batch["tokens"]), {}),
-        loss=loss,
+        loss=_loss(cfg, mod.forward_train),
         init_caches=lambda batch, max_len: mod.init_caches(
             cfg, batch, max_len, device),
         prefill=lambda params, batch, max_len: mod.prefill(

@@ -10,19 +10,20 @@ RG-LRU recurrence (linear, gated):
     h_t = a_t * h_{t-1} + sqrt(1 - a_t^2) * (i_t * u_t)
 
 The JAX model scans with ``jax.lax.associative_scan``; here the recurrence
-runs through ``kernels.ops.rglru_scan``: the Hopper kernel K4 on CUDA
-tensors, its plain sequential loop on CPU tensors.  The local-attention
-layers are the dense family's (``transformer._attn_block``, whose prefill
-attention is K3, and ``transformer._decode_layer``) with a window of
-``ATTN_WINDOW``.
+runs through ``kernels.ops.rglru_scan`` (serving) or
+``kernels.ops.rglru_scan_train`` (training, whose backward is the reverse
+scan): the Hopper kernel K4 on CUDA tensors, its plain sequential loop on
+CPU tensors.  The local-attention layers are the dense family's
+(``transformer._attn_block``, whose prefill attention is K3, and
+``transformer._decode_layer``) with a window of ``ATTN_WINDOW``.
 
 Parameters are a dict with the JAX package's tree and layouts: ``emb``,
 ``blocks/{rec1,rec2,attn}`` stacked over the 8 superblocks, ``ln_f`` and
 ``tail`` stacked over the trailing recurrent layers.  ``lam`` is float32
 whatever ``cfg.dtype`` is.  Serving state per recurrent layer is
 ``(h (B,w) fp32, conv (B,K-1,w) in cfg.dtype)``; ``decode_step`` writes
-every cache in place and returns them.  Forward only: the training loss
-is a later slice (ROADMAP.md).
+every cache in place and returns them.  ``forward_train`` is the JAX
+``forward`` with autograd, which the training loss runs.
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ from typing import Optional
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.tree import Spec
 from repro_torch.kernels import ops
@@ -152,15 +154,16 @@ def conv1d_causal(u, w, state=None):
     return out, new_state
 
 
-def recurrent_block(cfg, p, x, state=None):
-    """state = (h (B,w) fp32, conv (B,K-1,w)) or None. Returns (x, state)."""
+def recurrent_block(cfg, p, x, state=None, scan=ops.rglru_scan):
+    """state = (h (B,w) fp32, conv (B,K-1,w)) or None. Returns (x, state).
+    ``scan`` is the serving scan, or ``ops.rglru_scan_train`` for training."""
     h = cm.rms_norm(x, p["ln"]["scale"], cfg.norm_eps)
     gate = cm.act_fn("gelu")(h @ p["w_gate"])
     u = h @ p["w_x"]
     h0, conv_state = (None, None) if state is None else state
     u, conv_state = conv1d_causal(u, p["conv_w"], conv_state)
     a, gin = _gates(p, u)
-    hs = ops.rglru_scan(a, gin, h0)                           # (B,S,w) fp32
+    hs = scan(a, gin, h0)                                     # (B,S,w) fp32
     y = (hs.to(x.dtype) * gate) @ p["w_out"]
     x = x + y
     x = x + tfm.mlp(cfg, p["mlp"], cm.rms_norm(x, p["mlp"]["ln"]["scale"],
@@ -191,6 +194,44 @@ def forward(cfg, params, tokens):
     for i in range(tail):
         x, _ = recurrent_block(cfg, tfm._index(params["tail"], i), x)
     return _final(cfg, params, x)
+
+
+def forward_train(cfg, params, tokens, remat: bool = True,
+                  return_hidden: bool = False):
+    """tokens (B,S) -> logits (B,S,V) with autograd: the JAX ``forward``.
+    With ``return_hidden`` the hidden state after ``ln_f`` instead, before
+    the unembed (the chunked cross-entropy's input).
+
+    The scan is ``ops.rglru_scan_train`` (K4 forward and backward on CUDA
+    tensors), attention ``cm.differentiable_blocked_attention`` with window
+    ``ATTN_WINDOW`` (no kernel, as in the JAX training loss).  ``remat``
+    recomputes each (rec1, rec2, attn) superblock in the backward
+    (``torch.utils.checkpoint``), as ``jax.remat`` wraps the superblock
+    body that JAX scans; the trailing recurrent layers are not recomputed,
+    as JAX's ``tail_body`` is not.
+    """
+    x = tfm.embed(cfg, params, tokens)
+    positions = tfm._positions(x)
+    n_sb, tail = layout(cfg)
+
+    def rec(p, x):
+        return recurrent_block(cfg, p, x, scan=ops.rglru_scan_train)[0]
+
+    def superblock(x, bp):
+        x = rec(bp["rec2"], rec(bp["rec1"], x))
+        return tfm._attn_block(cfg, bp["attn"], x, positions, ATTN_WINDOW,
+                               cfg.causal,
+                               attention=cm.differentiable_blocked_attention
+                               )[0]
+
+    for i in range(n_sb):
+        bp = tfm._index(params["blocks"], i)
+        x = (checkpoint(superblock, x, bp, use_reentrant=False) if remat
+             else superblock(x, bp))
+    for i in range(tail):
+        x = rec(tfm._index(params["tail"], i), x)
+    x = cm.rms_norm(x, params["ln_f"]["scale"], cfg.norm_eps)
+    return x if return_hidden else tfm.unembed(cfg, params, x)
 
 
 # ---------------------------------------------------------------------------

@@ -10,7 +10,8 @@ this module loops in Python over views of it.
 Entry points:
     init_params(cfg, generator, device)
     forward(cfg, params, tokens) -> logits (scoring, no autograd)
-    forward_train(cfg, params, tokens, remat) -> logits (with autograd)
+    forward_train(cfg, params, tokens, remat, return_hidden) -> logits, or
+        the hidden state after ``ln_f`` (with autograd)
     prefill(cfg, params, tokens, max_len) -> (last_logits, caches)
     decode_step(cfg, params, caches, token, pos) -> (logits, caches)
 
@@ -236,8 +237,11 @@ def forward(cfg, params, tokens):
     return unembed(cfg, params, x)
 
 
-def forward_train(cfg, params, tokens, remat: bool = True):
+def forward_train(cfg, params, tokens, remat: bool = True,
+                  return_hidden: bool = False):
     """tokens (B,S) -> logits (B,S,V) with autograd: the JAX ``forward``.
+    With ``return_hidden`` the hidden state after ``ln_f`` (B,S,d) instead,
+    before the unembed (the chunked cross-entropy's input).
 
     Attention is ``cm.differentiable_blocked_attention`` (no kernel, as in
     the JAX training loss).  ``remat`` recomputes each superblock in the
@@ -264,7 +268,7 @@ def forward_train(cfg, params, tokens, remat: bool = True):
         x = (checkpoint(superblock, x, bp, use_reentrant=False) if remat
              else superblock(x, bp))
     x = norm_apply(cfg, x, params["ln_f"])
-    return unembed(cfg, params, x)
+    return x if return_hidden else unembed(cfg, params, x)
 
 
 # ---------------------------------------------------------------------------

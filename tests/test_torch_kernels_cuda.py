@@ -13,9 +13,11 @@ butterfly combine's sizes, ragged lists and scales for K1/K2 (also in
 place, ``out`` is ``w``), and RGLRU_CASES, recurrentgemma's scan shapes
 and a ragged W in both dtypes, with and without h0, and the edges of K4's
 TMA route (K4_EDGE_CASES) on both routes, with the route asserted, for
-K4: K1, K2 and K4 must be bit-identical to their plain versions.
+K4, also through ``rglru_scan_train`` (forward and backward scan): K1, K2
+and K4 must be bit-identical to their plain versions.
 """
 
+import functools
 import sys
 from pathlib import Path
 
@@ -237,3 +239,36 @@ def test_k4_misaligned_view_takes_the_walk_route(cuda_device):
         rg.rglru_scan_cuda(a, x, via="tma")
     with pytest.raises(ValueError, match="route"):
         rg.rglru_scan_cuda(a, x, via="scan")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", K4_EDGE_CASES)
+def test_k4_scan_train_bit_identical_on_both_routes(case, cuda_device):
+    """``rglru_scan_train`` through K4 (forward and backward scan, on the
+    route the rule picks and counted on it, then forced onto the walk
+    route): its output and its gradients for a, x and h0 bit-identical to
+    the same function through the plain scan on the same CUDA tensors."""
+    b, s, w = case[:3]
+    a, x, h0 = _k4_inputs(case, cuda_device)
+    dh = torch.randn(x.shape, generator=torch.Generator(
+        device=cuda_device).manual_seed(1), device=cuda_device).to(x.dtype)
+
+    def run(train):
+        ins = [t.clone().requires_grad_(True) for t in (a, x, h0)
+               if t is not None]
+        h = train(ins[0], ins[1], ins[2] if h0 is not None else None)
+        return [h.detach()] + list(torch.autograd.grad(h, ins, dh))
+
+    want = run(lambda *t: rg.rglru_scan_train(*t, scan=rg.rglru_scan_plain))
+    route = "tma" if s >= rg.TMA_STEPS else "walk"   # every edge W is 16-byte
+    before = ops.launch_counts()
+    got = run(ops.rglru_scan_train)
+    after = ops.launch_counts()
+    assert after["rglru_scan"] == before["rglru_scan"] + 2
+    assert after[f"rglru_scan_{route}"] == before[f"rglru_scan_{route}"] + 2
+    walk = run(lambda *t: rg.rglru_scan_train(*t, scan=functools.partial(
+        rg.rglru_scan_cuda, via="walk")))
+    torch.cuda.synchronize()
+    for g, k, v in zip(got, walk, want):
+        assert g.dtype == v.dtype and torch.equal(g, v)
+        assert torch.equal(k, v)

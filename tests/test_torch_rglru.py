@@ -269,7 +269,18 @@ def test_paged_pool_refuses_recurrentgemma_like_jax():
         init_paged_pool(build_model(cfg, device="cpu"), 8, 4)
 
 
-def test_loss_names_the_training_slice():
-    model = build_model(get_config(ARCH, smoke=True), device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 3b"):
-        model.loss({}, {"tokens": None, "labels": None})
+def test_loss_returns_a_finite_scalar_on_cpu():
+    """The smoke config's training loss: a finite float32 scalar, the
+    metrics' ``ce``, with a gradient for every leaf."""
+    cfg = get_config(ARCH, smoke=True)
+    model = build_model(cfg, device="cpu")
+    params = model.init(torch.Generator().manual_seed(0))
+    toks = _t(_tokens(cfg, (2, 17), 3))
+    leaves, treedef = tr.tree_flatten(params)
+    leaves = [l.requires_grad_(True) for l in leaves]
+    loss, metrics = model.loss(tr.tree_unflatten(treedef, leaves),
+                               {"tokens": toks[:, :-1], "labels": toks[:, 1:]})
+    assert loss.shape == () and loss.dtype == torch.float32
+    assert bool(torch.isfinite(loss)) and metrics["ce"] is loss
+    grads = torch.autograd.grad(loss, leaves)
+    assert all(bool(torch.isfinite(g).all()) for g in grads)

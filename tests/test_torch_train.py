@@ -232,6 +232,14 @@ def test_cli_trains_at_smoke_size_and_names_missing_slices():
                "--seq-len", "16", "--global-batch", "16", "--microbatch", "2")
     assert out.returncode == 0, out.stderr
     assert "final loss" in out.stdout and "step     3" in out.stdout
+    # one intra-op thread: under the suite's parallel workers more only
+    # contend, and this model's many small ops slow by tens of times
+    out = _cli("--arch", "recurrentgemma-2b", "--smoke", "--data-axis", "4",
+               "--group-size", "2", "--tau", "3", "--steps", "4",
+               "--seq-len", "16", "--global-batch", "8",
+               env_extra={"OMP_NUM_THREADS": "1"})
+    assert out.returncode == 0, out.stderr
+    assert "final loss" in out.stdout and "step     3" in out.stdout
     for flags, slice_name in ((("--sharding", "fsdp"), "FSDP slice"),
                               (("--averager", "dpsgd"), "baselines slice"),
                               (("--pod-axis", "2"), "across ranks"),
