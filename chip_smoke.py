@@ -14,7 +14,8 @@
    element-wise to ``bf16_bound``, which must reject the planted
    ``bf16_faults`` at both serving shapes) over the kernel test shapes,
    head dim 256 cases, the serving slices' prefill shapes (tinyllama;
-   recurrentgemma's windowed hd-256 attention) and the edges of the
+   recurrentgemma's windowed hd-256 attention; transformer-wmt's encoder,
+   decoder and cross-attention, ``WMT_ATTN_CASES``) and the edges of the
    TMA/wgmma kernel (``TMA_EDGE_CASES``); times the kernel, the plain
    version and ``F.scaled_dot_product_attention`` (the library yardstick,
    used nowhere in the port; a boolean mask for a window, and at the
@@ -88,12 +89,44 @@
    (and the fused average equal to the per-leaf one); (d) finite losses, no
    skipped update.  Prints the step time, tokens/s, the host split, peak
    memory and a profiler window over one group step.
-9. Prints a ``kernels`` JSON line (K4 twice: ``rglru_scan`` on its TMA
+9. Paper phase: transformer-wmt (the paper's own model) at full width and
+   depth (6 + 6 layers, d 512, 8 heads, d_ff 2048, vocab 32768 tied, bf16;
+   79,724,544 params a replica, random weights from a seeded torch
+   generator).  (1) Training: the port's ``Trainer`` with 16 replicas as
+   rows of one state, SGD momentum 0.9, lr 0.1, target seq 256 over 64
+   source tokens, global batch 64, 12 steps under each of the paper's
+   seven averagers (``wagma`` at S 4 and tau 10, ``allreduce``,
+   ``local_sgd`` syncing every 10, ``dpsgd``, ``sgp``, ``adpsgd``,
+   ``eager_sgd``).  Checks (a) WAGMA's group steps launch the K1/K2 the
+   schedule predicts, every sync and every baseline step none, and no step
+   K3 or K4; (b) WAGMA's groups bit-identical, and its fused K1/K2
+   average bit-identical to the plan's plain per-leaf average of the same
+   rows on the first step of each phase offset; Allreduce-SGD's and
+   Eager-SGD's rows bit-identical after every step, local SGD's apart
+   before its sync and identical at it, and the gossip baselines' mix of
+   the rows on the card bit-identical to the CPU's mix of the same rows on
+   the first step of each phase (4 at P 16 for SGP and AD-PSGD, 1 for
+   D-PSGD); (c) finite losses, no skipped update.  Prints each averager's
+   step time, tokens/s, host split and peak memory, and a profiler window
+   over one step of ``wagma`` and of ``allreduce``.  (2) Paper Fig. 5 at
+   that width: ``staleness.wagma_sim_step`` under two stragglers an
+   iteration against Allreduce-SGD, 40 iterations each, printing both loss
+   curves, the means of their last 8 and the ratio (a finding, not a
+   check).  (3) Translation serving in bf16: batch 8, 64 source tokens,
+   16-token prompts, 32 greedy new tokens through ``build_prefill``/
+   ``build_serve_step``.  Checks (a) K3 18 launches a prefill (by role: 6
+   encoder, 6 decoder, 6 cross) and none a decode step; (b) the last
+   decode step's logits against a fresh prefill to 5% of the largest; (c)
+   a float32 copy's decode against its own ``forward`` to 2e-3; (d)
+   finite logits, in-vocab tokens.
+10. Prints a ``kernels`` JSON line (K3 once a serving path: tinyllama,
+   recurrentgemma's hd 256, and transformer-wmt's encoder shape with its
+   launches and times by role; K4 twice: ``rglru_scan`` on its TMA
    route at the prefill shape, with all of its main-path launches, serving
    and training, and their split by route and path, and its training
    scan's times; ``rglru_scan_decode`` on the walk route at the decode
-   shape, with the walk route's launches; K1/K2 with their launches on both
-   training paths), then ``{"ok": true, "device": ...}`` last.
+   shape, with the walk route's launches; K1/K2 with their launches on the
+   three training paths), then ``{"ok": true, "device": ...}`` last.
 
 Exits non-zero, printing no result, without CUDA or without the repo's
 ``src/`` beside it.  TF32 is off for matmuls and cuDNN so float32 means
@@ -156,6 +189,17 @@ HD256_CASES = [c + (dt,) for c in ((1, 128, 128, 2, 1, 256, True, None),
 RG_ATTN_SHAPE = (4, 3000, 3000, 10, 1, 256, True, 2048, "bfloat16")
 HD256_CASES += [RG_ATTN_SHAPE, (1, 2100, 2100, 10, 1, 256, True, 2048,
                                 "float32")]
+# transformer-wmt serving's attentions (8 heads of 64, no GQA) in both
+# dtypes: the encoder (non-causal, Sq = Sk = 64 source tokens), the
+# decoder's prompt (causal, 16 tokens), the cross-attention (non-causal, 16
+# queries over 64 keys), and a ragged non-causal edge (300 keys, not a
+# multiple of the KV tile, more keys than queries)
+WMT_ATTN_ROLES = {"encoder": (8, 64, 64, 8, 8, 64, False, None),
+                  "decoder": (8, 16, 16, 8, 8, 64, True, None),
+                  "cross": (8, 16, 64, 8, 8, 64, False, None)}
+WMT_ATTN_CASES = [c + (dt,) for c in list(WMT_ATTN_ROLES.values())
+                  + [(1, 100, 300, 4, 4, 64, False, None)]
+                  for dt in ("float32", "bfloat16")]
 # the tinyllama prefill shape the kernels line reports
 TL_ATTN_SHAPE = (1, SLICE_SHAPE_FOR_LINE, SLICE_SHAPE_FOR_LINE, 32, 4, 64,
                  True, None, "bfloat16")
@@ -258,6 +302,40 @@ RG_F32_PROMPT, RG_F32_STEPS, RG_F32_TOL = 2100, 4, 2e-3
 RG_TRAIN_LAYERS, RG_TRAIN_P, RG_TRAIN_S, RG_TRAIN_GB = 5, 4, 2, 32
 # one training layer's scan: (rows a replica, TRAIN_SEQ, lru_width)
 SCAN_TRAIN_SHAPE = (RG_TRAIN_GB // RG_TRAIN_P, TRAIN_SEQ, 2560)
+
+# paper phase: transformer-wmt (the paper's own model) at full width and
+# depth in bf16, P = 16 replicas (Fig. 5's worker count), S = 4 (the default
+# group size at 16), tau = 10 (so both phase offsets and the sync at t = 9
+# run), SGD momentum 0.9, lr 0.1, target seq 256 over the synthetic
+# batch's 64 source tokens, global batch 64 (4 rows a replica), 12 steps
+# under each of the paper's seven averagers
+PAPER_ARCH = "transformer-wmt"
+PAPER_AVERAGERS = ("wagma", "allreduce", "local_sgd", "dpsgd", "sgp",
+                   "adpsgd", "eager_sgd")
+PAPER_P, PAPER_S, PAPER_TAU = 16, 4, 10
+PAPER_SEQ, PAPER_GB, PAPER_STEPS, PAPER_LR = 256, 64, 12, 0.1
+PAPER_PROFILED = ("wagma", "allreduce")
+# the gossip baselines, whose card mix is held to the CPU's, bit for bit
+GOSSIP = ("dpsgd", "sgp", "adpsgd")
+# Fig. 5 at the same width: WAGMA under stragglers against Allreduce-SGD
+FIG5_STEPS, FIG5_TAIL = 40, 8
+# transformer-wmt serving: batch, source tokens, target prompt, new tokens;
+# the float32 check's decode steps
+WMT_BATCH, WMT_SRC, WMT_PROMPT, WMT_NEW, WMT_F32_STEPS = 8, 64, 16, 32, 8
+
+
+def free_memory(label: str):
+    """Print what is still allocated, then again after collecting garbage
+    (a reference cycle that holds a phase's tensors shows as the
+    difference), and return the allocator's cache to the card."""
+    import gc
+    import torch
+    held = torch.cuda.memory_allocated()
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"memory after {label}: {held / 2**30:.2f} GiB allocated, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB after collecting"
+          f" cycles", flush=True)
 
 
 def _sync(device):
@@ -392,7 +470,7 @@ def kernel_phase(device="cuda"):
 
     cases = KERNEL_CASES + [(1, L, L, 32, 4, 64, True, None, "bfloat16")
                             for L in SLICE_LENGTHS] + HD256_CASES \
-        + TMA_EDGE_CASES
+        + TMA_EDGE_CASES + WMT_ATTN_CASES
     gen = torch.Generator(device=device).manual_seed(0)
     rows = []
     for case in cases:
@@ -786,6 +864,39 @@ def group_rows_agree(params, groups) -> tuple:
     return same, differ
 
 
+def split_timer(split: dict, device):
+    """``timed(key, fn)``: ``fn`` wrapped so that each call's host time,
+    between two synchronisations, adds to ``split[key]``."""
+    def timed(key, fn):
+        def run(*args):
+            _sync(device)
+            t = time.perf_counter()
+            out = fn(*args)
+            _sync(device)
+            split[key] += time.perf_counter() - t
+            return out
+        return run
+    return timed
+
+
+def per_leaf_plan(plan):
+    """``plan``'s per-leaf twin: each leaf averaged on its own in plain
+    torch, no K1/K2."""
+    from repro_torch.core import plan as plan_mod
+    return plan_mod.compile_plan(plan.topology, plan.storage_struct,
+                                 dataclasses.replace(plan.cfg, fused=False))
+
+
+def fused_equals_per_leaf(ref_plan, out, tree, offset: int) -> bool:
+    """The fused K1/K2 average ``out`` of ``tree`` at ``offset`` equals
+    ``ref_plan``'s per-leaf average bit for bit; one leaf's reference at a
+    time holds the least memory."""
+    import torch
+    from repro_torch.core import tree as tr
+    return all(torch.equal(a, ref_plan.average_offset(b, offset))
+               for a, b in zip(tr.tree_leaves(out), tr.tree_leaves(tree)))
+
+
 def train_phase(cfg, device="cuda", steps: int = TRAIN_STEPS,
                 seq_len: int = TRAIN_SEQ, global_batch: int = TRAIN_GB,
                 topology=None, replicas: int = TRAIN_P,
@@ -795,7 +906,6 @@ def train_phase(cfg, device="cuda", steps: int = TRAIN_STEPS,
     check (a) and the trainer (for the profile window)."""
     import torch
     from repro_torch.core import grouping
-    from repro_torch.core import plan as plan_mod
     from repro_torch.core import tree as tr
     from repro_torch.kernels import ops
     from repro_torch.launch.train import Trainer
@@ -812,17 +922,7 @@ def train_phase(cfg, device="cuda", steps: int = TRAIN_STEPS,
     n_buckets = plan.class_layout(0).n_buckets
     n_stages = len(plan.runs_for_offset(0)[0].bits)
     split = {"grads": 0.0, "update": 0.0, "average": 0.0}
-
-    def timed(key, fn):
-        def run(*args):
-            _sync(device)
-            t = time.perf_counter()
-            out = fn(*args)
-            _sync(device)
-            split[key] += time.perf_counter() - t
-            return out
-        return run
-
+    timed = split_timer(split, device)
     trainer.opt = Optimizer(trainer.opt.init,
                             timed("update", trainer.opt.update))
     checked = {}
@@ -831,14 +931,8 @@ def train_phase(cfg, device="cuda", steps: int = TRAIN_STEPS,
     def comm_checked(tree, phase):
         out = comm(tree, phase)
         if "fused_equals_per_leaf" not in checked:     # check (c), once
-            ref_plan = plan_mod.compile_plan(
-                plan.topology, plan.storage_struct,
-                dataclasses.replace(plan.cfg, fused=False))
-            ref = ref_plan.average(tree, phase)
-            checked["fused_equals_per_leaf"] = all(
-                torch.equal(a, b) for a, b in zip(tr.tree_leaves(out),
-                                                  tr.tree_leaves(ref)))
-            del ref
+            checked["fused_equals_per_leaf"] = fused_equals_per_leaf(
+                per_leaf_plan(plan), out, tree, plan.offsets[phase])
         return out
 
     trainer.averager.comm = comm_checked
@@ -1035,6 +1129,204 @@ def scan_train_phase(device="cuda", shape=SCAN_TRAIN_SHAPE):
     return out
 
 
+def paper_train_run(cfg, averager: str, device="cuda",
+                    steps: int = PAPER_STEPS, replicas: int = PAPER_P,
+                    group_size: int = PAPER_S, tau: int = PAPER_TAU,
+                    seq_len: int = PAPER_SEQ, global_batch: int = PAPER_GB,
+                    profile: bool = False):
+    """``steps`` Trainer steps under ``averager`` with checks (b) and (c);
+    returns the run's numbers and each step's launches for check (a).
+
+    Check (b): WAGMA's groups bit-identical after each group step, its
+    fused K1/K2 average bit-identical to the plan's plain per-leaf average
+    of the same rows on the first step of each phase offset, and every row
+    identical after a sync; Allreduce-SGD's and Eager-SGD's rows
+    bit-identical after every step; local SGD's rows apart before its first
+    sync and identical after it; the gossip baselines' mix of the pre-mix
+    rows on ``device``, on the first step of each phase, bit-identical to
+    the same averager's mix of those rows copied to the CPU (IEEE adds and
+    one product).  Every other step passes only if its phase's check did.
+    The checks' time is kept out of the step's."""
+    import torch
+    from repro_torch.core import grouping
+    from repro_torch.core import tree as tr
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import Trainer
+    from repro_torch.optim.sgd import Optimizer
+    from repro_torch.train import train_step
+
+    on_card = torch.device(device).type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    trainer = Trainer(cfg, replicas, device=device, averager=averager,
+                      group_size=group_size, tau=tau, learning_rate=PAPER_LR,
+                      seq_len=seq_len, global_batch=global_batch, seed=0)
+    avg = trainer.averager
+    split = {"grads": 0.0, "update": 0.0, "average": 0.0}
+    timed = split_timer(split, device)
+    trainer.opt = Optimizer(trainer.opt.init,
+                            timed("update", trainer.opt.update))
+    plan = trainer.plan() if averager == "wagma" else None
+    ref_plan = per_leaf_plan(plan) if plan is not None else None
+    checked = {}                     # phase -> that phase's check passed
+    check_s = [0.0]
+    comm, raw_comm = timed("average", avg.comm), avg.comm
+
+    def comm_checked(tree, phase):
+        if phase in checked or (plan is None and averager not in GOSSIP):
+            return comm(tree, phase)
+        t0 = time.perf_counter()
+        host = None if plan is not None else tr.tree_map(
+            lambda a: a.cpu(), tree)
+        check_s[0] += time.perf_counter() - t0
+        out = comm(tree, phase)
+        t0 = time.perf_counter()
+        if plan is not None:
+            checked[phase] = fused_equals_per_leaf(ref_plan, out, tree,
+                                                   plan.offsets[phase])
+        else:
+            want = raw_comm(host, phase)
+            checked[phase] = all(torch.equal(a.cpu(), b) for a, b in zip(
+                tr.tree_leaves(out), tr.tree_leaves(want)))
+            del host, want
+        check_s[0] += time.perf_counter() - t0
+        return out
+
+    avg.comm = comm_checked
+    avg.sync = timed("average", avg.sync)
+    value_and_grad = train_step.value_and_grad
+    train_step.value_and_grad = timed("grads", value_and_grad)
+    n_buckets = n_stages = None
+    if plan is not None:
+        n_buckets = plan.class_layout(0).n_buckets
+        n_stages = len(plan.runs_for_offset(0)[0].bits)
+    log = []
+    try:
+        ops.reset_launch_counts()
+        for t in range(steps):
+            split.update(grads=0.0, update=0.0, average=0.0)
+            check_s[0] = 0.0
+            before = ops.launch_counts()
+            _sync(device)
+            t0 = time.perf_counter()
+            loss = trainer.step_once(t)
+            _sync(device)
+            step_s = time.perf_counter() - t0 - check_s[0]
+            after = ops.launch_counts()
+            sync = avg.sync_due(t)
+            phase = avg.phase_for_step(t)
+            params = trainer.state.params
+            if averager == "wagma" and not sync:
+                groups = grouping.groups_for_offset(replicas, group_size,
+                                                    plan.offsets[phase])
+                same, differ = group_rows_agree(params, groups)
+                ok = same and differ and checked.get(phase, False)
+            elif averager in ("allreduce", "eager_sgd") or sync:
+                ok = group_rows_agree(params, (tuple(range(replicas)),))[0]
+            elif averager == "local_sgd":
+                ok = not group_rows_agree(params,
+                                          (tuple(range(replicas)),))[0]
+            else:
+                ok = checked.get(phase, False)
+            if not ok:                                          # check (b)
+                raise AssertionError(f"{averager} step {t} (sync {sync}): "
+                                     f"the replica rows fail check (b)")
+            log.append({"t": t, "loss": loss, "sync": sync,
+                        "phase": None if sync else phase,
+                        "step_ms": step_s * 1e3,
+                        "check_ms": check_s[0] * 1e3,
+                        **{k + "_ms": v * 1e3 for k, v in split.items()},
+                        "other_ms": (step_s - sum(split.values())) * 1e3,
+                        "skipped": trainer.last_metrics["skipped_nonfinite"],
+                        **{key: after[name] - before[name] for key, name in (
+                            ("k1", K1), ("k2", K2), ("k3", K3), ("k4", K4))}})
+    finally:
+        train_step.value_and_grad = value_and_grad
+    window = train_profile(trainer, steps, device) if profile else None
+    bad = [e for e in log if not math.isfinite(e["loss"]) or e["skipped"]]
+    if bad:                                                     # check (c)
+        raise AssertionError(f"{averager}: non-finite losses or skipped "
+                             f"updates: {bad}")
+    steady = log[1:] or log
+    med = lambda key: statistics.median(e[key] for e in steady)
+    out = {
+        "averager": averager, "replicas": replicas, "n_buckets": n_buckets,
+        "n_phases": avg.n_phases,
+        "expected_k1_k2_per_group_step": (expected_combine_launches(
+            n_buckets, n_stages) if averager == "wagma" else (0, 0)),
+        "losses": [e["loss"] for e in log], "steps": log,
+        "median_step_ms": med("step_ms"),
+        "tokens_per_s": global_batch * seq_len / (med("step_ms") / 1e3),
+        "median_split_ms": {k: med(k + "_ms") for k in
+                            ("grads", "update", "average", "other")},
+        "max_memory_allocated": (torch.cuda.max_memory_allocated()
+                                 if on_card else None),
+        # phase -> WAGMA's fused average equal to the per-leaf one, or a
+        # gossip mix on the card equal to the CPU's
+        "phase_checks": dict(sorted(checked.items())),
+        "profile": window,
+    }
+    del trainer
+    if on_card:
+        torch.cuda.empty_cache()
+    return out
+
+
+def check_paper_launches(stats):
+    """Check (a) of the paper phase: WAGMA's group steps launch the K1 and
+    K2 counts the wavefront schedule predicts; every sync, and every step
+    of a baseline, launches neither; no training step launches K3 or K4."""
+    want_k1, want_k2 = stats["expected_k1_k2_per_group_step"]
+    for e in stats["steps"]:
+        group = stats["averager"] == "wagma" and not e["sync"]
+        want = (want_k1, want_k2, 0, 0) if group else (0, 0, 0, 0)
+        got = (e["k1"], e["k2"], e["k3"], e["k4"])
+        if got != want:
+            raise AssertionError(f"{stats['averager']} step {e['t']}: K1, "
+                                 f"K2, K3, K4 launched {got}; expected "
+                                 f"{want}")
+
+
+def fig5_phase(cfg, device="cuda", **kw) -> dict:
+    """Fig. 5's two runs (``repro_torch.train.stragglers.run``, at the paper
+    phase's settings unless ``kw`` overrides them) and their final losses:
+    the means of the last ``FIG5_TAIL`` iterations and WAGMA's over
+    Allreduce-SGD's."""
+    from repro_torch.train import stragglers
+    kw = {"replicas": PAPER_P, "group_size": PAPER_S, "tau": PAPER_TAU,
+          "steps": FIG5_STEPS, "seq_len": PAPER_SEQ,
+          "rows": PAPER_GB // PAPER_P, "learning_rate": PAPER_LR, **kw}
+    runs = {mode: stragglers.run(cfg, mode, device=device, **kw)
+            for mode in stragglers.MODES}
+    tail = {mode: statistics.fmean(r["losses"][-FIG5_TAIL:])
+            for mode, r in runs.items()}
+    return {"runs": runs, "tail_mean": tail,
+            "ratio": tail["wagma"] / tail["allreduce"]}
+
+
+def tally_k3_roles(run):
+    """``run()`` with ``ops.flash_attention`` wrapped to tally each call's
+    role in an encoder-decoder (decoder: causal; encoder: non-causal over
+    as many keys as queries; cross: non-causal over the source's keys);
+    returns (``run()``'s result, the tally, K3's launches meanwhile)."""
+    from repro_torch.kernels import ops
+    roles = Counter()
+    inner = ops.flash_attention
+
+    def tallied(q, k, v, *, causal=True, **kw):
+        roles["decoder" if causal else "encoder" if q.shape[1] == k.shape[1]
+              else "cross"] += 1
+        return inner(q, k, v, causal=causal, **kw)
+
+    before = ops.launch_counts()[K3]
+    ops.flash_attention = tallied
+    try:
+        out = run()
+    finally:
+        ops.flash_attention = inner
+    return out, dict(roles), ops.launch_counts()[K3] - before
+
+
 def make_requests(cfg, seed: int = 0):
     rng = np.random.default_rng(seed)
     lens = rng.integers(PROMPT_MIN, PROMPT_MAX + 1, size=N_REQUESTS)
@@ -1217,11 +1509,12 @@ def _masked_argmax(logits, vocab: int):
 
 def rg_serve_phase(model, params, device="cuda", batch: int = RG_BATCH,
                    prompt_len: int = RG_PROMPT, new: int = RG_NEW,
-                   seed: int = 0):
+                   seed: int = 0, extra=None):
     """Prefill ``batch`` equal prompts and decode ``new`` greedy tokens
     through ``build_prefill``/``build_serve_step`` with checks (b) and (d);
     returns the run's numbers with each prefill's and decode step's kernel
-    launches for check (a)."""
+    launches for check (a).  ``extra`` joins every prefill's batch (an
+    encoder-decoder's ``src``)."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.serve import build_prefill, build_serve_step
@@ -1230,6 +1523,7 @@ def rg_serve_phase(model, params, device="cuda", batch: int = RG_BATCH,
     prompts = np.random.default_rng(seed).integers(
         0, cfg.vocab, (batch, prompt_len))
     tokens = torch.as_tensor(prompts, dtype=torch.int64, device=device)
+    extra = extra or {}
     max_len = prompt_len + new
     prefill = build_prefill(model, max_len)
     step = build_serve_step(model)
@@ -1239,7 +1533,7 @@ def rg_serve_phase(model, params, device="cuda", batch: int = RG_BATCH,
     _sync(device)
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    logits, caches = prefill(params, {"tokens": tokens})
+    logits, caches = prefill(params, {"tokens": tokens, **extra})
     fed = [_masked_argmax(logits[:, -1], cfg.vocab)[:, None]]
     _sync(device)
     ttft_s = time.perf_counter() - t0
@@ -1260,7 +1554,7 @@ def rg_serve_phase(model, params, device="cuda", batch: int = RG_BATCH,
             if torch.device(device).type == "cuda" else None)
     generated = torch.cat(fed, dim=1)                        # (B, new)
     if not finite:                                           # check (d)
-        raise AssertionError("non-finite logits on the recurrentgemma path")
+        raise AssertionError(f"non-finite logits on the {cfg.name} path")
     if not bool(((generated >= 0) & (generated < cfg.vocab)).all()):
         raise AssertionError(f"tokens outside the vocab: {generated}")
 
@@ -1269,12 +1563,12 @@ def rg_serve_phase(model, params, device="cuda", batch: int = RG_BATCH,
     last = logits[:, -1, :cfg.vocab].float()
     del caches
     ref_logits, _ = prefill(params, {"tokens": torch.cat(
-        [tokens, generated[:, :-1]], dim=1)})
+        [tokens, generated[:, :-1]], dim=1), **extra})
     ref = ref_logits[:, -1, :cfg.vocab].float()
     diff = float((last - ref).abs().max())
     scale = float(ref.abs().max())
     if not math.isfinite(diff) or diff > LOGIT_RTOL * scale:
-        raise AssertionError(f"recurrentgemma decode vs fresh prefill logits "
+        raise AssertionError(f"{cfg.name} decode vs fresh prefill logits "
                              f"differ by {diff} > {LOGIT_RTOL} * {scale}")
     steady = step_ms[1:] or step_ms
     return {
@@ -1288,6 +1582,52 @@ def rg_serve_phase(model, params, device="cuda", batch: int = RG_BATCH,
         "logits_max_abs_diff": diff, "logits_max_abs": scale,
         "tokens": generated.cpu().tolist(),
     }
+
+
+def wmt_serve_phase(cfg, device="cuda", batch: int = WMT_BATCH,
+                    src_len: int = WMT_SRC, prompt_len: int = WMT_PROMPT,
+                    new: int = WMT_NEW, f32_steps: int = WMT_F32_STEPS,
+                    seed: int = 0):
+    """transformer-wmt translation: ``batch`` sources of ``src_len`` tokens
+    and target prompts of ``prompt_len``, ``new`` greedy tokens through
+    ``build_prefill``/``build_serve_step`` (``rg_serve_phase``: checks (b)
+    and (d), each prefill's and step's launches for check (a)); one more
+    prefill with K3's calls tallied by role; check (c) on a float32 copy at
+    batch 1 over ``f32_steps`` decode steps."""
+    import torch
+    from repro_torch.serve import build_prefill
+
+    model, params, init_s = load_model(cfg, device, seed)
+    src = torch.as_tensor(np.random.default_rng(seed + 1).integers(
+        0, cfg.vocab, (batch, src_len)), dtype=torch.int64, device=device)
+    stats = rg_serve_phase(model, params, device, batch=batch,
+                           prompt_len=prompt_len, new=new, seed=seed,
+                           extra={"src": src})
+    tokens = torch.as_tensor(np.random.default_rng(seed).integers(
+        0, cfg.vocab, (batch, prompt_len)), dtype=torch.int64, device=device)
+    _, roles, launched = tally_k3_roles(lambda: build_prefill(
+        model, prompt_len + 1)(params, {"tokens": tokens, "src": src}))
+    f32 = rg_f32_check(cfg, params, device, prompt_len=prompt_len,
+                       steps=f32_steps, extra={"src": src[:1]})
+    del model, params
+    return {**stats, "src_len": src_len, "init_s": init_s,
+            "prefill_src_and_prompt_tok_per_s":
+                batch * (src_len + prompt_len) / stats["ttft_s"],
+            "k3_roles": roles, "k3_role_launches": launched,
+            "float32_check": f32}
+
+
+def check_wmt_roles(stats, cfg):
+    """Check (a), by role: one prefill called K3 once for each encoder
+    layer, and once for each decoder layer's self- and cross-attention,
+    and launched it that many times."""
+    want = {"encoder": cfg.encoder_layers, "decoder": cfg.n_layers,
+            "cross": cfg.n_layers}
+    if stats["k3_roles"] != want or \
+            stats["k3_role_launches"] != sum(want.values()):
+        raise AssertionError(f"K3 by role {stats['k3_roles']}, "
+                             f"{stats['k3_role_launches']} launches; "
+                             f"expected {want}")
 
 
 def check_rg_launches(stats, n_rec: int, n_attn: int):
@@ -1306,11 +1646,12 @@ def check_rg_launches(stats, n_rec: int, n_attn: int):
 
 
 def rg_f32_check(cfg, params, device="cuda", prompt_len: int = RG_F32_PROMPT,
-                 steps: int = RG_F32_STEPS, seed: int = 1):
+                 steps: int = RG_F32_STEPS, seed: int = 1, extra=None):
     """Check (c): a float32 copy of the model, batch 1: prefill, ``steps``
     greedy decode steps, each step's logits against the model's own
     ``forward`` over prompt + fed tokens at that position, to RG_F32_TOL
-    (rtol and atol).  Returns the largest difference."""
+    (rtol and atol).  ``extra`` (batch 1) joins the prefill's and the
+    forward's batch.  Returns the largest difference."""
     import torch
     from repro_torch.core import tree as tr
     from repro_torch.models.registry import build_model
@@ -1321,8 +1662,9 @@ def rg_f32_check(cfg, params, device="cuda", prompt_len: int = RG_F32_PROMPT,
     p32 = tr.tree_map(lambda a: a.float(), params)
     toks = torch.as_tensor(np.random.default_rng(seed).integers(
         0, cfg.vocab, (1, prompt_len)), dtype=torch.int64, device=device)
+    extra = extra or {}
     logits, caches = build_prefill(model, prompt_len + steps)(
-        p32, {"tokens": toks})
+        p32, {"tokens": toks, **extra})
     got = [logits[0, -1, :cfg.vocab]]
     fed = [_masked_argmax(logits[:, -1], cfg.vocab)[:, None]]
     step = build_serve_step(model)
@@ -1332,14 +1674,14 @@ def rg_f32_check(cfg, params, device="cuda", prompt_len: int = RG_F32_PROMPT,
         fed.append(nxt)
     del caches
     full, _ = model.forward(p32, {"tokens": torch.cat([toks] + fed[:-1],
-                                                      dim=1)})
+                                                      dim=1), **extra})
     worst = 0.0
     for j, g in enumerate(got):
         ref = full[0, prompt_len - 1 + j, :cfg.vocab]
         excess = float(((g - ref).abs() - RG_F32_TOL * ref.abs()).max())
         worst = max(worst, float((g - ref).abs().max()))
         if not math.isfinite(excess) or excess > RG_F32_TOL:
-            raise AssertionError(f"float32 recurrentgemma: decode step {j} "
+            raise AssertionError(f"float32 {cfg.name}: decode step {j} "
                                  f"logits differ from forward by more than "
                                  f"{RG_F32_TOL} (rtol and atol)")
     return {"prompt_len": prompt_len, "steps": steps,
@@ -1547,7 +1889,7 @@ def main() -> int:
         _print_window(name, w, card)
     print(json.dumps({"profile": windows, "card": card}), flush=True)
     del model, params
-    torch.cuda.empty_cache()
+    free_memory("tinyllama serving")
 
     # -- training phase (K1, K2) --------------------------------------------
     tcfg = train_config()
@@ -1570,7 +1912,7 @@ def main() -> int:
           f" ms, peak memory {train['max_memory_allocated'] / 2**30:.2f} GiB,"
           f" launches {train['launches']}", flush=True)
     _print_window(f"train group step {TRAIN_STEPS}", window, card)
-    torch.cuda.empty_cache()
+    free_memory("tinyllama training")
 
     # -- recurrentgemma phase (K4, K3 at head dim 256) ---------------------
     from repro_torch.models import rglru
@@ -1584,7 +1926,7 @@ def main() -> int:
     rg_windows = rg_profile(model, params)
     f32 = rg_f32_check(rcfg, params)
     del model, params
-    torch.cuda.empty_cache()
+    free_memory("recurrentgemma serving")
     print(json.dumps({"recurrentgemma": rg, "profile": rg_windows,
                       "float32_check": f32, "card": card}), flush=True)
     print(f"recurrentgemma [{card}]: {rcfg.name} full width, "
@@ -1615,6 +1957,7 @@ def main() -> int:
           f"{scan_train['bound_ms']:.4f} ms a scan (bytes); plain forward "
           f"{scan_train['plain_forward_ms']:.3f} ms, backward "
           f"{scan_train['plain_backward_ms']:.3f} ms", flush=True)
+    free_memory("K4 training scan")
     rtcfg = rg_train_config()
     rg_train, trainer = train_phase(rtcfg, replicas=RG_TRAIN_P,
                                     group_size=RG_TRAIN_S,
@@ -1645,6 +1988,74 @@ def main() -> int:
           f"{rg_train['max_memory_allocated_after_first'] / 2**30:.2f} GiB), "
           f"launches {rg_train['launches']}", flush=True)
     _print_window(f"rg train group step {TRAIN_STEPS}", rg_train_window, card)
+    free_memory("recurrentgemma training")
+
+    # -- paper phase: transformer-wmt under the seven averagers (K1, K2),
+    # Fig. 5, and translation serving (K3) --------------------------------
+    pcfg = get_config(PAPER_ARCH)
+    t_paper = time.perf_counter()
+    paper = {}
+    for name in PAPER_AVERAGERS:
+        run = paper_train_run(pcfg, name, profile=name in PAPER_PROFILED)
+        free_memory(f"paper training {name}")
+        check_paper_launches(run)                               # check (a)
+        paper[name] = run
+        print(json.dumps({"paper_train": run, "card": card}), flush=True)
+        print(f"paper train {name} [{card}]: {pcfg.name} full width and "
+              f"depth bf16, {PAPER_P} replicas, seq {PAPER_SEQ}, batch "
+              f"{PAPER_GB}: median step {run['median_step_ms']:.1f} ms after "
+              f"the first, {run['tokens_per_s']:.0f} tokens/s, host split "
+              f"{ {k: round(v, 1) for k, v in run['median_split_ms'].items()} }"
+              f" ms (one card: 'average' is HBM traffic and arithmetic, no "
+              f"network), peak memory "
+              f"{run['max_memory_allocated'] / 2**30:.2f} GiB, K1/K2 a group "
+              f"step {run['expected_k1_k2_per_group_step']}"
+              + (f", fused average equals the per-leaf one by phase "
+                 f"{run['phase_checks']}" if name == "wagma" else "")
+              + (f", gossip mix equals the CPU's by phase "
+                 f"{run['phase_checks']}" if name in GOSSIP else ""),
+              flush=True)
+        print(f"paper train {name} losses: "
+              f"{[round(x, 4) for x in run['losses']]}", flush=True)
+        if run["profile"]:
+            _print_window(f"paper train {name} step {PAPER_STEPS}",
+                          run["profile"], card)
+    fig5 = fig5_phase(pcfg)
+    print(json.dumps({"fig5": fig5, "card": card}), flush=True)
+    for mode, r in fig5["runs"].items():
+        print(f"fig5 {mode} losses: {[round(x, 4) for x in r['losses']]}",
+              flush=True)
+    print(f"fig5 [{card}]: {pcfg.name} full width, P={PAPER_P} S={PAPER_S} "
+          f"tau={PAPER_TAU}, 2 stragglers an iteration (p_stall 0.25, "
+          f"{fig5['runs']['wagma']['stalled']} stalled draws): mean of the "
+          f"last {FIG5_TAIL} losses wagma {fig5['tail_mean']['wagma']:.4f}, "
+          f"allreduce {fig5['tail_mean']['allreduce']:.4f}, ratio "
+          f"{fig5['ratio']:.4f}; median iteration ms wagma "
+          f"{statistics.median(fig5['runs']['wagma']['step_ms']):.1f}, "
+          f"allreduce "
+          f"{statistics.median(fig5['runs']['allreduce']['step_ms']):.1f}",
+          flush=True)
+    free_memory("Fig. 5")
+    wmt = wmt_serve_phase(pcfg)
+    check_rg_launches(wmt, 0, pcfg.encoder_layers + 2 * pcfg.n_layers)
+    check_wmt_roles(wmt, pcfg)                                 # check (a)
+    free_memory("transformer-wmt serving")
+    paper_s = time.perf_counter() - t_paper
+    print(json.dumps({"wmt_serving": wmt, "card": card}), flush=True)
+    print(f"wmt serving [{card}]: {pcfg.name} full width bf16, batch "
+          f"{WMT_BATCH}, {WMT_SRC} source + {WMT_PROMPT} prompt tokens, "
+          f"{WMT_NEW} new: TTFT {wmt['ttft_s']:.4f} s, prefill "
+          f"{wmt['prefill_src_and_prompt_tok_per_s']:.0f} tok/s (source and "
+          f"prompt), decode {wmt['decode_ms_per_step']:.2f} ms/step (median "
+          f"of {WMT_NEW - 2} after the first), peak memory "
+          f"{wmt['max_memory_allocated'] / 2**30:.2f} GiB; K3 per prefill "
+          f"{wmt['prefill_launches'][K3]} by role {wmt['k3_roles']}, per "
+          f"decode step {wmt['step_launches'][0]}", flush=True)
+    print(f"wmt checks: decode vs fresh prefill max abs diff "
+          f"{wmt['logits_max_abs_diff']:.4g} (limit {LOGIT_RTOL} x "
+          f"{wmt['logits_max_abs']:.4g}); float32 decode vs forward max abs "
+          f"diff {wmt['float32_check']['logits_max_abs_diff']:.3g} (tol "
+          f"{RG_F32_TOL}); paper phase {paper_s:.1f} s", flush=True)
 
     main_row = next(r for r in rows if r["shape"] == list(TL_ATTN_SHAPE[:6])
                     and r["dtype"] == TL_ATTN_SHAPE[8])
@@ -1658,10 +2069,20 @@ def main() -> int:
     rg_launches = [rg["prefill_launches"]] + rg["step_launches"]
     ga_err = {k: max(r["max_abs_err"] for r in ga_rows if r["kernel"] == k)
               for k in ("K1", "K2")}
+    # the paper phase's K1/K2 launches, all WAGMA's (check (a): no baseline
+    # launches either)
+    paper_launches = {name: sum(e[key] for run in paper.values()
+                                for e in run["steps"])
+                      for name, key in ((K1, "k1"), (K2, "k2"), (K4, "k4"))}
     by_path = lambda name, serving=0: {
         f"{ARCH} training": train["launches"][name],
         f"{RG_ARCH} serving": serving,
-        f"{RG_ARCH} training": rg_train["launches"][name]}
+        f"{RG_ARCH} training": rg_train["launches"][name],
+        f"{PAPER_ARCH} training": paper_launches[name]}
+    wmt_rows = {role: next(r for r in rows if r["shape"] == list(c[:6])
+                           and r["causal"] == c[6] and r["dtype"] == "bfloat16")
+                for role, c in WMT_ATTN_ROLES.items()}
+    wmt_launches = [wmt["prefill_launches"]] + wmt["step_launches"]
     entry = lambda name, source, replaces, launches, row, err, **kw: {
         "name": name, "route": "cuda", "source": source,
         "replaces": replaces, "launches": launches, "max_abs_err": err,
@@ -1692,6 +2113,18 @@ def main() -> int:
               dtype=rg_row["dtype"], window=rg_row["window"],
               library_causal_ms=rg_row["library_causal_ms"],
               path=f"{RG_ARCH} serving"),
+        entry(K3, "src/repro_torch/kernels/csrc/flash_attention.cu",
+              "src/repro/kernels/flash_attention.py:70",
+              sum(c[K3] for c in wmt_launches), wmt_rows["encoder"],
+              max(r["max_abs_err"] for r in rows),
+              bound_by=wmt_rows["encoder"]["bound_by"],
+              shape=wmt_rows["encoder"]["shape"], dtype="bfloat16",
+              causal=False, launches_by_role=wmt["k3_roles"],
+              rows_by_role={role: {k: r[k] for k in (
+                  "shape", "causal", "ms", "plain_ms", "library_ms",
+                  "bound_ms", "bound_by", "max_abs_err")}
+                  for role, r in wmt_rows.items()},
+              path=f"{PAPER_ARCH} serving"),
         entry(K4, "src/repro_torch/kernels/csrc/rglru_scan.cu",
               "src/repro/kernels/rglru_scan.py:48",
               sum(c[K4] for c in rg_launches) + rg_train["launches"][K4],

@@ -1,6 +1,9 @@
 """transformer_wmt — the paper's own model: standard Transformer (Vaswani),
-61,362,176 trainable params, used for the WMT17 convergence experiments
-(paper §V-C). Encoder consumes source tokens (no modality stub)."""
+used for the WMT17 convergence experiments (paper §V-C). Encoder consumes
+source tokens (no modality stub).  The init holds 79,724,544 params: 6
+encoder and 6 decoder layers (44,070,912), two 32768 x 512 embeddings
+(``emb``, tied to the unembed, and ``src_emb``; 33,554,432), the learned
+``enc_pos`` (4096 x 512; 2,097,152) and the final norms (2,048)."""
 from repro_torch.configs.base import ModelConfig
 
 SOURCE = "paper §V-C / arXiv:1706.03762 (Transformer base)"

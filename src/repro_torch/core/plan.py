@@ -29,16 +29,21 @@ order and the last combine scales by ``1/S``, so the fused path is
 bit-identical to the per-leaf path and to the JAX plan under ``shard_map``
 on every phase offset (pinned by tests).
 
+The baselines' single-round ``mix`` runs its collective half on whole
+stacked buffers: a ``pmean`` is :func:`pmean_rows`, a ring ``ppermute``
+:func:`ring_shift`, a partner exchange :func:`butterfly_exchange`; the
+combines are the averagers' own torch arithmetic in float32.
+
 Not here: the hierarchical (ICI/DCN) topology (slice 4), the
-FSDP-within-pod paths (slice 7), the baselines' ``mix`` (slice 5),
-measured link constants and the step-time models (ROADMAP.md).
+FSDP-within-pod paths (slice 7), measured link constants and the
+step-time models (ROADMAP.md).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 from functools import lru_cache
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -128,6 +133,10 @@ class Topology:
     def classes_in_use(self) -> Tuple[int, ...]:
         return tuple(sorted(set(self.axis_class)))
 
+    def bottleneck(self) -> LinkClass:
+        """The slowest-wire class — what a global collective is bound by."""
+        return max(self.link_classes, key=lambda l: l.beta)
+
     def describe(self) -> str:
         parts = []
         for i, link in enumerate(self.link_classes):
@@ -137,6 +146,25 @@ class Topology:
             parts.append(f"{link.name}({', '.join(axes)}; "
                          f"a={link.alpha:.1e} b={link.beta:.1e})")
         return " | ".join(parts)
+
+
+def ring_shift(buf: torch.Tensor, shift: int, n: int) -> torch.Tensor:
+    """A ring ``ppermute`` over the minor dp axis of size ``n`` on stacked
+    rows: JAX's perm ``(i, (i + shift) % n)`` delivers row i to row
+    i + shift, so row j receives row ``j - shift`` of its ring
+    (``torch.roll`` by ``+shift``).  The rows of one ring are consecutive,
+    since the minor axis holds the low bits of the dp rank."""
+    p = buf.shape[0]
+    if p % n:
+        raise ValueError(f"a ring of {n} does not tile {p} stacked replicas")
+    rest = tuple(buf.shape[1:])
+    return buf.reshape((p // n, n) + rest).roll(shift, 1).reshape(buf.shape)
+
+
+def pmean_rows(buf: torch.Tensor) -> torch.Tensor:
+    """A ``pmean`` over every replica on stacked rows: the mean over dim 0
+    in every row of a new tensor."""
+    return buf.mean(0, keepdim=True).expand_as(buf).contiguous()
 
 
 def butterfly_exchange(buf: torch.Tensor, bit: int) -> torch.Tensor:
@@ -381,6 +409,46 @@ class AveragingPlan:
         return bucketing.tree_map_bucketed(
             mean_rows, tree, compute_dtype=torch.float32,
             max_bucket_bytes=self.sync_bucket_bytes)
+
+    # -- execution: single-round gossip/psum mixes (baseline averagers) ----
+    def mix_bucket_bytes(self, bits: Tuple[int, ...] = ()) -> int:
+        """Budget for a single-round mix touching the given dp-rank bits:
+        the slowest wire among their link classes (every class for a
+        global collective, ``bits=()``)."""
+        if self.cfg.bucket_bytes is not None:
+            return self.cfg.bucket_bytes
+        if bits:
+            classes = {self.topology.class_of_bit(b) for b in bits}
+            link = max((self.topology.link_classes[c] for c in classes),
+                       key=lambda l: l.beta)
+        else:
+            link = self.topology.bottleneck()
+        return choose_class_bucket_bytes(self.payload_bytes, link,
+                                         overlap=self.cfg.overlap)
+
+    def mix(self, tree, issue: Callable, combine: Callable, *,
+            bits: Tuple[int, ...] = ()):
+        """Apply a float32 gossip/psum mix to a stacked tree, per bucket
+        (fused) or per leaf, and return a new tree in the storage dtypes.
+
+        ``issue(buf) -> recv`` is the collective half on a whole stacked
+        ``(P, ...)`` buffer (:func:`pmean_rows`, :func:`ring_shift`,
+        :func:`butterfly_exchange`), ``combine(buf, recv) -> buf`` the
+        local arithmetic; every granularity computes the same element math.
+        With ``overlap=True`` every bucket's collectives are issued before
+        any bucket's combine (``overlap.overlapped_mix``).
+        """
+        mixfn = lambda buf: combine(buf, issue(buf))
+        if not self.cfg.fused:
+            return tr.tree_map(lambda w: mixfn(w.float()).to(w.dtype), tree)
+        budget = self.mix_bucket_bytes(tuple(bits))
+        if not self.cfg.overlap:
+            return bucketing.tree_map_bucketed(
+                mixfn, tree, compute_dtype=torch.float32,
+                max_bucket_bytes=budget)
+        return bucketing.tree_map_buckets(
+            lambda bufs: pipeline.overlapped_mix(bufs, issue, combine),
+            tree, compute_dtype=torch.float32, max_bucket_bytes=budget)
 
     # -- stacked-simulator twins -------------------------------------------
     def average_stacked(self, stacked_tree, *, t: int):

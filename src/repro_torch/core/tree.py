@@ -6,7 +6,10 @@ are a function of that order, so the port flattens the same way
 (``torch.utils._pytree`` keeps a dict's insertion order instead).
 
 A treedef here is a hashable nested tuple, so layouts and plans can be
-cached on it as the JAX package caches on ``PyTreeDef``.
+cached on it as the JAX package caches on ``PyTreeDef``.  The recursions
+are module functions, not closures: a closure that calls itself is a
+reference cycle, which would keep every leaf it saw alive until Python's
+cycle collector ran (tens of GB of averaging buffers on the card).
 """
 
 from __future__ import annotations
@@ -28,47 +31,48 @@ def _is_namedtuple(x) -> bool:
     return isinstance(x, tuple) and hasattr(x, "_fields")
 
 
+def _walk(node, leaves: list):
+    """The treedef of ``node``; its leaves are appended to ``leaves``."""
+    if node is None:
+        return ("none",)
+    if isinstance(node, Spec):
+        leaves.append(node)
+        return _LEAF
+    if isinstance(node, dict):
+        keys = tuple(sorted(node))
+        return ("dict", keys, tuple(_walk(node[k], leaves) for k in keys))
+    if _is_namedtuple(node):
+        return ("namedtuple", type(node), tuple(_walk(c, leaves)
+                                                for c in node))
+    if isinstance(node, (tuple, list)):
+        return (type(node).__name__, tuple(_walk(c, leaves) for c in node))
+    leaves.append(node)
+    return _LEAF
+
+
 def tree_flatten(tree) -> Tuple[List[Any], Any]:
     """(leaves in JAX order, hashable treedef)."""
     leaves: List[Any] = []
+    return leaves, _walk(tree, leaves)
 
-    def walk(node):
-        if node is None:
-            return ("none",)
-        if isinstance(node, Spec):
-            leaves.append(node)
-            return _LEAF
-        if isinstance(node, dict):
-            keys = tuple(sorted(node))
-            return ("dict", keys, tuple(walk(node[k]) for k in keys))
-        if _is_namedtuple(node):
-            return ("namedtuple", type(node), tuple(walk(c) for c in node))
-        if isinstance(node, (tuple, list)):
-            return (type(node).__name__, tuple(walk(c) for c in node))
-        leaves.append(node)
-        return _LEAF
 
-    treedef = walk(tree)
-    return leaves, treedef
+def _build(d, it):
+    if d == _LEAF:
+        return next(it)
+    kind = d[0]
+    if kind == "none":
+        return None
+    if kind == "dict":
+        return {k: _build(c, it) for k, c in zip(d[1], d[2])}
+    if kind == "namedtuple":
+        return d[1](*(_build(c, it) for c in d[2]))
+    children = [_build(c, it) for c in d[1]]
+    return tuple(children) if kind == "tuple" else children
 
 
 def tree_unflatten(treedef, leaves):
     it = iter(leaves)
-
-    def build(d):
-        if d == _LEAF:
-            return next(it)
-        kind = d[0]
-        if kind == "none":
-            return None
-        if kind == "dict":
-            return {k: build(c) for k, c in zip(d[1], d[2])}
-        if kind == "namedtuple":
-            return d[1](*(build(c) for c in d[2]))
-        children = [build(c) for c in d[1]]
-        return tuple(children) if kind == "tuple" else children
-
-    out = build(treedef)
+    out = _build(treedef, it)
     if next(it, None) is not None:
         raise ValueError("tree_unflatten: more leaves than the treedef holds")
     return out

@@ -1,4 +1,5 @@
-"""Training driver: the replicated WAGMA-SGD loop on one device.
+"""Training driver: the replicated data-parallel SGD loop (WAGMA-SGD or a
+baseline averager) on one device.
 
 Counterpart of ``repro/launch/train.py``.  Builds the model, optimiser and
 averager; keeps the cache of step variants (one per butterfly phase offset
@@ -8,6 +9,8 @@ averager; keeps the cache of step variants (one per butterfly phase offset
 
     python -m repro_torch.launch.train --arch tinyllama-1.1b --data-axis 8 \\
         --group-size 4 --tau 5 --steps 12
+    python -m repro_torch.launch.train --arch transformer-wmt \\
+        --averager allreduce --data-axis 16
 
 runs on the CUDA card; ``REPRO_TORCH_DEVICE=cpu`` asks for the CPU (add
 ``--smoke`` there).  Flags of the JAX driver whose feature is not ported
@@ -25,7 +28,7 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.configs.base import InputShape
-from repro_torch.core.baselines import make_averager
+from repro_torch.core.baselines import AVERAGERS, make_averager
 from repro_torch.core.replica import (FSDP_SLICE, REPLICATED, ReplicaState,
                                       ShardingPolicy, map_opt_state)
 from repro_torch.core import tree as tr
@@ -69,6 +72,8 @@ class Trainer:
         kw = {}
         if averager == "wagma":
             kw = {"group_size": group_size, "tau": tau}
+        elif averager == "local_sgd":
+            kw = {"sync_period": tau}
         if topology is not None:
             kw["topology"] = topology
         kw["sharding"] = self.sharding
@@ -164,7 +169,7 @@ def main():
     ap.add_argument("--arch", default="tinyllama-1.1b")
     ap.add_argument("--smoke", action="store_true",
                     help="use the reduced smoke config")
-    ap.add_argument("--averager", default="wagma")
+    ap.add_argument("--averager", default="wagma", choices=AVERAGERS)
     ap.add_argument("--group-size", type=int, default=None)
     ap.add_argument("--tau", type=int, default=10)
     ap.add_argument("--optimizer", default="sgd")

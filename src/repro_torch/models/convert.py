@@ -11,10 +11,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.models import rglru
+from repro_torch.models import encdec, rglru
 from repro_torch.models import transformer as tfm
 
-PARAM_SPECS = {"dense": tfm.param_specs, "hybrid": rglru.param_specs}
+PARAM_SPECS = {"dense": tfm.param_specs, "hybrid": rglru.param_specs,
+               "audio": encdec.param_specs}
 
 
 def params_from_jax(cfg, tree, device="cuda", *, lead=(), dtype=None):

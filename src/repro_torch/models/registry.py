@@ -1,8 +1,13 @@
 """Uniform model API: build_model(cfg, device) -> ModelAPI.
 
-Counterpart of ``repro/models/registry.py`` for the dense family and the
-hybrid family (recurrentgemma).  The ``layered`` decomposition belongs to
-the FSDP slice (ROADMAP.md).
+Counterpart of ``repro/models/registry.py`` for the dense family, the
+hybrid family (recurrentgemma) and the encoder-decoder ``audio`` family
+(transformer_wmt, whisper-medium).  Batches by family:
+
+    dense, hybrid : {tokens, labels}
+    audio         : {frames (B,F,d) or src (B,F), tokens, labels}
+
+The ``layered`` decomposition belongs to the FSDP slice (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -13,7 +18,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import common as cm
-from repro_torch.models import rglru
+from repro_torch.models import encdec, rglru
 from repro_torch.models import transformer as tfm
 
 
@@ -32,7 +37,6 @@ _LATER = {
     "moe": "slice 9 (models/moe.py)",
     "ssm": "slice 9 (models/xlstm.py)",
     "vlm": "slice 9 (models/vlm.py)",
-    "audio": "slice 5 (models/encdec.py)",
 }
 
 
@@ -69,16 +73,13 @@ def _chunked_ce(cfg, params, hidden, labels, mask):
     return tot / torch.clamp(cnt, min=1.0)
 
 
-def _loss(cfg, forward_train):
-    """``ModelAPI.loss`` of the dense and hybrid families, the JAX loss's
-    two branches: at a vocab of ``CHUNKED_CE_VOCAB`` or more the chunked
-    cross-entropy of the training forward's hidden state, else the
-    cross-entropy of its logits."""
-    chunked = cfg.vocab_padded >= CHUNKED_CE_VOCAB
-
+def _loss(cfg, forward_train, chunked: bool):
+    """``ModelAPI.loss``, the JAX loss's two branches: with ``chunked`` the
+    chunked cross-entropy of the training forward's hidden state, else the
+    cross-entropy of its logits.  ``forward_train(params, batch, remat,
+    return_hidden)``."""
     def loss_fn(params, batch, remat=True):
-        out = forward_train(cfg, params, batch["tokens"], remat=remat,
-                            return_hidden=chunked)
+        out = forward_train(params, batch, remat, chunked)
         if chunked:
             ce = _chunked_ce(cfg, params, out, batch["labels"],
                              batch.get("mask"))
@@ -90,13 +91,38 @@ def _loss(cfg, forward_train):
     return loss_fn
 
 
+def _enc_input(batch):
+    """The encoder's input of an ``audio`` batch: whisper's frames, or
+    transformer_wmt's source tokens."""
+    return batch.get("frames", batch.get("src"))
+
+
 def build_model(cfg, device="cuda") -> ModelAPI:
-    """The dense or hybrid family's API; entry points run on ``device``
-    (CUDA unless the caller asks for the CPU)."""
-    if cfg.family == "dense":
-        mod = tfm
-    elif cfg.family == "hybrid":
-        mod = rglru
+    """The dense, hybrid or audio family's API; entry points run on
+    ``device`` (CUDA unless the caller asks for the CPU)."""
+    if cfg.family in ("dense", "hybrid"):
+        mod = tfm if cfg.family == "dense" else rglru
+        forward = lambda params, batch: mod.forward(cfg, params,
+                                                    batch["tokens"])
+        forward_train = lambda params, batch, remat, hidden: \
+            mod.forward_train(cfg, params, batch["tokens"], remat=remat,
+                              return_hidden=hidden)
+        prefill = lambda params, batch, max_len: mod.prefill(
+            cfg, params, batch["tokens"], max_len=max_len)
+        # the big-vocab loss of the JAX package's chunked families
+        chunked = cfg.vocab_padded >= CHUNKED_CE_VOCAB
+    elif cfg.family == "audio":
+        mod = encdec
+        forward = lambda params, batch: encdec.forward(
+            cfg, params, batch["tokens"], _enc_input(batch))
+        forward_train = lambda params, batch, remat, hidden: \
+            encdec.forward_train(cfg, params, batch["tokens"],
+                                 _enc_input(batch), remat=remat,
+                                 return_hidden=hidden)
+        prefill = lambda params, batch, max_len: encdec.prefill(
+            cfg, params, batch["tokens"], _enc_input(batch),
+            max_len=max_len)
+        chunked = False
     elif cfg.family in _LATER:
         raise NotImplementedError(
             f"family {cfg.family!r} ({cfg.name}) is not ported yet; "
@@ -107,13 +133,11 @@ def build_model(cfg, device="cuda") -> ModelAPI:
         cfg=cfg,
         device=device,
         init=lambda generator: mod.init_params(cfg, generator, device),
-        forward=lambda params, batch: (
-            mod.forward(cfg, params, batch["tokens"]), {}),
-        loss=_loss(cfg, mod.forward_train),
+        forward=lambda params, batch: (forward(params, batch), {}),
+        loss=_loss(cfg, forward_train, chunked),
         init_caches=lambda batch, max_len: mod.init_caches(
             cfg, batch, max_len, device),
-        prefill=lambda params, batch, max_len: mod.prefill(
-            cfg, params, batch["tokens"], max_len=max_len),
+        prefill=prefill,
         decode_step=lambda params, caches, token, pos: mod.decode_step(
             cfg, params, caches, token, pos),
     )

@@ -151,3 +151,32 @@ def test_layout_cache_and_budget_sweep_match_jax():
                 jb.choose_bucket_bytes(payload, P=P, S=S, tau=tau)
     tb.clear_layout_cache()
     assert tb.layout_cache_stats() == {"hits": 0, "misses": 0}
+
+
+def test_buffers_are_freed_without_the_cycle_collector():
+    """Flattening, unflattening and a bucketed mix leave no reference
+    cycle: the float32 buckets and the input leaves die with their last
+    reference, so peak memory does not wait on Python's cycle collector."""
+    import gc
+    import weakref
+
+    tree = {"a": torch.ones(4, 33), "b": {"c": torch.ones(4, 7, 5).to(
+        torch.bfloat16), "d": (torch.ones(4, 3), None)}}
+    seen = []
+
+    def mix(bufs):
+        seen.extend(weakref.ref(b) for b in bufs)
+        return [b * 2.0 for b in bufs]
+
+    gc.disable()
+    try:
+        gc.collect()
+        out = tb.tree_map_buckets(mix, tree, max_bucket_bytes=256)
+        leaves = [weakref.ref(l) for l in tr.tree_leaves(tree)]
+        del tree
+        assert len(seen) >= 2 and all(r() is None for r in seen)
+        assert all(r() is None for r in leaves)
+        assert tr.tree_unflatten(*reversed(tr.tree_flatten(out))) is not out
+        assert gc.collect() == 0
+    finally:
+        gc.enable()

@@ -7,7 +7,8 @@ Imports neither JAX nor the JAX package, so it runs where the card is:
 
 Every test here needs a CUDA card and skips without one.  The shapes are
 chip_smoke.py's: tests/test_kernels.py's ATTN_CASES in float32 and
-bfloat16, the head dim 256 cases, the serving slices' prefill shapes and
+bfloat16, the head dim 256 cases, the serving slices' prefill shapes (with
+transformer-wmt's encoder, decoder and cross-attention, WMT_ATTN_CASES) and
 the edges of the TMA/wgmma bf16 kernel (TMA_EDGE_CASES), for K3; the
 butterfly combine's sizes, ragged lists and scales for K1/K2 (also in
 place, ``out`` is ``w``), and RGLRU_CASES, recurrentgemma's scan shapes
@@ -34,10 +35,11 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 from chip_smoke import (GA_DTYPES, GA_RAGGED, GA_SCALES,  # noqa: E402
                         GA_SIZES, HD256_CASES, K4_CASES, K4_DTYPES,
                         K4_EDGE_CASES, KERNEL_CASES, SLICE_LENGTHS,
-                        TMA_EDGE_CASES, TOL, bf16_bound)
+                        TMA_EDGE_CASES, TOL, WMT_ATTN_CASES, bf16_bound)
 
 CASES = KERNEL_CASES + [(1, L, L, 32, 4, 64, True, None, "bfloat16")
-                        for L in SLICE_LENGTHS] + HD256_CASES + TMA_EDGE_CASES
+                        for L in SLICE_LENGTHS] + HD256_CASES + \
+    TMA_EDGE_CASES + WMT_ATTN_CASES
 
 
 @pytest.fixture

@@ -240,8 +240,13 @@ def test_cli_trains_at_smoke_size_and_names_missing_slices():
                env_extra={"OMP_NUM_THREADS": "1"})
     assert out.returncode == 0, out.stderr
     assert "final loss" in out.stdout and "step     3" in out.stdout
+    # a baseline averager trains (it raised before the baselines slice)
+    out = _cli("--arch", ARCH, "--smoke", "--data-axis", "8", "--averager",
+               "dpsgd", "--steps", "2", "--seq-len", "16", "--global-batch",
+               "16")
+    assert out.returncode == 0, out.stderr
+    assert "final loss" in out.stdout
     for flags, slice_name in ((("--sharding", "fsdp"), "FSDP slice"),
-                              (("--averager", "dpsgd"), "baselines slice"),
                               (("--pod-axis", "2"), "across ranks"),
                               (("--pod-dcn",), "across ranks")):
         out = _cli("--smoke", "--data-axis", "8", "--steps", "1", *flags)
