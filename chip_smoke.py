@@ -12,11 +12,14 @@
    flash-attention kernel against
    its plain torch version on the card (f32 to 2e-4, bf16 to 3e-2 and
    element-wise to ``bf16_bound``, which must reject the planted
-   ``bf16_faults`` at both serving shapes) over the kernel test shapes,
-   head dim 256 cases, the serving slices' prefill shapes (tinyllama;
-   recurrentgemma's windowed hd-256 attention; transformer-wmt's encoder,
-   decoder and cross-attention, ``WMT_ATTN_CASES``) and the edges of the
-   TMA/wgmma kernel (``TMA_EDGE_CASES``); times the kernel, the plain
+   ``bf16_faults`` at every bf16 serving shape of ``FAULT_SHAPES``) over
+   the kernel test shapes, head dim 256 cases, the serving slices' prefill
+   shapes (tinyllama; recurrentgemma's windowed hd-256 attention;
+   transformer-wmt's encoder, decoder and cross-attention,
+   ``WMT_ATTN_CASES``; whisper-medium's 1500-frame encoder, decoder prompt
+   and cross-attention and internvl2-2b's hd-128 prefill,
+   ``FAMILY_ATTN_CASES``) and the edges of the TMA/wgmma kernel at hd 64,
+   128 and 256 (``TMA_EDGE_CASES``); times the kernel, the plain
    version and ``F.scaled_dot_product_attention`` (the library yardstick,
    used nowhere in the port; a boolean mask for a window, and at the
    recurrentgemma shape also the unwindowed causal call) against the
@@ -94,12 +97,13 @@
    79,724,544 params a replica, random weights from a seeded torch
    generator).  (1) Training: the port's ``Trainer`` with 16 replicas as
    rows of one state, SGD momentum 0.9, lr 0.1, target seq 256 over 64
-   source tokens, global batch 64, 12 steps under each of the paper's
-   seven averagers (``wagma`` at S 4 and tau 10, ``allreduce``,
-   ``local_sgd`` syncing every 10, ``dpsgd``, ``sgp``, ``adpsgd``,
-   ``eager_sgd``).  Checks (a) WAGMA's group steps launch the K1/K2 the
-   schedule predicts, every sync and every baseline step none, and no step
-   K3 or K4; (b) WAGMA's groups bit-identical, and its fused K1/K2
+   source tokens, global batch 64, under each of the paper's seven
+   averagers: 12 steps of ``wagma`` at S 4 and tau 10 and of
+   ``local_sgd`` syncing every 10; the steps check (b) needs of the others
+   (``allreduce`` and ``eager_sgd`` 3, ``dpsgd`` 2, ``sgp`` and ``adpsgd``
+   5, one a phase and one more, ``paper_steps``).  Checks (a) WAGMA's
+   group steps launch the K1/K2 the schedule predicts, every sync and
+   every baseline step none, and no step K3 or K4; (b) WAGMA's groups bit-identical, and its fused K1/K2
    average bit-identical to the plan's plain per-leaf average of the same
    rows on the first step of each phase offset; Allreduce-SGD's and
    Eager-SGD's rows bit-identical after every step, local SGD's apart
@@ -118,10 +122,27 @@
    encoder, 6 decoder, 6 cross) and none a decode step; (b) the last
    decode step's logits against a fresh prefill to 5% of the largest; (c)
    a float32 copy's decode against its own ``forward`` to 2e-3; (d)
-   finite logits, in-vocab tokens.
-10. Prints a ``kernels`` JSON line (K3 once a serving path: tinyllama,
-   recurrentgemma's hd 256, and transformer-wmt's encoder shape with its
-   launches and times by role; K4 twice: ``rglru_scan`` on its TMA
+   finite logits, in-vocab tokens.  Two profiler windows (a prefill, a
+   decode step).
+10. Family phase: whisper-medium (24 + 24 layers, d 1024, 16 heads of 64,
+   batch 4 x 1500 frame embeddings, a 4-token prompt), internvl2-2b (24
+   layers, d 2048, 16 heads of 128 over 8 KV heads, batch 4 x 256 patch
+   embeddings + 512 tokens, decode positions after the patches) and
+   xlstm-350m (12 mLSTM + 12 sLSTM blocks, d 1024, batch 4 x 512 tokens)
+   at full published width and depth in bf16, random weights from a seeded
+   torch generator, 32 greedy new tokens each through ``build_prefill``/
+   ``build_serve_step`` (``family_serve_phase``).  Checks (a) K3 72 a
+   whisper prefill (24 encoder, 24 decoder, 24 cross by role), 24 an
+   internvl2 prefill, none on xlstm's path and none a decode step, K1, K2
+   and K4 never; (b) the last decode step against a fresh prefill to 5% of
+   the largest logit; (c) a float32 copy's decode against its own
+   ``forward`` to 2e-3; (d) finite logits, in-vocab tokens.  Prints TTFT,
+   prefill positions/s, decode ms/step, peak memory and two profiler
+   windows each.
+11. Prints a ``kernels`` JSON line (K3 once a serving path: tinyllama,
+   recurrentgemma's hd 256, transformer-wmt's and whisper-medium's encoder
+   shapes with their launches and times by role, internvl2-2b's hd-128
+   prefill; K4 twice: ``rglru_scan`` on its TMA
    route at the prefill shape, with all of its main-path launches, serving
    and training, and their split by route and path, and its training
    scan's times; ``rglru_scan_decode`` on the walk route at the decode
@@ -145,6 +166,7 @@ import sys
 import time
 from collections import Counter
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 
@@ -200,17 +222,33 @@ WMT_ATTN_ROLES = {"encoder": (8, 64, 64, 8, 8, 64, False, None),
 WMT_ATTN_CASES = [c + (dt,) for c in list(WMT_ATTN_ROLES.values())
                   + [(1, 100, 300, 4, 4, 64, False, None)]
                   for dt in ("float32", "bfloat16")]
+# whisper-medium serving's attentions (16 heads of 64, no GQA) at batch 4:
+# the encoder over the published 1500 frames (non-causal, not a multiple of
+# the KV tile), the decoder's 4-token prompt (causal) and the
+# cross-attention of those 4 queries over the 1500 frames; internvl2-2b's
+# prefill at head dim 128 (16 heads, 8 KV) over 256 patches + 512 tokens
+WHISPER_ATTN_ROLES = {"encoder": (4, 1500, 1500, 16, 16, 64, False, None),
+                      "decoder": (4, 4, 4, 16, 16, 64, True, None),
+                      "cross": (4, 4, 1500, 16, 16, 64, False, None)}
+VLM_ATTN = (4, 768, 768, 16, 8, 128, True, None)
+FAMILY_ATTN_CASES = [c + (dt,) for c in list(WHISPER_ATTN_ROLES.values())
+                     + [VLM_ATTN] for dt in ("float32", "bfloat16")]
 # the tinyllama prefill shape the kernels line reports
 TL_ATTN_SHAPE = (1, SLICE_SHAPE_FOR_LINE, SLICE_SHAPE_FOR_LINE, 32, 4, 64,
                  True, None, "bfloat16")
+# the bf16 serving shapes at which the bound must reject bf16_faults
+FAULT_SHAPES = {TL_ATTN_SHAPE, RG_ATTN_SHAPE} | {
+    c for c in FAMILY_ATTN_CASES if c[8] == "bfloat16"}
 # Edges of the TMA/wgmma bf16 kernel (tiles of 128 keys and a 4-stage ring
-# at hd 64, 64 keys and 2 stages at hd 256; 128 query rows a block), at
-# both serving head dims: Sk under one tile; Sk past a ring wrap and not a
+# at hd 64, 128 keys and 2 stages at hd 128, 64 keys and 2 stages at hd 256;
+# 128 query rows a block), at the three serving head dims: Sk under one
+# tile; Sk past a ring wrap and not a
 # tile multiple; B = 3 with a ragged Sq; a window under a tile, also
 # non-causal with Sq > Sk so that whole blocks see no key; windows of at
 # least Sk; GQA at rep 8 and 10; non-causal with Sq != Sk both ways.  Then
 # bf16 head dims that the TMA's zero fill pads to 64 or 128 columns.
-TMA_EDGE_CASES = [c[:5] + (hd,) + c[5:] + ("bfloat16",) for hd in (64, 256)
+TMA_EDGE_CASES = [c[:5] + (hd,) + c[5:] + ("bfloat16",)
+                  for hd in (64, 128, 256)
                   for c in ((2, 40, 40, 4, 2, True, None),
                             (1, 130, 1100, 4, 1, False, None),
                             (1, 1100, 1100, 2, 1, True, None),
@@ -307,8 +345,8 @@ SCAN_TRAIN_SHAPE = (RG_TRAIN_GB // RG_TRAIN_P, TRAIN_SEQ, 2560)
 # depth in bf16, P = 16 replicas (Fig. 5's worker count), S = 4 (the default
 # group size at 16), tau = 10 (so both phase offsets and the sync at t = 9
 # run), SGD momentum 0.9, lr 0.1, target seq 256 over the synthetic
-# batch's 64 source tokens, global batch 64 (4 rows a replica), 12 steps
-# under each of the paper's seven averagers
+# batch's 64 source tokens, global batch 64 (4 rows a replica), under each
+# of the paper's seven averagers
 PAPER_ARCH = "transformer-wmt"
 PAPER_AVERAGERS = ("wagma", "allreduce", "local_sgd", "dpsgd", "sgp",
                    "adpsgd", "eager_sgd")
@@ -319,9 +357,29 @@ PAPER_PROFILED = ("wagma", "allreduce")
 GOSSIP = ("dpsgd", "sgp", "adpsgd")
 # Fig. 5 at the same width: WAGMA under stragglers against Allreduce-SGD
 FIG5_STEPS, FIG5_TAIL = 40, 8
+# a baseline runs only the steps its check (b) needs: Allreduce-SGD and
+# Eager-SGD 3, D-PSGD (one phase) 2, SGP and AD-PSGD one a phase and one
+# more; WAGMA and local SGD run all PAPER_STEPS (both offsets, the syncs)
+PAPER_BASELINE_STEPS = {"allreduce": 3, "eager_sgd": 3, "dpsgd": 2}
 # transformer-wmt serving: batch, source tokens, target prompt, new tokens;
 # the float32 check's decode steps
 WMT_BATCH, WMT_SRC, WMT_PROMPT, WMT_NEW, WMT_F32_STEPS = 8, 64, 16, 32, 8
+
+# the other families served at full published width and depth in bf16:
+# whisper-medium (batch 4 x the 1500 frame embeddings, a 4-token decoder
+# prompt), internvl2-2b (batch 4 x 256 patch embeddings + 512 text tokens)
+# and xlstm-350m (batch 4 x 512 tokens), 32 greedy new tokens each; each
+# float32 check at batch 1 over the prompt (xlstm: 128 tokens) and a few
+# decode steps
+WHISPER_ARCH, VLM_ARCH, XLSTM_ARCH = "whisper-medium", "internvl2-2b", \
+    "xlstm-350m"
+FAMILY_BATCH, FAMILY_NEW = 4, 32
+WHISPER_PROMPT, WHISPER_F32_STEPS = 4, 8
+VLM_PROMPT, VLM_F32_STEPS = 512, 4
+XLSTM_PROMPT, XLSTM_F32_PROMPT, XLSTM_F32_STEPS = 512, 128, 4
+# xlstm's profiled prefill: ~40 torch ops a token and superblock, so the
+# trace of a whole prompt takes the profiler minutes to read back
+XLSTM_PROFILE_PROMPT = 64
 
 
 def free_memory(label: str):
@@ -470,7 +528,7 @@ def kernel_phase(device="cuda"):
 
     cases = KERNEL_CASES + [(1, L, L, 32, 4, 64, True, None, "bfloat16")
                             for L in SLICE_LENGTHS] + HD256_CASES \
-        + TMA_EDGE_CASES + WMT_ATTN_CASES
+        + TMA_EDGE_CASES + WMT_ATTN_CASES + FAMILY_ATTN_CASES
     gen = torch.Generator(device=device).manual_seed(0)
     rows = []
     for case in cases:
@@ -496,7 +554,7 @@ def kernel_phase(device="cuda"):
                 raise AssertionError(
                     f"K3 bf16 exceeds {BF16_RTOL} * mag + {BF16_ATOL} at "
                     f"{case}: excess {scaled}")
-            if case in (TL_ATTN_SHAPE, RG_ATTN_SHAPE):
+            if case in FAULT_SHAPES:
                 faults = {name: excess(o) for name, o in
                           bf16_faults(q, k, v, causal, window).items()}
                 if min(faults.values()) <= 1:
@@ -1129,13 +1187,23 @@ def scan_train_phase(device="cuda", shape=SCAN_TRAIN_SHAPE):
     return out
 
 
+def paper_steps(averager: str, n_phases: int) -> int:
+    """The steps a paper-phase run takes: ``PAPER_STEPS`` for WAGMA and
+    local SGD, else what the baseline's check (b) needs (one step a phase
+    and one more where ``PAPER_BASELINE_STEPS`` names none)."""
+    if averager in ("wagma", "local_sgd"):
+        return PAPER_STEPS
+    return PAPER_BASELINE_STEPS.get(averager, n_phases + 1)
+
+
 def paper_train_run(cfg, averager: str, device="cuda",
-                    steps: int = PAPER_STEPS, replicas: int = PAPER_P,
+                    steps: Optional[int] = None, replicas: int = PAPER_P,
                     group_size: int = PAPER_S, tau: int = PAPER_TAU,
                     seq_len: int = PAPER_SEQ, global_batch: int = PAPER_GB,
                     profile: bool = False):
-    """``steps`` Trainer steps under ``averager`` with checks (b) and (c);
-    returns the run's numbers and each step's launches for check (a).
+    """``steps`` Trainer steps under ``averager`` (by default
+    :func:`paper_steps`) with checks (b) and (c); returns the run's numbers
+    and each step's launches for check (a).
 
     Check (b): WAGMA's groups bit-identical after each group step, its
     fused K1/K2 average bit-identical to the plan's plain per-leaf average
@@ -1162,6 +1230,8 @@ def paper_train_run(cfg, averager: str, device="cuda",
                       group_size=group_size, tau=tau, learning_rate=PAPER_LR,
                       seq_len=seq_len, global_batch=global_batch, seed=0)
     avg = trainer.averager
+    if steps is None:
+        steps = paper_steps(averager, avg.n_phases)
     split = {"grads": 0.0, "update": 0.0, "average": 0.0}
     timed = split_timer(split, device)
     trainer.opt = Optimizer(trainer.opt.init,
@@ -1251,7 +1321,7 @@ def paper_train_run(cfg, averager: str, device="cuda",
     med = lambda key: statistics.median(e[key] for e in steady)
     out = {
         "averager": averager, "replicas": replicas, "n_buckets": n_buckets,
-        "n_phases": avg.n_phases,
+        "n_phases": avg.n_phases, "n_steps": steps,
         "expected_k1_k2_per_group_step": (expected_combine_launches(
             n_buckets, n_stages) if averager == "wagma" else (0, 0)),
         "losses": [e["loss"] for e in log], "steps": log,
@@ -1509,12 +1579,14 @@ def _masked_argmax(logits, vocab: int):
 
 def rg_serve_phase(model, params, device="cuda", batch: int = RG_BATCH,
                    prompt_len: int = RG_PROMPT, new: int = RG_NEW,
-                   seed: int = 0, extra=None):
+                   seed: int = 0, extra=None, pos_offset: int = 0):
     """Prefill ``batch`` equal prompts and decode ``new`` greedy tokens
     through ``build_prefill``/``build_serve_step`` with checks (b) and (d);
     returns the run's numbers with each prefill's and decode step's kernel
     launches for check (a).  ``extra`` joins every prefill's batch (an
-    encoder-decoder's ``src``)."""
+    encoder-decoder's ``src`` or ``frames``, a VLM's ``patches``);
+    ``pos_offset`` is the positions before the prompt (a VLM's patches),
+    so the first decode step is at ``pos_offset + prompt_len``."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.serve import build_prefill, build_serve_step
@@ -1544,7 +1616,8 @@ def rg_serve_phase(model, params, device="cuda", batch: int = RG_BATCH,
         _sync(device)
         ops.reset_launch_counts()
         t = time.perf_counter()
-        nxt, logits, caches = step(params, caches, fed[-1], prompt_len + j)
+        nxt, logits, caches = step(params, caches, fed[-1],
+                                   pos_offset + prompt_len + j)
         _sync(device)
         step_ms.append((time.perf_counter() - t) * 1e3)
         step_launches.append(ops.launch_counts())
@@ -1584,40 +1657,76 @@ def rg_serve_phase(model, params, device="cuda", batch: int = RG_BATCH,
     }
 
 
-def wmt_serve_phase(cfg, device="cuda", batch: int = WMT_BATCH,
-                    src_len: int = WMT_SRC, prompt_len: int = WMT_PROMPT,
-                    new: int = WMT_NEW, f32_steps: int = WMT_F32_STEPS,
-                    seed: int = 0):
-    """transformer-wmt translation: ``batch`` sources of ``src_len`` tokens
-    and target prompts of ``prompt_len``, ``new`` greedy tokens through
-    ``build_prefill``/``build_serve_step`` (``rg_serve_phase``: checks (b)
-    and (d), each prefill's and step's launches for check (a)); one more
-    prefill with K3's calls tallied by role; check (c) on a float32 copy at
-    batch 1 over ``f32_steps`` decode steps."""
+def serve_inputs(cfg, batch: int, seed: int = 0, device="cuda",
+                 src_len: int = WMT_SRC) -> dict:
+    """What a family's prefill takes beside the tokens, from numpy seeded by
+    ``seed + 1``: whisper's frame embeddings and a VLM's patch embeddings
+    (standard normal x 0.02, float32), transformer-wmt's ``src_len``
+    source tokens; nothing for a decoder-only LM."""
+    import torch
+    rng = np.random.default_rng(seed + 1)
+    if cfg.family == "audio" and not cfg.encoder_frames:
+        return {"src": torch.as_tensor(rng.integers(
+            0, cfg.vocab, (batch, src_len)), dtype=torch.int64,
+            device=device)}
+    n = {"audio": cfg.encoder_frames, "vlm": cfg.n_patches}.get(cfg.family)
+    if n is None:
+        return {}
+    emb = rng.standard_normal((batch, n, cfg.d_model)) * 0.02
+    return {"frames" if cfg.family == "audio" else "patches":
+            torch.as_tensor(emb.astype(np.float32), device=device)}
+
+
+def family_serve_phase(cfg, device="cuda", batch: int = FAMILY_BATCH,
+                       prompt_len: int = WHISPER_PROMPT,
+                       new: int = FAMILY_NEW,
+                       f32_prompt: Optional[int] = None,
+                       f32_steps: int = WHISPER_F32_STEPS, seed: int = 0,
+                       src_len: int = WMT_SRC,
+                       profile_prompt: Optional[int] = None):
+    """Serve ``cfg`` at full size with random weights: ``batch`` prompts of
+    ``prompt_len`` tokens (after :func:`serve_inputs`), ``new`` greedy
+    tokens through ``build_prefill``/``build_serve_step``
+    (``rg_serve_phase``: checks (b) and (d), each prefill's and step's
+    launches for check (a)); for an encoder-decoder one more prefill with
+    K3's calls tallied by role; two profiler windows (``rg_profile``,
+    over ``profile_prompt`` tokens, ``prompt_len`` by default); check (c)
+    on a float32 copy at batch 1 over ``f32_prompt`` tokens (``prompt_len``
+    by default) and ``f32_steps`` decode steps."""
     import torch
     from repro_torch.serve import build_prefill
 
     model, params, init_s = load_model(cfg, device, seed)
-    src = torch.as_tensor(np.random.default_rng(seed + 1).integers(
-        0, cfg.vocab, (batch, src_len)), dtype=torch.int64, device=device)
+    extra = serve_inputs(cfg, batch, seed, device, src_len)
+    offset = cfg.n_patches if cfg.family == "vlm" else 0
     stats = rg_serve_phase(model, params, device, batch=batch,
                            prompt_len=prompt_len, new=new, seed=seed,
-                           extra={"src": src})
-    tokens = torch.as_tensor(np.random.default_rng(seed).integers(
-        0, cfg.vocab, (batch, prompt_len)), dtype=torch.int64, device=device)
-    _, roles, launched = tally_k3_roles(lambda: build_prefill(
-        model, prompt_len + 1)(params, {"tokens": tokens, "src": src}))
-    f32 = rg_f32_check(cfg, params, device, prompt_len=prompt_len,
-                       steps=f32_steps, extra={"src": src[:1]})
+                           extra=extra, pos_offset=offset)
+    roles = launched = None
+    if cfg.family == "audio":
+        tokens = torch.as_tensor(np.random.default_rng(seed).integers(
+            0, cfg.vocab, (batch, prompt_len)), dtype=torch.int64,
+            device=device)
+        _, roles, launched = tally_k3_roles(lambda: build_prefill(
+            model, prompt_len + 1)(params, {"tokens": tokens, **extra}))
+    windows = rg_profile(model, params, device, batch=batch,
+                         prompt_len=profile_prompt or prompt_len, seed=seed,
+                         extra=extra, pos_offset=offset)
+    f32 = rg_f32_check(cfg, params, device, prompt_len=f32_prompt or
+                       prompt_len, steps=f32_steps,
+                       extra={k: v[:1] for k, v in extra.items()},
+                       pos_offset=offset)
     del model, params
-    return {**stats, "src_len": src_len, "init_s": init_s,
-            "prefill_src_and_prompt_tok_per_s":
-                batch * (src_len + prompt_len) / stats["ttft_s"],
+    # the positions a prefill runs: the encoder's input or the patches,
+    # and the prompt
+    inputs = sum(v.shape[1] for v in extra.values()) + prompt_len
+    return {**stats, "init_s": init_s, "input_positions": inputs,
+            "prefill_positions_per_s": batch * inputs / stats["ttft_s"],
             "k3_roles": roles, "k3_role_launches": launched,
-            "float32_check": f32}
+            "profile": windows, "float32_check": f32}
 
 
-def check_wmt_roles(stats, cfg):
+def check_encdec_roles(stats, cfg):
     """Check (a), by role: one prefill called K3 once for each encoder
     layer, and once for each decoder layer's self- and cross-attention,
     and launched it that many times."""
@@ -1646,12 +1755,15 @@ def check_rg_launches(stats, n_rec: int, n_attn: int):
 
 
 def rg_f32_check(cfg, params, device="cuda", prompt_len: int = RG_F32_PROMPT,
-                 steps: int = RG_F32_STEPS, seed: int = 1, extra=None):
+                 steps: int = RG_F32_STEPS, seed: int = 1, extra=None,
+                 pos_offset: int = 0):
     """Check (c): a float32 copy of the model, batch 1: prefill, ``steps``
     greedy decode steps, each step's logits against the model's own
     ``forward`` over prompt + fed tokens at that position, to RG_F32_TOL
     (rtol and atol).  ``extra`` (batch 1) joins the prefill's and the
-    forward's batch.  Returns the largest difference."""
+    forward's batch; ``pos_offset`` positions (a VLM's patches) come
+    before the prompt, in the decode positions and in the forward's
+    logits.  Returns the largest difference."""
     import torch
     from repro_torch.core import tree as tr
     from repro_torch.models.registry import build_model
@@ -1669,7 +1781,8 @@ def rg_f32_check(cfg, params, device="cuda", prompt_len: int = RG_F32_PROMPT,
     fed = [_masked_argmax(logits[:, -1], cfg.vocab)[:, None]]
     step = build_serve_step(model)
     for j in range(steps):
-        nxt, logits, caches = step(p32, caches, fed[-1], prompt_len + j)
+        nxt, logits, caches = step(p32, caches, fed[-1],
+                                   pos_offset + prompt_len + j)
         got.append(logits[0, -1, :cfg.vocab])
         fed.append(nxt)
     del caches
@@ -1677,7 +1790,7 @@ def rg_f32_check(cfg, params, device="cuda", prompt_len: int = RG_F32_PROMPT,
                                                       dim=1), **extra})
     worst = 0.0
     for j, g in enumerate(got):
-        ref = full[0, prompt_len - 1 + j, :cfg.vocab]
+        ref = full[0, pos_offset + prompt_len - 1 + j, :cfg.vocab]
         excess = float(((g - ref).abs() - RG_F32_TOL * ref.abs()).max())
         worst = max(worst, float((g - ref).abs().max()))
         if not math.isfinite(excess) or excess > RG_F32_TOL:
@@ -1689,9 +1802,12 @@ def rg_f32_check(cfg, params, device="cuda", prompt_len: int = RG_F32_PROMPT,
 
 
 def rg_profile(model, params, device="cuda", batch: int = RG_BATCH,
-               prompt_len: int = RG_PROMPT, seed: int = 0):
-    """Two profiler windows: one prefill of the phase's prompts and one
-    decode step after it, each with K4's and K3's share of device time."""
+               prompt_len: int = RG_PROMPT, seed: int = 0, extra=None,
+               pos_offset: int = 0):
+    """Two profiler windows: one prefill of the phase's prompts (with
+    ``extra`` in its batch) and one decode step after it (at position
+    ``pos_offset + prompt_len``), each with K4's and K3's share of device
+    time."""
     import torch
     from torch.profiler import profile
     from repro_torch.serve import build_prefill, build_serve_step
@@ -1706,7 +1822,7 @@ def rg_profile(model, params, device="cuda", batch: int = RG_BATCH,
     _sync(device)
     with profile(activities=_activities(device)) as prof:
         t = time.perf_counter()
-        logits, caches = prefill(params, {"tokens": tokens})
+        logits, caches = prefill(params, {"tokens": tokens, **(extra or {})})
         _sync(device)
         wall_ms = (time.perf_counter() - t) * 1e3
     windows["prefill"] = _window(prof, wall_ms, shares=shares)
@@ -1714,7 +1830,7 @@ def rg_profile(model, params, device="cuda", batch: int = RG_BATCH,
     _sync(device)
     with profile(activities=_activities(device)) as prof:
         t = time.perf_counter()
-        step(params, caches, token, prompt_len)
+        step(params, caches, token, pos_offset + prompt_len)
         _sync(device)
         wall_ms = (time.perf_counter() - t) * 1e3
     windows["decode_step"] = _window(prof, wall_ms, shares=shares)
@@ -1763,6 +1879,43 @@ def _print_window(name, w, card):
           + (f", shares {w['shares']}" if "shares" in w else ""), flush=True)
     for k in w["top_kernels"]:
         print(f"    {k['ms']:9.3f} ms {k['calls']:6d}x {k['name']}")
+
+
+def check_family_launches(stats, cfg):
+    """Check (a) of a family's serving phase: K3 once a prefill for every
+    attention layer (for an encoder-decoder, by role too) and never a
+    decode step; K1, K2 and K4 never (``check_rg_launches``)."""
+    n_attn = {"audio": cfg.encoder_layers + 2 * cfg.n_layers,
+              "vlm": cfg.n_layers, "ssm": 0}[cfg.family]
+    check_rg_launches(stats, 0, n_attn)
+    if cfg.family == "audio":
+        check_encdec_roles(stats, cfg)
+
+
+def print_family_serving(label, r, card, seconds=None):
+    """A serving phase's numbers, checks and profile windows."""
+    print(json.dumps({label.replace(" ", "_"): r, "card": card}), flush=True)
+    print(f"{label} [{card}]: {r['arch']} full width, {r['n_layers']} "
+          f"layers, {r['dtype']}, batch {r['batch']} x {r['input_positions']}"
+          f" positions ({r['prompt_len']} prompt tokens), {r['new_tokens']} "
+          f"new: TTFT {r['ttft_s']:.4f} s, prefill "
+          f"{r['prefill_positions_per_s']:.0f} positions/s, decode "
+          f"{r['decode_ms_per_step']:.2f} ms/step (median of "
+          f"{r['new_tokens'] - 2} after the first), peak memory "
+          f"{r['max_memory_allocated'] / 2**30:.2f} GiB; launches per "
+          f"prefill {r['prefill_launches']}"
+          + (f", K3 by role {r['k3_roles']}" if r["k3_roles"] else "")
+          + f", per decode step {r['step_launches'][0]}"
+          + (f"; phase {seconds:.1f} s" if seconds is not None else ""),
+          flush=True)
+    f32 = r["float32_check"]
+    print(f"{label} checks: decode vs fresh prefill max abs diff "
+          f"{r['logits_max_abs_diff']:.4g} (limit {LOGIT_RTOL} x "
+          f"{r['logits_max_abs']:.4g}); float32 decode vs forward over "
+          f"{f32['prompt_len']} + {f32['steps']} tokens max abs diff "
+          f"{f32['logits_max_abs_diff']:.3g} (tol {RG_F32_TOL})", flush=True)
+    for name, w in r["profile"].items():
+        _print_window(f"{label} {name}", w, card)
 
 
 def main() -> int:
@@ -2018,7 +2171,7 @@ def main() -> int:
         print(f"paper train {name} losses: "
               f"{[round(x, 4) for x in run['losses']]}", flush=True)
         if run["profile"]:
-            _print_window(f"paper train {name} step {PAPER_STEPS}",
+            _print_window(f"paper train {name} step {run['n_steps']}",
                           run["profile"], card)
     fig5 = fig5_phase(pcfg)
     print(json.dumps({"fig5": fig5, "card": card}), flush=True)
@@ -2036,26 +2189,33 @@ def main() -> int:
           f"{statistics.median(fig5['runs']['allreduce']['step_ms']):.1f}",
           flush=True)
     free_memory("Fig. 5")
-    wmt = wmt_serve_phase(pcfg)
-    check_rg_launches(wmt, 0, pcfg.encoder_layers + 2 * pcfg.n_layers)
-    check_wmt_roles(wmt, pcfg)                                 # check (a)
+    wmt = family_serve_phase(pcfg, batch=WMT_BATCH, prompt_len=WMT_PROMPT,
+                             new=WMT_NEW, f32_steps=WMT_F32_STEPS)
+    check_family_launches(wmt, pcfg)                           # check (a)
     free_memory("transformer-wmt serving")
     paper_s = time.perf_counter() - t_paper
-    print(json.dumps({"wmt_serving": wmt, "card": card}), flush=True)
-    print(f"wmt serving [{card}]: {pcfg.name} full width bf16, batch "
-          f"{WMT_BATCH}, {WMT_SRC} source + {WMT_PROMPT} prompt tokens, "
-          f"{WMT_NEW} new: TTFT {wmt['ttft_s']:.4f} s, prefill "
-          f"{wmt['prefill_src_and_prompt_tok_per_s']:.0f} tok/s (source and "
-          f"prompt), decode {wmt['decode_ms_per_step']:.2f} ms/step (median "
-          f"of {WMT_NEW - 2} after the first), peak memory "
-          f"{wmt['max_memory_allocated'] / 2**30:.2f} GiB; K3 per prefill "
-          f"{wmt['prefill_launches'][K3]} by role {wmt['k3_roles']}, per "
-          f"decode step {wmt['step_launches'][0]}", flush=True)
-    print(f"wmt checks: decode vs fresh prefill max abs diff "
-          f"{wmt['logits_max_abs_diff']:.4g} (limit {LOGIT_RTOL} x "
-          f"{wmt['logits_max_abs']:.4g}); float32 decode vs forward max abs "
-          f"diff {wmt['float32_check']['logits_max_abs_diff']:.3g} (tol "
-          f"{RG_F32_TOL}); paper phase {paper_s:.1f} s", flush=True)
+    print_family_serving("wmt serving", wmt, card)
+    print(f"paper phase {paper_s:.1f} s", flush=True)
+
+    # -- the other families served at full width: whisper-medium (K3 at its
+    # encoder, decoder and cross shapes), internvl2-2b (K3 at head dim
+    # 128), xlstm-350m (no kernel) ----------------------------------------
+    family = {}
+    for arch, kw in ((WHISPER_ARCH, {}),
+                     (VLM_ARCH, dict(prompt_len=VLM_PROMPT,
+                                     f32_steps=VLM_F32_STEPS)),
+                     (XLSTM_ARCH, dict(prompt_len=XLSTM_PROMPT,
+                                       f32_prompt=XLSTM_F32_PROMPT,
+                                       f32_steps=XLSTM_F32_STEPS,
+                                       profile_prompt=XLSTM_PROFILE_PROMPT))):
+        fcfg = get_config(arch)
+        t0 = time.perf_counter()
+        run = family_serve_phase(fcfg, **kw)
+        check_family_launches(run, fcfg)                       # check (a)
+        free_memory(f"{arch} serving")
+        family[arch] = run
+        print_family_serving(f"{arch} serving", run, card,
+                             seconds=time.perf_counter() - t0)
 
     main_row = next(r for r in rows if r["shape"] == list(TL_ATTN_SHAPE[:6])
                     and r["dtype"] == TL_ATTN_SHAPE[8])
@@ -2079,10 +2239,19 @@ def main() -> int:
         f"{RG_ARCH} serving": serving,
         f"{RG_ARCH} training": rg_train["launches"][name],
         f"{PAPER_ARCH} training": paper_launches[name]}
-    wmt_rows = {role: next(r for r in rows if r["shape"] == list(c[:6])
-                           and r["causal"] == c[6] and r["dtype"] == "bfloat16")
-                for role, c in WMT_ATTN_ROLES.items()}
-    wmt_launches = [wmt["prefill_launches"]] + wmt["step_launches"]
+    bf16_row = lambda c: next(r for r in rows if r["shape"] == list(c[:6])
+                              and r["causal"] == c[6]
+                              and r["dtype"] == "bfloat16")
+    wmt_rows = {role: bf16_row(c) for role, c in WMT_ATTN_ROLES.items()}
+    k3_on = lambda run: sum(c[K3] for c in [run["prefill_launches"]]
+                            + run["step_launches"])
+    whisper_rows = {role: bf16_row(c)
+                    for role, c in WHISPER_ATTN_ROLES.items()}
+    vlm_row = bf16_row(VLM_ATTN)
+    by_role = lambda role_rows: {role: {k: r[k] for k in (
+        "shape", "causal", "ms", "plain_ms", "library_ms", "bound_ms",
+        "bound_by", "max_abs_err", "host_us")}
+        for role, r in role_rows.items()}
     entry = lambda name, source, replaces, launches, row, err, **kw: {
         "name": name, "route": "cuda", "source": source,
         "replaces": replaces, "launches": launches, "max_abs_err": err,
@@ -2107,7 +2276,7 @@ def main() -> int:
               dtype=main_row["dtype"], path=f"{ARCH} serving"),
         entry(K3, "src/repro_torch/kernels/csrc/flash_attention.cu",
               "src/repro/kernels/flash_attention.py:70",
-              sum(c[K3] for c in rg_launches), rg_row,
+              k3_on(rg), rg_row,
               max(r["max_abs_err"] for r in rows),
               bound_by=rg_row["bound_by"], shape=rg_row["shape"],
               dtype=rg_row["dtype"], window=rg_row["window"],
@@ -2115,16 +2284,28 @@ def main() -> int:
               path=f"{RG_ARCH} serving"),
         entry(K3, "src/repro_torch/kernels/csrc/flash_attention.cu",
               "src/repro/kernels/flash_attention.py:70",
-              sum(c[K3] for c in wmt_launches), wmt_rows["encoder"],
+              k3_on(wmt), wmt_rows["encoder"],
               max(r["max_abs_err"] for r in rows),
               bound_by=wmt_rows["encoder"]["bound_by"],
               shape=wmt_rows["encoder"]["shape"], dtype="bfloat16",
               causal=False, launches_by_role=wmt["k3_roles"],
-              rows_by_role={role: {k: r[k] for k in (
-                  "shape", "causal", "ms", "plain_ms", "library_ms",
-                  "bound_ms", "bound_by", "max_abs_err")}
-                  for role, r in wmt_rows.items()},
-              path=f"{PAPER_ARCH} serving"),
+              rows_by_role=by_role(wmt_rows), path=f"{PAPER_ARCH} serving"),
+        entry(K3, "src/repro_torch/kernels/csrc/flash_attention.cu",
+              "src/repro/kernels/flash_attention.py:70",
+              k3_on(family[WHISPER_ARCH]), whisper_rows["encoder"],
+              max(r["max_abs_err"] for r in rows),
+              bound_by=whisper_rows["encoder"]["bound_by"],
+              shape=whisper_rows["encoder"]["shape"], dtype="bfloat16",
+              causal=False,
+              launches_by_role=family[WHISPER_ARCH]["k3_roles"],
+              rows_by_role=by_role(whisper_rows),
+              path=f"{WHISPER_ARCH} serving"),
+        entry(K3, "src/repro_torch/kernels/csrc/flash_attention.cu",
+              "src/repro/kernels/flash_attention.py:70",
+              k3_on(family[VLM_ARCH]), vlm_row,
+              max(r["max_abs_err"] for r in rows),
+              bound_by=vlm_row["bound_by"], shape=vlm_row["shape"],
+              dtype="bfloat16", path=f"{VLM_ARCH} serving"),
         entry(K4, "src/repro_torch/kernels/csrc/rglru_scan.cu",
               "src/repro/kernels/rglru_scan.py:48",
               sum(c[K4] for c in rg_launches) + rg_train["launches"][K4],

@@ -3,7 +3,7 @@
 Counterpart of ``repro/kernels/ref.py``: materialise the full score matrix,
 slow but obviously correct, for the kernel test sweeps; the butterfly
 combine written as its definition; the RG-LRU recurrence as a sequential
-fp32 carry.
+fp32 carry; the mLSTM cell run sequentially over a chunk.
 """
 
 from __future__ import annotations
@@ -53,3 +53,19 @@ def rglru_scan_ref(a, x, h0=None):
         h = a[:, t].float() * h + x[:, t].float()
         out[:, t] = h                   # each h_t cast to x's dtype
     return out
+
+
+def mlstm_chunk_ref(q, k, v, i_pre, f_pre):
+    """Sequential mLSTM (``models/xlstm.py`` ``mlstm_step``, one a token).
+
+    q,k,v (B,S,H,dh); i_pre,f_pre (B,S,H). Returns h (B,S,H,dh) fp32.
+    """
+    from repro_torch.models.xlstm import mlstm_init_state, mlstm_step
+    b, s, h, dh = q.shape
+    state = mlstm_init_state(b, h, dh, q.device)
+    hs = []
+    for t in range(s):
+        state, ht = mlstm_step(state, (q[:, t], k[:, t], v[:, t],
+                                       i_pre[:, t], f_pre[:, t]))
+        hs.append(ht)
+    return torch.stack(hs, dim=1)

@@ -3,7 +3,10 @@
 ``jax.random`` cannot be reproduced in torch, so tests that hold the port
 against the JAX package draw the weights once with the JAX init and carry
 them over as numpy arrays.  The port's parameter tree has the JAX tree's
-structure and layouts, so the conversion is leaf by leaf.
+structure and layouts, so the conversion is leaf by leaf.  Families:
+``dense`` and ``vlm`` (the dense transformer's tree), ``hybrid``
+(recurrentgemma), ``audio`` (transformer_wmt, whisper-medium) and ``ssm``
+(xlstm-350m).
 """
 
 from __future__ import annotations
@@ -11,17 +14,19 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.models import encdec, rglru
+from repro_torch.models import encdec, rglru, vlm, xlstm
 from repro_torch.models import transformer as tfm
 
 PARAM_SPECS = {"dense": tfm.param_specs, "hybrid": rglru.param_specs,
-               "audio": encdec.param_specs}
+               "audio": encdec.param_specs, "vlm": vlm.param_specs,
+               "ssm": xlstm.param_specs}
 
 
 def params_from_jax(cfg, tree, device="cuda", *, lead=(), dtype=None):
     """JAX param tree (leaves as numpy arrays, or anything ``np.asarray``
     takes) -> the port's params on ``device``, each leaf in the dtype of the
-    port's own init (``cfg.dtype``; recurrentgemma's ``lam`` float32), or
+    port's own init (``cfg.dtype``; recurrentgemma's ``lam`` and xLSTM's
+    ``bif``/``bg`` float32), or
     all in ``dtype``.  ``lead`` is the shape of leading dims every leaf
     carries (``(P,)`` for a stacked replica tree).
 

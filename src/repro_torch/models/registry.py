@@ -1,11 +1,18 @@
 """Uniform model API: build_model(cfg, device) -> ModelAPI.
 
 Counterpart of ``repro/models/registry.py`` for the dense family, the
-hybrid family (recurrentgemma) and the encoder-decoder ``audio`` family
-(transformer_wmt, whisper-medium).  Batches by family:
+hybrid family (recurrentgemma), the encoder-decoder ``audio`` family
+(transformer_wmt, whisper-medium), the ``vlm`` family (internvl2-2b: the
+dense transformer after a patch-embedding prefix) and the ``ssm`` family
+(xlstm-350m).  Batches by family:
 
-    dense, hybrid : {tokens, labels}
-    audio         : {frames (B,F,d) or src (B,F), tokens, labels}
+    dense, hybrid, ssm : {tokens, labels}
+    audio              : {frames (B,F,d) or src (B,F), tokens, labels}
+    vlm                : {patches (B,Np,d), tokens, labels}
+
+A vlm's ``forward`` returns logits over all Np+S positions and its loss is
+taken over the text positions only; its ``decode_step`` takes the absolute
+position, prefix included.  The ``moe`` family is not ported yet.
 
 The ``layered`` decomposition belongs to the FSDP slice (ROADMAP.md).
 """
@@ -18,7 +25,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import common as cm
-from repro_torch.models import encdec, rglru
+from repro_torch.models import encdec, rglru, vlm, xlstm
 from repro_torch.models import transformer as tfm
 
 
@@ -33,11 +40,7 @@ class ModelAPI(NamedTuple):
     decode_step: Callable           # (params, caches, token, pos) -> (logits, caches)
 
 
-_LATER = {
-    "moe": "slice 9 (models/moe.py)",
-    "ssm": "slice 9 (models/xlstm.py)",
-    "vlm": "slice 9 (models/vlm.py)",
-}
+_LATER = {"moe": "slice 9 (models/moe.py)"}
 
 
 CHUNKED_CE_VOCAB = 65536
@@ -73,13 +76,14 @@ def _chunked_ce(cfg, params, hidden, labels, mask):
     return tot / torch.clamp(cnt, min=1.0)
 
 
-def _loss(cfg, forward_train, chunked: bool):
+def _loss(cfg, forward_train, chunked: bool, text_slice: int = 0):
     """``ModelAPI.loss``, the JAX loss's two branches: with ``chunked`` the
     chunked cross-entropy of the training forward's hidden state, else the
-    cross-entropy of its logits.  ``forward_train(params, batch, remat,
-    return_hidden)``."""
+    cross-entropy of its logits; either over the positions from
+    ``text_slice`` on (a vlm's text).  ``forward_train(params, batch,
+    remat, return_hidden)``."""
     def loss_fn(params, batch, remat=True):
-        out = forward_train(params, batch, remat, chunked)
+        out = forward_train(params, batch, remat, chunked)[:, text_slice:]
         if chunked:
             ce = _chunked_ce(cfg, params, out, batch["labels"],
                              batch.get("mask"))
@@ -98,10 +102,11 @@ def _enc_input(batch):
 
 
 def build_model(cfg, device="cuda") -> ModelAPI:
-    """The dense, hybrid or audio family's API; entry points run on
-    ``device`` (CUDA unless the caller asks for the CPU)."""
-    if cfg.family in ("dense", "hybrid"):
-        mod = tfm if cfg.family == "dense" else rglru
+    """The dense, hybrid, ssm, audio or vlm family's API; entry points run
+    on ``device`` (CUDA unless the caller asks for the CPU)."""
+    text_slice = 0
+    if cfg.family in ("dense", "hybrid", "ssm"):
+        mod = {"dense": tfm, "hybrid": rglru, "ssm": xlstm}[cfg.family]
         forward = lambda params, batch: mod.forward(cfg, params,
                                                     batch["tokens"])
         forward_train = lambda params, batch, remat, hidden: \
@@ -110,7 +115,21 @@ def build_model(cfg, device="cuda") -> ModelAPI:
         prefill = lambda params, batch, max_len: mod.prefill(
             cfg, params, batch["tokens"], max_len=max_len)
         # the big-vocab loss of the JAX package's chunked families
+        chunked = (cfg.family != "ssm"
+                   and cfg.vocab_padded >= CHUNKED_CE_VOCAB)
+    elif cfg.family == "vlm":
+        mod = vlm
+        forward = lambda params, batch: vlm.forward(
+            cfg, params, batch["tokens"], batch["patches"])[0]
+        forward_train = lambda params, batch, remat, hidden: \
+            tfm.forward_train(cfg, params, batch["tokens"], remat=remat,
+                              return_hidden=hidden,
+                              prefix_embeds=batch["patches"])
+        prefill = lambda params, batch, max_len: vlm.prefill(
+            cfg, params, batch["tokens"], max_len=max_len,
+            prefix_embeds=batch["patches"])
         chunked = cfg.vocab_padded >= CHUNKED_CE_VOCAB
+        text_slice = cfg.n_patches
     elif cfg.family == "audio":
         mod = encdec
         forward = lambda params, batch: encdec.forward(
@@ -134,7 +153,7 @@ def build_model(cfg, device="cuda") -> ModelAPI:
         device=device,
         init=lambda generator: mod.init_params(cfg, generator, device),
         forward=lambda params, batch: (forward(params, batch), {}),
-        loss=_loss(cfg, forward_train, chunked),
+        loss=_loss(cfg, forward_train, chunked, text_slice),
         init_caches=lambda batch, max_len: mod.init_caches(
             cfg, batch, max_len, device),
         prefill=prefill,

@@ -9,11 +9,19 @@ this module loops in Python over views of it.
 
 Entry points:
     init_params(cfg, generator, device)
-    forward(cfg, params, tokens) -> logits (scoring, no autograd)
-    forward_train(cfg, params, tokens, remat, return_hidden) -> logits, or
-        the hidden state after ``ln_f`` (with autograd)
-    prefill(cfg, params, tokens, max_len) -> (last_logits, caches)
+    forward(cfg, params, tokens, prefix_embeds) -> logits (scoring, no
+        autograd)
+    forward_train(cfg, params, tokens, remat, return_hidden,
+        prefix_embeds) -> logits, or the hidden state after ``ln_f`` (with
+        autograd)
+    prefill(cfg, params, tokens, max_len, prefix_embeds) -> (last_logits,
+        caches)
     decode_step(cfg, params, caches, token, pos) -> (logits, caches)
+
+``prefix_embeds`` (B,Np,d), the VLM's patch embeddings, is cast to the
+model dtype and put before the token embeddings; positions then run over
+the whole sequence, so the text starts at position Np, and the logits (or
+hidden state) cover all Np+S positions.
 
 ``decode_step`` takes ``pos`` as an int or as a (B,) tensor, one position
 per row (the paged decode batch), and writes the caches in place.  The
@@ -211,6 +219,14 @@ def unembed(cfg, params, x):
     return x @ table.T
 
 
+def embed_with_prefix(cfg, params, tokens, prefix_embeds=None):
+    """The token embeddings, after ``prefix_embeds`` (B,Np,d) where given."""
+    x = embed(cfg, params, tokens)
+    if prefix_embeds is not None:
+        x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
+    return x
+
+
 def _positions(x):
     b, s = x.shape[:2]
     return torch.arange(s, device=x.device).expand(b, s)
@@ -221,9 +237,9 @@ def _positions(x):
 # ---------------------------------------------------------------------------
 
 @torch.no_grad()
-def forward(cfg, params, tokens):
-    """tokens (B,S) -> logits (B,S,V)."""
-    x = embed(cfg, params, tokens)
+def forward(cfg, params, tokens, prefix_embeds=None):
+    """tokens (B,S) -> logits (B,Np+S,V)."""
+    x = embed_with_prefix(cfg, params, tokens, prefix_embeds)
     positions = _positions(x)
     n_sb, n_local, has_global = superblock_layout(cfg)
     for i in range(n_sb):
@@ -238,17 +254,18 @@ def forward(cfg, params, tokens):
 
 
 def forward_train(cfg, params, tokens, remat: bool = True,
-                  return_hidden: bool = False):
-    """tokens (B,S) -> logits (B,S,V) with autograd: the JAX ``forward``.
-    With ``return_hidden`` the hidden state after ``ln_f`` (B,S,d) instead,
-    before the unembed (the chunked cross-entropy's input).
+                  return_hidden: bool = False, prefix_embeds=None):
+    """tokens (B,S) -> logits (B,Np+S,V) with autograd: the JAX
+    ``forward``.  With ``return_hidden`` the hidden state after ``ln_f``
+    (B,Np+S,d) instead, before the unembed (the chunked cross-entropy's
+    input).
 
     Attention is ``cm.differentiable_blocked_attention`` (no kernel, as in
     the JAX training loss).  ``remat`` recomputes each superblock in the
     backward (``torch.utils.checkpoint``), as ``jax.remat`` wraps the
     superblock body that JAX scans.
     """
-    x = embed(cfg, params, tokens)
+    x = embed_with_prefix(cfg, params, tokens, prefix_embeds)
     positions = _positions(x)
     n_sb, n_local, has_global = superblock_layout(cfg)
 
@@ -345,15 +362,18 @@ def window_ring(a, window: int, max_len: int):
 
 
 @torch.no_grad()
-def prefill(cfg, params, tokens, max_len: Optional[int] = None):
-    """Fill caches for tokens (B,S); returns (last-token logits, caches).
+def prefill(cfg, params, tokens, max_len: Optional[int] = None,
+            prefix_embeds=None):
+    """Fill caches for tokens (B,S) after ``prefix_embeds`` (B,Np,d) where
+    given; returns (last-token logits, caches).  ``max_len`` counts the
+    prefix's positions too.
 
     The cache is the product of the forward pass: each layer's K/V after
     rope.  Global caches are padded to ``max_len`` after attention, so the
     prompt itself is never padded; local layers keep the trailing window in
     ring order.
     """
-    x = embed(cfg, params, tokens)
+    x = embed_with_prefix(cfg, params, tokens, prefix_embeds)
     b, s, _ = x.shape
     max_len = max_len or s
     positions = _positions(x)
