@@ -17,7 +17,8 @@
    shapes (tinyllama; recurrentgemma's windowed hd-256 attention;
    transformer-wmt's encoder, decoder and cross-attention,
    ``WMT_ATTN_CASES``; whisper-medium's 1500-frame encoder, decoder prompt
-   and cross-attention and internvl2-2b's hd-128 prefill,
+   and cross-attention, internvl2-2b's hd-128 prefill and the moe
+   family's, llama4-maverick's hd 128 and kimi-k2's hd 112,
    ``FAMILY_ATTN_CASES``) and the edges of the TMA/wgmma kernel at hd 64,
    128 and 256 (``TMA_EDGE_CASES``); times the kernel, the plain
    version and ``F.scaled_dot_product_attention`` (the library yardstick,
@@ -139,10 +140,24 @@
    ``forward`` to 2e-3; (d) finite logits, in-vocab tokens.  Prints TTFT,
    prefill positions/s, decode ms/step, peak memory and two profiler
    windows each.
-11. Prints a ``kernels`` JSON line (K3 once a serving path: tinyllama,
+11. Moe phase (``moe_serve_phase``): llama4-maverick-400b-a17b (128
+   experts, top-1, a dense + moe superblock) and kimi-k2-1t-a32b (384
+   experts, top-8, the first dense layer + one moe layer, head dim 112)
+   at published width, expert count, top-k and vocab in bf16, depth cut
+   to 2 layers (18.6 and 19.6 B params), random weights drawn one matrix
+   at a time, batch 4 x 512 tokens, 32 greedy new tokens at the config's
+   capacity factor (the timed prefill's dropped share printed).  Checks
+   (a) K3 2 a prefill, none a decode step, K1, K2, K4 never; (b) the
+   last decode step against a fresh prefill to 5% of the largest logit,
+   at capacity factor ``MOE_DROPFREE_FACTOR``, where both prefills and
+   every decode step must drop nothing; (c) a float32 copy of the first 16 experts against its own
+   ``forward`` to 2e-3, drop-free; (d) finite logits, in-vocab tokens.
+   Two profiler windows each; memory freed between the two models.
+12. Prints a ``kernels`` JSON line (K3 once a serving path: tinyllama,
    recurrentgemma's hd 256, transformer-wmt's and whisper-medium's encoder
    shapes with their launches and times by role, internvl2-2b's hd-128
-   prefill; K4 twice: ``rglru_scan`` on its TMA
+   prefill, llama4-maverick's hd-128 and kimi-k2's hd-112 prefill; K4
+   twice: ``rglru_scan`` on its TMA
    route at the prefill shape, with all of its main-path launches, serving
    and training, and their split by route and path, and its training
    scan's times; ``rglru_scan_decode`` on the walk route at the decode
@@ -231,8 +246,14 @@ WHISPER_ATTN_ROLES = {"encoder": (4, 1500, 1500, 16, 16, 64, False, None),
                       "decoder": (4, 4, 4, 16, 16, 64, True, None),
                       "cross": (4, 4, 1500, 16, 16, 64, False, None)}
 VLM_ATTN = (4, 768, 768, 16, 8, 128, True, None)
+# the moe family's prefill at batch 4 x 512 tokens: llama4-maverick's 40
+# heads of 128 over 8 KV heads, kimi-k2's 64 heads of 112 (7168 / 64) over
+# 8, which the bf16 kernel pads to 128 columns by the TMA's zero fill
+LLAMA4_ATTN = (4, 512, 512, 40, 8, 128, True, None)
+KIMI_ATTN = (4, 512, 512, 64, 8, 112, True, None)
 FAMILY_ATTN_CASES = [c + (dt,) for c in list(WHISPER_ATTN_ROLES.values())
-                     + [VLM_ATTN] for dt in ("float32", "bfloat16")]
+                     + [VLM_ATTN, LLAMA4_ATTN, KIMI_ATTN]
+                     for dt in ("float32", "bfloat16")]
 # the tinyllama prefill shape the kernels line reports
 TL_ATTN_SHAPE = (1, SLICE_SHAPE_FOR_LINE, SLICE_SHAPE_FOR_LINE, 32, 4, 64,
                  True, None, "bfloat16")
@@ -380,6 +401,23 @@ XLSTM_PROMPT, XLSTM_F32_PROMPT, XLSTM_F32_STEPS = 512, 128, 4
 # xlstm's profiled prefill: ~40 torch ops a token and superblock, so the
 # trace of a whole prompt takes the profiler minutes to read back
 XLSTM_PROFILE_PROMPT = 64
+
+# the moe family at published width, expert count, top-k and vocab in bf16,
+# depth cut to 2 layers (llama4-maverick: one dense + moe superblock;
+# kimi-k2: the first dense layer + one moe layer): one moe layer is 16-17 B
+# params, 32-34 GB, so a second would need 70-73 GB of weights alone.
+# Batch 4 x 512-token prompts, 32 greedy new tokens, at the config's
+# capacity factor (1.25).  Check (b) runs at capacity factor
+# MOE_DROPFREE_FACTOR, under which both of its prefills and every decode
+# step must drop nothing (drops legally differ between prefills of other
+# lengths; 8 is the least factor of 2, 4, 8 that was drop-free for both
+# models on these weights, C 128 and 341); check (c) on a float32
+# copy of the first MOE_F32_EXPERTS experts (top-k unchanged; a float32
+# copy of every expert is 74-78 GB) at capacity factor 2E/k, so C >= T.
+MOE_ARCHS = ("llama4-maverick-400b-a17b", "kimi-k2-1t-a32b")
+MOE_LAYERS, MOE_PROMPT = 2, 512
+MOE_DROPFREE_FACTOR = 8.0
+MOE_F32_EXPERTS, MOE_F32_PROMPT, MOE_F32_STEPS = 16, 128, 4
 
 
 def free_memory(label: str):
@@ -1577,16 +1615,27 @@ def _masked_argmax(logits, vocab: int):
     return logits[..., :vocab].argmax(-1)
 
 
+def check_fresh_prefill(name: str, diff: float, scale: float):
+    """Check (b): the last decode step's logits within ``LOGIT_RTOL`` of
+    the largest logit of a fresh prefill."""
+    if not math.isfinite(diff) or diff > LOGIT_RTOL * scale:
+        raise AssertionError(f"{name} decode vs fresh prefill logits "
+                             f"differ by {diff} > {LOGIT_RTOL} * {scale}")
+
+
 def rg_serve_phase(model, params, device="cuda", batch: int = RG_BATCH,
                    prompt_len: int = RG_PROMPT, new: int = RG_NEW,
-                   seed: int = 0, extra=None, pos_offset: int = 0):
+                   seed: int = 0, extra=None, pos_offset: int = 0,
+                   fresh_check: bool = True):
     """Prefill ``batch`` equal prompts and decode ``new`` greedy tokens
     through ``build_prefill``/``build_serve_step`` with checks (b) and (d);
     returns the run's numbers with each prefill's and decode step's kernel
     launches for check (a).  ``extra`` joins every prefill's batch (an
     encoder-decoder's ``src`` or ``frames``, a VLM's ``patches``);
     ``pos_offset`` is the positions before the prompt (a VLM's patches),
-    so the first decode step is at ``pos_offset + prompt_len``."""
+    so the first decode step is at ``pos_offset + prompt_len``.  Without
+    ``fresh_check`` check (b)'s difference and scale are returned but
+    judged by the caller (a moe model, whose capacity may drop)."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.serve import build_prefill, build_serve_step
@@ -1640,9 +1689,8 @@ def rg_serve_phase(model, params, device="cuda", batch: int = RG_BATCH,
     ref = ref_logits[:, -1, :cfg.vocab].float()
     diff = float((last - ref).abs().max())
     scale = float(ref.abs().max())
-    if not math.isfinite(diff) or diff > LOGIT_RTOL * scale:
-        raise AssertionError(f"{cfg.name} decode vs fresh prefill logits "
-                             f"differ by {diff} > {LOGIT_RTOL} * {scale}")
+    if fresh_check:
+        check_fresh_prefill(cfg.name, diff, scale)
     steady = step_ms[1:] or step_ms
     return {
         "arch": cfg.name, "dtype": cfg.dtype, "n_layers": cfg.n_layers,
@@ -1724,6 +1772,140 @@ def family_serve_phase(cfg, device="cuda", batch: int = FAMILY_BATCH,
             "prefill_positions_per_s": batch * inputs / stats["ttft_s"],
             "k3_roles": roles, "k3_role_launches": launched,
             "profile": windows, "float32_check": f32}
+
+
+def moe_dropfree_check(cfg, params, device="cuda", batch: int = FAMILY_BATCH,
+                       prompt_len: int = MOE_PROMPT, new: int = FAMILY_NEW,
+                       seed: int = 0,
+                       capacity_factor: float = MOE_DROPFREE_FACTOR):
+    """Check (b) of a moe model: ``rg_serve_phase`` on the same weights at
+    ``capacity_factor``, where its two prefills and every decode step must
+    drop nothing (a capacity that drops may legally route a prefill of
+    another length otherwise); its last decode step must then match the
+    fresh prefill to 5% of the largest logit.  Check (d) holds in any
+    case."""
+    from repro_torch.models import moe
+    from repro_torch.models.registry import build_model
+    model = build_model(cfg.variant(capacity_factor=capacity_factor),
+                        device=device)
+    with moe.recording_dropped() as calls:
+        stats = rg_serve_phase(model, params, device, batch=batch,
+                               prompt_len=prompt_len, new=new, seed=seed,
+                               fresh_check=False)
+    drops = [float(d) for d in calls]
+    n_moe = moe.layout(cfg)[0]
+    if len(drops) != n_moe * (new + 1):
+        raise AssertionError(f"{cfg.name}: {len(drops)} moe calls recorded,"
+                             f" expected {n_moe} a prefill and decode step")
+    if any(d > 0 for d in drops):
+        raise AssertionError(f"{cfg.name} at capacity factor "
+                             f"{capacity_factor}: a prefill or decode step "
+                             f"dropped (largest share {max(drops)}); check "
+                             f"(b) needs a drop-free capacity")
+    check_fresh_prefill(cfg.name, stats["logits_max_abs_diff"],
+                        stats["logits_max_abs"])
+    return {"capacity_factor": capacity_factor,
+            "capacity": moe._chunking(model.cfg, batch * prompt_len,
+                                      None)[1],
+            "logits_max_abs_diff": stats["logits_max_abs_diff"],
+            "logits_max_abs": stats["logits_max_abs"]}
+
+
+def moe_f32_check(cfg, params, device="cuda", n_experts: int = MOE_F32_EXPERTS,
+                  prompt_len: int = MOE_F32_PROMPT,
+                  steps: int = MOE_F32_STEPS):
+    """Check (c) of a moe model (``rg_f32_check``) on the first
+    ``n_experts`` experts of every moe layer (router columns and expert
+    weights; top-k unchanged) at capacity factor 2E/k, so that the
+    capacity is at least the tokens and nothing drops (asserted)."""
+    from repro_torch.models import moe
+    cut = cfg.variant(n_experts=n_experts,
+                      capacity_factor=2.0 * n_experts / cfg.top_k)
+    pm = params["blocks"]["moe"]["moe"]
+    pm = dict(pm, router=pm["router"][..., :n_experts],
+              **{k: pm[k][:, :n_experts] for k in ("we1", "we3", "we2")})
+    blocks = dict(params["blocks"], moe=dict(params["blocks"]["moe"], moe=pm))
+    with moe.recording_dropped() as calls:
+        f32 = rg_f32_check(cut, dict(params, blocks=blocks), device,
+                           prompt_len=prompt_len, steps=steps)
+    drops = [float(d) for d in calls]
+    if any(d > 0 for d in drops):
+        raise AssertionError(f"float32 {cfg.name}: drops {drops} at a "
+                             f"capacity of at least the tokens")
+    return dict(f32, n_experts=n_experts)
+
+
+def moe_serve_phase(cfg, device="cuda", batch: int = FAMILY_BATCH,
+                    prompt_len: int = MOE_PROMPT, new: int = FAMILY_NEW,
+                    seed: int = 0,
+                    dropfree_factor: float = MOE_DROPFREE_FACTOR,
+                    f32_experts: int = MOE_F32_EXPERTS,
+                    f32_prompt: int = MOE_F32_PROMPT,
+                    f32_steps: int = MOE_F32_STEPS):
+    """Serve a moe ``cfg`` with random weights: ``batch`` prompts of
+    ``prompt_len`` tokens, ``new`` greedy tokens through ``build_prefill``/
+    ``build_serve_step`` at the config's capacity (checks (a) and (d), the
+    timed prefill's dropped share); two profiler windows; check (b) at
+    the drop-free ``dropfree_factor`` (:func:`moe_dropfree_check`); check (c) on a float32 copy of
+    ``f32_experts`` experts (:func:`moe_f32_check`).  Returns the numbers
+    with the keys :func:`print_family_serving` reads."""
+    from repro_torch.core import tree as tr
+    from repro_torch.models import moe
+
+    model, params, init_s = load_model(cfg, device, seed)
+    n_params = sum(a.numel() for a in tr.tree_leaves(params))
+    param_bytes = sum(a.numel() * a.element_size()
+                      for a in tr.tree_leaves(params))
+    with moe.recording_dropped() as calls:
+        stats = rg_serve_phase(model, params, device, batch=batch,
+                               prompt_len=prompt_len, new=new, seed=seed,
+                               fresh_check=False)
+    n_moe = moe.layout(cfg)[0]
+    # the timed prefill's moe layers, then each decode step's (the fresh
+    # prefill's come last)
+    drops = [float(d) for d in calls]
+    windows = rg_profile(model, params, device, batch=batch,
+                         prompt_len=prompt_len, seed=seed)
+    dropfree = moe_dropfree_check(cfg, params, device, batch=batch,
+                                  prompt_len=prompt_len, new=new, seed=seed,
+                                  capacity_factor=dropfree_factor)
+    f32 = moe_f32_check(cfg, params, device, n_experts=f32_experts,
+                        prompt_len=f32_prompt, steps=f32_steps)
+    del model, params
+    return {**stats, "init_s": init_s, "n_params": n_params,
+            "param_bytes": param_bytes, "n_experts": cfg.n_experts,
+            "top_k": cfg.top_k, "capacity_factor": cfg.capacity_factor,
+            "capacity": moe._chunking(cfg, batch * prompt_len, None)[1],
+            "prefill_dropped": statistics.mean(drops[:n_moe]),
+            "decode_dropped_max": max(drops[n_moe:n_moe * new]),
+            "logits_max_abs_diff": dropfree["logits_max_abs_diff"],
+            "logits_max_abs": dropfree["logits_max_abs"],
+            "dropfree": dropfree, "input_positions": prompt_len,
+            "prefill_positions_per_s": batch * prompt_len / stats["ttft_s"],
+            "k3_roles": None, "k3_role_launches": None, "profile": windows,
+            "float32_check": f32}
+
+
+def moe_config(arch: str):
+    """``arch`` at published width, experts, top-k and vocab, depth cut to
+    ``MOE_LAYERS``."""
+    from repro_torch.configs import get_config
+    return get_config(arch).variant(n_layers=MOE_LAYERS)
+
+
+def print_moe_serving(label, r, card):
+    """The moe-specific numbers of a moe phase, after
+    :func:`print_family_serving`'s."""
+    b = r["dropfree"]
+    print(f"{label} [{card}]: {r['n_params']} params "
+          f"({r['param_bytes'] / 1e9:.2f} GB), {r['n_experts']} experts "
+          f"top-{r['top_k']}, initialised in {r['init_s']:.2f} s; capacity "
+          f"factor {r['capacity_factor']} (C {r['capacity']} at the prompt):"
+          f" timed prefill dropped {r['prefill_dropped']:.4f} of its "
+          f"assignments, decode steps at most {r['decode_dropped_max']}; "
+          f"check (b) at capacity factor {b['capacity_factor']} (C "
+          f"{b['capacity']}, drop-free); check (c) on "
+          f"{r['float32_check']['n_experts']} experts", flush=True)
 
 
 def check_encdec_roles(stats, cfg):
@@ -1886,7 +2068,8 @@ def check_family_launches(stats, cfg):
     attention layer (for an encoder-decoder, by role too) and never a
     decode step; K1, K2 and K4 never (``check_rg_launches``)."""
     n_attn = {"audio": cfg.encoder_layers + 2 * cfg.n_layers,
-              "vlm": cfg.n_layers, "ssm": 0}[cfg.family]
+              "vlm": cfg.n_layers, "moe": cfg.n_layers,
+              "ssm": 0}[cfg.family]
     check_rg_launches(stats, 0, n_attn)
     if cfg.family == "audio":
         check_encdec_roles(stats, cfg)
@@ -2217,6 +2400,19 @@ def main() -> int:
         print_family_serving(f"{arch} serving", run, card,
                              seconds=time.perf_counter() - t0)
 
+    # -- the moe family at published width and expert count (K3 at head
+    # dims 128 and 112) -------------------------------------------------
+    for arch in MOE_ARCHS:
+        mcfg = moe_config(arch)
+        t0 = time.perf_counter()
+        run = moe_serve_phase(mcfg)
+        check_family_launches(run, mcfg)                       # check (a)
+        free_memory(f"{arch} serving")
+        family[arch] = run
+        print_family_serving(f"{arch} serving", run, card,
+                             seconds=time.perf_counter() - t0)
+        print_moe_serving(f"{arch} moe", run, card)
+
     main_row = next(r for r in rows if r["shape"] == list(TL_ATTN_SHAPE[:6])
                     and r["dtype"] == TL_ATTN_SHAPE[8])
     rg_row = next(r for r in rows if r["shape"] == list(RG_ATTN_SHAPE[:6])
@@ -2306,6 +2502,15 @@ def main() -> int:
               max(r["max_abs_err"] for r in rows),
               bound_by=vlm_row["bound_by"], shape=vlm_row["shape"],
               dtype="bfloat16", path=f"{VLM_ARCH} serving"),
+    ] + [
+        entry(K3, "src/repro_torch/kernels/csrc/flash_attention.cu",
+              "src/repro/kernels/flash_attention.py:70",
+              k3_on(family[arch]), row, max(r["max_abs_err"] for r in rows),
+              bound_by=row["bound_by"], shape=row["shape"], dtype="bfloat16",
+              path=f"{arch} serving")
+        for arch, row in ((MOE_ARCHS[0], bf16_row(LLAMA4_ATTN)),
+                          (MOE_ARCHS[1], bf16_row(KIMI_ATTN)))
+    ] + [
         entry(K4, "src/repro_torch/kernels/csrc/rglru_scan.cu",
               "src/repro/kernels/rglru_scan.py:48",
               sum(c[K4] for c in rg_launches) + rg_train["launches"][K4],

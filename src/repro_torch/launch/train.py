@@ -37,6 +37,8 @@ from repro_torch.models.registry import build_model
 from repro_torch.optim import adamw, sgd
 from repro_torch.train import build_train_step, init_replica_state
 
+# a moe model's metrics beside the loss, logged with it
+ROUTER_METRICS = ("load_balance", "router_z", "moe_dropped")
 RANKS_SLICE = ("the slice of the port that trains across ranks (ROADMAP.md, "
                "slice 4)")
 
@@ -159,7 +161,10 @@ class Trainer:
                     * (t + 1) / max(dt, 1e-9)
                 skip = (f" skipped_nonfinite {self.skipped_nonfinite:.0f}"
                         if self.skipped_nonfinite else "")
-                print(f"step {t:5d} loss {loss:.4f} "
+                aux = "".join(f" {k} {self.last_metrics[k]:.4f}"
+                              for k in ROUTER_METRICS
+                              if k in self.last_metrics)
+                print(f"step {t:5d} loss {loss:.4f}{aux} "
                       f"({tput:,.0f} tok/s wall){skip}", flush=True)
         return history
 

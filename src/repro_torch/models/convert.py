@@ -5,8 +5,8 @@ against the JAX package draw the weights once with the JAX init and carry
 them over as numpy arrays.  The port's parameter tree has the JAX tree's
 structure and layouts, so the conversion is leaf by leaf.  Families:
 ``dense`` and ``vlm`` (the dense transformer's tree), ``hybrid``
-(recurrentgemma), ``audio`` (transformer_wmt, whisper-medium) and ``ssm``
-(xlstm-350m).
+(recurrentgemma), ``audio`` (transformer_wmt, whisper-medium), ``ssm``
+(xlstm-350m) and ``moe`` (llama4-maverick, kimi-k2).
 """
 
 from __future__ import annotations
@@ -14,19 +14,19 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.models import encdec, rglru, vlm, xlstm
+from repro_torch.models import encdec, moe, rglru, vlm, xlstm
 from repro_torch.models import transformer as tfm
 
 PARAM_SPECS = {"dense": tfm.param_specs, "hybrid": rglru.param_specs,
                "audio": encdec.param_specs, "vlm": vlm.param_specs,
-               "ssm": xlstm.param_specs}
+               "ssm": xlstm.param_specs, "moe": moe.param_specs}
 
 
 def params_from_jax(cfg, tree, device="cuda", *, lead=(), dtype=None):
     """JAX param tree (leaves as numpy arrays, or anything ``np.asarray``
     takes) -> the port's params on ``device``, each leaf in the dtype of the
-    port's own init (``cfg.dtype``; recurrentgemma's ``lam`` and xLSTM's
-    ``bif``/``bg`` float32), or
+    port's own init (``cfg.dtype``; recurrentgemma's ``lam``, xLSTM's
+    ``bif``/``bg`` and a moe layer's ``router`` float32), or
     all in ``dtype``.  ``lead`` is the shape of leading dims every leaf
     carries (``(P,)`` for a stacked replica tree).
 

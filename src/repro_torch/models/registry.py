@@ -3,16 +3,20 @@
 Counterpart of ``repro/models/registry.py`` for the dense family, the
 hybrid family (recurrentgemma), the encoder-decoder ``audio`` family
 (transformer_wmt, whisper-medium), the ``vlm`` family (internvl2-2b: the
-dense transformer after a patch-embedding prefix) and the ``ssm`` family
-(xlstm-350m).  Batches by family:
+dense transformer after a patch-embedding prefix), the ``ssm`` family
+(xlstm-350m) and the ``moe`` family (llama4-maverick, kimi-k2).  Batches
+by family:
 
-    dense, hybrid, ssm : {tokens, labels}
+    dense, hybrid, ssm, moe : {tokens, labels}
     audio              : {frames (B,F,d) or src (B,F), tokens, labels}
     vlm                : {patches (B,Np,d), tokens, labels}
 
 A vlm's ``forward`` returns logits over all Np+S positions and its loss is
 taken over the text positions only; its ``decode_step`` takes the absolute
-position, prefix included.  The ``moe`` family is not ported yet.
+position, prefix included.  A moe model's ``forward`` returns its router
+aux (``load_balance``, ``router_z``, ``dropped``) beside the logits, and
+its loss adds ``router_aux_coef`` times the two router losses to the
+cross-entropy, as the JAX loss does.
 
 The ``layered`` decomposition belongs to the FSDP slice (ROADMAP.md).
 """
@@ -25,7 +29,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import common as cm
-from repro_torch.models import encdec, rglru, vlm, xlstm
+from repro_torch.models import encdec, moe, rglru, vlm, xlstm
 from repro_torch.models import transformer as tfm
 
 
@@ -38,9 +42,6 @@ class ModelAPI(NamedTuple):
     init_caches: Callable           # (batch, max_len) -> caches
     prefill: Callable               # (params, batch, max_len) -> (logits, caches)
     decode_step: Callable           # (params, caches, token, pos) -> (logits, caches)
-
-
-_LATER = {"moe": "slice 9 (models/moe.py)"}
 
 
 CHUNKED_CE_VOCAB = 65536
@@ -80,17 +81,28 @@ def _loss(cfg, forward_train, chunked: bool, text_slice: int = 0):
     """``ModelAPI.loss``, the JAX loss's two branches: with ``chunked`` the
     chunked cross-entropy of the training forward's hidden state, else the
     cross-entropy of its logits; either over the positions from
-    ``text_slice`` on (a vlm's text).  ``forward_train(params, batch,
-    remat, return_hidden)``."""
+    ``text_slice`` on (a vlm's text).  A moe model's router losses join
+    the total times ``router_aux_coef``, and its metrics carry them and
+    ``moe_dropped``.  ``forward_train(params, batch, remat,
+    return_hidden) -> (out, aux)``."""
     def loss_fn(params, batch, remat=True):
-        out = forward_train(params, batch, remat, chunked)[:, text_slice:]
+        out, aux = forward_train(params, batch, remat, chunked)
+        out = out[:, text_slice:]
         if chunked:
             ce = _chunked_ce(cfg, params, out, batch["labels"],
                              batch.get("mask"))
         else:
             ce = cm.softmax_cross_entropy(out, batch["labels"],
                                           batch.get("mask"))
-        return ce, {"ce": ce, "loss": ce}
+        total, metrics = ce, {"ce": ce}
+        for name in ("load_balance", "router_z"):
+            if name in aux:
+                total = total + cfg.router_aux_coef * aux[name]
+                metrics[name] = aux[name]
+        if "dropped" in aux:
+            metrics["moe_dropped"] = aux["dropped"]
+        metrics["loss"] = total
+        return total, metrics
 
     return loss_fn
 
@@ -101,12 +113,23 @@ def _enc_input(batch):
     return batch.get("frames", batch.get("src"))
 
 
+# families whose forward and forward_train return (out, aux); the others'
+# return out, and their aux is empty
+AUX_FAMILIES = ("moe",)
+
+
+def _no_aux(fn):
+    """``fn``'s result and an empty aux dict."""
+    return lambda *args: (fn(*args), {})
+
+
 def build_model(cfg, device="cuda") -> ModelAPI:
-    """The dense, hybrid, ssm, audio or vlm family's API; entry points run
-    on ``device`` (CUDA unless the caller asks for the CPU)."""
+    """The dense, moe, hybrid, ssm, audio or vlm family's API; entry points
+    run on ``device`` (CUDA unless the caller asks for the CPU)."""
     text_slice = 0
-    if cfg.family in ("dense", "hybrid", "ssm"):
-        mod = {"dense": tfm, "hybrid": rglru, "ssm": xlstm}[cfg.family]
+    if cfg.family in ("dense", "moe", "hybrid", "ssm"):
+        mod = {"dense": tfm, "moe": moe, "hybrid": rglru,
+               "ssm": xlstm}[cfg.family]
         forward = lambda params, batch: mod.forward(cfg, params,
                                                     batch["tokens"])
         forward_train = lambda params, batch, remat, hidden: \
@@ -142,17 +165,15 @@ def build_model(cfg, device="cuda") -> ModelAPI:
             cfg, params, batch["tokens"], _enc_input(batch),
             max_len=max_len)
         chunked = False
-    elif cfg.family in _LATER:
-        raise NotImplementedError(
-            f"family {cfg.family!r} ({cfg.name}) is not ported yet; "
-            f"ROADMAP.md: {_LATER[cfg.family]}")
     else:
         raise ValueError(f"unknown family {cfg.family!r}")
+    if cfg.family not in AUX_FAMILIES:
+        forward, forward_train = _no_aux(forward), _no_aux(forward_train)
     return ModelAPI(
         cfg=cfg,
         device=device,
         init=lambda generator: mod.init_params(cfg, generator, device),
-        forward=lambda params, batch: (forward(params, batch), {}),
+        forward=forward,
         loss=_loss(cfg, forward_train, chunked, text_slice),
         init_caches=lambda batch, max_len: mod.init_caches(
             cfg, batch, max_len, device),

@@ -185,11 +185,12 @@ def mlp(cfg, p, h):
     return act(h @ p["w1"]) @ p["w2"]
 
 
-def _attn_block(cfg, p, x, positions, window, causal,
-                attention=cm.blocked_attention):
-    """One layer over a whole sequence; returns (x, k, v) with k/v after
-    rope, as the cache stores them.  ``attention`` is the prefill kernel's
-    route, or the differentiable one for training."""
+def attn_residual(cfg, p, x, positions, window, causal,
+                  attention=cm.blocked_attention):
+    """A layer's attention half over a whole sequence: x plus the attention
+    of ``norm(x)``; returns (x, k, v) with k/v after rope, as the cache
+    stores them.  ``attention`` is the prefill kernel's route, or the
+    differentiable one for training."""
     b, s, _ = x.shape
     h = norm_apply(cfg, x, p["ln1"])
     q, k, v = _qkv(cfg, p["attn"], h)
@@ -197,7 +198,14 @@ def _attn_block(cfg, p, x, positions, window, causal,
     k = cm.apply_rope(k, positions, cfg.rope_theta)
     out = attention(q, k, v, causal=causal, window=window,
                     block_q=cfg.attn_block_q, block_k=cfg.attn_block_k)
-    x = x + out.reshape(b, s, -1) @ p["attn"]["wo"]
+    return x + out.reshape(b, s, -1) @ p["attn"]["wo"], k, v
+
+
+def _attn_block(cfg, p, x, positions, window, causal,
+                attention=cm.blocked_attention):
+    """One layer over a whole sequence (:func:`attn_residual`, then the
+    MLP); returns (x, k, v)."""
+    x, k, v = attn_residual(cfg, p, x, positions, window, causal, attention)
     x = x + mlp(cfg, p["mlp"], norm_apply(cfg, x, p["ln2"]))
     return x, k, v
 
@@ -310,8 +318,9 @@ def init_caches(cfg, batch: int, max_len: int, device="cuda"):
     return caches
 
 
-def _decode_layer(cfg, p, x, ck, cv, pos, window: Optional[int]):
-    """One decode layer; x (B,1,d); cache (B,S,KH,hd) written in place."""
+def decode_attn_residual(cfg, p, x, ck, cv, pos, window: Optional[int]):
+    """A decode layer's attention half: x (B,1,d) plus its attention over
+    the cache (B,S,KH,hd), which is written in place."""
     b = x.shape[0]
     h = norm_apply(cfg, x, p["ln1"])
     q, k, v = _qkv(cfg, p["attn"], h)
@@ -321,9 +330,13 @@ def _decode_layer(cfg, p, x, ck, cv, pos, window: Optional[int]):
     cm.cache_update(ck, cv, k, v, pos, ring=window is not None)
     length = torch.clamp(pos + 1, max=ck.shape[1])
     out = cm.decode_attention(q, ck, cv, length=length, window=window)
-    x = x + out.reshape(b, 1, -1) @ p["attn"]["wo"]
-    x = x + mlp(cfg, p["mlp"], norm_apply(cfg, x, p["ln2"]))
-    return x
+    return x + out.reshape(b, 1, -1) @ p["attn"]["wo"]
+
+
+def _decode_layer(cfg, p, x, ck, cv, pos, window: Optional[int]):
+    """One decode layer; x (B,1,d); cache (B,S,KH,hd) written in place."""
+    x = decode_attn_residual(cfg, p, x, ck, cv, pos, window)
+    return x + mlp(cfg, p["mlp"], norm_apply(cfg, x, p["ln2"]))
 
 
 @torch.no_grad()
@@ -361,6 +374,17 @@ def window_ring(a, window: int, max_len: int):
                        torch.zeros((), dtype=a.dtype, device=a.device))
 
 
+def pad_cache(a, max_len: int):
+    """A prefill's K or V (B,S,KH,hd) -> the full cache of a global layer,
+    (B,max_len,KH,hd), zero past S."""
+    b, s = a.shape[:2]
+    if max_len == s:
+        return a
+    out = a.new_zeros((b, max_len) + a.shape[2:])
+    out[:, :s] = a
+    return out
+
+
 @torch.no_grad()
 def prefill(cfg, params, tokens, max_len: Optional[int] = None,
             prefix_embeds=None):
@@ -379,13 +403,6 @@ def prefill(cfg, params, tokens, max_len: Optional[int] = None,
     positions = _positions(x)
     n_sb, n_local, has_global = superblock_layout(cfg)
 
-    def pad(a):
-        if max_len == s:
-            return a
-        out = a.new_zeros((b, max_len) + a.shape[2:])
-        out[:, :s] = a
-        return out
-
     local_k, local_v, global_k, global_v = [], [], [], []
     for i in range(n_sb):
         lk, lv = [], []
@@ -401,8 +418,8 @@ def prefill(cfg, params, tokens, max_len: Optional[int] = None,
         if has_global:
             x, k, v = _attn_block(cfg, _index(params["blocks"]["global"], i),
                                   x, positions, None, True)
-            global_k.append(pad(k))
-            global_v.append(pad(v))
+            global_k.append(pad_cache(k, max_len))
+            global_v.append(pad_cache(v, max_len))
     caches = {}
     if n_local:
         caches["local"] = {"k": torch.stack(local_k), "v": torch.stack(local_v)}

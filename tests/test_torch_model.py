@@ -130,5 +130,12 @@ def test_superblock_layout_and_shapes_match_jax():
 
 
 def test_other_families_name_their_slice():
-    with pytest.raises(NotImplementedError, match="slice 9"):
-        build_model(get_config("kimi-k2-1t-a32b", smoke=True), device="cpu")
+    """Every family of the JAX package is ported (the moe family last); a
+    family the JAX package does not have is refused by name."""
+    model = build_model(get_config("kimi-k2-1t-a32b", smoke=True),
+                        device="cpu")
+    assert model.cfg.family == "moe" and "router" in \
+        model.init(torch.Generator().manual_seed(0))["blocks"]["moe"]["moe"]
+    with pytest.raises(ValueError, match="unknown family"):
+        build_model(get_config("kimi-k2-1t-a32b", smoke=True).variant(
+            family="sparse"), device="cpu")
