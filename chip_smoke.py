@@ -31,7 +31,9 @@
    versions, bit-identical (``torch.equal``), in f32 and bf16 at scales 1
    and 0.25, over small and lane-unaligned sizes, the training slice's
    real stacked bucket sizes and ragged pair lists of both pointer
-   alignments; times each against the HBM bound ``3*n*itemsize/3.35e12 s``,
+   alignments, and the ranks phase's own operands (``rank_combines``: a
+   rank's float32 buckets at scale 1/2, each K1 size and the K2 batch of
+   a group step); times each against the HBM bound ``3*n*itemsize/3.35e12 s``,
    the plain version and, at scale 1, ``torch.add``/``torch._foreach_add``;
    every case also in place (``out`` is ``w``), and K1 against
    ``torch.add`` in turns at the slice's largest bucket, out of place and
@@ -64,6 +66,28 @@
    bit-identical to the plan's per-leaf path; (d) every loss is finite and
    no update is skipped.  Prints losses, step time, tokens/s, the host
    split, peak memory and a profiler window over one group step.
+   Ranks phase (``ranks_phase``): the same model and step with one replica
+   a rank: 4 ranks started by ``torch.distributed.run`` (this script with
+   ``--ranks-worker``), gloo, all on the one card (the kernels built
+   before they start), each a ``Trainer`` over its rank world, S 2, tau 5,
+   global batch 32, 10 steps.  Checks (a) each rank's K1/K2 launches equal
+   the schedule for one wire stage a group step, syncs and K3/K4 none; (b)
+   after every group step the ranks of each group hold bit-identical
+   params, after each sync all four (each rank's sha256 of its params
+   gathered to rank 0); (c) once an
+   offset, the pre-average params gathered on rank 0 and averaged there by
+   the one-process stacked plan equal the wire's average (``torch.equal``);
+   (d) finite losses, no skipped update; (e) rank 0's checkpoint
+   (``Trainer.save_checkpoint``) reloads into a template with every leaf's
+   sha256 equal to the gathered state's, and the one-process stacked
+   ``Trainer`` with the same config, seed and batches stays within
+   ``RANKS_LOSS_RTOL`` of the ranks' losses and ends with params
+   bit-identical to the checkpoint's, which must have moved from the
+   initial ones (the first step at which the losses part and the largest
+   change from the initial params printed).  Prints the median step,
+   its split (grads, update, exchange as device-to-host, wire and
+   host-to-device, combine; the sync), each rank's peak memory, the
+   device's idle share over a profiled step and the phase's wall time.
 7. recurrentgemma phase: recurrentgemma-2b at full width and all 26 layers
    in bf16 (random weights from a seeded torch generator) serves a batch of
    4 prompts of 3000 tokens (past the 2048-token window, not a multiple of
@@ -162,7 +186,9 @@
    and training, and their split by route and path, and its training
    scan's times; ``rglru_scan_decode`` on the walk route at the decode
    shape, with the walk route's launches; K1/K2 with their launches on the
-   three training paths), then ``{"ok": true, "device": ...}`` last.
+   four training paths, the ranks' among them, and the ranks path's own
+   shape and times, ``ranks_row``), then ``{"ok": true,
+   "device": ...}`` last.
 
 Exits non-zero, printing no result, without CUDA or without the repo's
 ``src/`` beside it.  TF32 is off for matmuls and cuDNN so float32 means
@@ -333,6 +359,20 @@ TRAIN_SEQ, TRAIN_GB, TRAIN_STEPS, TRAIN_LR = 512, 64, 12, 0.1
 K1, K2, K3, K4 = ("group_average_combine", "group_average_combine_multi",
                   "flash_attention", "rglru_scan")
 K4_TMA, K4_WALK = "rglru_scan_tma", "rglru_scan_walk"    # K4's route counts
+
+# ranks phase: the training phase's model with one replica a rank: RANKS_P
+# ranks started by torchrun over gloo, all on the one card (NCCL refuses
+# two ranks on one card), S 2 (the default at P 4), tau, lr and sequence
+# as the training phase, global batch 32 (8 rows a replica, as 64 over 8
+# there), 10 steps (both offsets and the syncs at t = 4 and 9)
+RANKS_P, RANKS_S, RANKS_GB, RANKS_STEPS = 4, 2, 32, 10
+RANKS_TIMEOUT = 600
+RANKS_WORKER_FLAG = "--ranks-worker"
+# check (e): the ranks against the one-process stacked Trainer (PERF.md
+# §2): every param bit-identical, the mean losses to 1e-6 relative (the
+# four ranks' losses are the twin's rows' bit for bit; only the order of
+# their float32 mean differs, a few units in the last place)
+RANKS_LOSS_RTOL = 1e-6
 
 # serving phase
 ARCH = "tinyllama-1.1b"
@@ -702,14 +742,13 @@ def train_config():
     return get_config(ARCH).variant(n_layers=TRAIN_LAYERS)
 
 
-def slice_plan(cfg):
-    """The training slice's compiled plan (one replica's tree structure)."""
+def slice_plan(cfg, replicas: int = TRAIN_P, group_size: int = TRAIN_S):
+    """A training slice's compiled plan (one replica's tree structure)."""
     from repro_torch.core import plan as plan_mod
     from repro_torch.models import transformer as tfm
-    return plan_mod.compile_plan(plan_mod.Topology.flat(("data",), (TRAIN_P,)),
-                                 tfm.param_specs(cfg),
-                                 plan_mod.AveragingConfig(group_size=TRAIN_S,
-                                                          tau=TRAIN_TAU))
+    return plan_mod.compile_plan(
+        plan_mod.Topology.flat(("data",), (replicas,)), tfm.param_specs(cfg),
+        plan_mod.AveragingConfig(group_size=group_size, tau=TRAIN_TAU))
 
 
 def scale_groups(n_buckets: int, n_stages: int):
@@ -735,9 +774,23 @@ def expected_combine_launches(n_buckets: int, n_stages: int):
     return sizes[False], sizes[True]
 
 
+def rank_combines(cfg):
+    """The ranks path's combine operands, one rank's ``(1, n_b)`` float32
+    buckets: the (elements, scale) of every K1 launch of a group step and
+    the sizes and scale of its multi-pair K2 batch."""
+    plan = slice_plan(cfg, RANKS_P, RANKS_S)
+    sizes = plan.class_layout(0).bucket_sizes
+    n_stages = len(plan.runs_for_offset(0)[0].bits)
+    groups = [(1.0 / RANKS_S if last else 1.0, [sizes[k] for k in ks])
+              for last, ks in scale_groups(len(sizes), n_stages)]
+    k1 = sorted({(ns[0], scale) for scale, ns in groups if len(ns) == 1})
+    tail = next((ns, scale) for scale, ns in groups if len(ns) > 1)
+    return k1, tail
+
+
 def combine_kernel_phase(device="cuda"):
     """K1/K2 against their plain versions on every case; returns (rows,
-    line entries for K1 and K2)."""
+    line entries for K1 and K2, and for each on the ranks path)."""
     import torch
     from repro_torch.kernels import group_average as ga
 
@@ -748,6 +801,7 @@ def combine_kernel_phase(device="cuda"):
     tail = next(ks for _, ks in scale_groups(layout.n_buckets, stages)
                 if len(ks) > 1)
     tail_sizes = [TRAIN_P * layout.bucket_sizes[k] for k in tail]
+    rank_k1, (rank_tail, rank_scale) = rank_combines(train_config())
     gen = torch.Generator(device=device).manual_seed(1)
 
     def operands(n, dtype, offset=0):
@@ -755,37 +809,70 @@ def combine_kernel_phase(device="cuda"):
                            dtype=torch.float32).to(getattr(torch, dtype))
         return base[0, offset:], base[1, offset:]
 
+    def k1_row(n, dtype, scale, offset=0, case=""):
+        """One K1 case: out of place and in place against the plain
+        version, then timed; returns (row, (w, r, out)) for more timing."""
+        w, r = operands(n, dtype, offset)
+        got = ga.group_average_combine_cuda(w, r, scale)
+        want = ga.group_average_combine_plain(w, r, scale)
+        inplace = w.clone()                         # out is w, as in training
+        ga.group_average_combine_cuda(inplace, r, scale, out=inplace)
+        torch.cuda.synchronize()
+        item = 4 if dtype == "float32" else 2
+        row = {"kernel": "K1", "case": case, "dtype": dtype, "scale": scale,
+               "n": [n], "aligned": offset == 0,
+               "equal": bool(torch.equal(got, want)
+                             and torch.equal(inplace, want)),
+               "max_abs_err": float((got.float() - want.float()
+                                     ).abs().max()) if n else 0.0,
+               "bound_ms": combine_bound_ms(n, item)}
+        o = torch.empty_like(w)
+        if n:                              # n == 0 launches nothing
+            row["ms"], row["host_us"] = timed(
+                lambda: ga.group_average_combine_cuda(w, r, scale, out=o))
+            row["plain_ms"] = time_ms(
+                lambda: ga.group_average_combine_plain(w, r, scale),
+                iters=5, warmup=1)
+            row["library_ms"] = (time_ms(lambda: torch.add(w, r, out=o))
+                                 if scale == 1.0 else None)
+        return row, (w, r, o)
+
+    def k2_row(case, sizes, offsets, dtype, scale):
+        """One K2 case, checked and timed as :func:`k1_row`'s."""
+        pairs = [operands(n, dtype, off) for n, off in zip(sizes, offsets)]
+        ws, rs = [p[0] for p in pairs], [p[1] for p in pairs]
+        got = ga.group_average_combine_multi_cuda(ws, rs, scale)
+        want = ga.group_average_combine_multi_plain(ws, rs, scale)
+        inplace = [w.clone() for w in ws]
+        ga.group_average_combine_multi_cuda(inplace, rs, scale, outs=inplace)
+        torch.cuda.synchronize()
+        item = 4 if dtype == "float32" else 2
+        row = {"kernel": "K2", "case": case, "dtype": dtype, "scale": scale,
+               "n": list(sizes),
+               "equal": all(torch.equal(a, b) and torch.equal(c, b)
+                            for a, b, c in zip(got, want, inplace)),
+               "max_abs_err": max(float((a.float() - b.float()).abs().max())
+                                  for a, b in zip(got, want) if a.numel()),
+               "bound_ms": combine_bound_ms(sum(sizes), item)}
+        os_ = [torch.empty_like(w) for w in ws]
+        row["ms"], row["host_us"] = timed(
+            lambda: ga.group_average_combine_multi_cuda(ws, rs, scale,
+                                                        outs=os_))
+        row["plain_ms"] = time_ms(
+            lambda: ga.group_average_combine_multi_plain(ws, rs, scale),
+            iters=5, warmup=1)
+        row["library_ms"] = (time_ms(lambda: torch._foreach_add(ws, rs))
+                             if scale == 1.0 else None)
+        return row
+
     rows = []
     line = {}
     for dtype in GA_DTYPES:
-        item = 4 if dtype == "float32" else 2
         for scale in GA_SCALES:
             # K1: one pair per case
             for n, offset in ([(n, 0) for n in GA_SIZES + tuple(real)]
                               + [(1000, 1), (2 ** 20 + 3, 1)]):
-                w, r = operands(n, dtype, offset)
-                got = ga.group_average_combine_cuda(w, r, scale)
-                want = ga.group_average_combine_plain(w, r, scale)
-                inplace = w.clone()                 # out is w, as in training
-                ga.group_average_combine_cuda(inplace, r, scale, out=inplace)
-                torch.cuda.synchronize()
-                row = {"kernel": "K1", "dtype": dtype, "scale": scale,
-                       "n": [n], "aligned": offset == 0,
-                       "equal": bool(torch.equal(got, want)
-                                     and torch.equal(inplace, want)),
-                       "max_abs_err": float((got.float() - want.float()
-                                             ).abs().max()) if n else 0.0,
-                       "bound_ms": combine_bound_ms(n, item)}
-                if n:                      # n == 0 launches nothing
-                    o = torch.empty_like(w)
-                    row["ms"], row["host_us"] = timed(
-                        lambda: ga.group_average_combine_cuda(w, r, scale,
-                                                              out=o))
-                    row["plain_ms"] = time_ms(
-                        lambda: ga.group_average_combine_plain(w, r, scale),
-                        iters=5, warmup=1)
-                    row["library_ms"] = (time_ms(lambda: torch.add(
-                        w, r, out=o)) if scale == 1.0 else None)
+                row, (w, r, o) = k1_row(n, dtype, scale, offset)
                 rows.append(row)
                 if (dtype, scale, n) == ("float32", 1.0, real[-1]):
                     line["K1"] = row
@@ -801,7 +888,7 @@ def combine_kernel_phase(device="cuda"):
                          "K1 in place": lambda: ga.group_average_combine_cuda(
                             w, r, scale, out=w),
                          "torch.add in place": lambda: w.add_(r)}, order)
-                del w, r, got, want, inplace
+                del w, r, o
             # K2: the slice's real multi-pair batch, ragged lists of both
             # alignments, and a list longer than one launch's table
             for name, sizes, offsets in (
@@ -811,39 +898,21 @@ def combine_kernel_phase(device="cuda"):
                      [i % 2 for i in range(len(GA_RAGGED))]),
                     ("70 pairs", [97 + 13 * i for i in range(70)],
                      [i % 2 for i in range(70)])):
-                pairs = [operands(n, dtype, off)
-                         for n, off in zip(sizes, offsets)]
-                ws, rs = [p[0] for p in pairs], [p[1] for p in pairs]
-                got = ga.group_average_combine_multi_cuda(ws, rs, scale)
-                want = ga.group_average_combine_multi_plain(ws, rs, scale)
-                inplace = [w.clone() for w in ws]
-                ga.group_average_combine_multi_cuda(inplace, rs, scale,
-                                                    outs=inplace)
-                torch.cuda.synchronize()
-                row = {"kernel": "K2", "case": name, "dtype": dtype,
-                       "scale": scale, "n": list(sizes),
-                       "equal": all(torch.equal(a, b) and torch.equal(c, b)
-                                    for a, b, c in zip(got, want, inplace)),
-                       "max_abs_err": max(float((a.float() - b.float()
-                                                 ).abs().max())
-                                          for a, b in zip(got, want)
-                                          if a.numel()),
-                       "bound_ms": combine_bound_ms(sum(sizes), item)}
-                os_ = [torch.empty_like(w) for w in ws]
-                row["ms"], row["host_us"] = timed(
-                    lambda: ga.group_average_combine_multi_cuda(
-                        ws, rs, scale, outs=os_))
-                row["plain_ms"] = time_ms(
-                    lambda: ga.group_average_combine_multi_plain(
-                        ws, rs, scale), iters=5, warmup=1)
-                row["library_ms"] = (time_ms(
-                    lambda: torch._foreach_add(ws, rs))
-                    if scale == 1.0 else None)
+                row = k2_row(name, sizes, offsets, dtype, scale)
                 if (name, dtype, scale) == ("slice tail batch", "float32",
                                             1.0):
                     line["K2"] = row
                 rows.append(row)
-                del pairs, ws, rs, got, want, os_, inplace
+    # the ranks path's own launches: each K1 size of a rank's buckets and
+    # its K2 batch, float32 at the path's scale
+    for n, scale in rank_k1:
+        row, _ = k1_row(n, "float32", scale, case="ranks")
+        rows.append(row)
+    line["K1 ranks"] = max((r for r in rows if r["case"] == "ranks"),
+                           key=lambda r: r["n"][0])
+    line["K2 ranks"] = k2_row("ranks tail batch", rank_tail,
+                              [0] * len(rank_tail), "float32", rank_scale)
+    rows.append(line["K2 ranks"])
     torch.cuda.empty_cache()
     bad = [r for r in rows if not r["equal"]]
     if bad:
@@ -1138,6 +1207,489 @@ def train_profile(trainer, t: int, device="cuda", shares=None):
         _sync(device)
         wall_ms = (time.perf_counter() - t0) * 1e3
     return _window(prof, wall_ms, shares=shares)
+
+
+# ---------------------------------------------------------------------------
+# Ranks phase: one replica a rank over torch.distributed
+# ---------------------------------------------------------------------------
+
+def ranks_spec(device="cuda", smoke: bool = False,
+               n_layers: Optional[int] = TRAIN_LAYERS,
+               seq_len: int = TRAIN_SEQ, global_batch: int = RANKS_GB,
+               steps: int = RANKS_STEPS) -> dict:
+    """What the ranks and the parent's stacked twin both run (JSON, handed
+    to every rank on its command line)."""
+    return {"device": device, "smoke": smoke, "n_layers": n_layers,
+            "seq_len": seq_len, "global_batch": global_batch,
+            "steps": steps}
+
+
+def ranks_trainer(spec: dict, world=None):
+    """The phase's ``Trainer``: one replica on a rank of ``world``, or all
+    ``RANKS_P`` as the rows of one state on ``spec["device"]``."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import Trainer
+    cfg = get_config(ARCH, smoke=spec["smoke"])
+    if spec["n_layers"]:
+        cfg = cfg.variant(n_layers=spec["n_layers"])
+    kw = {"world": world} if world is not None else {"device":
+                                                     spec["device"]}
+    return Trainer(cfg, RANKS_P, group_size=RANKS_S, tau=TRAIN_TAU,
+                   learning_rate=TRAIN_LR, seq_len=spec["seq_len"],
+                   global_batch=spec["global_batch"], seed=0, **kw)
+
+
+def tensor_digest(t) -> str:
+    """sha256 of a tensor's bytes (its dtype's bytes, not a cast)."""
+    import hashlib
+    import torch
+    return hashlib.sha256(t.detach().cpu().contiguous().reshape(-1).view(
+        torch.uint8).numpy()).hexdigest()
+
+
+def digests(tensors) -> list:
+    """:func:`tensor_digest` of each tensor, hashed on 8 threads (hashlib
+    lets go of the GIL over large buffers)."""
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(8) as pool:
+        return list(pool.map(tensor_digest, tensors))
+
+
+def row_digests(tree) -> list:
+    """One digest a row of a stacked tree: the digests of its leaves'
+    rows, hashed together."""
+    import hashlib
+    from repro_torch.core import tree as tr
+    leaves = tr.tree_leaves(tree)
+    rows = leaves[0].shape[0]
+    per_leaf = digests([a[r] for r in range(rows) for a in leaves])
+    n = len(leaves)
+    return [hashlib.sha256("".join(per_leaf[r * n:(r + 1) * n]).encode()
+                           ).hexdigest() for r in range(rows)]
+
+
+def state_digests(state) -> list:
+    """One digest a leaf of a ReplicaState's params and optimiser state,
+    in the trees' leaf order."""
+    from repro_torch.core import tree as tr
+    return digests(tr.tree_leaves((state.params, state.opt_state)))
+
+
+def device_intervals(prof) -> list:
+    """(start, end) ns of every device activity of a profiled window, on
+    the host's clock (``torch.profiler`` converts the device's), so that
+    the windows of processes sharing a card can be merged."""
+    from torch.autograd import DeviceType
+    return [(e.start_ns(), e.end_ns())
+            for e in prof.profiler.kineto_results.events()
+            if e.device_type() == DeviceType.CUDA]
+
+
+def union_ns(intervals) -> int:
+    """Length of the union of ``intervals``."""
+    total, end = 0, None
+    for a, b in sorted(intervals):
+        if end is None or a > end:
+            total += b - a
+            end = b
+        elif b > end:
+            total += b - end
+            end = b
+    return total
+
+
+def ranks_worker(spec: dict, out: str) -> int:
+    """One rank of the ranks phase, started by torchrun: the port's
+    ``Trainer`` on this rank's replica for ``spec["steps"]`` steps with
+    checks (a)-(d), the checkpoint of check (e), one profiled step; rank 0
+    writes ``out/ranks.json``."""
+    import os
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import grouping
+    from repro_torch.core import plan as plan_mod
+    from repro_torch.core import tree as tr
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh
+    from repro_torch.optim.sgd import Optimizer
+    from repro_torch.train import train_step
+    from torch.profiler import profile
+
+    t_start = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    world = mesh.init_rank_world(RANKS_P,
+                                 backend=os.environ["REPRO_TORCH_BACKEND"],
+                                 device_type=spec["device"])
+    device = world.device
+    on_card = device.type == "cuda"
+    try:
+        trainer = ranks_trainer(spec, world)
+        init_s = time.perf_counter() - t_start
+        avg = trainer.averager
+        plan = trainer.plan()
+        stacked_plan = plan_mod.compile_plan(plan.topology,
+                                             plan.storage_struct, plan.cfg)
+        n_buckets = plan.class_layout(0).n_buckets
+        n_stages = len(plan.runs_for_offset(0)[0].bits)
+        split = dict.fromkeys(("grads", "update", "average", "sync"), 0.0)
+        timed = split_timer(split, device)
+        wire = {}
+
+        def with_wire(fn):
+            def run(*args):
+                before = plan_mod.wire_stats()
+                res = fn(*args)
+                for k, v in plan_mod.wire_stats().items():
+                    wire[k] = wire.get(k, 0) + v - before[k]
+                return res
+            return run
+
+        trainer.opt = Optimizer(trainer.opt.init,
+                                timed("update", trainer.opt.update))
+        comm = timed("average", with_wire(avg.comm))
+        pending, checked, check_s = {}, {}, [0.0]
+
+        def comm_checked(tree, phase):
+            offset = plan.offsets[phase]
+            if offset not in checked and offset not in pending:
+                t0 = time.perf_counter()          # check (c)'s input
+                pending[offset] = mesh.gather_rows(world, tree)
+                check_s[0] += time.perf_counter() - t0
+            return comm(tree, phase)
+
+        avg.comm = comm_checked
+        avg.sync = timed("sync", with_wire(avg.sync))
+        train_step.value_and_grad = timed("grads", train_step.value_and_grad)
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        log, peak_checks = [], None
+        for t in range(spec["steps"]):
+            for k in split:
+                split[k] = 0.0
+            wire.clear()
+            check_s[0] = 0.0
+            before = ops.launch_counts()
+            _sync(device)
+            t0 = time.perf_counter()
+            loss = trainer.step_once(t)
+            _sync(device)
+            step_s = time.perf_counter() - t0 - check_s[0]
+            after = ops.launch_counts()
+            sync = avg.sync_due(t)
+            offset = None if sync else plan.offsets[avg.phase_for_step(t)]
+            # check (b) on rank 0, from every rank's digest of its params
+            t0 = time.perf_counter()
+            rows = [None] * RANKS_P if world.rank == 0 else None
+            dist.gather_object(row_digests(trainer.state.params)[0], rows,
+                               dst=0)
+            if world.rank == 0:
+                groups = ((tuple(range(RANKS_P)),) if sync else
+                          grouping.groups_for_offset(RANKS_P, RANKS_S,
+                                                     offset))
+                same = all(rows[m] == rows[g[0]] for g in groups for m in g)
+                differ = len({rows[g[0]] for g in groups}) == len(groups)
+                if not same or (not sync and not differ):
+                    raise AssertionError(
+                        f"step {t}: ranks of a group bit-identical {same}, "
+                        f"groups differ {differ}, groups {groups}")
+            # check (c), once an offset, on the rows gathered to rank 0
+            if offset in pending:
+                pre = pending.pop(offset)
+                post = mesh.gather_rows(world, trainer.state.params)
+                checked[offset] = None         # rank 0 holds the verdict
+                if world.rank == 0:
+                    want = stacked_plan.average_offset(
+                        tr.tree_map(lambda a: a.to(device), pre), offset)
+                    checked[offset] = all(
+                        torch.equal(a.cpu(), b) for a, b in
+                        zip(tr.tree_leaves(want), tr.tree_leaves(post)))
+                    if not checked[offset]:
+                        raise AssertionError(
+                            f"step {t}: the wire average at offset "
+                            f"{offset} differs from the stacked plan's")
+                    del want
+                del pre, post
+            log.append({
+                "t": t, "loss": loss, "sync": sync, "offset": offset,
+                "step_ms": step_s * 1e3,
+                **{k + "_ms": v * 1e3 for k, v in split.items()},
+                "exchange_ms": {k[:-2]: wire.get(k, 0.0) * 1e3
+                                for k in ("d2h_s", "wire_s", "h2d_s")},
+                "wire_bytes": wire.get("bytes", 0),
+                "wire_ops": wire.get("ops", 0),
+                "check_ms": (check_s[0] + time.perf_counter() - t0) * 1e3,
+                "skipped": trainer.last_metrics["skipped_nonfinite"],
+                **{key: after[name] - before[name] for key, name in (
+                    ("k1", K1), ("k2", K2), ("k3", K3), ("k4", K4))}})
+            if on_card and t == 1:
+                # check (c) ran on steps 0 and 1: rank 0's stacked average
+                peak_checks = torch.cuda.max_memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+        peak = torch.cuda.max_memory_allocated() if on_card else None
+        ckpt_split = {"gather": 0.0}
+        trainer.gathered_state = split_timer(ckpt_split, device)(
+            "gather", trainer.gathered_state)
+        t0 = time.perf_counter()
+        state = trainer.save_checkpoint(str(Path(out) / "ckpt"))
+        ckpt_split["write"] = time.perf_counter() - t0 - ckpt_split["gather"]
+        t0 = time.perf_counter()
+        state_sums = state_digests(state) if state is not None else None
+        ckpt_split["digests"] = time.perf_counter() - t0
+        del state
+        with profile(activities=_activities(device)):   # the profiler's
+            torch.ones(1, device=device).add_(1)        # first start
+            _sync(device)
+        with profile(activities=_activities(device)) as prof:
+            start_ns = time.time_ns()
+            trainer.step_once(spec["steps"])
+            _sync(device)
+            end_ns = time.time_ns()
+        window = {"start_ns": start_ns, "end_ns": end_ns,
+                  "intervals": device_intervals(prof) if on_card else None,
+                  **_window(prof, (end_ns - start_ns) / 1e6)}
+        del prof
+        mine = {"rank": world.rank, "device": str(device), "log": log,
+                "peak": peak, "peak_steps_0_1": peak_checks,
+                "window": window, "init_s": init_s}
+        everyone = [None] * RANKS_P if world.rank == 0 else None
+        dist.gather_object(mine, everyone, dst=0)
+        if world.rank == 0:
+            result = {
+                "world": {"P": world.P, "axes": dict(zip(
+                    world.axis_names, world.axis_sizes)),
+                    "backend": world.backend},
+                "n_buckets": n_buckets, "n_stages": n_stages,
+                "bucket_bytes": plan.class_bucket_bytes[0],
+                "expected_k1_k2_per_group_step": expected_combine_launches(
+                    n_buckets, n_stages),
+                "stacked_equals_wire": checked, "ckpt_s": ckpt_split,
+                "digests": state_sums, "ranks": everyone,
+                "worker_s": time.perf_counter() - t_start}
+            (Path(out) / "ranks.json").write_text(json.dumps(result))
+        return 0
+    finally:
+        mesh.shutdown()
+
+
+def check_ranks_launches(stats):
+    """Check (a) of the ranks phase, on every rank: each group step
+    launched the K1 and K2 counts the wavefront schedule predicts for one
+    wire stage a step; syncs neither; no step K3 or K4."""
+    want_k1, want_k2 = stats["expected_k1_k2_per_group_step"]
+    for r in stats["ranks"]:
+        for e in r["log"]:
+            want = (0, 0) if e["sync"] else (want_k1, want_k2)
+            got = (e["k1"], e["k2"], e["k3"], e["k4"])
+            if got != want + (0, 0):
+                raise AssertionError(f"rank {r['rank']} step {e['t']}: K1, "
+                                     f"K2, K3, K4 launched {got}; the "
+                                     f"schedule predicts {want + (0, 0)}")
+
+
+def ranks_summary(stats: dict) -> dict:
+    """The phase's numbers: rank 0's median step after the first and its
+    split (group steps: grads, update, average = exchange + combine; the
+    sync steps' sync), each rank's peak memory, and the device's idle
+    share over the profiled step: the union of every rank's device
+    activity on the host's clock, over the window from the first rank's
+    start to the last rank's end."""
+    steady = stats["ranks"][0]["log"][1:]
+    group = [e for e in steady if not e["sync"]]
+    med = lambda es, f: statistics.median(f(e) for e in es) if es else None
+    exchange = {k: med(group, lambda e: e["exchange_ms"][k])
+                for k in ("d2h", "wire", "h2d")}
+    windows = [r["window"] for r in stats["ranks"]]
+    start = min(w["start_ns"] for w in windows)
+    end = max(w["end_ns"] for w in windows)
+    intervals = [(max(a, start), min(b, end)) for w in windows
+                 for a, b in (w["intervals"] or ()) if b > start and a < end]
+    on_card = all(w["intervals"] is not None for w in windows)
+    busy_ms = union_ns(intervals) / 1e6 if on_card else None
+    wall_ms = (end - start) / 1e6
+    return {
+        "median_step_ms": med(steady, lambda e: e["step_ms"]),
+        "median_group_step_ms": med(group, lambda e: e["step_ms"]),
+        "median_sync_step_ms": med([e for e in steady if e["sync"]],
+                                   lambda e: e["step_ms"]),
+        "group_split_ms": {
+            "grads": med(group, lambda e: e["grads_ms"]),
+            "update": med(group, lambda e: e["update_ms"]),
+            "exchange": exchange,
+            "combine": med(group, lambda e: e["average_ms"] - sum(
+                e["exchange_ms"].values())),
+            "other": med(group, lambda e: e["step_ms"] - e["grads_ms"]
+                         - e["update_ms"] - e["average_ms"])},
+        "sync_ms": med([e for e in steady if e["sync"]],
+                       lambda e: e["sync_ms"]),
+        "wire_bytes_a_group_step": group[0]["wire_bytes"] if group else None,
+        "peak_bytes_by_rank": [r["peak"] for r in stats["ranks"]],
+        "rank0_peak_bytes_steps_0_1": stats["ranks"][0]["peak_steps_0_1"],
+        "profile_wall_ms": wall_ms,
+        "device_busy_ms_by_rank": [w["device_busy_ms"] for w in windows],
+        "device_busy_ms": busy_ms,
+        "device_idle_share": 1 - busy_ms / wall_ms if on_card else None,
+    }
+
+
+def print_ranks(stats: dict, card: str):
+    s = stats["summary"]
+    e = stats["check_e"]
+    gib = lambda b: round(b / 2 ** 30, 2) if b is not None else None
+    print(f"ranks [{card}]: {ARCH} full width, {TRAIN_LAYERS} layers, "
+          f"{RANKS_P} ranks over {stats['world']['backend']} on one card, "
+          f"S={RANKS_S} tau={TRAIN_TAU}, {stats['n_buckets']} buckets of "
+          f"{stats['bucket_bytes'] >> 20} MiB, K1/K2 a group step "
+          f"{stats['expected_k1_k2_per_group_step']}; phase "
+          f"{stats['phase_s']:.1f} s (torchrun {stats['torchrun_s']:.1f} s)",
+          flush=True)
+    print(f"ranks losses: {[round(x['loss'], 4) for x in stats['ranks'][0]['log']]}",
+          flush=True)
+    print(f"ranks [{card}]: median step {s['median_step_ms']:.1f} ms after "
+          f"the first (group {s['median_group_step_ms']:.1f}, sync "
+          f"{s['median_sync_step_ms']} ms); group step split "
+          f"{json.dumps(s['group_split_ms'])} ms, "
+          f"{s['wire_bytes_a_group_step']} wire bytes a rank; sync "
+          f"{s['sync_ms']} ms; peak memory by rank "
+          f"{[gib(b) for b in s['peak_bytes_by_rank']]} GiB (rank 0 with "
+          f"check (c)'s stacked average {gib(s['rank0_peak_bytes_steps_0_1'])}"
+          f" GiB); profiled step: wall {s['profile_wall_ms']:.1f} ms, device "
+          f"busy {s['device_busy_ms']} ms (by rank, overlaps counted "
+          f"twice: {s['device_busy_ms_by_rank']}), idle share "
+          f"{s['device_idle_share']}", flush=True)
+    print(f"ranks checkpoint: {json.dumps(stats['ckpt_s'])} s on rank 0, "
+          f"reload {json.dumps(stats['reload_s'])} s, stacked twin "
+          f"{stats['stacked_s']:.1f} s", flush=True)
+    print(f"ranks checks: (c) wire = stacked by offset "
+          f"{stats['stacked_equals_wire']}; (e) checkpoint reload = gathered "
+          f"state, stacked trainer first parts at step "
+          f"{e['first_parting_step']}, max loss rel diff "
+          f"{e['max_loss_rel_diff']:.3g} (tol {e['loss_rtol']}), params "
+          f"bit-identical {e['params_bit_identical']} "
+          f"({e['differing_elements']} of {e['elements']} differ, max "
+          f"{e['max_param_abs_diff']:.3g}; largest change from the initial "
+          f"params {e['max_param_change']:.3g})", flush=True)
+
+
+def ranks_state_template(spec: dict):
+    """A ``(P, ...)`` ReplicaState of Specs of the phase's model (SGD)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import tree as tr
+    from repro_torch.core.replica import ReplicaState
+    from repro_torch.models import transformer as tfm
+    from repro_torch.optim.sgd import SGDState
+    cfg = get_config(ARCH, smoke=spec["smoke"])
+    if spec["n_layers"]:
+        cfg = cfg.variant(n_layers=spec["n_layers"])
+    params = tr.tree_map(lambda s: tr.Spec((RANKS_P,) + s.shape, s.dtype),
+                         tfm.param_specs(cfg))
+    f32 = tr.tree_map(lambda s: tr.Spec(s.shape, torch.float32), params)
+    return ReplicaState(params, SGDState(f32, tr.Spec((RANKS_P,),
+                                                      torch.int32)))
+
+
+def ranks_phase(spec: dict, out: Path, timeout: int = RANKS_TIMEOUT) -> dict:
+    """Start ``RANKS_P`` ranks through torchrun (gloo, all on one card),
+    check (d) on their losses, then check (e): reload rank 0's
+    checkpoint, hold every leaf to the state the ranks gathered (sha256),
+    and run the one-process stacked ``Trainer`` with the same config, seed
+    and batches against the ranks' losses and the checkpoint's params.  A
+    rank that fails fails the phase.  ``out`` is the phase's own directory
+    (emptied first): the ranks' log, their result and the checkpoint."""
+    import os
+    import shutil
+    import signal
+    import torch
+    from repro_torch.checkpoint import load_replica_state
+    from repro_torch.core import tree as tr
+
+    t_phase = time.perf_counter()
+    out = Path(out)
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    log_path = out / "torchrun.log"
+    env = dict(os.environ, REPRO_TORCH_BACKEND="gloo",
+               PYTHONPATH=os.pathsep.join(
+                   [str(ROOT / "src")] + [p for p in [os.environ.get(
+                       "PYTHONPATH")] if p]))
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", str(RANKS_P), str(ROOT / "chip_smoke.py"),
+           RANKS_WORKER_FLAG, json.dumps(spec), str(out)]
+    t0 = time.perf_counter()
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT,
+                                env=env, start_new_session=True)
+        try:
+            rc = proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+            rc = "timeout"
+    ranks_s = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"torchrun exited {rc}; its log ends:\n"
+                             + log_path.read_text()[-6000:])
+    stats = json.loads((out / "ranks.json").read_text())
+    stats["torchrun_s"] = ranks_s
+    log0 = stats["ranks"][0]["log"]
+    bad = [e for r in stats["ranks"] for e in r["log"]
+           if not math.isfinite(e["loss"]) or e["skipped"]]
+    if bad:                                                     # check (d)
+        raise AssertionError(f"non-finite losses or skipped updates: {bad}")
+    if any(e["loss"] != f["loss"] for r in stats["ranks"]
+           for e, f in zip(r["log"], log0)):
+        raise AssertionError("the ranks report different mean losses")
+
+    # check (e): the checkpoint, then the stacked twin
+    t0 = time.perf_counter()
+    state = load_replica_state(str(out / "ckpt"), ranks_state_template(spec))
+    t1 = time.perf_counter()
+    if state_digests(state) != stats["digests"]:
+        raise AssertionError("the reloaded checkpoint differs from the "
+                             "state the ranks gathered")
+    stats["reload_s"] = {"load": t1 - t0,
+                         "digests": time.perf_counter() - t1}
+    shutil.rmtree(out / "ckpt")
+    t0 = time.perf_counter()
+    trainer = ranks_trainer(spec)
+    initial = [a.clone() for a in tr.tree_leaves(trainer.state.params)]
+    losses = [trainer.step_once(t) for t in range(spec["steps"])]
+    stats["stacked_s"] = time.perf_counter() - t0
+    rank_losses = [e["loss"] for e in log0]
+    parted = [t for t, (a, b) in enumerate(zip(losses, rank_losses))
+              if a != b]
+    leaves = []
+    for got, want, first in zip(tr.tree_leaves(state.params),
+                                tr.tree_leaves(trainer.state.params),
+                                initial):
+        w = want.cpu()
+        leaves.append({
+            "equal": bool(torch.equal(got, w)),
+            "differing": int((got != w).sum()), "numel": got.numel(),
+            "max_abs_diff": float((got.float() - w.float()).abs().max()),
+            "max_change": float((want.float() - first.float()).abs().max())})
+    del trainer, state, initial
+    if torch.device(spec["device"]).type == "cuda":
+        torch.cuda.empty_cache()
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses, rank_losses))
+    stats["check_e"] = {
+        "stacked_losses": losses, "first_parting_step": (parted[0] if parted
+                                                         else None),
+        "max_loss_rel_diff": loss_rel, "loss_rtol": RANKS_LOSS_RTOL,
+        "params_bit_identical": all(l["equal"] for l in leaves),
+        "differing_elements": sum(l["differing"] for l in leaves),
+        "elements": sum(l["numel"] for l in leaves),
+        "max_param_abs_diff": max(l["max_abs_diff"] for l in leaves),
+        "max_param_change": max(l["max_change"] for l in leaves)}
+    e = stats["check_e"]
+    if (loss_rel > RANKS_LOSS_RTOL or not e["params_bit_identical"]
+            or e["max_param_change"] == 0.0):
+        raise AssertionError(f"check (e): the ranks and the stacked trainer "
+                             f"part (or the params never moved): {e}")
+    stats["phase_s"] = time.perf_counter() - t_phase
+    stats["summary"] = ranks_summary(stats)
+    return stats
 
 
 def rg_train_config():
@@ -2250,6 +2802,13 @@ def main() -> int:
     _print_window(f"train group step {TRAIN_STEPS}", window, card)
     free_memory("tinyllama training")
 
+    # -- ranks phase: the same model, one replica a rank over gloo (K1, K2)
+    ranks = ranks_phase(ranks_spec(), ROOT / "build" / "ranks")
+    check_ranks_launches(ranks)                                 # check (a)
+    print(json.dumps({"ranks": ranks, "card": card}), flush=True)
+    print_ranks(ranks, card)
+    free_memory("ranks phase")
+
     # -- recurrentgemma phase (K4, K3 at head dim 256) ---------------------
     from repro_torch.models import rglru
     rcfg = get_config(RG_ARCH)
@@ -2430,8 +2989,12 @@ def main() -> int:
     paper_launches = {name: sum(e[key] for run in paper.values()
                                 for e in run["steps"])
                       for name, key in ((K1, "k1"), (K2, "k2"), (K4, "k4"))}
+    ranks_launches = {name: sum(e[key] for r in ranks["ranks"]
+                                for e in r["log"])
+                      for name, key in ((K1, "k1"), (K2, "k2"), (K4, "k4"))}
     by_path = lambda name, serving=0: {
         f"{ARCH} training": train["launches"][name],
+        f"{ARCH} training, {RANKS_P} ranks": ranks_launches[name],
         f"{RG_ARCH} serving": serving,
         f"{RG_ARCH} training": rg_train["launches"][name],
         f"{PAPER_ARCH} training": paper_launches[name]}
@@ -2454,17 +3017,22 @@ def main() -> int:
         "ms": row["ms"], "plain_ms": row["plain_ms"],
         "bound_ms": row["bound_ms"], "bound_by": kw.pop("bound_by", "bytes"),
         "library_ms": row["library_ms"], "host_us": row["host_us"], **kw}
+    ranks_row = lambda r: {k: r[k] for k in (
+        "n", "scale", "ms", "plain_ms", "library_ms", "bound_ms",
+        "max_abs_err", "host_us")}
     kernels = [
         entry(K1, "src/repro_torch/kernels/csrc/group_average.cu",
               "src/repro/kernels/group_average.py:68",
               sum(by_path(K1).values()), ga_line["K1"], ga_err["K1"],
               n=ga_line["K1"]["n"], dtype="float32", scale=1.0,
-              launches_by_path=by_path(K1)),
+              launches_by_path=by_path(K1),
+              ranks_row=ranks_row(ga_line["K1 ranks"])),
         entry(K2, "src/repro_torch/kernels/csrc/group_average.cu",
               "src/repro/kernels/group_average.py:80",
               sum(by_path(K2).values()), ga_line["K2"], ga_err["K2"],
               n=ga_line["K2"]["n"], dtype="float32", scale=1.0,
-              launches_by_path=by_path(K2)),
+              launches_by_path=by_path(K2),
+              ranks_row=ranks_row(ga_line["K2 ranks"])),
         entry(K3, "src/repro_torch/kernels/csrc/flash_attention.cu",
               "src/repro/kernels/flash_attention.py:70", served[K3],
               main_row, max(r["max_abs_err"] for r in rows),
@@ -2541,4 +3109,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == [RANKS_WORKER_FLAG]:
+        sys.exit(ranks_worker(json.loads(sys.argv[2]), sys.argv[3]))
     sys.exit(main())

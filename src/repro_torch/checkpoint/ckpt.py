@@ -1,0 +1,251 @@
+"""Checkpointing: trees of tensors -> .npz with flattened key paths + a JSON
+manifest, in the JAX package's format.
+
+Counterpart of ``repro/checkpoint/ckpt.py``, replicated surface, in its
+format: the same key paths (dict keys, sequence indices and ``.field`` for
+a NamedTuple field, joined by ``/``, as ``jax.tree_util`` spells them), the
+same arrays (bfloat16 widened to float32, since npz has none), the same
+crc32 per leaf and the same manifest, so a checkpoint written by either
+package loads into the other with identical arrays and checksums.  Leaves
+cross as numpy.
+
+WAGMA keeps *divergent* per-replica weights (leading dp axis);
+``consolidate`` averages the replica axis into one model, the paper's
+"global consensus achieved post-training by choosing the model average".
+
+Writes are **atomic** (DESIGN.md §13): every file lands on a temp path, is
+flushed and fsynced, then rename-committed; the manifest, carrying a crc32
+per stored leaf, is written last, so a crash mid-save leaves either the
+previous complete checkpoint or a torn write that :func:`load_checkpoint`
+rejects loudly, never a half-written state that loads silently.
+
+:func:`save_replica_state` / :func:`load_replica_state` round-trip a whole
+:class:`~repro_torch.core.replica.ReplicaState` (stacked ``(P, ...)``
+params and optimiser state, step and phase).  A restore across sharding
+policies or stream layouts belongs to the FSDP slice and raises.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import zlib
+from concurrent.futures import ThreadPoolExecutor
+from typing import List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core import tree as tr
+
+# rename-commit seam; the crash-mid-save tests monkeypatch this to die
+# between the data files and the manifest
+_replace = os.replace
+
+
+class ChecksumError(RuntimeError):
+    """A stored leaf's bytes do not match the manifest's checksum."""
+
+
+def _checksum(arr: np.ndarray) -> int:
+    """crc32 of the array's C-order bytes (read in place, not copied)."""
+    return zlib.crc32(np.ascontiguousarray(arr).reshape(-1).view(np.uint8))
+
+
+def _checksums(arrays) -> List[int]:
+    """:func:`_checksum` of each array on 8 threads (zlib lets go of the
+    GIL over large buffers)."""
+    with ThreadPoolExecutor(8) as pool:
+        return list(pool.map(_checksum, arrays))
+
+
+def _atomic_savez(path: str, flat: dict) -> None:
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        np.savez(f, **flat)
+        f.flush()
+        os.fsync(f.fileno())
+    _replace(tmp, path)
+
+
+def _atomic_write_text(path: str, text: str) -> None:
+    tmp = path + ".tmp"
+    with open(tmp, "w") as f:
+        f.write(text)
+        f.flush()
+        os.fsync(f.fileno())
+    _replace(tmp, path)
+
+
+def _fsync_dir(path: str) -> None:
+    try:
+        fd = os.open(path, os.O_RDONLY)
+    except OSError:
+        return
+    try:
+        os.fsync(fd)
+    finally:
+        os.close(fd)
+
+
+def _visit(node, prefix: Tuple[str, ...], out: list) -> None:
+    """Append ``(key path, leaf)`` of ``node`` in JAX's flatten order."""
+    if node is None:
+        return
+    if isinstance(node, tr.Spec):
+        out.append(("/".join(prefix), node))
+    elif isinstance(node, dict):
+        for k in sorted(node):
+            _visit(node[k], prefix + (str(k),), out)
+    elif isinstance(node, tuple) and hasattr(node, "_fields"):
+        for f, child in zip(node._fields, node):
+            _visit(child, prefix + (f".{f}",), out)
+    elif isinstance(node, (tuple, list)):
+        for i, child in enumerate(node):
+            _visit(child, prefix + (str(i),), out)
+    else:
+        out.append(("/".join(prefix), node))
+
+
+def _leaves_with_paths(tree) -> List[Tuple[str, object]]:
+    out: list = []
+    _visit(tree, (), out)
+    return out
+
+
+def _to_numpy(leaf) -> np.ndarray:
+    if isinstance(leaf, torch.Tensor):
+        leaf = leaf.detach().cpu()
+        if leaf.dtype == torch.bfloat16:   # npz has no bf16: widen to f32
+            leaf = leaf.float()
+        return leaf.numpy()
+    return np.asarray(leaf)
+
+
+def _flatten(tree) -> dict:
+    return {key: _to_numpy(leaf) for key, leaf in _leaves_with_paths(tree)}
+
+
+def save_checkpoint(path: str, params, opt_state=None, step: int = 0,
+                    metadata: Optional[dict] = None):
+    """Atomic save: data files first, checksummed manifest last (the
+    manifest's rename is the commit point)."""
+    os.makedirs(path, exist_ok=True)
+    flat = _flatten(params)
+    _atomic_savez(os.path.join(path, "params.npz"), flat)
+    manifest = {
+        "step": int(step),
+        "keys": sorted(flat),
+        "dtypes": {k: str(v.dtype) for k, v in flat.items()},
+        "shapes": {k: list(v.shape) for k, v in flat.items()},
+        "checksums": dict(zip(flat, _checksums(flat.values()))),
+        "metadata": metadata or {},
+    }
+    if opt_state is not None:
+        opt_flat = _flatten(opt_state)
+        _atomic_savez(os.path.join(path, "opt_state.npz"), opt_flat)
+        manifest["opt_checksums"] = dict(zip(opt_flat,
+                                             _checksums(opt_flat.values())))
+    _atomic_write_text(os.path.join(path, "manifest.json"),
+                       json.dumps(manifest, indent=2))
+    _fsync_dir(path)
+
+
+def _rebuild(path: str, template, npz, checksums):
+    """``template``'s structure filled from ``npz``: each leaf verified
+    against the manifest's crc32 (checkpoints predating the checksums load
+    unverified), then a CPU tensor in the template leaf's dtype."""
+    keys, arrays = [], []
+    for key, leaf in _leaves_with_paths(template):
+        arr = npz[key]
+        if tuple(arr.shape) != tuple(leaf.shape):
+            raise ValueError(f"checkpoint {path!r} leaf {key!r} has shape "
+                             f"{arr.shape}, the template {tuple(leaf.shape)}")
+        keys.append((key, leaf.dtype))
+        arrays.append(arr)
+    if checksums is not None:
+        for (key, _), arr, got in zip(keys, arrays, _checksums(arrays)):
+            if key in checksums and got != checksums[key]:
+                raise ChecksumError(
+                    f"checkpoint {path!r} leaf {key!r}: stored bytes hash "
+                    f"{got}, manifest says {checksums[key]} — torn or "
+                    "corrupted write")
+    leaves = [torch.from_numpy(arr).to(dtype)
+              for (_, dtype), arr in zip(keys, arrays)]
+    return tr.tree_unflatten(tr.tree_flatten(template)[1], leaves)
+
+
+def load_checkpoint(path: str, params_template, opt_template=None):
+    """Restore into the structure of the given templates (tensors or
+    :class:`~repro_torch.core.tree.Spec` leaves); a leaf whose bytes do not
+    match the manifest raises :class:`ChecksumError`.  Returns ``(params,
+    step)``, or ``(params, opt_state, step)`` with an ``opt_template``."""
+    with open(os.path.join(path, "manifest.json")) as f:
+        manifest = json.load(f)
+    with np.load(os.path.join(path, "params.npz")) as data:
+        params = _rebuild(path, params_template, data,
+                          manifest.get("checksums"))
+    step = manifest["step"]
+    if opt_template is None:
+        return params, step
+    with np.load(os.path.join(path, "opt_state.npz")) as data:
+        opt = _rebuild(path, opt_template, data,
+                       manifest.get("opt_checksums"))
+    return params, opt, step
+
+
+def consolidate(stacked_params):
+    """Average the leading dp-replica axis -> single consensus model."""
+    return tr.tree_map(lambda a: a.float().mean(0).to(a.dtype),
+                       stacked_params)
+
+
+# ---------------------------------------------------------------------------
+# ReplicaState round trip
+# ---------------------------------------------------------------------------
+
+def save_replica_state(path: str, state, sharding=None,
+                       metadata: Optional[dict] = None):
+    """Persist a whole ReplicaState (params, opt, step/phase, policy)."""
+    from repro_torch.core.replica import REPLICATED
+    sharding = sharding or REPLICATED
+    meta = dict(metadata or {})
+    meta.update({
+        "replica_state": True,
+        "phase": int(state.phase),
+        "sharding": sharding.kind,
+        "shard_axis": sharding.shard_axis,
+        "streamed": sharding.streamed,
+    })
+    save_checkpoint(path, state.params, opt_state=state.opt_state,
+                    step=int(state.step), metadata=meta)
+
+
+def checkpoint_sharding(path: str):
+    """The ShardingPolicy a replica-state checkpoint was written under (an
+    FSDP policy raises: it belongs to the FSDP slice)."""
+    from repro_torch.core.replica import ShardingPolicy
+    with open(os.path.join(path, "manifest.json")) as f:
+        meta = json.load(f)["metadata"]
+    return ShardingPolicy(meta.get("sharding", "replicated"),
+                          meta.get("shard_axis"),
+                          meta.get("streamed", False))
+
+
+def load_replica_state(path: str, template, *, sharding=None):
+    """Restore a ReplicaState into ``template``'s layout (its params and
+    optimiser state: tensors or Specs, stacked ``(P, ...)``)."""
+    from repro_torch.core.replica import (FSDP_SLICE, REPLICATED,
+                                          ReplicaState)
+    sharding = sharding or REPLICATED
+    src = checkpoint_sharding(path)
+    if src != sharding:
+        raise NotImplementedError(
+            f"restoring a {src.describe()} checkpoint into a "
+            f"{sharding.describe()} run converts across policies; that "
+            f"belongs to {FSDP_SLICE}")
+    params, opt, step = load_checkpoint(path, template.params,
+                                        template.opt_state)
+    with open(os.path.join(path, "manifest.json")) as f:
+        phase = json.load(f)["metadata"].get("phase", -1)
+    return ReplicaState(params, opt, step=int(step), phase=int(phase))

@@ -1,7 +1,9 @@
-"""WAGMA-SGD core, replicated realisation on one device: the group schedule
+"""WAGMA-SGD core, replicated realisation: the group schedule
 (``grouping``), flat buckets (``bucketing``), the wavefront (``overlap``),
-the compiled averaging plan (``plan``) and the averager (``wagma``).
+the compiled averaging plan and its wire (``plan``) and the averagers
+(``wagma``, ``baselines``).
 
-Counterpart of ``repro/core``.  Every replicated tree is stacked: each leaf
-has the JAX global layout ``(P, ...)``, one row per replica.
+Counterpart of ``repro/core``.  A replicated tree is stacked, each leaf
+in the JAX global layout ``(P, ...)`` with one row per replica, or, over a
+rank world, this rank's ``(1, ...)`` row.
 """

@@ -9,22 +9,25 @@ interface of ``WagmaAverager``:
     phase_for_step(t)     — which variant iteration t uses
     sync_due(t)           — whether this step uses the global-sync variant
     comm(tree, phase)     — per-step collective on a stacked (P, ...) tree
-    sync(tree)            — global average of a stacked tree
+                            (or this rank's (1, ...) row over a rank world)
+    sync(tree)            — global average of the tree
 
 Each baseline holds a compiled :class:`~repro_torch.core.plan.AveragingPlan`
 and runs its collective through ``plan.mix(tree, issue, combine, bits=...)``
 or ``plan.sync(tree)``: the ``issue`` half is the collective on whole
-stacked buffers (a ``pmean`` is ``plan.pmean_rows``, a ring ``ppermute``
-``plan.ring_shift``, a partner exchange ``plan.butterfly_exchange``), the
-``combine`` half the JAX package's arithmetic in float32, in the same
-order.  XLA compiles the reference's division by a constant (``/ 3.0``)
-into a product with the constant's float32 reciprocal, so the combines
+buffers through the plan's wire (a ``pmean`` is ``wire.pmean_rows``, a
+ring ``ppermute`` ``wire.ring_shift``, a partner exchange
+``wire.butterfly_exchange``: on stacked rows or over ranks,
+``core/plan.py``), the ``combine`` half the JAX package's arithmetic in
+float32, in the same order.  XLA compiles the reference's division by a
+constant (``/ 3.0``) into a product with the constant's float32
+reciprocal, so the combines
 here write that product (:func:`_divide`), which keeps them bit for bit
 the reference's.  No baseline combine runs a kernel, in either package:
 only the WAGMA butterfly calls K1/K2.
 
-Semantics (the replicas are the rows of one state, ``("data",)`` the one
-dp axis, so D-PSGD's ring spans all P rows):
+Semantics (D-PSGD's ring rides the minor dp axis, so with the one
+``("data",)`` axis it spans all P replicas):
 
 * Allreduce-SGD — synchronous global gradient mean (standard data-parallel).
 * Local SGD     — no per-step comm; global model average every H steps.
@@ -49,7 +52,6 @@ import numpy as np
 from repro_torch.core import bucketing, grouping
 from repro_torch.core import plan as plan_mod
 from repro_torch.core import tree as tr
-from repro_torch.core.plan import butterfly_exchange, pmean_rows, ring_shift
 from repro_torch.core.replica import FSDP_SLICE, REPLICATED, ShardingPolicy
 
 
@@ -69,7 +71,7 @@ class _AveragerBase:
                  bucket_bytes: int = bucketing.DEFAULT_BUCKET_BYTES,
                  overlap: bool = True,
                  topology: Optional[plan_mod.Topology] = None,
-                 sharding: ShardingPolicy = REPLICATED):
+                 sharding: ShardingPolicy = REPLICATED, world=None):
         self.axis_names = tuple(dp_axis_names)
         self.axis_sizes = tuple(int(s) for s in dp_axis_sizes)
         if topology is None:
@@ -84,6 +86,7 @@ class _AveragerBase:
                                       f"{FSDP_SLICE}")
         self.topology = topology
         self.sharding = sharding
+        self.world = world
         self.P = int(np.prod(self.axis_sizes))
         # replicated: the collectives ride every dp axis
         self.comm_axis_names = topology.axis_names
@@ -100,9 +103,9 @@ class _AveragerBase:
         return False
 
     def plan_for(self, tree) -> plan_mod.AveragingPlan:
-        """The compiled plan for a stacked tree's structure (cached)."""
+        """The compiled plan for a tree's structure (cached)."""
         return plan_mod.compile_plan(self.topology, tr.struct(tree, drop=1),
-                                     self._cfg, self.sharding)
+                                     self._cfg, self.sharding, self.world)
 
     def comm(self, tree, phase: int):
         return tree
@@ -123,7 +126,8 @@ class AllreduceAverager(_AveragerBase):
 
     def comm(self, tree, phase: int):
         # the reduction IS the collective, so combine is the identity
-        return self._mix_tree(tree, pmean_rows, lambda g, r: r)
+        wire = self.plan_for(tree).wire
+        return self._mix_tree(tree, wire.pmean_rows, lambda g, r: r)
 
 
 class LocalSGDAverager(_AveragerBase):
@@ -146,9 +150,10 @@ class DPSGDAverager(_AveragerBase):
     def comm(self, tree, phase: int):
         # the ring rides the minor dp axis (bit 0's link class)
         n = self.comm_axis_sizes[0]
+        shift = self.plan_for(tree).wire.ring_shift
 
         def issue(acc):
-            return ring_shift(acc, 1, n), ring_shift(acc, -1, n)
+            return shift(acc, 1, n), shift(acc, -1, n)
 
         def combine(acc, recv):
             left, right = recv
@@ -170,9 +175,10 @@ class SGPAverager(_AveragerBase):
     def comm(self, tree, phase: int):
         lp = grouping.ilog2(self.P_eff)
         bits = tuple((phase + k) % lp for k in range(self.neighbours))
+        exchange = self.plan_for(tree).wire.butterfly_exchange
 
         def issue(acc):
-            return tuple(butterfly_exchange(acc, b) for b in bits)
+            return tuple(exchange(acc, b) for b in bits)
 
         def combine(acc, recvs):
             total = acc
@@ -192,8 +198,9 @@ class ADPSGDAverager(_AveragerBase):
         self.n_phases = grouping.ilog2(self.P_eff)
 
     def comm(self, tree, phase: int):
+        exchange = self.plan_for(tree).wire.butterfly_exchange
         return self._mix_tree(
-            tree, lambda acc: butterfly_exchange(acc, phase),
+            tree, lambda acc: exchange(acc, phase),
             lambda acc, other: _divide(acc + other, 2.0), bits=(phase,))
 
 
@@ -219,9 +226,11 @@ def make_averager(name: str, dp_axis_names, dp_axis_sizes, **kw):
     if name == "wagma":
         topology = kw.pop("topology", None)
         sharding = kw.pop("sharding", REPLICATED)
+        world = kw.pop("world", None)
         cfg = WagmaConfig(**kw) if kw else WagmaConfig()
         return WagmaAverager(dp_axis_names, dp_axis_sizes, cfg,
-                             topology=topology, sharding=sharding)
+                             topology=topology, sharding=sharding,
+                             world=world)
     if name not in BASELINES:
         raise ValueError(f"unknown averager {name!r}; options: "
                          f"{['wagma'] + sorted(BASELINES)}")

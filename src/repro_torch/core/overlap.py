@@ -24,6 +24,10 @@ exchange runs are mutually independent and are handed to the caller *as a
 batch*, which the fused path feeds to the multi-pair kernel K2 (one launch
 per batch and scale) instead of one launch per bucket.
 
+Over ranks (``plan.RankWire``) each exchange is issued and waited at
+once, in this order, so the combines and their K1/K2 batches are the
+stacked path's; the wire does not yet run behind the combines.
+
 ``overlapped_stage_seconds`` models the throughput claim: the per-stage
 alpha-beta cost becomes ``launch + max(wire, combine) + fill/drain``.
 """

@@ -2,41 +2,57 @@
 
 Counterpart of ``repro/core/plan.py``:
 
-    topology = Topology.flat(("data",), (P,))
+    topology = Topology.flat(("data",), (P,))      # or .hierarchical(...)
     plan     = compile_plan(topology, one_replica_tree, AveragingConfig(group_size=S))
-    new      = plan.average(stacked_tree, phase)   # wait-avoiding group step
-    new      = plan.sync(stacked_tree)             # tau-periodic global step
+    new      = plan.average(tree, phase)           # wait-avoiding group step
+    new      = plan.sync(tree)                     # tau-periodic global step
 
-``compile_plan`` runs once per (topology, config, tree structure), cached,
-and precomputes what every step reuses: which link class each butterfly
-bit rides, each class's bucket budget (``choose_class_bucket_bytes``, the
-JAX package's cost model copied exactly, since the layout depends on it)
-and each class's bucket layout.
+``compile_plan`` runs once per (topology, config, tree structure, world),
+cached, and precomputes what every step reuses: which link class each
+butterfly bit rides, each class's bucket budget
+(``choose_class_bucket_bytes``, the JAX package's cost model copied
+exactly, since the layout depends on it) and each class's bucket layout.
 
-**The one-card realisation.**  The replicas are the rows of one tensor:
-every leaf of the trees ``average``/``sync`` take has the JAX global layout
-``(P, ...)``.  A butterfly stage's exchange (a ``ppermute`` in JAX) is a
-gather along dim 0, ``recv[i] = buf[i ^ (1 << bit)]``
-(:func:`butterfly_exchange`), kept a callable so that a send/recv across
-ranks can take its place.  Each bucket is a ``(P, n_b)`` buffer padded per
-replica, as JAX pads per device; the combines run through K1/K2
-(``kernels/ops.py``).  ``sync`` is a float32 mean over dim 0 written back
-to every row.
+Every collective goes through the plan's **wire**, three primitives (the
+ppermutes and the pmean of the JAX plan):
+
+* ``butterfly_exchange(buf, bit)``: the XOR partner's buffer for the global
+  dp-rank ``bit``;
+* ``ring_shift(buf, shift, n)``: the buffer of the rank ``shift`` behind
+  in this rank's ring of ``n`` over the minor dp axis;
+* ``pmean_rows(buf)`` (and ``sync_rows_``, in place): the mean over every
+  replica, summed in float32 and scaled once by ``1/P``.
+
+**Stacked rows** (compiled without a world, :data:`STACKED_WIRE`): the
+replicas are the rows of one tensor, every leaf ``(P, ...)`` (the JAX
+global layout); the exchange is a gather along dim 0 and the mean a mean
+over dim 0.
+
+**Ranks** (compiled over a ``launch.mesh.RankWorld``, :class:`RankWire`):
+each process holds its own replica as ``(1, ...)`` leaves, as JAX's
+``shard_map`` sees a ``(1, ...)`` block, and the primitives are
+point-to-point ``torch.distributed`` ops (``batch_isend_irecv``) and one
+float32 ``all_reduce(SUM)`` per bucket.  On gloo each exchange stages
+through pinned host buffers reused per bucket size (gloo takes CPU
+tensors); on nccl the device buffers go to the wire as they are.  Each
+exchange is issued and waited at once, in the wavefront order
+(``core/overlap.py``), so the combines and their K1/K2 launches are those
+of the stacked path.
 
 Per element the arithmetic is the JAX plan's: the tree is cast to the
 accumulation dtype (here while packing), ``log2(S)`` adds run in stage
 order and the last combine scales by ``1/S``, so the fused path is
 bit-identical to the per-leaf path and to the JAX plan under ``shard_map``
-on every phase offset (pinned by tests).
+on every phase offset, and the average over ranks to the stacked one (a
+rank adds ``own + partner`` where its partner adds ``partner + own``; fp32
+addition commutes).  ``sync`` over ranks differs from the stacked mean only
+in the order of the sum (pinned by tests).
 
-The baselines' single-round ``mix`` runs its collective half on whole
-stacked buffers: a ``pmean`` is :func:`pmean_rows`, a ring ``ppermute``
-:func:`ring_shift`, a partner exchange :func:`butterfly_exchange`; the
-combines are the averagers' own torch arithmetic in float32.
+The baselines' single-round ``mix`` runs its collective half through the
+same wire; the combines are the averagers' own torch arithmetic in float32.
 
-Not here: the hierarchical (ICI/DCN) topology (slice 4), the
-FSDP-within-pod paths (slice 7), measured link constants and the
-step-time models (ROADMAP.md).
+Not here: the FSDP-within-pod paths (slice 7), measured link constants and
+the step-time models (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -45,7 +61,10 @@ from dataclasses import dataclass
 from functools import lru_cache
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
+import time
+
 import torch
+import torch.distributed as dist
 
 from repro_torch.core import bucketing, grouping
 from repro_torch.core import overlap as pipeline
@@ -82,6 +101,11 @@ class LinkClass:
 
 
 DEFAULT_LINK = LinkClass("link")
+# The hierarchical defaults: the JAX package's model constants for an
+# intra-pod (ICI) and an inter-pod (DCN) class, copied because bucket
+# layouts depend on them.  They describe no link of the port's hardware.
+ICI = LinkClass("ici", alpha=1e-6, beta=1.0 / 100e9)
+DCN = LinkClass("dcn", alpha=50e-6, beta=1.0 / 10e9)
 
 
 @dataclass(frozen=True)
@@ -90,7 +114,8 @@ class Topology:
 
     Global dp-rank bit b lives on the axis whose cumulative log2 size spans
     b (``grouping.split_bit_over_axes``); ``axis_class[i]`` indexes
-    ``link_classes`` for axis i.  On one card the dp rank is the row.
+    ``link_classes`` for axis i.  On stacked rows the dp rank is the row,
+    over ranks the torch rank.
     """
     axis_names: Tuple[str, ...]
     axis_sizes: Tuple[int, ...]
@@ -114,6 +139,20 @@ class Topology:
         names = tuple(axis_names)
         return cls(names, tuple(int(s) for s in axis_sizes), (link,),
                    (0,) * len(names))
+
+    @classmethod
+    def hierarchical(cls, axis_names: Sequence[str],
+                     axis_sizes: Sequence[int], *,
+                     dcn_axes: Sequence[str] = ("pod",),
+                     ici: LinkClass = ICI,
+                     dcn: LinkClass = DCN) -> "Topology":
+        """Axes named in ``dcn_axes`` ride DCN; all others ride ICI."""
+        names = tuple(axis_names)
+        classes = tuple(1 if a in dcn_axes else 0 for a in names)
+        if 1 not in classes:
+            return cls.flat(names, axis_sizes, link=ici)
+        return cls(names, tuple(int(s) for s in axis_sizes), (ici, dcn),
+                   classes)
 
     @property
     def P(self) -> int:
@@ -177,6 +216,158 @@ def butterfly_exchange(buf: torch.Tensor, bit: int) -> torch.Tensor:
     # rows i and i ^ m are the two halves of a (2, m) block: swap them
     return buf.reshape((p // (2 * m), 2, m) + tuple(buf.shape[1:])).flip(1
            ).reshape(buf.shape)
+
+
+# ---------------------------------------------------------------------------
+# Wires: where the three primitives run
+# ---------------------------------------------------------------------------
+
+class StackedWire:
+    """The primitives on stacked ``(P, ...)`` rows of one tensor."""
+    butterfly_exchange = staticmethod(butterfly_exchange)
+    ring_shift = staticmethod(ring_shift)
+    pmean_rows = staticmethod(pmean_rows)
+
+    @staticmethod
+    def sync_rows_(buf: torch.Tensor) -> torch.Tensor:
+        """The float32 mean over dim 0 written into every row of ``buf``."""
+        return buf.copy_(buf.mean(0, keepdim=True).expand_as(buf))
+
+
+STACKED_WIRE = StackedWire()
+
+# Host seconds and bytes of every rank exchange so far:
+# ``d2h_s``/``h2d_s`` the staging copies (gloo on a card), ``wire_s`` the
+# send/recv or all_reduce from issue to completion, ``bytes`` sent by this
+# rank, ``ops`` exchanges and all_reduces.
+_WIRE_STATS = {"d2h_s": 0.0, "wire_s": 0.0, "h2d_s": 0.0, "bytes": 0,
+               "ops": 0}
+
+
+def wire_stats() -> dict:
+    return dict(_WIRE_STATS)
+
+
+class RankWire:
+    """The primitives over ``torch.distributed`` for one rank world: every
+    buffer is this rank's own ``(1, ...)`` row.
+
+    With gloo on a card (``world.stages_through_host``) each exchange
+    copies its buffer into a pinned host buffer, sends that, and copies
+    what it received back to the card; the host buffers are kept per
+    (role, size, dtype) and reused.  Otherwise (nccl on a card, gloo on the
+    CPU) the buffers go to the wire as they are.
+    """
+
+    def __init__(self, world):
+        self.world = world
+        self._host: Dict[tuple, torch.Tensor] = {}
+
+    def _host_buffer(self, role: str, like: torch.Tensor) -> torch.Tensor:
+        key = (role, like.numel(), like.dtype)
+        buf = self._host.get(key)
+        if buf is None:
+            buf = self._host[key] = torch.empty(
+                like.numel(), dtype=like.dtype, pin_memory=True)
+        return buf
+
+    def _to_host(self, role: str, buf: torch.Tensor) -> torch.Tensor:
+        t = time.perf_counter()
+        host = self._host_buffer(role, buf)
+        host.copy_(buf.reshape(-1))
+        _WIRE_STATS["d2h_s"] += time.perf_counter() - t
+        return host
+
+    def _from_host(self, host: torch.Tensor, out: torch.Tensor):
+        t = time.perf_counter()
+        out.copy_(host.view(out.shape))
+        _WIRE_STATS["h2d_s"] += time.perf_counter() - t
+        return out
+
+    def _wait(self, work, sent: torch.Tensor) -> None:
+        t = time.perf_counter()
+        for w in work:
+            w.wait()
+        _WIRE_STATS["wire_s"] += time.perf_counter() - t
+        _WIRE_STATS["bytes"] += sent.numel() * sent.element_size()
+        _WIRE_STATS["ops"] += 1
+
+    def _exchange(self, buf: torch.Tensor, send_to: int,
+                  recv_from: int) -> torch.Tensor:
+        """Send ``buf`` to ``send_to``, return what ``recv_from`` sent (a
+        new tensor shaped like ``buf``)."""
+        rank = self.world.rank
+        if send_to == rank and recv_from == rank:
+            return buf.clone()
+        src = buf.contiguous()
+        staged = self.world.stages_through_host
+        if staged:
+            send, recv = self._to_host("send", src), \
+                self._host_buffer("recv", src)
+        else:
+            send, recv = src, torch.empty_like(src)
+        work = dist.batch_isend_irecv([dist.P2POp(dist.isend, send, send_to),
+                                       dist.P2POp(dist.irecv, recv,
+                                                  recv_from)])
+        self._wait(work, send)
+        return self._from_host(recv, torch.empty_like(src)) if staged \
+            else recv
+
+    def butterfly_exchange(self, buf: torch.Tensor, bit: int) -> torch.Tensor:
+        """The XOR partner's buffer: rank ``r ^ (1 << bit)``."""
+        ax, local_bit = grouping.split_bit_over_axes(bit,
+                                                     self.world.axis_sizes)
+        coords = list(self.world.coords)
+        coords[ax] ^= 1 << local_bit
+        peer = self.world.rank_of(coords)
+        return self._exchange(buf, peer, peer)
+
+    def ring_shift(self, buf: torch.Tensor, shift: int, n: int
+                   ) -> torch.Tensor:
+        """Send to the rank ``shift`` ahead in this rank's ring of ``n``
+        over the minor dp axis, receive from the rank ``shift`` behind (JAX's
+        perm ``(i, (i + shift) % n)``)."""
+        minor = self.world.axis_sizes[0]
+        if minor % n:
+            raise ValueError(f"a ring of {n} does not tile the minor axis of "
+                             f"{minor} ranks")
+        coords = list(self.world.coords)
+        i = coords[0] % n
+        base = coords[0] - i
+        ahead, behind = list(coords), list(coords)
+        ahead[0] = base + (i + shift) % n
+        behind[0] = base + (i - shift) % n
+        return self._exchange(buf, self.world.rank_of(ahead),
+                              self.world.rank_of(behind))
+
+    def sync_rows_(self, buf: torch.Tensor) -> torch.Tensor:
+        """One float32 ``all_reduce(SUM)`` of ``buf`` over every rank, then
+        one scale by ``1/P``, in place."""
+        if self.world.stages_through_host:
+            host = self._to_host("sum", buf)
+            self._wait([dist.all_reduce(host, async_op=True)], host)
+            self._from_host(host, buf)
+        else:
+            self._wait([dist.all_reduce(buf, async_op=True)], buf)
+        return buf.mul_(1.0 / self.world.P)
+
+    def pmean_rows(self, buf: torch.Tensor) -> torch.Tensor:
+        """The mean over every rank in a new tensor."""
+        return self.sync_rows_(buf.clone())
+
+
+_WIRES: Dict[object, RankWire] = {}
+
+
+def wire_for(world):
+    """The wire a plan over ``world`` runs on (:data:`STACKED_WIRE` for
+    ``None``); one per world, so that its host buffers are shared."""
+    if world is None:
+        return STACKED_WIRE
+    wire = _WIRES.get(world)
+    if wire is None:
+        wire = _WIRES[world] = RankWire(world)
+    return wire
 
 
 # ---------------------------------------------------------------------------
@@ -284,17 +475,24 @@ class AveragingPlan:
         plan.average(tree, phase)    group butterfly for a phase index
         plan.sync(tree)              tau-periodic global mean
 
-    on stacked trees, plus the stacked-simulator twins
+    on the trees of its wire (stacked ``(P, ...)`` rows, or this rank's
+    ``(1, ...)`` row), plus the stacked-simulator twins
     (``average_stacked``/``sync_stacked``) and accounting (``describe``,
     ``butterfly_summary``).
     """
 
     def __init__(self, topology: Topology, cfg: AveragingConfig,
                  storage_struct, work_struct, payload_bytes: int,
-                 sharding: ShardingPolicy = REPLICATED):
+                 sharding: ShardingPolicy = REPLICATED, world=None):
         self.topology = topology
         self.cfg = cfg
         self.sharding = sharding
+        if world is not None and tuple(world.axis_sizes) != \
+                topology.axis_sizes:
+            raise ValueError(f"rank world axes {world.axis_sizes} do not "
+                             f"match the topology's {topology.axis_sizes}")
+        self.world = world
+        self.wire = wire_for(world)
         self.P = self.P_eff = topology.P
         self.S = cfg.group_size or grouping.default_group_size(self.P_eff)
         if self.S > self.P_eff:
@@ -355,12 +553,12 @@ class AveragingPlan:
         return self.average_offset(tree, self.offsets[phase])
 
     def average_offset(self, tree, offset: int):
-        """Group averaging of a stacked tree for an explicit phase offset.
+        """Group averaging for an explicit phase offset.
 
         Returns a new tree; ``tree`` is not modified."""
         bits = grouping.mask_bits_for_offset(self.P_eff, self.S, offset)
         inv_s = 1.0 / self.S
-        exchange = butterfly_exchange
+        exchange = self.wire.butterfly_exchange
 
         if not self.cfg.fused:
             def avg_leaf(w):
@@ -399,10 +597,8 @@ class AveragingPlan:
     # -- execution: tau-periodic global sync -------------------------------
     def sync(self, tree):
         """Synchronous mean over all replicas (Alg. 2 line 16), in float32,
-        written back to every row."""
-        def mean_rows(buf):
-            return buf.copy_(buf.mean(0, keepdim=True).expand_as(buf))
-
+        written back to every row (every rank)."""
+        mean_rows = self.wire.sync_rows_
         if not self.cfg.fused:
             return tr.tree_map(lambda w: mean_rows(w.float().clone()).to(
                 w.dtype), tree)
@@ -428,12 +624,12 @@ class AveragingPlan:
 
     def mix(self, tree, issue: Callable, combine: Callable, *,
             bits: Tuple[int, ...] = ()):
-        """Apply a float32 gossip/psum mix to a stacked tree, per bucket
-        (fused) or per leaf, and return a new tree in the storage dtypes.
+        """Apply a float32 gossip/psum mix to a tree, per bucket (fused) or
+        per leaf, and return a new tree in the storage dtypes.
 
-        ``issue(buf) -> recv`` is the collective half on a whole stacked
-        ``(P, ...)`` buffer (:func:`pmean_rows`, :func:`ring_shift`,
-        :func:`butterfly_exchange`), ``combine(buf, recv) -> buf`` the
+        ``issue(buf) -> recv`` is the collective half on a whole buffer,
+        through the plan's wire (``wire.pmean_rows``, ``wire.ring_shift``,
+        ``wire.butterfly_exchange``), ``combine(buf, recv) -> buf`` the
         local arithmetic; every granularity computes the same element math.
         With ``overlap=True`` every bucket's collectives are issued before
         any bucket's combine (``overlap.overlapped_mix``).
@@ -493,6 +689,9 @@ class AveragingPlan:
             f"overlap={self.cfg.overlap}",
             f"  topology: {self.topology.describe()}",
             f"  sharding: {self.sharding.describe()}",
+            f"  wire: " + ("stacked rows" if self.world is None else
+                           f"{self.world.P} ranks over "
+                           f"{self.world.backend}"),
         ]
         for ci in self.topology.classes_in_use():
             link = self.topology.link_classes[ci]
@@ -521,9 +720,11 @@ _PLAN_CACHE: Dict[tuple, AveragingPlan] = {}
 
 
 def clear_plan_cache() -> None:
-    """Drop every compile-time cache: plans, the per-class budget sweep,
-    and ``bucketing``'s layout cache and budget sweep."""
+    """Drop every compile-time cache: plans, the wires (and their host
+    buffers), the per-class budget sweep, and ``bucketing``'s layout cache
+    and budget sweep."""
     _PLAN_CACHE.clear()
+    _WIRES.clear()
     choose_class_bucket_bytes.cache_clear()
     bucketing.clear_layout_cache()
 
@@ -535,15 +736,18 @@ def _structure_key(tree) -> tuple:
 
 def compile_plan(topology: Topology, tree_shapes,
                  config: AveragingConfig = AveragingConfig(),
-                 sharding: ShardingPolicy = REPLICATED) -> AveragingPlan:
+                 sharding: ShardingPolicy = REPLICATED,
+                 world=None) -> AveragingPlan:
     """Compile the averaging once for ONE replica's tree structure.
 
     ``tree_shapes`` may be tensors or :class:`~repro_torch.core.tree.Spec`
     leaves (only shapes and dtypes are read; a stacked tree's
-    ``tree.struct(t, drop=1)`` gives them).  Cached on (topology, config,
-    sharding, structure).
+    ``tree.struct(t, drop=1)`` gives them).  ``world`` (a
+    ``launch.mesh.RankWorld``) runs the plan over ranks, ``None`` on
+    stacked rows.  Cached on (topology, config, sharding, structure,
+    world).
     """
-    key = (topology, config, sharding, _structure_key(tree_shapes))
+    key = (topology, config, sharding, _structure_key(tree_shapes), world)
     plan = _PLAN_CACHE.get(key)
     if plan is not None:
         return plan
@@ -554,6 +758,6 @@ def compile_plan(topology: Topology, tree_shapes,
         lambda l: tr.Spec(l.shape, avg), storage)
     payload = bucketing.tree_payload_bytes(work)
     plan = AveragingPlan(topology, config, storage, work, payload,
-                         sharding=sharding)
+                         sharding=sharding, world=world)
     _PLAN_CACHE[key] = plan
     return plan

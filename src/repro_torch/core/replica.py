@@ -3,8 +3,10 @@
 Counterpart of ``repro/core/replica.py``, replicated realisation only.
 WAGMA needs *divergent* per-replica weights: under
 ``ShardingPolicy.replicated()`` params and optimiser state carry a leading
-replica axis of size P, every leaf ``(P, ...)`` (the JAX global layout),
-and on one card the replicas are the rows of those tensors.
+replica axis of size P, every leaf ``(P, ...)`` (the JAX global layout).
+On one card the replicas are the rows of those tensors; over a rank world
+(``launch/mesh.py``) each rank holds its own ``(1, ...)`` row and a
+``(1,)`` count, the block JAX's ``shard_map`` hands one device.
 
 ``ShardingPolicy.fsdp_within_pod`` (replicas inside a pod sharing sharded
 weights, DESIGN.md §10) belongs to the FSDP slice and raises here.
@@ -67,7 +69,8 @@ class ReplicaState:
     """Params + optimiser state + averager step/phase bookkeeping.
 
     ``params`` and the optimiser's moment trees are stacked ``(P, ...)``;
-    the optimiser's ``count`` is a ``(P,)`` vector.  ``step`` is the global
+    the optimiser's ``count`` is a ``(P,)`` vector (``(1, ...)`` and
+    ``(1,)`` on a rank).  ``step`` is the global
     training step; ``phase`` the butterfly phase index the last group
     averaging executed (-1 before any averaging and after a sync).
     """

@@ -13,7 +13,8 @@ Counterpart of ``repro/core/wagma.py``.  The training step
 The averager owns the phase/sync bookkeeping and delegates every
 collective to the :class:`~repro_torch.core.plan.AveragingPlan` its
 topology compiles to for the current tree structure.  The trees it is
-handed are stacked ``(P, ...)``.
+handed are stacked ``(P, ...)``, or, over a rank world
+(``launch/mesh.py``), this rank's ``(1, ...)`` row.
 """
 
 from __future__ import annotations
@@ -38,7 +39,7 @@ class WagmaAverager:
     def __init__(self, dp_axis_names: Sequence[str], dp_axis_sizes: Sequence[int],
                  cfg: WagmaConfig = WagmaConfig(),
                  topology: Optional[plan_mod.Topology] = None,
-                 sharding: ShardingPolicy = REPLICATED):
+                 sharding: ShardingPolicy = REPLICATED, world=None):
         # minor-to-major layout (see group_allreduce.dp_axis_layout)
         self.axis_names = tuple(dp_axis_names)
         self.axis_sizes = tuple(int(s) for s in dp_axis_sizes)
@@ -51,6 +52,7 @@ class WagmaAverager:
                 f"do not match dp axes {self.axis_names}/{self.axis_sizes}")
         self.topology = topology
         self.sharding = sharding
+        self.world = world
         self.P = self.P_eff = topology.P
         self.S = cfg.group_size or grouping.default_group_size(self.P_eff)
         if self.S > self.P_eff:
@@ -78,9 +80,9 @@ class WagmaAverager:
 
     # -- the compiled plan ----------------------------------------------------
     def plan_for(self, tree) -> plan_mod.AveragingPlan:
-        """The compiled plan for a stacked tree's structure (cached)."""
+        """The compiled plan for a tree's structure (cached)."""
         return plan_mod.compile_plan(self.topology, tr.struct(tree, drop=1),
-                                     self.cfg, self.sharding)
+                                     self.cfg, self.sharding, self.world)
 
     # -- collective bodies ----------------------------------------------------
     def comm(self, tree, phase: int):

@@ -7,11 +7,15 @@ the source, every shared header ``csrc/*.cuh`` and the flags, so an edited
 source or header is never served by a stale library; the compiler's
 output (ptxas registers and spills) is kept beside it as ``.log``.  Nothing
 is compiled when this module is imported: the CPU tests import every module.
+Processes that start together (the ranks of one card) build once: the
+first takes a file lock in ``build/kernels/`` and compiles, the others wait
+for it and load what it built.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -49,13 +53,24 @@ def _lib_path(name: str) -> Path:
 
 def build(names: Iterable[str]) -> Dict[str, str]:
     """Compile every named source that has no library yet, one ``nvcc``
-    per source, all started together.  Returns each compiled source's
-    compiler output (ptxas registers and spills); raises with it on any
-    failure."""
-    todo = [n for n in names if not _lib_path(n).exists()]
-    if not todo:
+    per source, all started together, under the build directory's file
+    lock.  Returns each compiled source's compiler output (ptxas registers
+    and spills); raises with it on any failure."""
+    names = list(names)
+    if all(_lib_path(n).exists() for n in names):
         return {}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / "build.lock", "a") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            return _compile([n for n in names if not _lib_path(n).exists()])
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+
+
+def _compile(todo) -> Dict[str, str]:
+    if not todo:
+        return {}
     nvcc = nvcc_path()
     procs = {}
     for name in todo:

@@ -1,20 +1,26 @@
 """Training driver: the replicated data-parallel SGD loop (WAGMA-SGD or a
-baseline averager) on one device.
+baseline averager), on one device or one replica a rank.
 
 Counterpart of ``repro/launch/train.py``.  Builds the model, optimiser and
 averager; keeps the cache of step variants (one per butterfly phase offset
-+ the tau-sync step); streams synthetic data; logs metrics.  The
-``data_axis`` replicas are the rows of the stacked state on ``device``
-(where JAX spreads them over a mesh's ``data`` axis).
++ the tau-sync step); streams synthetic data; logs metrics; checkpoints.
+The ``pod_axis x data_axis`` replicas (dp axes minor to major, as
+``dp_axis_layout`` names them) are the rows of the stacked state on
+``device``, or, over a rank world (``launch/mesh.py``), one replica a
+rank, as JAX lays them over a mesh's ``pod`` and ``data`` axes.
 
     python -m repro_torch.launch.train --arch tinyllama-1.1b --data-axis 8 \\
         --group-size 4 --tau 5 --steps 12
-    python -m repro_torch.launch.train --arch transformer-wmt \\
-        --averager allreduce --data-axis 16
+    python -m torch.distributed.run --standalone --nproc-per-node 4 \\
+        -m repro_torch.launch.train --arch tinyllama-1.1b --data-axis 2 \\
+        --pod-axis 2 --pod-dcn --ckpt-dir ckpt
 
 runs on the CUDA card; ``REPRO_TORCH_DEVICE=cpu`` asks for the CPU (add
-``--smoke`` there).  Flags of the JAX driver whose feature is not ported
-yet raise, naming their slice (ROADMAP.md).
+``--smoke`` there).  Under torchrun (``WORLD_SIZE`` > 1) each rank trains
+its own replica over the backend ``REPRO_TORCH_BACKEND`` names (default
+nccl on the card, gloo on the CPU; ``gloo`` lets ranks share one card).
+Flags of the JAX driver whose feature is not ported yet raise, naming
+their slice (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -26,21 +32,24 @@ import time
 import numpy as np
 import torch
 
+from repro_torch.checkpoint import save_replica_state
 from repro_torch.configs import get_config
 from repro_torch.configs.base import InputShape
 from repro_torch.core.baselines import AVERAGERS, make_averager
+from repro_torch.core.plan import Topology
 from repro_torch.core.replica import (FSDP_SLICE, REPLICATED, ReplicaState,
                                       ShardingPolicy, map_opt_state)
 from repro_torch.core import tree as tr
 from repro_torch.data import make_batch_fn
+from repro_torch.launch import mesh
 from repro_torch.models.registry import build_model
 from repro_torch.optim import adamw, sgd
 from repro_torch.train import build_train_step, init_replica_state
 
 # a moe model's metrics beside the loss, logged with it
 ROUTER_METRICS = ("load_balance", "router_z", "moe_dropped")
-RANKS_SLICE = ("the slice of the port that trains across ranks (ROADMAP.md, "
-               "slice 4)")
+EXPERT_SLICE = ("the expert-parallel moe over model ranks (ROADMAP.md, "
+                "slice 4b)")
 
 
 def resolve_sharding(sharding, streamed: bool = False) -> ShardingPolicy:
@@ -59,17 +68,27 @@ def resolve_sharding(sharding, streamed: bool = False) -> ShardingPolicy:
 
 
 class Trainer:
-    def __init__(self, cfg, data_axis: int, *, device="cuda",
-                 averager="wagma", group_size=None, tau=10, optimizer="sgd",
-                 learning_rate=0.1, momentum=0.9, seq_len=512,
-                 global_batch=None, seed=0, microbatch=None, imbalanced=False,
-                 topology=None, sharding=None, streamed=False,
-                 init_state=None):
+    def __init__(self, cfg, data_axis: int, *, pod_axis=None, world=None,
+                 device=None, averager="wagma", group_size=None, tau=10,
+                 optimizer="sgd", learning_rate=0.1, momentum=0.9,
+                 seq_len=512, global_batch=None, seed=0, microbatch=None,
+                 imbalanced=False, topology=None, sharding=None,
+                 streamed=False, init_state=None):
         self.cfg = cfg
-        self.device = torch.device(device)
+        names, sizes = mesh.dp_axes(data_axis, pod_axis)
+        self.world = world
+        if world is not None:
+            if (world.axis_names, world.axis_sizes) != (names, sizes):
+                raise ValueError(f"rank world axes {world.axis_names}/"
+                                 f"{world.axis_sizes} do not match the dp "
+                                 f"axes {names}/{sizes}")
+            if device is not None and torch.device(device) != world.device:
+                raise ValueError(f"device {device} given to a rank on "
+                                 f"{world.device}")
+            device = world.device
+        self.device = torch.device(device or "cuda")
         self.model = build_model(cfg, device=self.device)
-        self.n_dp = int(data_axis)
-        names, sizes = ("data",), (self.n_dp,)
+        self.n_dp = int(np.prod(sizes))
         self.sharding = resolve_sharding(sharding, streamed=streamed)
         kw = {}
         if averager == "wagma":
@@ -79,6 +98,7 @@ class Trainer:
         if topology is not None:
             kw["topology"] = topology
         kw["sharding"] = self.sharding
+        kw["world"] = world
         self.averager = make_averager(averager, names, sizes, **kw)
         if optimizer == "sgd":
             self.opt = sgd(learning_rate, momentum=momentum)
@@ -104,16 +124,24 @@ class Trainer:
 
     def _put_state(self, state: ReplicaState) -> ReplicaState:
         """The state's params and moments on this run's device (the count
-        stays on the host), checked against the replica count."""
+        stays on the host), checked against the replica count.  A rank
+        keeps its own row of the ``(P, ...)`` state."""
         rows = tr.tree_leaves(state.params)[0].shape[0]
         if rows != self.n_dp:
             raise ValueError(f"state has {rows} replica rows; this run has "
                              f"{self.n_dp}")
-        put = lambda t: tr.tree_map(lambda a: a.to(self.device), t)
+        r = self._rows()
+        put = lambda t: tr.tree_map(lambda a: a[r].to(self.device), t)
         return ReplicaState(put(state.params),
                             map_opt_state(state.opt_state, put,
-                                          lambda c: c.cpu()),
+                                          lambda c: c[r].cpu()),
                             state.step, state.phase)
+
+    def _rows(self) -> slice:
+        """The rows of the global state and batch this process holds."""
+        if self.world is None:
+            return slice(None)
+        return slice(self.world.rank, self.world.rank + 1)
 
     def plan(self):
         """The compiled AveragingPlan the train step executes."""
@@ -130,9 +158,13 @@ class Trainer:
         return self._steps[key]
 
     def _put_batch(self, t: int):
-        """The global batch of step ``t`` on the device; the step gives
-        replica r rows ``[r*b, (r+1)*b)``."""
+        """The global batch of step ``t`` on the device; replica r takes
+        rows ``[r*b, (r+1)*b)`` (a rank is handed its own)."""
         nb = self.batch_fn(t, 0, self.shape.global_batch)
+        if self.world is not None:
+            b = self.shape.global_batch // self.n_dp
+            r = self.world.rank
+            nb = {k: v[r * b:(r + 1) * b] for k, v in nb.items()}
         return {k: torch.as_tensor(
                     v, dtype=(torch.int64 if np.issubdtype(v.dtype, np.integer)
                               else torch.float32)).to(self.device)
@@ -149,13 +181,40 @@ class Trainer:
             self.last_metrics.get("skipped_nonfinite", 0.0) * self.n_dp
         return self.last_metrics["loss"]
 
-    def run(self, steps: int, log_every: int = 10):
+    def gathered_state(self):
+        """The ``(P, ...)`` ReplicaState on the host: every rank's row
+        gathered on rank 0 (``None`` on the other ranks)."""
+        if self.world is None:
+            get = lambda t: tr.tree_map(lambda a: a.cpu(), t)
+        else:
+            get = lambda t: mesh.gather_rows(self.world, t)
+        st = self.state
+        params, opt = get(st.params), map_opt_state(st.opt_state, get, get)
+        if self.world is not None and self.world.rank != 0:
+            return None
+        return ReplicaState(params, opt, st.step, st.phase)
+
+    def save_checkpoint(self, path: str):
+        """Write the whole ReplicaState (rank 0 gathers the rows and
+        writes; every rank waits for it).  Returns the state written
+        (``None`` on the other ranks)."""
+        state = self.gathered_state()
+        if state is not None:
+            save_replica_state(path, state, sharding=self.sharding,
+                               metadata={"arch": self.cfg.name})
+        if self.world is not None:
+            torch.distributed.barrier()
+        return state
+
+    def run(self, steps: int, log_every: int = 10, ckpt_dir=None,
+            ckpt_every: int = 0):
         history = []
         t0 = time.time()
+        log = self.world is None or self.world.rank == 0
         for t in range(steps):
             loss = self.step_once(t)
             history.append(loss)
-            if log_every and (t % log_every == 0 or t == steps - 1):
+            if log and log_every and (t % log_every == 0 or t == steps - 1):
                 dt = time.time() - t0
                 tput = self.shape.global_batch * self.shape.seq_len \
                     * (t + 1) / max(dt, 1e-9)
@@ -166,6 +225,8 @@ class Trainer:
                               if k in self.last_metrics)
                 print(f"step {t:5d} loss {loss:.4f}{aux} "
                       f"({tput:,.0f} tok/s wall){skip}", flush=True)
+            if ckpt_dir and ckpt_every and (t + 1) % ckpt_every == 0:
+                self.save_checkpoint(ckpt_dir)
         return history
 
 
@@ -183,11 +244,16 @@ def main():
     ap.add_argument("--seq-len", type=int, default=512)
     ap.add_argument("--global-batch", type=int, default=None)
     ap.add_argument("--data-axis", type=int, default=None,
-                    help="the number of replicas (rows of the stacked state)")
+                    help="replicas on the data axis (ranks under torchrun, "
+                         "else rows of the stacked state)")
     ap.add_argument("--model-axis", type=int, default=None)
-    ap.add_argument("--pod-axis", type=int, default=None)
+    ap.add_argument("--pod-axis", type=int, default=None,
+                    help="with --data-axis: lay the replicas over (pod, "
+                         "data)")
     ap.add_argument("--multi-pod", action="store_true")
-    ap.add_argument("--pod-dcn", action="store_true")
+    ap.add_argument("--pod-dcn", action="store_true",
+                    help="hierarchical topology: the pod axis rides DCN "
+                         "constants and budget, data rides ICI")
     ap.add_argument("--sharding", default="replicated",
                     choices=["replicated", "fsdp"])
     ap.add_argument("--streamed", action="store_true")
@@ -196,28 +262,44 @@ def main():
     ap.add_argument("--ckpt-dir", default=None)
     args = ap.parse_args()
 
-    if (args.pod_axis or args.multi_pod or args.pod_dcn
-            or (args.model_axis or 1) > 1):
+    if (args.model_axis or 1) > 1:
         raise NotImplementedError(
-            "--pod-axis, --multi-pod, --pod-dcn and --model-axis > 1 lay "
-            f"replicas over several devices; that belongs to {RANKS_SLICE}")
-    if args.ckpt_dir:
+            f"--model-axis > 1 shards experts over model ranks; that belongs "
+            f"to {EXPERT_SLICE}")
+    if args.multi_pod:
         raise NotImplementedError(
-            f"--ckpt-dir: checkpoints belong to {RANKS_SLICE}")
+            "--multi-pod is the reference's production mesh of 2 x 16 x 16 "
+            "TPU chips; give --data-axis and --pod-axis")
     if not args.data_axis:
         raise SystemExit("give --data-axis: the number of replicas")
 
+    device = os.environ.get("REPRO_TORCH_DEVICE", "cuda")
+    world = None
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        world = mesh.init_rank_world(
+            args.data_axis, args.pod_axis, device_type=device,
+            backend=os.environ.get("REPRO_TORCH_BACKEND"))
+    topology = None
+    if args.pod_dcn:
+        topology = Topology.hierarchical(
+            *mesh.dp_axes(args.data_axis, args.pod_axis), dcn_axes=("pod",))
     cfg = get_config(args.arch, smoke=args.smoke)
-    tr_ = Trainer(cfg, args.data_axis,
-                  device=os.environ.get("REPRO_TORCH_DEVICE", "cuda"),
-                  averager=args.averager, group_size=args.group_size,
-                  tau=args.tau, optimizer=args.optimizer,
-                  learning_rate=args.lr, seq_len=args.seq_len,
-                  global_batch=args.global_batch, microbatch=args.microbatch,
-                  imbalanced=args.imbalanced,
-                  sharding=args.sharding, streamed=args.streamed)
-    hist = tr_.run(args.steps)
-    print(f"final loss {hist[-1]:.4f} (start {hist[0]:.4f})")
+    try:
+        tr_ = Trainer(cfg, args.data_axis, pod_axis=args.pod_axis,
+                      world=world, device=None if world else device,
+                      averager=args.averager, group_size=args.group_size,
+                      tau=args.tau, optimizer=args.optimizer,
+                      learning_rate=args.lr, seq_len=args.seq_len,
+                      global_batch=args.global_batch,
+                      microbatch=args.microbatch,
+                      imbalanced=args.imbalanced, topology=topology,
+                      sharding=args.sharding, streamed=args.streamed)
+        hist = tr_.run(args.steps, ckpt_dir=args.ckpt_dir,
+                       ckpt_every=50 if args.ckpt_dir else 0)
+        if world is None or world.rank == 0:
+            print(f"final loss {hist[-1]:.4f} (start {hist[0]:.4f})")
+    finally:
+        mesh.shutdown()
 
 
 if __name__ == "__main__":

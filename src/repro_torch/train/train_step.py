@@ -1,5 +1,5 @@
-"""Data-parallel train step (WAGMA-SGD and the baselines), replicated, on
-one device.
+"""Data-parallel train step (WAGMA-SGD and the baselines), replicated: on
+one device, or one replica a rank.
 
 Counterpart of the replicated branch of ``repro/train/train_step.py``.
 Per replica: local gradients, a local optimiser step guarded against
@@ -33,6 +33,15 @@ replicas, as ``pmean`` gives them.  The step consumes the state it is
 given (its optimiser state is updated in place), as the JAX step donates
 its state.
 
+**The rank realisation.**  Over a rank world (``launch/mesh.py``; the
+averager's ``world``) each process holds its own replica as ``(1, ...)``
+rows and a ``(1,)`` count, as JAX's ``shard_map`` sees a ``(1, ...)``
+block of the ``(P, ...)`` global array, and is handed its own rows of the
+batch.  The step is the same code with one row: the rank's gradients, its
+guarded update, then ``averager.comm``/``sync`` over the wire
+(``core/plan.py``); the metrics are averaged over the ranks by one
+``all_reduce``, as the reference's ``pmean`` over dp.
+
 Step variants: the host loop (``launch/train.py`` ``Trainer._step_fn``)
 calls ``averager.phase_for_step(t)``/``sync_due(t)`` and runs one of
 ``averager.n_phases + 1`` cached step functions, as JAX dispatches its
@@ -45,8 +54,15 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core import plan as plan_mod
 from repro_torch.core import tree as tr
 from repro_torch.core.replica import ReplicaState, map_opt_state
+
+
+def local_rows(averager) -> int:
+    """Replicas this process holds: every one on stacked rows, its own
+    over a rank world."""
+    return averager.P if averager.world is None else 1
 
 
 def stacked_init(model, n_replicas: int, generator: torch.Generator):
@@ -61,12 +77,13 @@ def init_replica_state(model, optimizer, averager,
                        generator: torch.Generator) -> ReplicaState:
     """The :class:`ReplicaState` the train step operates on: stacked
     params identical in every row, the optimiser state of the stacked tree
-    with a ``(P,)`` count."""
+    with a ``(P,)`` count (one row and a ``(1,)`` count on a rank)."""
     if averager.sharding.is_sharded:
         raise NotImplementedError("only the replicated policy is ported")
-    params = stacked_init(model, averager.P, generator)
+    rows = local_rows(averager)
+    params = stacked_init(model, rows, generator)
     opt = map_opt_state(optimizer.init(params), lambda t: t,
-                        lambda c: torch.zeros(averager.P, dtype=torch.int32))
+                        lambda c: torch.zeros(rows, dtype=torch.int32))
     return ReplicaState(params, opt)
 
 
@@ -119,7 +136,7 @@ def build_train_step(model, optimizer, averager, *, phase: int, sync: bool,
     """Returns ``step(state, batch) -> (state, metrics)`` for one variant:
     group averaging at ``phase``, or the global sync.  The loss recomputes
     each superblock in the backward (``remat``), as the JAX step does."""
-    n_rep = averager.P
+    n_rep = local_rows(averager)
 
     def grads_and_metrics(params, batch):
         if not (microbatch and microbatch > 1):
@@ -200,9 +217,22 @@ def build_train_step(model, optimizer, averager, *, phase: int, sync: bool,
                 del grads
             params = (averager.sync(state.params) if sync
                       else averager.comm(state.params, phase))
-        metrics = {k: torch.stack([m[k].cpu() for m in per_replica]).mean()
-                   for k in per_replica[0]}
+        if averager.world is None:
+            metrics = {k: torch.stack([m[k].cpu() for m in per_replica]
+                                      ).mean() for k in per_replica[0]}
+        else:
+            metrics = mean_over_ranks(averager.world, per_replica[0])
         return ReplicaState(params, state.opt_state, state.step + 1,
                             -1 if sync else phase), metrics
 
     return step
+
+
+def mean_over_ranks(world, metrics: dict) -> dict:
+    """This rank's float32 metrics averaged over every rank by one
+    ``all_reduce`` through the wire."""
+    keys = list(metrics)
+    vec = torch.stack([metrics[k].to(world.device, torch.float32)
+                       for k in keys])[None]
+    mean = plan_mod.wire_for(world).pmean_rows(vec)[0].cpu()
+    return dict(zip(keys, mean.unbind(0)))

@@ -1,0 +1,185 @@
+"""Rank worlds of the port on the CPU for its tests: ``spawn`` starts n
+processes over gloo, each with torchrun's environment (``RANK``,
+``WORLD_SIZE``, ``LOCAL_RANK``, ``LOCAL_WORLD_SIZE``), a ``file://``
+rendezvous in the test's own directory (parallel test workers never share
+a TCP port), one torch thread and a timeout of its own, and runs one of
+this module's workers in each.  The workers import torch, numpy and the
+port only; each writes its results to ``out/rank<r>.npz`` (rank 0 also
+``out/gathered``, a checkpoint of the gathered state)."""
+
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+
+TESTS = os.path.dirname(os.path.abspath(__file__))
+SRC = os.path.join(os.path.dirname(TESTS), "src")
+TIMEOUT = 120
+
+
+def spawn(worker: str, n: int, out: str, timeout: int = TIMEOUT, **kw):
+    """Run ``worker(world, out, **kw)`` on ``n`` gloo ranks; fails the test
+    if any rank exits non-zero or outlives ``timeout`` seconds."""
+    os.makedirs(out, exist_ok=True)
+    init = "file://" + os.path.join(out, "rendezvous")
+    script = (f"import sys; sys.path[:0] = [{SRC!r}, {TESTS!r}]; "
+              f"import json, rank_runs; rank_runs.run({worker!r}, "
+              f"json.loads(sys.argv[1]))")
+    procs = []
+    for r in range(n):
+        env = dict(os.environ, RANK=str(r), WORLD_SIZE=str(n),
+                   LOCAL_RANK=str(r), LOCAL_WORLD_SIZE=str(n),
+                   OMP_NUM_THREADS="1", REPRO_TEST_INIT=init)
+        env.pop("XLA_FLAGS", None)
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", script,
+             json.dumps(dict(kw, out=out))],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            env=env))
+    logs, failed = [], []
+    for r, p in enumerate(procs):
+        try:
+            log, _ = p.communicate(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+            log = p.communicate()[0]
+            failed.append(f"rank {r} timed out after {timeout} s")
+        logs.append(log)
+        if p.returncode:
+            failed.append(f"rank {r} exited {p.returncode}")
+    assert not failed, f"{failed}\n" + "\n".join(
+        f"--- rank {r} ---\n{log[-3000:]}" for r, log in enumerate(logs))
+    return [dict(np.load(os.path.join(out, f"rank{r}.npz")))
+            for r in range(n)]
+
+
+def run(worker: str, kw: dict) -> None:
+    import torch
+    from repro_torch.launch import mesh
+    torch.set_num_threads(1)
+    world = mesh.init_rank_world(kw.pop("data"), kw.pop("pod", None),
+                                 device_type="cpu",
+                                 init_method=os.environ["REPRO_TEST_INIT"])
+    try:
+        results = WORKERS[worker](world, **kw)
+        np.savez(os.path.join(kw["out"], f"rank{world.rank}.npz"), **results)
+    finally:
+        mesh.shutdown()
+
+
+# ---------------------------------------------------------------------------
+# Workers
+# ---------------------------------------------------------------------------
+
+def tree_inputs(leaves: dict, bf16, P: int, seed: int = 0):
+    """The global ``(P, ...)`` float32 arrays of a test tree; leaves named
+    in ``bf16`` are bfloat16 in the torch tree."""
+    rng = np.random.default_rng(seed)
+    return {k: rng.standard_normal((P,) + tuple(shape)).astype(np.float32)
+            for k, shape in leaves.items()}
+
+
+def torch_tree(arrs: dict, bf16, rows=slice(None)):
+    import torch
+    return {k: torch.from_numpy(a[rows]).to(
+        torch.bfloat16 if k in bf16 else torch.float32)
+        for k, a in arrs.items()}
+
+
+def _save_tree(results: dict, prefix: str, tree) -> None:
+    for k, v in tree.items():
+        results[f"{prefix}/{k}"] = v.float().numpy()
+
+
+def plan_worker(world, out, leaves, bf16, variants, group_sizes,
+                hierarchical=False):
+    """This rank's row of ``tree_inputs`` through every plan variant on
+    every phase offset (``average``), ``sync`` and the wire's ``pmean``,
+    and through each baseline's ``comm`` on each phase and its ``sync``."""
+    import torch
+    from repro_torch.core import baselines
+    from repro_torch.core import plan as plan_mod
+    from repro_torch.core import tree as tr
+    arrs = tree_inputs(leaves, bf16, world.P)
+    rows = slice(world.rank, world.rank + 1)
+    tree = torch_tree(arrs, bf16, rows)
+    topo = (plan_mod.Topology.hierarchical(world.axis_names,
+                                           world.axis_sizes)
+            if hierarchical else
+            plan_mod.Topology.flat(world.axis_names, world.axis_sizes))
+    res = {}
+    for S in group_sizes:
+        for name, cfg_kw in variants.items():
+            cfg = plan_mod.AveragingConfig(group_size=S, **cfg_kw)
+            plan = plan_mod.compile_plan(topo, tr.struct(tree, drop=1), cfg,
+                                         world=world)
+            for off in plan.offsets:
+                _save_tree(res, f"avg/{S}/{name}/{off}",
+                           plan.average_offset(tree, off))
+            _save_tree(res, f"sync/{S}/{name}", plan.sync(tree))
+    res["pmean"] = plan_mod.wire_for(world).pmean_rows(
+        tree["w"].float()).numpy()
+    for name in baselines.BASELINES:
+        av = baselines.make_averager(name, world.axis_names,
+                                     world.axis_sizes, topology=topo,
+                                     world=world)
+        for phase in range(av.n_phases):
+            _save_tree(res, f"{name}/comm/{phase}", av.comm(tree, phase))
+        _save_tree(res, f"{name}/sync", av.sync(tree))
+    return res
+
+
+def trainer_worker(world, out, arch, init, trainer_kw, steps,
+                   pod_dcn=False, dtype="float32"):
+    """The port's ``Trainer`` on this rank, warm-started from the
+    checkpoint ``init`` (the ``(P, ...)`` state), for ``steps`` steps
+    (``pod_dcn``: on the hierarchical topology); rank 0 writes the
+    gathered final state to ``out/gathered``."""
+    from repro_torch.checkpoint import load_replica_state
+    from repro_torch.configs import get_config
+    from repro_torch.core.plan import Topology
+    from repro_torch.launch.train import Trainer
+    cfg = get_config(arch, smoke=True).variant(dtype=dtype)
+    data, pod = world_axes(world)
+    state = load_replica_state(init, state_template(cfg, world.P,
+                                                    trainer_kw))
+    topology = (Topology.hierarchical(world.axis_names, world.axis_sizes)
+                if pod_dcn else None)
+    trainer = Trainer(cfg, data, pod_axis=pod, world=world,
+                      init_state=state, topology=topology, **trainer_kw)
+    losses = [trainer.step_once(t) for t in range(steps)]
+    trainer.save_checkpoint(os.path.join(out, "gathered"))
+    return {"losses": np.asarray(losses),
+            "skipped": np.asarray(trainer.skipped_nonfinite),
+            "step_phase": np.asarray([trainer.state.step,
+                                      trainer.state.phase])}
+
+
+def world_axes(world):
+    """(data, pod) sizes of a rank world's dp axes."""
+    sizes = dict(zip(world.axis_names, world.axis_sizes))
+    return sizes["data"], sizes.get("pod")
+
+
+def state_template(cfg, P: int, trainer_kw: dict):
+    """A ``(P, ...)`` ReplicaState of Specs for ``cfg`` and the run's
+    optimiser (SGD unless ``trainer_kw`` names adamw)."""
+    import torch
+    from repro_torch.core import tree as tr
+    from repro_torch.core.replica import ReplicaState
+    from repro_torch.models.convert import PARAM_SPECS
+    from repro_torch.optim.adamw import AdamWState
+    from repro_torch.optim.sgd import SGDState
+    specs = PARAM_SPECS[cfg.family](cfg)
+    params = tr.tree_map(lambda s: tr.Spec((P,) + s.shape, s.dtype), specs)
+    f32 = tr.tree_map(lambda s: tr.Spec(s.shape, torch.float32), params)
+    count = tr.Spec((P,), torch.int32)
+    opt = (AdamWState(f32, f32, count)
+           if trainer_kw.get("optimizer") == "adamw" else SGDState(f32, count))
+    return ReplicaState(params, opt)
+
+
+WORKERS = {"plan": plan_worker, "trainer": trainer_worker}

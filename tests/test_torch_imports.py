@@ -478,3 +478,79 @@ def test_chip_smoke_moe_phase_at_smoke_size_on_cpu(arch):
     assert {c + ("bfloat16",) for c in (smoke.KIMI_ATTN,
                                          smoke.LLAMA4_ATTN)} \
         <= smoke.FAULT_SHAPES
+
+
+def test_chip_smoke_ranks_phase_at_smoke_size_on_cpu(tmp_path):
+    """chip_smoke's ranks phase rehearsed on the CPU at smoke size: four
+    gloo ranks under torchrun, 6 steps (both offsets and a sync); checks
+    (b)-(e) hold (the wire average equals the stacked plan's on both
+    offsets, the checkpoint reloads to the gathered state, the stacked
+    twin ends bit-identical after moving the params), and no kernel
+    launches off the card, so check (a) refuses the CPU run."""
+    import pytest
+
+    smoke = _chip_smoke()
+    spec = smoke.ranks_spec(device="cpu", smoke=True, n_layers=None,
+                            seq_len=16, global_batch=8, steps=6)
+    stats = smoke.ranks_phase(spec, tmp_path / "ranks", timeout=240)
+    assert stats["stacked_equals_wire"] == {"0": True, "1": True}
+    assert [e["sync"] for e in stats["ranks"][0]["log"]] == \
+        [False] * 4 + [True, False]
+    assert [r["rank"] for r in stats["ranks"]] == [0, 1, 2, 3]
+    e = stats["check_e"]
+    assert e["max_loss_rel_diff"] <= smoke.RANKS_LOSS_RTOL
+    assert e["params_bit_identical"] and e["differing_elements"] == 0
+    assert e["elements"] > 0 and e["max_param_change"] > 0
+    s = stats["summary"]
+    assert s["wire_bytes_a_group_step"] > 0
+    assert s["device_idle_share"] is None        # no card, no device time
+    assert not (tmp_path / "ranks" / "ckpt").exists()
+    with pytest.raises(AssertionError, match="K1, K2, K3, K4"):
+        smoke.check_ranks_launches(stats)
+
+
+def test_chip_smoke_ranks_check_e_fails_on_a_skipped_average(tmp_path,
+                                                             monkeypatch):
+    """Check (e) can fail: a stacked twin in which one replica skips one
+    group average (row 1 at step 2) parts from the correct ranks, and the
+    phase fails on (e)."""
+    import pytest
+
+    smoke = _chip_smoke()
+    make = smoke.ranks_trainer
+
+    def faulty_twin(spec, world=None):
+        trainer = make(spec, world)
+        comm, calls = trainer.averager.comm, []
+
+        def skip_row_1(tree, phase):
+            calls.append(phase)
+            own = [a[1].clone() for a in tr.tree_leaves(tree)]
+            out = comm(tree, phase)
+            if len(calls) == 3:             # step 2: row 1 keeps its own
+                for a, b in zip(tr.tree_leaves(out), own):
+                    a[1].copy_(b)
+            return out
+        trainer.averager.comm = skip_row_1
+        return trainer
+
+    from repro_torch.core import tree as tr
+    monkeypatch.setattr(smoke, "ranks_trainer", faulty_twin)
+    spec = smoke.ranks_spec(device="cpu", smoke=True, n_layers=None,
+                            seq_len=16, global_batch=8, steps=6)
+    with pytest.raises(AssertionError, match="check \\(e\\)"):
+        smoke.ranks_phase(spec, tmp_path / "ranks", timeout=240)
+
+
+def test_chip_smoke_ranks_phase_fails_when_a_rank_fails(tmp_path):
+    """Ranks asked for a card on a machine without one raise (none carries
+    on on the CPU), and torchrun's failure fails the phase."""
+    import pytest
+
+    smoke = _chip_smoke()
+    spec = smoke.ranks_spec(device="cuda", smoke=True, n_layers=None,
+                            seq_len=16, global_batch=8, steps=1)
+    if _has_cuda():
+        return
+    with pytest.raises(AssertionError, match="no CUDA device"):
+        smoke.ranks_phase(spec, tmp_path / "ranks", timeout=240)

@@ -246,8 +246,10 @@ def test_cli_trains_at_smoke_size_and_names_missing_slices():
                "16")
     assert out.returncode == 0, out.stderr
     assert "final loss" in out.stdout
+    # --pod-axis and --pod-dcn train since slice 4a (tests/
+    # test_torch_train_ranks.py); expert parallelism is slice 4b
     for flags, slice_name in ((("--sharding", "fsdp"), "FSDP slice"),
-                              (("--pod-axis", "2"), "across ranks"),
-                              (("--pod-dcn",), "across ranks")):
+                              (("--model-axis", "2"), "slice 4b"),
+                              (("--multi-pod",), "--pod-axis")):
         out = _cli("--smoke", "--data-axis", "8", "--steps", "1", *flags)
         assert out.returncode != 0 and slice_name in out.stderr, flags
