@@ -54,6 +54,19 @@
    finishes with in-vocab tokens, and, for 2 requests, that the first token
    and the first paged decode step's logits match the dense uncontended
    serving path.  Two profiler windows.
+   Handoff phase (slice 8), (a), (b) and (d): the same model and requests
+   through ``DisaggregatedScheduler``, the prefill worker on its own copy
+   of the weights, each request's KV blocks staged through pinned host
+   memory and the ``LinkCostedConnector``'s in-process wire into the
+   decode pool (``handoff_phase``).  Checks (a) every request's tokens
+   equal the colocated run's, K3 once a layer a prefill and K1/K2/K4
+   never, one insert a prefill and ``kv_payload_bytes`` of each prefill's
+   ``ceil((prompt + 1) / 16)`` blocks; (d) one request served through a
+   wire that flips the top exponent bit of its first V element must fail
+   (a).  Prints (b): bytes a prefill, the device-to-host, connector and
+   host-to-device host-clock ms, TTFT against the colocated run, and the
+   transfer time modeled on the DCN link class (a model, not this
+   machine).
 6. Training phase: the port's ``Trainer`` runs the WAGMA step on
    tinyllama-1.1b at full width cut to 6 layers, bf16, 8 replicas as rows
    of one state, group size 4, tau 5, SGD with momentum 0.9, seq 512,
@@ -66,6 +79,11 @@
    bit-identical to the plan's per-leaf path; (d) every loss is finite and
    no update is skipped.  Prints losses, step time, tokens/s, the host
    split, peak memory and a profiler window over one group step.
+   Handoff check (c) on this run: right after the tau-sync at t = 9,
+   ``Trainer.consolidated()`` must be row 0 of every leaf bit for bit;
+   after the profiled step (rows apart by group) the consolidated weights
+   serve the first 4 requests at 6 layers through both schedulers with
+   equal tokens, each run's first decode step within 5% of the dense path.
    Ranks phase (``ranks_phase``): the same model and step with one replica
    a rank: 4 ranks started by ``torch.distributed.run`` (this script with
    ``--ranks-worker``), gloo, all on the one card (the kernels built
@@ -123,8 +141,9 @@
    generator).  (1) Training: the port's ``Trainer`` with 16 replicas as
    rows of one state, SGD momentum 0.9, lr 0.1, target seq 256 over 64
    source tokens, global batch 64, under each of the paper's seven
-   averagers: 12 steps of ``wagma`` at S 4 and tau 10 and of
-   ``local_sgd`` syncing every 10; the steps check (b) needs of the others
+   averagers: 10 steps of ``wagma`` at S 4 and tau 10 and of
+   ``local_sgd`` syncing every 10 (both offsets and the sync at t = 9);
+   the steps check (b) needs of the others
    (``allreduce`` and ``eager_sgd`` 3, ``dpsgd`` 2, ``sgp`` and ``adpsgd``
    5, one a phase and one more, ``paper_steps``).  Checks (a) WAGMA's
    group steps launch the K1/K2 the schedule predicts, every sync and
@@ -178,6 +197,7 @@
    ``forward`` to 2e-3, drop-free; (d) finite logits, in-vocab tokens.
    Two profiler windows each; memory freed between the two models.
 12. Prints a ``kernels`` JSON line (K3 once a serving path: tinyllama,
+   its launches by path (colocated, disaggregated, the trained state's),
    recurrentgemma's hd 256, transformer-wmt's and whisper-medium's encoder
    shapes with their launches and times by role, internvl2-2b's hd-128
    prefill, llama4-maverick's hd-128 and kimi-k2's hd-112 prefill; K4
@@ -385,6 +405,13 @@ CHECKED_REQUESTS = (0, 1)
 # 22 layers.  Held to 5% of the largest reference logit.
 LOGIT_RTOL = 0.05
 
+# handoff phase (slice 8): the serving phase's model and requests through
+# DisaggregatedScheduler, the prefill worker on its own weight copy; check
+# (c) consolidates the training phase's state right after its tau-sync at
+# step HANDOFF_SYNC_STEP, and serves its consolidated weights at the end on
+# the first HANDOFF_REQUESTS requests
+HANDOFF_SYNC_STEP, HANDOFF_REQUESTS = 9, 4
+
 # recurrentgemma phase: batch, prompt length (past the 2048 window, not a
 # multiple of 64), new tokens; the float32 check's prompt and decode steps,
 # held to the JAX package's test_decode_matches_forward tolerance
@@ -412,7 +439,7 @@ PAPER_ARCH = "transformer-wmt"
 PAPER_AVERAGERS = ("wagma", "allreduce", "local_sgd", "dpsgd", "sgp",
                    "adpsgd", "eager_sgd")
 PAPER_P, PAPER_S, PAPER_TAU = 16, 4, 10
-PAPER_SEQ, PAPER_GB, PAPER_STEPS, PAPER_LR = 256, 64, 12, 0.1
+PAPER_SEQ, PAPER_GB, PAPER_STEPS, PAPER_LR = 256, 64, 10, 0.1
 PAPER_PROFILED = ("wagma", "allreduce")
 # the gossip baselines, whose card mix is held to the CPU's, bit for bit
 GOSSIP = ("dpsgd", "sgp", "adpsgd")
@@ -1065,9 +1092,10 @@ def fused_equals_per_leaf(ref_plan, out, tree, offset: int) -> bool:
 def train_phase(cfg, device="cuda", steps: int = TRAIN_STEPS,
                 seq_len: int = TRAIN_SEQ, global_batch: int = TRAIN_GB,
                 topology=None, replicas: int = TRAIN_P,
-                group_size: int = TRAIN_S):
+                group_size: int = TRAIN_S, on_step=None):
     """Drive the port's ``Trainer`` for ``steps`` steps with checks (b),
-    (c) and (d); returns the run's numbers, the per-step launch counts for
+    (c) and (d), calling ``on_step(t, trainer)`` after each step (outside
+    its timing); returns the run's numbers, the per-step launch counts for
     check (a) and the trainer (for the profile window)."""
     import torch
     from repro_torch.core import grouping
@@ -1148,6 +1176,8 @@ def train_phase(cfg, device="cuda", steps: int = TRAIN_STEPS,
             # the first step also runs check (c)'s per-leaf average
             peak_first = torch.cuda.max_memory_allocated()
             torch.cuda.reset_peak_memory_stats()
+        if on_step is not None:
+            on_step(t, trainer)
     train_step.value_and_grad = value_and_grad
     launches = ops.launch_counts()
     peak_rest = torch.cuda.max_memory_allocated() if on_card else None
@@ -2007,22 +2037,27 @@ def load_model(cfg, device="cuda", seed: int = 0):
     return model, params, time.perf_counter() - t0
 
 
-def serve_phase(model, params, device="cuda", seed: int = 0):
-    """Serve the ragged request set through ``ServeScheduler`` and check it
-    against the dense path; returns the run's numbers."""
+def serve_phase(model, params, device="cuda", seed: int = 0,
+                n_requests: int = N_REQUESTS, sched_cls=None, **sched_kw):
+    """Serve the first ``n_requests`` of the ragged request set through
+    ``sched_cls`` (``ServeScheduler``, or ``DisaggregatedScheduler`` with
+    ``sched_kw``) and check it against the dense path; returns the run's
+    numbers, with its tokens and, for a disaggregated run, its transfer
+    numbers."""
     import torch
     from repro_torch.kernels import ops
-    from repro_torch.serve import (Request, ServeScheduler, build_prefill,
+    from repro_torch.serve import (DisaggregatedScheduler, Request,
+                                   ServeScheduler, build_prefill,
                                    build_serve_step)
 
     cfg = model.cfg
-    prompts = make_requests(cfg, seed)
+    prompts = make_requests(cfg, seed)[:n_requests]
     n_blocks = 1 + SPARE_BLOCKS + sum(
         -(-(len(p) + 1) // BLOCK_SIZE) for p in prompts)
-    sched = ServeScheduler(model, params, n_blocks=n_blocks,
-                           block_size=BLOCK_SIZE,
-                           max_blocks_per_req=MAX_BLOCKS_PER_REQ,
-                           max_batch=MAX_BATCH)
+    sched = (sched_cls or ServeScheduler)(
+        model, params, n_blocks=n_blocks, block_size=BLOCK_SIZE,
+        max_blocks_per_req=MAX_BLOCKS_PER_REQ, max_batch=MAX_BATCH,
+        **sched_kw)
 
     prefill_log, decode_log, first_step = [], [], {}
     inner_prefill, inner_decode = sched._do_prefill, sched._decode
@@ -2061,7 +2096,7 @@ def serve_phase(model, params, device="cuda", seed: int = 0):
     wall_s = time.perf_counter() - run_start
     launches = ops.launch_counts()
 
-    if sorted(outs) != list(range(N_REQUESTS)):
+    if sorted(outs) != list(range(n_requests)):
         raise AssertionError(f"unfinished requests: {sorted(outs)}")
     for rid, toks in outs.items():
         if len(toks) != MAX_NEW or not all(0 <= t < cfg.vocab for t in toks):
@@ -2109,6 +2144,13 @@ def serve_phase(model, params, device="cuda", seed: int = 0):
     by_bucket = {}
     for n_pad, t in decode_log:
         by_bucket.setdefault(n_pad, []).append(t * 1e3)
+    transfer = None
+    if isinstance(sched, DisaggregatedScheduler):
+        conn = sched.connector
+        transfer = dict(dataclasses.asdict(conn.stats), **sched.staging,
+                        link=dataclasses.asdict(conn.link),
+                        bytes_sent=conn.transport.bytes_sent,
+                        messages_sent=conn.transport.messages_sent)
     return {
         "arch": cfg.name, "dtype": cfg.dtype, "n_layers": cfg.n_layers,
         "d_model": cfg.d_model, "wall_s": wall_s,
@@ -2122,12 +2164,14 @@ def serve_phase(model, params, device="cuda", seed: int = 0):
         "prefill_tokens": prefill_tokens,
         "prefill_tok_per_s": prefill_tokens / prefill_s,
         "prefill_ms": [(rid, n, t * 1e3) for rid, n, t, _ in prefill_log],
-        "ttft_s": [ttft[rid] for rid in range(N_REQUESTS)],
+        "ttft_s": [ttft[rid] for rid in range(n_requests)],
         "decode_ms_per_step": {str(k): float(np.mean(v))
                                for k, v in sorted(by_bucket.items())},
         "decode_steps_per_bucket": {str(k): len(v)
                                     for k, v in sorted(by_bucket.items())},
         "checks": checks,
+        "tokens": [outs[rid] for rid in range(n_requests)],
+        "transfer": transfer,
     }
 
 
@@ -2160,6 +2204,236 @@ def profile_phase(model, params, device="cuda", seed: int = 0,
             wall_ms = (time.perf_counter() - t) * 1e3
         windows[name] = _window(prof, wall_ms)
     return windows
+
+
+def check_serving_launches(stats, n_layers: int):
+    """Check (a) of a paged serving run: K3 once a layer a prefill, K1,
+    K2 and K4 never."""
+    served = stats["launches"]
+    want = n_layers * stats["n_prefills"]
+    if served[K3] != want or served[K1] or served[K2] or served[K4]:
+        raise AssertionError(f"kernels launched on the serving path "
+                             f"{served}; expected K3 {n_layers} layers x "
+                             f"{stats['n_prefills']} prefills = {want}")
+
+
+def check_disaggregated(want_tokens, got_tokens, transfer, prefill_lens,
+                        cfg):
+    """Handoff check (a): the disaggregated run's tokens equal the
+    colocated run's for every request; the connector took one insert a
+    prefill (a preempted request ships again) and shipped each prefill's
+    ``ceil((prompt_len + 1) / BLOCK_SIZE)`` blocks, ``kv_payload_bytes``
+    of one block each."""
+    from repro_torch.serve.kv_transfer import kv_payload_bytes
+    differ = [rid for rid, (a, b) in enumerate(zip(want_tokens, got_tokens))
+              if a != b]
+    if differ or len(want_tokens) != len(got_tokens):
+        raise AssertionError(f"check (a): disaggregated tokens differ from "
+                             f"the colocated ones for requests {differ}")
+    blocks = sum(-(-(n + 1) // BLOCK_SIZE) for n in prefill_lens)
+    want = {"requests": len(prefill_lens), "blocks": blocks,
+            "payload_bytes": blocks * kv_payload_bytes(cfg, BLOCK_SIZE)}
+    got = {k: transfer[k] for k in want}
+    if got != want:
+        raise AssertionError(f"check (a): the connector counted {got}, "
+                             f"the prefills need {want}")
+
+
+def bit_flip_transport(at: int, bit: int):
+    """The in-process wire with one planted fault (check (d)): bit ``bit``
+    of element ``at`` of the payload, counted across the messages in
+    order, flipped in the first send."""
+    import torch
+    from repro_torch.serve import InProcessTransport
+
+    class BitFlip(InProcessTransport):
+        def send(self, rid, messages):
+            out = super().send(rid, messages)
+            if self.messages_sent == len(out):          # the first send
+                i = at
+                for m in out:
+                    if i < m.numel():
+                        ints = m.view({2: torch.int16,
+                                       4: torch.int32}[m.element_size()])
+                        ints[i] ^= 1 << bit
+                        break
+                    i -= m.numel()
+            return out
+
+    return BitFlip()
+
+
+def first_v_element(cfg, n_ship: int, connector) -> int:
+    """Where the connector packs the first V element (layer 0, block 0,
+    position 0, KV head 0, dim 0) of a request's ``n_ship`` blocks: its
+    index in the payload, counted across the messages in order.  Every
+    later decode step of every layer-0 query attends to it."""
+    from repro_torch.core import bucketing
+    from repro_torch.core import tree as tr
+    from repro_torch.models.transformer import torch_dtype
+    spec = tr.Spec((cfg.n_layers, n_ship, BLOCK_SIZE, cfg.n_kv_heads,
+                    cfg.hd), torch_dtype(cfg))
+    tree = {"global": {"k": spec, "v": spec}}
+    layout = bucketing.layout_for(tree, max_bucket_bytes=connector.budget_for(
+        bucketing.tree_payload_bytes(tree)))
+    slot = layout.slots[1]
+    return sum(layout.bucket_sizes[:slot.bucket]) + slot.offset
+
+
+def serve_tokens(model, params, prompts, sched_cls=None, **sched_kw):
+    """Tokens of ``prompts`` served alone through ``sched_cls`` (a pool
+    that holds them all at full length: no preemption)."""
+    from repro_torch.serve import Request, ServeScheduler
+    sched = (sched_cls or ServeScheduler)(
+        model, params, n_blocks=1 + len(prompts) * MAX_BLOCKS_PER_REQ,
+        block_size=BLOCK_SIZE, max_blocks_per_req=MAX_BLOCKS_PER_REQ,
+        max_batch=MAX_BATCH, **sched_kw)
+    for i, p in enumerate(prompts):
+        sched.submit(Request(i, p, MAX_NEW))
+    outs = sched.run()
+    return [outs[i] for i in range(len(prompts))], sched
+
+
+def planted_fault(model, params, prefill_params, seed: int = 0):
+    """Check (d): one request served colocated and disaggregated with a
+    wire that flips the top exponent bit of its first V element must fail
+    check (a).  Returns what (a) said."""
+    from repro_torch.serve import DisaggregatedScheduler, LinkCostedConnector
+    from repro_torch.models.transformer import torch_dtype
+    cfg = model.cfg
+    prompt = make_requests(cfg, seed)[0]
+    want, _ = serve_tokens(model, params, [prompt])
+    probe = LinkCostedConnector()
+    at = first_v_element(cfg, -(-(len(prompt) + 1) // BLOCK_SIZE), probe)
+    bit = 8 * torch_dtype(cfg).itemsize - 2
+    conn = LinkCostedConnector(transport=bit_flip_transport(at, bit))
+    got, sched = serve_tokens(model, params, [prompt],
+                              DisaggregatedScheduler,
+                              prefill_params=prefill_params, connector=conn)
+    try:
+        check_disaggregated(want, got, dataclasses.asdict(conn.stats),
+                            [len(prompt)], cfg)
+    except AssertionError as e:
+        return {"prompt_len": len(prompt), "element": at, "bit": bit,
+                "error": str(e), "tokens_differ_from": next(
+                    (i for i, (a, b) in enumerate(zip(want[0], got[0]))
+                     if a != b), None)}
+    raise AssertionError("check (d): a wire that flipped one bit passed "
+                         "check (a)")
+
+
+def handoff_phase(model, params, colocated, device="cuda", seed: int = 0):
+    """Checks (a) and (d) of the handoff phase on the serving phase's model
+    and requests: ``DisaggregatedScheduler`` with the prefill worker's own
+    weight copy against the colocated run ``colocated`` (``serve_phase``'s
+    numbers), then the colocated run again (its TTFT is (b)'s yardstick:
+    the first run also pays the card's warm-up).  Returns the
+    disaggregated run's numbers (with (b)'s transfer numbers), the second
+    colocated run's and (d)'s."""
+    from repro_torch.core import tree as tr
+    from repro_torch.serve import DisaggregatedScheduler
+    import torch
+    prefill_params = tr.tree_map(torch.clone, params)
+    run = serve_phase(model, params, device, seed,
+                      sched_cls=DisaggregatedScheduler,
+                      prefill_params=prefill_params)
+    again = serve_phase(model, params, device, seed)
+    for want in (colocated, again):
+        check_disaggregated(want["tokens"], run["tokens"], run["transfer"],
+                            [n for _, n, _ in run["prefill_ms"]], model.cfg)
+    fault = planted_fault(model, params, prefill_params, seed)
+    return run, again, fault
+
+
+def print_handoff(colo, colo_again, run, fault, card):
+    """Checks (a) and (d) and the staging numbers (b) of the handoff
+    phase; TTFT against the colocated runs before and after the
+    disaggregated one."""
+    t = run["transfer"]
+    n = t["requests"]
+    rate = lambda s: t["payload_bytes"] / s / 1e9 if s else float("nan")
+    link = t["link"]
+    print(f"handoff (a) [{card}]: {run['arch']} {run['n_layers']} layers "
+          f"{run['dtype']}: disaggregated tokens == colocated for all "
+          f"{len(run['tokens'])} requests; {run['n_prefills']} prefills "
+          f"({run['evictions']} evictions), K3 {run['launches'][K3]} "
+          f"launches; {t['blocks']} blocks, {t['payload_bytes']} bytes in "
+          f"{t['messages']} messages ({t['bytes_sent']} bytes on the wire)",
+          flush=True)
+    print(f"handoff (b) [{card}]: {t['payload_bytes'] / n:.0f} bytes a "
+          f"prefill; host clock with synchronize over the {n} prefills: "
+          f"device to host {t['d2h_s'] * 1e3:.3f} ms "
+          f"({rate(t['d2h_s']):.2f} GB/s), connector (pack, transport "
+          f"copy, unpack) {t['connector_s'] * 1e3:.3f} ms "
+          f"({rate(t['connector_s']):.2f} GB/s), host to device "
+          f"{t['h2d_s'] * 1e3:.3f} ms ({rate(t['h2d_s']):.2f} GB/s)",
+          flush=True)
+    for name, r in (("colocated (first)", colo), ("disaggregated", run),
+                    ("colocated (after)", colo_again)):
+        print(f"handoff (b) [{card}]: {name}: TTFT max "
+              f"{max(r['ttft_s']):.4f} s mean "
+              f"{statistics.mean(r['ttft_s']):.4f} s, prefill "
+              f"{r['prefill_tok_per_s']:.0f} tok/s, wall {r['wall_s']:.3f} "
+              f"s", flush=True)
+    print(f"handoff (b): modeled on the {link['name']} class (alpha "
+          f"{link['alpha']:.1e} s a message, {1 / link['beta'] / 1e9:.0f} "
+          f"GB/s: the JAX package's model constants, not a time of this "
+          f"machine): {t['modeled_seconds'] * 1e3:.3f} ms for the {n} "
+          f"transfers", flush=True)
+    print(f"handoff (d) [{card}]: bit {fault['bit']} of payload element "
+          f"{fault['element']} (request 0's first V element, prompt "
+          f"{fault['prompt_len']} tokens) flipped on the wire: check (a) "
+          f"failed as it must (tokens apart from position "
+          f"{fault['tokens_differ_from']}): {fault['error']}", flush=True)
+
+
+def check_post_sync_consolidation(trainer, t: int) -> dict:
+    """Check (c), first half: right after the tau-sync of step ``t`` every
+    replica row is the same, and ``Trainer.consolidated()`` must be row 0
+    of every leaf bit for bit."""
+    import torch
+    from repro_torch.core import tree as tr
+    if not trainer.averager.sync_due(t):
+        raise AssertionError(f"step {t} is not a sync step")
+    t0 = time.perf_counter()
+    cons = trainer.consolidated()
+    _sync(trainer.device)
+    seconds = time.perf_counter() - t0
+    rows = tr.tree_leaves(trainer.state.params)
+    bad = [i for i, (c, a) in enumerate(zip(tr.tree_leaves(cons), rows))
+           if c.dtype != a.dtype or not torch.equal(c, a[0])]
+    if bad:
+        raise AssertionError(f"check (c): the consolidation after the sync "
+                             f"at step {t} differs from row 0 in leaves "
+                             f"{bad}")
+    return {"step": t, "leaves": len(rows), "consolidate_s": seconds,
+            "elements": sum(c.numel() for c in tr.tree_leaves(cons))}
+
+
+def trained_serving(trainer, device="cuda", seed: int = 0,
+                    n_requests: int = HANDOFF_REQUESTS) -> dict:
+    """Check (c), second half: the trainer's consolidated weights, where
+    the replica rows differ by group, served at the trained depth through
+    both schedulers on ``n_requests`` requests (each run's first decode
+    step held to the dense path within ``LOGIT_RTOL``, ``serve_phase``):
+    the same tokens, the disaggregated run's transfer as check (a)."""
+    import torch
+    from repro_torch.core import tree as tr
+    from repro_torch.serve import DisaggregatedScheduler
+    rows = tr.tree_leaves(trainer.state.params)
+    if all(torch.equal(a[0], a[-1]) for a in rows):
+        raise AssertionError("check (c): the replica rows do not differ")
+    weights = trainer.consolidated()
+    colo = serve_phase(trainer.model, weights, device, seed,
+                       n_requests=n_requests)
+    disagg = serve_phase(trainer.model, weights, device, seed,
+                         n_requests=n_requests,
+                         sched_cls=DisaggregatedScheduler,
+                         prefill_params=tr.tree_map(torch.clone, weights))
+    check_disaggregated(colo["tokens"], disagg["tokens"], disagg["transfer"],
+                        [n for _, n, _ in disagg["prefill_ms"]],
+                        trainer.model.cfg)
+    return {"colocated": colo, "disaggregated": disagg}
 
 
 def _masked_argmax(logits, vocab: int):
@@ -2759,13 +3033,8 @@ def main() -> int:
     print(f"weights: {cfg.name} initialised on the card in {init_s:.2f} s",
           flush=True)
     stats = serve_phase(model, params)
-    n_sb = cfg.n_layers
-    want = n_sb * stats["n_prefills"]
+    check_serving_launches(stats, cfg.n_layers)
     served = stats["launches"]
-    if served[K3] != want or served[K1] or served[K2] or served[K4]:
-        raise AssertionError(f"kernels launched on the serving path "
-                             f"{served}; expected K3 {n_sb} layers x "
-                             f"{stats['n_prefills']} prefills = {want}")
     print(json.dumps({"slice": stats, "card": card}), flush=True)
     print(f"slice [{card}]: {cfg.name} full width bf16, "
           f"{stats['n_prefills']} prefills ({stats['evictions']} evictions), "
@@ -2776,15 +3045,55 @@ def main() -> int:
     for name, w in windows.items():
         _print_window(name, w, card)
     print(json.dumps({"profile": windows, "card": card}), flush=True)
-    del model, params
-    free_memory("tinyllama serving")
 
-    # -- training phase (K1, K2) --------------------------------------------
+    # -- handoff phase (a), (b), (d): the same model and requests served
+    # disaggregated, the KV blocks through the host (K3) ------------------
+    t_handoff = time.perf_counter()
+    disagg, colo_again, fault = handoff_phase(model, params, stats)
+    check_serving_launches(disagg, cfg.n_layers)                # check (a)
+    handoff_s = time.perf_counter() - t_handoff
+    print(json.dumps({"handoff": disagg, "colocated_again": colo_again,
+                      "planted_fault": fault, "card": card}), flush=True)
+    print_handoff(stats, colo_again, disagg, fault, card)
+    del model, params
+    free_memory("tinyllama serving and handoff")
+
+    # -- training phase (K1, K2); handoff check (c) on its state ----------
     tcfg = train_config()
-    train, trainer = train_phase(tcfg)
+    post_sync = {}
+
+    def consolidate_after_sync(t, trainer):
+        if t == HANDOFF_SYNC_STEP:
+            t0 = time.perf_counter()
+            post_sync.update(check_post_sync_consolidation(trainer, t))
+            post_sync["check_s"] = time.perf_counter() - t0
+
+    train, trainer = train_phase(tcfg, on_step=consolidate_after_sync)
     check_train_launches(train)
     window = train_profile(trainer, TRAIN_STEPS)
+    t_trained = time.perf_counter()
+    trained = trained_serving(trainer)
+    for run in trained.values():
+        check_serving_launches(run, tcfg.n_layers)            # check (c)
+    handoff_s += post_sync["check_s"] + time.perf_counter() - t_trained
     del trainer
+    print(json.dumps({"handoff_post_sync": post_sync,
+                      "handoff_trained": trained, "card": card}), flush=True)
+    dense = [(c["logits_max_abs_diff"], c["logits_max_abs"])
+             for run in trained.values() for c in run["checks"]]
+    print(f"handoff (c) [{card}]: consolidated right after the sync at step "
+          f"{post_sync['step']}: {post_sync['leaves']} leaves, "
+          f"{post_sync['elements']} elements, row 0 bit for bit, in "
+          f"{post_sync['consolidate_s'] * 1e3:.1f} ms; after step "
+          f"{TRAIN_STEPS} (rows apart by group) {tcfg.n_layers}-layer "
+          f"weights served on {HANDOFF_REQUESTS} requests: tokens equal "
+          f"through both schedulers; first decode logits vs dense (max abs "
+          f"diff, largest logit) {dense}, limit {LOGIT_RTOL} of the largest",
+          flush=True)
+    print(f"handoff phase {handoff_s:.1f} s: the disaggregated run, a "
+          f"second colocated run, (d)'s two runs, (c)'s consolidation "
+          f"and its two {tcfg.n_layers}-layer runs (the serving and "
+          f"training phases it reads not included)", flush=True)
     print(json.dumps({"train": train, "train_profile": window,
                       "card": card}), flush=True)
     print(f"train [{card}]: {tcfg.name} full width, {tcfg.n_layers} layers, "
@@ -2992,6 +3301,10 @@ def main() -> int:
     ranks_launches = {name: sum(e[key] for r in ranks["ranks"]
                                 for e in r["log"])
                       for name, key in ((K1, "k1"), (K2, "k2"), (K4, "k4"))}
+    tl_k3 = {f"{ARCH} serving": served[K3],
+             f"{ARCH} disaggregated": disagg["launches"][K3],
+             f"{ARCH} handoff of the trained state, {tcfg.n_layers} layers":
+             sum(r["launches"][K3] for r in trained.values())}
     by_path = lambda name, serving=0: {
         f"{ARCH} training": train["launches"][name],
         f"{ARCH} training, {RANKS_P} ranks": ranks_launches[name],
@@ -3034,10 +3347,12 @@ def main() -> int:
               launches_by_path=by_path(K2),
               ranks_row=ranks_row(ga_line["K2 ranks"])),
         entry(K3, "src/repro_torch/kernels/csrc/flash_attention.cu",
-              "src/repro/kernels/flash_attention.py:70", served[K3],
-              main_row, max(r["max_abs_err"] for r in rows),
+              "src/repro/kernels/flash_attention.py:70",
+              sum(tl_k3.values()), main_row,
+              max(r["max_abs_err"] for r in rows),
               bound_by=main_row["bound_by"], shape=main_row["shape"],
-              dtype=main_row["dtype"], path=f"{ARCH} serving"),
+              dtype=main_row["dtype"], launches_by_path=tl_k3,
+              path=f"{ARCH} serving, colocated and disaggregated"),
         entry(K3, "src/repro_torch/kernels/csrc/flash_attention.cu",
               "src/repro/kernels/flash_attention.py:70",
               k3_on(rg), rg_row,

@@ -51,8 +51,13 @@ in the order of the sum (pinned by tests).
 The baselines' single-round ``mix`` runs its collective half through the
 same wire; the combines are the averagers' own torch arithmetic in float32.
 
-Not here: the FSDP-within-pod paths (slice 7), measured link constants and
-the step-time models (ROADMAP.md).
+The serving KV transfer (``serve/kv_transfer.py``) prices its point-to-point
+sends with :func:`link_transfer_seconds` on a link class, optionally with
+the calibrated constants of ``LINK_CONSTANTS.json``
+(:meth:`Topology.with_measured`).
+
+Not here: the FSDP-within-pod paths (slice 7) and the step-time models
+(ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -61,6 +66,8 @@ from dataclasses import dataclass
 from functools import lru_cache
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
+import json
+import os
 import time
 
 import torch
@@ -106,6 +113,14 @@ DEFAULT_LINK = LinkClass("link")
 # layouts depend on them.  They describe no link of the port's hardware.
 ICI = LinkClass("ici", alpha=1e-6, beta=1.0 / 100e9)
 DCN = LinkClass("dcn", alpha=50e-6, beta=1.0 / 10e9)
+
+# The tracked calibration file at the repo root, the JAX package's one
+# location of measured link constants (read as data; nothing of that
+# package is imported).
+DEFAULT_LINK_CONSTANTS_PATH = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.dirname(os.path.abspath(__file__))))),
+    "LINK_CONSTANTS.json")
 
 
 @dataclass(frozen=True)
@@ -165,12 +180,46 @@ class Topology:
         ax, _ = grouping.split_bit_over_axes(bit, self.axis_sizes)
         return self.axis_class[ax]
 
+    def link_of_bit(self, bit: int) -> LinkClass:
+        return self.link_classes[self.class_of_bit(bit)]
+
     def axis_of_bit(self, bit: int) -> str:
         ax, _ = grouping.split_bit_over_axes(bit, self.axis_sizes)
         return self.axis_names[ax]
 
     def classes_in_use(self) -> Tuple[int, ...]:
         return tuple(sorted(set(self.axis_class)))
+
+    def with_measured(self, path: Optional[str] = None) -> "Topology":
+        """This topology with calibrated link constants loaded from disk.
+
+        ``path`` defaults to :data:`DEFAULT_LINK_CONSTANTS_PATH`.  Per mesh
+        axis the file holds a collective's launch latency ``alpha``, inverse
+        wire bandwidth ``beta`` and combine rate ``gamma``, and optionally
+        the all-gather's ``ag_alpha``/``ag_beta``.  Each link class takes
+        the slowest measurement among its axes, the slower of the ppermute
+        and all-gather numbers; classes with no measured axis keep their
+        constants, and a pinned ``bucket_bytes`` survives.
+        """
+        with open(path or DEFAULT_LINK_CONSTANTS_PATH) as f:
+            axes = json.load(f).get("axes", {})
+        new_classes = []
+        for ci, link in enumerate(self.link_classes):
+            ms = [axes[a] for a, c in zip(self.axis_names, self.axis_class)
+                  if c == ci and a in axes]
+            if not ms:
+                new_classes.append(link)
+                continue
+            new_classes.append(LinkClass(
+                link.name + "@measured",
+                alpha=max(max(float(m["alpha"]),
+                              float(m.get("ag_alpha", 0.0))) for m in ms),
+                beta=max(max(float(m["beta"]),
+                             float(m.get("ag_beta", 0.0))) for m in ms),
+                gamma=max(float(m.get("gamma", link.gamma)) for m in ms),
+                bucket_bytes=link.bucket_bytes))
+        return Topology(self.axis_names, self.axis_sizes,
+                        tuple(new_classes), self.axis_class)
 
     def bottleneck(self) -> LinkClass:
         """The slowest-wire class — what a global collective is bound by."""
@@ -426,6 +475,23 @@ def choose_class_bucket_bytes(
         if best_t is None or t < best_t:
             best, best_t = cand, t
     return best
+
+
+def link_transfer_seconds(payload_bytes: float, link: LinkClass, *,
+                          message_bytes: Optional[int] = None) -> float:
+    """Modeled seconds to move ``payload_bytes`` point-to-point on ``link``:
+    one ``alpha`` per message plus the wire time, the payload packed into
+    ``message_bytes``-sized messages (``None``: this link's non-overlapped
+    budget from :func:`choose_class_bucket_bytes`, as the KV transfer
+    packs).  A model of the link class, not a time of any machine."""
+    payload = max(int(payload_bytes), 0)
+    if payload == 0:
+        return 0.0
+    if message_bytes is None:
+        message_bytes = choose_class_bucket_bytes(payload, link,
+                                                  overlap=False)
+    n_messages = max(1, -(-payload // int(message_bytes)))
+    return n_messages * link.alpha + payload * link.beta
 
 
 # ---------------------------------------------------------------------------

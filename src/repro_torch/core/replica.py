@@ -10,6 +10,8 @@ On one card the replicas are the rows of those tensors; over a rank world
 
 ``ShardingPolicy.fsdp_within_pod`` (replicas inside a pod sharing sharded
 weights, DESIGN.md §10) belongs to the FSDP slice and raises here.
+:func:`consolidate_state` averages the replica axis into the one model a
+server loads (``serve/handoff.py``).
 """
 
 from __future__ import annotations
@@ -92,3 +94,20 @@ def map_opt_state(opt_state, fn_tree, fn_count):
                 else fn_tree(getattr(opt_state, f)))
             for f in opt_state._fields}
     return type(opt_state)(**vals)
+
+
+def consolidate_state(state: ReplicaState, plan=None):
+    """Average the replica axis -> the single post-training consensus model
+    (``checkpoint.ckpt.consolidate``: float32 mean, stored in each leaf's
+    dtype).  A plan with a sharded policy raises: consolidating FSDP shard
+    buffers belongs to the FSDP slice."""
+    from repro_torch.checkpoint.ckpt import consolidate
+    if plan is not None and plan.sharding.is_sharded:
+        raise NotImplementedError(
+            f"consolidating a {plan.sharding.describe()} state unpacks its "
+            f"shard buffers; that belongs to {FSDP_SLICE}")
+    if isinstance(state.params, tuple):
+        raise ValueError(
+            "consolidate_state got an FSDP (shard-buffer) state but no "
+            "sharded plan to unpack it through; pass the compiled plan")
+    return consolidate(state.params)

@@ -38,7 +38,8 @@ from repro_torch.configs.base import InputShape
 from repro_torch.core.baselines import AVERAGERS, make_averager
 from repro_torch.core.plan import Topology
 from repro_torch.core.replica import (FSDP_SLICE, REPLICATED, ReplicaState,
-                                      ShardingPolicy, map_opt_state)
+                                      ShardingPolicy, consolidate_state,
+                                      map_opt_state)
 from repro_torch.core import tree as tr
 from repro_torch.data import make_batch_fn
 from repro_torch.launch import mesh
@@ -205,6 +206,16 @@ class Trainer:
         if self.world is not None:
             torch.distributed.barrier()
         return state
+
+    def consolidated(self):
+        """The consensus params tree (the replicas' mean) a server loads:
+        on this run's device in one process; under torchrun rank 0
+        consolidates the gathered state on the host and the other ranks
+        get ``None``."""
+        if self.world is None:
+            return consolidate_state(self.state)
+        state = self.gathered_state()
+        return None if state is None else consolidate_state(state)
 
     def run(self, steps: int, log_every: int = 10, ckpt_dir=None,
             ckpt_every: int = 0):

@@ -14,7 +14,9 @@ views with one position per row, and scatters the newly written K/V back
 to ``(table[pos // bs], pos % bs)``.  Where the JAX package vmaps a B=1
 decode over the rows, this module writes the batch dimension out.
 :func:`build_paged_prefill` fills one request's blocks through the model's
-own ``prefill`` at the natural prompt length.
+own ``prefill`` at the natural prompt length.  :func:`extract_blocks` and
+:func:`insert_blocks` move a request's block rows out of and into a pool:
+the disaggregated scheduler (``serve/kv_transfer.py``) ships them.
 
 Block 0 is the null block: never allocated, owned by nobody.  Padding rows
 of a bucket-padded decode batch point their whole table at it, so their
@@ -230,3 +232,25 @@ def build_paged_prefill(model, *, block_size: int):
         return pool, first.to(tokens.dtype)
 
     return prefill
+
+
+def _on_pool(pool_leaf, table) -> torch.Tensor:
+    return torch.as_tensor(table, dtype=torch.int64, device=pool_leaf.device)
+
+
+def extract_blocks(pool, table):
+    """Host copies of the blocks in ``table``: leaves ``(n_sb, len(table),
+    block_size, KH, hd)`` in the pool's dtype."""
+    return {g: {n: p[:, _on_pool(p, table)].cpu() for n, p in leaves.items()}
+            for g, leaves in pool.items()}
+
+
+def insert_blocks(pool, table, blocks):
+    """Write shipped block rows (leaves ``(n_sb, len(table), block_size,
+    KH, hd)``, on any device) into the pool at ``table``, in the pool's
+    dtype, in place; returns the pool."""
+    for g, leaves in pool.items():
+        for n, p in leaves.items():
+            p[:, _on_pool(p, table)] = blocks[g][n].to(device=p.device,
+                                                       dtype=p.dtype)
+    return pool

@@ -132,12 +132,10 @@ def plan_worker(world, out, leaves, bf16, variants, group_sizes,
     return res
 
 
-def trainer_worker(world, out, arch, init, trainer_kw, steps,
-                   pod_dcn=False, dtype="float32"):
+def _rank_trainer(world, arch, init, trainer_kw, pod_dcn, dtype):
     """The port's ``Trainer`` on this rank, warm-started from the
-    checkpoint ``init`` (the ``(P, ...)`` state), for ``steps`` steps
-    (``pod_dcn``: on the hierarchical topology); rank 0 writes the
-    gathered final state to ``out/gathered``."""
+    checkpoint ``init`` (the ``(P, ...)`` state; ``pod_dcn``: on the
+    hierarchical topology)."""
     from repro_torch.checkpoint import load_replica_state
     from repro_torch.configs import get_config
     from repro_torch.core.plan import Topology
@@ -148,14 +146,47 @@ def trainer_worker(world, out, arch, init, trainer_kw, steps,
                                                     trainer_kw))
     topology = (Topology.hierarchical(world.axis_names, world.axis_sizes)
                 if pod_dcn else None)
-    trainer = Trainer(cfg, data, pod_axis=pod, world=world,
-                      init_state=state, topology=topology, **trainer_kw)
+    return Trainer(cfg, data, pod_axis=pod, world=world, init_state=state,
+                   topology=topology, **trainer_kw)
+
+
+def trainer_worker(world, out, arch, init, trainer_kw, steps,
+                   pod_dcn=False, dtype="float32"):
+    """:func:`_rank_trainer` for ``steps`` steps; rank 0 writes the
+    gathered final state to ``out/gathered``."""
+    trainer = _rank_trainer(world, arch, init, trainer_kw, pod_dcn, dtype)
     losses = [trainer.step_once(t) for t in range(steps)]
     trainer.save_checkpoint(os.path.join(out, "gathered"))
     return {"losses": np.asarray(losses),
             "skipped": np.asarray(trainer.skipped_nonfinite),
             "step_phase": np.asarray([trainer.state.step,
                                       trainer.state.phase])}
+
+
+def consolidated_worker(world, out, arch, init, trainer_kw, steps,
+                        pod_dcn=False, dtype="float32"):
+    """:func:`_rank_trainer` for ``steps`` steps, then
+    ``Trainer.consolidated()``: ``is_none`` and, where it is not None
+    (rank 0), its leaves as ``cons/<key path>``."""
+    trainer = _rank_trainer(world, arch, init, trainer_kw, pod_dcn, dtype)
+    for t in range(steps):
+        trainer.step_once(t)
+    cons = trainer.consolidated()
+    res = {"is_none": np.asarray(cons is None)}
+    if cons is not None:
+        _save_tree(res, "cons", flat_tree(cons))
+    return res
+
+
+def flat_tree(tree, prefix=""):
+    """A nested dict of tensors as ``{"a/b/c": tensor}``."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(flat_tree(v, f"{prefix}{k}/"))
+        else:
+            out[prefix + k] = v
+    return out
 
 
 def world_axes(world):
@@ -182,4 +213,5 @@ def state_template(cfg, P: int, trainer_kw: dict):
     return ReplicaState(params, opt)
 
 
-WORKERS = {"plan": plan_worker, "trainer": trainer_worker}
+WORKERS = {"plan": plan_worker, "trainer": trainer_worker,
+           "consolidated": consolidated_worker}

@@ -41,6 +41,21 @@ def test_port_imports_without_jax_or_repro():
     assert n == len(list(PKG.rglob("*.py")))
 
 
+@pytest.mark.parametrize("module", ["repro_torch.serve.kv_transfer",
+                                    "repro_torch.serve.handoff"])
+def test_slice_8_modules_import_without_jax(module):
+    """The disaggregated-serving and handoff modules import with ``jax``
+    blocked and load nothing of it or of ``repro``."""
+    code = (f"import sys; sys.modules['jax'] = None; import {module}; "
+            "leaked = sorted(m for m, mod in sys.modules.items() if mod "
+            "is not None and (m == 'repro' or m.startswith(('repro.', "
+            "'jax')))); assert not leaked, leaked")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+
+
 def test_port_sources_never_name_jax_or_repro():
     for path in PORT_FILES:
         for i, line in enumerate(path.read_text().splitlines(), 1):
@@ -122,6 +137,75 @@ def test_chip_smoke_phases_at_smoke_size_on_cpu():
         {(b, smoke.MAX_BLOCKS_PER_REQ) for b in (1, 2, 4, 8)}
     assert [c["rid"] for c in stats["checks"]] == list(smoke.CHECKED_REQUESTS)
     assert all(w["device_busy_ms"] is None for w in windows.values())
+
+
+def test_chip_smoke_handoff_phase_at_smoke_size_on_cpu():
+    """chip_smoke's handoff phase rehearsed on the CPU at smoke size: (a)
+    the disaggregated run (prefill on its own weight copy, the pool that
+    preempts) gives the colocated tokens and ships what the prefills need;
+    (d) the wire that flips one bit fails (a), and the same single request
+    without the flip passes it; (c) right after the tau-sync the
+    consolidated weights are row 0 bit for bit, and at the end, with the
+    rows apart by group, they serve the same tokens through both
+    schedulers.  No kernel launches off the card, so check (a)'s launch
+    count refuses the CPU run."""
+    import dataclasses
+
+    import pytest
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import tree as tr
+    from repro_torch.serve import DisaggregatedScheduler
+
+    smoke = _chip_smoke()
+    cfg = get_config(smoke.ARCH, smoke=True)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        model, params, _ = smoke.load_model(cfg, "cpu")
+        colo = smoke.serve_phase(model, params, device="cpu")
+        run, again, fault = smoke.handoff_phase(model, params, colo,
+                                                device="cpu")
+        smoke.print_handoff(colo, again, run, fault, "cpu")
+        prompt = smoke.make_requests(cfg)[0]
+        want, _ = smoke.serve_tokens(model, params, [prompt])
+        got, sched = smoke.serve_tokens(
+            model, params, [prompt], DisaggregatedScheduler,
+            prefill_params=tr.tree_map(torch.clone, params))
+        post_sync = {}
+        train, trainer = smoke.train_phase(
+            cfg, device="cpu", steps=6, seq_len=16, global_batch=16,
+            on_step=lambda t, tr_: t == 4 and post_sync.update(
+                smoke.check_post_sync_consolidation(tr_, t)))
+        trained = smoke.trained_serving(trainer, device="cpu")
+    finally:
+        torch.set_num_threads(threads)
+    assert run["tokens"] == colo["tokens"] == again["tokens"]
+    assert again["transfer"] is None
+    t = run["transfer"]
+    assert t["requests"] == run["n_prefills"] > smoke.N_REQUESTS
+    assert run["evictions"] > 0 and t["bytes_sent"] >= t["payload_bytes"]
+    assert fault["error"].startswith("check (a)") and fault["bit"] == 14
+    stats = dataclasses.asdict(sched.connector.stats)
+    smoke.check_disaggregated(want, got, stats, [len(prompt)], cfg)
+    with pytest.raises(AssertionError, match="check \\(a\\)"):
+        smoke.check_disaggregated(want, [got[0][:-1] + [-1]], stats,
+                                  [len(prompt)], cfg)
+    with pytest.raises(AssertionError, match="check \\(a\\)"):
+        smoke.check_disaggregated(want, got, stats,
+                                  [len(prompt) + smoke.BLOCK_SIZE], cfg)
+    assert post_sync["step"] == 4 and post_sync["leaves"] > 0
+    assert trained["colocated"]["tokens"] == \
+        trained["disaggregated"]["tokens"]
+    assert trained["disaggregated"]["n_layers"] == cfg.n_layers
+    assert train["launches"] == NO_LAUNCHES
+    for r in (run, trained["colocated"], trained["disaggregated"]):
+        assert r["launches"] == NO_LAUNCHES
+        with pytest.raises(AssertionError, match="serving path"):
+            smoke.check_serving_launches(r, cfg.n_layers)
+    with pytest.raises(AssertionError, match="not a sync step"):
+        smoke.check_post_sync_consolidation(trainer, 5)
 
 
 def test_chip_smoke_predicts_the_slice_launches():
@@ -420,10 +504,11 @@ def test_chip_smoke_xlstm_phase_at_smoke_size_on_cpu():
 
 
 def test_chip_smoke_paper_baselines_run_only_the_steps_their_checks_need():
-    """WAGMA and local SGD run 12 steps; Allreduce-SGD and Eager-SGD 3;
-    D-PSGD 2; SGP and AD-PSGD one a phase and one more (5 at P = 16)."""
+    """WAGMA and local SGD run 10 steps (both offsets and the sync at
+    t = 9); Allreduce-SGD and Eager-SGD 3; D-PSGD 2; SGP and AD-PSGD one a
+    phase and one more (5 at P = 16)."""
     smoke = _chip_smoke()
-    want = {"wagma": 12, "local_sgd": 12, "allreduce": 3, "eager_sgd": 3,
+    want = {"wagma": 10, "local_sgd": 10, "allreduce": 3, "eager_sgd": 3,
             "dpsgd": 2, "sgp": 5, "adpsgd": 5}
     assert {name: smoke.paper_steps(name, 4 if name in ("sgp", "adpsgd")
                                     else 1)
