@@ -31,9 +31,11 @@
    versions, bit-identical (``torch.equal``), in f32 and bf16 at scales 1
    and 0.25, over small and lane-unaligned sizes, the training slice's
    real stacked bucket sizes and ragged pair lists of both pointer
-   alignments, and the ranks phase's own operands (``rank_combines``: a
+   alignments, the ranks phase's own operands (``rank_combines``: a
    rank's float32 buckets at scale 1/2, each K1 size and the K2 batch of
-   a group step); times each against the HBM bound ``3*n*itemsize/3.35e12 s``,
+   a group step) and the elastic phase's (``elastic_combines``: the same
+   in each world of 8, 4 and 2 rows, at scale 1/2); times each against
+   the HBM bound ``3*n*itemsize/3.35e12 s``,
    the plain version and, at scale 1, ``torch.add``/``torch._foreach_add``;
    every case also in place (``out`` is ``w``), and K1 against
    ``torch.add`` in turns at the slice's largest bucket, out of place and
@@ -84,6 +86,28 @@
    after the profiled step (rows apart by group) the consolidated weights
    serve the first 4 requests at 6 layers through both schedulers with
    equal tokens, each run's first decode step within 5% of the dense path.
+   Elastic phase (slice 6, ``elastic_phase``): the same model (6 layers,
+   seq 512, 8 sequences a replica) through ``ElasticTrainer`` over a pool
+   of 8 rows, tau 4, S 2, lr 0.05, seed 0: ``chaos_demo``'s schedule
+   (a hang and a crash, detector-driven: worlds 8, 4, 8, 4, 8),
+   ``kill_rejoin_demo``'s script over a pool of 4 (worlds 4, 2, 4), then
+   the chaos schedule again.  Checks (a) each group step's K1/K2 = the
+   schedule of that epoch's plan, syncs and K3/K4 none, and each world's
+   combine operands are those the K1/K2 phase held; (b) after every
+   transition the new rows are the old rows it keeps (params, moments,
+   counts) bit for bit, and after every regrow and at the last sync every
+   row is row 0; (c) the host-side logs (events, records' world, epoch
+   and skip age, staleness, each transition's topology diff) equal those
+   of the same schedule and script run on the CPU at smoke size in this
+   run, peak age in [1, tau], every transition evicts a plan; (d) finite
+   losses, no skip; (e) the replay's logs and losses equal and its state
+   digest equal (``launch.elastic.state_digest``); (f) a regrow off the
+   barrier must raise the guard, and joiners seated on row 0 from before
+   the sync must fail (b); (g) after each transition and its first step
+   at most 1 GiB more than the world size's steady state.  Prints step
+   ms by world, each transition's ms (row selection, release, rebuild
+   and plan compile as one) and its first step's, K1/K2 by epoch, peak
+   memory and the phase's seconds.
    Ranks phase (``ranks_phase``): the same model and step with one replica
    a rank: 4 ranks started by ``torch.distributed.run`` (this script with
    ``--ranks-worker``), gloo, all on the one card (the kernels built
@@ -206,8 +230,9 @@
    and training, and their split by route and path, and its training
    scan's times; ``rglru_scan_decode`` on the walk route at the decode
    shape, with the walk route's launches; K1/K2 with their launches on the
-   four training paths, the ranks' among them, and the ranks path's own
-   shape and times, ``ranks_row``), then ``{"ok": true,
+   five training paths, the elastic and the ranks' among them, and those
+   paths' own shapes and times, ``elastic_row`` by world and
+   ``ranks_row``), then ``{"ok": true,
    "device": ...}`` last.
 
 Exits non-zero, printing no result, without CUDA or without the repo's
@@ -378,6 +403,22 @@ TRAIN_LAYERS, TRAIN_P, TRAIN_S, TRAIN_TAU = 6, 8, 4, 5
 TRAIN_SEQ, TRAIN_GB, TRAIN_STEPS, TRAIN_LR = 512, 64, 12, 0.1
 K1, K2, K3, K4 = ("group_average_combine", "group_average_combine_multi",
                   "flash_attention", "rglru_scan")
+
+# elastic phase (slice 6): the training phase's model (6 layers, seq 512, 8
+# sequences a replica) through ElasticTrainer over a pool of ELASTIC_POOL
+# rows at the reference demos' tau, S, lr and seed: chaos_demo's schedule
+# (12 steps), kill_rejoin_demo's script over a pool of ELASTIC_KILL_POOL
+# (8 steps, worker 2 leaves and rejoins at t = 2), the chaos schedule
+# again (the replay); check (c)'s twin runs both on the CPU at smoke size
+# with a sequence of ELASTIC_TWIN_SEQ
+ELASTIC_POOL, ELASTIC_KILL_POOL, ELASTIC_TAU, ELASTIC_S = 8, 4, 4, 2
+ELASTIC_LR, ELASTIC_CHAOS_STEPS, ELASTIC_KILL_STEPS = 0.05, 12, 8
+ELASTIC_KILL_STEP, ELASTIC_KILL_WORKER, ELASTIC_TWIN_SEQ = 2, 2, 16
+# the worlds the two runs visit: the pools and the shrinks of the pool of 4
+ELASTIC_WORLDS = (ELASTIC_POOL, ELASTIC_KILL_POOL, ELASTIC_KILL_POOL // 2)
+# check (g): after a transition and after its first step the card holds at
+# most this much more than the same world size's steady state
+ELASTIC_MEMORY_SLACK = 1 << 30
 K4_TMA, K4_WALK = "rglru_scan_tma", "rglru_scan_walk"    # K4's route counts
 
 # ranks phase: the training phase's model with one replica a rank: RANKS_P
@@ -801,23 +842,38 @@ def expected_combine_launches(n_buckets: int, n_stages: int):
     return sizes[False], sizes[True]
 
 
-def rank_combines(cfg):
-    """The ranks path's combine operands, one rank's ``(1, n_b)`` float32
-    buckets: the (elements, scale) of every K1 launch of a group step and
-    the sizes and scale of its multi-pair K2 batch."""
-    plan = slice_plan(cfg, RANKS_P, RANKS_S)
+def plan_combines(plan, rows: int):
+    """The combine operands of one group step of ``plan`` over ``(rows,
+    n_b)`` float32 buckets: the (elements, scale) of every K1 launch and
+    the sizes and scale of its multi-pair K2 batch (None if it has none:
+    a smoke config's few buckets)."""
     sizes = plan.class_layout(0).bucket_sizes
     n_stages = len(plan.runs_for_offset(0)[0].bits)
-    groups = [(1.0 / RANKS_S if last else 1.0, [sizes[k] for k in ks])
+    groups = [(0.5 ** n_stages if last else 1.0,
+               [rows * sizes[k] for k in ks])
               for last, ks in scale_groups(len(sizes), n_stages)]
     k1 = sorted({(ns[0], scale) for scale, ns in groups if len(ns) == 1})
-    tail = next((ns, scale) for scale, ns in groups if len(ns) > 1)
+    tail = next(((ns, scale) for scale, ns in groups if len(ns) > 1), None)
     return k1, tail
+
+
+def rank_combines(cfg):
+    """The ranks path's combine operands, one rank's ``(1, n_b)``
+    buckets."""
+    return plan_combines(slice_plan(cfg, RANKS_P, RANKS_S), 1)
+
+
+def elastic_combines(cfg):
+    """The elastic path's combine operands in each world it runs
+    (``ELASTIC_WORLDS``), the world's ``(P, n_b)`` buckets at S 2."""
+    return {p: plan_combines(slice_plan(cfg, p, ELASTIC_S), p)
+            for p in ELASTIC_WORLDS}
 
 
 def combine_kernel_phase(device="cuda"):
     """K1/K2 against their plain versions on every case; returns (rows,
-    line entries for K1 and K2, and for each on the ranks path)."""
+    line entries for K1 and K2, for each on the ranks path, and under
+    ``"elastic"`` each elastic world's operands and rows)."""
     import torch
     from repro_torch.kernels import group_average as ga
 
@@ -940,6 +996,20 @@ def combine_kernel_phase(device="cuda"):
     line["K2 ranks"] = k2_row("ranks tail batch", rank_tail,
                               [0] * len(rank_tail), "float32", rank_scale)
     rows.append(line["K2 ranks"])
+    # the elastic path's: each world's K1 sizes and K2 batch (check (a)
+    # holds them to the plans the elastic run compiled)
+    line["elastic"] = {}
+    for world, combines in elastic_combines(train_config()).items():
+        k1, (tail_n, tail_scale) = combines
+        case = f"elastic world {world}"
+        k1_rows = [k1_row(n, "float32", scale, case=case)[0]
+                   for n, scale in k1]
+        k2 = k2_row(f"{case} tail batch", tail_n, [0] * len(tail_n),
+                    "float32", tail_scale)
+        rows.extend(k1_rows + [k2])
+        line["elastic"][world] = {
+            "combines": combines, "K2": k2,
+            "K1": max(k1_rows, key=lambda r: r["n"][0])}
     torch.cuda.empty_cache()
     bad = [r for r in rows if not r["equal"]]
     if bad:
@@ -1237,6 +1307,434 @@ def train_profile(trainer, t: int, device="cuda", shares=None):
         _sync(device)
         wall_ms = (time.perf_counter() - t0) * 1e3
     return _window(prof, wall_ms, shares=shares)
+
+
+# ---------------------------------------------------------------------------
+# Elastic phase: membership changes over the replica rows (K1, K2)
+# ---------------------------------------------------------------------------
+
+def bits(t):
+    """``t``'s bits as integers of its width: equal bits, which ``==`` does
+    not test (-0.0 == 0.0, NaN != NaN)."""
+    import torch
+    return t.view({1: torch.uint8, 2: torch.int16, 4: torch.int32,
+                   8: torch.int64}[t.element_size()])
+
+
+def rows_bit_identical(params) -> bool:
+    """Every stacked leaf's rows equal its row 0, bit for bit."""
+    import torch
+    from repro_torch.core import tree as tr
+    for leaf in tr.tree_leaves(params):
+        b = bits(leaf)
+        if not torch.equal(b[1:], b[:1].expand_as(b[1:])):
+            return False
+    return True
+
+
+def rows_taken(new, old, rows) -> bool:
+    """Row i of every leaf of the ReplicaState ``new`` (params, moments,
+    count) is row ``rows[i]`` of ``old``'s, bit for bit."""
+    import torch
+    from repro_torch.core import tree as tr
+    pairs = zip(tr.tree_leaves((new.params, new.opt_state)),
+                tr.tree_leaves((old.params, old.opt_state)))
+    return all(torch.equal(bits(a[i]), bits(b[r]))
+               for a, b in pairs for i, r in enumerate(rows))
+
+
+def planted_joiner_fails(params, pre_sync_row0, n_old: int) -> bool:
+    """Check (f): the regrown rows with every joiner seated on row 0 as it
+    was before the sync (``pre_sync_row0``, a host copy) instead of after
+    it must fail check (b)."""
+    import torch
+    from repro_torch.core import tree as tr
+    planted = tr.tree_map(
+        lambda a, r: torch.cat([a[:n_old], r.to(a.device).unsqueeze(0)
+                                .expand(a.shape[0] - n_old, *r.shape)]),
+        params, pre_sync_row0)
+    return not rows_bit_identical(planted)
+
+
+def transition_rows(ev) -> list:
+    """The old world's row behind each row of the new one: a shrink's
+    ``keep_rows``; after a regrow the survivors in order, then row 0 (the
+    post-sync consensus) for each joiner."""
+    if ev.kind == "shrink":
+        return list(ev.keep_rows)
+    n_old = len(ev.world) - ev.n_joined
+    return list(range(n_old)) + [0] * ev.n_joined
+
+
+def elastic_trainer(cfg, pool: int, device="cuda", seq_len: int = TRAIN_SEQ,
+                    plant: bool = False):
+    """An ``ElasticTrainer`` over ``pool`` rows with this phase's probes.
+    Its ``probe_step``, passed to ``run``/``run_under_faults`` as
+    ``step``, records per step the launches and what the epoch's plan
+    predicts (check (a)), the plan's combine operands, loss, skipped
+    share, time and memory.  Per transition, timed as a whole with the new
+    plan compiled: check (b) and the memory after.  With ``plant``, check
+    (f): a regrow attempted after step 0 (rows apart) must raise the
+    barrier guard, and every regrow's joiners seated on row 0 from before
+    the sync must fail (b)."""
+    import torch
+    from repro_torch.core import tree as tr
+    from repro_torch.core.elastic import MembershipEvent
+    from repro_torch.kernels import ops
+    from repro_torch.launch import elastic as el
+
+    memory = (torch.cuda.memory_allocated
+              if torch.device(device).type == "cuda" else (lambda: None))
+
+    class Probed(el.ElasticTrainer):
+        def __init__(self):
+            self.steps, self.transitions, self.planted = [], [], {}
+            self.combines = {}
+            self.pre_sync_row0 = None
+            self.digest_s = 0.0
+            self.first = True
+            t0 = time.perf_counter()
+            super().__init__(cfg, pool, device=device, tau=ELASTIC_TAU,
+                             group_size=ELASTIC_S, seed=0,
+                             learning_rate=ELASTIC_LR, seq_len=seq_len)
+            self.init_s = time.perf_counter() - t0
+
+        def probe_step(self, trainer, t):
+            plan = trainer.plan()
+            sync = trainer.averager.sync_due(t)
+            if plant and sync:
+                self.pre_sync_row0 = tr.tree_map(lambda a: a[0].cpu(),
+                                                 trainer.state.params)
+            offset = plan.offsets[trainer.averager.phase_for_step(t)]
+            want = (0, 0) if sync else expected_combine_launches(
+                plan.class_layout(0).n_buckets,
+                len(plan.runs_for_offset(offset)[0].bits))
+            self.combines[trainer.n_dp] = plan_combines(plan, trainer.n_dp)
+            before = ops.launch_counts()
+            _sync(device)
+            t0 = time.perf_counter()
+            loss = trainer.step_once(t)
+            _sync(device)
+            step_ms = (time.perf_counter() - t0) * 1e3
+            after = ops.launch_counts()
+            self.steps.append({
+                "t": t, "world": trainer.n_dp, "epoch": self.controller.epoch,
+                "sync": sync, "loss": loss, "step_ms": step_ms,
+                "first": self.first, "memory": memory(), "want": list(want),
+                "skipped": trainer.last_metrics["skipped_nonfinite"],
+                **{key: after[name] - before[name] for key, name in (
+                    ("k1", K1), ("k2", K2), ("k3", K3), ("k4", K4))}})
+            self.first = False
+            if plant and t == 0:
+                self.planted["regrow_off_barrier_raises"] = \
+                    self._regrow_off_barrier_raises()
+            return loss
+
+        def _regrow_off_barrier_raises(self) -> bool:
+            world = self.controller.membership.active
+            try:
+                self._transition(MembershipEvent(
+                    "regrow", self.controller.epoch, world))
+            except AssertionError as e:
+                return "outside the tau-sync barrier" in str(e)
+            return False
+
+        def _transition(self, ev):
+            old = self.trainer.state
+            rows = transition_rows(ev)
+            _sync(device)
+            t0 = time.perf_counter()
+            super()._transition(ev)
+            self.trainer.plan()            # compiled here, inside the time
+            _sync(device)
+            rec = {"after_steps": len(self.steps), "epoch": ev.epoch,
+                   "kind": ev.kind, "world": len(ev.world),
+                   "transition_ms": (time.perf_counter() - t0) * 1e3,
+                   "rows_taken": rows_taken(self.trainer.state, old, rows),
+                   "rows_identical": (
+                       rows_bit_identical(self.trainer.state.params)
+                       if ev.kind == "regrow" else None)}
+            del old
+            self.first = True
+            if plant and ev.kind == "regrow":
+                rec["planted_joiner_fails"] = planted_joiner_fails(
+                    self.trainer.state.params, self.pre_sync_row0,
+                    len(rows) - ev.n_joined)
+            rec["memory"] = memory()
+            self.transitions.append(rec)
+            if not rec["rows_taken"] or rec["rows_identical"] is False:
+                raise AssertionError(
+                    f"check (b): epoch {ev.epoch} {ev.kind}: new rows are "
+                    f"the old rows {rows} bit for bit {rec['rows_taken']}, "
+                    f"rows identical after a regrow {rec['rows_identical']}")
+
+        def state_digest(self):
+            t0 = time.perf_counter()
+            digest = super().state_digest()
+            self.digest_s += time.perf_counter() - t0
+            return digest
+
+    return Probed()
+
+
+def elastic_run(et, kind: str, seconds: float, launches: dict, rep=None,
+                records=None) -> dict:
+    """One elastic run's numbers and logs (``kind`` chaos or kill)."""
+    if rep is not None:
+        records = rep["records"]
+    out = {"kind": kind, "pool": et.pool, "seconds": seconds,
+           "init_s": et.init_s, "launches": launches, "records": records,
+           "epoch_log": et.epoch_log, "steps": et.steps,
+           "transitions": et.transitions, "planted": et.planted,
+           "losses": [r["loss"] for r in records],
+           "combines": et.combines, "digest_s": et.digest_s}
+    if rep is not None:
+        out.update({k: rep[k] for k in ("events", "staleness",
+                                        "schedule_fingerprint",
+                                        "state_digest")})
+    return out
+
+
+def elastic_log(run: dict) -> dict:
+    """What check (c) holds equal between the card and the CPU: the event
+    log, each record's world, epoch and skip age, the staleness snapshot
+    and the epoch log's transitions and topology diffs (not the plans each
+    evicted: that count depends on what else the process compiled)."""
+    return {"events": run.get("events"),
+            "records": [{k: v for k, v in r.items() if k != "loss"}
+                        for r in run["records"]],
+            "staleness": run.get("staleness"),
+            "epoch_log": [{k: v for k, v in e.items() if k != "plans_evicted"}
+                          for e in run["epoch_log"]]}
+
+
+def drive_chaos(et) -> dict:
+    from repro_torch.kernels import ops
+    from repro_torch.launch import elastic as el
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    rep = et.run_under_faults(ELASTIC_CHAOS_STEPS, el.CHAOS_SCHEDULE,
+                              step=et.probe_step)
+    seconds = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    el.check_chaos(et, rep, steps=ELASTIC_CHAOS_STEPS)
+    return elastic_run(et, "chaos", seconds, launches, rep=rep)
+
+
+def drive_kill(et) -> dict:
+    from repro_torch.kernels import ops
+    from repro_torch.launch import elastic as el
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    records = et.run(ELASTIC_KILL_STEPS, events=el.kill_rejoin_events(
+        ELASTIC_KILL_STEP, ELASTIC_KILL_WORKER), step=et.probe_step)
+    seconds = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    el.check_kill_rejoin(et, records, steps=ELASTIC_KILL_STEPS,
+                         leave_step=ELASTIC_KILL_STEP)
+    return elastic_run(et, "kill", seconds, launches, records=records)
+
+
+def elastic_twin(cfg) -> dict:
+    """Check (c)'s twin: the chaos schedule and the kill script through the
+    port's plain ``ElasticTrainer`` on the CPU at smoke size, on one
+    intra-op thread (many tiny ops: more threads only contend)."""
+    import torch
+    from repro_torch.launch import elastic as el
+    kw = dict(device="cpu", tau=ELASTIC_TAU, group_size=ELASTIC_S, seed=0,
+              learning_rate=ELASTIC_LR, seq_len=ELASTIC_TWIN_SEQ)
+    t0 = time.perf_counter()
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        et = el.ElasticTrainer(cfg, ELASTIC_POOL, **kw)
+        rep = et.run_under_faults(ELASTIC_CHAOS_STEPS, el.CHAOS_SCHEDULE)
+        chaos = dict(rep, epoch_log=et.epoch_log)
+        et = el.ElasticTrainer(cfg, ELASTIC_KILL_POOL, **kw)
+        records = et.run(ELASTIC_KILL_STEPS, events=el.kill_rejoin_events(
+            ELASTIC_KILL_STEP, ELASTIC_KILL_WORKER))
+    finally:
+        torch.set_num_threads(threads)
+    return {"chaos": elastic_log(chaos),
+            "kill": elastic_log({"records": records,
+                                 "epoch_log": et.epoch_log}),
+            "seconds": time.perf_counter() - t0}
+
+
+def elastic_phase(cfg, device="cuda", seq_len: int = TRAIN_SEQ) -> dict:
+    """The elastic phase: chaos, kill and rejoin, replay on ``device``
+    with checks (b)-(f) (check (a) and (g) are
+    :func:`check_elastic_launches` and :func:`check_elastic_memory`);
+    returns the runs and the twin's logs."""
+    import torch
+    from repro_torch.configs import get_config
+
+    t_phase = time.perf_counter()
+    on_card = torch.device(device).type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    runs = {}
+    for name, pool, drive, plant in (
+            ("chaos", ELASTIC_POOL, drive_chaos, False),
+            ("kill", ELASTIC_KILL_POOL, drive_kill, True),
+            ("replay", ELASTIC_POOL, drive_chaos, False)):
+        et = elastic_trainer(cfg, pool, device, seq_len, plant)
+        runs[name] = drive(et)
+        del et
+    twin = elastic_twin(get_config(ARCH, smoke=True))
+    stats = {"arch": cfg.name, "n_layers": cfg.n_layers, "seq_len": seq_len,
+             "runs": runs, "twin_seconds": twin["seconds"],
+             "max_memory_allocated": (torch.cuda.max_memory_allocated()
+                                      if on_card else None)}
+    for name, twin_name in (("chaos", "chaos"), ("kill", "kill"),
+                            ("replay", "chaos")):           # check (c)
+        log = elastic_log(runs[name])
+        if log != twin[twin_name]:
+            raise AssertionError(
+                f"check (c): the {name} run's host-side log differs from "
+                f"the CPU's in {[k for k in log if log[k] != twin[twin_name][k]]}"
+                f": {log} vs {twin[twin_name]}")
+    for run in runs.values():
+        if not all(e["plans_evicted"] >= 1 for e in run["epoch_log"]):
+            raise AssertionError(f"check (c): a {run['kind']} transition "
+                                 f"evicted no plan: {run['epoch_log']}")
+    bad = [(name, s["t"]) for name, run in runs.items() for s in run["steps"]
+           if not math.isfinite(s["loss"]) or s["skipped"]]
+    if bad:                                                     # check (d)
+        raise AssertionError(f"check (d): non-finite loss or skipped update "
+                             f"at {bad}")
+    chaos, replay = runs["chaos"], runs["replay"]
+    replayed = {k: chaos[k] == replay[k] for k in (
+        "events", "records", "staleness", "state_digest")}
+    if not all(replayed.values()):                              # check (e)
+        raise AssertionError(f"check (e): the replay differs: {replayed}")
+    planted = runs["kill"]["planted"]
+    joiners = [t["planted_joiner_fails"] for t in runs["kill"]["transitions"]
+               if t["kind"] == "regrow"]
+    if not (planted.get("regrow_off_barrier_raises") and joiners
+            and all(joiners)):                                  # check (f)
+        raise AssertionError(f"check (f): a planted fault passed: regrow "
+                             f"off the barrier raised "
+                             f"{planted.get('regrow_off_barrier_raises')}, "
+                             f"pre-sync joiners failed (b) {joiners}")
+    stats["replayed"] = replayed
+    stats["seconds"] = time.perf_counter() - t_phase
+    return stats
+
+
+def check_elastic_launches(stats):
+    """Check (a): every step of every elastic run launched the K1/K2 its
+    epoch's plan predicts (none on a sync) and no K3 or K4, and the runs
+    launched nothing outside their steps."""
+    for name, run in stats["runs"].items():
+        for s in run["steps"]:
+            if [s["k1"], s["k2"]] != s["want"] or s["k3"] or s["k4"]:
+                raise AssertionError(
+                    f"check (a): {name} step {s['t']} (world {s['world']}): "
+                    f"K1, K2, K3, K4 launched "
+                    f"{(s['k1'], s['k2'], s['k3'], s['k4'])}, the plan "
+                    f"predicts {tuple(s['want'])}, 0, 0")
+        for key, kernel in (("k1", K1), ("k2", K2), ("k3", K3), ("k4", K4)):
+            if run["launches"][kernel] != sum(s[key] for s in run["steps"]):
+                raise AssertionError(f"check (a): {name} launched {kernel} "
+                                     f"outside its steps")
+
+
+def check_elastic_held(stats, held: dict):
+    """Check (a), the operands: every world's combines in the elastic runs
+    (each K1 size and scale, the K2 batch) are those the K1/K2 phase held
+    to the plain versions (``held``, its ``line["elastic"]``)."""
+    for name, run in stats["runs"].items():
+        for world, combines in run["combines"].items():
+            if world not in held or held[world]["combines"] != combines:
+                raise AssertionError(
+                    f"check (a): {name}'s world {world} combines {combines}"
+                    f", the K1/K2 phase held "
+                    f"{held.get(world, {}).get('combines')}")
+
+
+def check_elastic_memory(stats):
+    """Check (g): after every transition, and after the first step that
+    follows it, the card holds at most ``ELASTIC_MEMORY_SLACK`` more than
+    the least it holds after a later step of a world of that size in the
+    same run."""
+    for name, run in stats["runs"].items():
+        steady = {}
+        for s in run["steps"]:
+            if s["memory"] is None:
+                raise AssertionError("check (g): no device memory measured")
+            if not s["first"]:
+                steady[s["world"]] = min(steady.get(s["world"], s["memory"]),
+                                         s["memory"])
+        for tr_ in run["transitions"]:
+            after = run["steps"][tr_["after_steps"]:tr_["after_steps"] + 1]
+            for what, mem in [("transition", tr_["memory"])] + [
+                    ("first step", s["memory"]) for s in after]:
+                if mem > steady[tr_["world"]] + ELASTIC_MEMORY_SLACK:
+                    raise AssertionError(
+                        f"check (g): {name} epoch {tr_['epoch']}: "
+                        f"{mem / 2**30:.2f} GiB after the {what}, steady "
+                        f"state of world {tr_['world']} "
+                        f"{steady[tr_['world']] / 2**30:.2f} GiB")
+
+
+def elastic_summary(stats) -> dict:
+    """Step ms by world size (median of the steps that are not the first
+    of their world), each transition's ms, K1/K2 launches by epoch."""
+    out = {"step_ms_by_world": {}, "transitions": [], "k1_k2_by_epoch": {}}
+    for name, run in stats["runs"].items():
+        by_world = {}
+        for s in run["steps"]:
+            if not s["first"]:
+                by_world.setdefault(s["world"], []).append(s["step_ms"])
+            key = f"{name} epoch {s['epoch']}"
+            k = out["k1_k2_by_epoch"].setdefault(key, [0, 0])
+            k[0] += s["k1"]
+            k[1] += s["k2"]
+        out["step_ms_by_world"][name] = {
+            w: statistics.median(v) for w, v in sorted(by_world.items())}
+        for tr_ in run["transitions"]:
+            after = run["steps"][tr_["after_steps"]:tr_["after_steps"] + 1]
+            out["transitions"].append({
+                "run": name, "epoch": tr_["epoch"], "kind": tr_["kind"],
+                "world": tr_["world"], "transition_ms": tr_["transition_ms"],
+                "first_step_ms": after[0]["step_ms"] if after else None})
+    return out
+
+
+def print_elastic(stats, card: str):
+    s = elastic_summary(stats)
+    runs = stats["runs"]
+    for name, run in runs.items():
+        print(f"elastic {name} [{card}]: pool {run['pool']}, worlds "
+              f"{[r['world'] for r in run['records']]}, epochs "
+              f"{[e['kind'] for e in run['epoch_log']]}, losses "
+              f"{[round(x, 4) for x in run['losses']]}, {run['seconds']:.2f}"
+              f" s (trainer init {run['init_s']:.2f} s, state digest "
+              f"{run['digest_s']:.2f} s), launches K1 {run['launches'][K1]} "
+              f"K2 {run['launches'][K2]}", flush=True)
+        print(f"elastic {name} step ms by world (median after the first) "
+              f"{ {w: round(v, 1) for w, v in s['step_ms_by_world'][name].items()} }"
+              f" [{card}]", flush=True)
+    for t in s["transitions"]:
+        fmt = lambda v: "-" if v is None else f"{v:.1f}"
+        print(f"elastic {t['run']} epoch {t['epoch']} {t['kind']} to "
+              f"{t['world']}: transition (row selection, release, rebuild, "
+              f"plan compile) {fmt(t['transition_ms'])} ms, first step "
+              f"after {fmt(t['first_step_ms'])} ms [{card}]", flush=True)
+    print(f"elastic K1/K2 launches by epoch {s['k1_k2_by_epoch']}",
+          flush=True)
+    stale = runs["chaos"]["staleness"]
+    print(f"elastic checks: (b) every transition's rows bit for bit, every "
+          f"regrow at consensus; (c) host-side logs equal to the CPU "
+          f"twin's ({stats['twin_seconds']:.1f} s), peak age "
+          f"{stale['peak_age']} <= tau {ELASTIC_TAU}; (e) replay "
+          f"{stats['replayed']}; (f) regrow off the barrier raised "
+          f"{runs['kill']['planted']['regrow_off_barrier_raises']}, pre-sync "
+          f"joiners failed (b); peak memory "
+          + (f"{stats['max_memory_allocated'] / 2**30:.2f} GiB"
+             if stats["max_memory_allocated"] is not None else "-")
+          + f"; phase {stats['seconds']:.1f} s [{card}]", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -3111,6 +3609,18 @@ def main() -> int:
     _print_window(f"train group step {TRAIN_STEPS}", window, card)
     free_memory("tinyllama training")
 
+    # -- elastic phase: the training model through ElasticTrainer, worlds
+    # of 8, 4 and 2 rows (K1, K2) ------------------------------------------
+    elastic = elastic_phase(tcfg)
+    check_elastic_launches(elastic)                             # check (a)
+    check_elastic_held(elastic, ga_line["elastic"])             # check (a)
+    check_elastic_memory(elastic)                               # check (g)
+    print(json.dumps({"elastic": elastic,
+                      "elastic_summary": elastic_summary(elastic),
+                      "card": card}), flush=True)
+    print_elastic(elastic, card)
+    free_memory("elastic phase")
+
     # -- ranks phase: the same model, one replica a rank over gloo (K1, K2)
     ranks = ranks_phase(ranks_spec(), ROOT / "build" / "ranks")
     check_ranks_launches(ranks)                                 # check (a)
@@ -3307,6 +3817,8 @@ def main() -> int:
              sum(r["launches"][K3] for r in trained.values())}
     by_path = lambda name, serving=0: {
         f"{ARCH} training": train["launches"][name],
+        f"{ARCH} elastic, pool {ELASTIC_POOL}": sum(
+            run["launches"][name] for run in elastic["runs"].values()),
         f"{ARCH} training, {RANKS_P} ranks": ranks_launches[name],
         f"{RG_ARCH} serving": serving,
         f"{RG_ARCH} training": rg_train["launches"][name],
@@ -3333,18 +3845,23 @@ def main() -> int:
     ranks_row = lambda r: {k: r[k] for k in (
         "n", "scale", "ms", "plain_ms", "library_ms", "bound_ms",
         "max_abs_err", "host_us")}
+    # each elastic world's largest K1 operand and its K2 batch
+    elastic_row = lambda k: {f"world {w}": ranks_row(held[k])
+                             for w, held in ga_line["elastic"].items()}
     kernels = [
         entry(K1, "src/repro_torch/kernels/csrc/group_average.cu",
               "src/repro/kernels/group_average.py:68",
               sum(by_path(K1).values()), ga_line["K1"], ga_err["K1"],
               n=ga_line["K1"]["n"], dtype="float32", scale=1.0,
               launches_by_path=by_path(K1),
+              elastic_row=elastic_row("K1"),
               ranks_row=ranks_row(ga_line["K1 ranks"])),
         entry(K2, "src/repro_torch/kernels/csrc/group_average.cu",
               "src/repro/kernels/group_average.py:80",
               sum(by_path(K2).values()), ga_line["K2"], ga_err["K2"],
               n=ga_line["K2"]["n"], dtype="float32", scale=1.0,
               launches_by_path=by_path(K2),
+              elastic_row=elastic_row("K2"),
               ranks_row=ranks_row(ga_line["K2 ranks"])),
         entry(K3, "src/repro_torch/kernels/csrc/flash_attention.cu",
               "src/repro/kernels/flash_attention.py:70",

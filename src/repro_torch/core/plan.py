@@ -225,6 +225,23 @@ class Topology:
         """The slowest-wire class — what a global collective is bound by."""
         return max(self.link_classes, key=lambda l: l.beta)
 
+    def drop_axis(self, name: str) -> "Topology":
+        """This topology minus one dp axis (the FSDP shard axis).
+
+        The remaining axes keep their minor-to-major order and their link
+        classes; the result is the *effective* (pod-level) replica space a
+        sharded plan butterflies over.
+        """
+        if name not in self.axis_names:
+            raise ValueError(f"axis {name!r} not in {self.axis_names}")
+        keep = [i for i, a in enumerate(self.axis_names) if a != name]
+        if not keep:
+            raise ValueError("cannot drop the only dp axis")
+        return Topology(tuple(self.axis_names[i] for i in keep),
+                        tuple(self.axis_sizes[i] for i in keep),
+                        self.link_classes,
+                        tuple(self.axis_class[i] for i in keep))
+
     def describe(self) -> str:
         parts = []
         for i, link in enumerate(self.link_classes):
@@ -793,6 +810,26 @@ def clear_plan_cache() -> None:
     _WIRES.clear()
     choose_class_bucket_bytes.cache_clear()
     bucketing.clear_layout_cache()
+
+
+def evict_topology(topology: Topology) -> int:
+    """Drop the cached plans compiled for one topology; returns the entries
+    removed.
+
+    Membership changes (``core/elastic.py``) retire topologies for good,
+    so ``ElasticTrainer`` evicts their plans instead of clearing every
+    cache as :func:`clear_plan_cache` does.  Cache keys lead with the
+    topology, so eviction is a key-prefix filter.  A rank world that no
+    remaining plan runs over loses its wire, and with it the wire's pinned
+    host buffers.
+    """
+    dead = [k for k in _PLAN_CACHE if k[0] == topology]
+    for k in dead:
+        del _PLAN_CACHE[k]
+    live = {k[4] for k in _PLAN_CACHE}
+    for world in [w for w in _WIRES if w not in live]:
+        del _WIRES[world]
+    return len(dead)
 
 
 def _structure_key(tree) -> tuple:

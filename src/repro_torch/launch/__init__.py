@@ -1,2 +1,3 @@
-"""Entry points.  Counterpart of ``repro/launch``: the training driver and
-the rank world it runs over under torchrun."""
+"""Entry points.  Counterpart of ``repro/launch``: the training loop
+(``train``), the rank world it runs over under torchrun (``mesh``), and
+elastic membership (``elastic``)."""

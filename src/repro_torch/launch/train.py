@@ -74,7 +74,7 @@ class Trainer:
                  optimizer="sgd", learning_rate=0.1, momentum=0.9,
                  seq_len=512, global_batch=None, seed=0, microbatch=None,
                  imbalanced=False, topology=None, sharding=None,
-                 streamed=False, init_state=None):
+                 streamed=False, init_state=None, fault_injector=None):
         self.cfg = cfg
         names, sizes = mesh.dp_axes(data_axis, pod_axis)
         self.world = world
@@ -119,6 +119,9 @@ class Trainer:
             gen = torch.Generator(device=self.device).manual_seed(seed)
             self.state = init_replica_state(self.model, self.opt,
                                             self.averager, gen)
+        # a core.faults.FaultInjector: its wall-clock faults fire at the
+        # top of step_once
+        self.fault_injector = fault_injector
         # replica-steps whose optimiser update the non-finite guard skipped
         self.skipped_nonfinite = 0.0
         self.last_metrics = {}
@@ -174,6 +177,8 @@ class Trainer:
     def step_once(self, t: int) -> float:
         """Run global step ``t`` (data, variant dispatch, update); returns
         the loss (mean over replicas)."""
+        if self.fault_injector is not None:
+            self.fault_injector.before_step(t)
         batch = self._put_batch(t)
         step = self._step_fn(t)
         self.state, metrics = step(self.state, batch)

@@ -25,12 +25,9 @@ from repro_torch.checkpoint import (ChecksumError, checkpoint_sharding,
                                     save_replica_state)
 from repro_torch.checkpoint import ckpt as ckpt_mod
 from repro_torch.core import tree as tr
+from repro_torch.core.faults import InjectedCrash
 from repro_torch.core.replica import REPLICATED, ReplicaState
 from repro_torch.optim.sgd import SGDState
-
-
-class InjectedCrash(RuntimeError):
-    """A writer killed mid-save."""
 
 
 def test_checkpoint_roundtrip_and_consolidate(tmp_path):
