@@ -33,8 +33,10 @@
    real stacked bucket sizes and ragged pair lists of both pointer
    alignments, the ranks phase's own operands (``rank_combines``: a
    rank's float32 buckets at scale 1/2, each K1 size and the K2 batch of
-   a group step) and the elastic phase's (``elastic_combines``: the same
-   in each world of 8, 4 and 2 rows, at scale 1/2); times each against
+   a group step), the elastic phase's (``elastic_combines``: the same
+   in each world of 8, 4 and 2 rows, at scale 1/2) and the FSDP phase's
+   (``fsdp_combines``: the 22-layer sharded plan's ``(4, n_b)`` buffers
+   at scale 1/2); times each against
    the HBM bound ``3*n*itemsize/3.35e12 s``,
    the plain version and, at scale 1, ``torch.add``/``torch._foreach_add``;
    every case also in place (``out`` is ``w``), and K1 against
@@ -108,6 +110,30 @@
    ms by world, each transition's ms (row selection, release, rebuild
    and plan compile as one) and its first step's, K1/K2 by epoch, peak
    memory and the phase's seconds.
+   FSDP phase (slice 7a, ``fsdp_phase``): tinyllama-1.1b at full width and
+   all 22 layers, bf16, 8 replicas as 4 pods of 2 that share one set of
+   ``(4, n_b)`` shard buffers (``Trainer(cfg, 2, pod_axis=4,
+   sharding="fsdp")`` over ``Topology.hierarchical(("data", "pod"), (2,
+   4))``, sharded over data), S 2, tau 5, lr 0.1, seq 512, 8 sequences a
+   member, 10 steps ending on a sync.  Checks (a) each group step's
+   K1/K2 = the sharded plan's schedule (9 shard buckets, one stage: 7 +
+   1), syncs none, K3/K4 none, and the run's combine operands are those
+   the K1/K2 phase held (``fsdp_combines``, ``check_fsdp_held``); (b)
+   after each group step the group's pods equal and the groups apart,
+   after a sync all four equal, and once an offset the sharded average of
+   the pre-average buffers equals the replicated plan over
+   ``eff_topology`` (its per-leaf path) on the unpacked pod rows bit for
+   bit; (c) at one step pod 0's gradient recomputed from its members'
+   ``value_and_grad``, ``bucketing.pack`` in float32, the sum and the
+   scale equals the step's grad shards bit for bit; (d) on a 2-layer copy
+   at full width, ``replicated_to_fsdp_state(fsdp_to_replicated_state(
+   s))`` is ``s`` and ``consolidate_state`` after a sync every pod's row,
+   bit for bit; (e) the final state's consolidated weights and pod 0's
+   unpacked tree serve 4 requests with the same tokens, K3 22 a prefill;
+   (f) the peak under 80 GB, printed beside ``fsdp_reckoning`` and the
+   replicated layout's reckoning; (g) finite losses, no skip, and a pod
+   buffer nudged by one ulp before the average fails (b).  Prints step ms,
+   tokens/s, the host split, peak memory and the phase's seconds.
    Ranks phase (``ranks_phase``): the same model and step with one replica
    a rank: 4 ranks started by ``torch.distributed.run`` (this script with
    ``--ranks-worker``), gloo, all on the one card (the kernels built
@@ -230,9 +256,9 @@
    and training, and their split by route and path, and its training
    scan's times; ``rglru_scan_decode`` on the walk route at the decode
    shape, with the walk route's launches; K1/K2 with their launches on the
-   five training paths, the elastic and the ranks' among them, and those
-   paths' own shapes and times, ``elastic_row`` by world and
-   ``ranks_row``), then ``{"ok": true,
+   six training paths, the elastic, the ranks' and the FSDP one among
+   them, and those paths' own shapes and times, ``elastic_row`` by world,
+   ``fsdp_row`` and ``ranks_row``), then ``{"ok": true,
    "device": ...}`` last.
 
 Exits non-zero, printing no result, without CUDA or without the repo's
@@ -420,6 +446,20 @@ ELASTIC_WORLDS = (ELASTIC_POOL, ELASTIC_KILL_POOL, ELASTIC_KILL_POOL // 2)
 # most this much more than the same world size's steady state
 ELASTIC_MEMORY_SLACK = 1 << 30
 K4_TMA, K4_WALK = "rglru_scan_tma", "rglru_scan_walk"    # K4's route counts
+
+# FSDP phase (slice 7a): tinyllama-1.1b at full width and all 22 layers, 8
+# replicas as 4 pods of 2 sharing one set of shard buffers
+# (Topology.hierarchical(("data", "pod"), (2, 4)) sharded over data: P 8,
+# P_eff 4), S 2, tau 5, SGD 0.9 at the training phase's lr, seq 512, 8
+# sequences a member, 10 steps (8 group steps, syncs at t = 4 and 9, so the
+# run ends on a sync for check (e)).  Check (c) at step FSDP_GRAD_STEP;
+# check (d) on a copy of FSDP_CONV_LAYERS layers at full width (the
+# replicated form of 22 layers needs 52.8 GB); check (e) serves the first
+# FSDP_REQUESTS requests of the serving phase's set
+FSDP_DATA, FSDP_POD, FSDP_S, FSDP_TAU, FSDP_STEPS = 2, 4, 2, 5, 10
+FSDP_GB = 8 * FSDP_DATA * FSDP_POD
+FSDP_GRAD_STEP, FSDP_CONV_LAYERS, FSDP_REQUESTS = 2, 2, 4
+FSDP_PATH = f"tinyllama-1.1b fsdp, {FSDP_POD} pods x {FSDP_DATA}"
 
 # ranks phase: the training phase's model with one replica a rank: RANKS_P
 # ranks started by torchrun over gloo, all on the one card (NCCL refuses
@@ -810,6 +850,12 @@ def train_config():
     return get_config(ARCH).variant(n_layers=TRAIN_LAYERS)
 
 
+def fsdp_config(smoke: bool = False):
+    """The FSDP phase's model: tinyllama-1.1b at full width and depth."""
+    from repro_torch.configs import get_config
+    return get_config(ARCH, smoke=smoke)
+
+
 def slice_plan(cfg, replicas: int = TRAIN_P, group_size: int = TRAIN_S):
     """A training slice's compiled plan (one replica's tree structure)."""
     from repro_torch.core import plan as plan_mod
@@ -846,8 +892,10 @@ def plan_combines(plan, rows: int):
     """The combine operands of one group step of ``plan`` over ``(rows,
     n_b)`` float32 buckets: the (elements, scale) of every K1 launch and
     the sizes and scale of its multi-pair K2 batch (None if it has none:
-    a smoke config's few buckets)."""
-    sizes = plan.class_layout(0).bucket_sizes
+    a smoke config's few buckets).  A sharded plan's buckets are its
+    shard layout's."""
+    sizes = (plan.shard_layout if plan.sharding.is_sharded
+             else plan.class_layout(0)).bucket_sizes
     n_stages = len(plan.runs_for_offset(0)[0].bits)
     groups = [(0.5 ** n_stages if last else 1.0,
                [rows * sizes[k] for k in ks])
@@ -872,8 +920,9 @@ def elastic_combines(cfg):
 
 def combine_kernel_phase(device="cuda"):
     """K1/K2 against their plain versions on every case; returns (rows,
-    line entries for K1 and K2, for each on the ranks path, and under
-    ``"elastic"`` each elastic world's operands and rows)."""
+    line entries for K1 and K2, for each on the ranks path, under
+    ``"elastic"`` each elastic world's operands and rows, under ``"fsdp"``
+    the FSDP path's)."""
     import torch
     from repro_torch.kernels import group_average as ga
 
@@ -1010,6 +1059,18 @@ def combine_kernel_phase(device="cuda"):
         line["elastic"][world] = {
             "combines": combines, "K2": k2,
             "K1": max(k1_rows, key=lambda r: r["n"][0])}
+    # the FSDP path's: the 22-layer sharded plan's K1 sizes and K2 batch
+    # over its (P_eff, n_b) float32 shard buffers at scale 1/S (check (a)
+    # ties them to the plan the FSDP phase compiled)
+    combines = fsdp_combines(fsdp_config())
+    k1, (tail_n, tail_scale) = combines
+    k1_rows = [k1_row(n, "float32", scale, case="fsdp")[0]
+               for n, scale in k1]
+    k2 = k2_row("fsdp tail batch", tail_n, [0] * len(tail_n), "float32",
+                tail_scale)
+    rows.extend(k1_rows + [k2])
+    line["fsdp"] = {"combines": combines, "K2": k2,
+                    "K1": max(k1_rows, key=lambda r: r["n"][0])}
     torch.cuda.empty_cache()
     bad = [r for r in rows if not r["equal"]]
     if bad:
@@ -1735,6 +1796,443 @@ def print_elastic(stats, card: str):
           + (f"{stats['max_memory_allocated'] / 2**30:.2f} GiB"
              if stats["max_memory_allocated"] is not None else "-")
           + f"; phase {stats['seconds']:.1f} s [{card}]", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# FSDP phase: 4 pods of 2 sharing shard buffers, 22 layers (K1, K2; K3)
+# ---------------------------------------------------------------------------
+
+def fsdp_topology():
+    """``Topology.hierarchical(("data", "pod"), (2, 4))``: data rides ICI
+    (the shard axis), pod rides DCN (the pod-to-pod butterfly)."""
+    from repro_torch.core.plan import Topology
+    return Topology.hierarchical(("data", "pod"), (FSDP_DATA, FSDP_POD),
+                                 dcn_axes=("pod",))
+
+
+def fsdp_plan(cfg):
+    """The FSDP phase's sharded plan (the Trainer's: the plan cache hands
+    both the same object)."""
+    from repro_torch.core import plan as plan_mod
+    from repro_torch.core.replica import ShardingPolicy
+    from repro_torch.models import transformer as tfm
+    return plan_mod.compile_plan(
+        fsdp_topology(), tfm.param_specs(cfg),
+        plan_mod.AveragingConfig(group_size=FSDP_S, tau=FSDP_TAU),
+        ShardingPolicy.fsdp_within_pod("data"))
+
+
+def fsdp_combines(cfg):
+    """The FSDP path's combine operands: each K1 size and the K2 tail
+    batch of one group step of the sharded plan over its ``(P_eff, n_b)``
+    float32 shard buffers, at scale 1/S."""
+    plan = fsdp_plan(cfg)
+    return plan_combines(plan, plan.P_eff)
+
+
+def fsdp_reckoning(plan, cfg, seq_len: int, rows: int) -> dict:
+    """Device bytes the FSDP step needs at its two peaks, reckoned from
+    the code before the run (``train_step``, ``plan``), beside those of
+    the replicated layout of the same model and replica count.
+
+    Training a pod: the ``(P_eff, n_b)`` params and float32 momentum, one
+    float32 accumulator (``grad_shards``), one member's gradients in the
+    params' dtypes (the pod's tree is a view of its row) and the member's
+    activations (each layer's input kept by ``checkpoint``, one layer's
+    recomputed scores and their gradient, the float32 logits and their
+    gradient).  The average: the old and the new storage buffers, the
+    momentum, a float32 copy of every buffer, two buckets' exchanges in
+    flight."""
+    from repro_torch.core import tree as tr
+    lay = plan.shard_layout
+    elems = sum(lay.bucket_sizes)
+    store = sum(s * d.itemsize for s, d in zip(lay.bucket_sizes,
+                                                lay.bucket_dtypes))
+    tokens = rows * seq_len
+    activations = (cfg.n_layers * tokens * cfg.d_model * 2
+                   + 2 * rows * cfg.n_heads * seq_len ** 2 * 4
+                   + 2 * tokens * cfg.vocab_padded * 4)
+    # rows of storage, float32 momentum, float32 average copies and the
+    # averaged storage beside the old
+    averaging = lambda n, store, elems: n * (2 * store + 8 * elems)
+    specs = tr.tree_leaves(plan.storage_struct)
+    r_elems = sum(math.prod(s.shape) for s in specs)
+    r_store = sum(math.prod(s.shape) * s.dtype.itemsize for s in specs)
+    train = (plan.P_eff * (store + 4 * elems) + 4 * elems + store
+             + activations)
+    average = (averaging(plan.P_eff, store, elems)
+               + 2 * plan.P_eff * max(lay.bucket_sizes) * 4)
+    return {"params": plan.P_eff * store, "momentum": plan.P_eff * 4 * elems,
+            "accumulator": 4 * elems, "member_grads": store,
+            "activations": activations, "train_peak": train,
+            "average_peak": average, "peak": max(train, average),
+            "replicated_state": plan.P * (r_store + 4 * r_elems),
+            "replicated_peak": averaging(plan.P, r_store, r_elems)}
+
+
+def ulp_nudge(buf):
+    """``buf`` (a bf16 or f32 row) with every element moved one ulp away
+    from zero: its bit pattern plus one."""
+    import torch
+    ints = {torch.bfloat16: torch.int16, torch.float32: torch.int32}
+    return (buf.view(ints[buf.dtype]) + 1).view(buf.dtype)
+
+
+def sharded_average_matches(plan, rep_plan, pre, out, offset: int) -> bool:
+    """Check (b): the sharded average ``out`` of the shard buffers ``pre``
+    at ``offset`` equals, bit for bit, the port's replicated plan over
+    ``eff_topology`` (its per-leaf path, one leaf at a time, no K1/K2)
+    applied to the unpacked pod rows."""
+    return fused_equals_per_leaf(per_leaf_plan(rep_plan),
+                                 plan.unshard_tree(out),
+                                 plan.unshard_tree(pre), offset)
+
+
+def planted_ulp(plan, pre, offset: int):
+    """Check (g)'s planted fault: ``pre`` with one element of one pod's
+    row nudged by one ulp, where the nudge changes that group's mean
+    (half the elements: the mean of two bf16 rows is rounded back to
+    bf16).  Only the nudged bucket is copied."""
+    import torch
+    from repro_torch.core import grouping
+    bit = grouping.mask_bits_for_offset(plan.P_eff, plan.S, offset)[0]
+    b = max(range(len(pre)), key=lambda i: pre[i].numel())
+    row, partner = 0, 1 << bit
+    a, p = pre[b][row], pre[b][partner]
+    nudged = ulp_nudge(a)
+    mean = lambda x: ((x.float() + p.float()) * 0.5).to(a.dtype)
+    moved = (mean(nudged) != mean(a)).nonzero()
+    if not len(moved):
+        raise AssertionError("no one-ulp nudge moves the group mean")
+    i = int(moved[0])
+    bucket = pre[b].clone()
+    bucket[row, i] = nudged[i]
+    return tuple(bucket if j == b else x for j, x in enumerate(pre))
+
+
+def fsdp_phase(cfg, device="cuda", steps: int = FSDP_STEPS,
+               seq_len: int = TRAIN_SEQ, global_batch: int = FSDP_GB,
+               conv_layers: int = FSDP_CONV_LAYERS,
+               n_requests: int = FSDP_REQUESTS) -> dict:
+    """The FSDP phase with checks (b)-(e) and (g) (check (a) is
+    :func:`check_fsdp_launches`, (f) :func:`check_fsdp_memory`): the
+    port's ``Trainer(sharding="fsdp")``, 4 pods of 2, for ``steps`` steps;
+    returns the run's numbers."""
+    import torch
+    from repro_torch.core import grouping
+    from repro_torch.core import plan as plan_mod
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import Trainer
+    from repro_torch.optim.sgd import Optimizer
+    from repro_torch.serve.handoff import serving_weights_from_state
+    from repro_torch.train import train_step
+
+    t_phase = time.perf_counter()
+    on_card = torch.device(device).type == "cuda"
+    rows = global_batch // (FSDP_DATA * FSDP_POD)
+    plan = fsdp_plan(cfg)
+    reckoning = fsdp_reckoning(plan, cfg, seq_len, rows)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, FSDP_DATA, pod_axis=FSDP_POD, device=device,
+                      sharding="fsdp", topology=fsdp_topology(),
+                      group_size=FSDP_S, tau=FSDP_TAU,
+                      learning_rate=TRAIN_LR, seq_len=seq_len,
+                      global_batch=global_batch, seed=0)
+    _sync(device)
+    init_s = time.perf_counter() - t0
+    if trainer.plan() is not plan:
+        raise AssertionError("the Trainer compiled another plan than "
+                             "fsdp_plan")
+    rep_plan = plan_mod.compile_plan(plan.eff_topology, plan.storage_struct,
+                                     plan_mod.AveragingConfig(
+                                         group_size=FSDP_S, tau=FSDP_TAU))
+    n_buckets = plan.shard_layout.n_buckets
+    split = {"grads": 0.0, "update": 0.0, "average": 0.0}
+    timed = split_timer(split, device)
+    trainer.opt = Optimizer(trainer.opt.init,
+                            timed("update", trainer.opt.update))
+    averaged = []
+    comm = timed("average", trainer.averager.comm)
+
+    def comm_kept(tree, phase):
+        out = comm(tree, phase)
+        averaged.append((tree, out, plan.offsets[phase]))
+        return out
+
+    trainer.averager.comm = comm_kept
+    trainer.averager.sync = timed("average", trainer.averager.sync)
+    recorded = {}
+    grad_shards = plan.grad_shards
+
+    def grad_shards_kept(member_grads):
+        out = grad_shards(member_grads)
+        if recorded.get("armed"):                 # pod 0 of the check step
+            recorded.update(armed=False, grads=tuple(g.clone() for g in out))
+        return out
+
+    plan.grad_shards = grad_shards_kept
+    value_and_grad = train_step.value_and_grad
+    train_step.value_and_grad = timed("grads", value_and_grad)
+    log, checked, planted = [], {}, None
+    ops.reset_launch_counts()
+    try:
+        for t in range(steps):
+            split.update(grads=0.0, update=0.0, average=0.0)
+            if t == FSDP_GRAD_STEP:
+                pod0 = tuple(b[0].clone() for b in trainer.state.params)
+                recorded["armed"] = True
+            before = ops.launch_counts()
+            _sync(device)
+            t_start = time.perf_counter()
+            loss = trainer.step_once(t)
+            _sync(device)
+            step_s = time.perf_counter() - t_start
+            after = ops.launch_counts()
+            sync = trainer.averager.sync_due(t)
+            offset = (None if sync else
+                      plan.offsets[trainer.averager.phase_for_step(t)])
+            log.append({
+                "t": t, "loss": loss, "sync": sync, "offset": offset,
+                "step_ms": step_s * 1e3,
+                **{k + "_ms": split[k] * 1e3 for k in split},
+                "other_ms": (step_s - sum(split.values())) * 1e3,
+                "skipped": trainer.last_metrics["skipped_nonfinite"],
+                **{key: after[name] - before[name] for key, name in (
+                    ("k1", K1), ("k2", K2), ("k3", K3), ("k4", K4))}})
+            groups = ((tuple(range(plan.P_eff)),) if sync else
+                      grouping.groups_for_offset(plan.P_eff, FSDP_S, offset))
+            same, differ = group_rows_agree(trainer.state.params, groups)
+            if not same or (not sync and not differ):          # check (b)
+                raise AssertionError(
+                    f"check (b): step {t} ({'sync' if sync else offset}): "
+                    f"pods of a group bit-identical {same}, groups differ "
+                    f"{differ}, groups {groups}")
+            if averaged:
+                pre, out, off = averaged.pop()
+                if off not in checked:                          # check (b)
+                    checked[off] = sharded_average_matches(plan, rep_plan,
+                                                           pre, out, off)
+                    if planted is None:                         # check (g)
+                        planted = not sharded_average_matches(
+                            plan, rep_plan, planted_ulp(plan, pre, off),
+                            out, off)
+                del pre, out
+            if t == FSDP_GRAD_STEP:                             # check (c)
+                checked["pod_mean_grads"] = pod_grads_equal(
+                    trainer, plan, pod0, t, recorded.pop("grads"))
+                del pod0
+    finally:
+        train_step.value_and_grad = value_and_grad
+        del plan.grad_shards
+    peak = torch.cuda.max_memory_allocated() if on_card else None
+    launches = ops.launch_counts()
+    offsets_checked = sorted(k for k in checked if k != "pod_mean_grads")
+    if offsets_checked != sorted(plan.offsets) or not all(checked.values()):
+        raise AssertionError(f"check (b)/(c): {checked} over offsets "
+                             f"{plan.offsets}")
+    if not planted:                                             # check (g)
+        raise AssertionError("check (g): the average of a pod buffer "
+                             "nudged by one ulp passed check (b)")
+    bad = [e for e in log if not math.isfinite(e["loss"]) or e["skipped"]]
+    if bad:                                                     # check (g)
+        raise AssertionError(f"check (g): non-finite losses or skipped "
+                             f"updates: {bad}")
+    if not trainer.averager.sync_due(steps - 1):
+        raise AssertionError("the phase must end on a sync (check (e))")
+    # check (e): the final (post-sync) state's consolidated weights served
+    # through the paged engine, against pod 0's unpacked tree served alone
+    t0 = time.perf_counter()
+    weights = serving_weights_from_state(trainer.state, plan=plan)
+    prompts = make_requests(cfg)[:n_requests]
+    served = {}
+    for name, params in (("consolidated", weights),
+                         ("pod 0", plan.unshard_tree(trainer.state.params,
+                                                     0))):
+        before = ops.launch_counts()
+        tokens, sched = serve_tokens(trainer.model, params, prompts)
+        after = ops.launch_counts()
+        served[name] = {"tokens": tokens, "n_prefills": sched.n_prefills,
+                        "launches": {k: after[k] - before[k]
+                                     for k in after}}
+    if served["consolidated"]["tokens"] != served["pod 0"]["tokens"]:
+        raise AssertionError("check (e): the consolidated weights serve "
+                             "other tokens than pod 0's tree")
+    serve_s = time.perf_counter() - t0
+    combines = plan_combines(plan, plan.P_eff)
+    del weights, trainer
+    conversions = fsdp_conversions(cfg.variant(n_layers=conv_layers),
+                                   device, seq_len, global_batch)
+    steady = log[1:] or log
+    med = lambda key: statistics.median(e[key] for e in steady)
+    return {
+        "arch": cfg.name, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+        "dtype": cfg.dtype, "pods": plan.P_eff, "pod_size": plan.shard_size,
+        "replicas": plan.P, "group_size": FSDP_S, "tau": FSDP_TAU,
+        "seq_len": seq_len, "global_batch": global_batch,
+        "n_buckets": n_buckets, "bucket_bytes": plan.shard_bucket_bytes,
+        "expected_k1_k2_per_group_step": expected_combine_launches(
+            n_buckets, len(plan.runs_for_offset(plan.offsets[0])[0].bits)),
+        "combines": combines, "init_s": init_s,
+        "losses": [e["loss"] for e in log], "steps": log,
+        "launches": launches, "checked": checked, "planted_fails": planted,
+        "median_step_ms": med("step_ms"),
+        "tokens_per_s": global_batch * seq_len / (med("step_ms") / 1e3),
+        "median_split_ms": {k: med(k + "_ms") for k in (
+            "grads", "update", "average", "other")},
+        "reckoning": reckoning, "max_memory_allocated": peak,
+        "serving": {k: {kk: v[kk] for kk in ("n_prefills", "launches")}
+                    for k, v in served.items()},
+        "serve_s": serve_s,
+        "conversions": conversions,
+        "seconds": time.perf_counter() - t_phase,
+    }
+
+
+def pod_grads_equal(trainer, plan, pod0, t: int, got) -> bool:
+    """Check (c): pod 0's gradient at step ``t`` recomputed through the
+    replicated path's public pieces (``train_step.value_and_grad`` of each
+    member on the unpacked pre-step pod tree, ``bucketing.pack`` in
+    float32, the sum in member order, the scale by 1/pod size) equals the
+    step's grad shards bit for bit."""
+    import torch
+    from repro_torch.core import bucketing, replica
+    from repro_torch.train import train_step
+    batch = trainer._put_batch(t)
+    b = trainer.shape.global_batch // plan.P
+    tree = bucketing.unpack(pod0, plan.shard_layout)
+    acc = None
+    for r in replica.pod_members(plan, 0):
+        g, _ = train_step.value_and_grad(
+            trainer.model, tree, {k: v[r * b:(r + 1) * b]
+                                  for k, v in batch.items()})
+        packed = bucketing.pack(g, plan.shard_layout, dtype=torch.float32)
+        del g
+        acc = packed if acc is None else tuple(
+            a + p for a, p in zip(acc, packed))
+        del packed
+    twin = tuple(a * (1.0 / plan.shard_size) for a in acc)
+    return all(bits(a).equal(bits(w)) for a, w in zip(got, twin))
+
+
+def fsdp_conversions(cfg, device, seq_len: int, global_batch: int) -> dict:
+    """Check (d) at ``cfg``'s depth (full width): one step of a tau-1
+    FSDP Trainer (a sync), then ``replicated_to_fsdp_state(
+    fsdp_to_replicated_state(s))`` must be ``s`` bit for bit and
+    ``consolidate_state`` each pod's unpacked row bit for bit."""
+    from repro_torch.core import replica
+    from repro_torch.core import tree as tr
+    from repro_torch.launch.train import Trainer
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, FSDP_DATA, pod_axis=FSDP_POD, device=device,
+                      sharding="fsdp", topology=fsdp_topology(),
+                      group_size=FSDP_S, tau=1, learning_rate=TRAIN_LR,
+                      seq_len=seq_len, global_batch=global_batch, seed=0)
+    trainer.step_once(0)
+    plan, s = trainer.plan(), trainer.state
+    back = replica.replicated_to_fsdp_state(
+        replica.fsdp_to_replicated_state(s, plan), plan)
+    leaves = lambda st: tr.tree_leaves((st.params, st.opt_state))
+    round_trip = (len(leaves(back)) == len(leaves(s)) and all(
+        a.dtype == b.dtype and bits(a).equal(bits(b))
+        for a, b in zip(leaves(back), leaves(s))))
+    del back
+    cons = tr.tree_leaves(replica.consolidate_state(s, plan))
+    consolidated = all(
+        bits(c).equal(bits(p)) for e in range(plan.P_eff)
+        for c, p in zip(cons, tr.tree_leaves(plan.unshard_tree(s.params, e))))
+    if not (round_trip and consolidated):
+        raise AssertionError(f"check (d) at {cfg.n_layers} layers: round "
+                             f"trip {round_trip}, consolidation = every "
+                             f"pod's row {consolidated}")
+    return {"n_layers": cfg.n_layers, "round_trip": round_trip,
+            "consolidated_equals_pods": consolidated,
+            "seconds": time.perf_counter() - t0}
+
+
+
+def check_fsdp_launches(stats):
+    """Check (a): each group step launched the K1/K2 of the sharded plan's
+    schedule (its shard buckets, one stage at S 2), each sync none, no
+    step K3 or K4, and nothing launched outside the steps; check (e)'s
+    serving runs K3 once a layer a prefill and nothing else."""
+    want_k1, want_k2 = stats["expected_k1_k2_per_group_step"]
+    for e in stats["steps"]:
+        want = (0, 0) if e["sync"] else (want_k1, want_k2)
+        if (e["k1"], e["k2"]) != want or e["k3"] or e["k4"]:
+            raise AssertionError(
+                f"check (a): FSDP step {e['t']}: K1, K2, K3, K4 launched "
+                f"{(e['k1'], e['k2'], e['k3'], e['k4'])}, the schedule "
+                f"predicts {want}, 0, 0")
+    for key, kernel in (("k1", K1), ("k2", K2), ("k3", K3), ("k4", K4)):
+        if stats["launches"][kernel] != sum(e[key] for e in stats["steps"]):
+            raise AssertionError(f"check (a): the FSDP phase launched "
+                                 f"{kernel} outside its steps")
+    if want_k2 < 1:
+        raise AssertionError("check (a): no multi-pair K2 launch on the "
+                             "FSDP path")
+    for run in stats["serving"].values():           # check (e)'s serving
+        check_serving_launches(run, stats["n_layers"])
+
+
+def check_fsdp_held(stats, held: dict):
+    """Check (a), the operands: the FSDP run's combines (each K1 size and
+    scale, the K2 batch) are those the K1/K2 phase held to the plain
+    versions (``held``, its ``line["fsdp"]``)."""
+    if held.get("combines") != stats["combines"]:
+        raise AssertionError(f"check (a): the FSDP run's combines "
+                             f"{stats['combines']}, the K1/K2 phase held "
+                             f"{held.get('combines')}")
+
+
+def check_fsdp_memory(stats, limit: int = 80 * 10 ** 9):
+    """Check (f): the measured peak stays under the card's 80 GB."""
+    peak = stats["max_memory_allocated"]
+    if peak is None or peak >= limit:
+        raise AssertionError(f"check (f): peak {peak} bytes, limit {limit}")
+
+
+def print_fsdp(stats, card: str):
+    r = stats["reckoning"]
+    gb = lambda b: f"{b / 1e9:.2f} GB"
+    print(f"fsdp [{card}]: {stats['arch']} full width, {stats['n_layers']} "
+          f"layers, {stats['replicas']} replicas as {stats['pods']} pods of "
+          f"{stats['pod_size']}, S={stats['group_size']} tau={stats['tau']},"
+          f" {stats['n_buckets']} shard buckets of "
+          f"{stats['bucket_bytes'] >> 20} MiB; K1/K2 a group step "
+          f"{stats['expected_k1_k2_per_group_step']}, launches "
+          f"{stats['launches']}", flush=True)
+    print(f"fsdp losses: {[round(x, 4) for x in stats['losses']]}",
+          flush=True)
+    print(f"fsdp [{card}]: median step {stats['median_step_ms']:.1f} ms "
+          f"after the first, {stats['tokens_per_s']:.0f} tokens/s, host "
+          f"split { {k: round(v, 1) for k, v in stats['median_split_ms'].items()} }"
+          f" ms, trainer init {stats['init_s']:.2f} s", flush=True)
+    peak = stats["max_memory_allocated"]
+    print(f"fsdp memory [{card}]: peak "
+          + ("-" if peak is None else gb(peak))
+          + f" against the reckoning {gb(r['peak'])} (training "
+          f"{gb(r['train_peak'])}: params {gb(r['params'])}, momentum "
+          f"{gb(r['momentum'])}, accumulator {gb(r['accumulator'])}, a "
+          f"member's grads {gb(r['member_grads'])}, activations "
+          f"{gb(r['activations'])}; average {gb(r['average_peak'])}); the "
+          f"replicated layout of the same {stats['replicas']} replicas "
+          f"{gb(r['replicated_peak'])} (its state alone "
+          f"{gb(r['replicated_state'])})", flush=True)
+    conv = stats["conversions"]
+    print(f"fsdp checks: (b) sharded average = replicated plan on the pod "
+          f"rows by offset { {k: v for k, v in stats['checked'].items() if k != 'pod_mean_grads'} }"
+          f", a one-ulp nudge fails it {stats['planted_fails']}; (c) pod 0's "
+          f"gradient = its members' packed mean {stats['checked']['pod_mean_grads']}"
+          f"; (d) at {conv['n_layers']} layers round trip "
+          f"{conv['round_trip']}, consolidation = every pod "
+          f"{conv['consolidated_equals_pods']}; (e) consolidated and pod 0 "
+          f"serve the same tokens, K3 {stats['serving']['consolidated']['launches'][K3]}"
+          f" + {stats['serving']['pod 0']['launches'][K3]} over "
+          f"{stats['serving']['consolidated']['n_prefills']} prefills each "
+          f"({stats['serve_s']:.1f} s); phase {stats['seconds']:.1f} s "
+          f"[{card}]", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -3621,6 +4119,16 @@ def main() -> int:
     print_elastic(elastic, card)
     free_memory("elastic phase")
 
+    # -- FSDP phase: 4 pods of 2 at 22 layers, the pods' shard buffers
+    # averaged pod to pod (K1, K2), the consolidated model served (K3) ----
+    fsdp = fsdp_phase(fsdp_config())
+    check_fsdp_launches(fsdp)                                   # check (a)
+    check_fsdp_held(fsdp, ga_line["fsdp"])                      # check (a)
+    check_fsdp_memory(fsdp)                                     # check (f)
+    print(json.dumps({"fsdp": fsdp, "card": card}), flush=True)
+    print_fsdp(fsdp, card)
+    free_memory("FSDP phase")
+
     # -- ranks phase: the same model, one replica a rank over gloo (K1, K2)
     ranks = ranks_phase(ranks_spec(), ROOT / "build" / "ranks")
     check_ranks_launches(ranks)                                 # check (a)
@@ -3814,12 +4322,15 @@ def main() -> int:
     tl_k3 = {f"{ARCH} serving": served[K3],
              f"{ARCH} disaggregated": disagg["launches"][K3],
              f"{ARCH} handoff of the trained state, {tcfg.n_layers} layers":
-             sum(r["launches"][K3] for r in trained.values())}
+             sum(r["launches"][K3] for r in trained.values()),
+             f"{FSDP_PATH}, consolidated and pod 0 served":
+             sum(r["launches"][K3] for r in fsdp["serving"].values())}
     by_path = lambda name, serving=0: {
         f"{ARCH} training": train["launches"][name],
         f"{ARCH} elastic, pool {ELASTIC_POOL}": sum(
             run["launches"][name] for run in elastic["runs"].values()),
         f"{ARCH} training, {RANKS_P} ranks": ranks_launches[name],
+        FSDP_PATH: fsdp["launches"][name],
         f"{RG_ARCH} serving": serving,
         f"{RG_ARCH} training": rg_train["launches"][name],
         f"{PAPER_ARCH} training": paper_launches[name]}
@@ -3848,20 +4359,22 @@ def main() -> int:
     # each elastic world's largest K1 operand and its K2 batch
     elastic_row = lambda k: {f"world {w}": ranks_row(held[k])
                              for w, held in ga_line["elastic"].items()}
+    fsdp_row = lambda k: dict(ranks_row(ga_line["fsdp"][k]),
+                              n_layers=fsdp["n_layers"], pods=fsdp["pods"])
     kernels = [
         entry(K1, "src/repro_torch/kernels/csrc/group_average.cu",
               "src/repro/kernels/group_average.py:68",
               sum(by_path(K1).values()), ga_line["K1"], ga_err["K1"],
               n=ga_line["K1"]["n"], dtype="float32", scale=1.0,
               launches_by_path=by_path(K1),
-              elastic_row=elastic_row("K1"),
+              elastic_row=elastic_row("K1"), fsdp_row=fsdp_row("K1"),
               ranks_row=ranks_row(ga_line["K1 ranks"])),
         entry(K2, "src/repro_torch/kernels/csrc/group_average.cu",
               "src/repro/kernels/group_average.py:80",
               sum(by_path(K2).values()), ga_line["K2"], ga_err["K2"],
               n=ga_line["K2"]["n"], dtype="float32", scale=1.0,
               launches_by_path=by_path(K2),
-              elastic_row=elastic_row("K2"),
+              elastic_row=elastic_row("K2"), fsdp_row=fsdp_row("K2"),
               ranks_row=ranks_row(ga_line["K2 ranks"])),
         entry(K3, "src/repro_torch/kernels/csrc/flash_attention.cu",
               "src/repro/kernels/flash_attention.py:70",

@@ -21,8 +21,10 @@ rejects loudly, never a half-written state that loads silently.
 
 :func:`save_replica_state` / :func:`load_replica_state` round-trip a whole
 :class:`~repro_torch.core.replica.ReplicaState` (stacked ``(P, ...)``
-params and optimiser state, step and phase).  A restore across sharding
-policies or stream layouts belongs to the FSDP slice and raises.
+params and optimiser state, or FSDP ``(P_eff, n_b)`` shard buffers; step,
+phase and the policy), and restore across the replicated and FSDP
+policies through the host-side conversions of ``core/replica.py``.  A
+layer-streamed checkpoint is slice 7b's and raises.
 """
 
 from __future__ import annotations
@@ -222,8 +224,8 @@ def save_replica_state(path: str, state, sharding=None,
 
 
 def checkpoint_sharding(path: str):
-    """The ShardingPolicy a replica-state checkpoint was written under (an
-    FSDP policy raises: it belongs to the FSDP slice)."""
+    """The ShardingPolicy a replica-state checkpoint was written under (a
+    layer-streamed one raises: it belongs to slice 7b)."""
     from repro_torch.core.replica import ShardingPolicy
     with open(os.path.join(path, "manifest.json")) as f:
         meta = json.load(f)["metadata"]
@@ -232,20 +234,41 @@ def checkpoint_sharding(path: str):
                           meta.get("streamed", False))
 
 
-def load_replica_state(path: str, template, *, sharding=None):
+def load_replica_state(path: str, template, *, sharding=None, plan=None):
     """Restore a ReplicaState into ``template``'s layout (its params and
-    optimiser state: tensors or Specs, stacked ``(P, ...)``)."""
-    from repro_torch.core.replica import (FSDP_SLICE, REPLICATED,
-                                          ReplicaState)
-    sharding = sharding or REPLICATED
+    optimiser state: tensors or Specs).
+
+    ``sharding`` is the *restoring run's* policy (default replicated).
+    When it differs from the policy the checkpoint was written under, the
+    state is rebuilt in the source layout (from ``plan``, the compiled
+    sharded AveragingPlan of the model, required for any cross-policy
+    restore) and converted: pod models broadcast to their members (FSDP ->
+    replicated) or pod-averaged and packed (replicated -> FSDP).
+    """
+    from repro_torch.core import replica as replica_mod
+    sharding = sharding or replica_mod.REPLICATED
     src = checkpoint_sharding(path)
-    if src != sharding:
-        raise NotImplementedError(
-            f"restoring a {src.describe()} checkpoint into a "
-            f"{sharding.describe()} run converts across policies; that "
-            f"belongs to {FSDP_SLICE}")
-    params, opt, step = load_checkpoint(path, template.params,
-                                        template.opt_state)
+    if src.kind == sharding.kind:
+        src_template = template
+    elif plan is None:
+        raise ValueError(
+            f"checkpoint at {path} was written under {src.describe()} but "
+            f"the run uses {sharding.describe()}; pass the compiled plan "
+            "to convert")
+    elif src.is_sharded:
+        src_template = replica_mod.sharded_state_template(
+            plan, template.opt_state)
+    else:
+        src_template = replica_mod.replicated_state_template(
+            plan, template.opt_state)
+    params, opt, step = load_checkpoint(path, src_template.params,
+                                        src_template.opt_state)
     with open(os.path.join(path, "manifest.json")) as f:
         phase = json.load(f)["metadata"].get("phase", -1)
-    return ReplicaState(params, opt, step=int(step), phase=int(phase))
+    state = replica_mod.ReplicaState(params, opt, step=int(step),
+                                     phase=int(phase))
+    if src.kind == sharding.kind:
+        return state
+    if src.is_sharded:
+        return replica_mod.fsdp_to_replicated_state(state, plan)
+    return replica_mod.replicated_to_fsdp_state(state, plan)

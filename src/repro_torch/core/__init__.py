@@ -1,4 +1,4 @@
-"""WAGMA-SGD core, replicated realisation: the group schedule
+"""WAGMA-SGD core: the group schedule
 (``grouping``), flat buckets (``bucketing``), the wavefront (``overlap``),
 the compiled averaging plan and its wire (``plan``), the averagers
 (``wagma``, ``baselines``), the straggler simulator (``staleness``), and
@@ -7,7 +7,9 @@ and seeded faults (``faults``).
 
 Counterpart of ``repro/core``, exporting the same names.  A replicated
 tree is stacked, each leaf in the JAX global layout ``(P, ...)`` with one
-row per replica, or, over a rank world, this rank's ``(1, ...)`` row.
+row per replica, or, over a rank world, this rank's ``(1, ...)`` row; an
+FSDP-within-pod state (``replica``) is a tuple of ``(P_eff, n_b)`` shard
+buffers, one row a pod.
 """
 
 from repro_torch.core.grouping import (default_group_size,

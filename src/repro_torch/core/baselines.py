@@ -26,6 +26,9 @@ here write that product (:func:`_divide`), which keeps them bit for bit
 the reference's.  No baseline combine runs a kernel, in either package:
 only the WAGMA butterfly calls K1/K2.
 
+Under ``fsdp_within_pod`` the trees are the ``(P_eff, n_b)`` shard
+buffers and every collective spans the pods (``comm_axis_*``, ``P_eff``).
+
 Semantics (D-PSGD's ring rides the minor dp axis, so with the one
 ``("data",)`` axis it spans all P replicas):
 
@@ -52,7 +55,8 @@ import numpy as np
 from repro_torch.core import bucketing, grouping
 from repro_torch.core import plan as plan_mod
 from repro_torch.core import tree as tr
-from repro_torch.core.replica import FSDP_SLICE, REPLICATED, ShardingPolicy
+from repro_torch.core.replica import (REPLICATED, ShardingPolicy,
+                                      refuse_sharded_world)
 
 
 def _divide(x, d: float):
@@ -81,17 +85,20 @@ class _AveragerBase:
             raise ValueError(
                 f"topology axes {topology.axis_names}/{topology.axis_sizes} "
                 f"do not match dp axes {self.axis_names}/{self.axis_sizes}")
-        if sharding.is_sharded:
-            raise NotImplementedError(f"sharded baselines belong to "
-                                      f"{FSDP_SLICE}")
+        refuse_sharded_world(sharding, world)
         self.topology = topology
         self.sharding = sharding
         self.world = world
         self.P = int(np.prod(self.axis_sizes))
-        # replicated: the collectives ride every dp axis
-        self.comm_axis_names = topology.axis_names
-        self.comm_axis_sizes = topology.axis_sizes
-        self.P_eff = topology.P
+        # Collectives ride the *effective* replica axes: under
+        # fsdp_within_pod the shard axis carries one model's members, not
+        # divergent replicas, so every mix, ring and mean spans the pods
+        # (the shard buffers' rows) only (DESIGN.md §10).
+        eff = (topology.drop_axis(sharding.shard_axis)
+               if sharding.is_sharded else topology)
+        self.comm_axis_names = eff.axis_names
+        self.comm_axis_sizes = eff.axis_sizes
+        self.P_eff = eff.P
         self._cfg = plan_mod.AveragingConfig(
             average_dtype="float32", fused=fused, bucket_bytes=bucket_bytes,
             overlap=overlap)
@@ -103,7 +110,8 @@ class _AveragerBase:
         return False
 
     def plan_for(self, tree) -> plan_mod.AveragingPlan:
-        """The compiled plan for a tree's structure (cached)."""
+        """The compiled plan for a tree's structure (cached; sharded
+        plans also for their own shard buffers)."""
         return plan_mod.compile_plan(self.topology, tr.struct(tree, drop=1),
                                      self._cfg, self.sharding, self.world)
 
@@ -125,7 +133,9 @@ class AllreduceAverager(_AveragerBase):
     grad_comm = True
 
     def comm(self, tree, phase: int):
-        # the reduction IS the collective, so combine is the identity
+        # the reduction IS the collective, so combine is the identity;
+        # under fsdp_within_pod the tree is the pod-meaned grad shard
+        # buffers, so the mean spans pods only
         wire = self.plan_for(tree).wire
         return self._mix_tree(tree, wire.pmean_rows, lambda g, r: r)
 

@@ -22,9 +22,12 @@ Trees may carry leading replica dims: ``pack`` of a stacked tree (every
 leaf ``(P, ...)``) gives ``(P, n_b)`` buckets, padded per replica as JAX
 pads per device, and ``unpack`` inverts it.  ``tree_map_buckets`` and
 ``tree_map_bucketed`` take stacked trees (the port's replicated
-realisation) and lay them out by one replica's structure.  The layer-aware
-``groups=`` and shard ``align=`` layouts belong to the FSDP slice and are
-not here.
+realisation) and lay them out by one replica's structure.  ``align=`` pads
+every bucket to a multiple of ``align * 128`` elements: the FSDP-within-pod
+state (``core/replica.py``) passes the pod size, so each bucket splits into
+``align`` equal, lane-aligned shard slices, as in the JAX package.  The
+layer-aware ``groups=`` layouts belong to the layer-streamed FSDP slice
+(7b) and are not here.
 """
 
 from __future__ import annotations
@@ -74,13 +77,15 @@ def _numel(shape) -> int:
     return n
 
 
-def _pad_to_lanes(n: int) -> int:
-    return -(-n // _LANES) * _LANES if n else 0
+def _pad_to_lanes(n: int, align: int = 1) -> int:
+    unit = _LANES * max(int(align), 1)
+    return -(-n // unit) * unit if n else 0
 
 
-def build_layout(tree, *, max_bucket_bytes: int = DEFAULT_BUCKET_BYTES
-                 ) -> BucketLayout:
-    """Plan buckets for one replica's ``tree`` (tensors or :class:`Spec`)."""
+def build_layout(tree, *, max_bucket_bytes: int = DEFAULT_BUCKET_BYTES,
+                 align: int = 1) -> BucketLayout:
+    """Plan buckets for one replica's ``tree`` (tensors or :class:`Spec`);
+    every bucket padded to a multiple of ``align * 128`` elements."""
     leaves, treedef = tr.tree_flatten(tree)
     metas = [(_numel(l.shape), tuple(l.shape), l.dtype) for l in leaves]
     slots = []
@@ -101,7 +106,7 @@ def build_layout(tree, *, max_bucket_bytes: int = DEFAULT_BUCKET_BYTES
         slots.append(_LeafSlot(bi, bucket_sizes[bi], size, shape, dtype))
         bucket_sizes[bi] += size
     return BucketLayout(treedef, tuple(slots),
-                        tuple(_pad_to_lanes(s) for s in bucket_sizes),
+                        tuple(_pad_to_lanes(s, align) for s in bucket_sizes),
                         tuple(bucket_dtypes))
 
 
@@ -121,18 +126,19 @@ def layout_cache_stats() -> dict:
     return dict(_LAYOUT_STATS)
 
 
-def layout_for(tree, *, max_bucket_bytes: int = DEFAULT_BUCKET_BYTES
-               ) -> BucketLayout:
-    """Cached :func:`build_layout` keyed on structure and the budget, never
-    on the phase offset or anything else a caller threads around."""
+def layout_for(tree, *, max_bucket_bytes: int = DEFAULT_BUCKET_BYTES,
+               align: int = 1) -> BucketLayout:
+    """Cached :func:`build_layout` keyed on structure, the budget and the
+    shard alignment, never on the phase offset or anything else a caller
+    threads around."""
     leaves, treedef = tr.tree_flatten(tree)
     key = (treedef, tuple((tuple(l.shape), l.dtype) for l in leaves),
-           max_bucket_bytes)
+           max_bucket_bytes, align)
     layout = _LAYOUT_CACHE.get(key)
     if layout is None:
         _LAYOUT_STATS["misses"] += 1
         layout = _LAYOUT_CACHE[key] = build_layout(
-            tree, max_bucket_bytes=max_bucket_bytes)
+            tree, max_bucket_bytes=max_bucket_bytes, align=align)
     else:
         _LAYOUT_STATS["hits"] += 1
     return layout
@@ -173,6 +179,23 @@ def pack(tree, layout: BucketLayout, dtype=None) -> Tuple[torch.Tensor, ...]:
     for buf, n in zip(out, filled):
         buf[..., n:].zero_()
     return tuple(out)
+
+
+def pack_add_(tree, layout: BucketLayout, buckets: Sequence[torch.Tensor]):
+    """Add the tree's leaves into ``buckets`` (as :func:`pack` lays them
+    out) in place, each leaf cast to its bucket's dtype while it is added:
+    ``pack(tree, dtype=b.dtype)`` summed into ``buckets`` with no packed
+    copy of the tree.  Returns ``buckets``."""
+    leaves = tr.tree_leaves(tree)
+    if len(leaves) != len(layout.slots):
+        raise ValueError(f"tree has {len(leaves)} leaves, layout "
+                         f"{len(layout.slots)}")
+    for leaf, slot in zip(leaves, layout.slots):
+        if slot.size:
+            lead = _lead_shape(leaf, slot)
+            buckets[slot.bucket][..., slot.offset:slot.offset + slot.size
+                                 ].add_(leaf.reshape(lead + (slot.size,)))
+    return buckets
 
 
 def unpack(buckets: Sequence[torch.Tensor], layout: BucketLayout,

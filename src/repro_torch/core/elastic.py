@@ -1,7 +1,7 @@
 """Elastic topology: membership epochs, Topology diffing, state handoff.
 
-Counterpart of ``repro/core/elastic.py``, replicated realisation.  The
-host-side half of surviving churn without a restart:
+Counterpart of ``repro/core/elastic.py``.  The host-side half of
+surviving churn without a restart:
 
 * :func:`diff_topology` — structural diff between two dp topologies.  A
   membership change is a *resize* of one or more dp axes (axis names and
@@ -27,9 +27,9 @@ host-side half of surviving churn without a restart:
   worlds.  A replicated state's rows are selected where they lie: params
   and moments by ``index_select`` on their own device, the per-replica
   optimiser ``count`` on the host, where the ``Trainer`` keeps it.  No
-  file is written.  Sharded (FSDP) states unpack through the old plan's
-  shard layout in the JAX package; that branch belongs to the FSDP slice
-  and raises here.
+  file is written.  A sharded (FSDP) state unpacks its pod rows through
+  the old plan's shard layout, selects them and repacks them through the
+  new plan's (the layer-streamed one is slice 7b's).
 """
 
 from __future__ import annotations
@@ -41,7 +41,8 @@ from typing import List, Sequence, Tuple
 import torch
 
 from repro_torch.core import tree as tr
-from repro_torch.core.replica import FSDP_SLICE, ReplicaState, map_opt_state
+from repro_torch.core.replica import (ReplicaState, _pack_rows, _unpack_rows,
+                                      map_opt_state)
 
 
 def largest_pow2(n: int) -> int:
@@ -301,10 +302,11 @@ class MembershipController:
 
 def select_replica_rows(state: ReplicaState, rows: Sequence[int]
                         ) -> ReplicaState:
-    """Row selection on a stacked replicated ReplicaState.
+    """Row selection on any stacked ReplicaState layout.
 
-    Every leaf (the ``(P, ...)`` params and moments, the ``(P,)``
-    optimiser ``count``) carries the replica dimension first; each is
+    Every leaf (the replicated ``(P, ...)`` params and moments, the FSDP
+    ``(P_eff, n_b)`` shard buffers, the per-replica optimiser ``count``)
+    carries the replica dimension first; each is
     selected by ``index_select`` where it lies, so a state on the card
     never crosses to the host.  ``rows`` may repeat (that is how
     :func:`regrow_replica_state` clones the consensus row for joiners).
@@ -330,18 +332,39 @@ def handoff_state(state: ReplicaState, keep_rows: Sequence[int], *,
                   old_plan=None, new_plan=None) -> ReplicaState:
     """Re-seat a ReplicaState onto a resized world, checkpoint-free.
 
-    ``keep_rows`` indexes the old world's replica rows that survive, in
-    new-world rank order (a shrink event's ``keep_rows``).  A replicated
-    state is a plain row selection.  A sharded plan on either side raises:
-    unpacking shard buffers through the old plan's layout and repacking
-    them through the new one's belongs to the FSDP slice.
+    ``keep_rows`` indexes the old world's *effective* replica rows (pods,
+    under FSDP) that survive, in new-world rank order (a shrink event's
+    ``keep_rows``).  A replicated state is a plain row selection.  A
+    sharded state unpacks its shard buffers through ``old_plan``'s layout
+    into pod rows, selects them, and repacks them through ``new_plan``'s
+    layout: the new topology may pick other bucket budgets, so the layouts
+    need not match.  Both plans must share the policy.
     """
-    for plan in (old_plan, new_plan):
-        if plan is not None and plan.sharding.is_sharded:
-            raise NotImplementedError(
-                f"handoff of a {plan.sharding.describe()} state unpacks "
-                f"and repacks shard buffers; that belongs to {FSDP_SLICE}")
-    return select_replica_rows(state, keep_rows)
+    old_sharded = old_plan is not None and old_plan.sharding.is_sharded
+    new_sharded = new_plan is not None and new_plan.sharding.is_sharded
+    if old_sharded != new_sharded:
+        raise ValueError("handoff_state does not cross sharding policies; "
+                         "both worlds must be replicated or both fsdp")
+    if not old_sharded:
+        return select_replica_rows(state, keep_rows)
+
+    unstack = lambda t: _unpack_rows(t, old_plan.shard_layout, cast=False)
+    pod_state = ReplicaState(
+        _unpack_rows(state.params, old_plan.shard_layout),
+        map_opt_state(state.opt_state, unstack, lambda c: c),
+        state.step, state.phase)
+    pod_state = select_replica_rows(pod_state, keep_rows)
+
+    n = new_plan.P_eff
+    if len(tuple(keep_rows)) != n:
+        raise ValueError(f"{len(tuple(keep_rows))} surviving rows but the "
+                         f"new plan has P_eff={n}")
+    restack = lambda t: _pack_rows(t, new_plan.shard_layout, n,
+                                   dtype=torch.float32)
+    return ReplicaState(
+        _pack_rows(pod_state.params, new_plan.shard_layout, n),
+        map_opt_state(pod_state.opt_state, restack, lambda c: c),
+        pod_state.step, pod_state.phase)
 
 
 def regrow_replica_state(state: ReplicaState, n_total: int, *,

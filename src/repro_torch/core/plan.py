@@ -56,8 +56,22 @@ sends with :func:`link_transfer_seconds` on a link class, optionally with
 the calibrated constants of ``LINK_CONSTANTS.json``
 (:meth:`Topology.with_measured`).
 
-Not here: the FSDP-within-pod paths (slice 7) and the step-time models
-(ROADMAP.md).
+**Sharded replicas** (DESIGN.md §10): ``compile_plan(..., sharding=
+ShardingPolicy.fsdp_within_pod(axis))`` compiles the FSDP-within-pod
+realisation.  The members of a pod (the ranks that differ only on the
+shard axis) share one model; the state is the plan's shard-aligned bucket
+buffers, one ``(P_eff, n_b)`` tensor a bucket, a row a pod.  Where the JAX
+plan gives each device a column slice and composes an all-gather, a
+reduce-scatter and a pod-to-pod butterfly on the slices, the stacked
+realisation holds the global array on one device: ``unshard_tree`` reads a
+pod's row, ``grad_shards`` is the float32 sum of the pod's members' packed
+gradients times ``1/shard_size``, and ``average``/``sync``/``mix`` run the
+replicated arithmetic over the ``P_eff`` rows (the butterfly's combines
+through K1/K2).  Per element that is the JAX plan's arithmetic, so the
+buffers agree with it bit for bit (pinned by tests).
+
+Not here: the layer-streamed layout, FSDP over a rank world (slice 7b) and
+the step-time models (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -76,7 +90,8 @@ import torch.distributed as dist
 from repro_torch.core import bucketing, grouping
 from repro_torch.core import overlap as pipeline
 from repro_torch.core import tree as tr
-from repro_torch.core.replica import REPLICATED, ShardingPolicy
+from repro_torch.core.replica import (REPLICATED, ShardingPolicy,
+                                      refuse_sharded_world)
 
 
 # ---------------------------------------------------------------------------
@@ -574,9 +589,35 @@ class AveragingPlan:
                 topology.axis_sizes:
             raise ValueError(f"rank world axes {world.axis_sizes} do not "
                              f"match the topology's {topology.axis_sizes}")
+        refuse_sharded_world(sharding, world)
         self.world = world
         self.wire = wire_for(world)
-        self.P = self.P_eff = topology.P
+        self.P = topology.P
+        # Sharded plans butterfly over the *effective* (pod-level) replica
+        # space: the shard axis's ranks share weights and act as ONE
+        # logical WAGMA worker (DESIGN.md §10).
+        if sharding.is_sharded:
+            if sharding.shard_axis not in topology.axis_names:
+                raise ValueError(
+                    f"shard_axis {sharding.shard_axis!r} not a dp axis of "
+                    f"{topology.axis_names}")
+            self.shard_axis_index = topology.axis_names.index(
+                sharding.shard_axis)
+            self.shard_size = topology.axis_sizes[self.shard_axis_index]
+            shard_link = topology.link_classes[
+                topology.axis_class[self.shard_axis_index]]
+            if len(topology.classes_in_use()) > 1 and \
+                    shard_link.beta >= topology.bottleneck().beta:
+                raise ValueError(
+                    f"shard_axis {sharding.shard_axis!r} rides the "
+                    f"bottleneck link class {shard_link.name!r}; FSDP "
+                    "shards over an intra-pod (ICI) axis")
+            self.eff_topology = topology.drop_axis(sharding.shard_axis)
+        else:
+            self.shard_axis_index = None
+            self.shard_size = 1
+            self.eff_topology = topology
+        self.P_eff = self.eff_topology.P
         self.S = cfg.group_size or grouping.default_group_size(self.P_eff)
         if self.S > self.P_eff:
             raise ValueError(f"group size {self.S} exceeds replica world "
@@ -602,6 +643,7 @@ class AveragingPlan:
         self.sync_bucket_bytes = (cfg.bucket_bytes
                                   or bucketing.DEFAULT_BUCKET_BYTES)
         self._runs: Dict[int, Tuple[StageRun, ...]] = {}
+        self._shard_layout: Optional[bucketing.BucketLayout] = None
 
     # -- static schedule ---------------------------------------------------
     @property
@@ -609,14 +651,16 @@ class AveragingPlan:
         return len(self.offsets)
 
     def runs_for_offset(self, offset: int) -> Tuple[StageRun, ...]:
-        """The offset's stages as maximal runs of equal link class."""
+        """The offset's stages as maximal runs of equal link class; bits
+        in the effective replica space (the pod-level one, shard axis
+        dropped, for sharded plans)."""
         cached = self._runs.get(offset)
         if cached is not None:
             return cached
         bits = grouping.mask_bits_for_offset(self.P_eff, self.S, offset)
         runs: List[StageRun] = []
         for bit in bits:
-            ci = self.topology.class_of_bit(bit)
+            ci = self.eff_topology.class_of_bit(bit)
             if runs and runs[-1].class_index == ci:
                 runs[-1] = StageRun(ci, runs[-1].bits + (bit,))
             else:
@@ -630,15 +674,133 @@ class AveragingPlan:
             self.work_struct,
             max_bucket_bytes=self.class_bucket_bytes[class_index])
 
+    # -- sharded-state layout (ShardingPolicy.fsdp_within_pod) -------------
+    @property
+    def shard_layout(self) -> bucketing.BucketLayout:
+        """Storage-dtype bucket layout the sharded state persists in.
+
+        Every bucket is padded to shard_size x 128 elements, so that each of
+        the pod's devices owns an equal, lane-aligned slice in the JAX
+        package.  One layout serves storage, the gather, the gradient
+        reduction and the pod-to-pod butterfly (the stage bits all ride the
+        non-shard axes: no repack between runs).
+        """
+        if not self.sharding.is_sharded:
+            raise ValueError("shard_layout is only defined for sharded plans")
+        if self._shard_layout is None:
+            self._shard_layout = bucketing.layout_for(
+                self.storage_struct,
+                max_bucket_bytes=self.shard_bucket_bytes,
+                align=self.shard_size)
+        return self._shard_layout
+
+    @property
+    def shard_bucket_bytes(self) -> int:
+        """The sharded state's bucket budget: the butterfly link class's."""
+        if self.cfg.bucket_bytes is not None:
+            return self.cfg.bucket_bytes
+        eff_classes = self.eff_topology.classes_in_use()
+        link_ci = max(eff_classes,
+                      key=lambda ci: self.topology.link_classes[ci].beta)
+        return self.class_bucket_bytes[link_ci]
+
+    def shard_struct(self) -> tuple:
+        """Specs of one device's owned shard slices in the JAX package
+        (each bucket's ``1/shard_size``)."""
+        lay = self.shard_layout
+        return tuple(tr.Spec((s // self.shard_size,), d)
+                     for s, d in zip(lay.bucket_sizes, lay.bucket_dtypes))
+
+    def shard_tree(self, stacked_tree) -> tuple:
+        """``(P_eff, ...)`` pod trees -> the ``(P_eff, n_b)`` shard
+        buffers (new tensors): the stacked twin of the JAX plan's pack and
+        slice of each device's share."""
+        return bucketing.pack(stacked_tree, self.shard_layout)
+
+    def unshard_tree(self, shards, pod: Optional[int] = None):
+        """Shard buffers -> pod ``pod``'s full tree (the JAX plan's
+        all-gather over the shard axis), its leaves views into the pod's
+        row; with no ``pod``, every pod's tree stacked ``(P_eff, ...)``."""
+        rows = shards if pod is None else tuple(b[pod] for b in shards)
+        return bucketing.unpack(rows, self.shard_layout)
+
+    def grad_shards(self, member_grads) -> tuple:
+        """One pod's members' full-tree gradients -> its float32 grad
+        buffers (the pod mean).
+
+        ``member_grads`` yields each member's gradient tree in rank order
+        (a generator keeps one member's gradients alive at a time).  The
+        first is packed in float32, each next one added into those buffers
+        leaf by leaf, and the sum scaled by ``1/shard_size``: the JAX plan's
+        tiled ``psum_scatter`` times ``1/shard_size``, every device's slice
+        at once.  Returns ``(n_b,)`` buffers.
+        """
+        acc = None
+        for g in member_grads:
+            if acc is None:
+                acc = bucketing.pack(g, self.shard_layout,
+                                     dtype=torch.float32)
+            else:
+                bucketing.pack_add_(g, self.shard_layout, acc)
+            del g
+        if acc is None:
+            raise ValueError("grad_shards: a pod with no members")
+        inv = 1.0 / self.shard_size
+        return tuple(b.mul_(inv) for b in acc)
+
     # -- execution: the paper's group butterfly ----------------------------
     def average(self, tree, phase: int):
-        """Wait-avoiding group model averaging for phase index ``phase``."""
+        """Wait-avoiding group model averaging for phase index ``phase``.
+
+        Replicated plans take (and return) the stacked params tree; sharded
+        plans take the tuple of ``(P_eff, n_b)`` shard buffers and
+        butterfly them pod to pod."""
         return self.average_offset(tree, self.offsets[phase])
+
+    def _cast_shards(self, shards):
+        if self.avg_dtype is None:
+            return list(shards)
+        return [b.to(self.avg_dtype, copy=True) if b.numel() else b
+                for b in shards]
+
+    def _uncast_shards(self, work, shards):
+        return tuple(w.to(b.dtype) for w, b in zip(work, shards))
+
+    def _average_sharded(self, shards, offset: int):
+        """Pod-to-pod butterfly on the ``(P_eff, n_b)`` shard buffers.
+
+        Per element the arithmetic is exactly the replicated plan's:
+        log2(S) adds in stage order, then one scale, through K1/K2 in the
+        accumulation dtype; so the sharded path is bit-identical to the
+        replicated plan over ``eff_topology`` on the unpacked pod rows.
+        Returns new buffers; ``shards`` is not modified.
+        """
+        bits = grouping.mask_bits_for_offset(self.P_eff, self.S, offset)
+        inv_s = 1.0 / self.S
+        exchange = self.wire.butterfly_exchange
+        work = self._cast_shards(shards)
+        if self.cfg.overlap:
+            work = pipeline.overlapped_butterfly(
+                work, bits, inv_s, exchange=exchange,
+                combine_many=_combine_many)
+        else:
+            out = []
+            for buf in work:
+                if buf.numel():
+                    for i, bit in enumerate(bits):
+                        recv = exchange(buf, bit)
+                        s = inv_s if i == len(bits) - 1 else 1.0
+                        buf = _stage_combine(buf, recv, s)
+                out.append(buf)
+            work = out
+        return self._uncast_shards(work, shards)
 
     def average_offset(self, tree, offset: int):
         """Group averaging for an explicit phase offset.
 
         Returns a new tree; ``tree`` is not modified."""
+        if self.sharding.is_sharded:
+            return self._average_sharded(tree, offset)
         bits = grouping.mask_bits_for_offset(self.P_eff, self.S, offset)
         inv_s = 1.0 / self.S
         exchange = self.wire.butterfly_exchange
@@ -680,8 +842,14 @@ class AveragingPlan:
     # -- execution: tau-periodic global sync -------------------------------
     def sync(self, tree):
         """Synchronous mean over all replicas (Alg. 2 line 16), in float32,
-        written back to every row (every rank)."""
+        written back to every row (every rank).
+
+        Sharded plans average each shard buffer's ``P_eff`` pod rows only:
+        the shard axis's members hold one model, not divergent copies."""
         mean_rows = self.wire.sync_rows_
+        if self.sharding.is_sharded:
+            return tuple(mean_rows(b.to(torch.float32, copy=True)).to(b.dtype)
+                         if b.numel() else b for b in tree)
         if not self.cfg.fused:
             return tr.tree_map(lambda w: mean_rows(w.float().clone()).to(
                 w.dtype), tree)
@@ -697,11 +865,11 @@ class AveragingPlan:
         if self.cfg.bucket_bytes is not None:
             return self.cfg.bucket_bytes
         if bits:
-            classes = {self.topology.class_of_bit(b) for b in bits}
+            classes = {self.eff_topology.class_of_bit(b) for b in bits}
             link = max((self.topology.link_classes[c] for c in classes),
                        key=lambda l: l.beta)
         else:
-            link = self.topology.bottleneck()
+            link = self.eff_topology.bottleneck()
         return choose_class_bucket_bytes(self.payload_bytes, link,
                                          overlap=self.cfg.overlap)
 
@@ -715,9 +883,17 @@ class AveragingPlan:
         ``wire.butterfly_exchange``), ``combine(buf, recv) -> buf`` the
         local arithmetic; every granularity computes the same element math.
         With ``overlap=True`` every bucket's collectives are issued before
-        any bucket's combine (``overlap.overlapped_mix``).
+        any bucket's combine (``overlap.overlapped_mix``).  Sharded plans
+        mix the shard buffers' pod rows directly (``bits`` in pod space).
         """
         mixfn = lambda buf: combine(buf, issue(buf))
+        if self.sharding.is_sharded:
+            work = [b.float() if b.numel() else b for b in tree]
+            if self.cfg.overlap:
+                out = pipeline.overlapped_mix(work, issue, combine)
+            else:
+                out = [mixfn(b) if b.numel() else b for b in work]
+            return tuple(o.to(b.dtype) for o, b in zip(out, tree))
         if not self.cfg.fused:
             return tr.tree_map(lambda w: mixfn(w.float()).to(w.dtype), tree)
         budget = self.mix_bucket_bytes(tuple(bits))
@@ -746,18 +922,28 @@ class AveragingPlan:
         return len(tr.tree_leaves(self.work_struct))
 
     def butterfly_summary(self, offset: int = 0) -> List[dict]:
-        """One dict per stage run: link class, bits, budget, exchanges."""
+        """One dict per stage run: link class, bits, budget, exchanges.
+
+        Sharding never changes the launch count per stage: the sharded
+        butterfly runs one exchange per shard-layout bucket, so under FSDP
+        every class reports the shard layout's bucket count."""
         out = []
         for run in self.runs_for_offset(offset):
             link = self.topology.link_classes[run.class_index]
-            units = (self.class_layout(run.class_index).n_buckets
-                     if self.cfg.fused else self.n_leaves())
+            if self.sharding.is_sharded:
+                units = self.shard_layout.n_buckets
+                budget = self.shard_bucket_bytes
+            else:
+                units = (self.class_layout(run.class_index).n_buckets
+                         if self.cfg.fused else self.n_leaves())
+                budget = self.class_bucket_bytes[run.class_index]
             out.append({
                 "link": link.name,
                 "bits": run.bits,
-                "axes": tuple(self.topology.axis_of_bit(b) for b in run.bits),
+                "axes": tuple(self.eff_topology.axis_of_bit(b)
+                              for b in run.bits),
                 "stages": len(run.bits),
-                "bucket_bytes": self.class_bucket_bytes[run.class_index],
+                "bucket_bytes": budget,
                 "n_buckets": units,
                 "exchanges": len(run.bits) * units,
             })
@@ -771,17 +957,27 @@ class AveragingPlan:
             f"avg_dtype={self.avg_dtype} fused={self.cfg.fused} "
             f"overlap={self.cfg.overlap}",
             f"  topology: {self.topology.describe()}",
-            f"  sharding: {self.sharding.describe()}",
+            f"  sharding: {self.sharding.describe()}"
+            + (f" -> {self.P_eff} logical replicas of "
+               f"{self.shard_size} shards" if self.sharding.is_sharded
+               else ""),
             f"  wire: " + ("stacked rows" if self.world is None else
                            f"{self.world.P} ranks over "
                            f"{self.world.backend}"),
         ]
-        for ci in self.topology.classes_in_use():
-            link = self.topology.link_classes[ci]
-            bb = self.class_bucket_bytes[ci]
-            nb = self.class_layout(ci).n_buckets if self.cfg.fused else 0
-            lines.append(f"  class {link.name}: budget "
-                         f"{bb / 2**20:.0f}MiB -> {nb} buckets")
+        if self.sharding.is_sharded:
+            lines.append(
+                f"  shard layout: budget "
+                f"{self.shard_bucket_bytes / 2**20:.0f}MiB -> "
+                f"{self.shard_layout.n_buckets} buckets x "
+                f"{self.shard_size} slices")
+        else:
+            for ci in self.topology.classes_in_use():
+                link = self.topology.link_classes[ci]
+                bb = self.class_bucket_bytes[ci]
+                nb = self.class_layout(ci).n_buckets if self.cfg.fused else 0
+                lines.append(f"  class {link.name}: budget "
+                             f"{bb / 2**20:.0f}MiB -> {nb} buckets")
         for ph, off in enumerate(self.offsets):
             runs = ", ".join(
                 f"{r['link']}[bits={list(r['bits'])} x{r['n_buckets']}buk]"
@@ -800,6 +996,11 @@ class AveragingPlan:
 # ---------------------------------------------------------------------------
 
 _PLAN_CACHE: Dict[tuple, AveragingPlan] = {}
+# Sharded plans are also indexed by the *shard-buffer* structure they
+# produce, so that averagers handed the sharded state (a tuple of
+# ``(P_eff, n_b)`` buffers) inside the train step resolve back to the plan
+# compiled from the full tree at init time.
+_SHARD_STRUCT_CACHE: Dict[tuple, AveragingPlan] = {}
 
 
 def clear_plan_cache() -> None:
@@ -807,6 +1008,7 @@ def clear_plan_cache() -> None:
     buffers), the per-class budget sweep, and ``bucketing``'s layout cache
     and budget sweep."""
     _PLAN_CACHE.clear()
+    _SHARD_STRUCT_CACHE.clear()
     _WIRES.clear()
     choose_class_bucket_bytes.cache_clear()
     bucketing.clear_layout_cache()
@@ -823,13 +1025,16 @@ def evict_topology(topology: Topology) -> int:
     remaining plan runs over loses its wire, and with it the wire's pinned
     host buffers.
     """
-    dead = [k for k in _PLAN_CACHE if k[0] == topology]
-    for k in dead:
-        del _PLAN_CACHE[k]
+    removed = 0
+    for cache in (_PLAN_CACHE, _SHARD_STRUCT_CACHE):
+        dead = [k for k in cache if k[0] == topology]
+        for k in dead:
+            del cache[k]
+        removed += len(dead)
     live = {k[4] for k in _PLAN_CACHE}
     for world in [w for w in _WIRES if w not in live]:
         del _WIRES[world]
-    return len(dead)
+    return removed
 
 
 def _structure_key(tree) -> tuple:
@@ -849,8 +1054,19 @@ def compile_plan(topology: Topology, tree_shapes,
     ``launch.mesh.RankWorld``) runs the plan over ranks, ``None`` on
     stacked rows.  Cached on (topology, config, sharding, structure,
     world).
+
+    ``sharding=ShardingPolicy.fsdp_within_pod(axis)`` compiles the sharded
+    plan from the FULL tree; later calls with one pod's row of the plan's
+    own shard buffers (storage dtypes, or float32 as the gradients are)
+    resolve to the same plan.
     """
-    key = (topology, config, sharding, _structure_key(tree_shapes), world)
+    structure = _structure_key(tree_shapes)
+    if sharding.is_sharded:
+        plan = _SHARD_STRUCT_CACHE.get((topology, config, sharding,
+                                        structure, world))
+        if plan is not None:
+            return plan
+    key = (topology, config, sharding, structure, world)
     plan = _PLAN_CACHE.get(key)
     if plan is not None:
         return plan
@@ -863,4 +1079,13 @@ def compile_plan(topology: Topology, tree_shapes,
     plan = AveragingPlan(topology, config, storage, work, payload,
                          sharding=sharding, world=world)
     _PLAN_CACHE[key] = plan
+    if sharding.is_sharded:
+        lay = plan.shard_layout
+        for dtypes in (lay.bucket_dtypes,
+                       (torch.float32,) * lay.n_buckets):
+            row = tuple(tr.Spec((n,), d)
+                        for n, d in zip(lay.bucket_sizes, dtypes))
+            _SHARD_STRUCT_CACHE.setdefault(
+                (topology, config, sharding, _structure_key(row), world),
+                plan)
     return plan

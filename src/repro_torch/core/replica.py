@@ -1,48 +1,76 @@
 """Replica state and sharding policy: the object the train step operates on.
 
-Counterpart of ``repro/core/replica.py``, replicated realisation only.
-WAGMA needs *divergent* per-replica weights: under
-``ShardingPolicy.replicated()`` params and optimiser state carry a leading
-replica axis of size P, every leaf ``(P, ...)`` (the JAX global layout).
-On one card the replicas are the rows of those tensors; over a rank world
-(``launch/mesh.py``) each rank holds its own ``(1, ...)`` row and a
-``(1,)`` count, the block JAX's ``shard_map`` hands one device.
+Counterpart of ``repro/core/replica.py``.  WAGMA needs *divergent*
+per-replica weights:
 
-``ShardingPolicy.fsdp_within_pod`` (replicas inside a pod sharing sharded
-weights, DESIGN.md §10) belongs to the FSDP slice and raises here.
-:func:`consolidate_state` averages the replica axis into the one model a
-server loads (``serve/handoff.py``).
+* ``ShardingPolicy.replicated()``: params and optimiser state carry a
+  leading replica axis of size P, every leaf ``(P, ...)`` (the JAX global
+  layout).  On one card the replicas are the rows of those tensors; over a
+  rank world (``launch/mesh.py``) each rank holds its own ``(1, ...)`` row
+  and a ``(1,)`` count, the block JAX's ``shard_map`` hands one device.
+* ``ShardingPolicy.fsdp_within_pod(shard_axis)`` (DESIGN.md §10): the
+  replicas of one pod (the ranks that differ only on the intra-pod axis
+  ``shard_axis``) share one set of weights and act as ONE logical WAGMA
+  worker whose gradient is the pod mean.  The state is a tuple of
+  ``(P_eff, bucket_elems)`` flat buffers laid out by the compiled plan's
+  shard-aligned :class:`~repro_torch.core.bucketing.BucketLayout` (each
+  bucket padded to ``pod_size x 128`` elements), one row a pod.  The JAX
+  package spreads each row's columns over the pod's devices; on one card
+  the port holds that global array whole, as it holds the replicated one,
+  so its layouts, checkpoints and conversions are the reference's byte for
+  byte.
+
+Host-side helpers translate whole states between the policies (a
+checkpoint written under one restores under the other) and consolidate
+either layout into the one model a server loads (``serve/handoff.py``).
+The layer-streamed layout (``streamed=True``) and FSDP over a rank world
+belong to slice 7b and raise, naming it.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core import bucketing
+from repro_torch.core import tree as tr
 
 REPLICATED_KIND = "replicated"
 FSDP_KIND = "fsdp_within_pod"
-FSDP_SLICE = ("the FSDP slice of the port (ROADMAP.md, slice 7: sharded "
-              "replicas)")
+FSDP_SLICE = ("slice 7b: layer-streamed FSDP and FSDP over ranks "
+              "(ROADMAP.md)")
 
 
 @dataclass(frozen=True)
 class ShardingPolicy:
-    """How divergent replicas lay out their state.  Only ``replicated``
-    is ported; part of the plan cache key, as in the JAX package."""
+    """How divergent replicas lay out their state.
+
+    ``kind`` is ``"replicated"`` or ``"fsdp_within_pod"``; for the latter
+    ``shard_axis`` names the dp axis the pod's members share weights over
+    (an intra-pod axis of the plan's Topology, validated when the plan
+    compiles).  Part of the plan cache key.  ``streamed`` (the layer-
+    streamed layout) is slice 7b's and raises.
+    """
     kind: str = REPLICATED_KIND
     shard_axis: Optional[str] = None
     streamed: bool = False
 
     def __post_init__(self):
-        if self.kind == FSDP_KIND or self.streamed:
-            raise NotImplementedError(
-                f"ShardingPolicy {self.kind!r}"
-                f"{' (streamed)' if self.streamed else ''} is not ported "
-                f"yet; it belongs to {FSDP_SLICE}")
-        if self.kind != REPLICATED_KIND:
+        if self.kind not in (REPLICATED_KIND, FSDP_KIND):
             raise ValueError(f"unknown sharding kind {self.kind!r}")
-        if self.shard_axis is not None:
+        if self.kind == FSDP_KIND and not self.shard_axis:
+            raise ValueError("fsdp_within_pod needs a shard_axis")
+        if self.kind == REPLICATED_KIND and self.shard_axis is not None:
             raise ValueError("replicated policy takes no shard_axis")
+        if self.streamed and self.kind != FSDP_KIND:
+            raise ValueError("streamed layout requires fsdp_within_pod")
+        if self.streamed:
+            raise NotImplementedError(
+                f"the layer-streamed FSDP layout is not ported yet; it "
+                f"belongs to {FSDP_SLICE}")
 
     @classmethod
     def replicated(cls) -> "ShardingPolicy":
@@ -51,35 +79,98 @@ class ShardingPolicy:
     @classmethod
     def fsdp_within_pod(cls, shard_axis: str,
                         streamed: bool = False) -> "ShardingPolicy":
-        raise NotImplementedError(
-            f"fsdp_within_pod({shard_axis!r}) is not ported yet; it belongs "
-            f"to {FSDP_SLICE}")
+        return cls(FSDP_KIND, shard_axis, streamed)
 
     @property
     def is_sharded(self) -> bool:
-        return False
+        return self.kind == FSDP_KIND
 
     def describe(self) -> str:
+        if self.is_sharded:
+            return (f"fsdp_within_pod(shard_axis={self.shard_axis!r}"
+                    + (", streamed" if self.streamed else "") + ")")
         return "replicated"
 
 
 REPLICATED = ShardingPolicy.replicated()
 
 
+def refuse_sharded_world(sharding: ShardingPolicy, world) -> None:
+    """FSDP over a rank world is slice 7b's: raise, naming it."""
+    if sharding.is_sharded and world is not None:
+        raise NotImplementedError(
+            f"{sharding.describe()} over a rank world is not ported yet; it "
+            f"belongs to {FSDP_SLICE}")
+
+
 @dataclass
 class ReplicaState:
     """Params + optimiser state + averager step/phase bookkeeping.
 
-    ``params`` and the optimiser's moment trees are stacked ``(P, ...)``;
-    the optimiser's ``count`` is a ``(P,)`` vector (``(1, ...)`` and
-    ``(1,)`` on a rank).  ``step`` is the global
-    training step; ``phase`` the butterfly phase index the last group
-    averaging executed (-1 before any averaging and after a sync).
+    Replicated: ``params`` and the optimiser's moment trees are stacked
+    ``(P, ...)``, the optimiser's ``count`` a ``(P,)`` vector (``(1, ...)``
+    and ``(1,)`` on a rank).  FSDP: tuples of ``(P_eff, n_b)`` shard
+    buffers (params in their storage dtypes, moments float32) and a
+    ``(P_eff,)`` count.  ``step`` is the global training step; ``phase``
+    the butterfly phase index the last group averaging executed (-1 before
+    any averaging and after a sync).
     """
     params: object
     opt_state: object
     step: int = 0
     phase: int = -1
+
+
+# ---------------------------------------------------------------------------
+# Layout conversion (checkpoint portability, consolidation)
+# ---------------------------------------------------------------------------
+
+def effective_rank_map(axis_sizes: Tuple[int, ...],
+                       shard_axis_index: int) -> np.ndarray:
+    """``eff_of_rank[dp_rank] -> logical (pod) replica index``.
+
+    ``axis_sizes`` is minor-to-major.  Dropping the shard axis's coordinate
+    from a dp rank's mixed-radix decomposition gives the rank in the
+    effective (pod-level) replica space, the other axes keeping their
+    minor-to-major order.
+    """
+    sizes = [int(s) for s in axis_sizes]
+    P = int(np.prod(sizes))
+    eff = np.zeros((P,), np.int64)
+    for rank in range(P):
+        rem, coords = rank, []
+        for s in sizes:
+            coords.append(rem % s)
+            rem //= s
+        stride, e = 1, 0
+        for ax, (s, c) in enumerate(zip(sizes, coords)):
+            if ax == shard_axis_index:
+                continue
+            e += c * stride
+            stride *= s
+        eff[rank] = e
+    return eff
+
+
+def pod_members(plan, pod: int) -> Tuple[int, ...]:
+    """The dp ranks of pod ``pod`` of a sharded plan, in rank order."""
+    eff = effective_rank_map(plan.topology.axis_sizes, plan.shard_axis_index)
+    return tuple(int(r) for r in np.nonzero(eff == pod)[0])
+
+
+def _pack_rows(stacked_tree, layout, n_rows: int, dtype=None) -> tuple:
+    """(R, ...)-stacked leaves -> tuple of new (R, bucket_elems) buffers."""
+    bufs = bucketing.pack(stacked_tree, layout, dtype=dtype)
+    for b in bufs:
+        if b.shape[0] != n_rows:
+            raise ValueError(f"{b.shape[0]} rows, expected {n_rows}")
+    return bufs
+
+
+def _unpack_rows(buffers, layout, cast: bool = True) -> object:
+    """Tuple of (R, bucket_elems) buffers -> (R, ...)-stacked leaves (views
+    into the buffers where a leaf keeps its bucket's dtype)."""
+    return bucketing.unpack(tuple(buffers), layout, cast=cast)
 
 
 def map_opt_state(opt_state, fn_tree, fn_count):
@@ -96,16 +187,122 @@ def map_opt_state(opt_state, fn_tree, fn_count):
     return type(opt_state)(**vals)
 
 
+def _index_rows(a, rows: np.ndarray):
+    return a.index_select(0, torch.as_tensor(rows, dtype=torch.long,
+                                             device=a.device))
+
+
+def sharded_to_replicated_tree(buffers, plan, *, cast: bool = True):
+    """FSDP buffers (P_eff, bucket) -> (P, ...)-stacked leaves.
+
+    Every pod's model is broadcast to all its members (members of a pod
+    share weights by construction), so the result is a valid replicated
+    state of the same topology.
+    """
+    pod_tree = _unpack_rows(buffers, plan.shard_layout, cast=cast)
+    eff = effective_rank_map(plan.topology.axis_sizes, plan.shard_axis_index)
+    return tr.tree_map(lambda a: _index_rows(a, eff), pod_tree)
+
+
+def replicated_to_sharded_tree(stacked_tree, plan, *, dtype=None):
+    """(P, ...)-stacked leaves -> FSDP buffers (P_eff, bucket).
+
+    Pod members are averaged in float32, summed in rank order and divided
+    by the pod size, as the JAX package's numpy mean does: for a
+    replicated checkpoint written mid-divergence this is the pod-consensus
+    projection; when members are identical (right after a sync or an
+    FSDP -> replicated conversion) the mean is exact and the round trip
+    lossless.
+    """
+    eff = effective_rank_map(plan.topology.axis_sizes, plan.shard_axis_index)
+    members = [np.nonzero(eff == e)[0] for e in range(plan.P_eff)]
+
+    def pod_mean(a):
+        out = []
+        for rows in members:
+            acc = a[int(rows[0])].float().clone()
+            for r in rows[1:]:
+                acc += a[int(r)].float()
+            out.append((acc / len(rows)).to(a.dtype))
+        return torch.stack(out)
+
+    pod_tree = tr.tree_map(pod_mean, stacked_tree)
+    return _pack_rows(pod_tree, plan.shard_layout, plan.P_eff, dtype=dtype)
+
+
+def fsdp_to_replicated_state(state: ReplicaState, plan) -> ReplicaState:
+    """Convert a whole FSDP ReplicaState into the replicated layout."""
+    eff = effective_rank_map(plan.topology.axis_sizes, plan.shard_axis_index)
+    params = sharded_to_replicated_tree(state.params, plan)
+    opt = map_opt_state(
+        state.opt_state,
+        lambda t: sharded_to_replicated_tree(t, plan, cast=False),
+        lambda c: _index_rows(c, eff))
+    return ReplicaState(params, opt, state.step, state.phase)
+
+
+def replicated_to_fsdp_state(state: ReplicaState, plan) -> ReplicaState:
+    """Convert a whole replicated ReplicaState into the FSDP layout."""
+    eff = effective_rank_map(plan.topology.axis_sizes, plan.shard_axis_index)
+    first_member = np.asarray(
+        [int(np.nonzero(eff == e)[0][0]) for e in range(plan.P_eff)])
+    params = replicated_to_sharded_tree(state.params, plan)
+    opt = map_opt_state(
+        state.opt_state,
+        lambda t: replicated_to_sharded_tree(t, plan, dtype=torch.float32),
+        lambda c: _index_rows(c, first_member))
+    return ReplicaState(params, opt, state.step, state.phase)
+
+
+def _count_spec(c, n: int) -> tr.Spec:
+    return tr.Spec((n,), c.dtype)
+
+
+def sharded_state_template(plan, opt_state_like) -> ReplicaState:
+    """A ReplicaState of :class:`~repro_torch.core.tree.Spec` leaves in the
+    FSDP layout of ``plan``.
+
+    ``opt_state_like`` supplies the optimiser state *type* (any state of
+    the same optimiser, either layout); only shapes and dtypes are made:
+    the template a cross-policy checkpoint restore rebuilds into.
+    """
+    lay = plan.shard_layout
+    n = plan.P_eff
+    params = tuple(tr.Spec((n, s), d)
+                   for s, d in zip(lay.bucket_sizes, lay.bucket_dtypes))
+    moments = tuple(tr.Spec((n, s), torch.float32) for s in lay.bucket_sizes)
+    opt = map_opt_state(opt_state_like, lambda _: moments,
+                        lambda c: _count_spec(c, n))
+    return ReplicaState(params, opt)
+
+
+def replicated_state_template(plan, opt_state_like) -> ReplicaState:
+    """A ReplicaState of Specs in the replicated (P, ...)-stacked layout."""
+    n = plan.P
+    params = tr.tree_map(lambda s: tr.Spec((n,) + tuple(s.shape), s.dtype),
+                         plan.storage_struct)
+    moments = tr.tree_map(
+        lambda s: tr.Spec((n,) + tuple(s.shape), torch.float32),
+        plan.storage_struct)
+    opt = map_opt_state(opt_state_like, lambda _: moments,
+                        lambda c: _count_spec(c, n))
+    return ReplicaState(params, opt)
+
+
 def consolidate_state(state: ReplicaState, plan=None):
     """Average the replica axis -> the single post-training consensus model
-    (``checkpoint.ckpt.consolidate``: float32 mean, stored in each leaf's
-    dtype).  A plan with a sharded policy raises: consolidating FSDP shard
-    buffers belongs to the FSDP slice."""
+    (float32 mean, stored in each leaf's dtype).
+
+    Replicated states need no plan (``checkpoint.ckpt.consolidate``); FSDP
+    states average the pod axis of each shard buffer, then unpack through
+    the plan's shard layout.
+    """
     from repro_torch.checkpoint.ckpt import consolidate
-    if plan is not None and plan.sharding.is_sharded:
-        raise NotImplementedError(
-            f"consolidating a {plan.sharding.describe()} state unpacks its "
-            f"shard buffers; that belongs to {FSDP_SLICE}")
+    if plan is not None and plan.sharding.is_sharded and \
+            isinstance(state.params, tuple):
+        mean_bufs = tuple(b.float().mean(0).to(b.dtype)
+                          for b in state.params)
+        return bucketing.unpack(mean_bufs, plan.shard_layout)
     if isinstance(state.params, tuple):
         raise ValueError(
             "consolidate_state got an FSDP (shard-buffer) state but no "

@@ -14,7 +14,9 @@ The averager owns the phase/sync bookkeeping and delegates every
 collective to the :class:`~repro_torch.core.plan.AveragingPlan` its
 topology compiles to for the current tree structure.  The trees it is
 handed are stacked ``(P, ...)``, or, over a rank world
-(``launch/mesh.py``), this rank's ``(1, ...)`` row.
+(``launch/mesh.py``), this rank's ``(1, ...)`` row; under
+``fsdp_within_pod`` the ``(P_eff, n_b)`` shard buffers, one row a pod, the
+groups formed over the ``P_eff`` pods.
 """
 
 from __future__ import annotations
@@ -24,7 +26,8 @@ from typing import Optional, Sequence
 from repro_torch.core import grouping
 from repro_torch.core import plan as plan_mod
 from repro_torch.core import tree as tr
-from repro_torch.core.replica import REPLICATED, ShardingPolicy
+from repro_torch.core.replica import (REPLICATED, ShardingPolicy,
+                                      refuse_sharded_world)
 
 # WagmaConfig(group_size=..., tau=..., fused=...) is the plan's config.
 WagmaConfig = plan_mod.AveragingConfig
@@ -50,10 +53,18 @@ class WagmaAverager:
             raise ValueError(
                 f"topology axes {topology.axis_names}/{topology.axis_sizes} "
                 f"do not match dp axes {self.axis_names}/{self.axis_sizes}")
+        refuse_sharded_world(sharding, world)
         self.topology = topology
         self.sharding = sharding
         self.world = world
-        self.P = self.P_eff = topology.P
+        self.P = topology.P
+        # Under fsdp_within_pod the shard axis's ranks share weights and
+        # act as one logical WAGMA worker: grouping runs over the
+        # effective (pod-level) replica space (DESIGN.md §10).
+        if sharding.is_sharded:
+            self.P_eff = topology.drop_axis(sharding.shard_axis).P
+        else:
+            self.P_eff = self.P
         self.S = cfg.group_size or grouping.default_group_size(self.P_eff)
         if self.S > self.P_eff:
             raise ValueError(f"group size {self.S} exceeds replica world "
@@ -80,7 +91,9 @@ class WagmaAverager:
 
     # -- the compiled plan ----------------------------------------------------
     def plan_for(self, tree) -> plan_mod.AveragingPlan:
-        """The compiled plan for a tree's structure (cached)."""
+        """The compiled plan for a tree's structure (cached).  Under
+        ``fsdp_within_pod`` ``tree`` may be the stacked full tree (at state
+        init) or the plan's own shard buffers (inside the train step)."""
         return plan_mod.compile_plan(self.topology, tr.struct(tree, drop=1),
                                      self.cfg, self.sharding, self.world)
 

@@ -67,7 +67,6 @@ from repro_torch.core.elastic import (MembershipController, diff_topology,
                                       regrow_replica_state)
 from repro_torch.core.faults import FaultSchedule
 from repro_torch.core.health import DetectorConfig, FailureDetector
-from repro_torch.core.replica import FSDP_SLICE
 from repro_torch.core.staleness import SkipLedger
 from repro_torch.launch.train import Trainer
 
@@ -140,7 +139,9 @@ class ElasticTrainer:
         if trainer_kw.get("sharding") not in (None, "replicated"):
             raise NotImplementedError(
                 "ElasticTrainer drives the replicated policy; sharded "
-                f"worlds belong to {FSDP_SLICE}")
+                "worlds convert through core.elastic.handoff_state at pod "
+                "granularity, and pod-granular membership in the driver "
+                "is queued with slice 7b (ROADMAP.md)")
         if trainer_kw.get("world") is not None:
             raise NotImplementedError(
                 "ElasticTrainer drives the replicas of one process; "

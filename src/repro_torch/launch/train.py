@@ -1,5 +1,6 @@
-"""Training driver: the replicated data-parallel SGD loop (WAGMA-SGD or a
-baseline averager), on one device or one replica a rank.
+"""Training driver: the data-parallel SGD loop (WAGMA-SGD or a baseline
+averager), replicated on one device or one replica a rank, or FSDP within
+a pod on one device.
 
 Counterpart of ``repro/launch/train.py``.  Builds the model, optimiser and
 averager; keeps the cache of step variants (one per butterfly phase offset
@@ -14,18 +15,24 @@ rank, as JAX lays them over a mesh's ``pod`` and ``data`` axes.
     python -m torch.distributed.run --standalone --nproc-per-node 4 \\
         -m repro_torch.launch.train --arch tinyllama-1.1b --data-axis 2 \\
         --pod-axis 2 --pod-dcn --ckpt-dir ckpt
+    python -m repro_torch.launch.train --arch tinyllama-1.1b --data-axis 2 \\
+        --pod-axis 4 --pod-dcn --sharding fsdp --group-size 2 --tau 5
 
 runs on the CUDA card; ``REPRO_TORCH_DEVICE=cpu`` asks for the CPU (add
 ``--smoke`` there).  Under torchrun (``WORLD_SIZE`` > 1) each rank trains
 its own replica over the backend ``REPRO_TORCH_BACKEND`` names (default
 nccl on the card, gloo on the CPU; ``gloo`` lets ranks share one card).
-Flags of the JAX driver whose feature is not ported yet raise, naming
-their slice (ROADMAP.md).
+``--sharding fsdp`` makes the members of each pod (the ranks that differ
+on the minor dp axis) one logical worker sharing one set of shard buffers
+(``core/replica.py``), on one device.  Flags of the JAX driver whose
+feature is not ported yet raise, naming their slice (ROADMAP.md):
+``--streamed`` and FSDP under torchrun are slice 7b's.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import time
 
@@ -37,7 +44,7 @@ from repro_torch.configs import get_config
 from repro_torch.configs.base import InputShape
 from repro_torch.core.baselines import AVERAGERS, make_averager
 from repro_torch.core.plan import Topology
-from repro_torch.core.replica import (FSDP_SLICE, REPLICATED, ReplicaState,
+from repro_torch.core.replica import (REPLICATED, ReplicaState,
                                       ShardingPolicy, consolidate_state,
                                       map_opt_state)
 from repro_torch.core import tree as tr
@@ -46,6 +53,7 @@ from repro_torch.launch import mesh
 from repro_torch.models.registry import build_model
 from repro_torch.optim import adamw, sgd
 from repro_torch.train import build_train_step, init_replica_state
+from repro_torch.train.train_step import plan_of
 
 # a moe model's metrics beside the loss, logged with it
 ROUTER_METRICS = ("load_balance", "router_z", "moe_dropped")
@@ -53,18 +61,29 @@ EXPERT_SLICE = ("the expert-parallel moe over model ranks (ROADMAP.md, "
                 "slice 4b)")
 
 
-def resolve_sharding(sharding, streamed: bool = False) -> ShardingPolicy:
-    """CLI/ctor spelling -> ShardingPolicy (``None``/``"replicated"``, or a
-    ready policy); the FSDP spellings raise, naming their slice."""
-    if isinstance(sharding, ShardingPolicy) and not streamed:
+def resolve_sharding(sharding, dp_names, streamed: bool = False
+                     ) -> ShardingPolicy:
+    """CLI/ctor spelling -> ShardingPolicy.
+
+    ``None``/``"replicated"`` -> replicated; ``"fsdp"`` shards over the
+    minor (intra-pod) dp axis ``dp_names[0]``; a ready ShardingPolicy
+    passes through.  ``streamed=True`` and ``"fsdp_streamed"`` (the
+    layer-streamed layout) raise, naming slice 7b.
+    """
+    if isinstance(sharding, ShardingPolicy):
+        if streamed and not sharding.streamed:
+            return dataclasses.replace(sharding, streamed=True)
         return sharding
-    if (sharding is None or sharding == "replicated") and not streamed:
+    if sharding == "fsdp_streamed":
+        sharding, streamed = "fsdp", True
+    if sharding is None or sharding == "replicated":
+        if streamed:
+            raise ValueError("--streamed requires --sharding fsdp")
         return REPLICATED
-    if streamed or sharding in ("fsdp", "fsdp_streamed"):
-        raise NotImplementedError(
-            f"sharding {sharding!r}{' streamed' if streamed else ''} is not "
-            f"ported yet; it belongs to {FSDP_SLICE}")
-    raise ValueError(f"unknown sharding {sharding!r}; options: replicated | "
+    if sharding == "fsdp":
+        return ShardingPolicy.fsdp_within_pod(dp_names[0], streamed=streamed)
+    raise ValueError(f"unknown sharding {sharding!r}; options: "
+                     f"replicated | fsdp | fsdp_streamed | "
                      f"ShardingPolicy(...)")
 
 
@@ -90,7 +109,7 @@ class Trainer:
         self.device = torch.device(device or "cuda")
         self.model = build_model(cfg, device=self.device)
         self.n_dp = int(np.prod(sizes))
-        self.sharding = resolve_sharding(sharding, streamed=streamed)
+        self.sharding = resolve_sharding(sharding, names, streamed=streamed)
         kw = {}
         if averager == "wagma":
             kw = {"group_size": group_size, "tau": tau}
@@ -128,12 +147,13 @@ class Trainer:
 
     def _put_state(self, state: ReplicaState) -> ReplicaState:
         """The state's params and moments on this run's device (the count
-        stays on the host), checked against the replica count.  A rank
-        keeps its own row of the ``(P, ...)`` state."""
+        stays on the host), checked against the replica count (the pod
+        count under FSDP).  A rank keeps its own row of the ``(P, ...)``
+        state."""
         rows = tr.tree_leaves(state.params)[0].shape[0]
-        if rows != self.n_dp:
+        if rows != self.averager.P_eff:
             raise ValueError(f"state has {rows} replica rows; this run has "
-                             f"{self.n_dp}")
+                             f"{self.averager.P_eff}")
         r = self._rows()
         put = lambda t: tr.tree_map(lambda a: a[r].to(self.device), t)
         return ReplicaState(put(state.params),
@@ -148,7 +168,10 @@ class Trainer:
         return slice(self.world.rank, self.world.rank + 1)
 
     def plan(self):
-        """The compiled AveragingPlan the train step executes."""
+        """The compiled AveragingPlan the train step executes (under FSDP
+        the sharded plan, compiled from the model's full tree)."""
+        if self.sharding.is_sharded:
+            return plan_of(self.model, self.averager)
         return self.averager.plan_for(self.state.params)
 
     def _step_fn(self, t: int):
@@ -213,12 +236,14 @@ class Trainer:
         return state
 
     def consolidated(self):
-        """The consensus params tree (the replicas' mean) a server loads:
-        on this run's device in one process; under torchrun rank 0
+        """The consensus params tree (the replicas' mean; under FSDP the
+        pods' mean, unpacked through the plan's shard layout) a server
+        loads: on this run's device in one process; under torchrun rank 0
         consolidates the gathered state on the host and the other ranks
         get ``None``."""
         if self.world is None:
-            return consolidate_state(self.state)
+            plan = self.plan() if self.sharding.is_sharded else None
+            return consolidate_state(self.state, plan)
         state = self.gathered_state()
         return None if state is None else consolidate_state(state)
 

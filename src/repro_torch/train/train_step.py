@@ -1,7 +1,8 @@
-"""Data-parallel train step (WAGMA-SGD and the baselines), replicated: on
-one device, or one replica a rank.
+"""Data-parallel train step (WAGMA-SGD and the baselines): replicated on
+one device or one replica a rank, and FSDP-within-pod on one device.
 
-Counterpart of the replicated branch of ``repro/train/train_step.py``.
+Counterpart of ``repro/train/train_step.py`` (its layer-streamed branch
+is slice 7b's).
 Per replica: local gradients, a local optimiser step guarded against
 non-finite gradients, then the averager's collective over all replicas
 (group butterfly, or the global mean every tau steps).  An averager with
@@ -33,6 +34,20 @@ replicas, as ``pmean`` gives them.  The step consumes the state it is
 given (its optimiser state is updated in place), as the JAX step donates
 its state.
 
+**FSDP within a pod** (``ShardingPolicy.fsdp_within_pod``, DESIGN.md
+§10).  The state is the plan's ``(P_eff, n_b)`` shard buffers, a row a pod
+(``core/replica.py``).  The step walks the pods: it unpacks the pod's row
+once into a tree of views (the JAX step's all-gather), takes each member's
+gradients on that tree and its own batch rows, accumulates them into one
+set of float32 buffers in member order and scales them by
+``1/pod_size`` (``plan.grad_shards``, the reduce-scatter), checks the pod
+mean for non-finite values (one member's NaN skips the whole pod, as the
+``pmin`` over the shard axis does, and only that pod), and updates the
+pod's row in place.  Microbatches accumulate the per-microbatch pod means
+into a second float32 set, then divide, as the reference's scan does.  At
+most one pod's tree, one member's gradients and its float32 accumulator
+are live; the butterfly then averages the buffers pod to pod.
+
 **The rank realisation.**  Over a rank world (``launch/mesh.py``; the
 averager's ``world``) each process holds its own replica as ``(1, ...)``
 rows and a ``(1,)`` count, as JAX's ``shard_map`` sees a ``(1, ...)``
@@ -54,9 +69,11 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core import bucketing
 from repro_torch.core import plan as plan_mod
 from repro_torch.core import tree as tr
-from repro_torch.core.replica import ReplicaState, map_opt_state
+from repro_torch.core.replica import (ReplicaState, map_opt_state,
+                                      pod_members)
 
 
 def local_rows(averager) -> int:
@@ -73,15 +90,37 @@ def stacked_init(model, n_replicas: int, generator: torch.Generator):
         params0)
 
 
+def plan_of(model, averager):
+    """The averager's compiled plan for the model's params tree (one
+    replica's structure, from the family's ``param_specs``), as the JAX
+    step's ``_plan_of``: a sharded plan is compiled from the full tree,
+    never from a state's shard buffers."""
+    from repro_torch.models.convert import PARAM_SPECS
+    specs = PARAM_SPECS[model.cfg.family](model.cfg)
+    return averager.plan_for(tr.tree_map(
+        lambda s: tr.Spec((1,) + tuple(s.shape), s.dtype), specs))
+
+
 def init_replica_state(model, optimizer, averager,
                        generator: torch.Generator) -> ReplicaState:
     """The :class:`ReplicaState` the train step operates on: stacked
     params identical in every row, the optimiser state of the stacked tree
-    with a ``(P,)`` count (one row and a ``(1,)`` count on a rank)."""
+    with a ``(P,)`` count (one row and a ``(1,)`` count on a rank).  Under
+    ``fsdp_within_pod``: one init packed into the plan's shard layout and
+    broadcast to ``(P_eff, n_b)`` buffers, float32 moments of the same
+    shapes and a ``(P_eff,)`` count."""
     if averager.sharding.is_sharded:
-        raise NotImplementedError("only the replicated policy is ported")
-    rows = local_rows(averager)
-    params = stacked_init(model, rows, generator)
+        params0 = model.init(generator)
+        plan = plan_of(model, averager)
+        packed = bucketing.pack(params0, plan.shard_layout)
+        del params0
+        rows = plan.P_eff
+        params = tuple(b[None].expand((rows,) + tuple(b.shape)).clone()
+                       for b in packed)
+        del packed
+    else:
+        rows = local_rows(averager)
+        params = stacked_init(model, rows, generator)
     opt = map_opt_state(optimizer.init(params), lambda t: t,
                         lambda c: torch.zeros(rows, dtype=torch.int32))
     return ReplicaState(params, opt)
@@ -131,37 +170,83 @@ def value_and_grad(model, params, batch):
             {k: v.detach().float() for k, v in metrics.items()})
 
 
+def _microbatches(batch, microbatch: Optional[int]):
+    """The batch's ``microbatch`` equal slices of rows (itself alone when
+    ``microbatch`` is unset or 1)."""
+    if not (microbatch and microbatch > 1):
+        return [batch]
+    b_local = next(iter(batch.values())).shape[0]
+    if b_local % microbatch or b_local < microbatch:
+        raise ValueError(
+            f"microbatch={microbatch} must divide the per-replica "
+            f"batch {b_local}")
+    n = b_local // microbatch
+    return [{k: v[i * n:(i + 1) * n] for k, v in batch.items()}
+            for i in range(microbatch)]
+
+
+def _mean_metrics(metrics_all):
+    if len(metrics_all) == 1:
+        return metrics_all[0]
+    return {k: torch.stack([m[k] for m in metrics_all]).mean()
+            for k in metrics_all[0]}
+
+
 def build_train_step(model, optimizer, averager, *, phase: int, sync: bool,
                      microbatch: Optional[int] = None):
     """Returns ``step(state, batch) -> (state, metrics)`` for one variant:
     group averaging at ``phase``, or the global sync.  The loss recomputes
     each superblock in the backward (``remat``), as the JAX step does."""
     n_rep = local_rows(averager)
+    sharded = averager.sharding.is_sharded
 
     def grads_and_metrics(params, batch):
-        if not (microbatch and microbatch > 1):
+        mbs = _microbatches(batch, microbatch)
+        if len(mbs) == 1:
             return value_and_grad(model, params, batch)
-        b_local = next(iter(batch.values())).shape[0]
-        if b_local % microbatch or b_local < microbatch:
-            raise ValueError(
-                f"microbatch={microbatch} must divide the per-replica "
-                f"batch {b_local}")
-        n = b_local // microbatch
         acc, metrics_all = None, []
-        for i in range(microbatch):
-            g, m = value_and_grad(
-                model, params, {k: v[i * n:(i + 1) * n] for k, v in batch.items()})
+        for mb in mbs:
+            g, m = value_and_grad(model, params, mb)
             acc = (tr.tree_map(lambda a: a.float(), g) if acc is None
                    else tr.tree_map(lambda a, b: a + b.float(), acc, g))
             metrics_all.append(m)
         grads = tr.tree_map(lambda a: a / microbatch, acc)
-        metrics = {k: torch.stack([m[k] for m in metrics_all]).mean()
-                   for k in metrics_all[0]}
-        return grads, metrics
+        return grads, _mean_metrics(metrics_all)
+
+    def pod_grads_and_metrics(plan, shards, pod, members, local):
+        """Pod ``pod``'s float32 pod-mean grad buffers from its members'
+        gradients on the pod's unpacked tree, and each member's metrics."""
+        tree = plan.unshard_tree(shards, pod)
+        per_mb = {r: _microbatches(local(r), microbatch) for r in members}
+        n_mb = len(per_mb[members[0]])
+        metrics_all = {r: [] for r in members}
+
+        def member_grads(i):
+            for r in members:
+                g, m = value_and_grad(model, tree, per_mb[r][i])
+                metrics_all[r].append(m)
+                yield g
+                del g
+
+        if n_mb == 1:
+            acc = plan.grad_shards(member_grads(0))
+        else:
+            # the reference's scan: zeros + each microbatch's pod mean
+            acc = None
+            for i in range(n_mb):
+                gs = plan.grad_shards(member_grads(i))
+                if acc is None:
+                    acc = tuple(torch.zeros_like(g) for g in gs)
+                for a, g in zip(acc, gs):
+                    a.add_(g)
+                del gs
+            acc = tuple(a.div_(n_mb) for a in acc)
+        return acc, {r: _mean_metrics(ms) for r, ms in metrics_all.items()}
 
     def update_rows(state, r, grads):
-        """Replica r's guarded update from ``grads``, written into its rows
-        in place; returns whether the non-finite guard skipped it."""
+        """Row r's guarded update from ``grads`` (a replica's, or a pod's
+        under FSDP), written into its rows in place; returns whether the
+        non-finite guard skipped it."""
         params_r = _row(state.params, r)
         opt_r = map_opt_state(state.opt_state, lambda t: _row(t, r),
                               lambda c: c[r])
@@ -183,40 +268,59 @@ def build_train_step(model, optimizer, averager, *, phase: int, sync: bool,
                              f"{n_rep} replicas")
         b = rows // n_rep
         local = lambda r: {k: v[r * b:(r + 1) * b] for k, v in batch.items()}
-        per_replica = []
+        # a unit is a row of the state: a replica, or under FSDP a pod and
+        # its members (the dp ranks whose batch rows it trains on)
+        if sharded:
+            plan = plan_of(model, averager)
+            units = [pod_members(plan, e) for e in range(plan.P_eff)]
+
+            def unit_grads(u):
+                return pod_grads_and_metrics(plan, state.params, u, units[u],
+                                             local)
+        else:
+            units = [(r,) for r in range(n_rep)]
+
+            def unit_grads(u):
+                grads, metrics = grads_and_metrics(_row(state.params, u),
+                                                   local(u))
+                return grads, {u: metrics}
+
+        metrics_of = {}
+
+        def note_skip(u, skipped):
+            for r in units[u]:
+                metrics_of[r] = dict(metrics_of[r])
+                metrics_of[r]["skipped_nonfinite"] = torch.tensor(
+                    float(skipped))
+
         if averager.grad_comm:
-            # every replica's gradients before any update: (P, ...) rows
+            # every unit's gradients before any update: stacked rows
             stacked = None
-            for r in range(n_rep):
-                grads, metrics = grads_and_metrics(_row(state.params, r),
-                                                   local(r))
+            for u in range(len(units)):
+                grads, ms = unit_grads(u)
+                metrics_of.update(ms)
                 if stacked is None:
                     stacked = tr.tree_map(
-                        lambda g: g.new_empty((n_rep,) + tuple(g.shape)),
-                        grads)
-                _write(_row(stacked, r), grads)
-                per_replica.append(dict(metrics))
+                        lambda g: g.new_empty((len(units),)
+                                              + tuple(g.shape)), grads)
+                _write(_row(stacked, u), grads)
                 del grads
             grads = (averager.sync(stacked) if sync
                      else averager.comm(stacked, phase))
             del stacked
-            for r in range(n_rep):
-                skipped = update_rows(state, r, _row(grads, r))
-                per_replica[r]["skipped_nonfinite"] = torch.tensor(
-                    float(skipped))
+            for u in range(len(units)):
+                note_skip(u, update_rows(state, u, _row(grads, u)))
             del grads
             params = state.params
         else:
-            for r in range(n_rep):
-                grads, metrics = grads_and_metrics(_row(state.params, r),
-                                                   local(r))
-                skipped = update_rows(state, r, grads)
-                metrics = dict(metrics)
-                metrics["skipped_nonfinite"] = torch.tensor(float(skipped))
-                per_replica.append(metrics)
+            for u in range(len(units)):
+                grads, ms = unit_grads(u)
+                metrics_of.update(ms)
+                note_skip(u, update_rows(state, u, grads))
                 del grads
             params = (averager.sync(state.params) if sync
                       else averager.comm(state.params, phase))
+        per_replica = [metrics_of[r] for r in sorted(metrics_of)]
         if averager.world is None:
             metrics = {k: torch.stack([m[k].cpu() for m in per_replica]
                                       ).mean() for k in per_replica[0]}

@@ -176,14 +176,25 @@ def test_replica_state_round_trip_is_checksum_verified(tmp_path):
 
 
 def test_an_fsdp_checkpoint_raises_naming_the_fsdp_slice(tmp_path):
+    """An FSDP manifest now restores (tests/test_torch_fsdp.py); across
+    policies only with the sharded plan, and a streamed one raises naming
+    slice 7b."""
+    from repro_torch.core.replica import FSDP_SLICE, ShardingPolicy
     save_replica_state(str(tmp_path), _port_state())
     mpath = tmp_path / "manifest.json"
     manifest = json.loads(mpath.read_text())
     manifest["metadata"].update(sharding="fsdp_within_pod",
                                 shard_axis="data")
     mpath.write_text(json.dumps(manifest))
-    with pytest.raises(NotImplementedError, match="FSDP slice"):
+    assert checkpoint_sharding(str(tmp_path)) == \
+        ShardingPolicy.fsdp_within_pod("data")
+    with pytest.raises(ValueError, match="pass the compiled plan"):
         load_replica_state(str(tmp_path), _port_state())
+    manifest["metadata"].update(streamed=True)
+    mpath.write_text(json.dumps(manifest))
+    with pytest.raises(NotImplementedError, match="slice 7b") as e:
+        load_replica_state(str(tmp_path), _port_state())
+    assert FSDP_SLICE in str(e.value)
 
 
 def _files(d):

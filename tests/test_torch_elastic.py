@@ -16,7 +16,6 @@ Trainer tests' tolerance), and the rows bit-identical at the last
 tau-sync in both packages."""
 
 import json
-from types import SimpleNamespace
 
 import jax
 import numpy as np
@@ -224,16 +223,33 @@ def test_handoff_replicated_is_row_selection():
 
 
 def test_handoff_of_a_sharded_state_raises_and_names_slice_7():
-    """tests/test_elastic.py's FSDP pod shrink waits for the FSDP slice:
-    the sharded branch raises and names it, from either side."""
-    st = _stacked_state(4)
-    fsdp = SimpleNamespace(sharding=SimpleNamespace(
-        is_sharded=True, describe=lambda: "fsdp_within_pod(data)"))
-    for kw in (dict(old_plan=fsdp, new_plan=fsdp), dict(old_plan=fsdp),
-               dict(new_plan=fsdp)):
-        with pytest.raises(NotImplementedError, match="slice 7") as e:
-            handoff_state(st, [0, 1], **kw)
-        assert FSDP_SLICE in str(e.value)
+    """tests/test_elastic.py's FSDP pod shrink, ported: pods 0 and 3 of
+    (data 2, pod 4) survive into (data 2, pod 2), unpacked through the old
+    plan's shard layout, selected and repacked through the new plan's, bit
+    for bit (tests/test_torch_fsdp.py holds it to the JAX package).  A
+    handoff across policies raises, and pod-granular membership in
+    ``ElasticTrainer`` is queued with slice 7b (its refusal below)."""
+    from repro_torch.core.replica import (ShardingPolicy, _unpack_rows,
+                                          replicated_to_fsdp_state)
+    st = _stacked_state(8)
+    fsdp = ShardingPolicy.fsdp_within_pod("data")
+    struct = tr.struct(st.params, drop=1)
+    plans = [compile_plan(Topology.hierarchical(("data", "pod"), (2, pods)),
+                          struct, AveragingConfig(group_size=2), fsdp)
+             for pods in (4, 2)]
+    old = replicated_to_fsdp_state(st, plans[0])
+    new = handoff_state(old, [0, 3], old_plan=plans[0], new_plan=plans[1])
+    assert new.opt_state.count.tolist() == [0, 6]
+    for got, want in ((new.params, old.params),
+                      (new.opt_state.momentum, old.opt_state.momentum)):
+        g_rows = _unpack_rows(got, plans[1].shard_layout, cast=False)
+        w_rows = _unpack_rows(want, plans[0].shard_layout, cast=False)
+        for g, w in zip(tr.tree_leaves(g_rows), tr.tree_leaves(w_rows)):
+            assert torch.equal(g, w[[0, 3]])
+    for kw in (dict(old_plan=plans[0]), dict(new_plan=plans[1])):
+        with pytest.raises(ValueError, match="sharding policies"):
+            handoff_state(old, [0, 1], **kw)
+    assert "slice 7b" in FSDP_SLICE
 
 
 # ---------------------------------------------------------------------------

@@ -282,8 +282,11 @@ def test_averager_bookkeeping_matches_jax():
 
 
 def test_unported_paths_name_their_slice():
-    with pytest.raises(NotImplementedError, match="FSDP slice"):
-        ShardingPolicy.fsdp_within_pod("data")
+    # FSDP within a pod is ported (tests/test_torch_fsdp.py); its layer-
+    # streamed layout is slice 7b's
+    assert ShardingPolicy.fsdp_within_pod("data").is_sharded
+    with pytest.raises(NotImplementedError, match="slice 7b"):
+        ShardingPolicy.fsdp_within_pod("data", streamed=True)
     assert baselines.make_averager("dpsgd", ("data",), (8,)).n_phases == 1
     with pytest.raises(ValueError):
         baselines.make_averager("nope", ("data",), (8,))
