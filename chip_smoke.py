@@ -34,9 +34,10 @@
    alignments, the ranks phase's own operands (``rank_combines``: a
    rank's float32 buckets at scale 1/2, each K1 size and the K2 batch of
    a group step), the elastic phase's (``elastic_combines``: the same
-   in each world of 8, 4 and 2 rows, at scale 1/2) and the FSDP phase's
+   in each world of 8, 4 and 2 rows, at scale 1/2), the FSDP phase's
    (``fsdp_combines``: the 22-layer sharded plan's ``(4, n_b)`` buffers
-   at scale 1/2); times each against
+   at scale 1/2) and the streamed phase's (``streamed_combines``: the
+   22-layer grouped plan's); times each against
    the HBM bound ``3*n*itemsize/3.35e12 s``,
    the plain version and, at scale 1, ``torch.add``/``torch._foreach_add``;
    every case also in place (``out`` is ``w``), and K1 against
@@ -115,7 +116,7 @@
    ``(4, n_b)`` shard buffers (``Trainer(cfg, 2, pod_axis=4,
    sharding="fsdp")`` over ``Topology.hierarchical(("data", "pod"), (2,
    4))``, sharded over data), S 2, tau 5, lr 0.1, seq 512, 8 sequences a
-   member, 10 steps ending on a sync.  Checks (a) each group step's
+   member, 5 steps ending on a sync.  Checks (a) each group step's
    K1/K2 = the sharded plan's schedule (9 shard buckets, one stage: 7 +
    1), syncs none, K3/K4 none, and the run's combine operands are those
    the K1/K2 phase held (``fsdp_combines``, ``check_fsdp_held``); (b)
@@ -133,7 +134,28 @@
    (f) the peak under 80 GB, printed beside ``fsdp_reckoning`` and the
    replicated layout's reckoning; (g) finite losses, no skip, and a pod
    buffer nudged by one ulp before the average fails (b).  Prints step ms,
-   tokens/s, the host split, peak memory and the phase's seconds.
+   tokens/s, the host split, peak memory and the phase's seconds.  It
+   keeps its losses, pod 0's final params and momentum as canonical trees
+   and its consolidated weights for the streamed phase.
+   Streamed phase (slice 7b, ``streamed_phase``): the same run through the
+   layer-streamed engine (``Trainer(..., sharding="fsdp",
+   streamed=True)``): 22 spans of one layer, 24 grouped shard buckets.
+   Checks (a) each group step's K1/K2 = the grouped plan's schedule,
+   syncs and K3/K4 none, the buckets ``stream_unshard`` reads a pod's
+   fwd+bwd = ``expected_stream_gathers`` (46), the schedule valid and the
+   combine operands those the K1/K2 phase held (``streamed_combines``);
+   (b) at one step pod 0's streamed float32 grad buffers, unpacked and
+   merged, equal bit for bit the gather-all plan's ``grad_shards`` of the
+   same pre-step pod tree; (c) every loss equals the FSDP phase's at the
+   same step, the pods equal after the sync, and pod 0's final params and
+   momentum equal the FSDP phase's bit for bit; (d) at 2 layers,
+   streamed -> replicated -> streamed and streamed -> gather-all ->
+   streamed come back bit for bit, and the final state's serving weights
+   equal the FSDP phase's consolidated weights; (e) the grads pass's own
+   peak for both phases beside ``grads_pass_reckoning``, the step's peak
+   under 80 GB, the streamed peak gathered bytes beside the full tree's;
+   (f) finite losses, no skip, and a one-ulp nudge in one span's grad
+   buffer fails (b).
    Ranks phase (``ranks_phase``): the same model and step with one replica
    a rank: 4 ranks started by ``torch.distributed.run`` (this script with
    ``--ranks-worker``), gloo, all on the one card (the kernels built
@@ -451,15 +473,19 @@ K4_TMA, K4_WALK = "rglru_scan_tma", "rglru_scan_walk"    # K4's route counts
 # replicas as 4 pods of 2 sharing one set of shard buffers
 # (Topology.hierarchical(("data", "pod"), (2, 4)) sharded over data: P 8,
 # P_eff 4), S 2, tau 5, SGD 0.9 at the training phase's lr, seq 512, 8
-# sequences a member, 10 steps (8 group steps, syncs at t = 4 and 9, so the
-# run ends on a sync for check (e)).  Check (c) at step FSDP_GRAD_STEP;
-# check (d) on a copy of FSDP_CONV_LAYERS layers at full width (the
-# replicated form of 22 layers needs 52.8 GB); check (e) serves the first
-# FSDP_REQUESTS requests of the serving phase's set
-FSDP_DATA, FSDP_POD, FSDP_S, FSDP_TAU, FSDP_STEPS = 2, 4, 2, 5, 10
+# sequences a member, 5 steps (t = 0..3 group steps, both offsets twice;
+# the sync at t = 4, so the run ends on a sync for check (e)).  Check (c) at
+# step FSDP_GRAD_STEP; check (d) on a copy of FSDP_CONV_LAYERS layers at
+# full width (the replicated form of 22 layers needs 52.8 GB); check (e)
+# serves the first FSDP_REQUESTS requests of the serving phase's set
+FSDP_DATA, FSDP_POD, FSDP_S, FSDP_TAU, FSDP_STEPS = 2, 4, 2, 5, 5
 FSDP_GB = 8 * FSDP_DATA * FSDP_POD
 FSDP_GRAD_STEP, FSDP_CONV_LAYERS, FSDP_REQUESTS = 2, 2, 4
 FSDP_PATH = f"tinyllama-1.1b fsdp, {FSDP_POD} pods x {FSDP_DATA}"
+# streamed phase (slice 7b): the FSDP phase's run through the layer-streamed
+# engine (Trainer(..., streamed=True)), the same model, topology, seed and
+# steps; check (b) at step FSDP_GRAD_STEP, check (d) at FSDP_CONV_LAYERS
+STREAMED_PATH = f"tinyllama-1.1b fsdp streamed, {FSDP_POD} pods x {FSDP_DATA}"
 
 # ranks phase: the training phase's model with one replica a rank: RANKS_P
 # ranks started by torchrun over gloo, all on the one card (NCCL refuses
@@ -922,7 +948,7 @@ def combine_kernel_phase(device="cuda"):
     """K1/K2 against their plain versions on every case; returns (rows,
     line entries for K1 and K2, for each on the ranks path, under
     ``"elastic"`` each elastic world's operands and rows, under ``"fsdp"``
-    the FSDP path's)."""
+    the FSDP path's, under ``"streamed"`` the streamed path's)."""
     import torch
     from repro_torch.kernels import group_average as ga
 
@@ -1071,6 +1097,17 @@ def combine_kernel_phase(device="cuda"):
     rows.extend(k1_rows + [k2])
     line["fsdp"] = {"combines": combines, "K2": k2,
                     "K1": max(k1_rows, key=lambda r: r["n"][0])}
+    # the streamed path's: the 22-layer grouped plan's K1 sizes and K2
+    # batch over its (P_eff, n_b) float32 shard buffers at scale 1/S
+    combines = streamed_combines(fsdp_config())
+    k1, (tail_n, tail_scale) = combines
+    k1_rows = [k1_row(n, "float32", scale, case="streamed")[0]
+               for n, scale in k1]
+    k2 = k2_row("streamed tail batch", tail_n, [0] * len(tail_n), "float32",
+                tail_scale)
+    rows.extend(k1_rows + [k2])
+    line["streamed"] = {"combines": combines, "K2": k2,
+                        "K1": max(k1_rows, key=lambda r: r["n"][0])}
     torch.cuda.empty_cache()
     bad = [r for r in rows if not r["equal"]]
     if bad:
@@ -1191,10 +1228,10 @@ def split_timer(split: dict, device):
     """``timed(key, fn)``: ``fn`` wrapped so that each call's host time,
     between two synchronisations, adds to ``split[key]``."""
     def timed(key, fn):
-        def run(*args):
+        def run(*args, **kw):
             _sync(device)
             t = time.perf_counter()
-            out = fn(*args)
+            out = fn(*args, **kw)
             _sync(device)
             split[key] += time.perf_counter() - t
             return out
@@ -1830,6 +1867,57 @@ def fsdp_combines(cfg):
     return plan_combines(plan, plan.P_eff)
 
 
+def streamed_plan(cfg):
+    """The streamed phase's plan: the FSDP phase's topology and config,
+    the layer-streamed policy, over the layered tree (the Trainer's: the
+    plan cache hands both the same object)."""
+    from repro_torch.core import plan as plan_mod
+    from repro_torch.core.replica import ShardingPolicy
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.registry import build_model
+    layered = build_model(cfg, device="cpu").layered
+    return plan_mod.compile_plan(
+        fsdp_topology(), layered.split(tfm.param_specs(cfg)),
+        plan_mod.AveragingConfig(group_size=FSDP_S, tau=FSDP_TAU),
+        ShardingPolicy.fsdp_within_pod("data", streamed=True))
+
+
+def streamed_combines(cfg):
+    """The streamed path's combine operands: each K1 size and the K2 tail
+    batch of one group step of the grouped plan over its ``(P_eff, n_b)``
+    float32 shard buffers, at scale 1/S."""
+    plan = streamed_plan(cfg)
+    return plan_combines(plan, plan.P_eff)
+
+
+def grads_pass_reckoning(plan, cfg, seq_len: int, rows: int) -> dict:
+    """Device bytes one pod's gradient pass adds to the state it starts
+    from, reckoned from the code before the run (``train_step``,
+    ``plan.grad_shards``, ``streaming.streamed_loss_and_grad_shards``).
+
+    Both paths: the pod's float32 accumulator, one layer's recomputed
+    attention scores and their gradient, the float32 logits and their
+    gradient.  Gather-all: one member's whole gradient tree in the
+    params' dtypes and every layer's input kept by ``checkpoint``.
+    Streamed: one group's gradients (the largest group), and every
+    member's span-boundary carries (detached, kept across the pass)."""
+    lay = plan.shard_layout
+    elems = sum(lay.bucket_sizes)
+    store = sum(s * d.itemsize for s, d in zip(lay.bucket_sizes,
+                                                lay.bucket_dtypes))
+    tokens = rows * seq_len
+    carry = tokens * cfg.d_model * 2
+    common = (4 * elems + 2 * rows * cfg.n_heads * seq_len ** 2 * 4
+              + 2 * tokens * cfg.vocab_padded * 4)
+    if plan.sharding.streamed:
+        grads = max(lay.group_bytes(g) for g in set(lay.bucket_groups))
+        kept = plan.shard_size * plan.n_stream_spans * carry
+    else:
+        grads, kept = store, cfg.n_layers * carry
+    return {"accumulator": 4 * elems, "grads": grads, "carries": kept,
+            "own_peak": common + grads + kept}
+
+
 def fsdp_reckoning(plan, cfg, seq_len: int, rows: int) -> dict:
     """Device bytes the FSDP step needs at its two peaks, reckoned from
     the code before the run (``train_step``, ``plan``), beside those of
@@ -1910,17 +1998,55 @@ def planted_ulp(plan, pre, offset: int):
     return tuple(bucket if j == b else x for j, x in enumerate(pre))
 
 
+class PeakMeter:
+    """The card's peak allocation over a phase, and the own peak of one
+    pass inside it: ``start()`` banks the peak so far and resets the
+    counter, ``stop()`` reads the pass's peak above what was allocated at
+    its start; ``phase_peak()`` is the largest of every banked peak and
+    the counter's.  ``None`` everywhere off the card."""
+
+    def __init__(self, on_card: bool):
+        import torch
+        self.on_card, self.banked, self.pass_ = on_card, [], None
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+
+    def start(self):
+        import torch
+        if self.on_card:
+            self.banked.append(torch.cuda.max_memory_allocated())
+            torch.cuda.reset_peak_memory_stats()
+            self.base = torch.cuda.memory_allocated()
+
+    def stop(self):
+        import torch
+        if self.on_card:
+            peak = torch.cuda.max_memory_allocated()
+            self.pass_ = {"peak": peak, "base": self.base,
+                          "own": peak - self.base}
+
+    def phase_peak(self):
+        import torch
+        if not self.on_card:
+            return None
+        return max(self.banked + [torch.cuda.max_memory_allocated()])
+
+
 def fsdp_phase(cfg, device="cuda", steps: int = FSDP_STEPS,
                seq_len: int = TRAIN_SEQ, global_batch: int = FSDP_GB,
                conv_layers: int = FSDP_CONV_LAYERS,
-               n_requests: int = FSDP_REQUESTS) -> dict:
+               n_requests: int = FSDP_REQUESTS, keep=None) -> dict:
     """The FSDP phase with checks (b)-(e) and (g) (check (a) is
     :func:`check_fsdp_launches`, (f) :func:`check_fsdp_memory`): the
     port's ``Trainer(sharding="fsdp")``, 4 pods of 2, for ``steps`` steps;
-    returns the run's numbers."""
+    returns the run's numbers.  ``keep`` (a dict) receives, for the
+    streamed phase, pod 0's final params and momentum as canonical trees
+    (``params``, ``momentum``) and the consolidated weights
+    (``weights``)."""
     import torch
-    from repro_torch.core import grouping
+    from repro_torch.core import bucketing, grouping
     from repro_torch.core import plan as plan_mod
+    from repro_torch.core import tree as tr
     from repro_torch.kernels import ops
     from repro_torch.launch.train import Trainer
     from repro_torch.optim.sgd import Optimizer
@@ -1932,8 +2058,8 @@ def fsdp_phase(cfg, device="cuda", steps: int = FSDP_STEPS,
     rows = global_batch // (FSDP_DATA * FSDP_POD)
     plan = fsdp_plan(cfg)
     reckoning = fsdp_reckoning(plan, cfg, seq_len, rows)
-    if on_card:
-        torch.cuda.reset_peak_memory_stats()
+    grads_reckoning = grads_pass_reckoning(plan, cfg, seq_len, rows)
+    meter = PeakMeter(on_card)
     t0 = time.perf_counter()
     trainer = Trainer(cfg, FSDP_DATA, pod_axis=FSDP_POD, device=device,
                       sharding="fsdp", topology=fsdp_topology(),
@@ -1967,8 +2093,11 @@ def fsdp_phase(cfg, device="cuda", steps: int = FSDP_STEPS,
     grad_shards = plan.grad_shards
 
     def grad_shards_kept(member_grads):
-        out = grad_shards(member_grads)
         if recorded.get("armed"):                 # pod 0 of the check step
+            meter.start()
+        out = grad_shards(member_grads)
+        if recorded.get("armed"):
+            meter.stop()
             recorded.update(armed=False, grads=tuple(g.clone() for g in out))
         return out
 
@@ -2026,7 +2155,7 @@ def fsdp_phase(cfg, device="cuda", steps: int = FSDP_STEPS,
     finally:
         train_step.value_and_grad = value_and_grad
         del plan.grad_shards
-    peak = torch.cuda.max_memory_allocated() if on_card else None
+    peak = meter.phase_peak()
     launches = ops.launch_counts()
     offsets_checked = sorted(k for k in checked if k != "pod_mean_grads")
     if offsets_checked != sorted(plan.offsets) or not all(checked.values()):
@@ -2061,6 +2190,12 @@ def fsdp_phase(cfg, device="cuda", steps: int = FSDP_STEPS,
                              "other tokens than pod 0's tree")
     serve_s = time.perf_counter() - t0
     combines = plan_combines(plan, plan.P_eff)
+    if keep is not None:
+        st = trainer.state
+        pod0 = lambda bufs: tr.tree_map(torch.clone, bucketing.unpack(
+            tuple(b[0] for b in bufs), plan.shard_layout, cast=False))
+        keep.update(params=pod0(st.params),
+                    momentum=pod0(st.opt_state.momentum), weights=weights)
     del weights, trainer
     conversions = fsdp_conversions(cfg.variant(n_layers=conv_layers),
                                    device, seq_len, global_batch)
@@ -2082,6 +2217,7 @@ def fsdp_phase(cfg, device="cuda", steps: int = FSDP_STEPS,
         "median_split_ms": {k: med(k + "_ms") for k in (
             "grads", "update", "average", "other")},
         "reckoning": reckoning, "max_memory_allocated": peak,
+        "grads_pass": meter.pass_, "grads_pass_reckoning": grads_reckoning,
         "serving": {k: {kk: v[kk] for kk in ("n_prefills", "launches")}
                     for k, v in served.items()},
         "serve_s": serve_s,
@@ -2233,6 +2369,350 @@ def print_fsdp(stats, card: str):
           f"{stats['serving']['consolidated']['n_prefills']} prefills each "
           f"({stats['serve_s']:.1f} s); phase {stats['seconds']:.1f} s "
           f"[{card}]", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# Streamed phase: the FSDP run through the layer-streamed engine (K1, K2)
+# ---------------------------------------------------------------------------
+
+def streamed_phase(cfg, fsdp: dict, kept: dict, device="cuda",
+                   steps: int = FSDP_STEPS, seq_len: int = TRAIN_SEQ,
+                   global_batch: int = FSDP_GB,
+                   conv_layers: int = FSDP_CONV_LAYERS) -> dict:
+    """The streamed phase with checks (b)-(d) and (f) (checks (a) and (e)
+    are :func:`check_streamed_launches`, :func:`check_streamed_held` and
+    :func:`check_streamed_memory`): ``Trainer(..., sharding="fsdp",
+    streamed=True)``, the FSDP phase's run (``fsdp``: its numbers;
+    ``kept``: what :func:`fsdp_phase` kept); returns the run's numbers."""
+    import torch
+    from repro_torch.core import bucketing, grouping, streaming
+    from repro_torch.core import tree as tr
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import Trainer
+    from repro_torch.optim.sgd import Optimizer
+    from repro_torch.serve.handoff import serving_weights_from_state
+
+    t_phase = time.perf_counter()
+    on_card = torch.device(device).type == "cuda"
+    rows = global_batch // (FSDP_DATA * FSDP_POD)
+    plan = streamed_plan(cfg)
+    n = plan.n_stream_spans
+    streaming.validate_stream_schedule(streaming.stream_schedule(n), n)
+    grads_reckoning = grads_pass_reckoning(plan, cfg, seq_len, rows)
+    meter = PeakMeter(on_card)
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, FSDP_DATA, pod_axis=FSDP_POD, device=device,
+                      sharding="fsdp", streamed=True,
+                      topology=fsdp_topology(), group_size=FSDP_S,
+                      tau=FSDP_TAU, learning_rate=TRAIN_LR, seq_len=seq_len,
+                      global_batch=global_batch, seed=0)
+    _sync(device)
+    init_s = time.perf_counter() - t0
+    if trainer.plan() is not plan:
+        raise AssertionError("the Trainer compiled another plan than "
+                             "streamed_plan")
+    layered = trainer.model.layered
+    split = {"grads": 0.0, "update": 0.0, "average": 0.0}
+    timed = split_timer(split, device)
+    trainer.opt = Optimizer(trainer.opt.init,
+                            timed("update", trainer.opt.update))
+    trainer.averager.comm = timed("average", trainer.averager.comm)
+    trainer.averager.sync = timed("average", trainer.averager.sync)
+    recorded = {}
+    engine = streaming.streamed_loss_and_grad_shards
+
+    def engine_kept(*args, **kw):
+        armed = recorded.pop("armed", False)    # pod 0 of the check step
+        if armed:
+            meter.start()
+        out = engine(*args, **kw)
+        if armed:
+            meter.stop()
+            recorded["grads"] = tuple(g.clone() for g in out[2])
+        return out
+
+    streaming.streamed_loss_and_grad_shards = timed("grads", engine_kept)
+    log, checked = [], {}
+    ops.reset_launch_counts()
+    try:
+        for t in range(steps):
+            split.update(grads=0.0, update=0.0, average=0.0)
+            if t == FSDP_GRAD_STEP:
+                pod0 = tuple(b[0].clone() for b in trainer.state.params)
+                recorded["armed"] = True
+            before = ops.launch_counts()
+            gathers = plan.stream_gathers
+            _sync(device)
+            t_start = time.perf_counter()
+            loss = trainer.step_once(t)
+            _sync(device)
+            step_s = time.perf_counter() - t_start
+            after = ops.launch_counts()
+            sync = trainer.averager.sync_due(t)
+            offset = (None if sync else
+                      plan.offsets[trainer.averager.phase_for_step(t)])
+            log.append({
+                "t": t, "loss": loss, "sync": sync, "offset": offset,
+                "step_ms": step_s * 1e3,
+                **{k + "_ms": split[k] * 1e3 for k in split},
+                "other_ms": (step_s - sum(split.values())) * 1e3,
+                "skipped": trainer.last_metrics["skipped_nonfinite"],
+                "gathers_per_pod": (plan.stream_gathers - gathers)
+                / plan.P_eff,
+                **{key: after[name] - before[name] for key, name in (
+                    ("k1", K1), ("k2", K2), ("k3", K3), ("k4", K4))}})
+            if t == FSDP_GRAD_STEP:                             # check (b)
+                got = recorded.pop("grads")
+                want = gather_all_pod_grads(trainer, plan, pod0, t)
+                checked["grads"] = grads_match(plan, got, want)
+                b = plan.stream_bucket_indices(streaming.span_group(0))[0]
+                nudged = tuple(ulp_nudge(g) if i == b else g
+                               for i, g in enumerate(got))
+                checked["planted_fails"] = not grads_match(
+                    plan, nudged, want)                         # check (f)
+                del pod0, got, want, nudged
+    finally:
+        streaming.streamed_loss_and_grad_shards = engine
+    peak = meter.phase_peak()
+    launches = ops.launch_counts()
+    losses = [e["loss"] for e in log]
+    # check (c): the FSDP phase's run, step for step and bit for bit
+    st = trainer.state
+    unpack0 = lambda bufs: bucketing.unpack(tuple(b[0] for b in bufs),
+                                            plan.shard_layout, cast=False)
+    same = lambda got, want: all(
+        bits(a).equal(bits(b)) for a, b in zip(
+            tr.tree_leaves(got), tr.tree_leaves(layered.split(want))))
+    checked.update(
+        losses_equal=losses == fsdp["losses"][:steps],
+        pods_equal_after_sync=rows_bit_identical(st.params),
+        params_equal=same(unpack0(st.params), kept["params"]),
+        momentum_equal=same(unpack0(st.opt_state.momentum),
+                            kept["momentum"]))
+    # check (d): the final state's serving weights are the FSDP phase's
+    weights = serving_weights_from_state(st, plan=plan, model=trainer.model)
+    checked["weights_equal"] = all(
+        bits(a).equal(bits(b)) for a, b in zip(
+            tr.tree_leaves(weights), tr.tree_leaves(kept["weights"])))
+    del weights
+    bad = [k for k, v in checked.items() if not v]
+    if bad:
+        raise AssertionError(f"streamed checks (b)-(d), (f) failed: {bad} "
+                             f"({checked}); losses {losses} against the "
+                             f"FSDP phase's {fsdp['losses']}")
+    bad = [e for e in log if not math.isfinite(e["loss"]) or e["skipped"]]
+    if bad:                                                     # check (f)
+        raise AssertionError(f"check (f): non-finite losses or skipped "
+                             f"updates: {bad}")
+    combines = plan_combines(plan, plan.P_eff)
+    gathered = {"stream_peak": plan.stream_peak_gathered_bytes(),
+                "full": plan.full_gathered_bytes()}
+    del trainer, st
+    conversions = streamed_conversions(cfg.variant(n_layers=conv_layers),
+                                       device, seq_len, global_batch)
+    steady = log[1:] or log
+    med = lambda key: statistics.median(e[key] for e in steady)
+    return {
+        "arch": cfg.name, "n_layers": cfg.n_layers, "n_spans": n,
+        "pods": plan.P_eff, "pod_size": plan.shard_size,
+        "replicas": plan.P, "n_buckets": plan.shard_layout.n_buckets,
+        "layer_map": plan.shard_layout.describe_groups(),
+        "bucket_sizes": list(plan.shard_layout.bucket_sizes),
+        "expected_k1_k2_per_group_step": expected_combine_launches(
+            plan.shard_layout.n_buckets,
+            len(plan.runs_for_offset(plan.offsets[0])[0].bits)),
+        "expected_stream_gathers": streaming.expected_stream_gathers(plan),
+        "combines": combines, "init_s": init_s, "losses": losses,
+        "steps": log, "launches": launches, "checked": checked,
+        "median_step_ms": med("step_ms"),
+        "fsdp_median_step_ms": fsdp["median_step_ms"],
+        "tokens_per_s": global_batch * seq_len / (med("step_ms") / 1e3),
+        "median_split_ms": {k: med(k + "_ms") for k in (
+            "grads", "update", "average", "other")},
+        "max_memory_allocated": peak, "grads_pass": meter.pass_,
+        "grads_pass_reckoning": grads_reckoning,
+        "fsdp_grads_pass": fsdp["grads_pass"],
+        "fsdp_grads_pass_reckoning": fsdp["grads_pass_reckoning"],
+        "gathered_bytes": gathered, "conversions": conversions,
+        "seconds": time.perf_counter() - t_phase,
+    }
+
+
+def gather_all_pod_grads(trainer, plan, pod0, t: int):
+    """Pod 0's gradient at step ``t`` on the gather-all path: the FSDP
+    phase's plan's ``grad_shards`` of its members' ``value_and_grad`` on
+    the pre-step pod tree (``pod0``, the streamed row merged to the
+    canonical tree), unpacked through its layout and split into the
+    layered tree (views of its float32 buffers)."""
+    from repro_torch.core import bucketing, replica
+    from repro_torch.train import train_step
+    layered = trainer.model.layered
+    ga = fsdp_plan(trainer.cfg)
+    batch = trainer._put_batch(t)
+    b = trainer.shape.global_batch // plan.P
+    tree = layered.merge(bucketing.unpack(pod0, plan.shard_layout))
+    want = ga.grad_shards(
+        train_step.value_and_grad(trainer.model, tree, {
+            k: v[r * b:(r + 1) * b] for k, v in batch.items()})[0]
+        for r in replica.pod_members(plan, 0))
+    return layered.split(bucketing.unpack(want, ga.shard_layout, cast=False))
+
+
+def grads_match(plan, got, want) -> bool:
+    """Check (b): the streamed float32 grad buffers ``got``, unpacked
+    through the grouped layout, equal ``want`` (:func:`gather_all_pod_grads`)
+    bit for bit."""
+    from repro_torch.core import bucketing
+    from repro_torch.core import tree as tr
+    mine = bucketing.unpack(got, plan.shard_layout, cast=False)
+    return all(bits(a).equal(bits(w)) for a, w in zip(
+        tr.tree_leaves(mine), tr.tree_leaves(want)))
+
+
+def streamed_conversions(cfg, device, seq_len: int, global_batch: int
+                         ) -> dict:
+    """Check (d) at ``cfg``'s depth (full width): one step of a tau-1
+    streamed Trainer (a sync), then streamed -> replicated -> streamed and
+    streamed -> gather-all -> streamed (through ``merge_layered_state``/
+    ``split_layered_state`` and the FSDP conversions) must be the state
+    bit for bit."""
+    from repro_torch.core import plan as plan_mod
+    from repro_torch.core import replica
+    from repro_torch.core import tree as tr
+    from repro_torch.launch.train import Trainer
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, FSDP_DATA, pod_axis=FSDP_POD, device=device,
+                      sharding="fsdp", streamed=True,
+                      topology=fsdp_topology(), group_size=FSDP_S, tau=1,
+                      learning_rate=TRAIN_LR, seq_len=seq_len,
+                      global_batch=global_batch, seed=0)
+    trainer.step_once(0)
+    plan, s, layered = trainer.plan(), trainer.state, trainer.model.layered
+    ga = plan_mod.compile_plan(plan.topology, layered.merge(
+        plan.storage_struct), plan.cfg,
+        replica.ShardingPolicy.fsdp_within_pod("data"))
+    leaves = lambda st: tr.tree_leaves((st.params, st.opt_state))
+
+    def equal(back) -> bool:
+        return len(leaves(back)) == len(leaves(s)) and all(
+            a.dtype == b.dtype and bits(a).equal(bits(b))
+            for a, b in zip(leaves(back), leaves(s)))
+
+    rep = replica.fsdp_to_replicated_state(s, plan)
+    via_replicated = equal(replica.replicated_to_fsdp_state(rep, plan))
+    gather_all = replica.replicated_to_fsdp_state(
+        replica.merge_layered_state(rep, layered), ga)
+    del rep
+    rep = replica.fsdp_to_replicated_state(gather_all, ga)
+    del gather_all
+    via_gather_all = equal(replica.replicated_to_fsdp_state(
+        replica.split_layered_state(rep, layered), plan))
+    del rep
+    if not (via_replicated and via_gather_all):
+        raise AssertionError(f"check (d) at {cfg.n_layers} layers: "
+                             f"streamed -> replicated -> streamed "
+                             f"{via_replicated}, streamed -> gather-all -> "
+                             f"streamed {via_gather_all}")
+    return {"n_layers": cfg.n_layers, "via_replicated": via_replicated,
+            "via_gather_all": via_gather_all,
+            "seconds": time.perf_counter() - t0}
+
+
+def check_streamed_launches(stats):
+    """Check (a): each group step launched the K1/K2 of the grouped plan's
+    schedule, each sync none, no step K3 or K4, nothing outside the steps,
+    and every pod's fwd+bwd read ``expected_stream_gathers`` buckets."""
+    want_k1, want_k2 = stats["expected_k1_k2_per_group_step"]
+    for e in stats["steps"]:
+        want = (0, 0) if e["sync"] else (want_k1, want_k2)
+        if (e["k1"], e["k2"]) != want or e["k3"] or e["k4"]:
+            raise AssertionError(
+                f"check (a): streamed step {e['t']}: K1, K2, K3, K4 "
+                f"launched {(e['k1'], e['k2'], e['k3'], e['k4'])}, the "
+                f"schedule predicts {want}, 0, 0")
+        if e["gathers_per_pod"] != stats["expected_stream_gathers"]:
+            raise AssertionError(
+                f"check (a): streamed step {e['t']} read "
+                f"{e['gathers_per_pod']} buckets a pod, the schedule "
+                f"{stats['expected_stream_gathers']}")
+    for key, kernel in (("k1", K1), ("k2", K2), ("k3", K3), ("k4", K4)):
+        if stats["launches"][kernel] != sum(e[key] for e in stats["steps"]):
+            raise AssertionError(f"check (a): the streamed phase launched "
+                                 f"{kernel} outside its steps")
+    if want_k2 < 1:
+        raise AssertionError("check (a): no multi-pair K2 launch on the "
+                             "streamed path")
+
+
+def check_streamed_held(stats, held: dict):
+    """Check (a), the operands: the streamed run's combines are those the
+    K1/K2 phase held (``held``, its ``line["streamed"]``)."""
+    if held.get("combines") != stats["combines"]:
+        raise AssertionError(f"check (a): the streamed run's combines "
+                             f"{stats['combines']}, the K1/K2 phase held "
+                             f"{held.get('combines')}")
+
+
+def check_streamed_memory(stats, limit: int = 80 * 10 ** 9):
+    """Check (e): both grads passes measured, the step's peak under the
+    card's 80 GB."""
+    peak = stats["max_memory_allocated"]
+    if (peak is None or peak >= limit or stats["grads_pass"] is None
+            or stats["fsdp_grads_pass"] is None):
+        raise AssertionError(f"check (e): peak {peak} bytes (limit "
+                             f"{limit}), grads passes "
+                             f"{stats['grads_pass']} and "
+                             f"{stats['fsdp_grads_pass']}")
+
+
+def print_streamed(stats, card: str):
+    gb = lambda b: f"{b / 1e9:.2f} GB"
+    print(f"streamed [{card}]: {stats['arch']} full width, "
+          f"{stats['n_layers']} layers in {stats['n_spans']} spans, "
+          f"{stats['replicas']} replicas as {stats['pods']} pods of "
+          f"{stats['pod_size']}, {stats['n_buckets']} grouped shard buckets "
+          f"({stats['layer_map']}); K1/K2 a group step "
+          f"{stats['expected_k1_k2_per_group_step']}, bucket gathers a "
+          f"pod's fwd+bwd {stats['expected_stream_gathers']}, launches "
+          f"{stats['launches']}", flush=True)
+    print(f"streamed losses: {stats['losses']}", flush=True)
+    print(f"streamed [{card}]: median step {stats['median_step_ms']:.1f} "
+          f"ms after the first (the FSDP phase's "
+          f"{stats['fsdp_median_step_ms']:.1f} ms), "
+          f"{stats['tokens_per_s']:.0f} tokens/s, host split "
+          f"{ {k: round(v, 1) for k, v in stats['median_split_ms'].items()} }"
+          f" ms, trainer init {stats['init_s']:.2f} s", flush=True)
+    for name, meas, reck in (
+            ("gather-all", stats["fsdp_grads_pass"],
+             stats["fsdp_grads_pass_reckoning"]),
+            ("streamed", stats["grads_pass"],
+             stats["grads_pass_reckoning"])):
+        print(f"streamed memory [{card}]: {name} grads pass of pod 0 own "
+              f"peak " + ("-" if meas is None else
+                          f"{gb(meas['own'])} (peak {gb(meas['peak'])} "
+                          f"above {gb(meas['base'])})")
+              + f", reckoned {gb(reck['own_peak'])} (accumulator "
+              f"{gb(reck['accumulator'])}, gradients {gb(reck['grads'])}, "
+              f"kept carries {gb(reck['carries'])})", flush=True)
+    peak = stats["max_memory_allocated"]
+    g = stats["gathered_bytes"]
+    print(f"streamed memory [{card}]: step peak "
+          + ("-" if peak is None else gb(peak))
+          + f"; the schedule's peak gathered {gb(g['stream_peak'])} against "
+          f"the full tree's {gb(g['full'])} (on one card both are views "
+          f"of the pod's row: no bytes move)", flush=True)
+    conv = stats["conversions"]
+    c = stats["checked"]
+    print(f"streamed checks: (b) pod 0's streamed grads = gather-all "
+          f"{c['grads']}, a one-ulp nudge fails it {c['planted_fails']}; "
+          f"(c) losses = the FSDP phase's {c['losses_equal']}, pods equal "
+          f"after the sync {c['pods_equal_after_sync']}, pod 0 params "
+          f"{c['params_equal']} and momentum {c['momentum_equal']} = the "
+          f"FSDP phase's; (d) at {conv['n_layers']} layers via replicated "
+          f"{conv['via_replicated']}, via gather-all "
+          f"{conv['via_gather_all']}, serving weights = the FSDP phase's "
+          f"{c['weights_equal']}; phase {stats['seconds']:.1f} s [{card}]",
+          flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -4121,13 +4601,25 @@ def main() -> int:
 
     # -- FSDP phase: 4 pods of 2 at 22 layers, the pods' shard buffers
     # averaged pod to pod (K1, K2), the consolidated model served (K3) ----
-    fsdp = fsdp_phase(fsdp_config())
+    kept = {}
+    fsdp = fsdp_phase(fsdp_config(), keep=kept)
     check_fsdp_launches(fsdp)                                   # check (a)
     check_fsdp_held(fsdp, ga_line["fsdp"])                      # check (a)
     check_fsdp_memory(fsdp)                                     # check (f)
     print(json.dumps({"fsdp": fsdp, "card": card}), flush=True)
     print_fsdp(fsdp, card)
     free_memory("FSDP phase")
+
+    # -- streamed phase: the same run through the layer-streamed engine,
+    # 22 spans, 24 grouped shard buckets averaged pod to pod (K1, K2) ----
+    streamed = streamed_phase(fsdp_config(), fsdp, kept)
+    del kept
+    check_streamed_launches(streamed)                           # check (a)
+    check_streamed_held(streamed, ga_line["streamed"])          # check (a)
+    check_streamed_memory(streamed)                             # check (e)
+    print(json.dumps({"streamed": streamed, "card": card}), flush=True)
+    print_streamed(streamed, card)
+    free_memory("streamed phase")
 
     # -- ranks phase: the same model, one replica a rank over gloo (K1, K2)
     ranks = ranks_phase(ranks_spec(), ROOT / "build" / "ranks")
@@ -4331,6 +4823,7 @@ def main() -> int:
             run["launches"][name] for run in elastic["runs"].values()),
         f"{ARCH} training, {RANKS_P} ranks": ranks_launches[name],
         FSDP_PATH: fsdp["launches"][name],
+        STREAMED_PATH: streamed["launches"][name],
         f"{RG_ARCH} serving": serving,
         f"{RG_ARCH} training": rg_train["launches"][name],
         f"{PAPER_ARCH} training": paper_launches[name]}
@@ -4361,6 +4854,9 @@ def main() -> int:
                              for w, held in ga_line["elastic"].items()}
     fsdp_row = lambda k: dict(ranks_row(ga_line["fsdp"][k]),
                               n_layers=fsdp["n_layers"], pods=fsdp["pods"])
+    streamed_row = lambda k: dict(ranks_row(ga_line["streamed"][k]),
+                                  n_layers=streamed["n_layers"],
+                                  pods=streamed["pods"])
     kernels = [
         entry(K1, "src/repro_torch/kernels/csrc/group_average.cu",
               "src/repro/kernels/group_average.py:68",
@@ -4368,6 +4864,7 @@ def main() -> int:
               n=ga_line["K1"]["n"], dtype="float32", scale=1.0,
               launches_by_path=by_path(K1),
               elastic_row=elastic_row("K1"), fsdp_row=fsdp_row("K1"),
+              streamed_row=streamed_row("K1"),
               ranks_row=ranks_row(ga_line["K1 ranks"])),
         entry(K2, "src/repro_torch/kernels/csrc/group_average.cu",
               "src/repro/kernels/group_average.py:80",
@@ -4375,6 +4872,7 @@ def main() -> int:
               n=ga_line["K2"]["n"], dtype="float32", scale=1.0,
               launches_by_path=by_path(K2),
               elastic_row=elastic_row("K2"), fsdp_row=fsdp_row("K2"),
+              streamed_row=streamed_row("K2"),
               ranks_row=ranks_row(ga_line["K2 ranks"])),
         entry(K3, "src/repro_torch/kernels/csrc/flash_attention.cu",
               "src/repro/kernels/flash_attention.py:70",

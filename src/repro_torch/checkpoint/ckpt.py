@@ -22,9 +22,9 @@ rejects loudly, never a half-written state that loads silently.
 :func:`save_replica_state` / :func:`load_replica_state` round-trip a whole
 :class:`~repro_torch.core.replica.ReplicaState` (stacked ``(P, ...)``
 params and optimiser state, or FSDP ``(P_eff, n_b)`` shard buffers; step,
-phase and the policy), and restore across the replicated and FSDP
-policies through the host-side conversions of ``core/replica.py``.  A
-layer-streamed checkpoint is slice 7b's and raises.
+phase and the policy), and restore across the replicated, FSDP and
+layer-streamed FSDP policies through the host-side conversions of
+``core/replica.py``.
 """
 
 from __future__ import annotations
@@ -224,8 +224,7 @@ def save_replica_state(path: str, state, sharding=None,
 
 
 def checkpoint_sharding(path: str):
-    """The ShardingPolicy a replica-state checkpoint was written under (a
-    layer-streamed one raises: it belongs to slice 7b)."""
+    """The ShardingPolicy a replica-state checkpoint was written under."""
     from repro_torch.core.replica import ShardingPolicy
     with open(os.path.join(path, "manifest.json")) as f:
         meta = json.load(f)["metadata"]
@@ -234,7 +233,20 @@ def checkpoint_sharding(path: str):
                           meta.get("streamed", False))
 
 
-def load_replica_state(path: str, template, *, sharding=None, plan=None):
+def _read_state(path: str, src_template):
+    """The ReplicaState stored at ``path``, rebuilt into ``src_template``
+    (the layout it was written in)."""
+    from repro_torch.core import replica as replica_mod
+    params, opt, step = load_checkpoint(path, src_template.params,
+                                        src_template.opt_state)
+    with open(os.path.join(path, "manifest.json")) as f:
+        phase = json.load(f)["metadata"].get("phase", -1)
+    return replica_mod.ReplicaState(params, opt, step=int(step),
+                                    phase=int(phase))
+
+
+def load_replica_state(path: str, template, *, sharding=None, plan=None,
+                       layered=None):
     """Restore a ReplicaState into ``template``'s layout (its params and
     optimiser state: tensors or Specs).
 
@@ -244,10 +256,30 @@ def load_replica_state(path: str, template, *, sharding=None, plan=None):
     sharded AveragingPlan of the model, required for any cross-policy
     restore) and converted: pod models broadcast to their members (FSDP ->
     replicated) or pod-averaged and packed (replicated -> FSDP).
+
+    When the streamed layout is on either side, ``layered`` (the model's
+    ``ModelAPI.layered``) is also required: streamed plans store the
+    layered tree ``{"stem", "layers", "head"}`` while replicated
+    checkpoints hold the canonical tree, so the restore merges or splits
+    each replica row across the structures (pure restructuring, bit for
+    bit).
     """
     from repro_torch.core import replica as replica_mod
     sharding = sharding or replica_mod.REPLICATED
     src = checkpoint_sharding(path)
+    if src.kind == sharding.kind and src.streamed != sharding.streamed:
+        # both FSDP in different bucket layouts (streamed vs gather-all):
+        # one plan cannot describe both, and the npz keys are flat bucket
+        # indices, so route through the canonical replicated layout
+        return _load_across_stream_layouts(path, template, src, sharding,
+                                           plan, layered)
+    needs_layered = (src.kind != sharding.kind
+                     and (src.streamed or sharding.streamed))
+    if needs_layered and layered is None:
+        raise ValueError(
+            f"converting between {src.describe()} and {sharding.describe()}"
+            " crosses the layered <-> canonical tree structures; pass "
+            "layered= (the model's ModelAPI.layered)")
     if src.kind == sharding.kind:
         src_template = template
     elif plan is None:
@@ -259,16 +291,64 @@ def load_replica_state(path: str, template, *, sharding=None, plan=None):
         src_template = replica_mod.sharded_state_template(
             plan, template.opt_state)
     else:
+        # replicated checkpoints hold the canonical tree; a streamed
+        # plan's replicated template is layered, so canonicalise it
         src_template = replica_mod.replicated_state_template(
             plan, template.opt_state)
-    params, opt, step = load_checkpoint(path, src_template.params,
-                                        src_template.opt_state)
-    with open(os.path.join(path, "manifest.json")) as f:
-        phase = json.load(f)["metadata"].get("phase", -1)
-    state = replica_mod.ReplicaState(params, opt, step=int(step),
-                                     phase=int(phase))
+        if sharding.streamed:
+            src_template = replica_mod.canonical_replicated_template(
+                src_template, layered)
+    state = _read_state(path, src_template)
     if src.kind == sharding.kind:
         return state
     if src.is_sharded:
-        return replica_mod.fsdp_to_replicated_state(state, plan)
+        state = replica_mod.fsdp_to_replicated_state(state, plan)
+        if src.streamed:
+            state = replica_mod.merge_layered_state(state, layered)
+        return state
+    if sharding.streamed:
+        state = replica_mod.split_layered_state(state, layered)
+    return replica_mod.replicated_to_fsdp_state(state, plan)
+
+
+def _load_across_stream_layouts(path, template, src, sharding, plan,
+                                layered):
+    """Streamed <-> gather-all FSDP restore through the canonical
+    replicated layout.
+
+    ``plan`` is the RESTORING run's plan.  The source layout's plan is
+    compiled here on the same topology and config with the streamed bit
+    flipped; the state loads in the source layout, converts to the
+    replicated layout, crosses the layered <-> canonical structures when
+    the two plans were compiled over different trees (``layered``
+    required; ``None`` when both plans share one tree structure), and
+    converts back under the destination plan.  Restructuring and the
+    pod mean of identical members: bit for bit.
+    """
+    from repro_torch.core import replica as replica_mod
+    from repro_torch.core.plan import compile_plan
+
+    if plan is None:
+        raise ValueError(
+            f"checkpoint at {path} was written under {src.describe()} but "
+            f"the run uses {sharding.describe()}; pass the compiled plan "
+            "to convert across the bucket layouts")
+    src_policy = replica_mod.ShardingPolicy.fsdp_within_pod(
+        src.shard_axis or sharding.shard_axis, streamed=src.streamed)
+    if layered is None:
+        src_tree = plan.storage_struct
+    elif src.streamed:
+        # the destination (gather-all) holds the canonical tree; the
+        # source stored the layered one
+        src_tree = layered.split(plan.storage_struct)
+    else:
+        src_tree = layered.merge(plan.storage_struct)
+    src_plan = compile_plan(plan.topology, src_tree, plan.cfg, src_policy)
+    state = _read_state(path, replica_mod.sharded_state_template(
+        src_plan, template.opt_state))
+    state = replica_mod.fsdp_to_replicated_state(state, src_plan)
+    if layered is not None:
+        state = (replica_mod.merge_layered_state(state, layered)
+                 if src.streamed else
+                 replica_mod.split_layered_state(state, layered))
     return replica_mod.replicated_to_fsdp_state(state, plan)

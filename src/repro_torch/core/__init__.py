@@ -1,6 +1,7 @@
 """WAGMA-SGD core: the group schedule
 (``grouping``), flat buckets (``bucketing``), the wavefront (``overlap``),
-the compiled averaging plan and its wire (``plan``), the averagers
+the compiled averaging plan and its wire (``plan``), the layer-streamed
+FSDP engine (``streaming``), the averagers
 (``wagma``, ``baselines``), the straggler simulator (``staleness``), and
 elastic membership (``elastic``) with its failure detector (``health``)
 and seeded faults (``faults``).

@@ -25,16 +25,21 @@ pads per device, and ``unpack`` inverts it.  ``tree_map_buckets`` and
 realisation) and lay them out by one replica's structure.  ``align=`` pads
 every bucket to a multiple of ``align * 128`` elements: the FSDP-within-pod
 state (``core/replica.py``) passes the pod size, so each bucket splits into
-``align`` equal, lane-aligned shard slices, as in the JAX package.  The
-layer-aware ``groups=`` layouts belong to the layer-streamed FSDP slice
-(7b) and are not here.
+``align`` equal, lane-aligned shard slices, as in the JAX package.
+
+``groups=`` makes a layout **layer-aware** (DESIGN.md §11), for the
+layer-streamed FSDP state: one ordered group id a leaf (stem, spans,
+head); leaves are packed group by group and a bucket never spans two
+groups, so one layer span's parameters are a contiguous run of whole
+buckets, and a group's slice of the layout equals the layout of its
+sub-tree alone.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 from functools import lru_cache
-from typing import Callable, Dict, Sequence, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -64,10 +69,52 @@ class BucketLayout:
     slots: Tuple[_LeafSlot, ...]          # one per leaf, canonical order
     bucket_sizes: Tuple[int, ...]         # padded element counts
     bucket_dtypes: Tuple[torch.dtype, ...]
+    # layer-aware layouts: the ordered group id each bucket belongs to, or
+    # () for ungrouped layouts.  Bucket indices are ordered by group, so a
+    # group's buckets are a contiguous run.
+    bucket_groups: Tuple[int, ...] = ()
 
     @property
     def n_buckets(self) -> int:
         return len(self.bucket_sizes)
+
+    @property
+    def grouped(self) -> bool:
+        return bool(self.bucket_groups)
+
+    def group_bucket_indices(self, group: int) -> Tuple[int, ...]:
+        """Bucket indices holding the given group's leaves (contiguous)."""
+        return tuple(i for i, g in enumerate(self.bucket_groups)
+                     if g == group)
+
+    def group_bucket_map(self) -> Dict[int, Tuple[int, ...]]:
+        """The layer <-> bucket map: ordered group id -> bucket indices."""
+        out: Dict[int, Tuple[int, ...]] = {}
+        for i, g in enumerate(self.bucket_groups):
+            out[g] = out.get(g, ()) + (i,)
+        return out
+
+    def group_bytes(self, group: int) -> int:
+        """Padded bytes of one group's buckets (its gathered footprint)."""
+        return sum(self.bucket_sizes[i] * self.bucket_dtypes[i].itemsize
+                   for i in self.group_bucket_indices(group))
+
+    def describe(self) -> str:
+        return " ".join(
+            f"[{i}:{str(d).split('.')[-1]}x{s}]"
+            for i, (s, d) in enumerate(zip(self.bucket_sizes,
+                                           self.bucket_dtypes)))
+
+    def describe_groups(self) -> str:
+        """Compact layer-map summary: ``g0->b0, g1->b1-b2, ...``."""
+        if not self.grouped:
+            return "ungrouped"
+        parts = []
+        for g, idxs in sorted(self.group_bucket_map().items()):
+            rng = (f"b{idxs[0]}" if len(idxs) == 1
+                   else f"b{idxs[0]}-b{idxs[-1]}")
+            parts.append(f"{g}->{rng}")
+        return ", ".join(parts)
 
 
 def _numel(shape) -> int:
@@ -83,16 +130,35 @@ def _pad_to_lanes(n: int, align: int = 1) -> int:
 
 
 def build_layout(tree, *, max_bucket_bytes: int = DEFAULT_BUCKET_BYTES,
-                 align: int = 1) -> BucketLayout:
+                 align: int = 1,
+                 groups: Optional[Tuple[int, ...]] = None) -> BucketLayout:
     """Plan buckets for one replica's ``tree`` (tensors or :class:`Spec`);
-    every bucket padded to a multiple of ``align * 128`` elements."""
+    every bucket padded to a multiple of ``align * 128`` elements.
+
+    ``groups`` (one ordered layer id a leaf, in canonical order) fills the
+    buckets group by group in ascending id, canonical order within a
+    group, and closes every open bucket at a group boundary, so the greedy
+    fill restarts per group and a group's slice of the layout is the
+    layout of its sub-tree alone."""
     leaves, treedef = tr.tree_flatten(tree)
     metas = [(_numel(l.shape), tuple(l.shape), l.dtype) for l in leaves]
-    slots = []
+    if groups is not None and len(groups) != len(metas):
+        raise ValueError(f"groups has {len(groups)} entries for "
+                         f"{len(metas)} leaves")
+    order = list(range(len(metas)))
+    if groups is not None:
+        order.sort(key=lambda li: (groups[li], li))
+    slot_of_leaf: Dict[int, _LeafSlot] = {}
     bucket_sizes: list = []
     bucket_dtypes: list = []
+    bucket_groups: list = []
     open_bucket: Dict[torch.dtype, int] = {}  # dtype -> open bucket index
-    for size, shape, dtype in metas:
+    cur_group = None
+    for li in order:
+        size, shape, dtype = metas[li]
+        if groups is not None and groups[li] != cur_group:
+            cur_group = groups[li]
+            open_bucket = {}                  # buckets never span groups
         bi = open_bucket.get(dtype)
         if bi is not None:
             would_be = (bucket_sizes[bi] + size) * dtype.itemsize
@@ -102,12 +168,15 @@ def build_layout(tree, *, max_bucket_bytes: int = DEFAULT_BUCKET_BYTES,
             bi = len(bucket_sizes)
             bucket_sizes.append(0)
             bucket_dtypes.append(dtype)
+            bucket_groups.append(cur_group)
             open_bucket[dtype] = bi
-        slots.append(_LeafSlot(bi, bucket_sizes[bi], size, shape, dtype))
+        slot_of_leaf[li] = _LeafSlot(bi, bucket_sizes[bi], size, shape, dtype)
         bucket_sizes[bi] += size
-    return BucketLayout(treedef, tuple(slots),
+    return BucketLayout(treedef,
+                        tuple(slot_of_leaf[i] for i in range(len(metas))),
                         tuple(_pad_to_lanes(s, align) for s in bucket_sizes),
-                        tuple(bucket_dtypes))
+                        tuple(bucket_dtypes),
+                        tuple(bucket_groups) if groups is not None else ())
 
 
 _LAYOUT_CACHE: Dict[tuple, BucketLayout] = {}
@@ -127,18 +196,20 @@ def layout_cache_stats() -> dict:
 
 
 def layout_for(tree, *, max_bucket_bytes: int = DEFAULT_BUCKET_BYTES,
-               align: int = 1) -> BucketLayout:
-    """Cached :func:`build_layout` keyed on structure, the budget and the
-    shard alignment, never on the phase offset or anything else a caller
-    threads around."""
+               align: int = 1,
+               groups: Optional[Tuple[int, ...]] = None) -> BucketLayout:
+    """Cached :func:`build_layout` keyed on structure, the budget, the
+    shard alignment and the layer groups, never on the phase offset or
+    anything else a caller threads around."""
     leaves, treedef = tr.tree_flatten(tree)
     key = (treedef, tuple((tuple(l.shape), l.dtype) for l in leaves),
-           max_bucket_bytes, align)
+           max_bucket_bytes, align, groups)
     layout = _LAYOUT_CACHE.get(key)
     if layout is None:
         _LAYOUT_STATS["misses"] += 1
         layout = _LAYOUT_CACHE[key] = build_layout(
-            tree, max_bucket_bytes=max_bucket_bytes, align=align)
+            tree, max_bucket_bytes=max_bucket_bytes, align=align,
+            groups=groups)
     else:
         _LAYOUT_STATS["hits"] += 1
     return layout

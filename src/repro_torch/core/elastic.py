@@ -29,7 +29,7 @@ surviving churn without a restart:
   optimiser ``count`` on the host, where the ``Trainer`` keeps it.  No
   file is written.  A sharded (FSDP) state unpacks its pod rows through
   the old plan's shard layout, selects them and repacks them through the
-  new plan's (the layer-streamed one is slice 7b's).
+  new plan's (both gather-all or both layer-streamed).
 """
 
 from __future__ import annotations
@@ -338,13 +338,20 @@ def handoff_state(state: ReplicaState, keep_rows: Sequence[int], *,
     sharded state unpacks its shard buffers through ``old_plan``'s layout
     into pod rows, selects them, and repacks them through ``new_plan``'s
     layout: the new topology may pick other bucket budgets, so the layouts
-    need not match.  Both plans must share the policy.
+    need not match.  Both plans must share the policy and be on the same
+    streamed-ness (a shrink never changes the execution engine; cross
+    that seam through ``checkpoint.load_replica_state``).
     """
     old_sharded = old_plan is not None and old_plan.sharding.is_sharded
     new_sharded = new_plan is not None and new_plan.sharding.is_sharded
     if old_sharded != new_sharded:
         raise ValueError("handoff_state does not cross sharding policies; "
                          "both worlds must be replicated or both fsdp")
+    if old_sharded and \
+            old_plan.sharding.streamed != new_plan.sharding.streamed:
+        raise ValueError("handoff_state does not cross streamed <-> "
+                         "gather-all; restore through "
+                         "checkpoint.load_replica_state instead")
     if not old_sharded:
         return select_replica_rows(state, keep_rows)
 

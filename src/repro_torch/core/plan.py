@@ -70,8 +70,16 @@ replicated arithmetic over the ``P_eff`` rows (the butterfly's combines
 through K1/K2).  Per element that is the JAX plan's arithmetic, so the
 buffers agree with it bit for bit (pinned by tests).
 
-Not here: the layer-streamed layout, FSDP over a rank world (slice 7b) and
-the step-time models (ROADMAP.md).
+**Layer-streamed replicas** (DESIGN.md §11): ``sharding=ShardingPolicy.
+fsdp_within_pod(axis, streamed=True)`` compiles over the model's layered
+tree ``{"stem", "layers", "head"}`` with a layer-aware shard layout (every
+bucket in one ordered group: stem, span k, head).  ``stream_unshard(shards,
+group, pod=)`` reads one group's buckets of a pod's row as views (the JAX
+plan's per-group all-gather) and ``stream_grad_shards`` is the per-group
+twin of ``grad_shards``; ``core/streaming.py`` walks them.
+
+Not here: FSDP over a rank world (slice 7c) and the step-time models
+(ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -87,7 +95,7 @@ import time
 import torch
 import torch.distributed as dist
 
-from repro_torch.core import bucketing, grouping
+from repro_torch.core import bucketing, grouping, streaming
 from repro_torch.core import overlap as pipeline
 from repro_torch.core import tree as tr
 from repro_torch.core.replica import (REPLICATED, ShardingPolicy,
@@ -644,6 +652,20 @@ class AveragingPlan:
                                   or bucketing.DEFAULT_BUCKET_BYTES)
         self._runs: Dict[int, Tuple[StageRun, ...]] = {}
         self._shard_layout: Optional[bucketing.BucketLayout] = None
+        # layer-streamed state layout (DESIGN.md §11): the ordered leaf
+        # groups come from the layered tree convention up front, so a
+        # non-layered tree fails at compile time, not at the first gather
+        if sharding.is_sharded and sharding.streamed:
+            self._stream_groups = streaming.layered_leaf_groups(
+                storage_struct)
+            self.n_stream_spans = len(storage_struct["layers"])
+        else:
+            self._stream_groups = None
+            self.n_stream_spans = 0
+        self._stream_sublayouts: Dict[int, bucketing.BucketLayout] = {}
+        # the non-empty buckets stream_unshard has read (one pod's read
+        # serves all its members, as one device's gather does in JAX)
+        self.stream_gathers = 0
 
     # -- static schedule ---------------------------------------------------
     @property
@@ -691,7 +713,8 @@ class AveragingPlan:
             self._shard_layout = bucketing.layout_for(
                 self.storage_struct,
                 max_bucket_bytes=self.shard_bucket_bytes,
-                align=self.shard_size)
+                align=self.shard_size,
+                groups=self._stream_groups)
         return self._shard_layout
 
     @property
@@ -747,6 +770,114 @@ class AveragingPlan:
             raise ValueError("grad_shards: a pod with no members")
         inv = 1.0 / self.shard_size
         return tuple(b.mul_(inv) for b in acc)
+
+    # -- layer-streamed gather/scatter (DESIGN.md §11) ---------------------
+    def _require_streamed(self):
+        if self._stream_groups is None:
+            raise ValueError(
+                "stream_* needs a streamed plan: compile with "
+                "ShardingPolicy.fsdp_within_pod(axis, streamed=True) over "
+                "the layered param tree")
+
+    def stream_bucket_indices(self, group: int) -> Tuple[int, ...]:
+        """Global bucket indices holding one stream group's leaves."""
+        self._require_streamed()
+        return self.shard_layout.group_bucket_indices(group)
+
+    def stream_group_template(self, group: int):
+        """The group's sub-Spec-tree of the layered storage struct."""
+        self._require_streamed()
+        if group == streaming.STEM_GROUP:
+            return self.storage_struct["stem"]
+        if group == streaming.head_group(self.n_stream_spans):
+            return self.storage_struct["head"]
+        return self.storage_struct["layers"][group - 1]
+
+    def stream_sublayout(self, group: int) -> bucketing.BucketLayout:
+        """Pack/unpack layout of ONE group's buckets (a layout view).
+
+        The grouped global layout restarts its greedy fill at every group
+        boundary, so laying out the group's sub-tree alone at the same
+        budget and alignment gives exactly the global layout's slice for
+        that group: asserted here once per group, then cached.
+        """
+        self._require_streamed()
+        lay = self._stream_sublayouts.get(group)
+        if lay is not None:
+            return lay
+        lay = bucketing.layout_for(
+            self.stream_group_template(group),
+            max_bucket_bytes=self.shard_bucket_bytes, align=self.shard_size)
+        idxs = self.stream_bucket_indices(group)
+        glob = self.shard_layout
+        if (lay.n_buckets != len(idxs)
+                or tuple(lay.bucket_sizes) != tuple(
+                    glob.bucket_sizes[i] for i in idxs)
+                or tuple(lay.bucket_dtypes) != tuple(
+                    glob.bucket_dtypes[i] for i in idxs)):
+            raise AssertionError(
+                f"group {group} sublayout diverged from the global grouped "
+                f"layout: {lay.describe()} vs global buckets {idxs}")
+        self._stream_sublayouts[group] = lay
+        return lay
+
+    def stream_unshard(self, shards, group: int, *, pod: int,
+                       barrier: bool = False):
+        """One group's buckets of pod ``pod``'s row -> its sub-tree, leaves
+        views into the row (the JAX plan's per-group all-gather, as
+        :meth:`unshard_tree` reads a pod's whole row).
+
+        ``barrier`` is the JAX plan's fence against CSE of a backward
+        re-gather with the forward one; eager PyTorch has nothing to
+        fence, and the keyword keeps the engine the reference's.
+        """
+        self._require_streamed()
+        rows = tuple(shards[i][pod] for i in self.stream_bucket_indices(group))
+        self.stream_gathers += sum(1 for b in rows if b.numel())
+        return bucketing.unpack(rows, self.stream_sublayout(group))
+
+    def stream_grad_shards(self, member_grads, group: int) -> tuple:
+        """One group's gradients of a pod's members -> its float32 grad
+        buffers (the pod mean), the per-group twin of :meth:`grad_shards`.
+
+        ``member_grads`` yields each member's gradient sub-tree of the
+        group in rank order.  The first is packed in float32, each next
+        one added into those buffers leaf by leaf, and the sum scaled by
+        ``1/shard_size``: per element the gather-all path's arithmetic, so
+        streamed gradients are bit-identical to it.  Returns the group's
+        ``(n_b,)`` buffers in its bucket order.
+        """
+        self._require_streamed()
+        lay = self.stream_sublayout(group)
+        acc = None
+        for g in member_grads:
+            if acc is None:
+                acc = bucketing.pack(g, lay, dtype=torch.float32)
+            else:
+                bucketing.pack_add_(g, lay, acc)
+            del g
+        if acc is None:
+            raise ValueError("stream_grad_shards: a pod with no members")
+        inv = 1.0 / self.shard_size
+        return tuple(b.mul_(inv) for b in acc)
+
+    def stream_group_bytes(self) -> Dict[int, int]:
+        """Gathered (padded storage) bytes per stream group."""
+        self._require_streamed()
+        lay = self.shard_layout
+        return {g: lay.group_bytes(g) for g in sorted(set(lay.bucket_groups))}
+
+    def stream_peak_gathered_bytes(self) -> int:
+        """Peak gathered bytes of the streamed schedule (liveness walk)."""
+        self._require_streamed()
+        return streaming.max_in_flight_gathered_bytes(
+            self.stream_group_bytes(), self.n_stream_spans)
+
+    def full_gathered_bytes(self) -> int:
+        """Transient bytes of a gather-all unshard (every padded bucket)."""
+        lay = self.shard_layout
+        return sum(s * d.itemsize
+                   for s, d in zip(lay.bucket_sizes, lay.bucket_dtypes))
 
     # -- execution: the paper's group butterfly ----------------------------
     def average(self, tree, phase: int):
@@ -971,6 +1102,17 @@ class AveragingPlan:
                 f"{self.shard_bucket_bytes / 2**20:.0f}MiB -> "
                 f"{self.shard_layout.n_buckets} buckets x "
                 f"{self.shard_size} slices")
+            if self._stream_groups is not None:
+                lay = self.shard_layout
+                lines.append(
+                    f"  layer map ({self.n_stream_spans} spans + stem/head):"
+                    f" {lay.describe_groups()}")
+                lines.append(
+                    f"  streamed coverage: peak gathered "
+                    f"{self.stream_peak_gathered_bytes() / 2**20:.2f}MiB "
+                    f"of {self.full_gathered_bytes() / 2**20:.2f}MiB "
+                    f"full-tree ({streaming.expected_stream_gathers(self)} "
+                    f"gathers/step fwd+bwd)")
         else:
             for ci in self.topology.classes_in_use():
                 link = self.topology.link_classes[ci]

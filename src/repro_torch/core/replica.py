@@ -20,11 +20,18 @@ per-replica weights:
   so its layouts, checkpoints and conversions are the reference's byte for
   byte.
 
+``ShardingPolicy.fsdp_within_pod(shard_axis, streamed=True)`` (DESIGN.md
+§11) is the layer-streamed layout: the same ``(P_eff, n_b)`` buffers, laid
+out by a layer-aware bucket layout over the model's *layered* tree
+``{"stem", "layers", "head"}`` (``models/common.LayeredModel``), so the
+train step walks one layer span's buckets at a time
+(``core/streaming.py``).
+
 Host-side helpers translate whole states between the policies (a
-checkpoint written under one restores under the other) and consolidate
-either layout into the one model a server loads (``serve/handoff.py``).
-The layer-streamed layout (``streamed=True``) and FSDP over a rank world
-belong to slice 7b and raise, naming it.
+checkpoint written under one restores under the other), between the
+layered and canonical structures of a replicated state, and consolidate
+any layout into the one model a server loads (``serve/handoff.py``).
+FSDP over a rank world belongs to slice 7c and raises, naming it.
 """
 
 from __future__ import annotations
@@ -40,8 +47,7 @@ from repro_torch.core import tree as tr
 
 REPLICATED_KIND = "replicated"
 FSDP_KIND = "fsdp_within_pod"
-FSDP_SLICE = ("slice 7b: layer-streamed FSDP and FSDP over ranks "
-              "(ROADMAP.md)")
+FSDP_SLICE = "slice 7c: FSDP over ranks (ROADMAP.md)"
 
 
 @dataclass(frozen=True)
@@ -51,8 +57,8 @@ class ShardingPolicy:
     ``kind`` is ``"replicated"`` or ``"fsdp_within_pod"``; for the latter
     ``shard_axis`` names the dp axis the pod's members share weights over
     (an intra-pod axis of the plan's Topology, validated when the plan
-    compiles).  Part of the plan cache key.  ``streamed`` (the layer-
-    streamed layout) is slice 7b's and raises.
+    compiles).  Part of the plan cache key.  ``streamed`` (fsdp only)
+    selects the layer-streamed layout over the model's layered tree.
     """
     kind: str = REPLICATED_KIND
     shard_axis: Optional[str] = None
@@ -67,10 +73,6 @@ class ShardingPolicy:
             raise ValueError("replicated policy takes no shard_axis")
         if self.streamed and self.kind != FSDP_KIND:
             raise ValueError("streamed layout requires fsdp_within_pod")
-        if self.streamed:
-            raise NotImplementedError(
-                f"the layer-streamed FSDP layout is not ported yet; it "
-                f"belongs to {FSDP_SLICE}")
 
     @classmethod
     def replicated(cls) -> "ShardingPolicy":
@@ -96,7 +98,7 @@ REPLICATED = ShardingPolicy.replicated()
 
 
 def refuse_sharded_world(sharding: ShardingPolicy, world) -> None:
-    """FSDP over a rank world is slice 7b's: raise, naming it."""
+    """FSDP over a rank world is slice 7c's: raise, naming it."""
     if sharding.is_sharded and world is not None:
         raise NotImplementedError(
             f"{sharding.describe()} over a rank world is not ported yet; it "
@@ -252,6 +254,46 @@ def replicated_to_fsdp_state(state: ReplicaState, plan) -> ReplicaState:
         lambda t: replicated_to_sharded_tree(t, plan, dtype=torch.float32),
         lambda c: _index_rows(c, first_member))
     return ReplicaState(params, opt, state.step, state.phase)
+
+
+def merge_layered_state(state: ReplicaState, layered) -> ReplicaState:
+    """Replicated state in the stacked LAYERED structure -> the canonical
+    structure.
+
+    A streamed-FSDP state converts to the replicated layout in the layered
+    tree ``{"stem", "layers", "head"}`` (the streamed plan's storage
+    structure); ``layered`` (the model's
+    :class:`~repro_torch.models.common.LayeredModel`) merges each replica
+    row back into the canonical stacked tree: pure restructuring, bit for
+    bit.
+    """
+    merge_rows = lambda t: layered.merge(t, lead=1)
+    return ReplicaState(merge_rows(state.params),
+                        map_opt_state(state.opt_state, merge_rows,
+                                      lambda c: c),
+                        state.step, state.phase)
+
+
+def split_layered_state(state: ReplicaState, layered) -> ReplicaState:
+    """Canonical-structure replicated state -> the stacked LAYERED
+    structure (views of the state's leaves)."""
+    split_rows = lambda t: layered.split(t, lead=1)
+    return ReplicaState(split_rows(state.params),
+                        map_opt_state(state.opt_state, split_rows,
+                                      lambda c: c),
+                        state.step, state.phase)
+
+
+def canonical_replicated_template(layered_template: ReplicaState,
+                                  layered) -> ReplicaState:
+    """The canonical-stacked twin of a layered-stacked template.
+
+    ``replicated_state_template`` of a *streamed* plan has the layered
+    structure (the plan's storage struct); replicated runs save and
+    restore the canonical tree, so a cross-policy restore merges the
+    template's rows (``Spec`` leaves).
+    """
+    return merge_layered_state(layered_template, layered)
 
 
 def _count_spec(c, n: int) -> tr.Spec:

@@ -141,7 +141,7 @@ class ElasticTrainer:
                 "ElasticTrainer drives the replicated policy; sharded "
                 "worlds convert through core.elastic.handoff_state at pod "
                 "granularity, and pod-granular membership in the driver "
-                "is queued with slice 7b (ROADMAP.md)")
+                "is queued with slice 7c (ROADMAP.md)")
         if trainer_kw.get("world") is not None:
             raise NotImplementedError(
                 "ElasticTrainer drives the replicas of one process; "

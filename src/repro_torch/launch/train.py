@@ -24,9 +24,10 @@ its own replica over the backend ``REPRO_TORCH_BACKEND`` names (default
 nccl on the card, gloo on the CPU; ``gloo`` lets ranks share one card).
 ``--sharding fsdp`` makes the members of each pod (the ranks that differ
 on the minor dp axis) one logical worker sharing one set of shard buffers
-(``core/replica.py``), on one device.  Flags of the JAX driver whose
-feature is not ported yet raise, naming their slice (ROADMAP.md):
-``--streamed`` and FSDP under torchrun are slice 7b's.
+(``core/replica.py``), on one device; ``--streamed`` adds the layer-
+streamed engine (``core/streaming.py``), the dense family's only.  Flags
+of the JAX driver whose feature is not ported yet raise, naming their
+slice (ROADMAP.md): FSDP under torchrun is slice 7c's.
 """
 
 from __future__ import annotations
@@ -52,6 +53,7 @@ from repro_torch.data import make_batch_fn
 from repro_torch.launch import mesh
 from repro_torch.models.registry import build_model
 from repro_torch.optim import adamw, sgd
+from repro_torch.serve.handoff import serving_weights_from_state
 from repro_torch.train import build_train_step, init_replica_state
 from repro_torch.train.train_step import plan_of
 
@@ -67,8 +69,8 @@ def resolve_sharding(sharding, dp_names, streamed: bool = False
 
     ``None``/``"replicated"`` -> replicated; ``"fsdp"`` shards over the
     minor (intra-pod) dp axis ``dp_names[0]``; a ready ShardingPolicy
-    passes through.  ``streamed=True`` and ``"fsdp_streamed"`` (the
-    layer-streamed layout) raise, naming slice 7b.
+    passes through.  ``streamed=True`` (or the ``"fsdp_streamed"``
+    spelling) selects the layer-streamed state layout (DESIGN.md §11).
     """
     if isinstance(sharding, ShardingPolicy):
         if streamed and not sharding.streamed:
@@ -169,7 +171,8 @@ class Trainer:
 
     def plan(self):
         """The compiled AveragingPlan the train step executes (under FSDP
-        the sharded plan, compiled from the model's full tree)."""
+        the sharded plan, compiled from the model's full tree; streamed,
+        from its layered tree)."""
         if self.sharding.is_sharded:
             return plan_of(self.model, self.averager)
         return self.averager.plan_for(self.state.params)
@@ -237,13 +240,15 @@ class Trainer:
 
     def consolidated(self):
         """The consensus params tree (the replicas' mean; under FSDP the
-        pods' mean, unpacked through the plan's shard layout) a server
+        pods' mean, unpacked through the plan's shard layout, a streamed
+        state's merged back to the canonical tree) a server
         loads: on this run's device in one process; under torchrun rank 0
         consolidates the gathered state on the host and the other ranks
         get ``None``."""
         if self.world is None:
             plan = self.plan() if self.sharding.is_sharded else None
-            return consolidate_state(self.state, plan)
+            return serving_weights_from_state(self.state, plan=plan,
+                                              model=self.model)
         state = self.gathered_state()
         return None if state is None else consolidate_state(state)
 
@@ -297,7 +302,8 @@ def main():
                          "constants and budget, data rides ICI")
     ap.add_argument("--sharding", default="replicated",
                     choices=["replicated", "fsdp"])
-    ap.add_argument("--streamed", action="store_true")
+    ap.add_argument("--streamed", action="store_true",
+                    help="with --sharding fsdp: the layer-streamed engine")
     ap.add_argument("--microbatch", type=int, default=None)
     ap.add_argument("--imbalanced", action="store_true")
     ap.add_argument("--ckpt-dir", default=None)

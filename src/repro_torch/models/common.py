@@ -10,7 +10,7 @@ the spec tables) have no counterpart: the port runs on one device.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Callable, NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -18,6 +18,39 @@ import torch.nn.functional as F
 from repro_torch.kernels import ops
 
 NEG_INF = -1e30
+
+
+# ---------------------------------------------------------------------------
+# Per-layer apply decomposition (layer-streamed FSDP engine, DESIGN.md §11)
+# ---------------------------------------------------------------------------
+
+class LayeredModel(NamedTuple):
+    """Per-layer apply decomposition of a model.
+
+    The layer-streamed FSDP engine (``core/streaming.py``) consumes
+    parameters one **span** (a superblock for the dense family) at a time,
+    so the model exposes its forward as stem -> span* -> head over a
+    *layered* param tree
+
+        {"stem": {...}, "layers": (span_0, ..., span_{n-1}), "head": {...}}
+
+    made by ``split`` (views of the canonical stacked tree; ``merge`` is
+    its exact inverse, and both take ``lead=``, the count of leading
+    replica dims every leaf carries, and ``Spec`` leaves).
+    ``stem(stem_tree, batch) -> (carry, aux)``: ``carry`` is the
+    differentiable activation threaded through the spans, ``aux`` side
+    data without a gradient (positions); ``span(k, span_tree, carry, aux,
+    remat=True) -> carry`` applies span k; ``head_loss(head_tree,
+    stem_tree, carry, aux, batch) -> (loss, metrics)`` is the registry
+    loss's tail (the stem tree is passed for tied unembeddings).  The
+    composition runs the ops of ``ModelAPI.loss``.
+    """
+    n_spans: int
+    split: Callable                 # (params, lead=0) -> layered tree
+    merge: Callable                 # (layered, lead=0) -> params
+    stem: Callable                  # (stem_tree, batch) -> (carry, aux)
+    span: Callable                  # (k, span_tree, carry, aux, remat=True) -> carry
+    head_loss: Callable             # (head, stem, carry, aux, batch) -> (loss, metrics)
 
 
 # ---------------------------------------------------------------------------

@@ -18,12 +18,15 @@ aux (``load_balance``, ``router_z``, ``dropped``) beside the logits, and
 its loss adds ``router_aux_coef`` times the two router losses to the
 cross-entropy, as the JAX loss does.
 
-The ``layered`` decomposition belongs to the FSDP slice (ROADMAP.md).
+``layered`` is the dense family's per-layer decomposition for the
+layer-streamed FSDP engine (``core/streaming.py``): stem -> superblock
+spans -> head, its ``head_loss`` the tail of ``loss``.  Other families
+have none (``None``), and streamed FSDP refuses them.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, NamedTuple
+from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -42,6 +45,9 @@ class ModelAPI(NamedTuple):
     init_caches: Callable           # (batch, max_len) -> caches
     prefill: Callable               # (params, batch, max_len) -> (logits, caches)
     decode_step: Callable           # (params, caches, token, pos) -> (logits, caches)
+    # per-layer apply decomposition for the layer-streamed FSDP engine
+    # (DESIGN.md §11); None for families without one
+    layered: Optional[cm.LayeredModel] = None
 
 
 CHUNKED_CE_VOCAB = 65536
@@ -105,6 +111,37 @@ def _loss(cfg, forward_train, chunked: bool, text_slice: int = 0):
         return total, metrics
 
     return loss_fn
+
+
+def _dense_layered(cfg, chunked: bool) -> cm.LayeredModel:
+    """Layered decomposition of the dense family (one span a superblock).
+
+    ``head_loss`` is the tail of :func:`_loss` for a dense model: the final
+    norm, the (chunked) unembed and cross-entropy, ``{"ce", "loss"}`` as
+    the metrics (dense has no aux losses)."""
+    n_sb, _, _ = tfm.superblock_layout(cfg)
+
+    def stem(stem_tree, batch):
+        return tfm.stem_apply(cfg, stem_tree, batch["tokens"])
+
+    def span(k, span_tree, x, positions, remat=True):
+        return tfm.span_apply(cfg, span_tree, x, positions, remat=remat)
+
+    def head_loss(head_tree, stem_tree, x, positions, batch):
+        x = tfm.norm_apply(cfg, x, head_tree["ln_f"])
+        up = tfm.head_params_for_unembed(stem_tree, head_tree)
+        if chunked:
+            ce = _chunked_ce(cfg, up, x, batch["labels"], batch.get("mask"))
+        else:
+            ce = cm.softmax_cross_entropy(tfm.unembed(cfg, up, x),
+                                          batch["labels"], batch.get("mask"))
+        return ce, {"ce": ce, "loss": ce}
+
+    return cm.LayeredModel(
+        n_spans=n_sb,
+        split=lambda params, lead=0: tfm.split_layered(cfg, params, lead),
+        merge=lambda layered, lead=0: tfm.merge_layered(cfg, layered, lead),
+        stem=stem, span=span, head_loss=head_loss)
 
 
 def _enc_input(batch):
@@ -180,4 +217,6 @@ def build_model(cfg, device="cuda") -> ModelAPI:
         prefill=prefill,
         decode_step=lambda params, caches, token, pos: mod.decode_step(
             cfg, params, caches, token, pos),
+        layered=(_dense_layered(cfg, chunked) if cfg.family == "dense"
+                 else None),
     )

@@ -24,9 +24,13 @@ the whole sequence, so the text starts at position Np, and the logits (or
 hidden state) cover all Np+S positions.
 
 ``decode_step`` takes ``pos`` as an int or as a (B,) tensor, one position
-per row (the paged decode batch), and writes the caches in place.  The
-layered/streamed decomposition of the JAX module belongs to the FSDP slice
-and is not here.
+per row (the paged decode batch), and writes the caches in place.
+
+The layered decomposition of the layer-streamed FSDP engine
+(``split_layered``, ``merge_layered``, ``stem_apply``, ``span_apply``,
+``head_params_for_unembed``) runs the body ``forward_train`` runs per
+superblock (``_superblock``), so the streamed composition is the training
+forward's ops.
 """
 
 from __future__ import annotations
@@ -37,6 +41,7 @@ from typing import Optional
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.core import tree as tr
 from repro_torch.core.tree import Spec
 from repro_torch.models import common as cm
 
@@ -275,25 +280,104 @@ def forward_train(cfg, params, tokens, remat: bool = True,
     """
     x = embed_with_prefix(cfg, params, tokens, prefix_embeds)
     positions = _positions(x)
-    n_sb, n_local, has_global = superblock_layout(cfg)
+    n_sb, _, _ = superblock_layout(cfg)
+    for i in range(n_sb):
+        x = span_apply(cfg, _index(params["blocks"], i), x, positions,
+                       remat=remat)
+    x = norm_apply(cfg, x, params["ln_f"])
+    return x if return_hidden else unembed(cfg, params, x)
+
+
+def _superblock(cfg, bp, x, positions):
+    """One superblock (its local layers, then its global one) with
+    autograd: the unit the training forward recomputes and the streamed
+    engine's span."""
+    _, n_local, has_global = superblock_layout(cfg)
 
     def layer(lp, x, window):
         return _attn_block(cfg, lp, x, positions, window, cfg.causal,
                            attention=cm.differentiable_blocked_attention)[0]
 
-    def superblock(x, bp):
-        for j in range(n_local):
-            x = layer(_index(bp["local"], j), x, cfg.sliding_window)
-        if has_global:
-            x = layer(bp["global"], x, None)
-        return x
+    for j in range(n_local):
+        x = layer(_index(bp["local"], j), x, cfg.sliding_window)
+    if has_global:
+        x = layer(bp["global"], x, None)
+    return x
 
-    for i in range(n_sb):
-        bp = _index(params["blocks"], i)
-        x = (checkpoint(superblock, x, bp, use_reentrant=False) if remat
-             else superblock(x, bp))
-    x = norm_apply(cfg, x, params["ln_f"])
-    return x if return_hidden else unembed(cfg, params, x)
+
+# ---------------------------------------------------------------------------
+# Layered decomposition (layer-streamed FSDP execution, DESIGN.md §11)
+# ---------------------------------------------------------------------------
+
+def _take(a, k: int, lead: int):
+    """Slice ``k`` of a stacked leaf's superblock dim (after ``lead``
+    replica dims): a view, or a ``Spec`` without that dim."""
+    if isinstance(a, Spec):
+        return Spec(tuple(a.shape[:lead]) + tuple(a.shape[lead + 1:]),
+                    a.dtype)
+    return a.select(lead, k)
+
+
+def _stack(xs, lead: int):
+    """Inverse of :func:`_take` over every k."""
+    a = xs[0]
+    if isinstance(a, Spec):
+        return Spec(tuple(a.shape[:lead]) + (len(xs),)
+                    + tuple(a.shape[lead:]), a.dtype)
+    return torch.stack(xs, dim=lead)
+
+
+def split_layered(cfg, params, lead: int = 0):
+    """Full param tree -> ``{"stem", "layers", "head"}`` (views).
+
+    One span per superblock, the unit ``forward_train`` recomputes, so
+    ``span_apply(k, ...)`` composed over k is the training forward.
+    ``lead`` leading replica dims pass through.  Exact inverse of
+    :func:`merge_layered`.
+    """
+    n_sb, _, _ = superblock_layout(cfg)
+    spans = tuple(tr.tree_map(lambda a: _take(a, k, lead), params["blocks"])
+                  for k in range(n_sb))
+    head = {"ln_f": params["ln_f"]}
+    if "lm_head" in params:
+        head["lm_head"] = params["lm_head"]
+    return {"stem": {"emb": params["emb"]}, "layers": spans, "head": head}
+
+
+def merge_layered(cfg, layered, lead: int = 0):
+    """``{"stem", "layers", "head"}`` -> the canonical stacked param tree
+    (the blocks stacked into new tensors)."""
+    blocks = tr.tree_map(lambda *xs: _stack(xs, lead), *layered["layers"])
+    params = {"emb": layered["stem"]["emb"], "blocks": blocks,
+              "ln_f": layered["head"]["ln_f"]}
+    if "lm_head" in layered["head"]:
+        params["lm_head"] = layered["head"]["lm_head"]
+    return params
+
+
+def stem_apply(cfg, stem, tokens, prefix_embeds=None):
+    """Embedding stem: tokens -> (x, positions), ``forward_train``'s
+    prologue."""
+    x = embed_with_prefix(cfg, {"emb": stem["emb"]}, tokens, prefix_embeds)
+    return x, _positions(x)
+
+
+def span_apply(cfg, span_params, x, positions, remat: bool = True):
+    """Apply ONE superblock, the body ``forward_train`` runs per slice;
+    with ``remat`` under ``checkpoint`` (recomputed in the backward), as
+    ``jax.remat`` wraps the JAX scan body."""
+    if remat:
+        return checkpoint(_superblock, cfg, span_params, x, positions,
+                          use_reentrant=False)
+    return _superblock(cfg, span_params, x, positions)
+
+
+def head_params_for_unembed(stem, head):
+    """Pseudo param tree :func:`unembed` reads (tied or explicit lm_head)."""
+    up = {"emb": stem["emb"]}
+    if "lm_head" in head:
+        up["lm_head"] = head["lm_head"]
+    return up
 
 
 # ---------------------------------------------------------------------------

@@ -1,8 +1,8 @@
 """Data-parallel train step (WAGMA-SGD and the baselines): replicated on
-one device or one replica a rank, and FSDP-within-pod on one device.
+one device or one replica a rank, and FSDP-within-pod on one device,
+gather-all or layer-streamed.
 
-Counterpart of ``repro/train/train_step.py`` (its layer-streamed branch
-is slice 7b's).
+Counterpart of ``repro/train/train_step.py``.
 Per replica: local gradients, a local optimiser step guarded against
 non-finite gradients, then the averager's collective over all replicas
 (group butterfly, or the global mean every tau steps).  An averager with
@@ -48,6 +48,15 @@ into a second float32 set, then divide, as the reference's scan does.  At
 most one pod's tree, one member's gradients and its float32 accumulator
 are live; the butterfly then averages the buffers pod to pod.
 
+**Layer-streamed FSDP** (``streamed=True``, DESIGN.md §11).  The plan is
+compiled over the model's layered tree and its shard layout is layer-
+aware; ``streaming.streamed_loss_and_grad_shards`` takes the place of the
+pod's unpack, members' gradients and ``grad_shards``: it walks the pod's
+members span by span and packs each group's gradients into the pod's
+float32 buffers as soon as its VJP completes, so no member's whole
+gradient tree exists.  The buffers equal the gather-all path's bit for
+bit; microbatches, the guard and the update are the gather-all branch's.
+
 **The rank realisation.**  Over a rank world (``launch/mesh.py``; the
 averager's ``world``) each process holds its own replica as ``(1, ...)``
 rows and a ``(1,)`` count, as JAX's ``shard_map`` sees a ``(1, ...)``
@@ -69,7 +78,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core import bucketing
+from repro_torch.core import bucketing, streaming
 from repro_torch.core import plan as plan_mod
 from repro_torch.core import tree as tr
 from repro_torch.core.replica import (ReplicaState, map_opt_state,
@@ -90,13 +99,26 @@ def stacked_init(model, n_replicas: int, generator: torch.Generator):
         params0)
 
 
+def layered_of(model):
+    """The model's per-layer decomposition, which streamed FSDP needs."""
+    if model.layered is None:
+        raise ValueError(
+            f"--sharding fsdp --streamed needs a per-layer apply "
+            f"decomposition, but the {model.cfg.family!r} family does not "
+            "expose one (models/registry.ModelAPI.layered)")
+    return model.layered
+
+
 def plan_of(model, averager):
     """The averager's compiled plan for the model's params tree (one
     replica's structure, from the family's ``param_specs``), as the JAX
     step's ``_plan_of``: a sharded plan is compiled from the full tree,
-    never from a state's shard buffers."""
+    never from a state's shard buffers; a streamed one from the layered
+    tree (``layered.split`` of the specs)."""
     from repro_torch.models.convert import PARAM_SPECS
     specs = PARAM_SPECS[model.cfg.family](model.cfg)
+    if averager.sharding.is_sharded and averager.sharding.streamed:
+        specs = layered_of(model).split(specs)
     return averager.plan_for(tr.tree_map(
         lambda s: tr.Spec((1,) + tuple(s.shape), s.dtype), specs))
 
@@ -112,6 +134,8 @@ def init_replica_state(model, optimizer, averager,
     if averager.sharding.is_sharded:
         params0 = model.init(generator)
         plan = plan_of(model, averager)
+        if averager.sharding.streamed:
+            params0 = model.layered.split(params0)
         packed = bucketing.pack(params0, plan.shard_layout)
         del params0
         rows = plan.P_eff
@@ -199,6 +223,8 @@ def build_train_step(model, optimizer, averager, *, phase: int, sync: bool,
     each superblock in the backward (``remat``), as the JAX step does."""
     n_rep = local_rows(averager)
     sharded = averager.sharding.is_sharded
+    streamed = sharded and averager.sharding.streamed
+    layered = layered_of(model) if streamed else None
 
     def grads_and_metrics(params, batch):
         mbs = _microbatches(batch, microbatch)
@@ -215,11 +241,12 @@ def build_train_step(model, optimizer, averager, *, phase: int, sync: bool,
 
     def pod_grads_and_metrics(plan, shards, pod, members, local):
         """Pod ``pod``'s float32 pod-mean grad buffers from its members'
-        gradients on the pod's unpacked tree, and each member's metrics."""
-        tree = plan.unshard_tree(shards, pod)
+        gradients on the pod's unpacked tree (streamed: span by span), and
+        each member's metrics."""
         per_mb = {r: _microbatches(local(r), microbatch) for r in members}
         n_mb = len(per_mb[members[0]])
         metrics_all = {r: [] for r in members}
+        tree = None if streamed else plan.unshard_tree(shards, pod)
 
         def member_grads(i):
             for r in members:
@@ -228,13 +255,24 @@ def build_train_step(model, optimizer, averager, *, phase: int, sync: bool,
                 yield g
                 del g
 
+        def pod_mean(i):
+            """Microbatch i's float32 pod-mean grad buffers."""
+            if not streamed:
+                return plan.grad_shards(member_grads(i))
+            _, ms, gs = streaming.streamed_loss_and_grad_shards(
+                plan, layered, shards, [per_mb[r][i] for r in members],
+                pod=pod)
+            for r, m in zip(members, ms):
+                metrics_all[r].append(m)
+            return gs
+
         if n_mb == 1:
-            acc = plan.grad_shards(member_grads(0))
+            acc = pod_mean(0)
         else:
             # the reference's scan: zeros + each microbatch's pod mean
             acc = None
             for i in range(n_mb):
-                gs = plan.grad_shards(member_grads(i))
+                gs = pod_mean(i)
                 if acc is None:
                     acc = tuple(torch.zeros_like(g) for g in gs)
                 for a, g in zip(acc, gs):

@@ -177,8 +177,10 @@ def test_replica_state_round_trip_is_checksum_verified(tmp_path):
 
 def test_an_fsdp_checkpoint_raises_naming_the_fsdp_slice(tmp_path):
     """An FSDP manifest now restores (tests/test_torch_fsdp.py); across
-    policies only with the sharded plan, and a streamed one raises naming
-    slice 7b."""
+    policies only with the sharded plan.  A streamed manifest names its
+    policy and restores under it (tests/test_torch_streaming.py crosses
+    it to the other policies); across the layered <-> canonical structures
+    only with ``layered=``."""
     from repro_torch.core.replica import FSDP_SLICE, ShardingPolicy
     save_replica_state(str(tmp_path), _port_state())
     mpath = tmp_path / "manifest.json"
@@ -192,9 +194,18 @@ def test_an_fsdp_checkpoint_raises_naming_the_fsdp_slice(tmp_path):
         load_replica_state(str(tmp_path), _port_state())
     manifest["metadata"].update(streamed=True)
     mpath.write_text(json.dumps(manifest))
-    with pytest.raises(NotImplementedError, match="slice 7b") as e:
+    streamed = ShardingPolicy.fsdp_within_pod("data", streamed=True)
+    assert checkpoint_sharding(str(tmp_path)) == streamed
+    back = load_replica_state(str(tmp_path), _port_state(),
+                              sharding=streamed)
+    assert (back.step, back.phase) == (7, 1)
+    for a, b in zip(tr.tree_leaves((back.params, back.opt_state)),
+                    tr.tree_leaves((_port_state().params,
+                                    _port_state().opt_state))):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    with pytest.raises(ValueError, match="layered="):
         load_replica_state(str(tmp_path), _port_state())
-    assert FSDP_SLICE in str(e.value)
+    assert "slice 7c" in FSDP_SLICE
 
 
 def _files(d):

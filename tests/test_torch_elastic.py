@@ -228,7 +228,9 @@ def test_handoff_of_a_sharded_state_raises_and_names_slice_7():
     plan's shard layout, selected and repacked through the new plan's, bit
     for bit (tests/test_torch_fsdp.py holds it to the JAX package).  A
     handoff across policies raises, and pod-granular membership in
-    ``ElasticTrainer`` is queued with slice 7b (its refusal below)."""
+    ``ElasticTrainer`` is queued with slice 7c (its refusal below).  The
+    same shrink of the layer-streamed state re-seats it through its
+    grouped layouts; streamed <-> gather-all raises."""
     from repro_torch.core.replica import (ShardingPolicy, _unpack_rows,
                                           replicated_to_fsdp_state)
     st = _stacked_state(8)
@@ -249,7 +251,31 @@ def test_handoff_of_a_sharded_state_raises_and_names_slice_7():
     for kw in (dict(old_plan=plans[0]), dict(new_plan=plans[1])):
         with pytest.raises(ValueError, match="sharding policies"):
             handoff_state(old, [0, 1], **kw)
-    assert "slice 7b" in FSDP_SLICE
+    layered = {"stem": {"s": struct["w"]}, "layers": (struct, struct),
+               "head": {"h": struct["w"]}}
+    streamed = ShardingPolicy.fsdp_within_pod("data", streamed=True)
+    splans = [compile_plan(Topology.hierarchical(("data", "pod"), (2, pods)),
+                           layered, AveragingConfig(group_size=2), streamed)
+              for pods in (4, 2)]
+    assert splans[0].shard_layout.grouped
+    rows = tr.tree_map(lambda a: a, st.params)
+    lay_state = ReplicaState(
+        {"stem": {"s": rows["w"]}, "layers": (rows, rows),
+         "head": {"h": rows["w"]}},
+        st.opt_state._replace(momentum={
+            "stem": {"s": st.opt_state.momentum["w"]},
+            "layers": (st.opt_state.momentum, st.opt_state.momentum),
+            "head": {"h": st.opt_state.momentum["w"]}}), st.step, st.phase)
+    sold = replicated_to_fsdp_state(lay_state, splans[0])
+    snew = handoff_state(sold, [0, 3], old_plan=splans[0],
+                         new_plan=splans[1])
+    g_rows = _unpack_rows(snew.params, splans[1].shard_layout)
+    w_rows = _unpack_rows(sold.params, splans[0].shard_layout)
+    for g, w in zip(tr.tree_leaves(g_rows), tr.tree_leaves(w_rows)):
+        assert torch.equal(g, w[[0, 3]])
+    with pytest.raises(ValueError, match="streamed <-> gather-all"):
+        handoff_state(sold, [0, 3], old_plan=splans[0], new_plan=plans[1])
+    assert "slice 7c" in FSDP_SLICE
 
 
 # ---------------------------------------------------------------------------

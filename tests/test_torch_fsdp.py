@@ -499,15 +499,21 @@ def test_handoff_state_sharded_shrink_matches_jax():
 
 
 def test_streamed_and_rank_worlds_raise_naming_slice_7b():
+    """The streamed spellings resolve to the streamed policy (ported,
+    tests/test_torch_streaming.py); FSDP over a rank world raises, naming
+    slice 7c."""
     from repro_torch.launch.mesh import RankWorld
-    for make in (lambda: ShardingPolicy.fsdp_within_pod("data",
-                                                        streamed=True),
-                 lambda: resolve_sharding("fsdp_streamed", ("data", "pod")),
+    streamed = ShardingPolicy.fsdp_within_pod("data", streamed=True)
+    assert streamed.is_sharded and streamed.streamed
+    for make in (lambda: resolve_sharding("fsdp_streamed", ("data", "pod")),
                  lambda: resolve_sharding("fsdp", ("data", "pod"),
+                                          streamed=True),
+                 lambda: resolve_sharding(FSDP, ("data", "pod"),
                                           streamed=True)):
-        with pytest.raises(NotImplementedError, match="slice 7b") as e:
-            make()
-        assert FSDP_SLICE in str(e.value)
+        assert make() == streamed
+        assert make().describe() == jreplica.ShardingPolicy.fsdp_within_pod(
+            "data", streamed=True).describe()
+    assert "slice 7c" in FSDP_SLICE
     world = RankWorld(("data", "pod"), (2, 2), 0, torch.device("cpu"), "gloo")
     t, _ = _topos("hier", (2, 2))
     for make in (lambda: make_averager("wagma", ("data", "pod"), (2, 2),
@@ -519,8 +525,9 @@ def test_streamed_and_rank_worlds_raise_naming_slice_7b():
                  lambda: plan_mod.compile_plan(t, _ttree(),
                                                plan_mod.AveragingConfig(),
                                                FSDP, world)):
-        with pytest.raises(NotImplementedError, match="slice 7b"):
+        with pytest.raises(NotImplementedError, match="slice 7c") as e:
             make()
+        assert FSDP_SLICE in str(e.value)
 
 
 # ---------------------------------------------------------------------------

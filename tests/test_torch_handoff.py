@@ -7,10 +7,9 @@ off as ``p0`` bit for bit and as the JAX ``serving_weights_from_state``;
 rows that differ consolidate bit-identically to JAX in bfloat16 (the sum of
 a few bf16 rows is exact in float32 in any order) and within 1e-6 relative
 in float32 (the backends order the sum).  Replicated checkpoints cross
-both ways between the packages' readers.  FSDP states and checkpoints
-hand off as the JAX package's; the streamed branch raises and names slice
-7b.  ``Trainer.consolidated`` matches the JAX
-``Trainer.consolidated`` (Auto-typed host mesh, ROADMAP.md F1) to the
+both ways between the packages' readers.  FSDP states and checkpoints,
+gather-all and layer-streamed, hand off as the JAX package's.
+``Trainer.consolidated`` matches the JAX ``Trainer.consolidated`` (Auto-typed host mesh, ROADMAP.md F1) to the
 trainer tests' 1e-5, and over four gloo ranks rank 0's equals the stacked
 ``Trainer``'s bit for bit while the other ranks get ``None``.
 """
@@ -167,21 +166,24 @@ def test_checkpoint_handoff_crosses_both_ways(dtype, tmp_path):
 
 def test_sharded_and_streamed_branches_name_the_fsdp_slice(post_sync,
                                                            tmp_path):
-    """The FSDP branch (ported): a JAX-written FSDP checkpoint and the
-    converted FSDP state hand off, through the port's sharded plan, the
-    weights the JAX package hands off, bit for bit (p0: every pod holds
-    it).  The streamed branch still raises and names slice 7b."""
+    """Both FSDP branches (ported): a JAX-written FSDP checkpoint, gather-
+    all or layer-streamed, hands off through the port's plan of the same
+    policy (and, streamed, its model) the weights the JAX package hands
+    off, bit for bit (p0: every pod holds it)."""
     from repro_torch.core import plan as plan_mod
     from repro_torch.core import replica
     from repro_torch.models.convert import PARAM_SPECS
-    jm, p0, jstate, cfg, _, state = post_sync
+    jm, p0, jstate, cfg, model, state = post_sync
     topo = JTopology.hierarchical(("data", "pod"), (2, 2))
     struct = jax.eval_shape(lambda: p0)
-    tplan = plan_mod.compile_plan(
-        plan_mod.Topology.hierarchical(("data", "pod"), (2, 2)),
-        PARAM_SPECS[cfg.family](cfg), plan_mod.AveragingConfig(group_size=2),
-        replica.ShardingPolicy.fsdp_within_pod("data"))
     for streamed in (False, True):
+        specs = PARAM_SPECS[cfg.family](cfg)
+        if streamed:
+            specs = model.layered.split(specs)
+        tplan = plan_mod.compile_plan(
+            plan_mod.Topology.hierarchical(("data", "pod"), (2, 2)), specs,
+            plan_mod.AveragingConfig(group_size=2),
+            replica.ShardingPolicy.fsdp_within_pod("data", streamed=streamed))
         pol = JPolicy.fsdp_within_pod("data", streamed=streamed)
         tree = jax.eval_shape(jm.layered.split, p0) if streamed else struct
         plan = jcompile_plan(topo, tree, JConfig(group_size=2), pol)
@@ -190,19 +192,18 @@ def test_sharded_and_streamed_branches_name_the_fsdp_slice(post_sync,
         fsdp = jreplica.replicated_to_fsdp_state(src, plan)
         path = str(tmp_path / f"fsdp{int(streamed)}")
         jckpt.save_replica_state(path, fsdp, sharding=pol)
-        if streamed:
-            with pytest.raises(NotImplementedError, match="slice 7b"):
-                serving_weights_from_checkpoint(path, state)
-            continue
         template = replica.sharded_state_template(tplan, state.opt_state)
-        got = serving_weights_from_checkpoint(path, template, plan=tplan)
+        got = serving_weights_from_checkpoint(path, template, plan=tplan,
+                                              model=model)
         _assert_equal_to_jax(got, jhandoff.serving_weights_from_checkpoint(
-            path, jax.eval_shape(lambda: fsdp), plan=plan))
+            path, jax.eval_shape(lambda: fsdp), plan=plan, model=jm))
         _assert_equal_to_jax(got, p0)
-        t_fsdp = replica.replicated_to_fsdp_state(state, tplan)
-        _assert_equal_to_jax(serving_weights_from_state(t_fsdp, plan=tplan),
-                             jhandoff.serving_weights_from_state(fsdp,
-                                                                 plan=plan))
+        rep = (replica.split_layered_state(state, model.layered)
+               if streamed else state)
+        t_fsdp = replica.replicated_to_fsdp_state(rep, tplan)
+        _assert_equal_to_jax(
+            serving_weights_from_state(t_fsdp, plan=tplan, model=model),
+            jhandoff.serving_weights_from_state(fsdp, plan=plan, model=jm))
     buffers = ReplicaState(tuple(tr.tree_leaves(state.params)),
                            state.opt_state)
     with pytest.raises(ValueError, match="sharded plan"):

@@ -282,11 +282,12 @@ def test_averager_bookkeeping_matches_jax():
 
 
 def test_unported_paths_name_their_slice():
-    # FSDP within a pod is ported (tests/test_torch_fsdp.py); its layer-
-    # streamed layout is slice 7b's
+    # FSDP within a pod is ported (tests/test_torch_fsdp.py), and its
+    # layer-streamed layout (tests/test_torch_streaming.py)
     assert ShardingPolicy.fsdp_within_pod("data").is_sharded
-    with pytest.raises(NotImplementedError, match="slice 7b"):
-        ShardingPolicy.fsdp_within_pod("data", streamed=True)
+    streamed = ShardingPolicy.fsdp_within_pod("data", streamed=True)
+    assert streamed.is_sharded and streamed.streamed
+    assert streamed.describe() == "fsdp_within_pod(shard_axis='data', streamed)"
     assert baselines.make_averager("dpsgd", ("data",), (8,)).n_phases == 1
     with pytest.raises(ValueError):
         baselines.make_averager("nope", ("data",), (8,))

@@ -248,15 +248,16 @@ def test_cli_trains_at_smoke_size_and_names_missing_slices():
     assert "final loss" in out.stdout
     # --pod-axis and --pod-dcn train since slice 4a (tests/
     # test_torch_train_ranks.py), --sharding fsdp since slice 7a (tests/
-    # test_torch_fsdp.py); its streamed layout is slice 7b, expert
-    # parallelism slice 4b
-    out = _cli("--arch", ARCH, "--smoke", "--data-axis", "2", "--pod-axis",
-               "4", "--pod-dcn", "--sharding", "fsdp", "--group-size", "2",
-               "--steps", "2", "--seq-len", "16", "--global-batch", "16")
-    assert out.returncode == 0, out.stderr
-    assert "final loss" in out.stdout
-    for flags, slice_name in ((("--pod-axis", "2", "--sharding", "fsdp",
-                                "--streamed"), "slice 7b"),
+    # test_torch_fsdp.py), its streamed layout since slice 7b (tests/
+    # test_torch_streaming.py); expert parallelism is slice 4b
+    for streamed in ((), ("--streamed",)):
+        out = _cli("--arch", ARCH, "--smoke", "--data-axis", "2",
+                   "--pod-axis", "4", "--pod-dcn", "--sharding", "fsdp",
+                   *streamed, "--group-size", "2", "--steps", "2",
+                   "--seq-len", "16", "--global-batch", "16")
+        assert out.returncode == 0, out.stderr
+        assert "final loss" in out.stdout
+    for flags, slice_name in ((("--streamed",), "requires --sharding fsdp"),
                               (("--model-axis", "2"), "slice 4b"),
                               (("--multi-pod",), "--pod-axis")):
         out = _cli("--smoke", "--data-axis", "8", "--steps", "1", *flags)
