@@ -178,6 +178,34 @@
    its split (grads, update, exchange as device-to-host, wire and
    host-to-device, combine; the sync), each rank's peak memory, the
    device's idle share over a profiled step and the phase's wall time.
+   Model phase (slice 4b, ``model_phase``): the same model and step with
+   each of 4 replicas split over 2 model ranks (Megatron's split): 8 ranks
+   started by ``torch.distributed.run`` (this script with
+   ``--model-worker``), gloo, all on the one card, model minor, each a
+   ``Trainer`` over its rank world, S 2, tau 5, global batch 32, 6 steps;
+   then a fresh tinyllama-1.1b at full width and all 22 layers served on
+   the same ranks, 2 prompts of 512 tokens a dp rank, 16 decode steps
+   through ``build_prefill``/``build_serve_step`` (K3 at the rank's 16
+   heads over 2 KV heads), against rank 0 serving the whole model on all
+   8 prompts.  Checks (a) each rank's K1/K2 launches a group step equal
+   the schedule of its plan over its slices (the plan whose operands the
+   K1/K2 phase held), a sync none, training no K3 or K4, a prefill K3 22
+   times, a decode step nothing; (b) after each group step the dp ranks
+   of a group hold equal slices at each model coordinate and the groups
+   differ, after the sync all four, and once an offset the stacked plan's
+   average of each coordinate's gathered pre-average slices equals the
+   wire's (``torch.equal``); (c) the leaves held whole (norm scales)
+   bit-identical over every model group after every step; (d) the mean
+   losses within ``MODEL_LOSS_RTOL`` of the one-process stacked
+   ``Trainer``'s (model 1, same config, seed and batches); (e) the
+   prefill's and the first decode step's gathered logits within
+   ``LOGIT_RTOL`` of the largest one-rank logit, the tokens equal at every
+   step whose one-rank top-2 margin exceeds the logit gap there (the
+   counts printed); (f) finite losses, no skip, and a step whose layer-2
+   MLP leaves out f's backward all-reduce must fail (c).  Prints the
+   step's split (grads, the TP all-reduces' time and bytes, update, the dp
+   exchange), each rank's peak memory, the device's idle share over a
+   profiled step and the phase's seconds.
 7. recurrentgemma phase: recurrentgemma-2b at full width and all 26 layers
    in bf16 (random weights from a seeded torch generator) serves a batch of
    4 prompts of 3000 tokens (past the 2048-token window, not a multiple of
@@ -280,7 +308,9 @@
    shape, with the walk route's launches; K1/K2 with their launches on the
    six training paths, the elastic, the ranks' and the FSDP one among
    them, and those paths' own shapes and times, ``elastic_row`` by world,
-   ``fsdp_row`` and ``ranks_row``), then ``{"ok": true,
+   ``fsdp_row``, ``ranks_row`` and ``model_row``, a rank's slice buckets;
+   K3 also at the model phase's prefill, a rank's 16 heads over 2 KV
+   heads), then ``{"ok": true,
    "device": ...}`` last.
 
 Exits non-zero, printing no result, without CUDA or without the repo's
@@ -370,8 +400,11 @@ VLM_ATTN = (4, 768, 768, 16, 8, 128, True, None)
 # 8, which the bf16 kernel pads to 128 columns by the TMA's zero fill
 LLAMA4_ATTN = (4, 512, 512, 40, 8, 128, True, None)
 KIMI_ATTN = (4, 512, 512, 64, 8, 112, True, None)
+# the model phase's prefill on one rank: tinyllama's 32 heads and 4 KV
+# heads split over 2 model ranks, 2 prompts of 512 a dp rank
+MODEL_ATTN = (2, 512, 512, 16, 2, 64, True, None)
 FAMILY_ATTN_CASES = [c + (dt,) for c in list(WHISPER_ATTN_ROLES.values())
-                     + [VLM_ATTN, LLAMA4_ATTN, KIMI_ATTN]
+                     + [VLM_ATTN, LLAMA4_ATTN, KIMI_ATTN, MODEL_ATTN]
                      for dt in ("float32", "bfloat16")]
 # the tinyllama prefill shape the kernels line reports
 TL_ATTN_SHAPE = (1, SLICE_SHAPE_FOR_LINE, SLICE_SHAPE_FOR_LINE, 32, 4, 64,
@@ -500,6 +533,26 @@ RANKS_WORKER_FLAG = "--ranks-worker"
 # four ranks' losses are the twin's rows' bit for bit; only the order of
 # their float32 mean differs, a few units in the last place)
 RANKS_LOSS_RTOL = 1e-6
+
+# model phase (slice 4b): the ranks phase's model and step with each
+# replica's model split over MODEL_M ranks (Megatron's split, model minor):
+# MODEL_DATA x MODEL_M ranks started by torchrun over gloo, all on the one
+# card, S 2, tau, lr and sequence as the training phase, global batch 32
+# (8 rows a replica), 6 steps (both offsets and the sync at t = 4); then a
+# fresh model at full depth served on the same ranks, MODEL_ROWS prompts
+# of MODEL_PROMPT tokens a dp rank and MODEL_NEW decode steps, against
+# rank 0 serving the whole model on every prompt
+MODEL_DATA, MODEL_M, MODEL_S, MODEL_GB, MODEL_STEPS = 4, 2, 2, 32, 6
+MODEL_ROWS, MODEL_PROMPT, MODEL_NEW, MODEL_SERVE_SEED = 2, 512, 16, 3
+MODEL_TIMEOUT = 600
+MODEL_WORKER_FLAG = "--model-worker"
+# check (f)'s planted fault: the layer whose MLP leaves out f's all-reduce
+MODEL_FAULT_LAYER = 2
+# check (d): the model ranks' mean losses against the one-process stacked
+# Trainer's (PERF.md §2): the TP sums of bf16 partial products round in
+# another order than one matmul's; the gap measured 2.44e-5 on the H100
+# (6 steps), the bound four times that
+MODEL_LOSS_RTOL = 1e-4
 
 # serving phase
 ARCH = "tinyllama-1.1b"
@@ -1071,6 +1124,15 @@ def combine_kernel_phase(device="cuda"):
     line["K2 ranks"] = k2_row("ranks tail batch", rank_tail,
                               [0] * len(rank_tail), "float32", rank_scale)
     rows.append(line["K2 ranks"])
+    # the model path's: each K1 size of a rank's buckets of its slices and
+    # its K2 batch (check (a) ties them to the plan the ranks compiled)
+    model_k1, (model_tail, model_scale) = model_combines(train_config())
+    k1_rows = [k1_row(n, "float32", scale, case="model")[0]
+               for n, scale in model_k1]
+    line["K1 model"] = max(k1_rows, key=lambda r: r["n"][0])
+    line["K2 model"] = k2_row("model tail batch", model_tail,
+                              [0] * len(model_tail), "float32", model_scale)
+    rows.extend(k1_rows + [line["K2 model"]])
     # the elastic path's: each world's K1 sizes and K2 batch (check (a)
     # holds them to the plans the elastic run compiled)
     line["elastic"] = {}
@@ -2804,6 +2866,118 @@ def union_ns(intervals) -> int:
     return total
 
 
+def instrument_rank_trainer(trainer, world, plan):
+    """Time a rank ``Trainer``'s step parts into ``split`` (grads, update,
+    average, sync; host clock, synchronised), add the wire's seconds and
+    bytes of each average and sync into ``wire`` (``plan.wire_stats``),
+    and gather the rows ``comm`` averages (``mesh.gather_rows``) into
+    ``pending`` once an offset not yet in ``checked``, their seconds in
+    ``check_s[0]``.  Returns (split, wire, pending, checked, check_s)."""
+    from repro_torch.core import plan as plan_mod
+    from repro_torch.launch import mesh
+    from repro_torch.optim.sgd import Optimizer
+    from repro_torch.train import train_step
+    avg = trainer.averager
+    split = dict.fromkeys(("grads", "update", "average", "sync"), 0.0)
+    timed_ = split_timer(split, world.device)
+    wire = {}
+
+    def with_wire(fn):
+        def run(*args):
+            before = plan_mod.wire_stats()
+            res = fn(*args)
+            for k, v in plan_mod.wire_stats().items():
+                wire[k] = wire.get(k, 0) + v - before[k]
+            return res
+        return run
+
+    trainer.opt = Optimizer(trainer.opt.init,
+                            timed_("update", trainer.opt.update))
+    comm = timed_("average", with_wire(avg.comm))
+    pending, checked, check_s = {}, {}, [0.0]
+
+    def comm_checked(tree, phase):
+        offset = plan.offsets[phase]
+        if offset not in checked and offset not in pending:
+            t0 = time.perf_counter()
+            pending[offset] = mesh.gather_rows(world, tree)
+            check_s[0] += time.perf_counter() - t0
+        return comm(tree, phase)
+
+    avg.comm = comm_checked
+    avg.sync = timed_("sync", with_wire(avg.sync))
+    train_step.value_and_grad = timed_("grads", train_step.value_and_grad)
+    return split, wire, pending, checked, check_s
+
+
+def profiled_step(trainer, t: int, device) -> dict:
+    """Step ``t`` under ``torch.profiler`` (after one warm start of it):
+    its host-clock start and end, the device intervals (on the card) and
+    :func:`_window`'s summary."""
+    import torch
+    from torch.profiler import profile
+    with profile(activities=_activities(device)):   # the profiler's
+        torch.ones(1, device=device).add_(1)        # first start
+        _sync(device)
+    with profile(activities=_activities(device)) as prof:
+        start_ns = time.time_ns()
+        trainer.step_once(t)
+        _sync(device)
+        end_ns = time.time_ns()
+    return {"start_ns": start_ns, "end_ns": end_ns,
+            "intervals": (device_intervals(prof) if device.type == "cuda"
+                          else None),
+            **_window(prof, (end_ns - start_ns) / 1e6)}
+
+
+def device_idle(windows) -> dict:
+    """The device's busy ms and idle share over the profiled windows of
+    processes sharing a card: the union of every window's device
+    intervals on the host's clock, over the span from the first start to
+    the last end (``None`` off the card)."""
+    start = min(w["start_ns"] for w in windows)
+    end = max(w["end_ns"] for w in windows)
+    intervals = [(max(a, start), min(b, end)) for w in windows
+                 for a, b in (w["intervals"] or ()) if b > start and a < end]
+    on_card = all(w["intervals"] is not None for w in windows)
+    busy_ms = union_ns(intervals) / 1e6 if on_card else None
+    wall_ms = (end - start) / 1e6
+    return {"profile_wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "device_idle_share": 1 - busy_ms / wall_ms if on_card else None}
+
+
+def run_torchrun(n: int, flag: str, spec: dict, out: Path,
+                 timeout: int) -> float:
+    """``python -m torch.distributed.run`` of ``n`` ranks of this script
+    with ``flag SPEC OUT`` over gloo (their log in ``out/torchrun.log``);
+    fails if torchrun does not exit 0 within ``timeout``.  Returns its
+    seconds."""
+    import os
+    import signal
+    log_path = out / "torchrun.log"
+    env = dict(os.environ, REPRO_TORCH_BACKEND="gloo",
+               PYTHONPATH=os.pathsep.join(
+                   [str(ROOT / "src")] + [p for p in [os.environ.get(
+                       "PYTHONPATH")] if p]))
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", str(n), str(ROOT / "chip_smoke.py"), flag,
+           json.dumps(spec), str(out)]
+    t0 = time.perf_counter()
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT,
+                                env=env, start_new_session=True)
+        try:
+            rc = proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+            rc = "timeout"
+    if rc != 0:
+        raise AssertionError(f"torchrun exited {rc}; its log ends:\n"
+                             + log_path.read_text()[-6000:])
+    return time.perf_counter() - t0
+
+
 def ranks_worker(spec: dict, out: str) -> int:
     """One rank of the ranks phase, started by torchrun: the port's
     ``Trainer`` on this rank's replica for ``spec["steps"]`` steps with
@@ -2817,9 +2991,6 @@ def ranks_worker(spec: dict, out: str) -> int:
     from repro_torch.core import tree as tr
     from repro_torch.kernels import ops
     from repro_torch.launch import mesh
-    from repro_torch.optim.sgd import Optimizer
-    from repro_torch.train import train_step
-    from torch.profiler import profile
 
     t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2838,35 +3009,8 @@ def ranks_worker(spec: dict, out: str) -> int:
                                              plan.storage_struct, plan.cfg)
         n_buckets = plan.class_layout(0).n_buckets
         n_stages = len(plan.runs_for_offset(0)[0].bits)
-        split = dict.fromkeys(("grads", "update", "average", "sync"), 0.0)
-        timed = split_timer(split, device)
-        wire = {}
-
-        def with_wire(fn):
-            def run(*args):
-                before = plan_mod.wire_stats()
-                res = fn(*args)
-                for k, v in plan_mod.wire_stats().items():
-                    wire[k] = wire.get(k, 0) + v - before[k]
-                return res
-            return run
-
-        trainer.opt = Optimizer(trainer.opt.init,
-                                timed("update", trainer.opt.update))
-        comm = timed("average", with_wire(avg.comm))
-        pending, checked, check_s = {}, {}, [0.0]
-
-        def comm_checked(tree, phase):
-            offset = plan.offsets[phase]
-            if offset not in checked and offset not in pending:
-                t0 = time.perf_counter()          # check (c)'s input
-                pending[offset] = mesh.gather_rows(world, tree)
-                check_s[0] += time.perf_counter() - t0
-            return comm(tree, phase)
-
-        avg.comm = comm_checked
-        avg.sync = timed("sync", with_wire(avg.sync))
-        train_step.value_and_grad = timed("grads", train_step.value_and_grad)
+        split, wire, pending, checked, check_s = instrument_rank_trainer(
+            trainer, world, plan)
         if on_card:
             torch.cuda.reset_peak_memory_stats()
         log, peak_checks = [], None
@@ -2943,18 +3087,7 @@ def ranks_worker(spec: dict, out: str) -> int:
         state_sums = state_digests(state) if state is not None else None
         ckpt_split["digests"] = time.perf_counter() - t0
         del state
-        with profile(activities=_activities(device)):   # the profiler's
-            torch.ones(1, device=device).add_(1)        # first start
-            _sync(device)
-        with profile(activities=_activities(device)) as prof:
-            start_ns = time.time_ns()
-            trainer.step_once(spec["steps"])
-            _sync(device)
-            end_ns = time.time_ns()
-        window = {"start_ns": start_ns, "end_ns": end_ns,
-                  "intervals": device_intervals(prof) if on_card else None,
-                  **_window(prof, (end_ns - start_ns) / 1e6)}
-        del prof
+        window = profiled_step(trainer, spec["steps"], device)
         mine = {"rank": world.rank, "device": str(device), "log": log,
                 "peak": peak, "peak_steps_0_1": peak_checks,
                 "window": window, "init_s": init_s}
@@ -3006,13 +3139,6 @@ def ranks_summary(stats: dict) -> dict:
     exchange = {k: med(group, lambda e: e["exchange_ms"][k])
                 for k in ("d2h", "wire", "h2d")}
     windows = [r["window"] for r in stats["ranks"]]
-    start = min(w["start_ns"] for w in windows)
-    end = max(w["end_ns"] for w in windows)
-    intervals = [(max(a, start), min(b, end)) for w in windows
-                 for a, b in (w["intervals"] or ()) if b > start and a < end]
-    on_card = all(w["intervals"] is not None for w in windows)
-    busy_ms = union_ns(intervals) / 1e6 if on_card else None
-    wall_ms = (end - start) / 1e6
     return {
         "median_step_ms": med(steady, lambda e: e["step_ms"]),
         "median_group_step_ms": med(group, lambda e: e["step_ms"]),
@@ -3031,10 +3157,8 @@ def ranks_summary(stats: dict) -> dict:
         "wire_bytes_a_group_step": group[0]["wire_bytes"] if group else None,
         "peak_bytes_by_rank": [r["peak"] for r in stats["ranks"]],
         "rank0_peak_bytes_steps_0_1": stats["ranks"][0]["peak_steps_0_1"],
-        "profile_wall_ms": wall_ms,
         "device_busy_ms_by_rank": [w["device_busy_ms"] for w in windows],
-        "device_busy_ms": busy_ms,
-        "device_idle_share": 1 - busy_ms / wall_ms if on_card else None,
+        **device_idle(windows),
     }
 
 
@@ -3103,9 +3227,7 @@ def ranks_phase(spec: dict, out: Path, timeout: int = RANKS_TIMEOUT) -> dict:
     and batches against the ranks' losses and the checkpoint's params.  A
     rank that fails fails the phase.  ``out`` is the phase's own directory
     (emptied first): the ranks' log, their result and the checkpoint."""
-    import os
     import shutil
-    import signal
     import torch
     from repro_torch.checkpoint import load_replica_state
     from repro_torch.core import tree as tr
@@ -3114,28 +3236,7 @@ def ranks_phase(spec: dict, out: Path, timeout: int = RANKS_TIMEOUT) -> dict:
     out = Path(out)
     shutil.rmtree(out, ignore_errors=True)
     out.mkdir(parents=True)
-    log_path = out / "torchrun.log"
-    env = dict(os.environ, REPRO_TORCH_BACKEND="gloo",
-               PYTHONPATH=os.pathsep.join(
-                   [str(ROOT / "src")] + [p for p in [os.environ.get(
-                       "PYTHONPATH")] if p]))
-    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
-           "--nproc-per-node", str(RANKS_P), str(ROOT / "chip_smoke.py"),
-           RANKS_WORKER_FLAG, json.dumps(spec), str(out)]
-    t0 = time.perf_counter()
-    with open(log_path, "w") as log:
-        proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT,
-                                env=env, start_new_session=True)
-        try:
-            rc = proc.wait(timeout=timeout)
-        except subprocess.TimeoutExpired:
-            os.killpg(proc.pid, signal.SIGKILL)
-            proc.wait()
-            rc = "timeout"
-    ranks_s = time.perf_counter() - t0
-    if rc != 0:
-        raise AssertionError(f"torchrun exited {rc}; its log ends:\n"
-                             + log_path.read_text()[-6000:])
+    ranks_s = run_torchrun(RANKS_P, RANKS_WORKER_FLAG, spec, out, timeout)
     stats = json.loads((out / "ranks.json").read_text())
     stats["torchrun_s"] = ranks_s
     log0 = stats["ranks"][0]["log"]
@@ -3196,6 +3297,545 @@ def ranks_phase(spec: dict, out: Path, timeout: int = RANKS_TIMEOUT) -> dict:
     stats["phase_s"] = time.perf_counter() - t_phase
     stats["summary"] = ranks_summary(stats)
     return stats
+
+
+def model_spec(device="cuda", smoke: bool = False,
+               n_layers: Optional[int] = TRAIN_LAYERS,
+               serve_layers: Optional[int] = None,
+               seq_len: int = TRAIN_SEQ, global_batch: int = MODEL_GB,
+               steps: int = MODEL_STEPS, prompt: int = MODEL_PROMPT,
+               new: int = MODEL_NEW) -> dict:
+    """What the model phase's ranks and the parent's stacked twin run
+    (JSON, handed to every rank on its command line); ``serve_layers``
+    None serves the config's own depth."""
+    return {"device": device, "smoke": smoke, "n_layers": n_layers,
+            "serve_layers": serve_layers, "seq_len": seq_len,
+            "global_batch": global_batch, "steps": steps, "prompt": prompt,
+            "new": new}
+
+
+def model_cfg(spec: dict, n_layers: Optional[int]):
+    from repro_torch.configs import get_config
+    cfg = get_config(ARCH, smoke=spec["smoke"])
+    return cfg.variant(n_layers=n_layers) if n_layers else cfg
+
+
+def model_trainer(spec: dict, world=None):
+    """The phase's ``Trainer``: one replica's slices on a rank of
+    ``world`` (data ``MODEL_DATA`` x model ``MODEL_M``), or all
+    ``MODEL_DATA`` replicas whole as the rows of one state on
+    ``spec["device"]`` (the twin of check (d))."""
+    from repro_torch.launch.train import Trainer
+    kw = {"world": world} if world is not None else {"device":
+                                                     spec["device"]}
+    return Trainer(model_cfg(spec, spec["n_layers"]), MODEL_DATA,
+                   group_size=MODEL_S, tau=TRAIN_TAU, learning_rate=TRAIN_LR,
+                   seq_len=spec["seq_len"], global_batch=spec["global_batch"],
+                   seed=0, **kw)
+
+
+def model_slice_plan(cfg):
+    """A rank's compiled plan on the model path: the plan over one
+    replica's slices (``MODEL_M`` model ranks) at ``MODEL_DATA`` dp
+    ranks, S ``MODEL_S``."""
+    from repro_torch.core import plan as plan_mod
+    from repro_torch.models import common as cm
+    from repro_torch.models import transformer as tfm
+    specs = tfm.param_specs(cfg)
+    local = cm.take_slices(specs, cm.placement(cfg, specs, MODEL_M),
+                           cm.ModelWorld(MODEL_M, 0))
+    return plan_mod.compile_plan(
+        plan_mod.Topology.flat(("data",), (MODEL_DATA,)), local,
+        plan_mod.AveragingConfig(group_size=MODEL_S, tau=TRAIN_TAU))
+
+
+def model_combines(cfg):
+    """The model path's combine operands, one rank's ``(1, n_b)`` buckets
+    of its slices."""
+    return plan_combines(model_slice_plan(cfg), 1)
+
+
+def model_prompts(cfg, spec: dict):
+    """The serving prompts, ``MODEL_ROWS`` a dp rank, from a numpy seed."""
+    return np.random.default_rng(MODEL_SERVE_SEED).integers(
+        0, cfg.vocab, (MODEL_DATA * MODEL_ROWS, spec["prompt"]))
+
+
+def greedy_run(model, params, tokens, max_len: int, new: int, feed=None):
+    """``build_prefill`` then ``new`` steps of ``build_serve_step``: the
+    (gathered) last logits of the prefill and of each step as float32 CPU
+    tensors (B, new + 1, V), the greedy token of each (B, new + 1), and
+    the launches of the prefill and of each step.  Step i is fed the
+    greedy token of the logits before it, or ``feed[:, i]`` where given
+    (another run's tokens, so that the two runs' logits stay
+    comparable)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models import common as cm
+    from repro_torch.serve.decode import build_prefill, build_serve_step
+    device = tokens.device
+    before = ops.launch_counts()
+    logits, caches = build_prefill(model, max_len)(params, {"tokens": tokens})
+    _sync(device)
+    after = ops.launch_counts()
+    launches = [{k: after[k] - before[k] for k in (K1, K2, K3, K4)}]
+    masked = torch.where(torch.arange(logits.shape[-1], device=device)
+                         < model.cfg.vocab, logits, cm.NEG_INF)
+    tok = masked[:, -1].argmax(-1)[:, None]
+    step = build_serve_step(model)
+    all_logits, all_tokens = [logits[:, -1].float().cpu()], [tok[:, 0].cpu()]
+    for i in range(new):
+        if feed is not None:
+            tok = feed[:, i:i + 1].to(device)
+        before = ops.launch_counts()
+        tok, logits, caches = step(params, caches, tok, tokens.shape[1] + i)
+        _sync(device)
+        after = ops.launch_counts()
+        launches.append({k: after[k] - before[k] for k in (K1, K2, K3, K4)})
+        all_logits.append(logits[:, -1].float().cpu())
+        all_tokens.append(tok[:, 0].cpu())
+    return torch.stack(all_logits, 1), torch.stack(all_tokens, 1), launches
+
+
+def one_layer_without_f(trainer, layer: int):
+    """Check (f)'s fault: the MLP of global layer ``layer`` runs with
+    ``copy_to_model`` as the plain identity (no all-reduce of its input's
+    gradient), on every rank alike; returns the undo."""
+    from repro_torch.models import common as cm
+    from repro_torch.models import transformer as tfm
+    target = trainer.state.params["blocks"]["global"]["mlp"]["w1"][0, layer
+                                                                   ].data_ptr()
+    mlp, copy = tfm.mlp, cm.copy_to_model
+
+    def faulty(cfg, p, h, mw=None):
+        if p["w1"].data_ptr() != target:
+            return mlp(cfg, p, h, mw)
+        cm.copy_to_model = lambda x, mw: x
+        try:
+            return mlp(cfg, p, h, mw)
+        finally:
+            cm.copy_to_model = copy
+    tfm.mlp = faulty
+
+    def undo():
+        tfm.mlp = mlp
+    return undo
+
+
+def model_digests(world, params, dims) -> Optional[list]:
+    """(row digest of the rank's params, digest of its leaves held whole)
+    of every torch rank, on rank 0 (``None`` elsewhere)."""
+    import hashlib
+    import torch.distributed as dist
+    from repro_torch.models import common as cm
+    whole = hashlib.sha256("".join(digests(
+        cm.held_whole(params, dims))).encode()).hexdigest()
+    mine = (row_digests(params)[0], whole)
+    out = [None] * world.model * world.P if world.torch_rank == 0 else None
+    dist.gather_object(mine, out, dst=0)
+    return out
+
+
+def model_check_b(rows, t: int, sync: bool, offset) -> None:
+    """Check (b) on rank 0: at each model coordinate, the dp ranks of a
+    group hold equal slices and the groups differ; after a sync all four."""
+    from repro_torch.core import grouping
+    for m in range(MODEL_M):
+        dig = [rows[d * MODEL_M + m][0] for d in range(MODEL_DATA)]
+        groups = ((tuple(range(MODEL_DATA)),) if sync else
+                  grouping.groups_for_offset(MODEL_DATA, MODEL_S, offset))
+        same = all(dig[r] == dig[g[0]] for g in groups for r in g)
+        differ = len({dig[g[0]] for g in groups}) == len(groups)
+        if not same or (not sync and not differ):
+            raise AssertionError(
+                f"step {t}, model coordinate {m}: dp ranks of a group "
+                f"bit-identical {same}, groups differ {differ}, groups "
+                f"{groups}")
+
+
+def model_check_c(rows) -> bool:
+    """Check (c) on rank 0: every model group's leaves held whole are
+    bit-identical."""
+    return all(rows[d * MODEL_M + m][1] == rows[d * MODEL_M][1]
+               for d in range(MODEL_DATA) for m in range(MODEL_M))
+
+
+def model_worker(spec: dict, out: str) -> int:
+    """One rank of the model phase, started by torchrun: the port's
+    ``Trainer`` on this rank's slices of its replica for ``spec["steps"]``
+    steps with checks (a)-(c), one profiled step, check (f)'s faulty step;
+    then a fresh model served through ``build_prefill`` and
+    ``build_serve_step`` on this dp rank's prompts; rank 0 serves the
+    whole model on every prompt (check (e)'s reference) and writes
+    ``out/model.json``."""
+    import os
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import plan as plan_mod
+    from repro_torch.core import tree as tr
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh
+    from repro_torch.models import common as cm
+    from repro_torch.models.registry import build_model
+
+    t_start = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    world = mesh.init_rank_world(MODEL_DATA, model=MODEL_M,
+                                 backend=os.environ["REPRO_TORCH_BACKEND"],
+                                 device_type=spec["device"])
+    device = world.device
+    on_card = device.type == "cuda"
+    rank0 = world.torch_rank == 0
+    try:
+        trainer = model_trainer(spec, world)
+        cfg = trainer.cfg
+        init_s = time.perf_counter() - t_start
+        avg = trainer.averager
+        plan = trainer.plan()
+        stacked_plan = plan_mod.compile_plan(plan.topology,
+                                             plan.storage_struct, plan.cfg)
+        n_buckets = plan.class_layout(0).n_buckets
+        n_stages = len(plan.runs_for_offset(0)[0].bits)
+        dims = cm.placement(cfg, trainer.state.params, MODEL_M)
+        split, wire, pending, checked, check_s = instrument_rank_trainer(
+            trainer, world, plan)
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        log, c_held = [], []
+        for t in range(spec["steps"]):
+            for k in split:
+                split[k] = 0.0
+            wire.clear()
+            check_s[0] = 0.0
+            before, tp0 = ops.launch_counts(), cm.tp_stats()
+            _sync(device)
+            t0 = time.perf_counter()
+            loss = trainer.step_once(t)
+            _sync(device)
+            step_s = time.perf_counter() - t0 - check_s[0]
+            after, tp1 = ops.launch_counts(), cm.tp_stats()
+            sync = avg.sync_due(t)
+            offset = None if sync else plan.offsets[avg.phase_for_step(t)]
+            t0 = time.perf_counter()
+            rows = model_digests(world, trainer.state.params, dims)
+            if rank0:
+                model_check_b(rows, t, sync, offset)
+                c_held.append(model_check_c(rows))
+                if not c_held[-1]:
+                    raise AssertionError(f"step {t}: check (c): a model "
+                                         f"group's leaves held whole differ")
+            if offset in pending:        # check (b), once an offset
+                pre = pending.pop(offset)
+                post = mesh.gather_rows(world, trainer.state.params)
+                checked[offset] = None
+                if world.rank == 0:      # dp rank 0 of each coordinate
+                    want = stacked_plan.average_offset(
+                        tr.tree_map(lambda a: a.to(device), pre), offset)
+                    checked[offset] = all(
+                        torch.equal(a.cpu(), b) for a, b in
+                        zip(tr.tree_leaves(want), tr.tree_leaves(post)))
+                    del want
+                verdicts = [None] * world.model * world.P if rank0 else None
+                dist.gather_object(checked[offset], verdicts, dst=0)
+                if rank0:
+                    checked[offset] = [v for v in verdicts if v is not None]
+                    if not all(checked[offset]):
+                        raise AssertionError(
+                            f"step {t}: the wire average at offset {offset}"
+                            f" differs from the stacked plan's")
+                del pre, post
+            log.append({
+                "t": t, "loss": loss, "sync": sync, "offset": offset,
+                "step_ms": step_s * 1e3,
+                **{k + "_ms": v * 1e3 for k, v in split.items()},
+                "tp_ms": (tp1["s"] - tp0["s"]) * 1e3,
+                "tp_bytes": tp1["bytes"] - tp0["bytes"],
+                "tp_ops": tp1["ops"] - tp0["ops"],
+                "exchange_ms": {k[:-2]: wire.get(k, 0.0) * 1e3
+                                for k in ("d2h_s", "wire_s", "h2d_s")},
+                "wire_bytes": wire.get("bytes", 0),
+                "check_ms": (check_s[0] + time.perf_counter() - t0) * 1e3,
+                "skipped": trainer.last_metrics["skipped_nonfinite"],
+                **{key: after[name] - before[name] for key, name in (
+                    ("k1", K1), ("k2", K2), ("k3", K3), ("k4", K4))}})
+        peak = torch.cuda.max_memory_allocated() if on_card else None
+        window = profiled_step(trainer, spec["steps"], device)
+        # check (f): a step without f's backward all-reduce in one layer
+        undo = one_layer_without_f(trainer, min(MODEL_FAULT_LAYER,
+                                                cfg.n_layers - 1))
+        try:
+            trainer.step_once(spec["steps"] + 1)
+        finally:
+            undo()
+        rows = model_digests(world, trainer.state.params, dims)
+        fault_c = model_check_c(rows) if rank0 else None
+        train_s = time.perf_counter() - t_start
+        del trainer, pending
+        if on_card:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+
+        # serving: a fresh model, this dp rank's prompts over the model group
+        t0 = time.perf_counter()
+        scfg = model_cfg(spec, spec["serve_layers"])
+        model = build_model(scfg, device, model_world=world.model_world)
+        whole = model.init(torch.Generator(device=device).manual_seed(
+            MODEL_SERVE_SEED))
+        params = cm.take_slices(whole, cm.placement(scfg, whole, MODEL_M),
+                                world.model_world)
+        del whole
+        prompts = model_prompts(scfg, spec)
+        mine = torch.from_numpy(prompts[world.rank * MODEL_ROWS:
+                                        (world.rank + 1) * MODEL_ROWS]
+                                ).to(device)
+        max_len = spec["prompt"] + spec["new"]
+        t1 = time.perf_counter()
+        logits, tokens, launches = greedy_run(model, params, mine, max_len,
+                                              spec["new"])
+        serve = {"init_s": t1 - t0, "run_s": time.perf_counter() - t1,
+                 "launches": launches,
+                 "peak": torch.cuda.max_memory_allocated() if on_card
+                 else None}
+        del params, model
+        got = (logits, tokens) if world.model_rank == 0 else None
+        everyone = [None] * world.model * world.P if rank0 else None
+        dist.gather_object({
+            "rank": world.torch_rank, "dp": world.rank,
+            "model": world.model_rank, "device": str(device), "log": log,
+            "peak": peak, "window": window, "init_s": init_s,
+            "train_s": train_s, "serve": serve, "served": got}, everyone,
+            dst=0)
+        if rank0:
+            # check (e)'s reference: rank 0 serves the whole model on every
+            # prompt
+            t0 = time.perf_counter()
+            if on_card:
+                torch.cuda.empty_cache()
+            model = build_model(scfg, device)
+            params = model.init(torch.Generator(device=device).manual_seed(
+                MODEL_SERVE_SEED))
+            tp = [r["served"] for r in everyone if r["served"] is not None]
+            tp_tokens = torch.cat([x[1] for x in tp])
+            ref_logits, ref_tokens, ref_launches = greedy_run(
+                model, params, torch.from_numpy(prompts).to(device), max_len,
+                spec["new"], feed=tp_tokens)
+            del params, model
+            result = {
+                "world": {"data": MODEL_DATA, "model": MODEL_M,
+                          "backend": world.backend},
+                "n_buckets": n_buckets, "n_stages": n_stages,
+                "bucket_sizes": list(plan.class_layout(0).bucket_sizes),
+                "bucket_bytes": plan.class_bucket_bytes[0],
+                "expected_k1_k2_per_group_step": expected_combine_launches(
+                    n_buckets, n_stages),
+                "stacked_equals_wire": checked, "check_c": c_held,
+                "fault_check_c": fault_c,
+                "fault_layer": min(MODEL_FAULT_LAYER, cfg.n_layers - 1),
+                "serve_check": serve_compare(
+                    torch.cat([x[0] for x in tp]), tp_tokens, ref_logits,
+                    ref_tokens),
+                "ref_launches": ref_launches,
+                "ref_s": time.perf_counter() - t0,
+                "ranks": [{k: v for k, v in r.items() if k != "served"}
+                          for r in everyone],
+                "worker_s": time.perf_counter() - t_start}
+            (Path(out) / "model.json").write_text(json.dumps(result))
+        return 0
+    finally:
+        mesh.shutdown()
+
+
+def serve_compare(logits, tokens, ref_logits, ref_tokens) -> dict:
+    """Check (e): the model world's gathered logits (B, n, V) and greedy
+    tokens against the one-rank run's, which was fed the model world's
+    tokens (so every step's logits are comparable): the prefill's and the
+    first decode step's logits to ``LOGIT_RTOL`` of the largest reference
+    logit; at every step whose reference top-2 margin exceeds the two
+    runs' largest logit gap there, the same greedy token."""
+    import torch
+    scale = float(ref_logits[:, :2].abs().max())
+    first = [float((logits[:, i] - ref_logits[:, i]).abs().max())
+             for i in range(2)]
+    gap = (logits - ref_logits).abs().amax(-1)                  # (B, n)
+    top2 = torch.topk(ref_logits, 2, dim=-1).values
+    margin = top2[..., 0] - top2[..., 1]
+    above = margin > gap
+    same = tokens == ref_tokens
+    return {"ok": max(first) <= LOGIT_RTOL * scale
+            and bool(same[above].all()),
+            "prefill_and_first_step_max_abs_diff": first,
+            "largest_logit": scale, "limit": LOGIT_RTOL * scale,
+            "max_logit_gap": float(gap.max()),
+            "tokens_compared": int(above.sum()),
+            "tokens_equal": int((same & above).sum()),
+            "near_ties": int((~above).sum()),
+            "near_ties_equal": int((same & ~above).sum()),
+            "tokens": int(same.numel())}
+
+
+def check_model_launches(stats):
+    """Check (a) of the model phase, on every rank: each group step
+    launched the K1 and K2 counts of the rank's plan's schedule, syncs
+    neither, training no K3 or K4; the prefill K3 once a layer, a decode
+    step none; K4 never."""
+    want_k1, want_k2 = stats["expected_k1_k2_per_group_step"]
+    n_layers = stats["serve_layers"]
+    for r in stats["ranks"]:
+        for e in r["log"]:
+            want = (0, 0) if e["sync"] else (want_k1, want_k2)
+            got = (e["k1"], e["k2"], e["k3"], e["k4"])
+            if got != want + (0, 0):
+                raise AssertionError(f"rank {r['rank']} step {e['t']}: K1, "
+                                     f"K2, K3, K4 launched {got}; the "
+                                     f"schedule predicts {want + (0, 0)}")
+        pre, *steps = r["serve"]["launches"]
+        if pre != {K1: 0, K2: 0, K3: n_layers, K4: 0} or any(
+                s != {K1: 0, K2: 0, K3: 0, K4: 0} for s in steps):
+            raise AssertionError(f"rank {r['rank']} serving: launches "
+                                 f"{r['serve']['launches']}; K3 "
+                                 f"{n_layers} a prefill, nothing else")
+
+
+def check_model_held(stats, combines) -> None:
+    """Check (a): the ranks' plan is the plan whose combine operands the
+    K1/K2 phase held (``model_combines``)."""
+    plan_sizes = list(model_slice_plan(model_cfg(
+        stats["spec"], stats["spec"]["n_layers"])).class_layout(0
+                                                                ).bucket_sizes)
+    if stats["bucket_sizes"] != plan_sizes:
+        raise AssertionError(f"the ranks compiled buckets "
+                             f"{stats['bucket_sizes']}; the K1/K2 phase held "
+                             f"those of {plan_sizes} ({combines})")
+
+
+def model_summary(stats: dict) -> dict:
+    """The phase's numbers: rank 0's median step after the first and its
+    split (grads, of which the TP all-reduces; update; the dp exchange and
+    combine), each rank's peak memory, and the device's idle share over
+    the profiled step (as :func:`ranks_summary` takes it)."""
+    r0 = stats["ranks"][0]
+    steady = r0["log"][1:]
+    group = [e for e in steady if not e["sync"]]
+    med = lambda es, f: statistics.median(f(e) for e in es) if es else None
+    return {
+        "median_step_ms": med(steady, lambda e: e["step_ms"]),
+        "median_group_step_ms": med(group, lambda e: e["step_ms"]),
+        "group_split_ms": {
+            "grads": med(group, lambda e: e["grads_ms"]),
+            "tp_all_reduce": med(group, lambda e: e["tp_ms"]),
+            "update": med(group, lambda e: e["update_ms"]),
+            "exchange": {k: med(group, lambda e: e["exchange_ms"][k])
+                         for k in ("d2h", "wire", "h2d")},
+            "combine": med(group, lambda e: e["average_ms"] - sum(
+                e["exchange_ms"].values())),
+            "other": med(group, lambda e: e["step_ms"] - e["grads_ms"]
+                         - e["update_ms"] - e["average_ms"])},
+        "tp_bytes_a_step": group[0]["tp_bytes"] if group else None,
+        "tp_ops_a_step": group[0]["tp_ops"] if group else None,
+        "wire_bytes_a_group_step": group[0]["wire_bytes"] if group else None,
+        "sync_ms": med([e for e in steady if e["sync"]],
+                       lambda e: e["sync_ms"]),
+        "peak_bytes_by_rank": [r["peak"] for r in stats["ranks"]],
+        "serve_peak_bytes_by_rank": [r["serve"]["peak"]
+                                     for r in stats["ranks"]],
+        "serve_run_s_by_rank": [r["serve"]["run_s"] for r in stats["ranks"]],
+        **device_idle([r["window"] for r in stats["ranks"]]),
+    }
+
+
+def model_phase(spec: dict, out: Path, timeout: int = MODEL_TIMEOUT) -> dict:
+    """Start ``MODEL_DATA x MODEL_M`` ranks through torchrun (gloo, all on
+    one card, model minor), then check (d) against the one-process
+    stacked ``Trainer`` and (f) on what they report.  A rank that fails
+    fails the phase.  ``out`` is the phase's own directory (emptied
+    first): the ranks' log and their result."""
+    import shutil
+    import torch
+
+    t_phase = time.perf_counter()
+    out = Path(out)
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    torchrun_s = run_torchrun(MODEL_DATA * MODEL_M, MODEL_WORKER_FLAG, spec,
+                              out, timeout)
+    stats = json.loads((out / "model.json").read_text())
+    stats["spec"], stats["torchrun_s"] = spec, torchrun_s
+    stats["serve_layers"] = model_cfg(spec, spec["serve_layers"]).n_layers
+    stats["train_layers"] = model_cfg(spec, spec["n_layers"]).n_layers
+    log0 = stats["ranks"][0]["log"]
+    bad = [e for r in stats["ranks"] for e in r["log"]
+           if not math.isfinite(e["loss"]) or e["skipped"]]
+    if bad:                                                     # check (f)
+        raise AssertionError(f"non-finite losses or skipped updates: {bad}")
+    if any(e["loss"] != f["loss"] for r in stats["ranks"]
+           for e, f in zip(r["log"], log0)):
+        raise AssertionError("the ranks report different mean losses")
+    if stats["fault_check_c"] is not False:                     # check (f)
+        raise AssertionError("check (c) holds on a step that left out f's "
+                             "backward all-reduce in one layer")
+    if not stats["serve_check"]["ok"]:                          # check (e)
+        raise AssertionError(f"check (e): {stats['serve_check']}")
+    # check (d): the one-process stacked twin, whole replicas as rows
+    t0 = time.perf_counter()
+    trainer = model_trainer(spec)
+    losses = [trainer.step_once(t) for t in range(spec["steps"])]
+    del trainer
+    if torch.device(spec["device"]).type == "cuda":
+        torch.cuda.empty_cache()
+    rank_losses = [e["loss"] for e in log0]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(rank_losses, losses))
+    stats["check_d"] = {"stacked_losses": losses, "max_loss_rel_diff": rel,
+                        "loss_rtol": MODEL_LOSS_RTOL,
+                        "stacked_s": time.perf_counter() - t0}
+    if rel > MODEL_LOSS_RTOL:
+        raise AssertionError(f"check (d): the model ranks' losses part from "
+                             f"the stacked trainer's: {stats['check_d']}")
+    stats["phase_s"] = time.perf_counter() - t_phase
+    stats["summary"] = model_summary(stats)
+    return stats
+
+
+def print_model(stats: dict, card: str):
+    s, d, e = stats["summary"], stats["check_d"], stats["serve_check"]
+    gib = lambda b: round(b / 2 ** 30, 2) if b is not None else None
+    print(f"model [{card}]: {ARCH} full width, {stats['train_layers']} "
+          f"layers, data {MODEL_DATA} x model {MODEL_M} ranks over "
+          f"{stats['world']['backend']} on one card, S={MODEL_S} "
+          f"tau={TRAIN_TAU}, {stats['n_buckets']} buckets of a rank's slices "
+          f"({stats['bucket_bytes'] >> 20} MiB), K1/K2 a group step "
+          f"{stats['expected_k1_k2_per_group_step']}; phase "
+          f"{stats['phase_s']:.1f} s (torchrun {stats['torchrun_s']:.1f} s, "
+          f"stacked twin {d['stacked_s']:.1f} s)", flush=True)
+    losses = [round(x["loss"], 5) for x in stats["ranks"][0]["log"]]
+    print(f"model losses: {losses} (stacked twin "
+          f"{[round(x, 5) for x in d['stacked_losses']]})", flush=True)
+    print(f"model [{card}]: median step {s['median_step_ms']:.1f} ms after "
+          f"the first (group {s['median_group_step_ms']}); group step split "
+          f"{json.dumps(s['group_split_ms'])} ms; TP all-reduce "
+          f"{s['tp_ops_a_step']} ops, {s['tp_bytes_a_step']} bytes a step a "
+          f"rank; dp wire {s['wire_bytes_a_group_step']} bytes; sync "
+          f"{s['sync_ms']} ms; peak memory by rank training "
+          f"{[gib(b) for b in s['peak_bytes_by_rank']]} GiB, serving "
+          f"{[gib(b) for b in s['serve_peak_bytes_by_rank']]} GiB; profiled "
+          f"step: wall {s['profile_wall_ms']:.1f} ms, device busy "
+          f"{s['device_busy_ms']} ms, idle share {s['device_idle_share']}",
+          flush=True)
+    print(f"model checks: (b) wire = stacked by offset "
+          f"{stats['stacked_equals_wire']}; (c) leaves held whole equal over "
+          f"each model group at every step {all(stats['check_c'])}, and not "
+          f"after the step without f in layer {stats['fault_layer']} (f); "
+          f"(d) max loss rel diff vs the stacked twin "
+          f"{d['max_loss_rel_diff']:.3g}"
+          f" (tol {d['loss_rtol']}); (e) prefill and first decode logits max "
+          f"abs diff {e['prefill_and_first_step_max_abs_diff']} (limit "
+          f"{e['limit']:.4g}, largest gap over all steps "
+          f"{e['max_logit_gap']:.4g}), tokens equal {e['tokens_equal']} of "
+          f"the {e['tokens_compared']} whose margin exceeds the gap "
+          f"({e['near_ties_equal']} of the {e['near_ties']} others); serving "
+          f"{[round(x, 2) for x in s['serve_run_s_by_rank']]}"
+          f" s by rank, the one-rank reference {stats['ref_s']:.1f} s",
+          flush=True)
 
 
 def rg_train_config():
@@ -4628,6 +5268,15 @@ def main() -> int:
     print_ranks(ranks, card)
     free_memory("ranks phase")
 
+    # -- model phase: the same model, each replica split over 2 model ranks,
+    # 4 x 2 gloo ranks (K1, K2 on a rank's slices; K3 at its local heads)
+    tp = model_phase(model_spec(), ROOT / "build" / "model")
+    check_model_launches(tp)                                    # check (a)
+    check_model_held(tp, ga_line["K1 model"])                   # check (a)
+    print(json.dumps({"model": tp, "card": card}), flush=True)
+    print_model(tp, card)
+    free_memory("model phase")
+
     # -- recurrentgemma phase (K4, K3 at head dim 256) ---------------------
     from repro_torch.models import rglru
     rcfg = get_config(RG_ARCH)
@@ -4811,6 +5460,10 @@ def main() -> int:
     ranks_launches = {name: sum(e[key] for r in ranks["ranks"]
                                 for e in r["log"])
                       for name, key in ((K1, "k1"), (K2, "k2"), (K4, "k4"))}
+    model_launches = {name: sum(e[key] for r in tp["ranks"]
+                                for e in r["log"])
+                      for name, key in ((K1, "k1"), (K2, "k2"), (K4, "k4"))}
+    model_path = f"{ARCH} training, data {MODEL_DATA} x model {MODEL_M} ranks"
     tl_k3 = {f"{ARCH} serving": served[K3],
              f"{ARCH} disaggregated": disagg["launches"][K3],
              f"{ARCH} handoff of the trained state, {tcfg.n_layers} layers":
@@ -4822,6 +5475,7 @@ def main() -> int:
         f"{ARCH} elastic, pool {ELASTIC_POOL}": sum(
             run["launches"][name] for run in elastic["runs"].values()),
         f"{ARCH} training, {RANKS_P} ranks": ranks_launches[name],
+        model_path: model_launches[name],
         FSDP_PATH: fsdp["launches"][name],
         STREAMED_PATH: streamed["launches"][name],
         f"{RG_ARCH} serving": serving,
@@ -4836,6 +5490,7 @@ def main() -> int:
     whisper_rows = {role: bf16_row(c)
                     for role, c in WHISPER_ATTN_ROLES.items()}
     vlm_row = bf16_row(VLM_ATTN)
+    model_row = bf16_row(MODEL_ATTN)
     by_role = lambda role_rows: {role: {k: r[k] for k in (
         "shape", "causal", "ms", "plain_ms", "library_ms", "bound_ms",
         "bound_by", "max_abs_err", "host_us")}
@@ -4865,7 +5520,8 @@ def main() -> int:
               launches_by_path=by_path(K1),
               elastic_row=elastic_row("K1"), fsdp_row=fsdp_row("K1"),
               streamed_row=streamed_row("K1"),
-              ranks_row=ranks_row(ga_line["K1 ranks"])),
+              ranks_row=ranks_row(ga_line["K1 ranks"]),
+              model_row=ranks_row(ga_line["K1 model"])),
         entry(K2, "src/repro_torch/kernels/csrc/group_average.cu",
               "src/repro/kernels/group_average.py:80",
               sum(by_path(K2).values()), ga_line["K2"], ga_err["K2"],
@@ -4873,7 +5529,8 @@ def main() -> int:
               launches_by_path=by_path(K2),
               elastic_row=elastic_row("K2"), fsdp_row=fsdp_row("K2"),
               streamed_row=streamed_row("K2"),
-              ranks_row=ranks_row(ga_line["K2 ranks"])),
+              ranks_row=ranks_row(ga_line["K2 ranks"]),
+              model_row=ranks_row(ga_line["K2 model"])),
         entry(K3, "src/repro_torch/kernels/csrc/flash_attention.cu",
               "src/repro/kernels/flash_attention.py:70",
               sum(tl_k3.values()), main_row,
@@ -4913,6 +5570,15 @@ def main() -> int:
               max(r["max_abs_err"] for r in rows),
               bound_by=vlm_row["bound_by"], shape=vlm_row["shape"],
               dtype="bfloat16", path=f"{VLM_ARCH} serving"),
+        entry(K3, "src/repro_torch/kernels/csrc/flash_attention.cu",
+              "src/repro/kernels/flash_attention.py:70",
+              sum(l[K3] for r in tp["ranks"]
+                  for l in r["serve"]["launches"]), model_row,
+              max(r["max_abs_err"] for r in rows),
+              bound_by=model_row["bound_by"], shape=model_row["shape"],
+              dtype="bfloat16",
+              path=f"{ARCH} serving, data {MODEL_DATA} x model {MODEL_M} "
+                   f"ranks (a rank's heads)"),
     ] + [
         entry(K3, "src/repro_torch/kernels/csrc/flash_attention.cu",
               "src/repro/kernels/flash_attention.py:70",
@@ -4954,4 +5620,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == [RANKS_WORKER_FLAG]:
         sys.exit(ranks_worker(json.loads(sys.argv[2]), sys.argv[3]))
+    if sys.argv[1:2] == [MODEL_WORKER_FLAG]:
+        sys.exit(model_worker(json.loads(sys.argv[2]), sys.argv[3]))
     sys.exit(main())

@@ -25,6 +25,13 @@ params and optimiser state, or FSDP ``(P_eff, n_b)`` shard buffers; step,
 phase and the policy), and restore across the replicated, FSDP and
 layer-streamed FSDP policies through the host-side conversions of
 ``core/replica.py``.
+
+Over a model axis (``launch/mesh.py``) a checkpoint holds whole leaves:
+``Trainer.save_checkpoint`` gathers every rank's slices on rank 0
+(``mesh.gather_model_slices``), so the files are those a model-1 run of
+the same state writes, and ``Trainer(init_state=...)`` cuts a restored
+state into the rank's slices by the placement rule; a checkpoint moves
+between model axes of any size.
 """
 
 from __future__ import annotations

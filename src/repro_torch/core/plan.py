@@ -339,7 +339,10 @@ def wire_stats() -> dict:
 
 class RankWire:
     """The primitives over ``torch.distributed`` for one rank world: every
-    buffer is this rank's own ``(1, ...)`` row.
+    buffer is this rank's own ``(1, ...)`` row.  Peers are dp ranks at
+    this rank's model coordinate (its torch rank ``world.torch_rank_of``),
+    and the all-reduces run over its dp group, so with a model axis each
+    model coordinate averages its own slices.
 
     With gloo on a card (``world.stages_through_host``) each exchange
     copies its buffer into a pinned host buffer, sends that, and copies
@@ -383,11 +386,13 @@ class RankWire:
 
     def _exchange(self, buf: torch.Tensor, send_to: int,
                   recv_from: int) -> torch.Tensor:
-        """Send ``buf`` to ``send_to``, return what ``recv_from`` sent (a
-        new tensor shaped like ``buf``)."""
+        """Send ``buf`` to dp rank ``send_to``, return what dp rank
+        ``recv_from`` sent (a new tensor shaped like ``buf``)."""
         rank = self.world.rank
         if send_to == rank and recv_from == rank:
             return buf.clone()
+        send_to, recv_from = (self.world.torch_rank_of(send_to),
+                              self.world.torch_rank_of(recv_from))
         src = buf.contiguous()
         staged = self.world.stages_through_host
         if staged:
@@ -430,18 +435,21 @@ class RankWire:
                               self.world.rank_of(behind))
 
     def sync_rows_(self, buf: torch.Tensor) -> torch.Tensor:
-        """One float32 ``all_reduce(SUM)`` of ``buf`` over every rank, then
-        one scale by ``1/P``, in place."""
+        """One float32 ``all_reduce(SUM)`` of ``buf`` over every dp rank,
+        then one scale by ``1/P``, in place."""
+        # the dp group, where a model axis makes one (else the world)
+        kw = {} if self.world.dp_group is None else {
+            "group": self.world.dp_group}
         if self.world.stages_through_host:
             host = self._to_host("sum", buf)
-            self._wait([dist.all_reduce(host, async_op=True)], host)
+            self._wait([dist.all_reduce(host, async_op=True, **kw)], host)
             self._from_host(host, buf)
         else:
-            self._wait([dist.all_reduce(buf, async_op=True)], buf)
+            self._wait([dist.all_reduce(buf, async_op=True, **kw)], buf)
         return buf.mul_(1.0 / self.world.P)
 
     def pmean_rows(self, buf: torch.Tensor) -> torch.Tensor:
-        """The mean over every rank in a new tensor."""
+        """The mean over every dp rank in a new tensor."""
         return self.sync_rows_(buf.clone())
 
 

@@ -142,10 +142,13 @@ class ElasticTrainer:
                 "worlds convert through core.elastic.handoff_state at pod "
                 "granularity, and pod-granular membership in the driver "
                 "is queued with slice 7c (ROADMAP.md)")
-        if trainer_kw.get("world") is not None:
+        world = trainer_kw.get("world")
+        if world is not None:
             raise NotImplementedError(
                 "ElasticTrainer drives the replicas of one process; "
-                "elasticity of a rank world is not in the reference")
+                "elasticity of a rank world is not in the reference"
+                + (", and of a model axis belongs to slice 7c (ROADMAP.md)"
+                   if world.model > 1 else ""))
         if trainer_kw.pop("averager", "wagma") != "wagma":
             raise NotImplementedError("elastic membership needs the "
                                       "tau-sync barrier (wagma averager)")

@@ -12,6 +12,16 @@ names them: with ``--pod-axis 2 --data-axis 2`` the axes are
 ``("data", "pod")`` of sizes ``(2, 2)`` and the global dp rank, which is the
 torch rank, is ``pod * 2 + data``.
 
+**The model axis** (``model=M``): the ranks of one replica split its
+model (``models/common.ModelWorld``).  The torch rank is ``dp_rank * M +
+model_rank``, model minor, as ``jax.make_mesh((data, model))`` orders its
+devices; ``RankWorld.rank`` stays the dp rank, which the batch, the plan's
+wire and the checkpoint rows read.  Every rank creates, in the same order,
+one process group a replica (its model ranks, ``model_group``) and one a
+model coordinate (the ranks that hold the same slices, ``dp_group``),
+which the plan's all-reduces run over.  With ``M = 1`` neither exists
+and every collective runs over the whole world, as before.
+
 The backend is the caller's explicit choice, never switched silently:
 ``nccl`` hands device tensors to the collectives and needs one card per
 local rank (it raises otherwise: NCCL refuses two ranks on one card);
@@ -25,13 +35,14 @@ The reference's TPU v5e constants have no counterpart here.
 from __future__ import annotations
 
 import os
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
 
 from repro_torch.core import tree as tr
+from repro_torch.models import common as cm
 
 BACKENDS = ("nccl", "gloo")
 
@@ -41,14 +52,20 @@ class RankWorld:
     """This process's place among the ranks.
 
     ``axis_names``/``axis_sizes`` are the dp axes minor to major; ``rank``
-    is the global dp rank (the torch rank), ``coords`` its coordinate on
-    each axis (mixed radix, minor first).
+    is the global dp rank, ``coords`` its coordinate on each axis (mixed
+    radix, minor first).  ``model`` ranks split each replica's model, this
+    one at ``model_rank``; the torch rank is ``rank * model +
+    model_rank`` (the dp rank itself at ``model`` 1).
     """
     axis_names: Tuple[str, ...]
     axis_sizes: Tuple[int, ...]
     rank: int
     device: torch.device
     backend: str
+    model: int = 1
+    model_rank: int = 0
+    model_group: object = field(default=None, compare=False, repr=False)
+    dp_group: object = field(default=None, compare=False, repr=False)
 
     def __post_init__(self):
         if len(self.axis_names) != len(self.axis_sizes):
@@ -58,6 +75,9 @@ class RankWorld:
         if self.backend not in BACKENDS:
             raise ValueError(f"unknown backend {self.backend!r}; options: "
                              f"{BACKENDS}")
+        if not 0 <= self.model_rank < self.model:
+            raise ValueError(f"model rank {self.model_rank} outside a "
+                             f"model axis of {self.model}")
 
     @property
     def P(self) -> int:
@@ -81,6 +101,23 @@ class RankWorld:
             rank += (c % s) * stride
             stride *= s
         return rank
+
+    def torch_rank_of(self, dp_rank: int) -> int:
+        """The torch rank of dp rank ``dp_rank`` at this rank's model
+        coordinate."""
+        return dp_rank * self.model + self.model_rank
+
+    @property
+    def torch_rank(self) -> int:
+        return self.torch_rank_of(self.rank)
+
+    @property
+    def model_world(self) -> Optional[cm.ModelWorld]:
+        """This replica's model ranks, or ``None`` at ``model`` 1."""
+        if self.model == 1:
+            return None
+        return cm.ModelWorld(self.model, self.model_rank, self.model_group,
+                             self.stages_through_host)
 
     @property
     def stages_through_host(self) -> bool:
@@ -129,12 +166,13 @@ def rank_device(backend: str, device_type: str, local_rank: int,
     return torch.device("cuda", local_rank % n_cards)
 
 
-def init_rank_world(data: int, pod: Optional[int] = None, *,
+def init_rank_world(data: int, pod: Optional[int] = None, *, model: int = 1,
                     backend: Optional[str] = None, device_type: str = "cuda",
                     init_method: str = "env://") -> RankWorld:
     """Join the process group torchrun describes (``RANK``, ``WORLD_SIZE``,
     ``LOCAL_RANK``, ``LOCAL_WORLD_SIZE``) and return this rank's world.
-    ``data x pod`` must equal the world size."""
+    ``data x pod x model`` must equal the world size; with ``model`` > 1
+    every rank creates the model and dp groups."""
     names, sizes = dp_axes(data, pod)
     world_size = int(os.environ["WORLD_SIZE"])
     rank = int(os.environ["RANK"])
@@ -143,9 +181,10 @@ def init_rank_world(data: int, pod: Optional[int] = None, *,
     p = 1
     for s in sizes:
         p *= s
-    if p != world_size:
+    if p * model != world_size:
         raise ValueError(f"dp axes {dict(zip(names, sizes))} hold {p} "
-                         f"replicas; the world has {world_size} ranks")
+                         f"replicas of {model} model rank(s); the world has "
+                         f"{world_size} ranks")
     backend = resolve_backend(backend, device_type)
     device = rank_device(backend, device_type, local_rank, local_world)
     if device.type == "cuda":
@@ -153,7 +192,18 @@ def init_rank_world(data: int, pod: Optional[int] = None, *,
     if not dist.is_initialized():
         dist.init_process_group(backend, init_method=init_method,
                                 rank=rank, world_size=world_size)
-    return RankWorld(names, sizes, rank, device, backend)
+    groups = {}
+    if model > 1:
+        for d in range(p):
+            ranks = [d * model + m for m in range(model)]
+            groups[("model", d)] = dist.new_group(ranks)
+        for m in range(model):
+            ranks = [d * model + m for d in range(p)]
+            groups[("dp", m)] = dist.new_group(ranks)
+    dp_rank, model_rank = divmod(rank, model)
+    return RankWorld(names, sizes, dp_rank, device, backend, model,
+                     model_rank, groups.get(("model", dp_rank)),
+                     groups.get(("dp", model_rank)))
 
 
 def shutdown() -> None:
@@ -161,9 +211,11 @@ def shutdown() -> None:
         dist.destroy_process_group()
 
 
-def gather_rows(world: RankWorld, tree):
-    """Every rank's ``(1, ...)`` rows stacked on rank 0 as ``(P, ...)``
-    CPU tensors (``None`` on the other ranks), leaf by leaf."""
+def _gather_leaves(world: RankWorld, tree, n: int, group=None,
+                   dst: int = 0) -> Optional[list]:
+    """The ``(1, ...)`` rows of each leaf from the ``n`` ranks of ``group``
+    (the whole world by default) stacked on torch rank ``dst`` as ``(n,
+    ...)`` CPU tensors in rank order (``None`` on the other ranks)."""
     out = []
     for leaf in tr.tree_leaves(tree):
         if leaf.shape[0] != 1:
@@ -171,12 +223,42 @@ def gather_rows(world: RankWorld, tree):
         row = leaf[0].contiguous()
         if world.backend == "gloo":
             row = row.cpu()
-        stacked = (torch.empty((world.P,) + tuple(row.shape),
-                               dtype=row.dtype, device=row.device)
-                   if world.rank == 0 else None)
+        stacked = (torch.empty((n,) + tuple(row.shape), dtype=row.dtype,
+                               device=row.device)
+                   if world.torch_rank == dst else None)
         dist.gather(row, list(stacked.unbind(0)) if stacked is not None
-                    else None, dst=0)
+                    else None, dst=dst, group=group)
         out.append(stacked.cpu() if stacked is not None else None)
-    if world.rank != 0:
+    return out if world.torch_rank == dst else None
+
+
+def gather_rows(world: RankWorld, tree):
+    """Every dp rank's ``(1, ...)`` rows at this rank's model coordinate
+    stacked on its dp rank 0 as ``(P, ...)`` CPU tensors (``None`` on the
+    other ranks), leaf by leaf: at ``model`` 1 every rank's rows on rank
+    0; with a model axis, each model coordinate's slices on its own."""
+    out = _gather_leaves(world, tree, world.P, world.dp_group,
+                         world.torch_rank_of(0))
+    return None if out is None else tr.tree_unflatten(
+        tr.tree_flatten(tree)[1], out)
+
+
+def gather_model_slices(world: RankWorld, tree, dims):
+    """Every rank's ``(1, ...)`` rows of its slices, rebuilt into whole
+    ``(P, ...)`` CPU leaves on torch rank 0 (``None`` on the others) by
+    the placement ``dims`` (``common.placement`` of the stacked tree):
+    split leaves joined on their dim over the model ranks, whole ones
+    taken from model rank 0.  At ``model`` 1, :func:`gather_rows`."""
+    if world.model == 1:
+        return gather_rows(world, tree)
+    leaves = _gather_leaves(world, tree, world.P * world.model)
+    if leaves is None:
         return None
-    return tr.tree_unflatten(tr.tree_flatten(tree)[1], out)
+    m = world.model
+    per_rank = [tr.tree_unflatten(tr.tree_flatten(tree)[1],
+                                  [a[r] for a in leaves])
+                for r in range(world.P * m)]
+    rows = [cm.join_slices(per_rank[d * m:(d + 1) * m],
+                           tr.tree_map(lambda x: x - 1, dims))
+            for d in range(world.P)]
+    return tr.tree_map(lambda *xs: torch.stack(xs), *rows)

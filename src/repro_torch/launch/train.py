@@ -22,12 +22,16 @@ runs on the CUDA card; ``REPRO_TORCH_DEVICE=cpu`` asks for the CPU (add
 ``--smoke`` there).  Under torchrun (``WORLD_SIZE`` > 1) each rank trains
 its own replica over the backend ``REPRO_TORCH_BACKEND`` names (default
 nccl on the card, gloo on the CPU; ``gloo`` lets ranks share one card).
-``--sharding fsdp`` makes the members of each pod (the ranks that differ
-on the minor dp axis) one logical worker sharing one set of shard buffers
-(``core/replica.py``), on one device; ``--streamed`` adds the layer-
-streamed engine (``core/streaming.py``), the dense family's only.  Flags
+``--model-axis M`` (the dense family) splits each replica's model over M
+ranks, model minor (``launch/mesh.py``): torchrun starts ``data x pod x
+M`` ranks.  ``--sharding fsdp`` makes the members of each pod (the ranks
+that differ on the minor dp axis) one logical worker sharing one set of
+shard buffers (``core/replica.py``), on one device; ``--streamed`` adds
+the layer-streamed engine (``core/streaming.py``), the dense family's
+only.  Flags
 of the JAX driver whose feature is not ported yet raise, naming their
-slice (ROADMAP.md): FSDP under torchrun is slice 7c's.
+slice (ROADMAP.md): FSDP under torchrun is slice 7c's, the model axis of
+the other families slice 4c's.
 """
 
 from __future__ import annotations
@@ -51,7 +55,8 @@ from repro_torch.core.replica import (REPLICATED, ReplicaState,
 from repro_torch.core import tree as tr
 from repro_torch.data import make_batch_fn
 from repro_torch.launch import mesh
-from repro_torch.models.registry import build_model
+from repro_torch.models import common as cm
+from repro_torch.models.registry import MODEL_AXIS_SLICE, build_model
 from repro_torch.optim import adamw, sgd
 from repro_torch.serve.handoff import serving_weights_from_state
 from repro_torch.train import build_train_step, init_replica_state
@@ -59,8 +64,6 @@ from repro_torch.train.train_step import plan_of
 
 # a moe model's metrics beside the loss, logged with it
 ROUTER_METRICS = ("load_balance", "router_z", "moe_dropped")
-EXPERT_SLICE = ("the expert-parallel moe over model ranks (ROADMAP.md, "
-                "slice 4b)")
 
 
 def resolve_sharding(sharding, dp_names, streamed: bool = False
@@ -109,7 +112,8 @@ class Trainer:
                                  f"{world.device}")
             device = world.device
         self.device = torch.device(device or "cuda")
-        self.model = build_model(cfg, device=self.device)
+        self.model = build_model(cfg, device=self.device, model_world=(
+            world.model_world if world is not None else None))
         self.n_dp = int(np.prod(sizes))
         self.sharding = resolve_sharding(sharding, names, streamed=streamed)
         kw = {}
@@ -151,13 +155,20 @@ class Trainer:
         """The state's params and moments on this run's device (the count
         stays on the host), checked against the replica count (the pod
         count under FSDP).  A rank keeps its own row of the ``(P, ...)``
-        state."""
+        state, and with a model world its slices of it."""
         rows = tr.tree_leaves(state.params)[0].shape[0]
         if rows != self.averager.P_eff:
             raise ValueError(f"state has {rows} replica rows; this run has "
                              f"{self.averager.P_eff}")
         r = self._rows()
-        put = lambda t: tr.tree_map(lambda a: a[r].to(self.device), t)
+        mw = self.model.model_world
+
+        def put(t):
+            t = tr.tree_map(lambda a: a[r], t)
+            if mw is not None:
+                t = cm.take_slices(t, cm.placement(self.cfg, t, mw.size), mw)
+            return tr.tree_map(lambda a: a.to(self.device), t)
+
         return ReplicaState(put(state.params),
                             map_opt_state(state.opt_state, put,
                                           lambda c: c[r].cpu()),
@@ -215,14 +226,17 @@ class Trainer:
 
     def gathered_state(self):
         """The ``(P, ...)`` ReplicaState on the host: every rank's row
-        gathered on rank 0 (``None`` on the other ranks)."""
+        gathered on rank 0 (``None`` on the other ranks); with a model
+        world, every rank's slices joined into whole leaves, so the state
+        is the one a model-1 run would hold."""
         if self.world is None:
             get = lambda t: tr.tree_map(lambda a: a.cpu(), t)
         else:
-            get = lambda t: mesh.gather_rows(self.world, t)
+            get = lambda t: mesh.gather_model_slices(
+                self.world, t, cm.placement(self.cfg, t, self.world.model))
         st = self.state
         params, opt = get(st.params), map_opt_state(st.opt_state, get, get)
-        if self.world is not None and self.world.rank != 0:
+        if self.world is not None and self.world.torch_rank != 0:
             return None
         return ReplicaState(params, opt, st.step, st.phase)
 
@@ -256,7 +270,7 @@ class Trainer:
             ckpt_every: int = 0):
         history = []
         t0 = time.time()
-        log = self.world is None or self.world.rank == 0
+        log = self.world is None or self.world.torch_rank == 0
         for t in range(steps):
             loss = self.step_once(t)
             history.append(loss)
@@ -292,7 +306,9 @@ def main():
     ap.add_argument("--data-axis", type=int, default=None,
                     help="replicas on the data axis (ranks under torchrun, "
                          "else rows of the stacked state)")
-    ap.add_argument("--model-axis", type=int, default=None)
+    ap.add_argument("--model-axis", type=int, default=None,
+                    help="model ranks a replica (the dense family, under "
+                         "torchrun)")
     ap.add_argument("--pod-axis", type=int, default=None,
                     help="with --data-axis: lay the replicas over (pod, "
                          "data)")
@@ -309,10 +325,18 @@ def main():
     ap.add_argument("--ckpt-dir", default=None)
     args = ap.parse_args()
 
-    if (args.model_axis or 1) > 1:
+    n_model = args.model_axis or 1
+    cfg = get_config(args.arch, smoke=args.smoke)
+    if n_model > 1 and cfg.family != "dense":
         raise NotImplementedError(
-            f"--model-axis > 1 shards experts over model ranks; that belongs "
-            f"to {EXPERT_SLICE}")
+            f"--model-axis > 1 for the {cfg.family!r} family belongs to "
+            f"{MODEL_AXIS_SLICE}")
+    ranks = int(os.environ.get("WORLD_SIZE", "1"))
+    if n_model > 1 and ranks == 1:
+        raise SystemExit(
+            f"--model-axis {n_model} splits each replica over model ranks: "
+            f"run under torchrun with WORLD_SIZE = data x pod x model "
+            f"({args.data_axis or '?'} x {args.pod_axis or 1} x {n_model})")
     if args.multi_pod:
         raise NotImplementedError(
             "--multi-pod is the reference's production mesh of 2 x 16 x 16 "
@@ -322,15 +346,14 @@ def main():
 
     device = os.environ.get("REPRO_TORCH_DEVICE", "cuda")
     world = None
-    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+    if ranks > 1:
         world = mesh.init_rank_world(
-            args.data_axis, args.pod_axis, device_type=device,
+            args.data_axis, args.pod_axis, model=n_model, device_type=device,
             backend=os.environ.get("REPRO_TORCH_BACKEND"))
     topology = None
     if args.pod_dcn:
         topology = Topology.hierarchical(
             *mesh.dp_axes(args.data_axis, args.pod_axis), dcn_axes=("pod",))
-    cfg = get_config(args.arch, smoke=args.smoke)
     try:
         tr_ = Trainer(cfg, args.data_axis, pod_axis=args.pod_axis,
                       world=world, device=None if world else device,
@@ -343,7 +366,7 @@ def main():
                       sharding=args.sharding, streamed=args.streamed)
         hist = tr_.run(args.steps, ckpt_dir=args.ckpt_dir,
                        ckpt_every=50 if args.ckpt_dir else 0)
-        if world is None or world.rank == 0:
+        if world is None or world.torch_rank == 0:
             print(f"final loss {hist[-1]:.4f} (start {hist[0]:.4f})")
     finally:
         mesh.shutdown()

@@ -3,18 +3,30 @@ prefill (through the flash-attention kernel), for training (differentiable
 torch) and for one-token decode against a cache, the KV cache helpers and
 the cross-entropy loss.
 
-Counterpart of ``repro/models/common.py``.  The sharding helpers (``wsc``,
-the spec tables) have no counterpart: the port runs on one device.
+Counterpart of ``repro/models/common.py``, with the model axis made
+explicit.  The spec tables (``_PARAM_RULES``, ``spec_for_param``,
+``tree_specs``) are the reference's, over the port's nested-dict trees,
+with a spec a tuple of axis names or ``None``.  Where the reference
+constrains shardings (``wsc``) and leaves GSPMD to insert the collectives,
+the port holds each leaf with a ``model`` entry as this rank's slice of
+that dim (:func:`model_slice`, :func:`placement`) and inserts them itself:
+Megatron's *f* (:func:`copy_to_model`) and *g* (:func:`reduce_from_model`)
+over the ranks of one replica (:class:`ModelWorld`).  With no model world
+every helper is the identity.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, NamedTuple, Optional
+import time
+from dataclasses import dataclass, field
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
+from repro_torch.core.tree import Spec
 from repro_torch.kernels import ops
 
 NEG_INF = -1e30
@@ -51,6 +63,283 @@ class LayeredModel(NamedTuple):
     stem: Callable                  # (stem_tree, batch) -> (carry, aux)
     span: Callable                  # (k, span_tree, carry, aux, remat=True) -> carry
     head_loss: Callable             # (head, stem, carry, aux, batch) -> (loss, metrics)
+
+
+# ---------------------------------------------------------------------------
+# Sharding-spec rules (model axis; dp handled by the step builder)
+# ---------------------------------------------------------------------------
+
+def shard_rules(path_leaf_shapes, model_axis: str = "model"):
+    """The reference's name for the spec table, which it never built:
+    raises, as the reference's does (use :func:`spec_for_param`)."""
+    raise NotImplementedError("use spec_for_param per-model instead")
+
+
+# base (unstacked) rank and model-axis placement per param name; spec entries
+# apply to the TRAILING dims, leading stack dims get None automatically
+_PARAM_RULES = {
+    # name: (base_rank, spec_on_base_dims)
+    "emb": (2, ("model", None)),          # vocab-sharded (logits matmul)
+    "lm_head": (2, ("model", None)),
+    "src_emb": (2, ("model", None)),
+    "enc_pos": (2, (None, None)),
+    "wq": (2, (None, "model")),
+    "wk": (2, (None, "model")),
+    "wv": (2, (None, "model")),
+    "wo": (2, ("model", None)),
+    "w1": (2, (None, "model")),
+    "w3": (2, (None, "model")),
+    "w2": (2, ("model", None)),
+    "w_up": (2, (None, "model")),
+    "w_down": (2, ("model", None)),
+    "wg": (2, (None, "model")),
+    "wif": (2, (None, None)),
+    "w_x": (2, (None, "model")),
+    "w_gate": (2, (None, "model")),
+    "w_r": (2, (None, None)),             # lru gates: square (w,w); keep rep
+    "w_i": (2, (None, None)),
+    "w_out": (2, ("model", None)),
+    "conv_w": (2, (None, "model")),
+    "router": (2, (None, "model")),
+    "we1": (3, ("model", None, None)),    # experts (E, d, ff): expert-parallel
+    "we2": (3, ("model", None, None)),
+    "we3": (3, ("model", None, None)),
+    "r": (3, (None, None, None)),         # slstm per-head recurrent
+}
+
+
+def spec_for_param(path: str, shape: Tuple[int, ...],
+                   model_axis: str = "model") -> tuple:
+    """Model-axis placement by param name; leading stack dims -> None."""
+    name = path.split("/")[-1]
+    rule = _PARAM_RULES.get(name)
+    if rule is None:
+        return (None,) * len(shape)
+    base_rank, spec = rule
+    lead = len(shape) - base_rank
+    if lead < 0:
+        return (None,) * len(shape)
+    return (None,) * lead + tuple(model_axis if s == "model" else None
+                                  for s in spec)
+
+
+def shape_of(leaf) -> Optional[Tuple[int, ...]]:
+    """A leaf's shape: a tensor's or a ``Spec``'s, or a tuple of ints."""
+    if hasattr(leaf, "shape"):
+        return tuple(leaf.shape)
+    if isinstance(leaf, tuple) and all(isinstance(d, int) for d in leaf):
+        return leaf
+    return None
+
+
+def map_with_path(fn, tree, path=()):
+    """``fn("a/b/c", leaf)`` over a tree of dicts, lists and tuples, keyed
+    and ordered as ``jax.tree_util`` keys and flattens it (sorted dict keys,
+    sequence indices)."""
+    if shape_of(tree) is not None:
+        return fn("/".join(path), tree)
+    if isinstance(tree, dict):
+        return {k: map_with_path(fn, tree[k], path + (str(k),))
+                for k in sorted(tree)}
+    return type(tree)(map_with_path(fn, v, path + (str(i),))
+                      for i, v in enumerate(tree))
+
+
+def tree_specs(params_or_shapes, model_axis: str = "model"):
+    """The spec tree matching a params tree (rank-aware stacking)."""
+    return map_with_path(
+        lambda path, leaf: spec_for_param(path, shape_of(leaf), model_axis),
+        params_or_shapes)
+
+
+# ---------------------------------------------------------------------------
+# The model world: placement of the slices and the two collectives
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class ModelWorld:
+    """The model ranks of one replica: ``size`` ranks, this one at
+    ``rank``, joined by ``group`` (a ``torch.distributed`` process group).
+    ``staged``: the backend takes host tensors (gloo on a card), so each
+    collective goes through host memory."""
+    size: int
+    rank: int
+    group: object = field(default=None, compare=False, repr=False)
+    staged: bool = False
+
+
+def model_slice(spec, shape, n_model: int, heads: Optional[int] = None
+                ) -> Optional[int]:
+    """The dim a leaf of ``shape`` and ``spec`` is split on over
+    ``n_model`` ranks, or ``None`` where it is held whole.  A dim with a
+    ``model`` entry is split only into whole heads (``heads``, for the
+    attention projections) or evenly: otherwise its use is computed
+    replicated, as ``wsc`` drops the entry (4 KV heads on a 16-way model
+    axis)."""
+    if n_model <= 1 or "model" not in spec:
+        return None
+    dim = list(spec).index("model")
+    n = shape[dim] if heads is None else heads
+    return dim if n % n_model == 0 and n >= n_model else None
+
+
+def _heads_of(cfg, name: str) -> Optional[int]:
+    """The heads along the model-split dim of an attention projection."""
+    return {"wq": cfg.n_heads, "wo": cfg.n_heads, "wk": cfg.n_kv_heads,
+            "wv": cfg.n_kv_heads}.get(name)
+
+
+def placement(cfg, tree, n_model: int):
+    """The split dim of every leaf of a params tree (whole, stacked or a
+    Spec tree) over ``n_model`` ranks, or ``None`` for a leaf held whole
+    (:func:`model_slice` of its :func:`spec_for_param`)."""
+    def dim(path, leaf):
+        shape = shape_of(leaf)
+        return model_slice(spec_for_param(path, shape), shape, n_model,
+                           _heads_of(cfg, path.split("/")[-1]))
+    return map_with_path(dim, tree)
+
+
+def _zip_map(fn, tree, dims):
+    """``fn(leaf, dim)`` over a tree and its placement tree."""
+    if isinstance(dims, dict):
+        return {k: _zip_map(fn, tree[k], d) for k, d in dims.items()}
+    if isinstance(dims, (list, tuple)):
+        return type(dims)(_zip_map(fn, tree[i], d)
+                          for i, d in enumerate(dims))
+    return fn(tree, dims)
+
+
+def take_slices(tree, dims, mw: Optional[ModelWorld]):
+    """This rank's slice of each split leaf (a new tensor, so that the
+    whole one can go; a ``Spec`` of the slice's shape); leaves held whole
+    pass through."""
+    if mw is None:
+        return tree
+
+    def take(a, d):
+        if d is None:
+            return a
+        n = a.shape[d] // mw.size
+        if isinstance(a, Spec):
+            return Spec(a.shape[:d] + (n,) + a.shape[d + 1:], a.dtype)
+        return a.narrow(d, mw.rank * n, n).clone()
+    return _zip_map(take, tree, dims)
+
+
+def held_whole(tree, dims) -> list:
+    """The leaves of ``tree`` that its placement ``dims`` holds whole, in
+    sorted-key order."""
+    if isinstance(dims, dict):
+        return [a for k in sorted(dims) for a in held_whole(tree[k], dims[k])]
+    if isinstance(dims, (list, tuple)):
+        return [a for i, d in enumerate(dims) for a in held_whole(tree[i], d)]
+    return [tree] if dims is None else []
+
+
+def join_slices(trees, dims):
+    """The whole tree from every model rank's slices (a list in rank
+    order): split leaves concatenated on their dim, whole ones rank 0's."""
+    if isinstance(dims, dict):
+        return {k: join_slices([t[k] for t in trees], d)
+                for k, d in dims.items()}
+    if isinstance(dims, (list, tuple)):
+        return type(dims)(join_slices([t[i] for t in trees], d)
+                          for i, d in enumerate(dims))
+    return trees[0] if dims is None else torch.cat(trees, dim=dims)
+
+
+# Host seconds, bytes and count of the model-axis collectives so far
+_TP_STATS = {"s": 0.0, "bytes": 0, "ops": 0}
+_HOST: dict = {}
+
+
+def tp_stats() -> dict:
+    return dict(_TP_STATS)
+
+
+def _host_buffer(like: torch.Tensor) -> torch.Tensor:
+    key = (like.numel(), like.dtype)
+    buf = _HOST.get(key)
+    if buf is None:
+        buf = _HOST[key] = torch.empty(like.numel(), dtype=like.dtype,
+                                       pin_memory=True)
+    return buf
+
+
+def model_all_reduce(x: torch.Tensor, mw: ModelWorld,
+                     op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """``x`` reduced over the model group by ``op``, in a new tensor
+    (through a pinned host buffer when ``mw.staged``)."""
+    t = time.perf_counter()
+    if mw.staged:
+        host = _host_buffer(x)
+        host.copy_(x.detach().reshape(-1))
+        dist.all_reduce(host, op=op, group=mw.group)
+        out = torch.empty_like(x)
+        out.copy_(host.view(x.shape))
+    else:
+        out = x.detach().clone()
+        dist.all_reduce(out, op=op, group=mw.group)
+    _TP_STATS["s"] += time.perf_counter() - t
+    _TP_STATS["bytes"] += x.numel() * x.element_size()
+    _TP_STATS["ops"] += 1
+    return out
+
+
+def model_all_gather(x: torch.Tensor, mw: ModelWorld) -> list:
+    """Every model rank's ``x`` (one shape on every rank), in rank order."""
+    src = x.detach().cpu() if mw.staged else x.detach().contiguous()
+    parts = [torch.empty_like(src) for _ in range(mw.size)]
+    dist.all_gather(parts, src, group=mw.group)
+    return [p.to(x.device) for p in parts]
+
+
+def _sum_over_model(x: torch.Tensor, mw: ModelWorld) -> torch.Tensor:
+    """The float32 sum of every model rank's ``x``, rounded once to its
+    dtype."""
+    return model_all_reduce(x.float(), mw).to(x.dtype)
+
+
+class _CopyToModel(torch.autograd.Function):
+    """Megatron's *f*: identity forward, all-reduce backward."""
+
+    @staticmethod
+    def forward(ctx, x, mw):
+        ctx.mw = mw
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _sum_over_model(g, ctx.mw), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    """Megatron's *g*: all-reduce forward, identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, mw):
+        return _sum_over_model(x, mw)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def copy_to_model(x, mw: Optional[ModelWorld]):
+    """The input of a model-split computation: its gradient is the sum of
+    every model rank's (the reference's GSPMD all-reduce of a replicated
+    operand's cotangent).  Also applied to a leaf held whole whose use on
+    this rank sees only its own heads (``q_norm``, ``k_norm``, KV
+    projections computed whole), so that its gradient is whole."""
+    return x if mw is None else _CopyToModel.apply(x, mw)
+
+
+def reduce_from_model(x, mw: Optional[ModelWorld]):
+    """The sum of every model rank's partial ``x`` (float32, rounded once
+    to ``x``'s dtype), as the reference's row-parallel matmul sums its
+    partial products."""
+    return x if mw is None else _ReduceFromModel.apply(x, mw)
 
 
 # ---------------------------------------------------------------------------
@@ -230,13 +519,35 @@ def cache_update(cache_k, cache_v, k_new, v_new, pos, ring: bool = False):
 # Losses
 # ---------------------------------------------------------------------------
 
-def softmax_cross_entropy(logits, labels, mask=None):
+def vocab_parallel_nll(logits, labels, mw: ModelWorld):
+    """Per-position NLL of logits split by vocab: ``logits`` (..., V/M)
+    float32 are this rank's columns (global ``rank*V/M`` on), ``labels``
+    global ids.  The logsumexp takes the max and the sum of exp over the
+    model group; the target logit comes from the rank that owns it (the
+    others add zero)."""
+    n = logits.shape[-1]
+    lo = mw.rank * n
+    m = model_all_reduce(logits.detach().amax(-1), mw, op=dist.ReduceOp.MAX)
+    sumexp = reduce_from_model(torch.exp(logits - m[..., None]).sum(-1), mw)
+    lse = torch.log(sumexp) + m
+    local = labels.long() - lo
+    inside = (local >= 0) & (local < n)
+    lab = torch.gather(logits, -1, local.clamp(0, n - 1)[..., None])[..., 0]
+    lab = reduce_from_model(torch.where(inside, lab, 0.0), mw)
+    return lse - lab
+
+
+def softmax_cross_entropy(logits, labels, mask=None, mw=None):
     """logits (B,S,V), labels (B,S) int -> mean NLL in float32 (over the
-    mask's weight when given)."""
+    mask's weight when given).  With a model world the logits are this
+    rank's vocab columns (:func:`vocab_parallel_nll`)."""
     logits = logits.float()
-    lse = torch.logsumexp(logits, dim=-1)
-    lab = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
-    nll = lse - lab
+    if mw is not None:
+        nll = vocab_parallel_nll(logits, labels, mw)
+    else:
+        lse = torch.logsumexp(logits, dim=-1)
+        lab = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+        nll = lse - lab
     if mask is not None:
         nll = nll * mask
         return nll.sum() / torch.clamp(mask.sum(), min=1.0)

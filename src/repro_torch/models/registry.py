@@ -18,6 +18,13 @@ aux (``load_balance``, ``router_z``, ``dropped``) beside the logits, and
 its loss adds ``router_aux_coef`` times the two router losses to the
 cross-entropy, as the JAX loss does.
 
+``build_model(cfg, device, model_world)`` gives the dense family the model
+axis (``common.ModelWorld``, the model ranks of one replica): its params
+are the rank's slices by ``common.placement``, its entry points compute
+the rank's part (``models/transformer.py``), its logits are the rank's
+vocab columns and its loss the vocab-parallel cross-entropy.  Another
+family with a model world raises, naming slice 4c.
+
 ``layered`` is the dense family's per-layer decomposition for the
 layer-streamed FSDP engine (``core/streaming.py``): stem -> superblock
 spans -> head, its ``head_loss`` the tail of ``loss``.  Other families
@@ -48,18 +55,24 @@ class ModelAPI(NamedTuple):
     # per-layer apply decomposition for the layer-streamed FSDP engine
     # (DESIGN.md §11); None for families without one
     layered: Optional[cm.LayeredModel] = None
+    # the model ranks of one replica (None: the whole model on this rank)
+    model_world: Optional[cm.ModelWorld] = None
 
 
 CHUNKED_CE_VOCAB = 65536
+MODEL_AXIS_SLICE = ("slice 4c: the model axis of the moe, hybrid, audio, "
+                    "vlm and ssm families (ROADMAP.md)")
 
 
-def _chunked_ce(cfg, params, hidden, labels, mask):
+def _chunked_ce(cfg, params, hidden, labels, mask, mw=None):
     """The JAX package's big-vocab cross-entropy: the (B,S,V) float32
     logits never exist, forward or backward.  The sequence runs in 8 chunks
     (one fewer until the count divides S), in order from 0; each chunk's
     unembed, logsumexp, label gather and masked NLL sum recompute in the
     backward (``checkpoint``), as ``jax.remat`` wraps the JAX scan body.
-    Returns the NLL sum over the mask's sum (at least 1)."""
+    Returns the NLL sum over the mask's sum (at least 1).  With a
+    vocab-split model world each chunk's logits are the rank's vocab
+    columns and its NLL the vocab-parallel one."""
     b, s = labels.shape
     chunks = 8
     while s % chunks:
@@ -69,10 +82,15 @@ def _chunked_ce(cfg, params, hidden, labels, mask):
         mask = torch.ones((b, s), dtype=torch.float32, device=hidden.device)
 
     def body(xc, lc, mc):
-        logits = tfm.unembed(cfg, params, xc).float()
-        lse = torch.logsumexp(logits, dim=-1)
-        lab = torch.gather(logits, -1, lc.long()[..., None])[..., 0]
-        return ((lse - lab) * mc).sum(), mc.sum()
+        logits = (tfm.unembed(cfg, params, xc) if mw is None
+                  else tfm.unembed(cfg, params, xc, mw)).float()
+        if mw is not None:
+            nll = cm.vocab_parallel_nll(logits, lc, mw)
+        else:
+            lse = torch.logsumexp(logits, dim=-1)
+            lab = torch.gather(logits, -1, lc.long()[..., None])[..., 0]
+            nll = lse - lab
+        return (nll * mc).sum(), mc.sum()
 
     tot = cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
     for c in range(chunks):
@@ -83,23 +101,28 @@ def _chunked_ce(cfg, params, hidden, labels, mask):
     return tot / torch.clamp(cnt, min=1.0)
 
 
-def _loss(cfg, forward_train, chunked: bool, text_slice: int = 0):
+def _loss(cfg, forward_train, chunked: bool, text_slice: int = 0,
+          mw=None):
     """``ModelAPI.loss``, the JAX loss's two branches: with ``chunked`` the
     chunked cross-entropy of the training forward's hidden state, else the
     cross-entropy of its logits; either over the positions from
     ``text_slice`` on (a vlm's text).  A moe model's router losses join
     the total times ``router_aux_coef``, and its metrics carry them and
     ``moe_dropped``.  ``forward_train(params, batch, remat,
-    return_hidden) -> (out, aux)``."""
+    return_hidden) -> (out, aux)``.  With a model world the cross-entropy
+    is vocab-parallel where the placement splits the vocab (the padded
+    columns count in the logsumexp, as in the reference's loss and at
+    model 1)."""
     def loss_fn(params, batch, remat=True):
         out, aux = forward_train(params, batch, remat, chunked)
         out = out[:, text_slice:]
+        vmw = mw if tfm.vocab_split(cfg, params, mw) else None
         if chunked:
             ce = _chunked_ce(cfg, params, out, batch["labels"],
-                             batch.get("mask"))
+                             batch.get("mask"), vmw)
         else:
             ce = cm.softmax_cross_entropy(out, batch["labels"],
-                                          batch.get("mask"))
+                                          batch.get("mask"), vmw)
         total, metrics = ce, {"ce": ce}
         for name in ("load_balance", "router_z"):
             if name in aux:
@@ -160,20 +183,31 @@ def _no_aux(fn):
     return lambda *args: (fn(*args), {})
 
 
-def build_model(cfg, device="cuda") -> ModelAPI:
+def build_model(cfg, device="cuda", model_world=None) -> ModelAPI:
     """The dense, moe, hybrid, ssm, audio or vlm family's API; entry points
-    run on ``device`` (CUDA unless the caller asks for the CPU)."""
+    run on ``device`` (CUDA unless the caller asks for the CPU).  With a
+    ``model_world`` of more than one rank (the dense family only) the
+    entry points take and compute this rank's slices; ``init`` still
+    draws the whole tree, which ``common.take_slices`` cuts."""
+    mw = model_world if model_world is not None and model_world.size > 1 \
+        else None
+    if mw is not None and cfg.family != "dense":
+        raise NotImplementedError(
+            f"the model axis of the {cfg.family!r} family is not ported "
+            f"yet; it belongs to {MODEL_AXIS_SLICE}")
+    # the model world, for the dense family's entry points that take it
+    tp = {} if mw is None else {"mw": mw}
     text_slice = 0
     if cfg.family in ("dense", "moe", "hybrid", "ssm"):
         mod = {"dense": tfm, "moe": moe, "hybrid": rglru,
                "ssm": xlstm}[cfg.family]
         forward = lambda params, batch: mod.forward(cfg, params,
-                                                    batch["tokens"])
+                                                    batch["tokens"], **tp)
         forward_train = lambda params, batch, remat, hidden: \
             mod.forward_train(cfg, params, batch["tokens"], remat=remat,
-                              return_hidden=hidden)
+                              return_hidden=hidden, **tp)
         prefill = lambda params, batch, max_len: mod.prefill(
-            cfg, params, batch["tokens"], max_len=max_len)
+            cfg, params, batch["tokens"], max_len=max_len, **tp)
         # the big-vocab loss of the JAX package's chunked families
         chunked = (cfg.family != "ssm"
                    and cfg.vocab_padded >= CHUNKED_CE_VOCAB)
@@ -211,12 +245,15 @@ def build_model(cfg, device="cuda") -> ModelAPI:
         device=device,
         init=lambda generator: mod.init_params(cfg, generator, device),
         forward=forward,
-        loss=_loss(cfg, forward_train, chunked, text_slice),
+        loss=_loss(cfg, forward_train, chunked, text_slice, mw),
         init_caches=lambda batch, max_len: mod.init_caches(
-            cfg, batch, max_len, device),
+            cfg, batch, max_len, device, **tp),
         prefill=prefill,
         decode_step=lambda params, caches, token, pos: mod.decode_step(
-            cfg, params, caches, token, pos),
-        layered=(_dense_layered(cfg, chunked) if cfg.family == "dense"
-                 else None),
+            cfg, params, caches, token, pos, **tp),
+        # the layered engine over a model world (FSDP over ranks): slice 7c
+        layered=(_dense_layered(cfg, chunked)
+                 if cfg.family == "dense" and mw is None else None),
+        model_world=mw,
     )
+

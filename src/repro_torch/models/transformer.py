@@ -18,6 +18,19 @@ Entry points:
         caches)
     decode_step(cfg, params, caches, token, pos) -> (logits, caches)
 
+**The model axis.**  Every entry point takes ``mw``, the model world of
+one replica (``common.ModelWorld``), or ``None``.  With a model world the
+params are this rank's slices by ``common.placement`` (Megatron's split:
+q/k/v and w1/w3 by column, head-aligned for attention, wo and w2 by row,
+emb and lm_head by vocab) and each function computes the rank's part:
+the rank's q heads and their KV heads (split where the KV heads divide
+over the ranks, else computed whole and read by head), ``copy_to_model``
+on each split computation's input and ``reduce_from_model`` on its
+output, so the residual stream is whole on every rank, and logits of the
+rank's vocab columns.  A dim the placement holds whole is computed
+replicated.  The caches hold the rank's KV heads (all of them where those
+are computed whole).
+
 ``prefix_embeds`` (B,Np,d), the VLM's patch embeddings, is cast to the
 model dtype and put before the token embeddings; positions then run over
 the whole sequence, so the text starts at position Np, and the logits (or
@@ -169,72 +182,152 @@ def init_params(cfg, generator: torch.Generator, device="cuda"):
 
 
 # ---------------------------------------------------------------------------
+# The model axis: which heads a rank computes
+# ---------------------------------------------------------------------------
+
+def heads_split(cfg, mw) -> bool:
+    """Whether the rank computes a slice of the q heads (the placement
+    splits ``wq`` into whole heads)."""
+    return mw is not None and cm.model_slice(
+        (None, "model"), (cfg.d_model, cfg.n_heads * cfg.hd), mw.size,
+        cfg.n_heads) is not None
+
+
+def kv_heads_held(cfg, mw) -> int:
+    """The KV heads a rank holds and caches: its slice where the KV heads
+    split over the ranks, else all of them (computed whole)."""
+    if mw is not None and cm.model_slice(
+            (None, "model"), (cfg.d_model, cfg.n_kv_heads * cfg.hd), mw.size,
+            cfg.n_kv_heads) is not None:
+        return cfg.n_kv_heads // mw.size
+    return cfg.n_kv_heads
+
+
+def kv_of_rank(cfg, k, v, mw):
+    """The KV heads (B,S,KH,hd) that the rank's q heads read: all of ``k``
+    and ``v`` where they are the rank's slice, else the run of whole heads
+    its q heads map to (a view), or one head per q head where the run is
+    uneven."""
+    if not heads_split(cfg, mw) or kv_heads_held(cfg, mw) < cfg.n_kv_heads:
+        return k, v
+    hl = cfg.n_heads // mw.size
+    rep = cfg.n_heads // cfg.n_kv_heads
+    idx = [(mw.rank * hl + i) // rep for i in range(hl)]
+    lo, n = idx[0], idx[-1] + 1 - idx[0]
+    if hl % n == 0 and all(j - lo == i // (hl // n)
+                           for i, j in enumerate(idx)):
+        return k[:, :, lo:lo + n], v[:, :, lo:lo + n]
+    sel = torch.tensor(idx, device=k.device)
+    return k.index_select(2, sel), v.index_select(2, sel)
+
+
+def vocab_split(cfg, params, mw) -> bool:
+    """Whether the rank holds a slice of the embedding's vocab rows."""
+    return mw is not None and params["emb"].shape[0] < cfg.vocab_padded
+
+
+# ---------------------------------------------------------------------------
 # Layer compute
 # ---------------------------------------------------------------------------
 
-def _qkv(cfg, p, h):
+def _qkv(cfg, p, h, mw=None):
+    """q, k, v of ``h``: the rank's heads with a model world (``mw`` given
+    only where the q heads split).  Leaves held whole whose use here sees
+    only the rank's heads (``q_norm``, ``k_norm``, and ``wk``/``wv`` where
+    the KV heads are computed whole) pass through ``copy_to_model``, so
+    their gradients are the sum over the ranks."""
     b, s, _ = h.shape
-    q = (h @ p["wq"]).reshape(b, s, cfg.n_heads, cfg.hd)
-    k = (h @ p["wk"]).reshape(b, s, cfg.n_kv_heads, cfg.hd)
-    v = (h @ p["wv"]).reshape(b, s, cfg.n_kv_heads, cfg.hd)
+    wk, wv = p["wk"], p["wv"]
+    if kv_heads_held(cfg, mw) == cfg.n_kv_heads:
+        wk, wv = cm.copy_to_model(wk, mw), cm.copy_to_model(wv, mw)
+    q = (h @ p["wq"]).reshape(b, s, -1, cfg.hd)
+    k = (h @ wk).reshape(b, s, -1, cfg.hd)
+    v = (h @ wv).reshape(b, s, -1, cfg.hd)
     if cfg.qk_norm:
-        q = cm.rms_norm(q, p["q_norm"], cfg.norm_eps)
-        k = cm.rms_norm(k, p["k_norm"], cfg.norm_eps)
+        q = cm.rms_norm(q, cm.copy_to_model(p["q_norm"], mw), cfg.norm_eps)
+        k = cm.rms_norm(k, cm.copy_to_model(p["k_norm"], mw), cfg.norm_eps)
     return q, k, v
 
 
-def mlp(cfg, p, h):
+def mlp(cfg, p, h, mw=None):
+    """The MLP of ``h``; with a model world whose placement splits d_ff,
+    the rank's w1/w3 columns and w2 rows, summed over the ranks."""
+    if mw is not None and p["w1"].shape[-1] == cfg.d_ff:
+        mw = None
+    h = cm.copy_to_model(h, mw)
     act = cm.act_fn(cfg.act)
     if cfg.gated_mlp:
-        return (act(h @ p["w1"]) * (h @ p["w3"])) @ p["w2"]
-    return act(h @ p["w1"]) @ p["w2"]
+        out = (act(h @ p["w1"]) * (h @ p["w3"])) @ p["w2"]
+    else:
+        out = act(h @ p["w1"]) @ p["w2"]
+    return cm.reduce_from_model(out, mw)
 
 
 def attn_residual(cfg, p, x, positions, window, causal,
-                  attention=cm.blocked_attention):
+                  attention=cm.blocked_attention, mw=None):
     """A layer's attention half over a whole sequence: x plus the attention
     of ``norm(x)``; returns (x, k, v) with k/v after rope, as the cache
     stores them.  ``attention`` is the prefill kernel's route, or the
-    differentiable one for training."""
+    differentiable one for training.  With a model world: the rank's q
+    heads, ``wo``'s rows and the sum over the ranks."""
     b, s, _ = x.shape
-    h = norm_apply(cfg, x, p["ln1"])
-    q, k, v = _qkv(cfg, p["attn"], h)
+    mw = mw if heads_split(cfg, mw) else None
+    h = cm.copy_to_model(norm_apply(cfg, x, p["ln1"]), mw)
+    q, k, v = _qkv(cfg, p["attn"], h, mw)
     q = cm.apply_rope(q, positions, cfg.rope_theta)
     k = cm.apply_rope(k, positions, cfg.rope_theta)
-    out = attention(q, k, v, causal=causal, window=window,
+    kq, vq = kv_of_rank(cfg, k, v, mw)
+    out = attention(q, kq, vq, causal=causal, window=window,
                     block_q=cfg.attn_block_q, block_k=cfg.attn_block_k)
-    return x + out.reshape(b, s, -1) @ p["attn"]["wo"], k, v
+    out = cm.reduce_from_model(out.reshape(b, s, -1) @ p["attn"]["wo"], mw)
+    return x + out, k, v
 
 
 def _attn_block(cfg, p, x, positions, window, causal,
-                attention=cm.blocked_attention):
+                attention=cm.blocked_attention, mw=None):
     """One layer over a whole sequence (:func:`attn_residual`, then the
     MLP); returns (x, k, v)."""
-    x, k, v = attn_residual(cfg, p, x, positions, window, causal, attention)
-    x = x + mlp(cfg, p["mlp"], norm_apply(cfg, x, p["ln2"]))
+    x, k, v = attn_residual(cfg, p, x, positions, window, causal, attention,
+                            mw)
+    x = x + mlp(cfg, p["mlp"], norm_apply(cfg, x, p["ln2"]), mw)
     return x, k, v
 
 
-def attn_layer(cfg, p, x, positions, window: Optional[int]):
-    return _attn_block(cfg, p, x, positions, window, cfg.causal)[0]
+def attn_layer(cfg, p, x, positions, window: Optional[int], mw=None):
+    return _attn_block(cfg, p, x, positions, window, cfg.causal, mw=mw)[0]
 
 
-def embed(cfg, params, tokens):
-    x = params["emb"][tokens]
+def embed(cfg, params, tokens, mw=None):
+    """The token embeddings; with a vocab-split table, this rank's rows
+    (zero for a token outside them) summed over the ranks: one term is
+    non-zero, so the sum is exact."""
+    if vocab_split(cfg, params, mw):
+        table = params["emb"]
+        n = table.shape[0]
+        local = tokens - mw.rank * n
+        inside = ((local >= 0) & (local < n))[..., None]
+        x = cm.reduce_from_model(
+            torch.where(inside, table[local.clamp(0, n - 1)], 0.0), mw)
+    else:
+        x = params["emb"][tokens]
     if cfg.emb_scale:
         x = x * torch.tensor(math.sqrt(float(cfg.d_model)),
                              dtype=torch.float32).to(x.dtype)
     return x
 
 
-def unembed(cfg, params, x):
+def unembed(cfg, params, x, mw=None):
+    """Logits of ``x``; with a vocab-split table (tied or not), this
+    rank's vocab columns."""
     table = params.get("lm_head", params["emb"])
+    if vocab_split(cfg, params, mw):
+        x = cm.copy_to_model(x, mw)
     return x @ table.T
 
 
-def embed_with_prefix(cfg, params, tokens, prefix_embeds=None):
+def embed_with_prefix(cfg, params, tokens, prefix_embeds=None, mw=None):
     """The token embeddings, after ``prefix_embeds`` (B,Np,d) where given."""
-    x = embed(cfg, params, tokens)
+    x = embed(cfg, params, tokens, mw)
     if prefix_embeds is not None:
         x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
     return x
@@ -250,24 +343,25 @@ def _positions(x):
 # ---------------------------------------------------------------------------
 
 @torch.no_grad()
-def forward(cfg, params, tokens, prefix_embeds=None):
-    """tokens (B,S) -> logits (B,Np+S,V)."""
-    x = embed_with_prefix(cfg, params, tokens, prefix_embeds)
+def forward(cfg, params, tokens, prefix_embeds=None, mw=None):
+    """tokens (B,S) -> logits (B,Np+S,V) (the rank's vocab columns with a
+    vocab-split model world)."""
+    x = embed_with_prefix(cfg, params, tokens, prefix_embeds, mw)
     positions = _positions(x)
     n_sb, n_local, has_global = superblock_layout(cfg)
     for i in range(n_sb):
         for j in range(n_local):
             lp = _index(_index(params["blocks"]["local"], i), j)
-            x = attn_layer(cfg, lp, x, positions, cfg.sliding_window)
+            x = attn_layer(cfg, lp, x, positions, cfg.sliding_window, mw)
         if has_global:
             x = attn_layer(cfg, _index(params["blocks"]["global"], i), x,
-                           positions, None)
+                           positions, None, mw)
     x = norm_apply(cfg, x, params["ln_f"])
-    return unembed(cfg, params, x)
+    return unembed(cfg, params, x, mw)
 
 
 def forward_train(cfg, params, tokens, remat: bool = True,
-                  return_hidden: bool = False, prefix_embeds=None):
+                  return_hidden: bool = False, prefix_embeds=None, mw=None):
     """tokens (B,S) -> logits (B,Np+S,V) with autograd: the JAX
     ``forward``.  With ``return_hidden`` the hidden state after ``ln_f``
     (B,Np+S,d) instead, before the unembed (the chunked cross-entropy's
@@ -276,19 +370,20 @@ def forward_train(cfg, params, tokens, remat: bool = True,
     Attention is ``cm.differentiable_blocked_attention`` (no kernel, as in
     the JAX training loss).  ``remat`` recomputes each superblock in the
     backward (``torch.utils.checkpoint``), as ``jax.remat`` wraps the
-    superblock body that JAX scans.
+    superblock body that JAX scans.  With a model world the logits are
+    the rank's vocab columns; the hidden state is whole.
     """
-    x = embed_with_prefix(cfg, params, tokens, prefix_embeds)
+    x = embed_with_prefix(cfg, params, tokens, prefix_embeds, mw)
     positions = _positions(x)
     n_sb, _, _ = superblock_layout(cfg)
     for i in range(n_sb):
         x = span_apply(cfg, _index(params["blocks"], i), x, positions,
-                       remat=remat)
+                       remat=remat, mw=mw)
     x = norm_apply(cfg, x, params["ln_f"])
-    return x if return_hidden else unembed(cfg, params, x)
+    return x if return_hidden else unembed(cfg, params, x, mw)
 
 
-def _superblock(cfg, bp, x, positions):
+def _superblock(cfg, bp, x, positions, mw=None):
     """One superblock (its local layers, then its global one) with
     autograd: the unit the training forward recomputes and the streamed
     engine's span."""
@@ -296,7 +391,8 @@ def _superblock(cfg, bp, x, positions):
 
     def layer(lp, x, window):
         return _attn_block(cfg, lp, x, positions, window, cfg.causal,
-                           attention=cm.differentiable_blocked_attention)[0]
+                           attention=cm.differentiable_blocked_attention,
+                           mw=mw)[0]
 
     for j in range(n_local):
         x = layer(_index(bp["local"], j), x, cfg.sliding_window)
@@ -362,14 +458,15 @@ def stem_apply(cfg, stem, tokens, prefix_embeds=None):
     return x, _positions(x)
 
 
-def span_apply(cfg, span_params, x, positions, remat: bool = True):
+def span_apply(cfg, span_params, x, positions, remat: bool = True,
+               mw=None):
     """Apply ONE superblock, the body ``forward_train`` runs per slice;
     with ``remat`` under ``checkpoint`` (recomputed in the backward), as
     ``jax.remat`` wraps the JAX scan body."""
     if remat:
-        return checkpoint(_superblock, cfg, span_params, x, positions,
+        return checkpoint(_superblock, cfg, span_params, x, positions, mw,
                           use_reentrant=False)
-    return _superblock(cfg, span_params, x, positions)
+    return _superblock(cfg, span_params, x, positions, mw)
 
 
 def head_params_for_unembed(stem, head):
@@ -384,50 +481,56 @@ def head_params_for_unembed(stem, head):
 # Serving: prefill + single-token decode with KV caches
 # ---------------------------------------------------------------------------
 
-def init_caches(cfg, batch: int, max_len: int, device="cuda"):
-    """Per-superblock caches: ring buffers for local, full for global."""
+def init_caches(cfg, batch: int, max_len: int, device="cuda", mw=None):
+    """Per-superblock caches: ring buffers for local, full for global; of
+    the KV heads the rank holds (:func:`kv_heads_held`)."""
     dtype = torch_dtype(cfg)
     n_sb, n_local, has_global = superblock_layout(cfg)
+    kh = kv_heads_held(cfg, mw)
     caches = {}
     if n_local:
         w = min(cfg.sliding_window, max_len)
-        c = cm.init_kv_cache(n_sb * n_local, batch, w, cfg.n_kv_heads, cfg.hd,
-                             dtype, device)
+        c = cm.init_kv_cache(n_sb * n_local, batch, w, kh, cfg.hd, dtype,
+                             device)
         caches["local"] = {n: a.reshape((n_sb, n_local) + a.shape[1:])
                            for n, a in c.items()}
     if has_global:
-        caches["global"] = cm.init_kv_cache(n_sb, batch, max_len,
-                                            cfg.n_kv_heads, cfg.hd, dtype,
-                                            device)
+        caches["global"] = cm.init_kv_cache(n_sb, batch, max_len, kh, cfg.hd,
+                                            dtype, device)
     return caches
 
 
-def decode_attn_residual(cfg, p, x, ck, cv, pos, window: Optional[int]):
+def decode_attn_residual(cfg, p, x, ck, cv, pos, window: Optional[int],
+                         mw=None):
     """A decode layer's attention half: x (B,1,d) plus its attention over
     the cache (B,S,KH,hd), which is written in place."""
     b = x.shape[0]
-    h = norm_apply(cfg, x, p["ln1"])
-    q, k, v = _qkv(cfg, p["attn"], h)
+    mw = mw if heads_split(cfg, mw) else None
+    h = cm.copy_to_model(norm_apply(cfg, x, p["ln1"]), mw)
+    q, k, v = _qkv(cfg, p["attn"], h, mw)
     posv = pos.reshape(-1, 1).expand(b, 1)
     q = cm.apply_rope(q, posv, cfg.rope_theta)
     k = cm.apply_rope(k, posv, cfg.rope_theta)
     cm.cache_update(ck, cv, k, v, pos, ring=window is not None)
     length = torch.clamp(pos + 1, max=ck.shape[1])
-    out = cm.decode_attention(q, ck, cv, length=length, window=window)
-    return x + out.reshape(b, 1, -1) @ p["attn"]["wo"]
+    kq, vq = kv_of_rank(cfg, ck, cv, mw)
+    out = cm.decode_attention(q, kq, vq, length=length, window=window)
+    return x + cm.reduce_from_model(out.reshape(b, 1, -1) @ p["attn"]["wo"],
+                                    mw)
 
 
-def _decode_layer(cfg, p, x, ck, cv, pos, window: Optional[int]):
+def _decode_layer(cfg, p, x, ck, cv, pos, window: Optional[int], mw=None):
     """One decode layer; x (B,1,d); cache (B,S,KH,hd) written in place."""
-    x = decode_attn_residual(cfg, p, x, ck, cv, pos, window)
-    return x + mlp(cfg, p["mlp"], norm_apply(cfg, x, p["ln2"]))
+    x = decode_attn_residual(cfg, p, x, ck, cv, pos, window, mw)
+    return x + mlp(cfg, p["mlp"], norm_apply(cfg, x, p["ln2"]), mw)
 
 
 @torch.no_grad()
-def decode_step(cfg, params, caches, token, pos):
+def decode_step(cfg, params, caches, token, pos, mw=None):
     """token (B,1) int; pos an int or a (B,) int tensor -> (logits (B,1,V),
-    caches).  The caches are updated in place and returned."""
-    x = embed(cfg, params, token)
+    caches): the rank's vocab columns with a vocab-split model world.  The
+    caches are updated in place and returned."""
+    x = embed(cfg, params, token, mw)
     pos = torch.as_tensor(pos, device=x.device).to(torch.int64)
     n_sb, n_local, has_global = superblock_layout(cfg)
     for i in range(n_sb):
@@ -435,13 +538,13 @@ def decode_step(cfg, params, caches, token, pos):
             lp = _index(_index(params["blocks"]["local"], i), j)
             x = _decode_layer(cfg, lp, x, caches["local"]["k"][i, j],
                               caches["local"]["v"][i, j], pos,
-                              cfg.sliding_window)
+                              cfg.sliding_window, mw)
         if has_global:
             x = _decode_layer(cfg, _index(params["blocks"]["global"], i), x,
                               caches["global"]["k"][i],
-                              caches["global"]["v"][i], pos, None)
+                              caches["global"]["v"][i], pos, None, mw)
     x = norm_apply(cfg, x, params["ln_f"])
-    return unembed(cfg, params, x), caches
+    return unembed(cfg, params, x, mw), caches
 
 
 def window_ring(a, window: int, max_len: int):
@@ -471,7 +574,7 @@ def pad_cache(a, max_len: int):
 
 @torch.no_grad()
 def prefill(cfg, params, tokens, max_len: Optional[int] = None,
-            prefix_embeds=None):
+            prefix_embeds=None, mw=None):
     """Fill caches for tokens (B,S) after ``prefix_embeds`` (B,Np,d) where
     given; returns (last-token logits, caches).  ``max_len`` counts the
     prefix's positions too.
@@ -479,9 +582,10 @@ def prefill(cfg, params, tokens, max_len: Optional[int] = None,
     The cache is the product of the forward pass: each layer's K/V after
     rope.  Global caches are padded to ``max_len`` after attention, so the
     prompt itself is never padded; local layers keep the trailing window in
-    ring order.
+    ring order.  With a model world: the caches of the rank's KV heads
+    and the last logits of its vocab columns.
     """
-    x = embed_with_prefix(cfg, params, tokens, prefix_embeds)
+    x = embed_with_prefix(cfg, params, tokens, prefix_embeds, mw)
     b, s, _ = x.shape
     max_len = max_len or s
     positions = _positions(x)
@@ -493,7 +597,7 @@ def prefill(cfg, params, tokens, max_len: Optional[int] = None,
         for j in range(n_local):
             lp = _index(_index(params["blocks"]["local"], i), j)
             x, k, v = _attn_block(cfg, lp, x, positions, cfg.sliding_window,
-                                  True)
+                                  True, mw=mw)
             lk.append(window_ring(k, cfg.sliding_window, max_len))
             lv.append(window_ring(v, cfg.sliding_window, max_len))
         if n_local:
@@ -501,7 +605,7 @@ def prefill(cfg, params, tokens, max_len: Optional[int] = None,
             local_v.append(torch.stack(lv))
         if has_global:
             x, k, v = _attn_block(cfg, _index(params["blocks"]["global"], i),
-                                  x, positions, None, True)
+                                  x, positions, None, True, mw=mw)
             global_k.append(pad_cache(k, max_len))
             global_v.append(pad_cache(v, max_len))
     caches = {}
@@ -511,4 +615,4 @@ def prefill(cfg, params, tokens, max_len: Optional[int] = None,
         caches["global"] = {"k": torch.stack(global_k),
                             "v": torch.stack(global_v)}
     x = norm_apply(cfg, x, params["ln_f"])
-    return unembed(cfg, params, x[:, -1:]), caches
+    return unembed(cfg, params, x[:, -1:], mw), caches

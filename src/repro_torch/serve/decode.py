@@ -1,9 +1,19 @@
-"""Dense serving steps: prefill and single-token greedy decode on one
-device, counterpart of ``repro/serve/decode.py`` without a mesh.
+"""Dense serving steps: prefill and single-token greedy decode, counterpart
+of ``repro/serve/decode.py``.
 
 Every request of a batch shares one position and reserves ``max_len``
 cache positions up front.  This is the uncontended reference the paged
 scheduler is held against.
+
+Over a model world (``build_model(..., model_world=)``, the dense family)
+the steps run on each model rank of a replica: the caches hold the rank's
+KV heads, the logits come out of the model as the rank's vocab columns,
+and the steps gather them.  A dp rank serves its own rows of the batch.
+``cache_shardings`` and ``serve_param_shardings`` are the reference's
+placement tables, as tuples of axis names; the port computes with the
+model entry on the KV-head dim where the KV heads divide over the model
+ranks (the head-local attention reads only its own heads), where the
+reference's code puts it on the head dim.
 """
 
 from __future__ import annotations
@@ -13,26 +23,124 @@ import torch
 from repro_torch.models import common as cm
 
 
+def _dp(axis_names):
+    dp = tuple(a for a in axis_names if a in ("pod", "data"))
+    return dp if len(dp) > 1 else dp[0]
+
+
+def cache_shardings(mesh_shape: dict, cache_shapes, batch: int,
+                    model_axis: str = "model"):
+    """Spec tree for cache trees (family-agnostic heuristics).
+
+    ``mesh_shape`` maps the axis names to their sizes in mesh order (the
+    reference's ``dict(mesh.shape)``).  KV caches are rank>=5 ``(..., B,
+    S, KH, hd)``; recurrent states are rank 3-5 with B in position 1.  We
+    shard B over dp when divisible, else the largest seq-like dim; KH goes
+    on the model axis when divisible (recurrent states: their last,
+    channel dim).
+
+    Raises ``ValueError`` when the dp extent divides *neither* the batch
+    nor any other dim of a leaf — silently replicating a cache across a
+    multi-device dp mesh is an OOM-in-production bug, not a fallback.
+    """
+    dp = _dp(tuple(mesh_shape))
+    n_dp = 1
+    for a in (dp if isinstance(dp, tuple) else (dp,)):
+        n_dp *= mesh_shape[a]
+    n_model = mesh_shape.get(model_axis, 1)
+
+    def spec(shape):
+        entries = [None] * len(shape)
+        # Locate the batch dim.  Several dims can equal `batch` (a ring
+        # window, seq, or head count sized exactly B), so collect every
+        # candidate and tiebreak on the canonical position: caches in this
+        # repo put B at dim 1 (after the layer-stack dim) for every rank>=3
+        # leaf, and at dim 0 only for rank<=2 recurrent vectors.
+        cands = [i for i, s in enumerate(shape)
+                 if (s == batch and i >= 1)
+                 or (i == 0 and len(shape) <= 2 and s == batch)]
+        b_idx = 1 if len(cands) > 1 and 1 in cands else \
+            (cands[0] if cands else None)
+        if b_idx is not None and batch % n_dp == 0 and batch >= n_dp:
+            entries[b_idx] = dp
+        else:
+            # shard the largest remaining dim over dp (seq for KV caches)
+            cand = max(range(len(shape)), key=lambda i: shape[i])
+            if shape[cand] % n_dp == 0 and (b_idx is None or cand != b_idx):
+                entries[cand] = dp
+            elif n_dp > 1:
+                raise ValueError(
+                    f"cache_shardings: no dim of cache leaf {shape} "
+                    f"(batch={batch}) divides the dp extent {n_dp}; "
+                    "refusing to silently replicate — resize the batch/"
+                    "cache or serve on a smaller dp mesh")
+        # model axis: KH of a KV cache, the channel of a recurrent state
+        i = len(shape) - (2 if len(shape) >= 5 else 1)
+        if entries[i] is None and shape[i] % n_model == 0 \
+                and shape[i] >= n_model and i != b_idx:
+            entries[i] = model_axis
+        return tuple(entries)
+
+    return cm.map_with_path(lambda _, leaf: spec(cm.shape_of(leaf)),
+                             cache_shapes)
+
+
+def serve_param_shardings(params_shapes):
+    """The params' spec tree (``common.tree_specs``)."""
+    return cm.tree_specs(params_shapes)
+
+
+def _gather_vocab(logits, mw):
+    """The whole vocab of logits split by vocab over the model ranks."""
+    return torch.cat(cm.model_all_gather(logits, mw), dim=-1)
+
+
 def build_serve_step(model):
     """``serve_step(params, caches, token (B,1), pos) -> (next_token (B,1),
-    logits, caches)``; the caches are updated in place."""
+    logits, caches)``; the caches are updated in place.  Over a vocab-split
+    model world each rank takes the max and argmax of its masked columns
+    and the ranks share the (value, global index) pairs: the largest value
+    wins, the smallest index among equals (``torch.argmax``'s rule); the
+    logits are returned gathered."""
     vocab = model.cfg.vocab
+    mw = model.model_world
 
     def serve_step(params, caches, token, pos):
         logits, caches = model.decode_step(params, caches, token, pos)
-        # mask vocab-padding columns (table padded to /256)
-        cols = torch.arange(logits.shape[-1], device=logits.device)
+        n = logits.shape[-1]
+        split = mw is not None and n < model.cfg.vocab_padded
+        lo = mw.rank * n if split else 0
+        # mask vocab-padding columns (table padded to /256), by global index
+        cols = lo + torch.arange(n, device=logits.device)
         logits = torch.where(cols < vocab, logits, cm.NEG_INF)
-        nxt = logits[:, -1, :].argmax(-1).to(token.dtype)[:, None]
-        return nxt, logits, caches
+        last = logits[:, -1, :]
+        if not split:
+            nxt = last.argmax(-1)
+        else:
+            idx = last.argmax(-1)
+            val = last.gather(-1, idx[:, None])[:, 0].float()
+            pair = torch.stack([val, (idx + lo).float()], -1)   # (B, 2)
+            pairs = torch.stack(cm.model_all_gather(pair, mw))  # (M, B, 2)
+            best = pairs[..., 0].max(0).values
+            cand = torch.where(pairs[..., 0] == best, pairs[..., 1],
+                               float("inf"))
+            nxt = cand.min(0).values.long()
+            logits = _gather_vocab(logits, mw)
+        return nxt.to(token.dtype)[:, None], logits, caches
 
     return serve_step
 
 
 def build_prefill(model, max_len: int):
     """``prefill_step(params, batch) -> (last_logits, caches)`` with caches
-    padded to ``max_len``."""
+    padded to ``max_len``; over a vocab-split model world the last logits
+    are gathered."""
+    mw = model.model_world
+
     def prefill_step(params, batch):
-        return model.prefill(params, batch, max_len)
+        logits, caches = model.prefill(params, batch, max_len)
+        if mw is not None and logits.shape[-1] < model.cfg.vocab_padded:
+            logits = _gather_vocab(logits, mw)
+        return logits, caches
 
     return prefill_step

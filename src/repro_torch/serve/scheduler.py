@@ -93,6 +93,11 @@ class ServeScheduler:
     def __init__(self, model, params, *, n_blocks: int, block_size: int,
                  max_blocks_per_req: int, max_batch: int = 8,
                  batch_buckets: Optional[Sequence[int]] = None):
+        if getattr(model, "model_world", None) is not None:
+            raise NotImplementedError(
+                "the paged scheduler over model ranks belongs to slice 4c "
+                "(ROADMAP.md); serve a model world through "
+                "serve.decode.build_prefill/build_serve_step")
         self.model, self.params = model, params
         self.block_size = int(block_size)
         self.max_blocks_per_req = int(max_blocks_per_req)

@@ -66,6 +66,20 @@ guarded update, then ``averager.comm``/``sync`` over the wire
 (``core/plan.py``); the metrics are averaged over the ranks by one
 ``all_reduce``, as the reference's ``pmean`` over dp.
 
+**The model axis.**  Over a rank world with ``model`` ranks a replica
+(``launch/mesh.py``), each rank holds its replica's slices by
+``models/common.placement`` (``stacked_init`` cuts them from the one
+seeded init a model-1 run draws) and the model's entry points compute the
+rank's part (``models/transformer.py``).  The model ranks of a replica
+are handed the same batch rows (by dp rank).  The gradients of the leaves
+held whole are whole on every rank (``copy_to_model`` sums those whose use
+sees only the rank's heads), so those leaves stay bit-identical over the
+model group.  The non-finite guard takes the MIN of its flag over the
+model group, so one bad slice skips the whole replica.  The plan is
+compiled over the rank's own leaves and averages them over its dp group:
+the combine is elementwise, so the gathered average is the whole rows'
+average.
+
 Step variants: the host loop (``launch/train.py`` ``Trainer._step_fn``)
 calls ``averager.phase_for_step(t)``/``sync_due(t)`` and runs one of
 ``averager.n_phases + 1`` cached step functions, as JAX dispatches its
@@ -77,12 +91,14 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.core import bucketing, streaming
 from repro_torch.core import plan as plan_mod
 from repro_torch.core import tree as tr
 from repro_torch.core.replica import (ReplicaState, map_opt_state,
                                       pod_members)
+from repro_torch.models import common as cm
 
 
 def local_rows(averager) -> int:
@@ -92,8 +108,13 @@ def local_rows(averager) -> int:
 
 
 def stacked_init(model, n_replicas: int, generator: torch.Generator):
-    """One init, broadcast to ``n_replicas`` rows: (P, ...) leaves."""
+    """One init, broadcast to ``n_replicas`` rows: (P, ...) leaves; with a
+    model world, this rank's slices of it."""
     params0 = model.init(generator)
+    mw = model.model_world
+    if mw is not None:
+        params0 = cm.take_slices(
+            params0, cm.placement(model.cfg, params0, mw.size), mw)
     return tr.tree_map(
         lambda a: a[None].expand((n_replicas,) + tuple(a.shape)).clone(),
         params0)
@@ -156,6 +177,18 @@ def tree_all_finite(tree) -> torch.Tensor:
     if not leaves:
         return torch.tensor(True)
     return torch.stack([torch.isfinite(l).all() for l in leaves]).all()
+
+
+def replica_all_finite(model, grads) -> torch.Tensor:
+    """:func:`tree_all_finite` of a replica's gradients: with a model
+    world, the MIN of every model rank's flag."""
+    finite = tree_all_finite(grads)
+    mw = model.model_world
+    if mw is None:
+        return finite
+    flag = finite.to(device=tr.tree_leaves(grads)[0].device,
+                     dtype=torch.int32).reshape(1)
+    return cm.model_all_reduce(flag, mw, op=dist.ReduceOp.MIN)[0].bool()
 
 
 def guarded_update(optimizer, grads, opt_state, params, *, finite=None):
@@ -288,8 +321,9 @@ def build_train_step(model, optimizer, averager, *, phase: int, sync: bool,
         params_r = _row(state.params, r)
         opt_r = map_opt_state(state.opt_state, lambda t: _row(t, r),
                               lambda c: c[r])
-        new_p, new_o, skipped = guarded_update(optimizer, grads, opt_r,
-                                               params_r)
+        new_p, new_o, skipped = guarded_update(
+            optimizer, grads, opt_r, params_r,
+            finite=replica_all_finite(model, grads))
         if not skipped:
             _write(params_r, new_p)
             for f in opt_r._fields:
@@ -371,8 +405,9 @@ def build_train_step(model, optimizer, averager, *, phase: int, sync: bool,
 
 
 def mean_over_ranks(world, metrics: dict) -> dict:
-    """This rank's float32 metrics averaged over every rank by one
-    ``all_reduce`` through the wire."""
+    """This rank's float32 metrics averaged over every dp rank by one
+    ``all_reduce`` through the wire (the model ranks of a replica hold the
+    same metrics)."""
     keys = list(metrics)
     vec = torch.stack([metrics[k].to(world.device, torch.float32)
                        for k in keys])[None]

@@ -4,9 +4,11 @@ processes over gloo, each with torchrun's environment (``RANK``,
 rendezvous in the test's own directory (parallel test workers never share
 a TCP port), one torch thread and a timeout of its own, and runs one of
 this module's workers in each.  The workers import torch, numpy and the
-port only; each writes its results to ``out/rank<r>.npz`` (rank 0 also
-``out/gathered``, a checkpoint of the gathered state)."""
+port only; each writes its results to ``out/rank<r>.npz`` (r the torch
+rank; rank 0 also ``out/gathered``, a checkpoint of the gathered state).
+A ``model`` keyword lays the ranks out as dp x model, model minor."""
 
+import contextlib
 import json
 import os
 import subprocess
@@ -61,11 +63,13 @@ def run(worker: str, kw: dict) -> None:
     from repro_torch.launch import mesh
     torch.set_num_threads(1)
     world = mesh.init_rank_world(kw.pop("data"), kw.pop("pod", None),
+                                 model=kw.pop("model", 1),
                                  device_type="cpu",
                                  init_method=os.environ["REPRO_TEST_INIT"])
     try:
         results = WORKERS[worker](world, **kw)
-        np.savez(os.path.join(kw["out"], f"rank{world.rank}.npz"), **results)
+        np.savez(os.path.join(kw["out"], f"rank{world.torch_rank}.npz"),
+                 **results)
     finally:
         mesh.shutdown()
 
@@ -178,6 +182,114 @@ def consolidated_worker(world, out, arch, init, trainer_kw, steps,
     return res
 
 
+@contextlib.contextmanager
+def planted(fault):
+    """A planted model-axis fault, on every rank alike (so that the
+    collectives still pair): ``"no_f_backward"`` runs every
+    ``copy_to_model`` as the plain identity (no all-reduce of its
+    gradient), ``"q_norm_unsummed"`` only ``q_norm``'s."""
+    from repro_torch.models import common as cm
+    from repro_torch.models import transformer as tfm
+    copy, qkv = cm.copy_to_model, tfm._qkv
+    seen = {}
+    if fault == "no_f_backward":
+        cm.copy_to_model = lambda x, mw: x
+    elif fault == "q_norm_unsummed":
+        def qkv_noting(cfg, p, h, mw=None):
+            seen["q_norm"] = p.get("q_norm")
+            return qkv(cfg, p, h, mw)
+        tfm._qkv = qkv_noting
+        cm.copy_to_model = lambda x, mw: (x if x is seen.get("q_norm")
+                                          else copy(x, mw))
+    elif fault is not None:
+        raise ValueError(f"unknown fault {fault!r}")
+    try:
+        yield
+    finally:
+        cm.copy_to_model, tfm._qkv = copy, qkv
+
+
+def _states_equal(a, b) -> bool:
+    from repro_torch.core import tree as tr
+    import torch
+    return all(torch.equal(x, y) for x, y in zip(
+        tr.tree_leaves((a.params, a.opt_state)),
+        tr.tree_leaves((b.params, b.opt_state))))
+
+
+def model_axis_worker(world, out, runs, serve):
+    """Each of ``runs`` (name -> arch, init, trainer_kw, steps, fault) for
+    its steps on this rank's slices; rank 0 writes the gathered state to
+    ``out/<name>``, which every rank then restores into a new ``Trainer``
+    (``<name>/restored``: bit for bit).  Then ``serve`` (arch, params,
+    prompts, max_len, steps): the prompts of this dp rank through
+    ``build_prefill`` and ``build_serve_step`` (``serve/logits`` the
+    gathered logits of the prefill and each step, ``serve/tokens``)."""
+    import torch
+    from repro_torch.checkpoint import load_checkpoint, load_replica_state
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import Trainer
+    from repro_torch.models import common as cm
+    from repro_torch.models.registry import build_model
+    from repro_torch.serve.decode import build_prefill, build_serve_step
+    res = {}
+    for name, r in runs.items():
+        with planted(r.get("fault")):
+            trainer = _rank_trainer(world, r["arch"], r["init"],
+                                    r["trainer_kw"], False, "float32")
+            res[f"{name}/losses"] = np.asarray(
+                [trainer.step_once(t) for t in range(r["steps"])])
+            res[f"{name}/skipped"] = np.asarray(trainer.skipped_nonfinite)
+            res[f"{name}/step_phase"] = np.asarray([trainer.state.step,
+                                                    trainer.state.phase])
+        path = os.path.join(out, name)
+        trainer.save_checkpoint(path)
+        cfg = get_config(r["arch"], smoke=True).variant(dtype="float32")
+        data, pod = world_axes(world)
+        again = Trainer(cfg, data, pod_axis=pod, world=world,
+                        init_state=load_replica_state(
+                            path, state_template(cfg, world.P,
+                                                 r["trainer_kw"])),
+                        **r["trainer_kw"])
+        res[f"{name}/restored"] = np.asarray(_states_equal(trainer.state,
+                                                           again.state))
+        # the leaves held whole: bit-identical over the model group
+        whole = cm.held_whole(trainer.state.params, cm.placement(
+            cfg, trainer.state.params, world.model))
+        res[f"{name}/whole"] = torch.cat([a.reshape(-1) for a in whole]
+                                         ).numpy()
+    cfg = get_config(serve["arch"], smoke=True).variant(dtype="float32")
+    model = build_model(cfg, "cpu", model_world=world.model_world)
+    mw = world.model_world
+    whole, _ = load_checkpoint(serve["params"], _spec_tree(cfg))
+    params = cm.take_slices(whole, cm.placement(cfg, whole, world.model), mw)
+    prompts = np.load(serve["prompts"])
+    rows = prompts.shape[0] // world.P
+    tokens = torch.from_numpy(prompts[world.rank * rows:
+                                      (world.rank + 1) * rows])
+    logits, caches = build_prefill(model, serve["max_len"])(
+        params, {"tokens": tokens})
+    step = build_serve_step(model)
+    masked = torch.where(torch.arange(logits.shape[-1]) < cfg.vocab, logits,
+                         cm.NEG_INF)
+    tok = masked[:, -1].argmax(-1)[:, None]
+    all_logits, all_tokens = [logits[:, -1]], [tok[:, 0]]
+    for i in range(serve["steps"]):
+        tok, logits, caches = step(params, caches, tok,
+                                   tokens.shape[1] + i)
+        all_logits.append(logits[:, -1])
+        all_tokens.append(tok[:, 0])
+    res["serve/logits"] = torch.stack(all_logits, 1).numpy()
+    res["serve/tokens"] = torch.stack(all_tokens, 1).numpy()
+    return res
+
+
+def _spec_tree(cfg):
+    """The whole params tree of ``cfg`` as Specs."""
+    from repro_torch.models.convert import PARAM_SPECS
+    return PARAM_SPECS[cfg.family](cfg)
+
+
 def flat_tree(tree, prefix=""):
     """A nested dict of tensors as ``{"a/b/c": tensor}``."""
     out = {}
@@ -214,4 +326,5 @@ def state_template(cfg, P: int, trainer_kw: dict):
 
 
 WORKERS = {"plan": plan_worker, "trainer": trainer_worker,
-           "consolidated": consolidated_worker}
+           "consolidated": consolidated_worker,
+           "model_axis": model_axis_worker}

@@ -647,6 +647,41 @@ def test_chip_smoke_ranks_phase_fails_when_a_rank_fails(tmp_path):
         smoke.ranks_phase(spec, tmp_path / "ranks", timeout=240)
 
 
+def test_chip_smoke_model_phase_at_smoke_size_on_cpu(tmp_path):
+    """chip_smoke's model phase rehearsed on the CPU at smoke size: eight
+    gloo ranks under torchrun as data 4 x model 2 (model minor), 6 steps
+    (both offsets and a sync); checks (b)-(f) hold: the wire average of
+    each model coordinate's slices equals the stacked plan's on both
+    offsets, the leaves held whole agree over every model group at every
+    step and not after the step without f in one layer, the stacked twin's
+    losses within the bound, the served tokens and logits the one-rank
+    run's; no kernel launches off the card, so check (a) refuses the CPU
+    run."""
+    import pytest
+
+    smoke = _chip_smoke()
+    spec = smoke.model_spec(device="cpu", smoke=True, n_layers=None,
+                            seq_len=16, global_batch=8, steps=6, prompt=16,
+                            new=4)
+    stats = smoke.model_phase(spec, tmp_path / "model", timeout=240)
+    assert stats["stacked_equals_wire"] == {"0": [True, True],
+                                            "1": [True, True]}
+    assert stats["check_c"] == [True] * 6 and stats["fault_check_c"] is False
+    assert [e["sync"] for e in stats["ranks"][0]["log"]] == \
+        [False] * 4 + [True, False]
+    assert [(r["rank"], r["dp"], r["model"]) for r in stats["ranks"]] == \
+        [(r, r // 2, r % 2) for r in range(8)]
+    assert stats["check_d"]["max_loss_rel_diff"] <= smoke.MODEL_LOSS_RTOL
+    e = stats["serve_check"]
+    assert e["ok"] and e["tokens_compared"] > 0
+    s = stats["summary"]
+    assert s["tp_bytes_a_step"] > 0 and s["wire_bytes_a_group_step"] > 0
+    assert s["device_idle_share"] is None        # no card, no device time
+    smoke.check_model_held(stats, None)
+    with pytest.raises(AssertionError, match="K1, K2, K3, K4"):
+        smoke.check_model_launches(stats)
+
+
 def test_chip_smoke_elastic_phase_at_smoke_size_on_cpu():
     """chip_smoke's elastic phase rehearsed on the CPU at smoke size: the
     chaos schedule (worlds 8, 4, 8, 4, 8), the kill script (4, 2, 4) and

@@ -249,7 +249,8 @@ def test_cli_trains_at_smoke_size_and_names_missing_slices():
     # --pod-axis and --pod-dcn train since slice 4a (tests/
     # test_torch_train_ranks.py), --sharding fsdp since slice 7a (tests/
     # test_torch_fsdp.py), its streamed layout since slice 7b (tests/
-    # test_torch_streaming.py); expert parallelism is slice 4b
+    # test_torch_streaming.py), --model-axis under torchrun since slice 4b
+    # (tests/test_torch_model_axis.py, the other families: slice 4c)
     for streamed in ((), ("--streamed",)):
         out = _cli("--arch", ARCH, "--smoke", "--data-axis", "2",
                    "--pod-axis", "4", "--pod-dcn", "--sharding", "fsdp",
@@ -258,7 +259,9 @@ def test_cli_trains_at_smoke_size_and_names_missing_slices():
         assert out.returncode == 0, out.stderr
         assert "final loss" in out.stdout
     for flags, slice_name in ((("--streamed",), "requires --sharding fsdp"),
-                              (("--model-axis", "2"), "slice 4b"),
+                              (("--model-axis", "2"), "torchrun"),
+                              (("--arch", "xlstm-350m", "--model-axis", "2"),
+                               "slice 4c"),
                               (("--multi-pod",), "--pod-axis")):
         out = _cli("--smoke", "--data-axis", "8", "--steps", "1", *flags)
         assert out.returncode != 0 and slice_name in out.stderr, flags

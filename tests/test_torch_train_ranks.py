@@ -8,7 +8,8 @@ the JAX checkpoint writer, and every rank loads it with the port's
 gathered final params and momenta are held within 1e-5 (of each leaf's
 largest magnitude), the tolerance of tests/test_torch_train.py; counts,
 step and phase exactly.  Then the launcher under torchrun (``--pod-axis``,
-``--pod-dcn`` and ``--ckpt-dir``) and the flags that still raise.
+``--pod-dcn``, ``--ckpt-dir`` and ``--model-axis``) and the flags that
+still raise.
 """
 
 import os
@@ -169,6 +170,24 @@ def test_cli_under_torchrun_trains_pods_and_checkpoints(tmp_path):
         assert torch.equal(leaf[0], leaf[1])
 
 
+def test_cli_under_torchrun_trains_a_model_axis(tmp_path):
+    """Four ranks as data 2 x model 2: rank 0 logs, and the gathered
+    checkpoint holds whole leaves of the model-1 shapes."""
+    ckpt = tmp_path / "ckpt"
+    out = _torchrun(4, "--arch", ARCH, "--smoke", "--data-axis", "2",
+                    "--model-axis", "2", "--steps", "50", "--tau", "5",
+                    "--seq-len", "8", "--global-batch", "4",
+                    "--ckpt-dir", str(ckpt))
+    assert out.returncode == 0, out.stdout[-2000:] + out.stderr[-3000:]
+    assert out.stdout.count("final loss") == 1
+    cfg = get_config(ARCH, smoke=True)
+    state = load_replica_state(str(ckpt), rank_runs.state_template(cfg, 2,
+                                                                   {}))
+    assert state.step == 50 and state.phase == -1
+    for leaf in tr.tree_leaves(state.params):
+        assert torch.equal(leaf[0], leaf[1])
+
+
 def test_a_rank_that_fails_fails_torchrun():
     # 3 ranks cannot tile data 2: every rank raises, torchrun exits non-zero
     out = _torchrun(3, "--arch", ARCH, "--smoke", "--data-axis", "2",
@@ -183,7 +202,13 @@ def _main(monkeypatch, *argv):
 
 
 def test_model_axis_raises_naming_slice_4b(monkeypatch):
-    with pytest.raises(NotImplementedError, match="slice 4b"):
+    """Slice 4b ported the model axis of the dense family, under torchrun:
+    a non-dense family raises naming slice 4c, a dense one in one process
+    exits saying how to start it."""
+    with pytest.raises(NotImplementedError, match="slice 4c"):
+        _main(monkeypatch, "--arch", "recurrentgemma-2b", "--smoke",
+              "--data-axis", "4", "--model-axis", "2")
+    with pytest.raises(SystemExit, match="torchrun"):
         _main(monkeypatch, "--smoke", "--data-axis", "4", "--model-axis",
               "2")
 
