@@ -373,8 +373,11 @@ HD256_CASES = [c + (dt,) for c in ((1, 128, 128, 2, 1, 256, True, None),
                                    (1, 300, 300, 2, 1, 256, True, 64))
                for dt in ("float32", "bfloat16")]
 RG_ATTN_SHAPE = (4, 3000, 3000, 10, 1, 256, True, 2048, "bfloat16")
-HD256_CASES += [RG_ATTN_SHAPE, (1, 2100, 2100, 10, 1, 256, True, 2048,
-                                "float32")]
+# the rg model phase's prefill on one rank: recurrentgemma's 10 heads split
+# over 2 model ranks, its one KV head held whole, one prompt a dp rank
+RG_MODEL_ATTN = (1, 3000, 3000, 5, 1, 256, True, 2048, "bfloat16")
+HD256_CASES += [RG_ATTN_SHAPE, RG_MODEL_ATTN,
+                (1, 2100, 2100, 10, 1, 256, True, 2048, "float32")]
 # transformer-wmt serving's attentions (8 heads of 64, no GQA) in both
 # dtypes: the encoder (non-causal, Sq = Sk = 64 source tokens), the
 # decoder's prompt (causal, 16 tokens), the cross-attention (non-causal, 16
@@ -410,7 +413,7 @@ FAMILY_ATTN_CASES = [c + (dt,) for c in list(WHISPER_ATTN_ROLES.values())
 TL_ATTN_SHAPE = (1, SLICE_SHAPE_FOR_LINE, SLICE_SHAPE_FOR_LINE, 32, 4, 64,
                  True, None, "bfloat16")
 # the bf16 serving shapes at which the bound must reject bf16_faults
-FAULT_SHAPES = {TL_ATTN_SHAPE, RG_ATTN_SHAPE} | {
+FAULT_SHAPES = {TL_ATTN_SHAPE, RG_ATTN_SHAPE, RG_MODEL_ATTN} | {
     c for c in FAMILY_ATTN_CASES if c[8] == "bfloat16"}
 # Edges of the TMA/wgmma bf16 kernel (tiles of 128 keys and a 4-stage ring
 # at hd 64, 128 keys and 2 stages at hd 128, 64 keys and 2 stages at hd 256;
@@ -446,10 +449,17 @@ RGLRU_CASES = [(3, 200, 96, True), (1, 17, 130, False), (8, 128, 128, True),
                (2, 300, 64, False)]
 RG_SCAN_SHAPE = (4, 3000, 2560, False, "float32")
 RG_DECODE_SCAN_SHAPE = (4, 1, 2560, True, "float32")
+# the rg model phase's scans on a rank's 1280 channels: the prefill of one
+# 3000-token prompt, a training layer's (4 rows x 512, with h0 as the
+# backward's), a decode step
+RG_MODEL_SCAN_SHAPES = {"prefill": (1, 3000, 1280, False, "float32"),
+                        "train": (4, 512, 1280, True, "float32"),
+                        "decode": (1, 1, 1280, True, "float32")}
 K4_CASES = ([c + (dt,) for c in RGLRU_CASES for dt in ("float32", "bfloat16")]
             + [RG_SCAN_SHAPE, (4, 3000, 2560, True, "float32"),
                RG_DECODE_SCAN_SHAPE, (2, 37, 1001, True, "float32"),
-               (2, 37, 1001, True, "bfloat16")])
+               (2, 37, 1001, True, "bfloat16")]
+            + list(RG_MODEL_SCAN_SHAPES.values()))
 # K4's dtypes by name: (a's, x's); "mixed" is a bf16 gate on an f32 input
 K4_DTYPES = {"float32": ("float32", "float32"),
              "bfloat16": ("bfloat16", "bfloat16"),
@@ -524,8 +534,11 @@ STREAMED_PATH = f"tinyllama-1.1b fsdp streamed, {FSDP_POD} pods x {FSDP_DATA}"
 # ranks started by torchrun over gloo, all on the one card (NCCL refuses
 # two ranks on one card), S 2 (the default at P 4), tau, lr and sequence
 # as the training phase, global batch 32 (8 rows a replica, as 64 over 8
-# there), 10 steps (both offsets and the syncs at t = 4 and 9)
+# there), 10 steps (both offsets and the syncs at t = 4 and 9), at
+# RANKS_LAYERS layers (6 until the rg model phase needed the room: none
+# of its checks depends on depth, and its checkpoint shrinks ~45%)
 RANKS_P, RANKS_S, RANKS_GB, RANKS_STEPS = 4, 2, 32, 10
+RANKS_LAYERS = 2
 RANKS_TIMEOUT = 600
 RANKS_WORKER_FLAG = "--ranks-worker"
 # check (e): the ranks against the one-process stacked Trainer (PERF.md
@@ -553,6 +566,20 @@ MODEL_FAULT_LAYER = 2
 # another order than one matmul's; the gap measured 2.44e-5 on the H100
 # (6 steps), the bound four times that
 MODEL_LOSS_RTOL = 1e-4
+# rg model phase (slice 4c): the model phase's run for recurrentgemma-2b at
+# full width and vocab, RG_MODEL_LAYERS layers (one superblock: two
+# recurrent layers and the local attention, the smallest depth with every
+# block kind), each replica split over MODEL_M model ranks, RG_MODEL_DATA
+# x MODEL_M gloo ranks on the one card, S 2, tau, lr and sequence as the
+# recurrentgemma training phase, 4 rows a replica, 5 steps (t = 0..3 group
+# steps, both offsets twice, the sync at t = 4); then a fresh model at all
+# 26 layers served on the same ranks, RG_MODEL_ROWS prompt of
+# RG_MODEL_PROMPT tokens (past the 2048-token window) a dp rank and
+# MODEL_NEW decode steps, against rank 0 serving the whole model; check
+# (f)'s planted fault leaves out the sum that makes w_r's gradient whole
+# in the first recurrent layer
+RG_MODEL_DATA, RG_MODEL_LAYERS, RG_MODEL_GB, RG_MODEL_STEPS = 2, 3, 8, 5
+RG_MODEL_ROWS, RG_MODEL_PROMPT = 1, 3000
 
 # serving phase
 ARCH = "tinyllama-1.1b"
@@ -984,6 +1011,12 @@ def plan_combines(plan, rows: int):
     return k1, tail
 
 
+def ranks_config():
+    """The ranks phase's model: tinyllama-1.1b at ``RANKS_LAYERS``."""
+    from repro_torch.configs import get_config
+    return get_config(ARCH).variant(n_layers=RANKS_LAYERS)
+
+
 def rank_combines(cfg):
     """The ranks path's combine operands, one rank's ``(1, n_b)``
     buckets."""
@@ -1012,7 +1045,7 @@ def combine_kernel_phase(device="cuda"):
     tail = next(ks for _, ks in scale_groups(layout.n_buckets, stages)
                 if len(ks) > 1)
     tail_sizes = [TRAIN_P * layout.bucket_sizes[k] for k in tail]
-    rank_k1, (rank_tail, rank_scale) = rank_combines(train_config())
+    rank_k1, (rank_tail, rank_scale) = rank_combines(ranks_config())
     gen = torch.Generator(device=device).manual_seed(1)
 
     def operands(n, dtype, offset=0):
@@ -1126,13 +1159,16 @@ def combine_kernel_phase(device="cuda"):
     rows.append(line["K2 ranks"])
     # the model path's: each K1 size of a rank's buckets of its slices and
     # its K2 batch (check (a) ties them to the plan the ranks compiled)
-    model_k1, (model_tail, model_scale) = model_combines(train_config())
-    k1_rows = [k1_row(n, "float32", scale, case="model")[0]
-               for n, scale in model_k1]
-    line["K1 model"] = max(k1_rows, key=lambda r: r["n"][0])
-    line["K2 model"] = k2_row("model tail batch", model_tail,
-                              [0] * len(model_tail), "float32", model_scale)
-    rows.extend(k1_rows + [line["K2 model"]])
+    for key, combines in (
+            ("model", model_combines(train_config())),
+            ("rg model", model_combines(rg_model_config(), RG_MODEL_DATA))):
+        k1, (tail_n, tail_scale) = combines
+        k1_rows = [k1_row(n, "float32", scale, case=key)[0]
+                   for n, scale in k1]
+        line[f"K1 {key}"] = max(k1_rows, key=lambda r: r["n"][0])
+        line[f"K2 {key}"] = k2_row(f"{key} tail batch", tail_n,
+                                   [0] * len(tail_n), "float32", tail_scale)
+        rows.extend(k1_rows + [line[f"K2 {key}"]])
     # the elastic path's: each world's K1 sizes and K2 batch (check (a)
     # holds them to the plans the elastic run compiled)
     line["elastic"] = {}
@@ -2782,7 +2818,7 @@ def print_streamed(stats, card: str):
 # ---------------------------------------------------------------------------
 
 def ranks_spec(device="cuda", smoke: bool = False,
-               n_layers: Optional[int] = TRAIN_LAYERS,
+               n_layers: Optional[int] = RANKS_LAYERS,
                seq_len: int = TRAIN_SEQ, global_batch: int = RANKS_GB,
                steps: int = RANKS_STEPS) -> dict:
     """What the ranks and the parent's stacked twin both run (JSON, handed
@@ -3166,7 +3202,8 @@ def print_ranks(stats: dict, card: str):
     s = stats["summary"]
     e = stats["check_e"]
     gib = lambda b: round(b / 2 ** 30, 2) if b is not None else None
-    print(f"ranks [{card}]: {ARCH} full width, {TRAIN_LAYERS} layers, "
+    print(f"ranks [{card}]: {ARCH} full width, {stats['spec']['n_layers']} "
+          f"layers, "
           f"{RANKS_P} ranks over {stats['world']['backend']} on one card, "
           f"S={RANKS_S} tau={TRAIN_TAU}, {stats['n_buckets']} buckets of "
           f"{stats['bucket_bytes'] >> 20} MiB, K1/K2 a group step "
@@ -3238,7 +3275,7 @@ def ranks_phase(spec: dict, out: Path, timeout: int = RANKS_TIMEOUT) -> dict:
     out.mkdir(parents=True)
     ranks_s = run_torchrun(RANKS_P, RANKS_WORKER_FLAG, spec, out, timeout)
     stats = json.loads((out / "ranks.json").read_text())
-    stats["torchrun_s"] = ranks_s
+    stats["spec"], stats["torchrun_s"] = spec, ranks_s
     log0 = stats["ranks"][0]["log"]
     bad = [e for r in stats["ranks"] for e in r["log"]
            if not math.isfinite(e["loss"]) or e["skipped"]]
@@ -3304,61 +3341,83 @@ def model_spec(device="cuda", smoke: bool = False,
                serve_layers: Optional[int] = None,
                seq_len: int = TRAIN_SEQ, global_batch: int = MODEL_GB,
                steps: int = MODEL_STEPS, prompt: int = MODEL_PROMPT,
-               new: int = MODEL_NEW) -> dict:
-    """What the model phase's ranks and the parent's stacked twin run
-    (JSON, handed to every rank on its command line); ``serve_layers``
-    None serves the config's own depth."""
+               new: int = MODEL_NEW, arch: str = ARCH,
+               data: int = MODEL_DATA, rows: int = MODEL_ROWS) -> dict:
+    """What a model phase's ranks and the parent's stacked twin run
+    (JSON, handed to every rank on its command line): ``arch`` over
+    ``data`` x ``MODEL_M`` ranks at S ``MODEL_S``, then ``rows`` prompts a
+    dp rank served; ``serve_layers`` None serves the config's own
+    depth."""
     return {"device": device, "smoke": smoke, "n_layers": n_layers,
             "serve_layers": serve_layers, "seq_len": seq_len,
             "global_batch": global_batch, "steps": steps, "prompt": prompt,
-            "new": new}
+            "new": new, "arch": arch, "data": data, "rows": rows}
+
+
+def rg_model_spec(device="cuda", smoke: bool = False,
+                  n_layers: Optional[int] = RG_MODEL_LAYERS,
+                  serve_layers: Optional[int] = None,
+                  seq_len: int = TRAIN_SEQ, global_batch: int = RG_MODEL_GB,
+                  steps: int = RG_MODEL_STEPS, prompt: int = RG_MODEL_PROMPT,
+                  new: int = MODEL_NEW) -> dict:
+    """The rg model phase's spec: recurrentgemma-2b over data
+    ``RG_MODEL_DATA`` x model ``MODEL_M`` ranks."""
+    return model_spec(device, smoke, n_layers, serve_layers, seq_len,
+                      global_batch, steps, prompt, new, arch=RG_ARCH,
+                      data=RG_MODEL_DATA, rows=RG_MODEL_ROWS)
 
 
 def model_cfg(spec: dict, n_layers: Optional[int]):
     from repro_torch.configs import get_config
-    cfg = get_config(ARCH, smoke=spec["smoke"])
+    cfg = get_config(spec["arch"], smoke=spec["smoke"])
     return cfg.variant(n_layers=n_layers) if n_layers else cfg
 
 
 def model_trainer(spec: dict, world=None):
     """The phase's ``Trainer``: one replica's slices on a rank of
-    ``world`` (data ``MODEL_DATA`` x model ``MODEL_M``), or all
-    ``MODEL_DATA`` replicas whole as the rows of one state on
+    ``world`` (data ``spec["data"]`` x model ``MODEL_M``), or all
+    ``spec["data"]`` replicas whole as the rows of one state on
     ``spec["device"]`` (the twin of check (d))."""
     from repro_torch.launch.train import Trainer
     kw = {"world": world} if world is not None else {"device":
                                                      spec["device"]}
-    return Trainer(model_cfg(spec, spec["n_layers"]), MODEL_DATA,
+    return Trainer(model_cfg(spec, spec["n_layers"]), spec["data"],
                    group_size=MODEL_S, tau=TRAIN_TAU, learning_rate=TRAIN_LR,
                    seq_len=spec["seq_len"], global_batch=spec["global_batch"],
                    seed=0, **kw)
 
 
-def model_slice_plan(cfg):
-    """A rank's compiled plan on the model path: the plan over one
-    replica's slices (``MODEL_M`` model ranks) at ``MODEL_DATA`` dp
-    ranks, S ``MODEL_S``."""
+def model_slice_plan(cfg, data: int = MODEL_DATA):
+    """A rank's compiled plan on a model path: the plan over one replica's
+    slices (``MODEL_M`` model ranks) at ``data`` dp ranks, S
+    ``MODEL_S``."""
     from repro_torch.core import plan as plan_mod
     from repro_torch.models import common as cm
-    from repro_torch.models import transformer as tfm
-    specs = tfm.param_specs(cfg)
+    from repro_torch.models.convert import PARAM_SPECS
+    specs = PARAM_SPECS[cfg.family](cfg)
     local = cm.take_slices(specs, cm.placement(cfg, specs, MODEL_M),
                            cm.ModelWorld(MODEL_M, 0))
     return plan_mod.compile_plan(
-        plan_mod.Topology.flat(("data",), (MODEL_DATA,)), local,
+        plan_mod.Topology.flat(("data",), (data,)), local,
         plan_mod.AveragingConfig(group_size=MODEL_S, tau=TRAIN_TAU))
 
 
-def model_combines(cfg):
-    """The model path's combine operands, one rank's ``(1, n_b)`` buckets
+def model_combines(cfg, data: int = MODEL_DATA):
+    """A model path's combine operands, one rank's ``(1, n_b)`` buckets
     of its slices."""
-    return plan_combines(model_slice_plan(cfg), 1)
+    return plan_combines(model_slice_plan(cfg, data), 1)
+
+
+def rg_model_config():
+    from repro_torch.configs import get_config
+    return get_config(RG_ARCH).variant(n_layers=RG_MODEL_LAYERS)
 
 
 def model_prompts(cfg, spec: dict):
-    """The serving prompts, ``MODEL_ROWS`` a dp rank, from a numpy seed."""
+    """The serving prompts, ``spec["rows"]`` a dp rank, from a numpy
+    seed."""
     return np.random.default_rng(MODEL_SERVE_SEED).integers(
-        0, cfg.vocab, (MODEL_DATA * MODEL_ROWS, spec["prompt"]))
+        0, cfg.vocab, (spec["data"] * spec["rows"], spec["prompt"]))
 
 
 def greedy_run(model, params, tokens, max_len: int, new: int, feed=None):
@@ -3374,11 +3433,12 @@ def greedy_run(model, params, tokens, max_len: int, new: int, feed=None):
     from repro_torch.models import common as cm
     from repro_torch.serve.decode import build_prefill, build_serve_step
     device = tokens.device
+    kinds = (K1, K2, K3, K4, K4_TMA, K4_WALK)
     before = ops.launch_counts()
     logits, caches = build_prefill(model, max_len)(params, {"tokens": tokens})
     _sync(device)
     after = ops.launch_counts()
-    launches = [{k: after[k] - before[k] for k in (K1, K2, K3, K4)}]
+    launches = [{k: after[k] - before[k] for k in kinds}]
     masked = torch.where(torch.arange(logits.shape[-1], device=device)
                          < model.cfg.vocab, logits, cm.NEG_INF)
     tok = masked[:, -1].argmax(-1)[:, None]
@@ -3391,10 +3451,48 @@ def greedy_run(model, params, tokens, max_len: int, new: int, feed=None):
         tok, logits, caches = step(params, caches, tok, tokens.shape[1] + i)
         _sync(device)
         after = ops.launch_counts()
-        launches.append({k: after[k] - before[k] for k in (K1, K2, K3, K4)})
+        launches.append({k: after[k] - before[k] for k in kinds})
         all_logits.append(logits[:, -1].float().cpu())
         all_tokens.append(tok[:, 0].cpu())
     return torch.stack(all_logits, 1), torch.stack(all_tokens, 1), launches
+
+
+def plant_layer_fault(trainer):
+    """Check (f)'s fault for the trainer's family: the dense family's
+    global layer ``MODEL_FAULT_LAYER`` (or its last) without f's backward
+    all-reduce in its MLP (:func:`one_layer_without_f`), the hybrid's
+    first recurrent layer with ``w_r``'s gradient left partial
+    (:func:`first_layer_w_r_unsummed`).  Returns (the layer, the undo)."""
+    if trainer.cfg.family == "hybrid":
+        return 0, first_layer_w_r_unsummed(trainer)
+    layer = min(MODEL_FAULT_LAYER, trainer.cfg.n_layers - 1)
+    return layer, one_layer_without_f(trainer, layer)
+
+
+def first_layer_w_r_unsummed(trainer):
+    """The hybrid family's check (f) fault: the gates of the first
+    recurrent layer run with ``copy_to_model`` on ``w_r`` as the plain
+    identity, so that ``w_r``'s gradient stays partial, on every rank
+    alike; returns the undo."""
+    from repro_torch.models import common as cm
+    from repro_torch.models import rglru
+    target = trainer.state.params["blocks"]["rec1"]["w_r"][0, 0].data_ptr()
+    gates, copy = rglru._gates, cm.copy_to_model
+
+    def faulty(p, u, mw=None):
+        if p["w_r"].data_ptr() != target:
+            return gates(p, u, mw)
+        cm.copy_to_model = lambda x, mw: (x if x is p["w_r"]
+                                          else copy(x, mw))
+        try:
+            return gates(p, u, mw)
+        finally:
+            cm.copy_to_model = copy
+    rglru._gates = faulty
+
+    def undo():
+        rglru._gates = gates
+    return undo
 
 
 def one_layer_without_f(trainer, layer: int):
@@ -3438,12 +3536,14 @@ def model_digests(world, params, dims) -> Optional[list]:
 
 def model_check_b(rows, t: int, sync: bool, offset) -> None:
     """Check (b) on rank 0: at each model coordinate, the dp ranks of a
-    group hold equal slices and the groups differ; after a sync all four."""
+    group hold equal slices and the groups differ; after a sync all of
+    them."""
     from repro_torch.core import grouping
+    data = len(rows) // MODEL_M
     for m in range(MODEL_M):
-        dig = [rows[d * MODEL_M + m][0] for d in range(MODEL_DATA)]
-        groups = ((tuple(range(MODEL_DATA)),) if sync else
-                  grouping.groups_for_offset(MODEL_DATA, MODEL_S, offset))
+        dig = [rows[d * MODEL_M + m][0] for d in range(data)]
+        groups = ((tuple(range(data)),) if sync else
+                  grouping.groups_for_offset(data, MODEL_S, offset))
         same = all(dig[r] == dig[g[0]] for g in groups for r in g)
         differ = len({dig[g[0]] for g in groups}) == len(groups)
         if not same or (not sync and not differ):
@@ -3456,8 +3556,8 @@ def model_check_b(rows, t: int, sync: bool, offset) -> None:
 def model_check_c(rows) -> bool:
     """Check (c) on rank 0: every model group's leaves held whole are
     bit-identical."""
-    return all(rows[d * MODEL_M + m][1] == rows[d * MODEL_M][1]
-               for d in range(MODEL_DATA) for m in range(MODEL_M))
+    return all(rows[r][1] == rows[r - r % MODEL_M][1]
+               for r in range(len(rows)))
 
 
 def model_worker(spec: dict, out: str) -> int:
@@ -3481,7 +3581,8 @@ def model_worker(spec: dict, out: str) -> int:
     t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    world = mesh.init_rank_world(MODEL_DATA, model=MODEL_M,
+    data = spec["data"]
+    world = mesh.init_rank_world(data, model=MODEL_M,
                                  backend=os.environ["REPRO_TORCH_BACKEND"],
                                  device_type=spec["device"])
     device = world.device
@@ -3558,12 +3659,12 @@ def model_worker(spec: dict, out: str) -> int:
                 "check_ms": (check_s[0] + time.perf_counter() - t0) * 1e3,
                 "skipped": trainer.last_metrics["skipped_nonfinite"],
                 **{key: after[name] - before[name] for key, name in (
-                    ("k1", K1), ("k2", K2), ("k3", K3), ("k4", K4))}})
+                    ("k1", K1), ("k2", K2), ("k3", K3), ("k4", K4),
+                    ("k4_tma", K4_TMA))}})
         peak = torch.cuda.max_memory_allocated() if on_card else None
         window = profiled_step(trainer, spec["steps"], device)
-        # check (f): a step without f's backward all-reduce in one layer
-        undo = one_layer_without_f(trainer, min(MODEL_FAULT_LAYER,
-                                                cfg.n_layers - 1))
+        # check (f): a step whose one layer leaves out a backward sum
+        fault_layer, undo = plant_layer_fault(trainer)
         try:
             trainer.step_once(spec["steps"] + 1)
         finally:
@@ -3586,9 +3687,9 @@ def model_worker(spec: dict, out: str) -> int:
                                 world.model_world)
         del whole
         prompts = model_prompts(scfg, spec)
-        mine = torch.from_numpy(prompts[world.rank * MODEL_ROWS:
-                                        (world.rank + 1) * MODEL_ROWS]
-                                ).to(device)
+        rows_ = spec["rows"]
+        mine = torch.from_numpy(prompts[world.rank * rows_:
+                                        (world.rank + 1) * rows_]).to(device)
         max_len = spec["prompt"] + spec["new"]
         t1 = time.perf_counter()
         logits, tokens, launches = greedy_run(model, params, mine, max_len,
@@ -3622,7 +3723,7 @@ def model_worker(spec: dict, out: str) -> int:
                 spec["new"], feed=tp_tokens)
             del params, model
             result = {
-                "world": {"data": MODEL_DATA, "model": MODEL_M,
+                "world": {"data": data, "model": MODEL_M,
                           "backend": world.backend},
                 "n_buckets": n_buckets, "n_stages": n_stages,
                 "bucket_sizes": list(plan.class_layout(0).bucket_sizes),
@@ -3631,7 +3732,7 @@ def model_worker(spec: dict, out: str) -> int:
                     n_buckets, n_stages),
                 "stacked_equals_wire": checked, "check_c": c_held,
                 "fault_check_c": fault_c,
-                "fault_layer": min(MODEL_FAULT_LAYER, cfg.n_layers - 1),
+                "fault_layer": fault_layer,
                 "serve_check": serve_compare(
                     torch.cat([x[0] for x in tp]), tp_tokens, ref_logits,
                     ref_tokens),
@@ -3674,35 +3775,56 @@ def serve_compare(logits, tokens, ref_logits, ref_tokens) -> dict:
             "tokens": int(same.numel())}
 
 
+def model_serve_launches(cfg) -> tuple:
+    """The launches a prefill and a decode step of ``cfg`` make on a
+    model rank, as dicts of (K1, K2, K3, K4, K4_TMA, K4_WALK): the dense
+    family K3 once a layer a prefill; the hybrid K4 once a recurrent
+    layer, on the TMA route a prefill and the walk route a decode step,
+    and K3 once an attention layer a prefill."""
+    from repro_torch.models import rglru
+    zero = dict.fromkeys((K1, K2, K3, K4, K4_TMA, K4_WALK), 0)
+    if cfg.family != "hybrid":
+        return dict(zero, **{K3: cfg.n_layers}), zero
+    n_sb, tail = rglru.layout(cfg)
+    n_rec = 2 * n_sb + tail
+    return (dict(zero, **{K3: n_sb, K4: n_rec, K4_TMA: n_rec}),
+            dict(zero, **{K4: n_rec, K4_WALK: n_rec}))
+
+
 def check_model_launches(stats):
-    """Check (a) of the model phase, on every rank: each group step
+    """Check (a) of a model phase, on every rank: each group step
     launched the K1 and K2 counts of the rank's plan's schedule, syncs
-    neither, training no K3 or K4; the prefill K3 once a layer, a decode
-    step none; K4 never."""
+    neither, training no K3, and K4 (all on the TMA route) one replica's
+    :func:`rg_train_k4_per_step` (none for the dense family); each
+    prefill and decode step :func:`model_serve_launches`."""
     want_k1, want_k2 = stats["expected_k1_k2_per_group_step"]
-    n_layers = stats["serve_layers"]
+    spec = stats["spec"]
+    tcfg = model_cfg(spec, spec["n_layers"])
+    k4 = rg_train_k4_per_step(tcfg, 1) if tcfg.family == "hybrid" else 0
+    want_pre, want_step = model_serve_launches(
+        model_cfg(spec, spec["serve_layers"]))
     for r in stats["ranks"]:
         for e in r["log"]:
-            want = (0, 0) if e["sync"] else (want_k1, want_k2)
-            got = (e["k1"], e["k2"], e["k3"], e["k4"])
-            if got != want + (0, 0):
+            want = ((0, 0) if e["sync"] else (want_k1, want_k2)) + (0, k4, k4)
+            got = (e["k1"], e["k2"], e["k3"], e["k4"], e["k4_tma"])
+            if got != want:
                 raise AssertionError(f"rank {r['rank']} step {e['t']}: K1, "
-                                     f"K2, K3, K4 launched {got}; the "
-                                     f"schedule predicts {want + (0, 0)}")
+                                     f"K2, K3, K4, K4 on TMA launched {got}; "
+                                     f"the schedule predicts {want}")
         pre, *steps = r["serve"]["launches"]
-        if pre != {K1: 0, K2: 0, K3: n_layers, K4: 0} or any(
-                s != {K1: 0, K2: 0, K3: 0, K4: 0} for s in steps):
+        if pre != want_pre or any(s != want_step for s in steps):
             raise AssertionError(f"rank {r['rank']} serving: launches "
-                                 f"{r['serve']['launches']}; K3 "
-                                 f"{n_layers} a prefill, nothing else")
+                                 f"{r['serve']['launches']}; a prefill "
+                                 f"{want_pre}, a decode step {want_step}")
 
 
 def check_model_held(stats, combines) -> None:
     """Check (a): the ranks' plan is the plan whose combine operands the
     K1/K2 phase held (``model_combines``)."""
-    plan_sizes = list(model_slice_plan(model_cfg(
-        stats["spec"], stats["spec"]["n_layers"])).class_layout(0
-                                                                ).bucket_sizes)
+    spec = stats["spec"]
+    plan_sizes = list(model_slice_plan(model_cfg(spec, spec["n_layers"]),
+                                       spec["data"]).class_layout(0
+                                                                  ).bucket_sizes)
     if stats["bucket_sizes"] != plan_sizes:
         raise AssertionError(f"the ranks compiled buckets "
                              f"{stats['bucket_sizes']}; the K1/K2 phase held "
@@ -3745,8 +3867,8 @@ def model_summary(stats: dict) -> dict:
 
 
 def model_phase(spec: dict, out: Path, timeout: int = MODEL_TIMEOUT) -> dict:
-    """Start ``MODEL_DATA x MODEL_M`` ranks through torchrun (gloo, all on
-    one card, model minor), then check (d) against the one-process
+    """Start ``spec["data"] x MODEL_M`` ranks through torchrun (gloo, all
+    on one card, model minor), then check (d) against the one-process
     stacked ``Trainer`` and (f) on what they report.  A rank that fails
     fails the phase.  ``out`` is the phase's own directory (emptied
     first): the ranks' log and their result."""
@@ -3757,8 +3879,8 @@ def model_phase(spec: dict, out: Path, timeout: int = MODEL_TIMEOUT) -> dict:
     out = Path(out)
     shutil.rmtree(out, ignore_errors=True)
     out.mkdir(parents=True)
-    torchrun_s = run_torchrun(MODEL_DATA * MODEL_M, MODEL_WORKER_FLAG, spec,
-                              out, timeout)
+    torchrun_s = run_torchrun(spec["data"] * MODEL_M, MODEL_WORKER_FLAG,
+                              spec, out, timeout)
     stats = json.loads((out / "model.json").read_text())
     stats["spec"], stats["torchrun_s"] = spec, torchrun_s
     stats["serve_layers"] = model_cfg(spec, spec["serve_layers"]).n_layers
@@ -3772,8 +3894,8 @@ def model_phase(spec: dict, out: Path, timeout: int = MODEL_TIMEOUT) -> dict:
            for e, f in zip(r["log"], log0)):
         raise AssertionError("the ranks report different mean losses")
     if stats["fault_check_c"] is not False:                     # check (f)
-        raise AssertionError("check (c) holds on a step that left out f's "
-                             "backward all-reduce in one layer")
+        raise AssertionError("check (c) holds on a step that left out a "
+                             "backward sum in one layer")
     if not stats["serve_check"]["ok"]:                          # check (e)
         raise AssertionError(f"check (e): {stats['serve_check']}")
     # check (d): the one-process stacked twin, whole replicas as rows
@@ -3796,11 +3918,14 @@ def model_phase(spec: dict, out: Path, timeout: int = MODEL_TIMEOUT) -> dict:
     return stats
 
 
-def print_model(stats: dict, card: str):
+def print_model(stats: dict, card: str, label: str = "model"):
     s, d, e = stats["summary"], stats["check_d"], stats["serve_check"]
     gib = lambda b: round(b / 2 ** 30, 2) if b is not None else None
-    print(f"model [{card}]: {ARCH} full width, {stats['train_layers']} "
-          f"layers, data {MODEL_DATA} x model {MODEL_M} ranks over "
+    fault = ("w_r's gradient sum" if stats["spec"]["arch"] == RG_ARCH
+             else "f")
+    print(f"{label} [{card}]: {stats['spec']['arch']} full width, "
+          f"{stats['train_layers']} layers, data "
+          f"{stats['world']['data']} x model {MODEL_M} ranks over "
           f"{stats['world']['backend']} on one card, S={MODEL_S} "
           f"tau={TRAIN_TAU}, {stats['n_buckets']} buckets of a rank's slices "
           f"({stats['bucket_bytes'] >> 20} MiB), K1/K2 a group step "
@@ -3808,9 +3933,9 @@ def print_model(stats: dict, card: str):
           f"{stats['phase_s']:.1f} s (torchrun {stats['torchrun_s']:.1f} s, "
           f"stacked twin {d['stacked_s']:.1f} s)", flush=True)
     losses = [round(x["loss"], 5) for x in stats["ranks"][0]["log"]]
-    print(f"model losses: {losses} (stacked twin "
+    print(f"{label} losses: {losses} (stacked twin "
           f"{[round(x, 5) for x in d['stacked_losses']]})", flush=True)
-    print(f"model [{card}]: median step {s['median_step_ms']:.1f} ms after "
+    print(f"{label} [{card}]: median step {s['median_step_ms']:.1f} ms after "
           f"the first (group {s['median_group_step_ms']}); group step split "
           f"{json.dumps(s['group_split_ms'])} ms; TP all-reduce "
           f"{s['tp_ops_a_step']} ops, {s['tp_bytes_a_step']} bytes a step a "
@@ -3821,10 +3946,11 @@ def print_model(stats: dict, card: str):
           f"step: wall {s['profile_wall_ms']:.1f} ms, device busy "
           f"{s['device_busy_ms']} ms, idle share {s['device_idle_share']}",
           flush=True)
-    print(f"model checks: (b) wire = stacked by offset "
+    print(f"{label} checks: (b) wire = stacked by offset "
           f"{stats['stacked_equals_wire']}; (c) leaves held whole equal over "
           f"each model group at every step {all(stats['check_c'])}, and not "
-          f"after the step without f in layer {stats['fault_layer']} (f); "
+          f"after the step without {fault} in layer {stats['fault_layer']} "
+          f"(f); "
           f"(d) max loss rel diff vs the stacked twin "
           f"{d['max_loss_rel_diff']:.3g}"
           f" (tol {d['loss_rtol']}); (e) prefill and first decode logits max "
@@ -5277,6 +5403,16 @@ def main() -> int:
     print_model(tp, card)
     free_memory("model phase")
 
+    # -- rg model phase: recurrentgemma-2b, each replica split over 2 model
+    # ranks, 2 x 2 gloo ranks (K1/K2 on a rank's slices, K4 on its 1,280
+    # channels, K3 at its 5 heads)
+    rg_tp = model_phase(rg_model_spec(), ROOT / "build" / "rg_model")
+    check_model_launches(rg_tp)                                 # check (a)
+    check_model_held(rg_tp, ga_line["K1 rg model"])             # check (a)
+    print(json.dumps({"rg_model": rg_tp, "card": card}), flush=True)
+    print_model(rg_tp, card, label="rg model")
+    free_memory("rg model phase")
+
     # -- recurrentgemma phase (K4, K3 at head dim 256) ---------------------
     from repro_torch.models import rglru
     rcfg = get_config(RG_ARCH)
@@ -5460,10 +5596,18 @@ def main() -> int:
     ranks_launches = {name: sum(e[key] for r in ranks["ranks"]
                                 for e in r["log"])
                       for name, key in ((K1, "k1"), (K2, "k2"), (K4, "k4"))}
-    model_launches = {name: sum(e[key] for r in tp["ranks"]
-                                for e in r["log"])
-                      for name, key in ((K1, "k1"), (K2, "k2"), (K4, "k4"))}
+    model_launches, rg_model_launches = (
+        {name: sum(e[key] for r in run["ranks"] for e in r["log"])
+         for name, key in ((K1, "k1"), (K2, "k2"), (K4, "k4"),
+                           (K4_TMA, "k4_tma"))}
+        for run in (tp, rg_tp))
     model_path = f"{ARCH} training, data {MODEL_DATA} x model {MODEL_M} ranks"
+    rg_model_path = (f"{RG_ARCH} training, data {RG_MODEL_DATA} x model "
+                     f"{MODEL_M} ranks")
+    # the rg model phase's serving launches over every rank, by kind
+    rg_model_served = {k: sum(l[k] for r in rg_tp["ranks"]
+                              for l in r["serve"]["launches"])
+                       for k in (K3, K4, K4_TMA, K4_WALK)}
     tl_k3 = {f"{ARCH} serving": served[K3],
              f"{ARCH} disaggregated": disagg["launches"][K3],
              f"{ARCH} handoff of the trained state, {tcfg.n_layers} layers":
@@ -5476,6 +5620,7 @@ def main() -> int:
             run["launches"][name] for run in elastic["runs"].values()),
         f"{ARCH} training, {RANKS_P} ranks": ranks_launches[name],
         model_path: model_launches[name],
+        rg_model_path: rg_model_launches[name],
         FSDP_PATH: fsdp["launches"][name],
         STREAMED_PATH: streamed["launches"][name],
         f"{RG_ARCH} serving": serving,
@@ -5491,6 +5636,12 @@ def main() -> int:
                     for role, c in WHISPER_ATTN_ROLES.items()}
     vlm_row = bf16_row(VLM_ATTN)
     model_row = bf16_row(MODEL_ATTN)
+    rg_model_row = next(r for r in rows
+                        if r["shape"] == list(RG_MODEL_ATTN[:6])
+                        and r["dtype"] == RG_MODEL_ATTN[8])
+    rg_model_k4 = {name: next(r for r in k4_rows if r["shape"] == list(c[:3])
+                              and r["h0"] == c[3] and r["dtype"] == c[4])
+                   for name, c in RG_MODEL_SCAN_SHAPES.items()}
     by_role = lambda role_rows: {role: {k: r[k] for k in (
         "shape", "causal", "ms", "plain_ms", "library_ms", "bound_ms",
         "bound_by", "max_abs_err", "host_us")}
@@ -5521,7 +5672,8 @@ def main() -> int:
               elastic_row=elastic_row("K1"), fsdp_row=fsdp_row("K1"),
               streamed_row=streamed_row("K1"),
               ranks_row=ranks_row(ga_line["K1 ranks"]),
-              model_row=ranks_row(ga_line["K1 model"])),
+              model_row=ranks_row(ga_line["K1 model"]),
+              rg_model_row=ranks_row(ga_line["K1 rg model"])),
         entry(K2, "src/repro_torch/kernels/csrc/group_average.cu",
               "src/repro/kernels/group_average.py:80",
               sum(by_path(K2).values()), ga_line["K2"], ga_err["K2"],
@@ -5530,7 +5682,8 @@ def main() -> int:
               elastic_row=elastic_row("K2"), fsdp_row=fsdp_row("K2"),
               streamed_row=streamed_row("K2"),
               ranks_row=ranks_row(ga_line["K2 ranks"]),
-              model_row=ranks_row(ga_line["K2 model"])),
+              model_row=ranks_row(ga_line["K2 model"]),
+              rg_model_row=ranks_row(ga_line["K2 rg model"])),
         entry(K3, "src/repro_torch/kernels/csrc/flash_attention.cu",
               "src/repro/kernels/flash_attention.py:70",
               sum(tl_k3.values()), main_row,
@@ -5579,6 +5732,15 @@ def main() -> int:
               dtype="bfloat16",
               path=f"{ARCH} serving, data {MODEL_DATA} x model {MODEL_M} "
                    f"ranks (a rank's heads)"),
+        entry(K3, "src/repro_torch/kernels/csrc/flash_attention.cu",
+              "src/repro/kernels/flash_attention.py:70",
+              rg_model_served[K3], rg_model_row,
+              max(r["max_abs_err"] for r in rows),
+              bound_by=rg_model_row["bound_by"],
+              shape=rg_model_row["shape"], dtype="bfloat16",
+              window=rg_model_row["window"],
+              path=f"{RG_ARCH} serving, data {RG_MODEL_DATA} x model "
+                   f"{MODEL_M} ranks (a rank's heads)"),
     ] + [
         entry(K3, "src/repro_torch/kernels/csrc/flash_attention.cu",
               "src/repro/kernels/flash_attention.py:70",
@@ -5609,6 +5771,27 @@ def main() -> int:
               shape=k4_decode_row["shape"], dtype=k4_decode_row["dtype"],
               h0=True, k4_route=k4_decode_row["route"],
               path=f"{RG_ARCH} decode"),
+        entry(K4, "src/repro_torch/kernels/csrc/rglru_scan.cu",
+              "src/repro/kernels/rglru_scan.py:48",
+              rg_model_served[K4], rg_model_k4["prefill"], k4_err,
+              shape=rg_model_k4["prefill"]["shape"], dtype="float32",
+              k4_route=rg_model_k4["prefill"]["route"],
+              launches_by_route={"tma": rg_model_served[K4_TMA],
+                                 "walk": rg_model_served[K4_WALK]},
+              decode_row={k: rg_model_k4["decode"][k] for k in (
+                  "shape", "route", "ms", "plain_ms", "bound_ms",
+                  "host_us")},
+              path=f"{RG_ARCH} serving, data {RG_MODEL_DATA} x model "
+                   f"{MODEL_M} ranks (a rank's channels)"),
+        entry(K4, "src/repro_torch/kernels/csrc/rglru_scan.cu",
+              "src/repro/kernels/rglru_scan.py:48",
+              rg_model_launches[K4], rg_model_k4["train"], k4_err,
+              shape=rg_model_k4["train"]["shape"], dtype="float32", h0=True,
+              k4_route=rg_model_k4["train"]["route"],
+              launches_by_route={
+                  "tma": rg_model_launches[K4_TMA],
+                  "walk": rg_model_launches[K4] - rg_model_launches[K4_TMA]},
+              path=f"{rg_model_path} (a rank's channels)"),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -42,9 +42,10 @@ bit-identically (:func:`chaos_demo`,
 
 Both demos run on the CUDA card; ``REPRO_TORCH_DEVICE=cpu`` asks for the
 CPU.  Scope, as in the reference: the replicated policy (every worker is
-one dp replica).  Sharded (FSDP-within-pod) worlds and pod-granular
-membership belong to the FSDP slice; elasticity of a rank world is not
-in the reference.
+one dp replica).  Sharded (FSDP-within-pod) worlds hand off through
+``core.elastic.handoff_state`` at pod granularity, but pod-granular
+membership in the driver is future work in the reference, and elasticity
+of a rank world is not in the reference.
 """
 
 from __future__ import annotations
@@ -140,15 +141,15 @@ class ElasticTrainer:
             raise NotImplementedError(
                 "ElasticTrainer drives the replicated policy; sharded "
                 "worlds convert through core.elastic.handoff_state at pod "
-                "granularity, and pod-granular membership in the driver "
-                "is queued with slice 7c (ROADMAP.md)")
+                "granularity, but pod-granular membership in the driver "
+                "is not in the reference either (future work there)")
         world = trainer_kw.get("world")
         if world is not None:
             raise NotImplementedError(
                 "ElasticTrainer drives the replicas of one process; "
-                "elasticity of a rank world is not in the reference"
-                + (", and of a model axis belongs to slice 7c (ROADMAP.md)"
-                   if world.model > 1 else ""))
+                "elasticity of a rank world"
+                + (" with a model axis" if world.model > 1 else "")
+                + " is not in the reference")
         if trainer_kw.pop("averager", "wagma") != "wagma":
             raise NotImplementedError("elastic membership needs the "
                                       "tau-sync barrier (wagma averager)")

@@ -11,8 +11,9 @@ constrains shardings (``wsc``) and leaves GSPMD to insert the collectives,
 the port holds each leaf with a ``model`` entry as this rank's slice of
 that dim (:func:`model_slice`, :func:`placement`) and inserts them itself:
 Megatron's *f* (:func:`copy_to_model`) and *g* (:func:`reduce_from_model`)
-over the ranks of one replica (:class:`ModelWorld`).  With no model world
-every helper is the identity.
+over the ranks of one replica (:class:`ModelWorld`), and the gather of a
+channel-split operand that a matmul reads whole (:func:`gather_from_model`,
+the RG-LRU's gates).  With no model world every helper is the identity.
 """
 
 from __future__ import annotations
@@ -258,11 +259,14 @@ def tp_stats() -> dict:
     return dict(_TP_STATS)
 
 
-def _host_buffer(like: torch.Tensor) -> torch.Tensor:
-    key = (like.numel(), like.dtype)
+def _host_buffer(like: torch.Tensor, numel: Optional[int] = None
+                 ) -> torch.Tensor:
+    """The pinned host buffer of ``numel`` elements (``like``'s count by
+    default) of ``like``'s dtype."""
+    key = (numel or like.numel(), like.dtype)
     buf = _HOST.get(key)
     if buf is None:
-        buf = _HOST[key] = torch.empty(like.numel(), dtype=like.dtype,
+        buf = _HOST[key] = torch.empty(key[0], dtype=like.dtype,
                                        pin_memory=True)
     return buf
 
@@ -287,12 +291,28 @@ def model_all_reduce(x: torch.Tensor, mw: ModelWorld,
     return out
 
 
-def model_all_gather(x: torch.Tensor, mw: ModelWorld) -> list:
-    """Every model rank's ``x`` (one shape on every rank), in rank order."""
-    src = x.detach().cpu() if mw.staged else x.detach().contiguous()
-    parts = [torch.empty_like(src) for _ in range(mw.size)]
-    dist.all_gather(parts, src, group=mw.group)
-    return [p.to(x.device) for p in parts]
+def model_all_gather(x: torch.Tensor, mw: ModelWorld) -> torch.Tensor:
+    """Every model rank's ``x`` (one shape on every rank) concatenated in
+    rank order along the last dim, in a new tensor (through pinned host
+    buffers when ``mw.staged``); counted by :func:`tp_stats` with the
+    gathered tensor's bytes."""
+    t = time.perf_counter()
+    n, m = x.numel(), mw.size
+    parts = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    if mw.staged:
+        src, dst = _host_buffer(x), _host_buffer(x, m * n).view(m, n)
+        src.copy_(x.detach().reshape(-1))
+        dist.all_gather(list(dst.unbind(0)), src, group=mw.group)
+        parts.copy_(dst)
+    else:
+        dist.all_gather(list(parts.unbind(0)),
+                        x.detach().contiguous().reshape(-1), group=mw.group)
+    out = parts.view((m,) + tuple(x.shape)).movedim(0, -2).reshape(
+        tuple(x.shape[:-1]) + (m * x.shape[-1],))
+    _TP_STATS["s"] += time.perf_counter() - t
+    _TP_STATS["bytes"] += out.numel() * out.element_size()
+    _TP_STATS["ops"] += 1
+    return out
 
 
 def _sum_over_model(x: torch.Tensor, mw: ModelWorld) -> torch.Tensor:
@@ -326,12 +346,40 @@ class _ReduceFromModel(torch.autograd.Function):
         return g, None
 
 
+class _GatherFromModel(torch.autograd.Function):
+    """All-gather of the channels forward; its transpose backward: the
+    float32 sum of every rank's gradient of the whole, rounded once, and
+    the rank's slice of it."""
+
+    @staticmethod
+    def forward(ctx, x, mw):
+        ctx.mw = mw
+        return model_all_gather(x, mw)
+
+    @staticmethod
+    def backward(ctx, g):
+        mw = ctx.mw
+        n = g.shape[-1] // mw.size
+        whole = _sum_over_model(g.contiguous(), mw)
+        return whole.narrow(-1, mw.rank * n, n).contiguous(), None
+
+
+def gather_from_model(x, mw: Optional[ModelWorld]):
+    """The whole last dim of a channel-split ``x``: every model rank's
+    channels in rank order, as the reference's GSPMD gathers a
+    channel-sharded operand that a matmul reads whole (the RG-LRU's gates
+    read all the channels of ``u``).  Its gradient is the rank's slice of
+    the sum of every rank's gradient of the whole."""
+    return x if mw is None else _GatherFromModel.apply(x, mw)
+
+
 def copy_to_model(x, mw: Optional[ModelWorld]):
     """The input of a model-split computation: its gradient is the sum of
     every model rank's (the reference's GSPMD all-reduce of a replicated
     operand's cotangent).  Also applied to a leaf held whole whose use on
-    this rank sees only its own heads (``q_norm``, ``k_norm``, KV
-    projections computed whole), so that its gradient is whole."""
+    this rank sees only its own heads or channels (``q_norm``, ``k_norm``,
+    KV projections computed whole, the RG-LRU's ``w_r``, ``w_i`` and
+    ``lam``), so that its gradient is whole."""
     return x if mw is None else _CopyToModel.apply(x, mw)
 
 

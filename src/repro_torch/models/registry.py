@@ -18,12 +18,13 @@ aux (``load_balance``, ``router_z``, ``dropped``) beside the logits, and
 its loss adds ``router_aux_coef`` times the two router losses to the
 cross-entropy, as the JAX loss does.
 
-``build_model(cfg, device, model_world)`` gives the dense family the model
-axis (``common.ModelWorld``, the model ranks of one replica): its params
-are the rank's slices by ``common.placement``, its entry points compute
-the rank's part (``models/transformer.py``), its logits are the rank's
-vocab columns and its loss the vocab-parallel cross-entropy.  Another
-family with a model world raises, naming slice 4c.
+``build_model(cfg, device, model_world)`` gives the dense and hybrid
+families the model axis (``common.ModelWorld``, the model ranks of one
+replica): their params are the rank's slices by ``common.placement``,
+their entry points compute the rank's part (``models/transformer.py``,
+``models/rglru.py``), their logits are the rank's vocab columns and
+their loss the vocab-parallel cross-entropy (chunked at vocab >= 65536).
+Another family with a model world raises, naming slice 4c.
 
 ``layered`` is the dense family's per-layer decomposition for the
 layer-streamed FSDP engine (``core/streaming.py``): stem -> superblock
@@ -60,8 +61,10 @@ class ModelAPI(NamedTuple):
 
 
 CHUNKED_CE_VOCAB = 65536
-MODEL_AXIS_SLICE = ("slice 4c: the model axis of the moe, hybrid, audio, "
-                    "vlm and ssm families (ROADMAP.md)")
+# the families whose entry points take a model world
+MODEL_AXIS_FAMILIES = ("dense", "hybrid")
+MODEL_AXIS_SLICE = ("slice 4c: the model axis of the moe, audio, vlm and "
+                    "ssm families (ROADMAP.md)")
 
 
 def _chunked_ce(cfg, params, hidden, labels, mask, mw=None):
@@ -186,16 +189,16 @@ def _no_aux(fn):
 def build_model(cfg, device="cuda", model_world=None) -> ModelAPI:
     """The dense, moe, hybrid, ssm, audio or vlm family's API; entry points
     run on ``device`` (CUDA unless the caller asks for the CPU).  With a
-    ``model_world`` of more than one rank (the dense family only) the
-    entry points take and compute this rank's slices; ``init`` still
+    ``model_world`` of more than one rank (the dense and hybrid families)
+    the entry points take and compute this rank's slices; ``init`` still
     draws the whole tree, which ``common.take_slices`` cuts."""
     mw = model_world if model_world is not None and model_world.size > 1 \
         else None
-    if mw is not None and cfg.family != "dense":
+    if mw is not None and cfg.family not in MODEL_AXIS_FAMILIES:
         raise NotImplementedError(
             f"the model axis of the {cfg.family!r} family is not ported "
             f"yet; it belongs to {MODEL_AXIS_SLICE}")
-    # the model world, for the dense family's entry points that take it
+    # the model world, for the entry points of the families that take it
     tp = {} if mw is None else {"mw": mw}
     text_slice = 0
     if cfg.family in ("dense", "moe", "hybrid", "ssm"):

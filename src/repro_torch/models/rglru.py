@@ -24,6 +24,21 @@ whatever ``cfg.dtype`` is.  Serving state per recurrent layer is
 ``(h (B,w) fp32, conv (B,K-1,w) in cfg.dtype)``; ``decode_step`` writes
 every cache in place and returns them.  ``forward_train`` is the JAX
 ``forward`` with autograd, which the training loss runs.
+
+**The model axis.**  Every entry point takes ``mw``, the model world of
+one replica (``common.ModelWorld``), or ``None``.  With a model world the
+params are this rank's slices by ``common.placement``: ``w_x``,
+``w_gate`` and ``conv_w`` by channel, ``w_out`` by row, the square gate
+kernels ``w_r``/``w_i`` and ``lam`` held whole.  A recurrent layer runs
+the rank's ``w/M`` channels from ``copy_to_model`` of its input to
+``reduce_from_model`` of ``w_out``'s partial product; the gates read all
+``w`` channels of ``u`` through ``gather_from_model`` and the rank's
+columns of ``w_r`` and ``w_i`` (under ``copy_to_model``, as ``lam`` is,
+so that their gradients are whole); the scan runs on the rank's
+channels.  The attention layers and the MLPs are the dense family's over
+the rank's heads and ``d_ff`` columns, the tied embedding split by
+vocab.  A rank's recurrence state is ``(h (B,w/M), conv (B,K-1,w/M))``
+and its ring cache holds the KV heads it reads (``kv_heads_held``).
 """
 
 from __future__ import annotations
@@ -128,10 +143,37 @@ def init_params(cfg, generator: torch.Generator, device="cuda"):
 # RG-LRU core
 # ---------------------------------------------------------------------------
 
-def _gates(p, u):
-    r = torch.sigmoid((u @ p["w_r"]).float())
-    i = torch.sigmoid((u @ p["w_i"]).float())
-    log_a = -C_FACTOR * F.softplus(p["lam"]) * r             # (B,S,w) fp32
+def channels_split(p, mw) -> bool:
+    """Whether the rank holds a slice of a recurrent layer's channels (the
+    placement splits ``w_x`` by column)."""
+    return mw is not None and p["w_x"].shape[-1] < p["w_r"].shape[0]
+
+
+def state_width(cfg, mw) -> int:
+    """The recurrence channels a rank holds: its slice where the placement
+    splits the lru width over the model ranks, else all of them."""
+    w = cfg.lru_width or cfg.d_model
+    if mw is not None and cm.model_slice((None, "model"), (cfg.d_model, w),
+                                         mw.size) is not None:
+        return w // mw.size
+    return w
+
+
+def _gates(p, u, mw=None):
+    """(a, gated input) of ``u`` (B,S,w).  With a model world ``u`` holds
+    the rank's channels: the gate matmuls read all of them through the
+    model group and give the rank's columns."""
+    w_r, w_i, lam, u_all = p["w_r"], p["w_i"], p["lam"], u
+    if mw is not None:
+        n = u.shape[-1]
+        cols = slice(mw.rank * n, (mw.rank + 1) * n)
+        u_all = cm.gather_from_model(u, mw)
+        w_r = cm.copy_to_model(w_r, mw)[..., cols]
+        w_i = cm.copy_to_model(w_i, mw)[..., cols]
+        lam = cm.copy_to_model(lam, mw)[..., cols]
+    r = torch.sigmoid((u_all @ w_r).float())
+    i = torch.sigmoid((u_all @ w_i).float())
+    log_a = -C_FACTOR * F.softplus(lam) * r                  # (B,S,w) fp32
     a = torch.exp(log_a)
     gated_in = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), 1e-12,
                                       1.0)) * (i * u.float())
@@ -154,26 +196,30 @@ def conv1d_causal(u, w, state=None):
     return out, new_state
 
 
-def recurrent_block(cfg, p, x, state=None, scan=ops.rglru_scan):
+def recurrent_block(cfg, p, x, state=None, scan=ops.rglru_scan, mw=None):
     """state = (h (B,w) fp32, conv (B,K-1,w)) or None. Returns (x, state).
-    ``scan`` is the serving scan, or ``ops.rglru_scan_train`` for training."""
-    h = cm.rms_norm(x, p["ln"]["scale"], cfg.norm_eps)
+    ``scan`` is the serving scan, or ``ops.rglru_scan_train`` for training.
+    With a model world: the rank's channels (its state too), ``w_out``'s
+    rows summed over the ranks, and the MLP's split."""
+    split = mw if channels_split(p, mw) else None
+    h = cm.copy_to_model(cm.rms_norm(x, p["ln"]["scale"], cfg.norm_eps),
+                         split)
     gate = cm.act_fn("gelu")(h @ p["w_gate"])
     u = h @ p["w_x"]
     h0, conv_state = (None, None) if state is None else state
     u, conv_state = conv1d_causal(u, p["conv_w"], conv_state)
-    a, gin = _gates(p, u)
+    a, gin = _gates(p, u, split)
     hs = scan(a, gin, h0)                                     # (B,S,w) fp32
-    y = (hs.to(x.dtype) * gate) @ p["w_out"]
+    y = cm.reduce_from_model((hs.to(x.dtype) * gate) @ p["w_out"], split)
     x = x + y
     x = x + tfm.mlp(cfg, p["mlp"], cm.rms_norm(x, p["mlp"]["ln"]["scale"],
-                                               cfg.norm_eps))
+                                               cfg.norm_eps), mw)
     return x, (hs[:, -1].clone(), conv_state)     # a copy, as for conv
 
 
-def _final(cfg, params, x):
+def _final(cfg, params, x, mw=None):
     x = cm.rms_norm(x, params["ln_f"]["scale"], cfg.norm_eps)
-    return tfm.unembed(cfg, params, x)
+    return tfm.unembed(cfg, params, x, mw)
 
 
 # ---------------------------------------------------------------------------
@@ -181,23 +227,24 @@ def _final(cfg, params, x):
 # ---------------------------------------------------------------------------
 
 @torch.no_grad()
-def forward(cfg, params, tokens):
-    """tokens (B,S) -> logits (B,S,V)."""
-    x = tfm.embed(cfg, params, tokens)
+def forward(cfg, params, tokens, mw=None):
+    """tokens (B,S) -> logits (B,S,V) (the rank's vocab columns with a
+    vocab-split model world)."""
+    x = tfm.embed(cfg, params, tokens, mw)
     positions = tfm._positions(x)
     n_sb, tail = layout(cfg)
     for i in range(n_sb):
         bp = tfm._index(params["blocks"], i)
-        x, _ = recurrent_block(cfg, bp["rec1"], x)
-        x, _ = recurrent_block(cfg, bp["rec2"], x)
-        x = tfm.attn_layer(cfg, bp["attn"], x, positions, ATTN_WINDOW)
+        x, _ = recurrent_block(cfg, bp["rec1"], x, mw=mw)
+        x, _ = recurrent_block(cfg, bp["rec2"], x, mw=mw)
+        x = tfm.attn_layer(cfg, bp["attn"], x, positions, ATTN_WINDOW, mw)
     for i in range(tail):
-        x, _ = recurrent_block(cfg, tfm._index(params["tail"], i), x)
-    return _final(cfg, params, x)
+        x, _ = recurrent_block(cfg, tfm._index(params["tail"], i), x, mw=mw)
+    return _final(cfg, params, x, mw)
 
 
 def forward_train(cfg, params, tokens, remat: bool = True,
-                  return_hidden: bool = False):
+                  return_hidden: bool = False, mw=None):
     """tokens (B,S) -> logits (B,S,V) with autograd: the JAX ``forward``.
     With ``return_hidden`` the hidden state after ``ln_f`` instead, before
     the unembed (the chunked cross-entropy's input).
@@ -208,21 +255,23 @@ def forward_train(cfg, params, tokens, remat: bool = True,
     recomputes each (rec1, rec2, attn) superblock in the backward
     (``torch.utils.checkpoint``), as ``jax.remat`` wraps the superblock
     body that JAX scans; the trailing recurrent layers are not recomputed,
-    as JAX's ``tail_body`` is not.
+    as JAX's ``tail_body`` is not.  With a model world the logits are the
+    rank's vocab columns; the hidden state is whole.
     """
-    x = tfm.embed(cfg, params, tokens)
+    x = tfm.embed(cfg, params, tokens, mw)
     positions = tfm._positions(x)
     n_sb, tail = layout(cfg)
 
     def rec(p, x):
-        return recurrent_block(cfg, p, x, scan=ops.rglru_scan_train)[0]
+        return recurrent_block(cfg, p, x, scan=ops.rglru_scan_train,
+                               mw=mw)[0]
 
     def superblock(x, bp):
         x = rec(bp["rec2"], rec(bp["rec1"], x))
         return tfm._attn_block(cfg, bp["attn"], x, positions, ATTN_WINDOW,
                                cfg.causal,
-                               attention=cm.differentiable_blocked_attention
-                               )[0]
+                               attention=cm.differentiable_blocked_attention,
+                               mw=mw)[0]
 
     for i in range(n_sb):
         bp = tfm._index(params["blocks"], i)
@@ -231,18 +280,19 @@ def forward_train(cfg, params, tokens, remat: bool = True,
     for i in range(tail):
         x = rec(tfm._index(params["tail"], i), x)
     x = cm.rms_norm(x, params["ln_f"]["scale"], cfg.norm_eps)
-    return x if return_hidden else tfm.unembed(cfg, params, x)
+    return x if return_hidden else tfm.unembed(cfg, params, x, mw)
 
 
 # ---------------------------------------------------------------------------
 # Serving
 # ---------------------------------------------------------------------------
 
-def init_caches(cfg, batch: int, max_len: int, device="cuda"):
+def init_caches(cfg, batch: int, max_len: int, device="cuda", mw=None):
     """Zero state for every recurrent layer and a ring of
-    ``min(ATTN_WINDOW, max_len)`` positions for every attention layer."""
+    ``min(ATTN_WINDOW, max_len)`` positions for every attention layer; of
+    the channels and KV heads the rank holds with a model world."""
     n_sb, tail = layout(cfg)
-    w = cfg.lru_width or cfg.d_model
+    w = state_width(cfg, mw)
     K = cfg.conv_width
     dtype = tfm.torch_dtype(cfg)
 
@@ -254,48 +304,53 @@ def init_caches(cfg, batch: int, max_len: int, device="cuda"):
         "rec1": rec_state(n_sb),
         "rec2": rec_state(n_sb),
         "attn": cm.init_kv_cache(n_sb, batch, min(ATTN_WINDOW, max_len),
-                                 cfg.n_kv_heads, cfg.hd, dtype, device),
+                                 tfm.kv_heads_held(cfg, mw), cfg.hd, dtype,
+                                 device),
     }
     if tail:
         caches["tail"] = rec_state(tail)
     return caches
 
 
-def _decode_recurrent(cfg, p, x, state, i):
+def _decode_recurrent(cfg, p, x, state, i, mw=None):
     """One recurrent layer of a decode step; writes layer i of the stacked
     state ``(h, conv)`` in place."""
     h, conv = state
-    x, (h_new, conv_new) = recurrent_block(cfg, p, x, state=(h[i], conv[i]))
+    x, (h_new, conv_new) = recurrent_block(cfg, p, x, state=(h[i], conv[i]),
+                                           mw=mw)
     h[i] = h_new
     conv[i] = conv_new
     return x
 
 
 @torch.no_grad()
-def decode_step(cfg, params, caches, token, pos):
+def decode_step(cfg, params, caches, token, pos, mw=None):
     """token (B,1) int; pos an int or a (B,) int tensor -> (logits (B,1,V),
-    caches).  The caches are updated in place and returned."""
-    x = tfm.embed(cfg, params, token)
+    caches): the rank's vocab columns with a vocab-split model world.  The
+    caches are updated in place and returned."""
+    x = tfm.embed(cfg, params, token, mw)
     pos = torch.as_tensor(pos, device=x.device).to(torch.int64)
     n_sb, tail = layout(cfg)
     for i in range(n_sb):
         bp = tfm._index(params["blocks"], i)
-        x = _decode_recurrent(cfg, bp["rec1"], x, caches["rec1"], i)
-        x = _decode_recurrent(cfg, bp["rec2"], x, caches["rec2"], i)
+        x = _decode_recurrent(cfg, bp["rec1"], x, caches["rec1"], i, mw)
+        x = _decode_recurrent(cfg, bp["rec2"], x, caches["rec2"], i, mw)
         x = tfm._decode_layer(cfg, bp["attn"], x, caches["attn"]["k"][i],
-                              caches["attn"]["v"][i], pos, ATTN_WINDOW)
+                              caches["attn"]["v"][i], pos, ATTN_WINDOW, mw)
     for i in range(tail):
         x = _decode_recurrent(cfg, tfm._index(params["tail"], i), x,
-                              caches["tail"], i)
-    return _final(cfg, params, x), caches
+                              caches["tail"], i, mw)
+    return _final(cfg, params, x, mw), caches
 
 
 @torch.no_grad()
-def prefill(cfg, params, tokens, max_len: Optional[int] = None):
+def prefill(cfg, params, tokens, max_len: Optional[int] = None, mw=None):
     """Fill the caches for tokens (B,S); returns (last-token logits,
     caches): each recurrent layer's last h and conv history, each attention
-    layer's trailing window of K/V (after rope) in ring order."""
-    x = tfm.embed(cfg, params, tokens)
+    layer's trailing window of K/V (after rope) in ring order.  With a
+    model world: the rank's channels and KV heads, and the last logits of
+    its vocab columns."""
+    x = tfm.embed(cfg, params, tokens, mw)
     max_len = max_len or x.shape[1]
     positions = tfm._positions(x)
     n_sb, tail = layout(cfg)
@@ -306,12 +361,12 @@ def prefill(cfg, params, tokens, max_len: Optional[int] = None):
     r1, r2, ks, vs = [], [], [], []
     for i in range(n_sb):
         bp = tfm._index(params["blocks"], i)
-        x, st = recurrent_block(cfg, bp["rec1"], x)
+        x, st = recurrent_block(cfg, bp["rec1"], x, mw=mw)
         r1.append(st)
-        x, st = recurrent_block(cfg, bp["rec2"], x)
+        x, st = recurrent_block(cfg, bp["rec2"], x, mw=mw)
         r2.append(st)
         x, k, v = tfm._attn_block(cfg, bp["attn"], x, positions, ATTN_WINDOW,
-                                  True)
+                                  True, mw=mw)
         ks.append(tfm.window_ring(k, ATTN_WINDOW, max_len))
         vs.append(tfm.window_ring(v, ATTN_WINDOW, max_len))
     caches = {"rec1": stack(r1), "rec2": stack(r2),
@@ -319,7 +374,8 @@ def prefill(cfg, params, tokens, max_len: Optional[int] = None):
     if tail:
         ts = []
         for i in range(tail):
-            x, st = recurrent_block(cfg, tfm._index(params["tail"], i), x)
+            x, st = recurrent_block(cfg, tfm._index(params["tail"], i), x,
+                                    mw=mw)
             ts.append(st)
         caches["tail"] = stack(ts)
-    return _final(cfg, params, x[:, -1:]), caches
+    return _final(cfg, params, x[:, -1:], mw), caches

@@ -5,9 +5,10 @@ Every request of a batch shares one position and reserves ``max_len``
 cache positions up front.  This is the uncontended reference the paged
 scheduler is held against.
 
-Over a model world (``build_model(..., model_world=)``, the dense family)
-the steps run on each model rank of a replica: the caches hold the rank's
-KV heads, the logits come out of the model as the rank's vocab columns,
+Over a model world (``build_model(..., model_world=)``, the dense and
+hybrid families) the steps run on each model rank of a replica: the
+caches hold the rank's KV heads (and a recurrent layer's state the rank's
+channels), the logits come out of the model as the rank's vocab columns,
 and the steps gather them.  A dp rank serves its own rows of the batch.
 ``cache_shardings`` and ``serve_param_shardings`` are the reference's
 placement tables, as tuples of axis names; the port computes with the
@@ -90,11 +91,6 @@ def serve_param_shardings(params_shapes):
     return cm.tree_specs(params_shapes)
 
 
-def _gather_vocab(logits, mw):
-    """The whole vocab of logits split by vocab over the model ranks."""
-    return torch.cat(cm.model_all_gather(logits, mw), dim=-1)
-
-
 def build_serve_step(model):
     """``serve_step(params, caches, token (B,1), pos) -> (next_token (B,1),
     logits, caches)``; the caches are updated in place.  Over a vocab-split
@@ -120,12 +116,13 @@ def build_serve_step(model):
             idx = last.argmax(-1)
             val = last.gather(-1, idx[:, None])[:, 0].float()
             pair = torch.stack([val, (idx + lo).float()], -1)   # (B, 2)
-            pairs = torch.stack(cm.model_all_gather(pair, mw))  # (M, B, 2)
+            pairs = cm.model_all_gather(pair, mw).view(
+                -1, mw.size, 2).transpose(0, 1)                 # (M, B, 2)
             best = pairs[..., 0].max(0).values
             cand = torch.where(pairs[..., 0] == best, pairs[..., 1],
                                float("inf"))
             nxt = cand.min(0).values.long()
-            logits = _gather_vocab(logits, mw)
+            logits = cm.model_all_gather(logits, mw)
         return nxt.to(token.dtype)[:, None], logits, caches
 
     return serve_step
@@ -140,7 +137,7 @@ def build_prefill(model, max_len: int):
     def prefill_step(params, batch):
         logits, caches = model.prefill(params, batch, max_len)
         if mw is not None and logits.shape[-1] < model.cfg.vocab_padded:
-            logits = _gather_vocab(logits, mw)
+            logits = cm.model_all_gather(logits, mw)
         return logits, caches
 
     return prefill_step

@@ -136,15 +136,23 @@ def plan_worker(world, out, leaves, bf16, variants, group_sizes,
     return res
 
 
-def _rank_trainer(world, arch, init, trainer_kw, pod_dcn, dtype):
+def smoke_cfg(arch, dtype="float32", n_layers=None):
+    """The smoke config of ``arch`` in ``dtype``, at ``n_layers`` where
+    given."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch, smoke=True).variant(dtype=dtype)
+    return cfg.variant(n_layers=n_layers) if n_layers else cfg
+
+
+def _rank_trainer(world, arch, init, trainer_kw, pod_dcn, dtype,
+                  n_layers=None):
     """The port's ``Trainer`` on this rank, warm-started from the
     checkpoint ``init`` (the ``(P, ...)`` state; ``pod_dcn``: on the
     hierarchical topology)."""
     from repro_torch.checkpoint import load_replica_state
-    from repro_torch.configs import get_config
     from repro_torch.core.plan import Topology
     from repro_torch.launch.train import Trainer
-    cfg = get_config(arch, smoke=True).variant(dtype=dtype)
+    cfg = smoke_cfg(arch, dtype, n_layers)
     data, pod = world_axes(world)
     state = load_replica_state(init, state_template(cfg, world.P,
                                                     trainer_kw))
@@ -187,26 +195,34 @@ def planted(fault):
     """A planted model-axis fault, on every rank alike (so that the
     collectives still pair): ``"no_f_backward"`` runs every
     ``copy_to_model`` as the plain identity (no all-reduce of its
-    gradient), ``"q_norm_unsummed"`` only ``q_norm``'s."""
+    gradient), ``"q_norm_unsummed"`` only ``q_norm``'s and
+    ``"w_r_unsummed"`` only the RG-LRU gate kernel ``w_r``'s."""
     from repro_torch.models import common as cm
+    from repro_torch.models import rglru
     from repro_torch.models import transformer as tfm
-    copy, qkv = cm.copy_to_model, tfm._qkv
+    copy, qkv, gates = cm.copy_to_model, tfm._qkv, rglru._gates
     seen = {}
     if fault == "no_f_backward":
         cm.copy_to_model = lambda x, mw: x
     elif fault == "q_norm_unsummed":
         def qkv_noting(cfg, p, h, mw=None):
-            seen["q_norm"] = p.get("q_norm")
+            seen["leaf"] = p.get("q_norm")
             return qkv(cfg, p, h, mw)
         tfm._qkv = qkv_noting
-        cm.copy_to_model = lambda x, mw: (x if x is seen.get("q_norm")
-                                          else copy(x, mw))
+    elif fault == "w_r_unsummed":
+        def gates_noting(p, u, mw=None):
+            seen["leaf"] = p["w_r"]
+            return gates(p, u, mw)
+        rglru._gates = gates_noting
     elif fault is not None:
         raise ValueError(f"unknown fault {fault!r}")
+    if "unsummed" in (fault or ""):
+        cm.copy_to_model = lambda x, mw: (x if x is seen.get("leaf")
+                                          else copy(x, mw))
     try:
         yield
     finally:
-        cm.copy_to_model, tfm._qkv = copy, qkv
+        cm.copy_to_model, tfm._qkv, rglru._gates = copy, qkv, gates
 
 
 def _states_equal(a, b) -> bool:
@@ -218,16 +234,16 @@ def _states_equal(a, b) -> bool:
 
 
 def model_axis_worker(world, out, runs, serve):
-    """Each of ``runs`` (name -> arch, init, trainer_kw, steps, fault) for
-    its steps on this rank's slices; rank 0 writes the gathered state to
-    ``out/<name>``, which every rank then restores into a new ``Trainer``
-    (``<name>/restored``: bit for bit).  Then ``serve`` (arch, params,
-    prompts, max_len, steps): the prompts of this dp rank through
-    ``build_prefill`` and ``build_serve_step`` (``serve/logits`` the
-    gathered logits of the prefill and each step, ``serve/tokens``)."""
+    """Each of ``runs`` (name -> arch, init, trainer_kw, steps, fault and
+    optionally n_layers) for its steps on this rank's slices; rank 0
+    writes the gathered state to ``out/<name>``, which every rank then
+    restores into a new ``Trainer`` (``<name>/restored``: bit for bit).
+    Then ``serve`` (arch, params, prompts, max_len, steps, optionally
+    n_layers): the prompts of this dp rank through ``build_prefill`` and
+    ``build_serve_step`` (``serve/logits`` the gathered logits of the
+    prefill and each step, ``serve/tokens``)."""
     import torch
     from repro_torch.checkpoint import load_checkpoint, load_replica_state
-    from repro_torch.configs import get_config
     from repro_torch.launch.train import Trainer
     from repro_torch.models import common as cm
     from repro_torch.models.registry import build_model
@@ -236,7 +252,8 @@ def model_axis_worker(world, out, runs, serve):
     for name, r in runs.items():
         with planted(r.get("fault")):
             trainer = _rank_trainer(world, r["arch"], r["init"],
-                                    r["trainer_kw"], False, "float32")
+                                    r["trainer_kw"], False, "float32",
+                                    r.get("n_layers"))
             res[f"{name}/losses"] = np.asarray(
                 [trainer.step_once(t) for t in range(r["steps"])])
             res[f"{name}/skipped"] = np.asarray(trainer.skipped_nonfinite)
@@ -244,7 +261,7 @@ def model_axis_worker(world, out, runs, serve):
                                                     trainer.state.phase])
         path = os.path.join(out, name)
         trainer.save_checkpoint(path)
-        cfg = get_config(r["arch"], smoke=True).variant(dtype="float32")
+        cfg = smoke_cfg(r["arch"], n_layers=r.get("n_layers"))
         data, pod = world_axes(world)
         again = Trainer(cfg, data, pod_axis=pod, world=world,
                         init_state=load_replica_state(
@@ -258,7 +275,7 @@ def model_axis_worker(world, out, runs, serve):
             cfg, trainer.state.params, world.model))
         res[f"{name}/whole"] = torch.cat([a.reshape(-1) for a in whole]
                                          ).numpy()
-    cfg = get_config(serve["arch"], smoke=True).variant(dtype="float32")
+    cfg = smoke_cfg(serve["arch"], n_layers=serve.get("n_layers"))
     model = build_model(cfg, "cpu", model_world=world.model_world)
     mw = world.model_world
     whole, _ = load_checkpoint(serve["params"], _spec_tree(cfg))

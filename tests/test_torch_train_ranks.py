@@ -202,15 +202,16 @@ def _main(monkeypatch, *argv):
 
 
 def test_model_axis_raises_naming_slice_4b(monkeypatch):
-    """Slice 4b ported the model axis of the dense family, under torchrun:
-    a non-dense family raises naming slice 4c, a dense one in one process
-    exits saying how to start it."""
+    """Slices 4b and 4c ported the model axis of the dense and hybrid
+    families, under torchrun: another family raises naming slice 4c, a
+    dense or hybrid one in one process exits saying how to start it."""
     with pytest.raises(NotImplementedError, match="slice 4c"):
-        _main(monkeypatch, "--arch", "recurrentgemma-2b", "--smoke",
+        _main(monkeypatch, "--arch", "whisper-medium", "--smoke",
               "--data-axis", "4", "--model-axis", "2")
-    with pytest.raises(SystemExit, match="torchrun"):
-        _main(monkeypatch, "--smoke", "--data-axis", "4", "--model-axis",
-              "2")
+    for arch in ("tinyllama-1.1b", "recurrentgemma-2b"):
+        with pytest.raises(SystemExit, match="torchrun"):
+            _main(monkeypatch, "--arch", arch, "--smoke", "--data-axis",
+                  "4", "--model-axis", "2")
 
 
 def test_nccl_with_more_local_ranks_than_cards_raises(monkeypatch):
