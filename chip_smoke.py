@@ -103,8 +103,9 @@
    and skip age, staleness, each transition's topology diff) equal those
    of the same schedule and script run on the CPU at smoke size in this
    run, peak age in [1, tau], every transition evicts a plan; (d) finite
-   losses, no skip; (e) the replay's logs and losses equal and its state
-   digest equal (``launch.elastic.state_digest``); (f) a regrow off the
+   losses, no skip; (e) the replay's logs and losses equal and its final
+   state (params, moments, counts, step, phase) the first run's bit for
+   bit, compared on the card (``torch.equal``); (f) a regrow off the
    barrier must raise the guard, and joiners seated on row 0 from before
    the sync must fail (b); (g) after each transition and its first step
    at most 1 GiB more than the world size's steady state.  Prints step
@@ -206,6 +207,38 @@
    step's split (grads, the TP all-reduces' time and bytes, update, the dp
    exchange), each rank's peak memory, the device's idle share over a
    profiled step and the phase's seconds.
+   rg model phase (slice 4c, first part): the model phase's run and
+   checks for recurrentgemma-2b at 3 layers over data 2 x model 2 ranks,
+   then 26-layer serving of one 3000-token prompt a dp rank
+   (``rg_model_spec``; K4 on a rank's 1,280 channels, K3 at its 5 heads).
+   Attn model phase (slice 4c, second part, ``attn_model_phase``): 2
+   ranks started by ``torch.distributed.run`` (this script with
+   ``--attn-model-worker``), gloo, data 1 x model 2 on the one card,
+   serving only.  (1) whisper-medium (24 + 24 layers, 1500 frames, a
+   4-token prompt), internvl2-2b (24 layers, 256 patches + 512 tokens)
+   and transformer-wmt (6 + 6 layers, 64 source tokens, a 16-token
+   prompt) at full published width, random weights, one prompt a dp
+   rank, a prefill and 16 greedy decode steps through
+   ``build_prefill``/``build_serve_step`` on the rank's heads, each
+   against rank 0 serving the whole model fed the world's tokens.  (2)
+   ``ServeScheduler`` over the same ranks on tinyllama-1.1b at 22 layers:
+   8 requests of distinct prompt lengths in [64, 512], 16 new tokens,
+   from a pool with no block to spare, each request then through the
+   dense model-world steps fed its tokens.  Checks (a) K3 72 a whisper
+   prefill (24 by role), 24 an internvl2 one, 18 a transformer-wmt one,
+   22 a scheduler (and dense) prefill, none on a decode step, K1, K2 and
+   K4 never; (b) each family model's prefill and first decode step's
+   gathered logits within ``LOGIT_RTOL`` of the largest one-rank logit,
+   the same token at every step whose one-rank top-2 margin exceeds the
+   gap; (c) the scheduler preempts, both ranks hold equal tokens,
+   admissions, preemptions and decode shapes, and each request holds to
+   its dense model-world run by (b)'s rule; (d) the pinned host buffers
+   the collectives staged through (``common._HOST``) within their bound,
+   one a power-of-two capacity and dtype, printed; (e) transformer-wmt
+   served with the cross-attention's g left out must fail (b), and the
+   paged steps keeping the rank-local greedy pick must fail (c); (f)
+   finite logits, in-vocab tokens.  Prints each model's serving seconds
+   by rank, peak memory and the phase's seconds.
 7. recurrentgemma phase: recurrentgemma-2b at full width and all 26 layers
    in bf16 (random weights from a seeded torch generator) serves a batch of
    4 prompts of 3000 tokens (past the 2048-token window, not a multiple of
@@ -406,8 +439,37 @@ KIMI_ATTN = (4, 512, 512, 64, 8, 112, True, None)
 # the model phase's prefill on one rank: tinyllama's 32 heads and 4 KV
 # heads split over 2 model ranks, 2 prompts of 512 a dp rank
 MODEL_ATTN = (2, 512, 512, 16, 2, 64, True, None)
+# the attn model phase's prefills on one rank of data 1 x model 2, one
+# prompt a dp rank: whisper-medium's and transformer-wmt's roles at half
+# their heads, internvl2-2b's 256 patches + 512 tokens at 8 of its 16 heads
+# over 4 of its 8 KV heads, and the paged scheduler's longest tinyllama
+# prompt at 16 heads over 2 KV heads (its lengths: SCHED_PROMPT's range,
+# SCHED_SEED's draw)
+WHISPER_RANK_ROLES = {"encoder": (1, 1500, 1500, 8, 8, 64, False, None),
+                      "decoder": (1, 4, 4, 8, 8, 64, True, None),
+                      "cross": (1, 4, 1500, 8, 8, 64, False, None)}
+WMT_RANK_ROLES = {"encoder": (1, 64, 64, 4, 4, 64, False, None),
+                  "decoder": (1, 16, 16, 4, 4, 64, True, None),
+                  "cross": (1, 16, 64, 4, 4, 64, False, None)}
+VLM_RANK_ATTN = (1, 768, 768, 8, 4, 128, True, None)
+SCHED_REQUESTS, SCHED_PROMPT, SCHED_SEED = 8, (64, 512), 5
+
+
+def sched_lengths(lo_hi=SCHED_PROMPT) -> list:
+    """The paged scheduler's ``SCHED_REQUESTS`` distinct prompt lengths in
+    ``lo_hi``, from ``SCHED_SEED``."""
+    lo, hi = lo_hi
+    return [int(n) for n in np.random.default_rng(SCHED_SEED).choice(
+        np.arange(lo, hi + 1), SCHED_REQUESTS, replace=False)]
+
+
+SCHED_RANK_ATTN = (1, max(sched_lengths()), max(sched_lengths()), 16, 2, 64,
+                   True, None)
 FAMILY_ATTN_CASES = [c + (dt,) for c in list(WHISPER_ATTN_ROLES.values())
                      + [VLM_ATTN, LLAMA4_ATTN, KIMI_ATTN, MODEL_ATTN]
+                     + list(WHISPER_RANK_ROLES.values())
+                     + list(WMT_RANK_ROLES.values())
+                     + [VLM_RANK_ATTN, SCHED_RANK_ATTN]
                      for dt in ("float32", "bfloat16")]
 # the tinyllama prefill shape the kernels line reports
 TL_ATTN_SHAPE = (1, SLICE_SHAPE_FOR_LINE, SLICE_SHAPE_FOR_LINE, 32, 4, 64,
@@ -556,6 +618,9 @@ RANKS_LOSS_RTOL = 1e-6
 # of MODEL_PROMPT tokens a dp rank and MODEL_NEW decode steps, against
 # rank 0 serving the whole model on every prompt
 MODEL_DATA, MODEL_M, MODEL_S, MODEL_GB, MODEL_STEPS = 4, 2, 2, 32, 6
+# the model phase's training depth: 6 (the training phase's) until the
+# attn model phase needed the room; none of its checks depends on depth
+MODEL_LAYERS = 2
 MODEL_ROWS, MODEL_PROMPT, MODEL_NEW, MODEL_SERVE_SEED = 2, 512, 16, 3
 MODEL_TIMEOUT = 600
 MODEL_WORKER_FLAG = "--model-worker"
@@ -580,6 +645,21 @@ MODEL_LOSS_RTOL = 1e-4
 # in the first recurrent layer
 RG_MODEL_DATA, RG_MODEL_LAYERS, RG_MODEL_GB, RG_MODEL_STEPS = 2, 3, 8, 5
 RG_MODEL_ROWS, RG_MODEL_PROMPT = 1, 3000
+# attn model phase (slice 4c, second part): serving only, over data
+# ATTN_MODEL_DATA x MODEL_M gloo ranks on the one card: whisper-medium (24
+# + 24 layers, 1500 frames), internvl2-2b (24 layers, 256 patches) and
+# transformer-wmt (6 + 6 layers, WMT_SRC source tokens) at full published
+# width and depth, random weights from ATTN_MODEL_SEED, one prompt of
+# ATTN_MODEL_PROMPTS[arch] tokens a dp rank and MODEL_NEW decode steps,
+# each against rank 0 serving the whole model; then the paged scheduler on
+# tinyllama-1.1b at 22 layers over the same ranks, SCHED_REQUESTS
+# requests of distinct lengths (SCHED_PROMPT's range) and SCHED_NEW new
+# tokens each from a pool with no block to spare, each request against
+# the dense model-world run of it; check (e)'s rank-local pick on the
+# first SCHED_FAULT_REQUESTS requests
+ATTN_MODEL_DATA, ATTN_MODEL_SEED, ATTN_MODEL_TIMEOUT = 1, 4, 600
+ATTN_MODEL_WORKER_FLAG = "--attn-model-worker"
+SCHED_NEW, SCHED_FAULT_REQUESTS = 8, 2
 
 # serving phase
 ARCH = "tinyllama-1.1b"
@@ -652,6 +732,11 @@ FAMILY_BATCH, FAMILY_NEW = 4, 32
 WHISPER_PROMPT, WHISPER_F32_STEPS = 4, 8
 VLM_PROMPT, VLM_F32_STEPS = 512, 4
 XLSTM_PROMPT, XLSTM_F32_PROMPT, XLSTM_F32_STEPS = 512, 128, 4
+# the attn model phase's family models and their prompts
+ATTN_MODEL_ARCHS = ("whisper-medium", "internvl2-2b", "transformer-wmt")
+ATTN_MODEL_PROMPTS = {"whisper-medium": WHISPER_PROMPT,
+                      "internvl2-2b": VLM_PROMPT,
+                      "transformer-wmt": WMT_PROMPT}
 # xlstm's profiled prefill: ~40 torch ops a token and superblock, so the
 # trace of a whole prompt takes the profiler minutes to read back
 XLSTM_PROFILE_PROMPT = 64
@@ -1160,7 +1245,7 @@ def combine_kernel_phase(device="cuda"):
     # the model path's: each K1 size of a rank's buckets of its slices and
     # its K2 batch (check (a) ties them to the plan the ranks compiled)
     for key, combines in (
-            ("model", model_combines(train_config())),
+            ("model", model_combines(model_config())),
             ("rg model", model_combines(rg_model_config(), RG_MODEL_DATA))):
         k1, (tail_n, tail_scale) = combines
         k1_rows = [k1_row(n, "float32", scale, case=key)[0]
@@ -1563,7 +1648,7 @@ def transition_rows(ev) -> list:
 
 
 def elastic_trainer(cfg, pool: int, device="cuda", seq_len: int = TRAIN_SEQ,
-                    plant: bool = False):
+                    plant: bool = False, keep: bool = False, against=None):
     """An ``ElasticTrainer`` over ``pool`` rows with this phase's probes.
     Its ``probe_step``, passed to ``run``/``run_under_faults`` as
     ``step``, records per step the launches and what the epoch's plan
@@ -1572,7 +1657,10 @@ def elastic_trainer(cfg, pool: int, device="cuda", seq_len: int = TRAIN_SEQ,
     plan compiled: check (b) and the memory after.  With ``plant``, check
     (f): a regrow attempted after step 0 (rows apart) must raise the
     barrier guard, and every regrow's joiners seated on row 0 from before
-    the sync must fail (b)."""
+    the sync must fail (b).  Its final state (``state_digest``) stays on
+    the card: with ``keep`` a copy of its leaves (``kept``), with
+    ``against`` (another run's ``kept``) ``state_equal``, whether its
+    leaves are those bit for bit (``torch.equal``)."""
     import torch
     from repro_torch.core import tree as tr
     from repro_torch.core.elastic import MembershipEvent
@@ -1665,10 +1753,20 @@ def elastic_trainer(cfg, pool: int, device="cuda", seq_len: int = TRAIN_SEQ,
                     f"rows identical after a regrow {rec['rows_identical']}")
 
         def state_digest(self):
+            # check (e) compares the states themselves on the card, in
+            # place of a sha256 of the ~19 GB of 8 rows on the host
             t0 = time.perf_counter()
-            digest = super().state_digest()
+            st = self.trainer.state
+            leaves = tr.tree_leaves((st.params, st.opt_state)) + [
+                torch.tensor([st.step, st.phase], device=device)]
+            if keep:
+                self.kept = [a.detach().clone() for a in leaves]
+            if against is not None:
+                self.state_equal = len(leaves) == len(against) and all(
+                    torch.equal(a, b) for a, b in zip(leaves, against))
+            _sync(device)
             self.digest_s += time.perf_counter() - t0
-            return digest
+            return f"{len(leaves)} leaves, compared on the card"
 
     return Probed()
 
@@ -1683,7 +1781,8 @@ def elastic_run(et, kind: str, seconds: float, launches: dict, rep=None,
            "epoch_log": et.epoch_log, "steps": et.steps,
            "transitions": et.transitions, "planted": et.planted,
            "losses": [r["loss"] for r in records],
-           "combines": et.combines, "digest_s": et.digest_s}
+           "combines": et.combines, "digest_s": et.digest_s,
+           "state_equal": getattr(et, "state_equal", None)}
     if rep is not None:
         out.update({k: rep[k] for k in ("events", "staleness",
                                         "schedule_fingerprint",
@@ -1769,14 +1868,19 @@ def elastic_phase(cfg, device="cuda", seq_len: int = TRAIN_SEQ) -> dict:
     on_card = torch.device(device).type == "cuda"
     if on_card:
         torch.cuda.reset_peak_memory_stats()
-    runs = {}
+    runs, kept = {}, None
     for name, pool, drive, plant in (
             ("chaos", ELASTIC_POOL, drive_chaos, False),
             ("kill", ELASTIC_KILL_POOL, drive_kill, True),
             ("replay", ELASTIC_POOL, drive_chaos, False)):
-        et = elastic_trainer(cfg, pool, device, seq_len, plant)
+        et = elastic_trainer(cfg, pool, device, seq_len, plant,
+                             keep=name == "chaos",
+                             against=kept if name == "replay" else None)
         runs[name] = drive(et)
+        if name == "chaos":
+            kept = et.kept
         del et
+    del kept
     twin = elastic_twin(get_config(ARCH, smoke=True))
     stats = {"arch": cfg.name, "n_layers": cfg.n_layers, "seq_len": seq_len,
              "runs": runs, "twin_seconds": twin["seconds"],
@@ -1801,7 +1905,8 @@ def elastic_phase(cfg, device="cuda", seq_len: int = TRAIN_SEQ) -> dict:
                              f"at {bad}")
     chaos, replay = runs["chaos"], runs["replay"]
     replayed = {k: chaos[k] == replay[k] for k in (
-        "events", "records", "staleness", "state_digest")}
+        "events", "records", "staleness")}
+    replayed["state"] = replay["state_equal"] is True
     if not all(replayed.values()):                              # check (e)
         raise AssertionError(f"check (e): the replay differs: {replayed}")
     planted = runs["kill"]["planted"]
@@ -1906,7 +2011,8 @@ def print_elastic(stats, card: str):
               f"{[r['world'] for r in run['records']]}, epochs "
               f"{[e['kind'] for e in run['epoch_log']]}, losses "
               f"{[round(x, 4) for x in run['losses']]}, {run['seconds']:.2f}"
-              f" s (trainer init {run['init_s']:.2f} s, state digest "
+              f" s (trainer init {run['init_s']:.2f} s, final state kept or "
+              f"compared on the card "
               f"{run['digest_s']:.2f} s), launches K1 {run['launches'][K1]} "
               f"K2 {run['launches'][K2]}", flush=True)
         print(f"elastic {name} step ms by world (median after the first) "
@@ -3337,7 +3443,7 @@ def ranks_phase(spec: dict, out: Path, timeout: int = RANKS_TIMEOUT) -> dict:
 
 
 def model_spec(device="cuda", smoke: bool = False,
-               n_layers: Optional[int] = TRAIN_LAYERS,
+               n_layers: Optional[int] = MODEL_LAYERS,
                serve_layers: Optional[int] = None,
                seq_len: int = TRAIN_SEQ, global_batch: int = MODEL_GB,
                steps: int = MODEL_STEPS, prompt: int = MODEL_PROMPT,
@@ -3408,6 +3514,13 @@ def model_combines(cfg, data: int = MODEL_DATA):
     return plan_combines(model_slice_plan(cfg, data), 1)
 
 
+def model_config():
+    """The model phase's training model: tinyllama-1.1b at
+    ``MODEL_LAYERS``."""
+    from repro_torch.configs import get_config
+    return get_config(ARCH).variant(n_layers=MODEL_LAYERS)
+
+
 def rg_model_config():
     from repro_torch.configs import get_config
     return get_config(RG_ARCH).variant(n_layers=RG_MODEL_LAYERS)
@@ -3420,22 +3533,28 @@ def model_prompts(cfg, spec: dict):
         0, cfg.vocab, (spec["data"] * spec["rows"], spec["prompt"]))
 
 
-def greedy_run(model, params, tokens, max_len: int, new: int, feed=None):
+def greedy_run(model, params, tokens, max_len: int, new: int, feed=None,
+               extra=None, pos0: Optional[int] = None):
     """``build_prefill`` then ``new`` steps of ``build_serve_step``: the
     (gathered) last logits of the prefill and of each step as float32 CPU
     tensors (B, new + 1, V), the greedy token of each (B, new + 1), and
     the launches of the prefill and of each step.  Step i is fed the
     greedy token of the logits before it, or ``feed[:, i]`` where given
     (another run's tokens, so that the two runs' logits stay
-    comparable)."""
+    comparable).  ``extra`` joins the prefill's batch (an encoder's
+    ``frames`` or ``src``, a VLM's ``patches``); the first decode step is
+    at ``pos0`` (the prompt's length by default; a VLM's counts its
+    patches)."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.models import common as cm
     from repro_torch.serve.decode import build_prefill, build_serve_step
     device = tokens.device
+    pos0 = tokens.shape[1] if pos0 is None else pos0
     kinds = (K1, K2, K3, K4, K4_TMA, K4_WALK)
     before = ops.launch_counts()
-    logits, caches = build_prefill(model, max_len)(params, {"tokens": tokens})
+    logits, caches = build_prefill(model, max_len)(
+        params, {"tokens": tokens, **(extra or {})})
     _sync(device)
     after = ops.launch_counts()
     launches = [{k: after[k] - before[k] for k in kinds}]
@@ -3448,7 +3567,7 @@ def greedy_run(model, params, tokens, max_len: int, new: int, feed=None):
         if feed is not None:
             tok = feed[:, i:i + 1].to(device)
         before = ops.launch_counts()
-        tok, logits, caches = step(params, caches, tok, tokens.shape[1] + i)
+        tok, logits, caches = step(params, caches, tok, pos0 + i)
         _sync(device)
         after = ops.launch_counts()
         launches.append({k: after[k] - before[k] for k in kinds})
@@ -3524,14 +3643,10 @@ def model_digests(world, params, dims) -> Optional[list]:
     """(row digest of the rank's params, digest of its leaves held whole)
     of every torch rank, on rank 0 (``None`` elsewhere)."""
     import hashlib
-    import torch.distributed as dist
     from repro_torch.models import common as cm
     whole = hashlib.sha256("".join(digests(
         cm.held_whole(params, dims))).encode()).hexdigest()
-    mine = (row_digests(params)[0], whole)
-    out = [None] * world.model * world.P if world.torch_rank == 0 else None
-    dist.gather_object(mine, out, dst=0)
-    return out
+    return gather_to_rank0(world, (row_digests(params)[0], whole))
 
 
 def model_check_b(rows, t: int, sync: bool, offset) -> None:
@@ -3570,7 +3685,6 @@ def model_worker(spec: dict, out: str) -> int:
     ``out/model.json``."""
     import os
     import torch
-    import torch.distributed as dist
     from repro_torch.core import plan as plan_mod
     from repro_torch.core import tree as tr
     from repro_torch.kernels import ops
@@ -3637,8 +3751,7 @@ def model_worker(spec: dict, out: str) -> int:
                         torch.equal(a.cpu(), b) for a, b in
                         zip(tr.tree_leaves(want), tr.tree_leaves(post)))
                     del want
-                verdicts = [None] * world.model * world.P if rank0 else None
-                dist.gather_object(checked[offset], verdicts, dst=0)
+                verdicts = gather_to_rank0(world, checked[offset])
                 if rank0:
                     checked[offset] = [v for v in verdicts if v is not None]
                     if not all(checked[offset]):
@@ -3700,13 +3813,11 @@ def model_worker(spec: dict, out: str) -> int:
                  else None}
         del params, model
         got = (logits, tokens) if world.model_rank == 0 else None
-        everyone = [None] * world.model * world.P if rank0 else None
-        dist.gather_object({
+        everyone = gather_to_rank0(world, {
             "rank": world.torch_rank, "dp": world.rank,
             "model": world.model_rank, "device": str(device), "log": log,
             "peak": peak, "window": window, "init_s": init_s,
-            "train_s": train_s, "serve": serve, "served": got}, everyone,
-            dst=0)
+            "train_s": train_s, "serve": serve, "served": got})
         if rank0:
             # check (e)'s reference: rank 0 serves the whole model on every
             # prompt
@@ -3962,6 +4073,590 @@ def print_model(stats: dict, card: str, label: str = "model"):
           f"{[round(x, 2) for x in s['serve_run_s_by_rank']]}"
           f" s by rank, the one-rank reference {stats['ref_s']:.1f} s",
           flush=True)
+
+
+# ---------------------------------------------------------------------------
+# attn model phase (slice 4c, second part): the audio and vlm families and
+# the paged scheduler over model ranks
+# ---------------------------------------------------------------------------
+
+def attn_model_spec(device="cuda", smoke: bool = False,
+                    new: int = MODEL_NEW, prompts: Optional[dict] = None,
+                    src_len: int = WMT_SRC,
+                    sched_layers: Optional[int] = None,
+                    sched_prompt=SCHED_PROMPT, sched_new: int = SCHED_NEW,
+                    block_size: int = BLOCK_SIZE,
+                    max_blocks: int = MAX_BLOCKS_PER_REQ) -> dict:
+    """What the attn model phase's ranks run (JSON, handed to every rank
+    on its command line): the audio and vlm models of
+    ``ATTN_MODEL_ARCHS`` served over data ``ATTN_MODEL_DATA`` x model
+    ``MODEL_M`` ranks, one prompt of ``prompts[arch]`` tokens a dp rank
+    and ``new`` decode steps; then ``SCHED_REQUESTS`` requests of
+    distinct lengths in ``sched_prompt`` through the paged scheduler on
+    ``ARCH`` (``sched_layers`` None: its own depth), ``sched_new`` tokens
+    each."""
+    return {"device": device, "smoke": smoke, "data": ATTN_MODEL_DATA,
+            "archs": list(ATTN_MODEL_ARCHS), "new": new,
+            "prompts": dict(prompts or ATTN_MODEL_PROMPTS),
+            "src_len": src_len, "sched_arch": ARCH,
+            "sched_layers": sched_layers, "sched_prompt": list(sched_prompt),
+            "sched_new": sched_new, "block_size": block_size,
+            "max_blocks": max_blocks}
+
+
+def attn_model_cfg(spec: dict, arch: str, n_layers: Optional[int] = None):
+    return model_cfg({"arch": arch, "smoke": spec["smoke"]}, n_layers)
+
+
+def k3_per_prefill(cfg) -> int:
+    """K3's launches a prefill of ``cfg`` on a model rank: one an encoder
+    layer and two a decoder layer (self and cross) for the audio family,
+    one a layer for the vlm and dense families."""
+    if cfg.family == "audio":
+        return cfg.encoder_layers + 2 * cfg.n_layers
+    return cfg.n_layers
+
+
+def cross_attention_without_g():
+    """Check (e)'s fault: every cross-attention (prefill and decode) adds
+    only this rank's heads' part of its output, ``reduce_from_model`` left
+    out, on every rank alike; returns the undo."""
+    from repro_torch.models import common as cm
+    from repro_torch.models import encdec
+    reduce = cm.reduce_from_model
+    saved = {n: getattr(encdec, n) for n in ("_cross_attn", "_cross_decode")}
+
+    def without_g(fn):
+        def faulty(*args, **kw):
+            cm.reduce_from_model = lambda x, mw: x
+            try:
+                return fn(*args, **kw)
+            finally:
+                cm.reduce_from_model = reduce
+        return faulty
+    for n, fn in saved.items():
+        setattr(encdec, n, without_g(fn))
+
+    def undo():
+        for n, fn in saved.items():
+            setattr(encdec, n, fn)
+    return undo
+
+
+def rank_local_pick(model, last):
+    """Check (e)'s fault for the paged steps: the greedy token of the
+    rank's own masked vocab columns, numbered from its first (the pick a
+    model world must not make), beside the gathered logits."""
+    import torch
+    from repro_torch.models import common as cm
+    from repro_torch.serve.decode import greedy_pick
+    n = last.shape[-1]
+    lo = model.model_world.rank * n if model.model_world else 0
+    cols = lo + torch.arange(n, device=last.device)
+    local = torch.where(cols < model.cfg.vocab, last, cm.NEG_INF)
+    return local.argmax(-1), greedy_pick(model, last)[1]
+
+
+def gather_to_rank0(world, obj):
+    """Every torch rank's ``obj`` on rank 0 (a list in rank order; ``None``
+    elsewhere)."""
+    import torch.distributed as dist
+    out = [None] * world.model * world.P if world.torch_rank == 0 else None
+    dist.gather_object(obj, out, dst=0)
+    return out
+
+
+def attn_family_serve(spec: dict, world, arch: str) -> Optional[dict]:
+    """One family model of the attn model phase on this rank: its slices
+    of random weights from ``ATTN_MODEL_SEED``, this dp rank's prompt (and
+    its frames, source tokens or patches) through ``greedy_run``, K3 tallied
+    by role; transformer-wmt again with check (e)'s cross-attention without
+    g.  Rank 0 then serves the whole model on every prompt, fed the model
+    world's tokens, for check (b) (and fed the faulty run's, for (e)), and
+    returns the checks; the other ranks return ``None``."""
+    import torch
+    from repro_torch.models import common as cm
+    from repro_torch.models.registry import build_model
+    device, mw = world.device, world.model_world
+    on_card = device.type == "cuda"
+    cfg = attn_model_cfg(spec, arch)
+    prompt, new = spec["prompts"][arch], spec["new"]
+    t0 = time.perf_counter()
+    model = build_model(cfg, device, model_world=mw)
+    whole = model.init(torch.Generator(device=device).manual_seed(
+        ATTN_MODEL_SEED))
+    params = cm.take_slices(whole, cm.placement(cfg, whole, MODEL_M), mw)
+    del whole
+    prompts = torch.as_tensor(np.random.default_rng(ATTN_MODEL_SEED).integers(
+        0, cfg.vocab, (spec["data"], prompt)), dtype=torch.int64,
+        device=device)
+    extra_all = serve_inputs(cfg, spec["data"], ATTN_MODEL_SEED, device,
+                             spec["src_len"])
+    mine = slice(world.rank, world.rank + 1)
+    extra = {k: v[mine] for k, v in extra_all.items()}
+    pos0 = prompt + (cfg.n_patches if cfg.family == "vlm" else 0)
+    max_len = prompt + new
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    (logits, tokens, launches), roles, _ = tally_k3_roles(
+        lambda: greedy_run(model, params, prompts[mine], max_len, new,
+                           extra=extra, pos0=pos0))
+    run_s = time.perf_counter() - t1
+    peak = torch.cuda.max_memory_allocated() if on_card else None
+    fault = None
+    if cfg.family == "audio" and not cfg.encoder_frames:
+        undo = cross_attention_without_g()
+        try:
+            fault = greedy_run(model, params, prompts[mine], max_len, new,
+                               extra=extra, pos0=pos0)[:2]
+        finally:
+            undo()
+    del params, model
+    everyone = gather_to_rank0(world, {
+        "rank": world.torch_rank, "launches": launches, "k3_roles": roles,
+        "init_s": t1 - t0, "run_s": run_s, "peak": peak,
+        "served": (logits, tokens, fault) if world.model_rank == 0
+        else None})
+    if world.torch_rank != 0:
+        return None
+    served = [r.pop("served") for r in everyone]
+    served = [x for x in served if x is not None]
+    w_logits = torch.cat([x[0] for x in served])
+    w_tokens = torch.cat([x[1] for x in served])
+    t0 = time.perf_counter()
+    if on_card:
+        torch.cuda.empty_cache()
+    model = build_model(cfg, device)
+    params = model.init(torch.Generator(device=device).manual_seed(
+        ATTN_MODEL_SEED))
+    ref_logits, ref_tokens, ref_launches = greedy_run(
+        model, params, prompts, max_len, new, feed=w_tokens,
+        extra=extra_all, pos0=pos0)
+    v = cfg.vocab                # the padding columns masked or not
+    check = serve_compare(w_logits[..., :v], w_tokens, ref_logits[..., :v],
+                          ref_tokens)
+    fault_check = None
+    if fault is not None:
+        f_logits = torch.cat([x[2][0] for x in served])
+        f_tokens = torch.cat([x[2][1] for x in served])
+        fr_logits, fr_tokens, _ = greedy_run(
+            model, params, prompts, max_len, new, feed=f_tokens,
+            extra=extra_all, pos0=pos0)
+        fault_check = serve_compare(f_logits[..., :v], f_tokens,
+                                    fr_logits[..., :v], fr_tokens)
+    ref_s = time.perf_counter() - t0
+    del params, model
+    finite = bool(torch.isfinite(w_logits[..., :v]).all())
+    in_vocab = bool(((w_tokens >= 0) & (w_tokens < v)).all())
+    return {"arch": arch, "family": cfg.family, "n_layers": cfg.n_layers,
+            "encoder_layers": cfg.encoder_layers, "d_model": cfg.d_model,
+            "prompt": prompt, "input_positions": prompt + sum(
+                v.shape[1] for v in extra_all.values()),
+            "new": new, "ranks": everyone, "ref_launches": ref_launches,
+            "ref_s": ref_s, "serve_check": check,
+            "cross_without_g_check": fault_check,
+            "finite": finite, "in_vocab": in_vocab,
+            "tokens": w_tokens.tolist()}
+
+
+def sched_prompts(cfg, spec: dict) -> list:
+    """``SCHED_REQUESTS`` prompts of the distinct lengths
+    :func:`sched_lengths` draws in ``spec["sched_prompt"]``, their tokens
+    from a numpy seed."""
+    rng = np.random.default_rng(SCHED_SEED + 1)
+    return [rng.integers(0, cfg.vocab, (n,)).astype(np.int32)
+            for n in sched_lengths(spec["sched_prompt"])]
+
+
+def sched_run(model, params, prompts: list, new: int, spec: dict,
+              pick=None) -> dict:
+    """``prompts`` through the paged ``ServeScheduler`` (``new`` tokens
+    each) from a pool with no block to spare, so that growth preempts;
+    ``pick`` in place of the paged steps' greedy pick where given.
+    Records each request's gathered logits (its prefill's and each decode
+    step's, from its last admission), the admissions and preemptions (at
+    the decode step count), the decode shapes and each prefill's and
+    decode step's launches."""
+    from repro_torch.kernels import ops
+    from repro_torch.serve import Request, ServeScheduler, kv_cache
+    from repro_torch.serve.decode import greedy_pick
+    device = model.device
+    bs = spec["block_size"]
+    n_blocks = 1 + sum(-(-(len(p) + 1) // bs) for p in prompts)
+    logits, current = {}, [None]
+    admissions, preemptions = [], []
+    launches = {"prefill": [], "decode": []}
+    times = {"prefill": [], "decode": []}          # ms, synchronised
+    inner = model.prefill
+
+    def recording_prefill(params, batch, max_len):
+        out, caches = inner(params, batch, max_len)
+        logits[current[0]] = [greedy_pick(model, out[:, -1])[1][0].float()
+                              .cpu()]
+        return out, caches
+    sched = ServeScheduler(model._replace(prefill=recording_prefill), params,
+                           n_blocks=n_blocks, block_size=bs,
+                           max_blocks_per_req=spec["max_blocks"],
+                           max_batch=MAX_BATCH)
+    do_prefill, decode, preempt = (sched._do_prefill, sched._decode,
+                                   sched._preempt)
+    kinds = (K1, K2, K3, K4)
+
+    def counted(key, fn, *args):
+        _sync(device)
+        before, t0 = ops.launch_counts(), time.perf_counter()
+        out = fn(*args)
+        _sync(device)
+        times[key].append((time.perf_counter() - t0) * 1e3)
+        after = ops.launch_counts()
+        launches[key].append({k: after[k] - before[k] for k in kinds})
+        return out
+
+    def logged_prefill(req, table):
+        current[0] = req.rid
+        admissions.append((sched.n_decode_steps, req.rid))
+        return counted("prefill", do_prefill, req, table)
+
+    def logged_decode(params, pool, tables, tokens, positions):
+        batch = list(sched.running)       # rows in the order the step built
+        pool, nxt, out = counted("decode", decode, params, pool, tables,
+                                 tokens, positions)
+        for i, req in enumerate(batch):
+            logits[req.rid].append(out[i].float().cpu())
+        return pool, nxt, out
+
+    def logged_preempt(victim):
+        preemptions.append((sched.n_decode_steps, victim.rid))
+        return preempt(victim)
+    sched._do_prefill, sched._decode, sched._preempt = (
+        logged_prefill, logged_decode, logged_preempt)
+    saved = kv_cache.greedy_pick
+    if pick is not None:
+        kv_cache.greedy_pick = pick
+    try:
+        for i, p in enumerate(prompts):
+            sched.submit(Request(i, p, new))
+        _sync(device)
+        t0 = time.perf_counter()
+        outs = sched.run()
+        _sync(device)
+        wall_s = time.perf_counter() - t0
+    finally:
+        kv_cache.greedy_pick = saved
+    return {"tokens": {rid: list(t) for rid, t in sorted(outs.items())},
+            "logits": logits, "admissions": admissions,
+            "preemptions": preemptions, "n_blocks": n_blocks,
+            "evictions": sched.blocks.evictions,
+            "n_decode_steps": sched.n_decode_steps,
+            "shapes": sorted(sched.decode_shapes_compiled),
+            "launches": launches, "times_ms": times, "wall_s": wall_s,
+            "blocks_free": sched.blocks.n_free}
+
+
+def first_parting_step(tokens, want, ref_logits, gap) -> Optional[int]:
+    """The first step at which ``tokens`` part from ``want`` (the tokens
+    the reference was fed), if the reference's greedy token there is not
+    ``tokens``' and its top-2 margin exceeds ``gap``: the step at which
+    check (c)'s rule fails; ``None`` where it does not."""
+    import torch
+    for i, (a, b) in enumerate(zip(tokens, want)):
+        if a != b:
+            top2 = torch.topk(ref_logits[0, i], 2).values
+            ok = int(ref_logits[0, i].argmax()) != a and \
+                float(top2[0] - top2[1]) > gap
+            return i if ok else None
+    return None
+
+
+def attn_sched_serve(spec: dict, world) -> Optional[dict]:
+    """Check (c) on this rank: ``SCHED_REQUESTS`` requests of distinct
+    prompt lengths through the paged scheduler over the model world, each
+    request then again through the dense model-world
+    ``build_prefill``/``build_serve_step`` fed its tokens; check (e)'s
+    rank-local pick on the first ``SCHED_FAULT_REQUESTS`` requests.  Rank 0
+    gathers every rank's tokens, logs and shapes and returns the
+    verdicts; the other ranks return ``None``."""
+    import torch
+    from repro_torch.models import common as cm
+    from repro_torch.models.registry import build_model
+    device, mw = world.device, world.model_world
+    on_card = device.type == "cuda"
+    cfg = attn_model_cfg(spec, spec["sched_arch"], spec["sched_layers"])
+    model = build_model(cfg, device, model_world=mw)
+    whole = model.init(torch.Generator(device=device).manual_seed(
+        ATTN_MODEL_SEED))
+    params = cm.take_slices(whole, cm.placement(cfg, whole, MODEL_M), mw)
+    del whole
+    prompts = sched_prompts(cfg, spec)
+    new = spec["sched_new"]
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    run = sched_run(model, params, prompts, new, spec)
+    t0 = time.perf_counter()
+    dense = {}
+    for rid, p in enumerate(prompts):
+        feed = torch.tensor([run["tokens"][rid]], dtype=torch.int64)
+        d_logits, d_tokens, d_launches = greedy_run(
+            model, params, torch.as_tensor(p[None], dtype=torch.int64,
+                                           device=device),
+            len(p) + new, new - 1, feed=feed)
+        dense[rid] = (d_logits, d_tokens, d_launches)
+    dense_s = time.perf_counter() - t0
+    fault_prompts = prompts[:SCHED_FAULT_REQUESTS]
+    fault = sched_run(model, params, fault_prompts, new, spec,
+                      pick=rank_local_pick)
+    peak = torch.cuda.max_memory_allocated() if on_card else None
+    del params, model
+    logs = lambda r: {k: r[k] for k in ("tokens", "admissions",
+                                        "preemptions", "shapes")}
+    everyone = gather_to_rank0(world, {
+        "rank": world.torch_rank, "run": logs(run),
+        "fault": logs(fault), "launches": run["launches"],
+        "times_ms": run["times_ms"],
+        "dense_launches": [d[2] for d in dense.values()],
+        "wall_s": run["wall_s"], "dense_s": dense_s, "peak": peak})
+    if world.torch_rank != 0:
+        return None
+    same = all(r["run"] == everyone[0]["run"] for r in everyone)
+    v = cfg.vocab
+    compares = {rid: serve_compare(
+        torch.stack(run["logits"][rid])[None, :, :v], torch.tensor(
+            [run["tokens"][rid]]), dense[rid][0][..., :v], dense[rid][1])
+        for rid in range(len(prompts))}
+    finite = all(bool(torch.isfinite(torch.stack(v)[:, :cfg.vocab]).all())
+                 for v in run["logits"].values())
+    in_vocab = all(0 <= t < cfg.vocab for toks in run["tokens"].values()
+                   for t in toks)
+    ok = (same and all(c["ok"] for c in compares.values())
+          and run["evictions"] >= 1 and finite and in_vocab
+          and run["blocks_free"] == run["n_blocks"] - 1
+          and all(len(t) == new for t in run["tokens"].values()))
+    # check (e): the rank-local pick must fail (c): the ranks part, or a
+    # request parts from the dense run where (c)'s rule holds it
+    fault_same = all(r["fault"]["tokens"] == everyone[0]["fault"]["tokens"]
+                     for r in everyone)
+    fault_parting = {rid: first_parting_step(
+        fault["tokens"][rid], run["tokens"][rid], dense[rid][0][..., :v],
+        compares[rid]["max_logit_gap"])
+        for rid in range(len(fault_prompts))}
+    return {"arch": cfg.name, "n_layers": cfg.n_layers,
+            "prompt_lens": [len(p) for p in prompts], "new": new,
+            "n_blocks": run["n_blocks"], "evictions": run["evictions"],
+            "preemptions": run["preemptions"],
+            "admissions": run["admissions"],
+            "n_decode_steps": run["n_decode_steps"],
+            "decode_shapes": run["shapes"], "ranks_equal": same,
+            "checks": {str(k): v for k, v in compares.items()},
+            "finite": finite, "in_vocab": in_vocab, "ok": ok,
+            "fault_ranks_equal": fault_same,
+            "fault_parting_step": {str(k): v
+                                   for k, v in fault_parting.items()},
+            "fault_fails": (not fault_same) or any(
+                v is not None for v in fault_parting.values()),
+            "tokens": run["tokens"], "ranks": everyone}
+
+
+def host_buffers() -> dict:
+    """Check (d): the pinned host buffers the model collectives staged
+    through (``common._HOST``), their capacities by dtype, and the bound
+    item 6 sets: a dtype at most as many as its largest capacity has
+    bits (one a power of two up to it)."""
+    from repro_torch.models import common as cm
+    caps = {}
+    for cap, dtype in cm._HOST:
+        caps.setdefault(str(dtype), []).append(cap)
+    return {"buffers": len(cm._HOST),
+            "capacities": {d: sorted(c) for d, c in caps.items()},
+            "bound": sum(max(c).bit_length() for c in caps.values()),
+            "bytes": sum(b.numel() * b.element_size()
+                         for b in cm._HOST.values())}
+
+
+def attn_model_worker(spec: dict, out: str) -> int:
+    """One rank of the attn model phase, started by torchrun: the family
+    models (:func:`attn_family_serve`), then the paged scheduler
+    (:func:`attn_sched_serve`) and the pinned buffers left
+    (:func:`host_buffers`); rank 0 writes ``out/attn_model.json``."""
+    import os
+    import torch
+    from repro_torch.launch import mesh
+
+    t_start = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    world = mesh.init_rank_world(spec["data"], model=MODEL_M,
+                                 backend=os.environ["REPRO_TORCH_BACKEND"],
+                                 device_type=spec["device"])
+    try:
+        families = {}
+        for arch in spec["archs"]:
+            t0 = time.perf_counter()
+            families[arch] = attn_family_serve(spec, world, arch)
+            if families[arch] is not None:
+                families[arch]["seconds"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        sched = attn_sched_serve(spec, world)
+        host = gather_to_rank0(world, host_buffers())
+        if world.torch_rank == 0:
+            sched["seconds"] = time.perf_counter() - t0
+            (Path(out) / "attn_model.json").write_text(json.dumps({
+                "world": {"data": spec["data"], "model": MODEL_M,
+                          "backend": world.backend},
+                "families": families, "sched": sched, "host": host,
+                "worker_s": time.perf_counter() - t_start}))
+        return 0
+    finally:
+        mesh.shutdown()
+
+
+def attn_model_phase(spec: dict, out: Path,
+                     timeout: int = ATTN_MODEL_TIMEOUT) -> dict:
+    """Start ``spec["data"] x MODEL_M`` ranks through torchrun (gloo, all
+    on one card, model minor) and hold what they report to checks (b)-(f)
+    (check (a) is :func:`check_attn_model_launches`).  A rank that fails
+    fails the phase.  ``out`` is the phase's own directory (emptied
+    first)."""
+    import shutil
+    t_phase = time.perf_counter()
+    out = Path(out)
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    torchrun_s = run_torchrun(spec["data"] * MODEL_M,
+                              ATTN_MODEL_WORKER_FLAG, spec, out, timeout)
+    stats = json.loads((out / "attn_model.json").read_text())
+    stats["spec"], stats["torchrun_s"] = spec, torchrun_s
+    for arch, f in stats["families"].items():
+        if not f["serve_check"]["ok"]:                          # check (b)
+            raise AssertionError(f"check (b), {arch}: {f['serve_check']}")
+        if not (f["finite"] and f["in_vocab"]):                 # check (f)
+            raise AssertionError(f"check (f), {arch}: non-finite logits or "
+                                 f"tokens outside the vocab")
+        fault = f["cross_without_g_check"]                      # check (e)
+        if fault is not None and fault["ok"]:
+            raise AssertionError(f"check (e), {arch}: check (b) holds on a "
+                                 f"cross-attention without g: {fault}")
+    if not any(f["cross_without_g_check"] is not None
+               for f in stats["families"].values()):
+        raise AssertionError("check (e): no cross-attention fault was run")
+    sched = stats["sched"]
+    if not sched["ok"]:                                         # check (c)
+        raise AssertionError(f"check (c): {json.dumps(sched)[:4000]}")
+    if not sched["fault_fails"]:                                # check (e)
+        raise AssertionError("check (e): check (c) holds on paged steps "
+                             "that keep the rank-local pick")
+    for h in stats["host"]:                                     # check (d)
+        if h["buffers"] > h["bound"]:
+            raise AssertionError(f"check (d): {h['buffers']} pinned buffers "
+                                 f"> the bound {h['bound']}: {h}")
+    stats["phase_s"] = time.perf_counter() - t_phase
+    return stats
+
+
+def check_attn_model_launches(stats) -> None:
+    """Check (a) of the attn model phase, on every rank: a family model's
+    prefill launches K3 :func:`k3_per_prefill` times (whisper by role:
+    one an encoder layer, a decoder layer and a cross-attention), its
+    decode steps nothing, K1, K2 and K4 never; the scheduler's prefills K3
+    once a layer, its decode steps nothing; the dense model-world runs
+    of check (c) alike."""
+    spec = stats["spec"]
+    zero = dict.fromkeys((K1, K2, K3, K4), 0)
+    for arch, f in stats["families"].items():
+        cfg = attn_model_cfg(spec, arch)
+        want = dict(zero, **{K3: k3_per_prefill(cfg)})
+        roles = ({"encoder": cfg.encoder_layers, "decoder": cfg.n_layers,
+                  "cross": cfg.n_layers} if cfg.family == "audio"
+                 else {"decoder": cfg.n_layers})
+        for r in f["ranks"]:
+            pre, *steps = [{k: l[k] for k in zero} for l in r["launches"]]
+            if pre != want or any(s != zero for s in steps) \
+                    or r["k3_roles"] != roles:
+                raise AssertionError(
+                    f"{arch} rank {r['rank']}: launches {r['launches']}, "
+                    f"K3 by role {r['k3_roles']}; a prefill {want} "
+                    f"({roles}), a decode step none")
+    cfg = attn_model_cfg(spec, spec["sched_arch"], spec["sched_layers"])
+    want = dict(zero, **{K3: cfg.n_layers})
+    for r in stats["sched"]["ranks"]:
+        runs = [r["launches"]] + [{"prefill": d[:1], "decode": d[1:]}
+                                  for d in r["dense_launches"]]
+        for l in runs:
+            pre = [{k: x[k] for k in zero} for x in l["prefill"]]
+            dec = [{k: x[k] for k in zero} for x in l["decode"]]
+            if any(x != want for x in pre) or any(x != zero for x in dec):
+                raise AssertionError(
+                    f"scheduler rank {r['rank']}: prefills {pre}, decode "
+                    f"steps {dec}; a prefill {want}, a decode step none")
+
+
+def print_attn_model(stats: dict, card: str):
+    """The attn model phase's lines: each family model's serving over the
+    ranks against the one-rank run, the scheduler's, the pinned
+    buffers."""
+    gib = lambda b: round(b / 2 ** 30, 2) if b is not None else None
+    print(f"attn model [{card}]: data {stats['world']['data']} x model "
+          f"{MODEL_M} ranks over {stats['world']['backend']} on one card; "
+          f"phase {stats['phase_s']:.1f} s (torchrun "
+          f"{stats['torchrun_s']:.1f} s)", flush=True)
+    for arch, f in stats["families"].items():
+        e, g = f["serve_check"], f["cross_without_g_check"]
+        layers = (f"{f['encoder_layers']} + {f['n_layers']}"
+                  if f["family"] == "audio" else f"{f['n_layers']}")
+        print(f"attn model {arch} [{card}]: full width, {layers} layers, "
+              f"{f['input_positions']} input positions a dp rank, "
+              f"{f['new']} decode steps; serving by rank "
+              f"{[round(r['run_s'], 2) for r in f['ranks']]} s, peak "
+              f"{[gib(r['peak']) for r in f['ranks']]} GiB, K3 by role "
+              f"{f['ranks'][0]['k3_roles']}; one-rank reference "
+              f"{f['ref_s']:.1f} s; {f['seconds']:.1f} s in all", flush=True)
+        print(f"attn model {arch} checks: (b) prefill and first decode "
+              f"logits max abs diff {e['prefill_and_first_step_max_abs_diff']}"
+              f" (limit {e['limit']:.4g}, largest gap "
+              f"{e['max_logit_gap']:.4g})"
+              f", tokens equal {e['tokens_equal']} of the "
+              f"{e['tokens_compared']} whose margin exceeds the gap "
+              f"({e['near_ties_equal']} of {e['near_ties']} others); (f) "
+              f"finite {f['finite']}, in vocab {f['in_vocab']}"
+              + (f"; (e) without g in the cross-attention: diffs "
+                 f"{g['prefill_and_first_step_max_abs_diff']}, (b) holds "
+                 f"{g['ok']}" if g else ""), flush=True)
+    s = stats["sched"]
+    dec = s["ranks"]
+    decode_ms = [round(statistics.median(r["times_ms"]["decode"]), 1)
+                 for r in dec]
+    checks = s["checks"].values()
+    worst = max(max(c["prefill_and_first_step_max_abs_diff"])
+                / c["largest_logit"] for c in checks)
+    print(f"attn model scheduler [{card}]: {s['arch']} full width, "
+          f"{s['n_layers']} layers, {len(s['prompt_lens'])} requests of "
+          f"{s['prompt_lens']} tokens, {s['new']} new, pool "
+          f"{s['n_blocks']} blocks: {s['evictions']} evictions "
+          f"{s['preemptions']}, {s['n_decode_steps']} decode steps, shapes "
+          f"{s['decode_shapes']}; run by rank "
+          f"{[round(r['wall_s'], 2) for r in dec]} s (decode ms a step, "
+          f"median by rank {decode_ms}; prefill ms by rank "
+          f"{[[round(x, 1) for x in r['times_ms']['prefill']] for r in dec]})"
+          f", dense runs "
+          f"{[round(r['dense_s'], 2) for r in dec]} s, peak "
+          f"{[gib(r['peak']) for r in dec]} GiB; {s['seconds']:.1f} s in all",
+          flush=True)
+    print(f"attn model scheduler checks: (c) ranks' tokens, admissions, "
+          f"preemptions and shapes equal {s['ranks_equal']}, every request "
+          f"within (b)'s rule of its dense model-world run "
+          f"{all(c['ok'] for c in checks)} (largest "
+          f"prefill/first-step diff {worst:.3g} of the largest logit, "
+          f"tokens equal {sum(c['tokens_equal'] for c in checks)} of "
+          f"{sum(c['tokens_compared'] for c in checks)} "
+          f"compared); (e) the rank-local pick: ranks equal "
+          f"{s['fault_ranks_equal']}, first parting step by request "
+          f"{s['fault_parting_step']}, (c) fails {s['fault_fails']}; (d) "
+          f"pinned buffers by rank "
+          f"{[(h['buffers'], h['bound'], h['bytes']) for h in stats['host']]}"
+          f" (count, bound, bytes), capacities "
+          f"{stats['host'][0]['capacities']}", flush=True)
 
 
 def rg_train_config():
@@ -5088,12 +5783,15 @@ def rg_profile(model, params, device="cuda", batch: int = RG_BATCH,
 
 
 def _activities(device):
+    """What a profiler window records: the device's kernels on the card
+    (all that a window reads: recording the host's ops too slowed a
+    host-bound step about 2.5 times and its read-back by up to a minute),
+    the host's ops on the CPU."""
     import torch
     from torch.profiler import ProfilerActivity
-    activities = [ProfilerActivity.CPU]
     if torch.device(device).type == "cuda":
-        activities.append(ProfilerActivity.CUDA)
-    return activities
+        return [ProfilerActivity.CUDA]
+    return [ProfilerActivity.CPU]
 
 
 def _window(prof, wall_ms: float, top_n: int = 8, shares=None) -> dict:
@@ -5413,6 +6111,15 @@ def main() -> int:
     print_model(rg_tp, card, label="rg model")
     free_memory("rg model phase")
 
+    # -- attn model phase: whisper-medium, internvl2-2b and transformer-wmt
+    # served over data 1 x model 2 gloo ranks, then the paged scheduler on
+    # tinyllama-1.1b over them (K3 at a rank's heads)
+    attn = attn_model_phase(attn_model_spec(), ROOT / "build" / "attn_model")
+    check_attn_model_launches(attn)                             # check (a)
+    print(json.dumps({"attn_model": attn, "card": card}), flush=True)
+    print_attn_model(attn, card)
+    free_memory("attn model phase")
+
     # -- recurrentgemma phase (K4, K3 at head dim 256) ---------------------
     from repro_torch.models import rglru
     rcfg = get_config(RG_ARCH)
@@ -5652,6 +6359,14 @@ def main() -> int:
         "ms": row["ms"], "plain_ms": row["plain_ms"],
         "bound_ms": row["bound_ms"], "bound_by": kw.pop("bound_by", "bytes"),
         "library_ms": row["library_ms"], "host_us": row["host_us"], **kw}
+    sched_row = bf16_row(SCHED_RANK_ATTN)
+    sched_k3_by = {
+        "paged": sum(x[K3] for r in attn["sched"]["ranks"]
+                     for key in ("prefill", "decode")
+                     for x in r["launches"][key]),
+        "dense": sum(x[K3] for r in attn["sched"]["ranks"]
+                     for d in r["dense_launches"] for x in d)}
+    sched_k3 = sum(sched_k3_by.values())
     ranks_row = lambda r: {k: r[k] for k in (
         "n", "scale", "ms", "plain_ms", "library_ms", "bound_ms",
         "max_abs_err", "host_us")}
@@ -5744,6 +6459,39 @@ def main() -> int:
     ] + [
         entry(K3, "src/repro_torch/kernels/csrc/flash_attention.cu",
               "src/repro/kernels/flash_attention.py:70",
+              sum(l[K3] for r in attn["families"][arch]["ranks"]
+                  for l in r["launches"]), role_rows[role_key],
+              max(r["max_abs_err"] for r in rows),
+              bound_by=role_rows[role_key]["bound_by"],
+              shape=role_rows[role_key]["shape"], dtype="bfloat16",
+              causal=role_rows[role_key]["causal"],
+              launches_by_role=dict(Counter(
+                  k for r in attn["families"][arch]["ranks"]
+                  for k, n in r["k3_roles"].items() for _ in range(n))),
+              rows_by_role=by_role(role_rows),
+              path=f"{arch} serving, data {ATTN_MODEL_DATA} x model "
+                   f"{MODEL_M} ranks (a rank's heads)")
+        for arch, role_rows, role_key in (
+            (WHISPER_ARCH, {role: bf16_row(c) for role, c in
+                            WHISPER_RANK_ROLES.items()}, "encoder"),
+            (VLM_ARCH, {"decoder": bf16_row(VLM_RANK_ATTN)}, "decoder"),
+            (PAPER_ARCH, {role: bf16_row(c) for role, c in
+                          WMT_RANK_ROLES.items()}, "encoder"))
+    ] + [
+        entry(K3, "src/repro_torch/kernels/csrc/flash_attention.cu",
+              "src/repro/kernels/flash_attention.py:70",
+              sched_k3, sched_row, max(r["max_abs_err"] for r in rows),
+              bound_by=sched_row["bound_by"], shape=sched_row["shape"],
+              dtype="bfloat16",
+              launches_by_path={"paged scheduler": sched_k3_by["paged"],
+                                "dense model-world runs of check (c)":
+                                sched_k3_by["dense"]},
+              path=f"{ARCH} paged scheduler, data {ATTN_MODEL_DATA} x "
+                   f"model {MODEL_M} ranks (a rank's heads; the longest "
+                   f"prompt)"),
+    ] + [
+        entry(K3, "src/repro_torch/kernels/csrc/flash_attention.cu",
+              "src/repro/kernels/flash_attention.py:70",
               k3_on(family[arch]), row, max(r["max_abs_err"] for r in rows),
               bound_by=row["bound_by"], shape=row["shape"], dtype="bfloat16",
               path=f"{arch} serving")
@@ -5805,4 +6553,6 @@ if __name__ == "__main__":
         sys.exit(ranks_worker(json.loads(sys.argv[2]), sys.argv[3]))
     if sys.argv[1:2] == [MODEL_WORKER_FLAG]:
         sys.exit(model_worker(json.loads(sys.argv[2]), sys.argv[3]))
+    if sys.argv[1:2] == [ATTN_MODEL_WORKER_FLAG]:
+        sys.exit(attn_model_worker(json.loads(sys.argv[2]), sys.argv[3]))
     sys.exit(main())

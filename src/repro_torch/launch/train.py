@@ -22,16 +22,16 @@ runs on the CUDA card; ``REPRO_TORCH_DEVICE=cpu`` asks for the CPU (add
 ``--smoke`` there).  Under torchrun (``WORLD_SIZE`` > 1) each rank trains
 its own replica over the backend ``REPRO_TORCH_BACKEND`` names (default
 nccl on the card, gloo on the CPU; ``gloo`` lets ranks share one card).
-``--model-axis M`` (the dense and hybrid families) splits each replica's
-model over M ranks, model minor (``launch/mesh.py``): torchrun starts
-``data x pod x M`` ranks.  ``--sharding fsdp`` makes the members of each pod (the ranks
+``--model-axis M`` (the dense, hybrid, audio and vlm families) splits
+each replica's model over M ranks, model minor (``launch/mesh.py``):
+torchrun starts ``data x pod x M`` ranks.  ``--sharding fsdp`` makes the members of each pod (the ranks
 that differ on the minor dp axis) one logical worker sharing one set of
 shard buffers (``core/replica.py``), on one device; ``--streamed`` adds
 the layer-streamed engine (``core/streaming.py``), the dense family's
 only.  Flags
 of the JAX driver whose feature is not ported yet raise, naming their
 slice (ROADMAP.md): FSDP under torchrun is slice 7c's, the model axis of
-the other families slice 4c's.
+the moe and ssm families slice 4c's.
 """
 
 from __future__ import annotations
@@ -308,8 +308,8 @@ def main():
                     help="replicas on the data axis (ranks under torchrun, "
                          "else rows of the stacked state)")
     ap.add_argument("--model-axis", type=int, default=None,
-                    help="model ranks a replica (the dense and hybrid "
-                         "families, under torchrun)")
+                    help="model ranks a replica (the dense, hybrid, audio "
+                         "and vlm families, under torchrun)")
     ap.add_argument("--pod-axis", type=int, default=None,
                     help="with --data-axis: lay the replicas over (pod, "
                          "data)")

@@ -261,14 +261,20 @@ def tp_stats() -> dict:
 
 def _host_buffer(like: torch.Tensor, numel: Optional[int] = None
                  ) -> torch.Tensor:
-    """The pinned host buffer of ``numel`` elements (``like``'s count by
-    default) of ``like``'s dtype."""
-    key = (numel or like.numel(), like.dtype)
+    """A host buffer of ``numel`` elements (``like``'s count by default) of
+    ``like``'s dtype, pinned where a card is present: a view of the first
+    ``numel`` elements of one buffer kept per (capacity, dtype), the
+    capacity ``numel`` rounded up to a power of two.  So a dtype holds at
+    most about log2 of the largest count's buffers, however many shapes
+    pass through (a prefill at every prompt length)."""
+    n = numel if numel is not None else like.numel()
+    cap = 1 << max(n - 1, 0).bit_length()
+    key = (cap, like.dtype)
     buf = _HOST.get(key)
     if buf is None:
-        buf = _HOST[key] = torch.empty(key[0], dtype=like.dtype,
-                                       pin_memory=True)
-    return buf
+        buf = _HOST[key] = torch.empty(
+            cap, dtype=like.dtype, pin_memory=torch.cuda.is_available())
+    return buf[:n]
 
 
 def model_all_reduce(x: torch.Tensor, mw: ModelWorld,

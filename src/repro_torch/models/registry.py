@@ -18,13 +18,14 @@ aux (``load_balance``, ``router_z``, ``dropped``) beside the logits, and
 its loss adds ``router_aux_coef`` times the two router losses to the
 cross-entropy, as the JAX loss does.
 
-``build_model(cfg, device, model_world)`` gives the dense and hybrid
-families the model axis (``common.ModelWorld``, the model ranks of one
-replica): their params are the rank's slices by ``common.placement``,
-their entry points compute the rank's part (``models/transformer.py``,
-``models/rglru.py``), their logits are the rank's vocab columns and
-their loss the vocab-parallel cross-entropy (chunked at vocab >= 65536).
-Another family with a model world raises, naming slice 4c.
+``build_model(cfg, device, model_world)`` gives the dense, hybrid, audio
+and vlm families the model axis (``common.ModelWorld``, the model ranks
+of one replica): their params are the rank's slices by
+``common.placement``, their entry points compute the rank's part
+(``models/transformer.py``, ``models/rglru.py``, ``models/encdec.py``,
+``models/vlm.py``), their logits are the rank's vocab columns and their
+loss the vocab-parallel cross-entropy (chunked at vocab >= 65536).  The
+moe and ssm families with a model world raise, naming slice 4c.
 
 ``layered`` is the dense family's per-layer decomposition for the
 layer-streamed FSDP engine (``core/streaming.py``): stem -> superblock
@@ -62,9 +63,9 @@ class ModelAPI(NamedTuple):
 
 CHUNKED_CE_VOCAB = 65536
 # the families whose entry points take a model world
-MODEL_AXIS_FAMILIES = ("dense", "hybrid")
-MODEL_AXIS_SLICE = ("slice 4c: the model axis of the moe, audio, vlm and "
-                    "ssm families (ROADMAP.md)")
+MODEL_AXIS_FAMILIES = ("dense", "hybrid", "audio", "vlm")
+MODEL_AXIS_SLICE = ("slice 4c: the model axis of the moe and ssm families "
+                    "(ROADMAP.md)")
 
 
 def _chunked_ce(cfg, params, hidden, labels, mask, mw=None):
@@ -189,7 +190,7 @@ def _no_aux(fn):
 def build_model(cfg, device="cuda", model_world=None) -> ModelAPI:
     """The dense, moe, hybrid, ssm, audio or vlm family's API; entry points
     run on ``device`` (CUDA unless the caller asks for the CPU).  With a
-    ``model_world`` of more than one rank (the dense and hybrid families)
+    ``model_world`` of more than one rank (``MODEL_AXIS_FAMILIES``)
     the entry points take and compute this rank's slices; ``init`` still
     draws the whole tree, which ``common.take_slices`` cuts."""
     mw = model_world if model_world is not None and model_world.size > 1 \
@@ -217,27 +218,26 @@ def build_model(cfg, device="cuda", model_world=None) -> ModelAPI:
     elif cfg.family == "vlm":
         mod = vlm
         forward = lambda params, batch: vlm.forward(
-            cfg, params, batch["tokens"], batch["patches"])[0]
+            cfg, params, batch["tokens"], batch["patches"], **tp)[0]
         forward_train = lambda params, batch, remat, hidden: \
-            tfm.forward_train(cfg, params, batch["tokens"], remat=remat,
-                              return_hidden=hidden,
-                              prefix_embeds=batch["patches"])
+            vlm.forward_train(cfg, params, batch["tokens"], batch["patches"],
+                              remat=remat, return_hidden=hidden, **tp)
         prefill = lambda params, batch, max_len: vlm.prefill(
             cfg, params, batch["tokens"], max_len=max_len,
-            prefix_embeds=batch["patches"])
+            prefix_embeds=batch["patches"], **tp)
         chunked = cfg.vocab_padded >= CHUNKED_CE_VOCAB
         text_slice = cfg.n_patches
     elif cfg.family == "audio":
         mod = encdec
         forward = lambda params, batch: encdec.forward(
-            cfg, params, batch["tokens"], _enc_input(batch))
+            cfg, params, batch["tokens"], _enc_input(batch), **tp)
         forward_train = lambda params, batch, remat, hidden: \
             encdec.forward_train(cfg, params, batch["tokens"],
                                  _enc_input(batch), remat=remat,
-                                 return_hidden=hidden)
+                                 return_hidden=hidden, **tp)
         prefill = lambda params, batch, max_len: encdec.prefill(
             cfg, params, batch["tokens"], _enc_input(batch),
-            max_len=max_len)
+            max_len=max_len, **tp)
         chunked = False
     else:
         raise ValueError(f"unknown family {cfg.family!r}")

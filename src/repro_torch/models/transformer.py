@@ -297,19 +297,24 @@ def attn_layer(cfg, p, x, positions, window: Optional[int], mw=None):
     return _attn_block(cfg, p, x, positions, window, cfg.causal, mw=mw)[0]
 
 
-def embed(cfg, params, tokens, mw=None):
-    """The token embeddings; with a vocab-split table, this rank's rows
+def lookup(cfg, table, tokens, mw=None):
+    """The rows of an embedding ``table`` (``emb``, or an encoder's
+    ``src_emb``) for ``tokens``; with a vocab-split table, this rank's rows
     (zero for a token outside them) summed over the ranks: one term is
     non-zero, so the sum is exact."""
-    if vocab_split(cfg, params, mw):
-        table = params["emb"]
-        n = table.shape[0]
-        local = tokens - mw.rank * n
-        inside = ((local >= 0) & (local < n))[..., None]
-        x = cm.reduce_from_model(
-            torch.where(inside, table[local.clamp(0, n - 1)], 0.0), mw)
-    else:
-        x = params["emb"][tokens]
+    if mw is None or table.shape[0] == cfg.vocab_padded:
+        return table[tokens]
+    n = table.shape[0]
+    local = tokens - mw.rank * n
+    inside = ((local >= 0) & (local < n))[..., None]
+    return cm.reduce_from_model(
+        torch.where(inside, table[local.clamp(0, n - 1)], 0.0), mw)
+
+
+def embed(cfg, params, tokens, mw=None):
+    """The token embeddings (:func:`lookup` of ``emb``), scaled by
+    sqrt(d_model) where the config says so."""
+    x = lookup(cfg, params["emb"], tokens, mw)
     if cfg.emb_scale:
         x = x * torch.tensor(math.sqrt(float(cfg.d_model)),
                              dtype=torch.float32).to(x.dtype)

@@ -5,11 +5,15 @@ Every request of a batch shares one position and reserves ``max_len``
 cache positions up front.  This is the uncontended reference the paged
 scheduler is held against.
 
-Over a model world (``build_model(..., model_world=)``, the dense and
-hybrid families) the steps run on each model rank of a replica: the
-caches hold the rank's KV heads (and a recurrent layer's state the rank's
-channels), the logits come out of the model as the rank's vocab columns,
-and the steps gather them.  A dp rank serves its own rows of the batch.
+Over a model world (``build_model(..., model_world=)``, the dense,
+hybrid, audio and vlm families) the steps run on each model rank of a
+replica: the caches hold the rank's KV heads (an encoder-decoder's cross
+caches too; a recurrent layer's state the rank's channels), the logits
+come out of the model as the rank's vocab columns, and the steps gather
+them and pick the greedy token over the ranks (:func:`greedy_pick`,
+which the paged steps share).  A dp rank serves its own rows of the
+batch; ``build_prefill`` passes a batch's ``frames``, ``src`` or
+``patches`` through to the model.
 ``cache_shardings`` and ``serve_param_shardings`` are the reference's
 placement tables, as tuples of axis names; the port computes with the
 model entry on the KV-head dim where the KV heads divide over the model
@@ -91,39 +95,45 @@ def serve_param_shardings(params_shapes):
     return cm.tree_specs(params_shapes)
 
 
+def greedy_pick(model, last):
+    """The greedy token of each row of the last-position logits ``last``
+    (N, V'), and those logits over the whole vocabulary, the
+    vocab-padding columns (the table is padded to /256) masked to
+    ``NEG_INF`` first.  Over a vocab-split model world ``last`` is the
+    rank's columns: each rank takes the max and argmax of its masked
+    columns and the ranks share the (value, global index) pairs; the
+    largest value wins, the smallest index among equals (``torch.argmax``'s
+    rule), so every rank picks the same token, and the logits come back
+    gathered.  The dense and the paged serving steps both pick through
+    this function.  Returns (tokens (N,) int64, logits (N, V))."""
+    mw = model.model_world
+    n = last.shape[-1]
+    split = mw is not None and n < model.cfg.vocab_padded
+    lo = mw.rank * n if split else 0
+    cols = lo + torch.arange(n, device=last.device)
+    last = torch.where(cols < model.cfg.vocab, last, cm.NEG_INF)
+    idx = last.argmax(-1)
+    if not split:
+        return idx, last
+    val = last.gather(-1, idx[:, None])[:, 0].float()
+    pair = torch.stack([val, (idx + lo).float()], -1)           # (N, 2)
+    pairs = cm.model_all_gather(pair, mw).view(
+        -1, mw.size, 2).transpose(0, 1)                         # (M, N, 2)
+    best = pairs[..., 0].max(0).values
+    cand = torch.where(pairs[..., 0] == best, pairs[..., 1], float("inf"))
+    return cand.min(0).values.long(), cm.model_all_gather(last, mw)
+
+
 def build_serve_step(model):
     """``serve_step(params, caches, token (B,1), pos) -> (next_token (B,1),
-    logits, caches)``; the caches are updated in place.  Over a vocab-split
-    model world each rank takes the max and argmax of its masked columns
-    and the ranks share the (value, global index) pairs: the largest value
-    wins, the smallest index among equals (``torch.argmax``'s rule); the
-    logits are returned gathered."""
-    vocab = model.cfg.vocab
-    mw = model.model_world
+    logits, caches)``; the caches are updated in place.  The token is
+    :func:`greedy_pick`'s, the logits (B, 1, V) masked and, over a
+    vocab-split model world, gathered."""
 
     def serve_step(params, caches, token, pos):
         logits, caches = model.decode_step(params, caches, token, pos)
-        n = logits.shape[-1]
-        split = mw is not None and n < model.cfg.vocab_padded
-        lo = mw.rank * n if split else 0
-        # mask vocab-padding columns (table padded to /256), by global index
-        cols = lo + torch.arange(n, device=logits.device)
-        logits = torch.where(cols < vocab, logits, cm.NEG_INF)
-        last = logits[:, -1, :]
-        if not split:
-            nxt = last.argmax(-1)
-        else:
-            idx = last.argmax(-1)
-            val = last.gather(-1, idx[:, None])[:, 0].float()
-            pair = torch.stack([val, (idx + lo).float()], -1)   # (B, 2)
-            pairs = cm.model_all_gather(pair, mw).view(
-                -1, mw.size, 2).transpose(0, 1)                 # (M, B, 2)
-            best = pairs[..., 0].max(0).values
-            cand = torch.where(pairs[..., 0] == best, pairs[..., 1],
-                               float("inf"))
-            nxt = cand.min(0).values.long()
-            logits = cm.model_all_gather(logits, mw)
-        return nxt.to(token.dtype)[:, None], logits, caches
+        nxt, last = greedy_pick(model, logits[:, -1, :])
+        return nxt.to(token.dtype)[:, None], last[:, None], caches
 
     return serve_step
 

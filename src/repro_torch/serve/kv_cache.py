@@ -34,7 +34,7 @@ from typing import Dict, List
 import numpy as np
 import torch
 
-from repro_torch.models import common as cm
+from repro_torch.serve.decode import greedy_pick
 
 NULL_BLOCK = 0
 
@@ -171,13 +171,6 @@ def _gather_view(pool_leaf, tables):
     return g.reshape(g.shape[:2] + (g.shape[2] * g.shape[3],) + g.shape[4:])
 
 
-def _masked_argmax(logits, vocab: int):
-    """Greedy pick over (..., V) logits with the vocab-padding columns
-    (the table is padded to /256) masked to NEG_INF first."""
-    cols = torch.arange(logits.shape[-1], device=logits.device)
-    return torch.where(cols < vocab, logits, cm.NEG_INF).argmax(-1)
-
-
 def build_paged_decode(model, *, block_size: int):
     """Ragged-batch decode:
     ``step(params, pool, tables, tokens, positions) -> (pool, next_tokens,
@@ -185,11 +178,11 @@ def build_paged_decode(model, *, block_size: int):
 
     ``tables`` (N, max_blocks), ``tokens``/``positions`` (N,) int64 tensors
     on the model's device, every row at its own position.  The pool is
-    updated in place and returned.  ``logits`` (N, V) are the rows' raw
-    last-position logits; the greedy pick masks the vocab-padding columns
-    as ``build_serve_step`` does.
+    updated in place and returned.  The greedy pick and ``logits`` (N, V),
+    the rows' last-position logits with the vocab-padding columns masked,
+    are ``serve.decode.greedy_pick``'s, as ``build_serve_step``'s are: over
+    a model world the ranks' gathered pick and logits.
     """
-    vocab = model.cfg.vocab
 
     def step(params, pool, tables, tokens, positions):
         views = {g: {n: _gather_view(p, tables) for n, p in leaves.items()}
@@ -202,8 +195,8 @@ def build_paged_decode(model, *, block_size: int):
         for g, leaves in pool.items():
             for n, p in leaves.items():
                 p[:, blk, slot] = views[g][n][:, rows, positions]
-        last = logits[:, -1]
-        return pool, _masked_argmax(last, vocab).to(tokens.dtype), last
+        nxt, last = greedy_pick(model, logits[:, -1])
+        return pool, nxt.to(tokens.dtype), last
 
     return step
 
@@ -216,9 +209,10 @@ def build_paged_prefill(model, *, block_size: int):
     prefill K/V and logits equal the uncontended reference's); ``table``
     (max_blocks,) the request's padded table.  ``max_blocks * block_size``
     is the view length every later decode gathers, so the prefill pads its
-    cache to exactly that.  The pool is updated in place and returned.
+    cache to exactly that.  The pool is updated in place and returned.  The
+    first token is ``serve.decode.greedy_pick``'s (over a model world, the
+    ranks' gathered pick).
     """
-    vocab = model.cfg.vocab
 
     def prefill(params, pool, tokens, table):
         s_view = table.shape[0] * block_size
@@ -228,7 +222,7 @@ def build_paged_prefill(model, *, block_size: int):
                 c = caches[g][n][:, 0]             # (n_sb, S_view, ...)
                 p[:, table] = c.reshape((c.shape[0], table.shape[0],
                                          block_size) + c.shape[2:])
-        first = _masked_argmax(logits[0, -1], vocab)
+        first = greedy_pick(model, logits[:, -1])[0][0]
         return pool, first.to(tokens.dtype)
 
     return prefill

@@ -45,6 +45,7 @@ from repro_torch.core import plan as plan_mod
 from repro_torch.core import tree as tr
 from repro_torch.models.transformer import torch_dtype
 from repro_torch.serve import kv_cache
+from repro_torch.serve.decode import greedy_pick
 from repro_torch.serve.scheduler import Request, ServeScheduler
 
 
@@ -172,8 +173,6 @@ def build_prefill_export(model, *, block_size: int, max_blocks: int):
     block_size`` view, the same masked greedy argmax) without the scatter
     into a pool: the blocks leave through the connector instead.
     """
-    vocab = model.cfg.vocab
-
     def fn(params, tokens):
         s_view = max_blocks * block_size
         logits, caches = model.prefill(params, {"tokens": tokens}, s_view)
@@ -181,7 +180,7 @@ def build_prefill_export(model, *, block_size: int, max_blocks: int):
                                           block_size) + c.shape[3:])
                       for n, c in leaves.items()}
                   for g, leaves in caches.items()}
-        first = kv_cache._masked_argmax(logits[0, -1], vocab)
+        first = greedy_pick(model, logits[:, -1])[0][0]
         return blocks, first.to(tokens.dtype)
 
     return fn
@@ -212,6 +211,11 @@ class DisaggregatedScheduler(ServeScheduler):
     def __init__(self, model, params, *, prefill_params=None,
                  connector: Optional[KVConnector] = None,
                  link: plan_mod.LinkClass = plan_mod.DCN, **kw):
+        if getattr(model, "model_world", None) is not None:
+            raise NotImplementedError(
+                "the disaggregated scheduler over model ranks belongs to "
+                "slice 4c (ROADMAP.md); serve a model world through "
+                "serve.scheduler.ServeScheduler")
         super().__init__(model, params, **kw)
         self.prefill_params = params if prefill_params is None \
             else prefill_params

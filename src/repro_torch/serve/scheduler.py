@@ -29,6 +29,16 @@ line with its generated tokens dropped.  On re-admission it recomputes
 from the prompt; greedy decode is deterministic, so the regenerated tokens
 — and therefore the request's final output — are bit-identical to an
 uncontended run (vLLM's recompute policy).
+
+**Over model ranks** (a model built with ``model_world=``): every rank of
+the replica runs this scheduler on its own slices, with the same requests
+in the same order.  The pool holds the rank's KV heads, and the paged
+steps' greedy pick is the ranks' gathered one (``decode.greedy_pick``),
+so every rank sees the same tokens.  Admission, preemption, bucket
+padding and retirement depend only on the requests, the pool and those
+tokens, so the ranks take the same decisions; each step checks that
+they did: an ``all_gather`` over the model group of a few integers
+(:meth:`ServeScheduler.schedule_digest`), on the host, must agree.
 """
 
 from __future__ import annotations
@@ -37,8 +47,11 @@ from collections import deque
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Tuple
 
+import zlib
+
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.serve import kv_cache
 from repro_torch.serve.kv_cache import BlockPool, OutOfBlocks
@@ -93,11 +106,6 @@ class ServeScheduler:
     def __init__(self, model, params, *, n_blocks: int, block_size: int,
                  max_blocks_per_req: int, max_batch: int = 8,
                  batch_buckets: Optional[Sequence[int]] = None):
-        if getattr(model, "model_world", None) is not None:
-            raise NotImplementedError(
-                "the paged scheduler over model ranks belongs to slice 4c "
-                "(ROADMAP.md); serve a model world through "
-                "serve.decode.build_prefill/build_serve_step")
         self.model, self.params = model, params
         self.block_size = int(block_size)
         self.max_blocks_per_req = int(max_blocks_per_req)
@@ -201,7 +209,13 @@ class ServeScheduler:
             self.finished[req.rid] = req
 
     def step(self) -> bool:
-        """Admit + one decode iteration; False when nothing is in flight."""
+        """Admit + one decode iteration; False when nothing is in flight.
+        Over a model world the ranks' schedules are checked to agree."""
+        busy = self._step()
+        self._check_schedule()
+        return busy
+
+    def _step(self) -> bool:
         self._admit()
         if not self.running:
             if self.waiting:
@@ -237,6 +251,35 @@ class ServeScheduler:
             self._retire(req)
         self.n_decode_steps += 1
         return True
+
+    def schedule_digest(self) -> List[int]:
+        """A few integers that every model rank's schedule must share after
+        a step: the crc32 of the running requests' ids and token counts
+        and of the waiting line's ids, the prefills, decode steps and
+        evictions so far, and the free blocks."""
+        running = repr([(r.rid, len(r.out)) for r in self.running])
+        waiting = repr([r.rid for r in self.waiting])
+        return [zlib.crc32(running.encode()), zlib.crc32(waiting.encode()),
+                self.n_prefills, self.n_decode_steps, self.blocks.evictions,
+                self.blocks.n_free]
+
+    def _check_schedule(self) -> None:
+        """Over a model world: the ranks' :meth:`schedule_digest` must
+        agree (an ``all_gather`` of host integers, through the device only
+        where the backend takes device tensors)."""
+        mw = getattr(self.model, "model_world", None)
+        if mw is None:
+            return
+        mine = torch.tensor(self.schedule_digest(), dtype=torch.int64)
+        if not mw.staged:
+            mine = mine.to(self.model.device)
+        every = [torch.empty_like(mine) for _ in range(mw.size)]
+        dist.all_gather(every, mine, group=mw.group)
+        if any(not torch.equal(e, every[0]) for e in every):
+            raise RuntimeError(
+                f"model rank {mw.rank}: the ranks' schedules parted after "
+                f"decode step {self.n_decode_steps}: "
+                f"{[e.tolist() for e in every]}")
 
     def run(self) -> Dict[object, List[int]]:
         """Serve until every submitted request finishes."""

@@ -196,11 +196,16 @@ def planted(fault):
     collectives still pair): ``"no_f_backward"`` runs every
     ``copy_to_model`` as the plain identity (no all-reduce of its
     gradient), ``"q_norm_unsummed"`` only ``q_norm``'s and
-    ``"w_r_unsummed"`` only the RG-LRU gate kernel ``w_r``'s."""
+    ``"w_r_unsummed"`` only the RG-LRU gate kernel ``w_r``'s;
+    ``"enc_out_unsummed"`` leaves out the one on the encoder output that
+    the cross-attention reads; ``"local_pick"`` makes the paged steps pick
+    the greedy token among the rank's own vocab columns."""
     from repro_torch.models import common as cm
-    from repro_torch.models import rglru
+    from repro_torch.models import encdec, rglru
     from repro_torch.models import transformer as tfm
+    from repro_torch.serve import kv_cache
     copy, qkv, gates = cm.copy_to_model, tfm._qkv, rglru._gates
+    cross, pick = encdec._cross_input, kv_cache.greedy_pick
     seen = {}
     if fault == "no_f_backward":
         cm.copy_to_model = lambda x, mw: x
@@ -214,15 +219,33 @@ def planted(fault):
             seen["leaf"] = p["w_r"]
             return gates(p, u, mw)
         rglru._gates = gates_noting
+    elif fault == "enc_out_unsummed":
+        encdec._cross_input = lambda cfg, enc_out, mw=None: enc_out
+    elif fault == "local_pick":
+        kv_cache.greedy_pick = local_pick
     elif fault is not None:
         raise ValueError(f"unknown fault {fault!r}")
-    if "unsummed" in (fault or ""):
+    if "unsummed" in (fault or "") and fault != "enc_out_unsummed":
         cm.copy_to_model = lambda x, mw: (x if x is seen.get("leaf")
                                           else copy(x, mw))
     try:
         yield
     finally:
         cm.copy_to_model, tfm._qkv, rglru._gates = copy, qkv, gates
+        encdec._cross_input, kv_cache.greedy_pick = cross, pick
+
+
+def local_pick(model, last):
+    """The greedy pick the paged steps must not make over a model world:
+    the argmax of the rank's own masked vocab columns, numbered from the
+    rank's first, and the rank's logits."""
+    import torch
+    from repro_torch.models import common as cm
+    n = last.shape[-1]
+    lo = model.model_world.rank * n if model.model_world else 0
+    cols = lo + torch.arange(n, device=last.device)
+    last = torch.where(cols < model.cfg.vocab, last, cm.NEG_INF)
+    return last.argmax(-1), last
 
 
 def _states_equal(a, b) -> bool:
@@ -233,21 +256,18 @@ def _states_equal(a, b) -> bool:
         tr.tree_leaves((b.params, b.opt_state))))
 
 
-def model_axis_worker(world, out, runs, serve):
+def model_axis_worker(world, out, runs, serve=None, serves=None):
     """Each of ``runs`` (name -> arch, init, trainer_kw, steps, fault and
     optionally n_layers) for its steps on this rank's slices; rank 0
     writes the gathered state to ``out/<name>``, which every rank then
     restores into a new ``Trainer`` (``<name>/restored``: bit for bit).
-    Then ``serve`` (arch, params, prompts, max_len, steps, optionally
-    n_layers): the prompts of this dp rank through ``build_prefill`` and
-    ``build_serve_step`` (``serve/logits`` the gathered logits of the
-    prefill and each step, ``serve/tokens``)."""
+    Then ``serve`` (:func:`serve_greedy`'s spec; ``serve/logits`` the
+    gathered logits of the prefill and each step, ``serve/tokens``) and
+    each of ``serves`` (name -> spec, as ``<name>/serve/...``)."""
     import torch
-    from repro_torch.checkpoint import load_checkpoint, load_replica_state
+    from repro_torch.checkpoint import load_replica_state
     from repro_torch.launch.train import Trainer
     from repro_torch.models import common as cm
-    from repro_torch.models.registry import build_model
-    from repro_torch.serve.decode import build_prefill, build_serve_step
     res = {}
     for name, r in runs.items():
         with planted(r.get("fault")):
@@ -275,6 +295,29 @@ def model_axis_worker(world, out, runs, serve):
             cfg, trainer.state.params, world.model))
         res[f"{name}/whole"] = torch.cat([a.reshape(-1) for a in whole]
                                          ).numpy()
+    named = dict(serves or {})
+    if serve is not None:
+        named[""] = serve
+    for name, spec in named.items():
+        logits, tokens = serve_greedy(world, spec)
+        prefix = f"{name}/" if name else ""
+        res[f"{prefix}serve/logits"] = logits
+        res[f"{prefix}serve/tokens"] = tokens
+    return res
+
+
+def serve_greedy(world, serve):
+    """``serve`` (arch, params, prompts, max_len, steps, optionally
+    n_layers and ``extra``, an npz of the encoder's or the prefix's inputs
+    of every row): this dp rank's rows through ``build_prefill`` and
+    ``build_serve_step`` on its slices; returns the gathered logits of the
+    prefill and each step (B, steps + 1, V) and the greedy tokens.  A
+    vlm's decode positions count its patches."""
+    import torch
+    from repro_torch.checkpoint import load_checkpoint
+    from repro_torch.models import common as cm
+    from repro_torch.models.registry import build_model
+    from repro_torch.serve.decode import build_prefill, build_serve_step
     cfg = smoke_cfg(serve["arch"], n_layers=serve.get("n_layers"))
     model = build_model(cfg, "cpu", model_world=world.model_world)
     mw = world.model_world
@@ -282,22 +325,81 @@ def model_axis_worker(world, out, runs, serve):
     params = cm.take_slices(whole, cm.placement(cfg, whole, world.model), mw)
     prompts = np.load(serve["prompts"])
     rows = prompts.shape[0] // world.P
-    tokens = torch.from_numpy(prompts[world.rank * rows:
-                                      (world.rank + 1) * rows])
-    logits, caches = build_prefill(model, serve["max_len"])(
-        params, {"tokens": tokens})
+    mine = slice(world.rank * rows, (world.rank + 1) * rows)
+    batch = {"tokens": torch.from_numpy(prompts[mine])}
+    if serve.get("extra"):
+        batch.update({k: torch.from_numpy(v[mine])
+                      for k, v in np.load(serve["extra"]).items()})
+    logits, caches = build_prefill(model, serve["max_len"])(params, batch)
     step = build_serve_step(model)
     masked = torch.where(torch.arange(logits.shape[-1]) < cfg.vocab, logits,
                          cm.NEG_INF)
     tok = masked[:, -1].argmax(-1)[:, None]
+    pos0 = prompts.shape[1] + (cfg.n_patches if cfg.family == "vlm" else 0)
     all_logits, all_tokens = [logits[:, -1]], [tok[:, 0]]
     for i in range(serve["steps"]):
-        tok, logits, caches = step(params, caches, tok,
-                                   tokens.shape[1] + i)
+        tok, logits, caches = step(params, caches, tok, pos0 + i)
         all_logits.append(logits[:, -1])
         all_tokens.append(tok[:, 0])
-    res["serve/logits"] = torch.stack(all_logits, 1).numpy()
-    res["serve/tokens"] = torch.stack(all_tokens, 1).numpy()
+    return (torch.stack(all_logits, 1).numpy(),
+            torch.stack(all_tokens, 1).numpy())
+
+
+def scheduler_worker(world, out, arch, params, prompts, new, sched_kw,
+                     fault=None, staged_lengths=()):
+    """The paged ``ServeScheduler`` on this rank's slices (``fault`` planted
+    on every rank alike): every prompt of ``prompts`` (an npz of 1-D
+    arrays keyed by request id, submitted in order, ``new[id]`` tokens
+    each) from the
+    checkpoint ``params``; returns each request's tokens
+    (``tokens/<key>``), the admission and eviction counts, the decode
+    shapes.  Then, over the same group with host staging
+    (``ModelWorld.staged``), one prefill at each of ``staged_lengths``
+    against the same prefill unstaged (``staged_equal``: bit for bit) and
+    the pinned buffers it left (``host_buffers``: capacity and element
+    size of each)."""
+    import dataclasses
+    import torch
+    from repro_torch.checkpoint import load_checkpoint
+    from repro_torch.models import common as cm
+    from repro_torch.models.registry import build_model
+    from repro_torch.serve.decode import build_prefill
+    from repro_torch.serve.scheduler import Request, ServeScheduler
+    cfg = smoke_cfg(arch)
+    mw = world.model_world
+    model = build_model(cfg, "cpu", model_world=mw)
+    whole, _ = load_checkpoint(params, _spec_tree(cfg))
+    params = cm.take_slices(whole, cm.placement(cfg, whole, world.model), mw)
+    reqs = np.load(prompts)
+    res = {}
+    with planted(fault):
+        sched = ServeScheduler(model, params, **sched_kw)
+        for k in sorted(reqs, key=int):
+            sched.submit(Request(int(k), reqs[k], new[int(k)]))
+        outs = sched.run()
+    for rid, toks in outs.items():
+        res[f"tokens/{rid}"] = np.asarray(toks)
+    res["counts"] = np.asarray([sched.n_prefills, sched.n_decode_steps,
+                                sched.blocks.evictions])
+    res["shapes"] = np.asarray(sorted(sched.decode_shapes_compiled))
+    if staged_lengths:
+        cm._HOST.clear()
+        staged = build_model(cfg, "cpu", model_world=dataclasses.replace(
+            mw, staged=True))
+        equal = []
+        for n in staged_lengths:
+            batch = {"tokens": torch.from_numpy(
+                np.resize(reqs[sorted(reqs, key=int)[0]], n)[None])}
+            got = build_prefill(staged, n)(params, batch)
+            want = build_prefill(model, n)(params, batch)
+            equal.append(all(torch.equal(a, b) for a, b in zip(
+                [got[0]] + [c for g in got[1].values() for c in g.values()],
+                [want[0]] + [c for g in want[1].values()
+                             for c in g.values()])))
+        res["staged_equal"] = np.asarray(equal)
+        res["host_buffers"] = np.asarray(
+            [[cap, torch.empty((), dtype=dt).element_size()]
+             for cap, dt in cm._HOST])
     return res
 
 
@@ -344,4 +446,4 @@ def state_template(cfg, P: int, trainer_kw: dict):
 
 WORKERS = {"plan": plan_worker, "trainer": trainer_worker,
            "consolidated": consolidated_worker,
-           "model_axis": model_axis_worker}
+           "model_axis": model_axis_worker, "scheduler": scheduler_worker}

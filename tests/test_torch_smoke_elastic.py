@@ -37,7 +37,7 @@ def test_chip_smoke_elastic_phase_at_smoke_size_on_cpu():
     assert [t["planted_joiner_fails"] for t in runs["kill"]["transitions"]
             if t["kind"] == "regrow"] == [True]
     assert all(stats["replayed"].values())
-    assert runs["chaos"]["state_digest"] == runs["replay"]["state_digest"]
+    assert runs["replay"]["state_equal"] is True
     assert runs["chaos"]["launches"] == NO_LAUNCHES
     summary = smoke.elastic_summary(stats)
     assert set(summary["step_ms_by_world"]["chaos"]) == {4, 8}
@@ -80,3 +80,26 @@ def test_chip_smoke_elastic_check_b_fails_on_a_wrong_row(monkeypatch):
                                 device="cpu", seq_len=16)
     finally:
         torch.set_num_threads(threads)
+
+
+def test_chip_smoke_elastic_check_e_fails_on_a_flipped_bit():
+    """Check (e) compares the replay's final state with the first run's on
+    the device: a copy of the same state is equal, and one bit flipped in
+    one param element makes it differ."""
+    import torch
+
+    from repro_torch.configs import get_config
+
+    smoke = _chip_smoke()
+    cfg = get_config(smoke.ARCH, smoke=True)
+    first = smoke.elastic_trainer(cfg, 2, "cpu", 16, keep=True)
+    first.state_digest()
+    kept = first.kept
+    same = smoke.elastic_trainer(cfg, 2, "cpu", 16, against=kept)
+    same.state_digest()
+    assert same.state_equal is True
+    flipped = [a.clone() for a in kept]
+    flipped[0].view(-1).view(torch.uint8)[:1] ^= 1
+    other = smoke.elastic_trainer(cfg, 2, "cpu", 16, against=flipped)
+    other.state_digest()
+    assert other.state_equal is False

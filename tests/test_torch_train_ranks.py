@@ -202,13 +202,14 @@ def _main(monkeypatch, *argv):
 
 
 def test_model_axis_raises_naming_slice_4b(monkeypatch):
-    """Slices 4b and 4c ported the model axis of the dense and hybrid
-    families, under torchrun: another family raises naming slice 4c, a
-    dense or hybrid one in one process exits saying how to start it."""
+    """Slices 4b and 4c ported the model axis of the dense, hybrid, audio
+    and vlm families, under torchrun: another family raises naming slice
+    4c, one of those in one process exits saying how to start it."""
     with pytest.raises(NotImplementedError, match="slice 4c"):
-        _main(monkeypatch, "--arch", "whisper-medium", "--smoke",
+        _main(monkeypatch, "--arch", "xlstm-350m", "--smoke",
               "--data-axis", "4", "--model-axis", "2")
-    for arch in ("tinyllama-1.1b", "recurrentgemma-2b"):
+    for arch in ("tinyllama-1.1b", "recurrentgemma-2b", "whisper-medium",
+                 "internvl2-2b"):
         with pytest.raises(SystemExit, match="torchrun"):
             _main(monkeypatch, "--arch", arch, "--smoke", "--data-axis",
                   "4", "--model-axis", "2")
