@@ -18,11 +18,12 @@
    transformer-wmt's encoder, decoder and cross-attention,
    ``WMT_ATTN_CASES``; whisper-medium's 1500-frame encoder, decoder prompt
    and cross-attention, internvl2-2b's hd-128 prefill and the moe
-   family's, llama4-maverick's hd 128 and kimi-k2's hd 112,
-   ``FAMILY_ATTN_CASES``) and the edges of the TMA/wgmma kernel at hd 64,
-   128 and 256 (``TMA_EDGE_CASES``); times the kernel, the plain
-   version and ``F.scaled_dot_product_attention`` (the library yardstick,
-   used nowhere in the port; a boolean mask for a window, and at the
+   family's, llama4-maverick's hd 128 and kimi-k2's hd 112, whole and
+   at a model rank's heads, ``FAMILY_ATTN_CASES``) and the edges of the
+   TMA/wgmma kernel at hd 64, 128 and 256 (``TMA_EDGE_CASES``); times
+   the kernel, the plain version and ``F.scaled_dot_product_attention``
+   (the library yardstick, used nowhere in the port; a boolean mask for
+   a window, and at the
    recurrentgemma shape also the unwindowed causal call) against the
    roofline bound.  Every kernel time is taken with the queue filled first
    (``timed``), so that it is the device's and not the wrapper's host
@@ -239,6 +240,29 @@
    paged steps keeping the rank-local greedy pick must fail (c); (f)
    finite logits, in-vocab tokens.  Prints each model's serving seconds
    by rank, peak memory and the phase's seconds.
+   Ep model phase (slice 4c, third part, ``ep_model_phase``): 2 ranks
+   started by ``torch.distributed.run`` (this script with
+   ``--ep-model-worker``), gloo, data 1 x model 2 on the one card,
+   serving only: xlstm-350m (24 layers, in float32, one prompt of 256
+   tokens) split by its heads, and llama4-maverick-400b-a17b and
+   kimi-k2-1t-a32b at published width, experts, top-k and vocab, 2
+   layers, one row of 512 tokens at capacity factor E/k (drop-free by
+   construction), through the expert-parallel ``moe_ffn`` (each rank 64
+   or 192 experts, one float32 all-reduce a chunk); every rank draws only
+   its slices; a prefill and 16 greedy decode steps each, then rank 0
+   serves each model whole, fed the world's tokens, once both ranks have
+   freed their slices.  Checks (a) K3 2 a moe prefill on each rank, none
+   on xlstm's or on a decode step, K1, K2 and K4 never; (b) the model
+   phase's check (e) against the one-rank run, no drop in either run,
+   the share of assignments routed to another expert than the one-rank
+   run's printed; (c) each moe layer's prefill makes ``moe_chunks``
+   routed all-reduces and each decode step one (``common.tp_stats``),
+   each rank's peak under half the card; (d) a rank reading the slot
+   map's rows of experts [0, E/M) (llama4) and an mLSTM reading the next
+   rank's ``z`` columns must fail (b); (e) finite logits, in-vocab
+   tokens.  Prints each model's init, prefill and decode times by rank
+   and one rank whole, the collectives' count and seconds, peaks and the
+   phase's seconds.
 7. recurrentgemma phase: recurrentgemma-2b at full width and all 26 layers
    in bf16 (random weights from a seeded torch generator) serves a batch of
    4 prompts of 3000 tokens (past the 2048-token window, not a multiple of
@@ -343,7 +367,9 @@
    them, and those paths' own shapes and times, ``elastic_row`` by world,
    ``fsdp_row``, ``ranks_row`` and ``model_row``, a rank's slice buckets;
    K3 also at the model phase's prefill, a rank's 16 heads over 2 KV
-   heads), then ``{"ok": true,
+   heads, at the attn model phase's rank shapes and at the ep model
+   phase's moe prefills, a rank's 20 or 32 heads over 4 KV heads), then
+   ``{"ok": true,
    "device": ...}`` last.
 
 Exits non-zero, printing no result, without CUDA or without the repo's
@@ -452,6 +478,12 @@ WMT_RANK_ROLES = {"encoder": (1, 64, 64, 4, 4, 64, False, None),
                   "decoder": (1, 16, 16, 4, 4, 64, True, None),
                   "cross": (1, 16, 64, 4, 4, 64, False, None)}
 VLM_RANK_ATTN = (1, 768, 768, 8, 4, 128, True, None)
+# the ep model phase's moe prefills on one rank of data 1 x model 2, one
+# row of 512 tokens: llama4-maverick's 40 heads over 8 KV heads and
+# kimi-k2's 64 over 8 (hd 112, the TMA's zero fill to 128) at half their
+# heads
+LLAMA4_RANK_ATTN = (1, 512, 512, 20, 4, 128, True, None)
+KIMI_RANK_ATTN = (1, 512, 512, 32, 4, 112, True, None)
 SCHED_REQUESTS, SCHED_PROMPT, SCHED_SEED = 8, (64, 512), 5
 
 
@@ -469,7 +501,8 @@ FAMILY_ATTN_CASES = [c + (dt,) for c in list(WHISPER_ATTN_ROLES.values())
                      + [VLM_ATTN, LLAMA4_ATTN, KIMI_ATTN, MODEL_ATTN]
                      + list(WHISPER_RANK_ROLES.values())
                      + list(WMT_RANK_ROLES.values())
-                     + [VLM_RANK_ATTN, SCHED_RANK_ATTN]
+                     + [VLM_RANK_ATTN, SCHED_RANK_ATTN, LLAMA4_RANK_ATTN,
+                        KIMI_RANK_ATTN]
                      for dt in ("float32", "bfloat16")]
 # the tinyllama prefill shape the kernels line reports
 TL_ATTN_SHAPE = (1, SLICE_SHAPE_FOR_LINE, SLICE_SHAPE_FOR_LINE, 32, 4, 64,
@@ -757,6 +790,30 @@ MOE_ARCHS = ("llama4-maverick-400b-a17b", "kimi-k2-1t-a32b")
 MOE_LAYERS, MOE_PROMPT = 2, 512
 MOE_DROPFREE_FACTOR = 8.0
 MOE_F32_EXPERTS, MOE_F32_PROMPT, MOE_F32_STEPS = 16, 128, 4
+# ep model phase (slice 4c, third part): serving only, over data
+# EP_MODEL_DATA x MODEL_M gloo ranks on the one card: xlstm-350m at all 24
+# layers (one prompt of EP_MODEL_PROMPTS tokens) and the moe family at
+# published width, experts, top-k and vocab, cut to MOE_LAYERS (one row
+# of MOE_PROMPT tokens) at capacity factor E/k, so that C = T and nothing
+# can drop (a token's k experts are distinct; the moe phase's 8 dropped
+# 4.3% of llama4's assignments at this one row), random
+# weights from EP_MODEL_SEED drawn by each rank for its slices only,
+# MODEL_NEW decode steps, each model against rank 0 serving it whole
+# once both ranks have freed their slices (a moe model whole is 37-39
+# GB, a rank's slices 18-20); check (d)'s planted faults by arch.  xlstm
+# serves in float32 here: at 24 layers two bf16 runs whose sums round in
+# another order part by about 30% of the largest logit (its exponential
+# gates amplify one rounding; 0.84 of 2.94 between the ranks and one rank,
+# both bf16, in the first run of this phase on the H100), which check (b)
+# could not tell from a fault
+EP_MODEL_DATA, EP_MODEL_SEED, EP_MODEL_TIMEOUT = 1, 6, 600
+EP_MODEL_WORKER_FLAG = "--ep-model-worker"
+EP_MODEL_ARCHS = (XLSTM_ARCH,) + MOE_ARCHS
+EP_MODEL_PROMPTS = {XLSTM_ARCH: 256, MOE_ARCHS[0]: MOE_PROMPT,
+                    MOE_ARCHS[1]: MOE_PROMPT}
+EP_MODEL_FAULTS = {XLSTM_ARCH: "z_from_next_rank",
+                   MOE_ARCHS[0]: "rows_of_rank_0"}
+EP_MODEL_DTYPES = {XLSTM_ARCH: "float32"}
 
 
 def free_memory(label: str):
@@ -3534,7 +3591,8 @@ def model_prompts(cfg, spec: dict):
 
 
 def greedy_run(model, params, tokens, max_len: int, new: int, feed=None,
-               extra=None, pos0: Optional[int] = None):
+               extra=None, pos0: Optional[int] = None,
+               times: Optional[list] = None):
     """``build_prefill`` then ``new`` steps of ``build_serve_step``: the
     (gathered) last logits of the prefill and of each step as float32 CPU
     tensors (B, new + 1, V), the greedy token of each (B, new + 1), and
@@ -3544,7 +3602,8 @@ def greedy_run(model, params, tokens, max_len: int, new: int, feed=None,
     comparable).  ``extra`` joins the prefill's batch (an encoder's
     ``frames`` or ``src``, a VLM's ``patches``); the first decode step is
     at ``pos0`` (the prompt's length by default; a VLM's counts its
-    patches)."""
+    patches).  ``times``, where given, gets the host ms of the prefill and
+    of each step, the device synchronised."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.models import common as cm
@@ -3552,10 +3611,13 @@ def greedy_run(model, params, tokens, max_len: int, new: int, feed=None,
     device = tokens.device
     pos0 = tokens.shape[1] if pos0 is None else pos0
     kinds = (K1, K2, K3, K4, K4_TMA, K4_WALK)
-    before = ops.launch_counts()
+    times = [] if times is None else times
+    _sync(device)
+    before, t0 = ops.launch_counts(), time.perf_counter()
     logits, caches = build_prefill(model, max_len)(
         params, {"tokens": tokens, **(extra or {})})
     _sync(device)
+    times.append((time.perf_counter() - t0) * 1e3)
     after = ops.launch_counts()
     launches = [{k: after[k] - before[k] for k in kinds}]
     masked = torch.where(torch.arange(logits.shape[-1], device=device)
@@ -3566,9 +3628,10 @@ def greedy_run(model, params, tokens, max_len: int, new: int, feed=None,
     for i in range(new):
         if feed is not None:
             tok = feed[:, i:i + 1].to(device)
-        before = ops.launch_counts()
+        before, t0 = ops.launch_counts(), time.perf_counter()
         tok, logits, caches = step(params, caches, tok, pos0 + i)
         _sync(device)
+        times.append((time.perf_counter() - t0) * 1e3)
         after = ops.launch_counts()
         launches.append({k: after[k] - before[k] for k in kinds})
         all_logits.append(logits[:, -1].float().cpu())
@@ -3794,11 +3857,8 @@ def model_worker(spec: dict, out: str) -> int:
         t0 = time.perf_counter()
         scfg = model_cfg(spec, spec["serve_layers"])
         model = build_model(scfg, device, model_world=world.model_world)
-        whole = model.init(torch.Generator(device=device).manual_seed(
+        params = model.init(torch.Generator(device=device).manual_seed(
             MODEL_SERVE_SEED))
-        params = cm.take_slices(whole, cm.placement(scfg, whole, MODEL_M),
-                                world.model_world)
-        del whole
         prompts = model_prompts(scfg, spec)
         rows_ = spec["rows"]
         mine = torch.from_numpy(prompts[world.rank * rows_:
@@ -4175,7 +4235,6 @@ def attn_family_serve(spec: dict, world, arch: str) -> Optional[dict]:
     world's tokens, for check (b) (and fed the faulty run's, for (e)), and
     returns the checks; the other ranks return ``None``."""
     import torch
-    from repro_torch.models import common as cm
     from repro_torch.models.registry import build_model
     device, mw = world.device, world.model_world
     on_card = device.type == "cuda"
@@ -4183,10 +4242,8 @@ def attn_family_serve(spec: dict, world, arch: str) -> Optional[dict]:
     prompt, new = spec["prompts"][arch], spec["new"]
     t0 = time.perf_counter()
     model = build_model(cfg, device, model_world=mw)
-    whole = model.init(torch.Generator(device=device).manual_seed(
+    params = model.init(torch.Generator(device=device).manual_seed(
         ATTN_MODEL_SEED))
-    params = cm.take_slices(whole, cm.placement(cfg, whole, MODEL_M), mw)
-    del whole
     prompts = torch.as_tensor(np.random.default_rng(ATTN_MODEL_SEED).integers(
         0, cfg.vocab, (spec["data"], prompt)), dtype=torch.int64,
         device=device)
@@ -4379,16 +4436,13 @@ def attn_sched_serve(spec: dict, world) -> Optional[dict]:
     gathers every rank's tokens, logs and shapes and returns the
     verdicts; the other ranks return ``None``."""
     import torch
-    from repro_torch.models import common as cm
     from repro_torch.models.registry import build_model
     device, mw = world.device, world.model_world
     on_card = device.type == "cuda"
     cfg = attn_model_cfg(spec, spec["sched_arch"], spec["sched_layers"])
     model = build_model(cfg, device, model_world=mw)
-    whole = model.init(torch.Generator(device=device).manual_seed(
+    params = model.init(torch.Generator(device=device).manual_seed(
         ATTN_MODEL_SEED))
-    params = cm.take_slices(whole, cm.placement(cfg, whole, MODEL_M), mw)
-    del whole
     prompts = sched_prompts(cfg, spec)
     new = spec["sched_new"]
     if on_card:
@@ -4657,6 +4711,419 @@ def print_attn_model(stats: dict, card: str):
           f"{[(h['buffers'], h['bound'], h['bytes']) for h in stats['host']]}"
           f" (count, bound, bytes), capacities "
           f"{stats['host'][0]['capacities']}", flush=True)
+
+
+def ep_model_spec(device="cuda", smoke: bool = False, new: int = MODEL_NEW,
+                  prompts: Optional[dict] = None,
+                  moe_layers: int = MOE_LAYERS,
+                  xlstm_layers: Optional[int] = None) -> dict:
+    """What the ep model phase's ranks run (JSON, handed to every rank on
+    its command line): the models of ``EP_MODEL_ARCHS`` served over data
+    ``EP_MODEL_DATA`` x model ``MODEL_M`` ranks, one prompt of
+    ``prompts[arch]`` tokens a dp rank and ``new`` decode steps; the moe
+    models at ``moe_layers`` (their capacity factor :func:`ep_model_cfg`'s),
+    xlstm at ``xlstm_layers`` (None: its own depth) in
+    ``EP_MODEL_DTYPES``'s dtype; the planted faults of
+    ``EP_MODEL_FAULTS``."""
+    return {"device": device, "smoke": smoke, "data": EP_MODEL_DATA,
+            "archs": list(EP_MODEL_ARCHS), "new": new,
+            "prompts": dict(prompts or EP_MODEL_PROMPTS),
+            "layers": dict(dict.fromkeys(MOE_ARCHS, moe_layers),
+                           **{XLSTM_ARCH: xlstm_layers}),
+            "faults": dict(EP_MODEL_FAULTS),
+            "dtypes": dict(EP_MODEL_DTYPES)}
+
+
+def ep_model_cfg(spec: dict, arch: str):
+    """``arch`` at the spec's depth and dtype; a moe model at capacity
+    factor E/k, where the capacity is the tokens and nothing drops."""
+    cfg = model_cfg({"arch": arch, "smoke": spec["smoke"]},
+                    spec["layers"][arch])
+    cfg = cfg.variant(dtype=spec["dtypes"].get(arch, cfg.dtype))
+    if cfg.family == "moe":
+        cfg = cfg.variant(capacity_factor=cfg.n_experts / cfg.top_k)
+    return cfg
+
+
+def record_routes():
+    """Checks (b) and (c)'s recorder: ``moe.router_topk`` wrapped to
+    append, at each call, its expert choices (T, k) on the host and the
+    count of routed all-reduces so far (``common.tp_stats``); returns (the
+    list, the undo)."""
+    from repro_torch.models import common as cm
+    from repro_torch.models import moe
+    calls, inner = [], moe.router_topk
+
+    def recorded(cfg, logits):
+        idx, gate, aux = inner(cfg, logits)
+        calls.append((idx.cpu(), cm.tp_stats()["routed"]))
+        return idx, gate, aux
+    moe.router_topk = recorded
+
+    def undo():
+        moe.router_topk = inner
+    return calls, undo
+
+
+def routed_by_call(calls) -> list:
+    """The routed all-reduces each moe layer's call made: the count from
+    its router to the next call's (to now for the last)."""
+    from repro_torch.models import common as cm
+    marks = [c[1] for c in calls] + [cm.tp_stats()["routed"]]
+    return [b - a for a, b in zip(marks, marks[1:])]
+
+
+def ep_fault(name: str):
+    """Check (d)'s planted faults, on every rank alike (so that the
+    collectives still pair); returns the undo.  ``rows_of_rank_0``: every
+    rank gathers the slot map's rows of experts [0, E/M) (rank 0's) for
+    its own experts' weights; ``z_from_next_rank``: every mLSTM reads the
+    ``z`` columns of the next model rank's heads."""
+    import torch
+    from repro_torch.models import common as cm
+    from repro_torch.models import moe, xlstm
+    if name == "rows_of_rank_0":
+        offset = moe.expert_offset
+        moe.expert_offset = lambda cfg, mw: 0
+        return lambda: setattr(moe, "expert_offset", offset)
+    if name != "z_from_next_rank":
+        raise ValueError(f"unknown fault {name!r}")
+    preacts, gather = xlstm._mlstm_preacts, cm.gather_from_model
+
+    def rolled(x, mw):
+        inner, z = gather(x, mw).chunk(2, dim=-1)
+        return torch.cat([inner, z.roll(-(z.shape[-1] // mw.size), -1)],
+                         -1)
+
+    def faulty(cfg, p, x, mw=None):
+        cm.gather_from_model = rolled
+        try:
+            return preacts(cfg, p, x, mw)
+        finally:
+            cm.gather_from_model = gather
+    xlstm._mlstm_preacts = faulty
+    return lambda: setattr(xlstm, "_mlstm_preacts", preacts)
+
+
+def route_parting(got: list, want: list) -> Optional[float]:
+    """The share of (token, choice) assignments of one run whose expert is
+    not among the token's k experts in the other's recorded routes (two
+    near-equal gates may swap places in the order without a change of
+    route), over every moe call; None without a moe call."""
+    if not want:
+        return None
+    if len(got) != len(want):
+        raise AssertionError(f"{len(got)} moe calls against {len(want)}")
+    n = sum(w.numel() for w in want)
+    return sum(int((~(g[..., :, None] == w[..., None, :]).any(-1)).sum())
+               for g, w in zip(got, want)) / n
+
+
+def ep_family_serve(spec: dict, world, arch: str) -> Optional[dict]:
+    """One model of the ep model phase on this rank: its slices of random
+    weights from ``EP_MODEL_SEED`` (drawn by the rank-sliced init), this
+    dp rank's prompt through ``greedy_run`` with the routes, the routed
+    all-reduces and the dropped shares recorded, then again with the
+    arch's planted fault.  Every rank frees its slices before rank 0
+    serves the whole model on every prompt, fed the model world's tokens
+    (and the faulty run's), and the others wait for it, so that the
+    whole model never shares the card with the slices.  Rank 0 returns
+    the checks; the other ranks ``None``."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.models import common as cm
+    from repro_torch.models import moe
+    from repro_torch.models.registry import build_model
+    device, mw = world.device, world.model_world
+    on_card = device.type == "cuda"
+    cfg = ep_model_cfg(spec, arch)
+    prompt, new = spec["prompts"][arch], spec["new"]
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_model(cfg, device, model_world=mw)
+    params = model.init(torch.Generator(device=device).manual_seed(
+        EP_MODEL_SEED))
+    _sync(device)
+    t1 = time.perf_counter()
+    param_bytes = tree_bytes(params)
+    prompts = torch.as_tensor(np.random.default_rng(EP_MODEL_SEED).integers(
+        0, cfg.vocab, (spec["data"], prompt)), dtype=torch.int64,
+        device=device)
+    mine = slice(world.rank, world.rank + 1)
+    max_len = prompt + new
+    calls, undo = record_routes()
+    tp0, times = cm.tp_stats(), []
+    try:
+        with moe.recording_dropped() as drops:
+            logits, tokens, launches = greedy_run(
+                model, params, prompts[mine], max_len, new, times=times)
+        routed = routed_by_call(calls)
+    finally:
+        undo()
+    tp1 = cm.tp_stats()
+    run_s = time.perf_counter() - t1
+    peak = torch.cuda.max_memory_allocated() if on_card else None
+    fault = None
+    if arch in spec["faults"]:
+        undo = ep_fault(spec["faults"][arch])
+        try:
+            fault = greedy_run(model, params, prompts[mine], max_len, new)[:2]
+        finally:
+            undo()
+    del params, model
+    if on_card:
+        torch.cuda.empty_cache()
+    everyone = gather_to_rank0(world, {
+        "rank": world.torch_rank, "launches": launches, "routed": routed,
+        "drops": [float(d) for d in drops], "init_s": t1 - t0,
+        "run_s": run_s, "times_ms": times, "peak": peak,
+        "param_bytes": param_bytes,
+        "tp": {k: tp1[k] - tp0[k] for k in ("s", "bytes", "ops")},
+        "routes": [c[0] for c in calls] if world.torch_rank == 0 else None,
+        "served": (logits, tokens, fault) if world.model_rank == 0
+        else None})
+    out = None
+    if world.torch_rank == 0:
+        out = ep_reference(spec, cfg, everyone, prompts, device)
+    dist.barrier()                    # the whole model gone from the card
+    return out
+
+
+def ep_reference(spec: dict, cfg, everyone: list, prompts, device) -> dict:
+    """Rank 0's half of :func:`ep_family_serve`: the whole model on every
+    prompt, fed the model world's tokens and then the faulty run's, and
+    the checks of one model."""
+    import torch
+    from repro_torch.models import moe
+    from repro_torch.models.registry import build_model
+    on_card = device.type == "cuda"
+    new, max_len = spec["new"], prompts.shape[1] + spec["new"]
+    served = [r.pop("served") for r in everyone]
+    served = [x for x in served if x is not None]
+    w_logits = torch.cat([x[0] for x in served])
+    w_tokens = torch.cat([x[1] for x in served])
+    routes = [r.pop("routes") for r in everyone][0]
+    t0 = time.perf_counter()
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg, device)
+    params = model.init(torch.Generator(device=device).manual_seed(
+        EP_MODEL_SEED))
+    calls, undo = record_routes()
+    ref_times = []
+    try:
+        with moe.recording_dropped() as drops:
+            ref_logits, ref_tokens, ref_launches = greedy_run(
+                model, params, prompts, max_len, new, feed=w_tokens,
+                times=ref_times)
+    finally:
+        undo()
+    v = cfg.vocab
+    check = serve_compare(w_logits[..., :v], w_tokens, ref_logits[..., :v],
+                          ref_tokens)
+    fault_check = None
+    if served[0][2] is not None:
+        f_logits = torch.cat([x[2][0] for x in served])
+        f_tokens = torch.cat([x[2][1] for x in served])
+        fr_logits, fr_tokens, _ = greedy_run(model, params, prompts,
+                                             max_len, new, feed=f_tokens)
+        fault_check = serve_compare(f_logits[..., :v], f_tokens,
+                                    fr_logits[..., :v], fr_tokens)
+    ref_peak = torch.cuda.max_memory_allocated() if on_card else None
+    ref_bytes = tree_bytes(params)
+    del params, model
+    if on_card:
+        torch.cuda.empty_cache()
+    return {"arch": cfg.name, "family": cfg.family, "dtype": cfg.dtype,
+            "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+            "n_experts": cfg.n_experts, "top_k": cfg.top_k,
+            "capacity_factor": cfg.capacity_factor,
+            "n_chunks": (moe._chunking(cfg, prompts.shape[1], None)[0]
+                         if cfg.family == "moe" else None),
+            "prompt": int(prompts.shape[1]), "new": new,
+            "ranks": everyone, "ref_launches": ref_launches,
+            "ref_drops": [float(d) for d in drops],
+            "ref_times_ms": ref_times, "ref_peak": ref_peak,
+            "ref_param_bytes": ref_bytes,
+            "ref_s": time.perf_counter() - t0, "serve_check": check,
+            "route_parting": route_parting(routes, [c[0] for c in calls]),
+            "fault": spec["faults"].get(cfg.name),
+            "fault_check": fault_check,
+            "finite": bool(torch.isfinite(w_logits[..., :v]).all()),
+            "in_vocab": bool(((w_tokens >= 0) & (w_tokens < v)).all()),
+            "tokens": w_tokens.tolist()}
+
+
+def tree_bytes(tree) -> int:
+    """The bytes of a tree's tensors."""
+    from repro_torch.core import tree as tr
+    return sum(a.numel() * a.element_size() for a in tr.tree_leaves(tree))
+
+
+def ep_model_worker(spec: dict, out: str) -> int:
+    """One rank of the ep model phase, started by torchrun: each model of
+    ``spec["archs"]`` (:func:`ep_family_serve`); rank 0 writes
+    ``out/ep_model.json``."""
+    import os
+    import torch
+    from repro_torch.launch import mesh
+
+    t_start = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    world = mesh.init_rank_world(spec["data"], model=MODEL_M,
+                                 backend=os.environ["REPRO_TORCH_BACKEND"],
+                                 device_type=spec["device"])
+    try:
+        families = {}
+        for arch in spec["archs"]:
+            t0 = time.perf_counter()
+            families[arch] = ep_family_serve(spec, world, arch)
+            if families[arch] is not None:
+                families[arch]["seconds"] = time.perf_counter() - t0
+        if world.torch_rank == 0:
+            (Path(out) / "ep_model.json").write_text(json.dumps({
+                "world": {"data": spec["data"], "model": MODEL_M,
+                          "backend": world.backend},
+                "families": families,
+                "card_bytes": (torch.cuda.get_device_properties(
+                    world.device).total_memory
+                    if world.device.type == "cuda" else None),
+                "worker_s": time.perf_counter() - t_start}))
+        return 0
+    finally:
+        mesh.shutdown()
+
+
+def ep_model_phase(spec: dict, out: Path,
+                   timeout: int = EP_MODEL_TIMEOUT) -> dict:
+    """Start ``spec["data"] x MODEL_M`` ranks through torchrun (gloo, all
+    on one card, model minor) and hold what they report to checks (b)-(e)
+    (check (a) is :func:`check_ep_model_launches`).  A rank that fails
+    fails the phase.  ``out`` is the phase's own directory (emptied
+    first)."""
+    import shutil
+    t_phase = time.perf_counter()
+    out = Path(out)
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    torchrun_s = run_torchrun(spec["data"] * MODEL_M, EP_MODEL_WORKER_FLAG,
+                              spec, out, timeout)
+    stats = json.loads((out / "ep_model.json").read_text())
+    stats["spec"], stats["torchrun_s"] = spec, torchrun_s
+    for arch, f in stats["families"].items():
+        if f["family"] == "moe":              # (b) drop-free, both runs
+            drops = [d for r in f["ranks"] for d in r["drops"]] \
+                + f["ref_drops"]
+            if any(d > 0 for d in drops):
+                raise AssertionError(f"check (b), {arch}: a run dropped at "
+                                     f"capacity factor "
+                                     f"{f['capacity_factor']}: {drops}")
+        if not f["serve_check"]["ok"]:                          # check (b)
+            raise AssertionError(f"check (b), {arch}: {f['serve_check']}")
+        check_ep_collectives(stats, arch, f)                    # check (c)
+        fault = f["fault_check"]                                # check (d)
+        if arch in spec["faults"] and (fault is None or fault["ok"]):
+            raise AssertionError(f"check (d), {arch}: check (b) holds with "
+                                 f"{spec['faults'][arch]}: {fault}")
+        if not (f["finite"] and f["in_vocab"]):                 # check (e)
+            raise AssertionError(f"check (e), {arch}: non-finite logits or "
+                                 f"tokens outside the vocab")
+    stats["phase_s"] = time.perf_counter() - t_phase
+    return stats
+
+
+def check_ep_collectives(stats: dict, arch: str, f: dict) -> None:
+    """Check (c) of one model: on every rank each moe layer's prefill made
+    ``n_chunks`` routed all-reduces and each decode step's one (one
+    chunk), xlstm none; each rank's peak memory under half the card."""
+    new = f["new"]
+    for r in f["ranks"]:
+        if f["family"] == "moe":
+            n_moe = len(r["routed"]) // (new + 1)
+            want = [f["n_chunks"]] * n_moe + [1] * (n_moe * new)
+        else:
+            want = []
+        if r["routed"] != want:
+            raise AssertionError(f"check (c), {arch} rank {r['rank']}: "
+                                 f"routed all-reduces by moe call "
+                                 f"{r['routed']}, want {want}")
+        card = stats["card_bytes"]
+        if card is not None and not r["peak"] < card / 2:
+            raise AssertionError(f"check (c), {arch} rank {r['rank']}: peak "
+                                 f"{r['peak']} bytes, not under half the "
+                                 f"card's {card}")
+
+
+def check_ep_model_launches(stats) -> None:
+    """Check (a) of the ep model phase, on every rank: a moe model's
+    prefill launches K3 once a layer, xlstm's none, a decode step nothing,
+    K1, K2 and K4 never."""
+    spec = stats["spec"]
+    zero = dict.fromkeys((K1, K2, K3, K4), 0)
+    for arch, f in stats["families"].items():
+        cfg = ep_model_cfg(spec, arch)
+        want = dict(zero, **{K3: cfg.n_layers if cfg.family == "moe"
+                             else 0})
+        for r in f["ranks"]:
+            pre, *steps = [{k: l[k] for k in zero} for l in r["launches"]]
+            if pre != want or any(s != zero for s in steps):
+                raise AssertionError(
+                    f"{arch} rank {r['rank']}: launches {r['launches']}; a "
+                    f"prefill {want}, a decode step none")
+
+
+def print_ep_model(stats: dict, card: str):
+    """The ep model phase's lines: each model's serving over the ranks
+    against the one-rank run."""
+    gib = lambda b: round(b / 2 ** 30, 2) if b is not None else None
+    print(f"ep model [{card}]: data {stats['world']['data']} x model "
+          f"{MODEL_M} ranks over {stats['world']['backend']} on one card; "
+          f"phase {stats['phase_s']:.1f} s (torchrun "
+          f"{stats['torchrun_s']:.1f} s)", flush=True)
+    for arch, f in stats["families"].items():
+        e, g, rs = f["serve_check"], f["fault_check"], f["ranks"]
+        decode = [round(statistics.median(r["times_ms"][1:]), 1) for r in rs]
+        moe_part = (f", {f['n_experts']} experts top-{f['top_k']} (each "
+                    f"rank {f['n_experts'] // MODEL_M}), capacity factor "
+                    f"{f['capacity_factor']}, {f['n_chunks']} chunks a "
+                    f"prefill" if f["family"] == "moe" else "")
+        print(f"ep model {arch} [{card}]: full width, {f['n_layers']} "
+              f"layers, {f['dtype']}{moe_part}; one prompt of "
+              f"{f['prompt']} tokens a dp rank, {f['new']} decode steps; "
+              f"init by rank "
+              f"{[round(r['init_s'], 2) for r in rs]} s ("
+              f"{[gib(r['param_bytes']) for r in rs]} GiB of slices; whole "
+              f"{gib(f['ref_param_bytes'])}), serving by rank "
+              f"{[round(r['run_s'], 2) for r in rs]} s (prefill ms "
+              f"{[round(r['times_ms'][0], 1) for r in rs]}, decode ms a step "
+              f"{decode}; one rank whole "
+              f"{round(f['ref_times_ms'][0], 1)} / "
+              f"{round(statistics.median(f['ref_times_ms'][1:]), 1)}), "
+              f"collectives a run by rank "
+              f"{[(r['tp']['ops'], round(r['tp']['s'], 2)) for r in rs]} "
+              f"(count, s), peak by rank {[gib(r['peak']) for r in rs]} GiB "
+              f"(one rank whole {gib(f['ref_peak'])}); one-rank reference "
+              f"{f['ref_s']:.1f} s after the ranks freed their slices; "
+              f"{f['seconds']:.1f} s in all", flush=True)
+        print(f"ep model {arch} checks: (b) prefill and first decode "
+              f"logits max abs diff {e['prefill_and_first_step_max_abs_diff']}"
+              f" (limit {e['limit']:.4g}, largest gap "
+              f"{e['max_logit_gap']:.4g}), tokens equal {e['tokens_equal']} "
+              f"of the {e['tokens_compared']} whose margin exceeds the gap "
+              f"({e['near_ties_equal']} of {e['near_ties']} others)"
+              + (f", assignments routed to another expert than one rank's "
+                 f"{f['route_parting']:.4g}, drops none"
+                 if f["family"] == "moe" else "")
+              + f"; (c) routed all-reduces by moe call on rank 0 "
+              f"{rs[0]['routed'][:4]}...; (d) "
+              + (f"{f['fault']}: diffs "
+                 f"{g['prefill_and_first_step_max_abs_diff']}, (b) holds "
+                 f"{g['ok']}" if g else "none planted")
+              + f"; (e) finite {f['finite']}, in vocab {f['in_vocab']}",
+              flush=True)
 
 
 def rg_train_config():
@@ -6120,6 +6587,14 @@ def main() -> int:
     print_attn_model(attn, card)
     free_memory("attn model phase")
 
+    # -- ep model phase: xlstm-350m by heads and the expert-parallel moe
+    # family served over data 1 x model 2 gloo ranks (K3 at a rank's heads)
+    ep = ep_model_phase(ep_model_spec(), ROOT / "build" / "ep_model")
+    check_ep_model_launches(ep)                                 # check (a)
+    print(json.dumps({"ep_model": ep, "card": card}), flush=True)
+    print_ep_model(ep, card)
+    free_memory("ep model phase")
+
     # -- recurrentgemma phase (K4, K3 at head dim 256) ---------------------
     from repro_torch.models import rglru
     rcfg = get_config(RG_ARCH)
@@ -6480,6 +6955,18 @@ def main() -> int:
     ] + [
         entry(K3, "src/repro_torch/kernels/csrc/flash_attention.cu",
               "src/repro/kernels/flash_attention.py:70",
+              sum(l[K3] for r in ep["families"][arch]["ranks"]
+                  for l in r["launches"]), bf16_row(shape),
+              max(r["max_abs_err"] for r in rows),
+              bound_by=bf16_row(shape)["bound_by"],
+              shape=bf16_row(shape)["shape"], dtype="bfloat16",
+              path=f"{arch} serving, data {EP_MODEL_DATA} x model "
+                   f"{MODEL_M} ranks (a rank's heads; its experts)")
+        for arch, shape in ((MOE_ARCHS[0], LLAMA4_RANK_ATTN),
+                            (MOE_ARCHS[1], KIMI_RANK_ATTN))
+    ] + [
+        entry(K3, "src/repro_torch/kernels/csrc/flash_attention.cu",
+              "src/repro/kernels/flash_attention.py:70",
               sched_k3, sched_row, max(r["max_abs_err"] for r in rows),
               bound_by=sched_row["bound_by"], shape=sched_row["shape"],
               dtype="bfloat16",
@@ -6555,4 +7042,6 @@ if __name__ == "__main__":
         sys.exit(model_worker(json.loads(sys.argv[2]), sys.argv[3]))
     if sys.argv[1:2] == [ATTN_MODEL_WORKER_FLAG]:
         sys.exit(attn_model_worker(json.loads(sys.argv[2]), sys.argv[3]))
+    if sys.argv[1:2] == [EP_MODEL_WORKER_FLAG]:
+        sys.exit(ep_model_worker(json.loads(sys.argv[2]), sys.argv[3]))
     sys.exit(main())

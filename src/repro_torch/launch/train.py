@@ -22,16 +22,15 @@ runs on the CUDA card; ``REPRO_TORCH_DEVICE=cpu`` asks for the CPU (add
 ``--smoke`` there).  Under torchrun (``WORLD_SIZE`` > 1) each rank trains
 its own replica over the backend ``REPRO_TORCH_BACKEND`` names (default
 nccl on the card, gloo on the CPU; ``gloo`` lets ranks share one card).
-``--model-axis M`` (the dense, hybrid, audio and vlm families) splits
-each replica's model over M ranks, model minor (``launch/mesh.py``):
+``--model-axis M`` (every family) splits each replica's model over M
+ranks, model minor (``launch/mesh.py``):
 torchrun starts ``data x pod x M`` ranks.  ``--sharding fsdp`` makes the members of each pod (the ranks
 that differ on the minor dp axis) one logical worker sharing one set of
 shard buffers (``core/replica.py``), on one device; ``--streamed`` adds
 the layer-streamed engine (``core/streaming.py``), the dense family's
 only.  Flags
 of the JAX driver whose feature is not ported yet raise, naming their
-slice (ROADMAP.md): FSDP under torchrun is slice 7c's, the model axis of
-the moe and ssm families slice 4c's.
+slice (ROADMAP.md): FSDP under torchrun is slice 7c's.
 """
 
 from __future__ import annotations
@@ -56,8 +55,7 @@ from repro_torch.core import tree as tr
 from repro_torch.data import make_batch_fn
 from repro_torch.launch import mesh
 from repro_torch.models import common as cm
-from repro_torch.models.registry import (MODEL_AXIS_FAMILIES,
-                                         MODEL_AXIS_SLICE, build_model)
+from repro_torch.models.registry import build_model
 from repro_torch.optim import adamw, sgd
 from repro_torch.serve.handoff import serving_weights_from_state
 from repro_torch.train import build_train_step, init_replica_state
@@ -308,8 +306,8 @@ def main():
                     help="replicas on the data axis (ranks under torchrun, "
                          "else rows of the stacked state)")
     ap.add_argument("--model-axis", type=int, default=None,
-                    help="model ranks a replica (the dense, hybrid, audio "
-                         "and vlm families, under torchrun)")
+                    help="model ranks a replica (every family, under "
+                         "torchrun)")
     ap.add_argument("--pod-axis", type=int, default=None,
                     help="with --data-axis: lay the replicas over (pod, "
                          "data)")
@@ -328,10 +326,6 @@ def main():
 
     n_model = args.model_axis or 1
     cfg = get_config(args.arch, smoke=args.smoke)
-    if n_model > 1 and cfg.family not in MODEL_AXIS_FAMILIES:
-        raise NotImplementedError(
-            f"--model-axis > 1 for the {cfg.family!r} family belongs to "
-            f"{MODEL_AXIS_SLICE}")
     ranks = int(os.environ.get("WORLD_SIZE", "1"))
     if n_model > 1 and ranks == 1:
         raise SystemExit(

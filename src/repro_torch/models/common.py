@@ -11,9 +11,14 @@ constrains shardings (``wsc``) and leaves GSPMD to insert the collectives,
 the port holds each leaf with a ``model`` entry as this rank's slice of
 that dim (:func:`model_slice`, :func:`placement`) and inserts them itself:
 Megatron's *f* (:func:`copy_to_model`) and *g* (:func:`reduce_from_model`)
-over the ranks of one replica (:class:`ModelWorld`), and the gather of a
+over the ranks of one replica (:class:`ModelWorld`), the gather of a
 channel-split operand that a matmul reads whole (:func:`gather_from_model`,
-the RG-LRU's gates).  With no model world every helper is the identity.
+the RG-LRU's gates and the mLSTM's up-projection), and the gather of a
+column-split result that every rank then uses whole alike
+(:func:`gather_replicated_from_model`, the MoE router's logits).  With no
+model world every helper is the identity.  :func:`dims_in_order` lets a
+family's init draw the whole tree's numbers and keep only a rank's
+slices.
 """
 
 from __future__ import annotations
@@ -228,6 +233,31 @@ def take_slices(tree, dims, mw: Optional[ModelWorld]):
     return _zip_map(take, tree, dims)
 
 
+class _Made(NamedTuple):
+    """A leaf an init's tree function was asked to make: its shape."""
+    shape: tuple
+
+
+def dims_in_order(cfg, tree_fn, n_model: int) -> list:
+    """The split dim (:func:`placement` over ``n_model`` ranks) of each
+    leaf that ``tree_fn(cfg, leaf)`` makes, in the order it makes them,
+    which is the order an init draws them from its generator.  A family's
+    init then draws every leaf as the whole init does and keeps the
+    rank's slice of it, so the rank's tree is :func:`take_slices` of the
+    whole init bit for bit, and the whole tree never exists."""
+    made = []
+
+    def leaf(shape, init):
+        made.append(_Made(tuple(shape)))
+        return made[-1]
+    tree = tree_fn(cfg, leaf)
+    seq = {id(m): i for i, m in enumerate(made)}
+    out = [None] * len(made)
+    _zip_map(lambda m, d: out.__setitem__(seq[id(m)], d), tree,
+             placement(cfg, tree, n_model))
+    return out
+
+
 def held_whole(tree, dims) -> list:
     """The leaves of ``tree`` that its placement ``dims`` holds whole, in
     sorted-key order."""
@@ -250,8 +280,9 @@ def join_slices(trees, dims):
     return trees[0] if dims is None else torch.cat(trees, dim=dims)
 
 
-# Host seconds, bytes and count of the model-axis collectives so far
-_TP_STATS = {"s": 0.0, "bytes": 0, "ops": 0}
+# Host seconds, bytes and count of the model-axis collectives so far, and
+# the count of those of each ``kind`` (the MoE's routed combines)
+_TP_STATS = {"s": 0.0, "bytes": 0, "ops": 0, "routed": 0}
 _HOST: dict = {}
 
 
@@ -278,9 +309,11 @@ def _host_buffer(like: torch.Tensor, numel: Optional[int] = None
 
 
 def model_all_reduce(x: torch.Tensor, mw: ModelWorld,
-                     op=dist.ReduceOp.SUM) -> torch.Tensor:
+                     op=dist.ReduceOp.SUM, kind: Optional[str] = None
+                     ) -> torch.Tensor:
     """``x`` reduced over the model group by ``op``, in a new tensor
-    (through a pinned host buffer when ``mw.staged``)."""
+    (through a pinned host buffer when ``mw.staged``); counted by
+    :func:`tp_stats`, also under ``kind`` where given."""
     t = time.perf_counter()
     if mw.staged:
         host = _host_buffer(x)
@@ -294,6 +327,8 @@ def model_all_reduce(x: torch.Tensor, mw: ModelWorld,
     _TP_STATS["s"] += time.perf_counter() - t
     _TP_STATS["bytes"] += x.numel() * x.element_size()
     _TP_STATS["ops"] += 1
+    if kind is not None:
+        _TP_STATS[kind] += 1
     return out
 
 
@@ -321,10 +356,11 @@ def model_all_gather(x: torch.Tensor, mw: ModelWorld) -> torch.Tensor:
     return out
 
 
-def _sum_over_model(x: torch.Tensor, mw: ModelWorld) -> torch.Tensor:
+def _sum_over_model(x: torch.Tensor, mw: ModelWorld,
+                    kind: Optional[str] = None) -> torch.Tensor:
     """The float32 sum of every model rank's ``x``, rounded once to its
     dtype."""
-    return model_all_reduce(x.float(), mw).to(x.dtype)
+    return model_all_reduce(x.float(), mw, kind=kind).to(x.dtype)
 
 
 class _CopyToModel(torch.autograd.Function):
@@ -344,12 +380,12 @@ class _ReduceFromModel(torch.autograd.Function):
     """Megatron's *g*: all-reduce forward, identity backward."""
 
     @staticmethod
-    def forward(ctx, x, mw):
-        return _sum_over_model(x, mw)
+    def forward(ctx, x, mw, kind):
+        return _sum_over_model(x, mw, kind)
 
     @staticmethod
     def backward(ctx, g):
-        return g, None
+        return g, None, None
 
 
 class _GatherFromModel(torch.autograd.Function):
@@ -368,6 +404,33 @@ class _GatherFromModel(torch.autograd.Function):
         n = g.shape[-1] // mw.size
         whole = _sum_over_model(g.contiguous(), mw)
         return whole.narrow(-1, mw.rank * n, n).contiguous(), None
+
+
+class _GatherReplicatedFromModel(torch.autograd.Function):
+    """All-gather of the columns forward; backward the rank's slice of the
+    gradient of the whole, which every rank holds alike (no sum)."""
+
+    @staticmethod
+    def forward(ctx, x, mw):
+        ctx.mw = mw
+        return model_all_gather(x, mw)
+
+    @staticmethod
+    def backward(ctx, g):
+        mw = ctx.mw
+        n = g.shape[-1] // mw.size
+        return g.narrow(-1, mw.rank * n, n).contiguous(), None
+
+
+def gather_replicated_from_model(x, mw: Optional[ModelWorld]):
+    """The whole last dim of a column-split result ``x`` that every rank
+    then uses whole and alike, so that the gradient reaching the whole is
+    the same on every rank: the MoE router's logits, whose top-k, gates
+    and aux losses each rank computes over all experts (the gates under
+    :func:`copy_to_model`).  Its gradient is the rank's slice of that
+    gradient; :func:`gather_from_model`'s sum over the ranks would be
+    ``mw.size`` times too large here."""
+    return x if mw is None else _GatherReplicatedFromModel.apply(x, mw)
 
 
 def gather_from_model(x, mw: Optional[ModelWorld]):
@@ -389,11 +452,12 @@ def copy_to_model(x, mw: Optional[ModelWorld]):
     return x if mw is None else _CopyToModel.apply(x, mw)
 
 
-def reduce_from_model(x, mw: Optional[ModelWorld]):
+def reduce_from_model(x, mw: Optional[ModelWorld],
+                      kind: Optional[str] = None):
     """The sum of every model rank's partial ``x`` (float32, rounded once
     to ``x``'s dtype), as the reference's row-parallel matmul sums its
-    partial products."""
-    return x if mw is None else _ReduceFromModel.apply(x, mw)
+    partial products; counted under ``kind`` too where given."""
+    return x if mw is None else _ReduceFromModel.apply(x, mw, kind)
 
 
 # ---------------------------------------------------------------------------

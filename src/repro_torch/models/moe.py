@@ -1,5 +1,5 @@
 """Mixture-of-Experts decoder (llama4-maverick 128e top-1, kimi-k2 384e
-top-8), counterpart of ``repro/models/moe.py`` on one device.
+top-8), counterpart of ``repro/models/moe.py``.
 
 Token dispatch is capacity-based (Switch-style) and chunked: the tokens
 run in ``cfg.moe_chunks`` sequential chunks (fewer until the count divides
@@ -29,6 +29,22 @@ Entry points: ``init_params``, ``forward`` (scoring, no autograd; returns
 ``init_caches``, ``prefill``, ``decode_step`` (caches written in place).
 ``aux`` holds ``load_balance``, ``router_z`` and ``dropped`` (the share of
 assignments past capacity), each averaged over the moe layers.
+
+**The model axis.**  Every entry point takes ``mw``, the model world of
+one replica (``common.ModelWorld``), or ``None``.  Where the placement
+splits the experts over the model ranks (``mw.size`` divides
+``n_experts``) ``moe_ffn`` is expert-parallel, the reference's
+``moe_ffn_shardmap``: each rank holds ``E / mw.size`` experts and the
+router's columns of them, routes every token replicated over all E
+experts (the logits gathered), and computes and combines only its own
+experts' slots, whose float32 combine a chunk ends in one all-reduce of
+(Tc, d).  The shared expert is column/row parallel, the attention half
+and the dense layers the dense family's over the rank's heads, the
+embedding and ``lm_head`` split by vocab.  A rank routes the rows it is
+given: over several data ranks each routes its own, with a capacity from
+its own tokens, as the reference's ``shardmap`` path routes each data
+shard (``serve.decode`` refuses the configurations where the reference
+routes the whole batch).
 """
 
 from __future__ import annotations
@@ -114,24 +130,40 @@ def param_specs(cfg):
         tuple(shape), torch.float32 if init == ROUTER else dtype))
 
 
-def init_params(cfg, generator: torch.Generator, device="cuda"):
+def init_params(cfg, generator: torch.Generator, device="cuda", mw=None):
     """Random weights with the JAX init's distributions: N(0, 1/d_in) dense
     and expert kernels, N(0, 0.02^2) embeddings and router (float32), zero
     norm scales.  Numbers are drawn on the generator's device one matrix at
     a time (each expert of a stacked leaf on its own), in float32, and cast
     into the leaf: at published width one expert leaf is 11-21 GB in
-    float32, so a whole-leaf draw would not fit beside the others."""
+    float32, so a whole-leaf draw would not fit beside the others.  With a
+    model world every matrix is drawn as without one, and a rank keeps only
+    its slice of each leaf (``common.dims_in_order``): of an expert leaf
+    only its experts' matrices, so it never holds another rank's."""
     dtype = tfm.torch_dtype(cfg)
+    dims = iter(cm.dims_in_order(cfg, _param_tree, mw.size)
+                if mw is not None else ())
 
     def leaf(shape, init):
+        dim = next(dims, None)
+        n = shape[dim] // mw.size if dim is not None else 0
+        lo = mw.rank * n if dim is not None else 0
+        kept = tuple(n if i == dim else w for i, w in enumerate(shape))
         if init is None:
-            return torch.zeros(shape, dtype=dtype, device=device)
+            return torch.zeros(kept, dtype=dtype, device=device)
         std = ROUTER_STD if init == ROUTER else init
-        out = torch.empty(shape, dtype=torch.float32 if init == ROUTER
+        out = torch.empty(kept, dtype=torch.float32 if init == ROUTER
                           else dtype, device=device)
+        lead = len(shape) - 2
         for idx in np.ndindex(*shape[:-2]):
             x = torch.randn(shape[-2:], generator=generator,
                             dtype=torch.float32, device=generator.device)
+            if dim is not None and dim < lead:
+                if not lo <= idx[dim] < lo + n:
+                    continue                 # another rank's matrix
+                idx = idx[:dim] + (idx[dim] - lo,) + idx[dim + 1:]
+            elif dim is not None:
+                x = x.narrow(dim - lead, lo, n)
             out[idx] = (x * std).to(device=device, dtype=out.dtype)
         return out
 
@@ -195,18 +227,39 @@ def _experts(cfg, p, buf):
     return torch.bmm(hbuf, p["we2"])
 
 
-def _shared(cfg, p, x, out):
+def shared_split(cfg, p, mw) -> bool:
+    """Whether the rank holds a slice of the shared expert's ``d_ff``."""
+    return (mw is not None and cfg.shared_expert
+            and p["shared"]["w1"].shape[-1] < cfg.d_ff)
+
+
+def _shared(cfg, p, x, out, mw=None):
     """``out`` plus the shared expert of x (T,d), where the config has
-    one; out (B,S,d)."""
+    one; out (B,S,d).  With ``mw`` (where the rank holds a slice of its
+    ``d_ff``) the rank's w1/w3 columns and w2 rows, summed over the ranks;
+    the caller puts ``x`` under ``copy_to_model``."""
     if not cfg.shared_expert:
         return out
     sp = p["shared"]
     act = cm.act_fn(cfg.act)
-    return out + ((act(x @ sp["w1"]) * (x @ sp["w3"])) @ sp["w2"]).reshape(
+    return out + cm.reduce_from_model(
+        (act(x @ sp["w1"]) * (x @ sp["w3"])) @ sp["w2"], mw).reshape(
         out.shape)
 
 
-def moe_ffn_slotmap(cfg, p, h, capacity: Optional[int] = None):
+def experts_split(cfg, p, mw) -> bool:
+    """Whether the rank holds a slice of the experts (the placement splits
+    them where ``mw.size`` divides ``n_experts``): then the slot map is
+    expert-parallel."""
+    return mw is not None and p["we1"].shape[-3] < cfg.n_experts
+
+
+def expert_offset(cfg, mw) -> int:
+    """The first of the rank's experts: its first row of the slot map."""
+    return mw.rank * (cfg.n_experts // mw.size)
+
+
+def moe_ffn_slotmap(cfg, p, h, capacity: Optional[int] = None, mw=None):
     """Slot-map dispatch and combine: per chunk a (E, C) map of the token
     feeding each slot (0 where empty) and its gate (0 where empty); the
     buffer gathers ``x[slot_tok]`` (empty slots zeroed), the experts run
@@ -214,62 +267,87 @@ def moe_ffn_slotmap(cfg, p, h, capacity: Optional[int] = None):
     float32 (``index_add``; an empty slot adds an exact 0 to token 0).
     No step waits for the device: a dropped
     assignment is written to a spare slot C that is cut off, where JAX
-    writes it out of bounds under ``mode="drop"``."""
+    writes it out of bounds under ``mode="drop"``.
+
+    Where the rank holds a slice of the experts (:func:`experts_split`)
+    this is the reference's ``moe_ffn_shardmap`` over the model ranks:
+    the rank holds experts ``[expert_offset, + E/M)``, their router
+    columns and weights; its logits (T, E/M) are gathered to (T, E) and
+    every rank routes all T tokens over all E experts alike (top-k, the
+    slot bookkeeping, ``dropped``, the aux losses; capacity from the
+    rank's own T); each chunk it runs its experts on its rows of the slot
+    map, an (E/M, C, d) buffer, and the ranks' float32 (Tc, d) combines
+    are summed by one all-reduce (``tp_stats`` counts it as ``routed``).
+    The gradient: the input goes through one ``copy_to_model`` (router,
+    dispatch and, where split, the shared expert all read the rank's
+    part), the gates through another (a rank's combine reaches only its
+    experts' gates), and the gathered logits give each rank its slice of
+    the whole gradient (``gather_replicated_from_model``).  Otherwise the
+    routed part runs whole on each rank; the shared expert runs over its
+    ``d_ff`` split in either case."""
     b, s, d = h.shape
     T, E, k = b * s, cfg.n_experts, cfg.top_k
+    ep = mw if experts_split(cfg, p, mw) else None
+    lo, n_loc = (expert_offset(cfg, ep), E // ep.size) if ep else (0, E)
     x = h.reshape(T, d)
+    xf = cm.copy_to_model(x, ep)
     n_chunks, capacity = _chunking(cfg, T, capacity)
     Tc = T // n_chunks
 
-    idx, gate, aux = router_topk(cfg, x.float() @ p["router"])
+    logits = cm.gather_replicated_from_model(xf.float() @ p["router"], ep)
+    idx, gate, aux = router_topk(cfg, logits)
+    gate = cm.copy_to_model(gate, ep)
     counts = torch.zeros(E, dtype=torch.int64, device=h.device)
     flat_tok = torch.arange(Tc * k, device=h.device) // k
+    mine = (slice(lo, lo + n_loc), slice(0, capacity))
     ys, drops = [], []
     for c in range(n_chunks):
         rows = slice(c * Tc, (c + 1) * Tc)
-        xi, ei, gi = x[rows], idx[rows], gate[rows]
+        xi, ei, gi = xf[rows], idx[rows], gate[rows]
         pos, n_new = _slot_positions(cfg, ei, counts)
         keep = (pos < capacity).reshape(-1)
         slot = (ei.reshape(-1), torch.where(keep, pos.reshape(-1), capacity))
         slot_tok = torch.zeros((E, capacity + 1), dtype=torch.int64,
                                device=h.device).index_put(
-                                   slot, flat_tok)[:, :capacity]
+                                   slot, flat_tok)[mine]
         slot_val = torch.zeros((E, capacity + 1), dtype=torch.float32,
                                device=h.device).index_put(
-                                   slot, gi.reshape(-1))[:, :capacity]
+                                   slot, gi.reshape(-1))[mine]
         obuf = _experts(cfg, p, xi[slot_tok]
                         * (slot_val > 0)[..., None].to(xi.dtype))
         # bf16 x fp32 promotes to fp32: obuf.float() * gate, without the
         # (E, C, d) fp32 copy of obuf
         contrib = obuf * slot_val[..., None]
         del obuf
-        ys.append(torch.zeros((Tc, d), dtype=torch.float32,
-                              device=h.device).index_add(
-                                  0, slot_tok.reshape(-1),
-                                  contrib.reshape(-1, d)))
+        y = torch.zeros((Tc, d), dtype=torch.float32,
+                        device=h.device).index_add(0, slot_tok.reshape(-1),
+                                                   contrib.reshape(-1, d))
         del contrib
+        ys.append(cm.reduce_from_model(y, ep, kind="routed"))
         counts = counts + n_new
         drops.append(1.0 - keep.float().mean())
     out = torch.cat(ys).reshape(b, s, d).to(h.dtype)
-    return _shared(cfg, p, x, out), dict(aux,
-                                         dropped=torch.stack(drops).mean())
+    smw = mw if shared_split(cfg, p, mw) else None
+    xs = x if smw is None else xf if ep else cm.copy_to_model(x, smw)
+    return _shared(cfg, p, xs, out, smw), dict(
+        aux, dropped=torch.stack(drops).mean())
 
 
-def moe_ffn(cfg, p, h, capacity: Optional[int] = None):
-    """h (B,S,d) -> (out (B,S,d), aux).  Every ``cfg.moe_impl`` name
-    (``shardmap``, ``slotmap``, ``onehot_scatter``) runs the slot map: on
-    one device the JAX package's three paths compute the same function,
-    with the same first-come-first-served capacity and the same drops
+def moe_ffn(cfg, p, h, capacity: Optional[int] = None, mw=None):
+    """h (B,S,d) -> (out (B,S,d), aux) through the slot map, expert-parallel
+    where the rank holds a slice of the experts (the reference's
+    ``shardmap`` path).  Every ``cfg.moe_impl`` name (``shardmap``,
+    ``slotmap``, ``onehot_scatter``) runs it: over a replica's own tokens
+    the JAX package's three paths compute the same function, with the
+    same first-come-first-served capacity and the same drops
     (``shardmap`` falls back to the slot map without a ``model`` mesh
-    axis; ``onehot_scatter`` is the GSPMD baseline).  The expert-parallel
-    variant (experts sharded over ranks, one psum of the tokens a chunk)
-    waits for the slice of the port that runs across ranks (ROADMAP.md,
-    slice 4).  Inside :func:`recording_dropped` each call's ``dropped``
-    share is recorded."""
+    axis; ``onehot_scatter`` is the GSPMD baseline).  Inside
+    :func:`recording_dropped` each call's ``dropped`` share is
+    recorded."""
     if cfg.moe_impl not in IMPLS:
         raise ValueError(f"unknown moe_impl {cfg.moe_impl!r}; options: "
                          f"{' | '.join(IMPLS)}")
-    out, aux = moe_ffn_slotmap(cfg, p, h, capacity)
+    out, aux = moe_ffn_slotmap(cfg, p, h, capacity, mw)
     if _dropped_log is not None:
         _dropped_log.append(aux["dropped"])
     return out, aux
@@ -293,11 +371,13 @@ def recording_dropped():
 # Layers / forward
 # ---------------------------------------------------------------------------
 
-def _moe_layer(cfg, p, x, positions, attention=cm.blocked_attention):
+def _moe_layer(cfg, p, x, positions, attention=cm.blocked_attention,
+               mw=None):
     """Attention, then the MoE FFN; returns (x, aux, k, v)."""
     x, k, v = tfm.attn_residual(cfg, p, x, positions, cfg.sliding_window,
-                                True, attention)
-    y, aux = moe_ffn(cfg, p["moe"], tfm.norm_apply(cfg, x, p["ln2"]))
+                                True, attention, mw)
+    y, aux = moe_ffn(cfg, p["moe"], tfm.norm_apply(cfg, x, p["ln2"]),
+                     mw=mw)
     return x + y, aux, k, v
 
 
@@ -306,20 +386,20 @@ def _mean_aux(auxs):
             for name in auxs[0]}
 
 
-def _run(cfg, params, tokens, attention, remat: bool):
+def _run(cfg, params, tokens, attention, remat: bool, mw=None):
     """The hidden state after ``ln_f`` and the aux averaged over the moe
     layers; each layer under ``checkpoint`` with ``remat``, as
     ``jax.remat`` wraps the JAX package's dense and moe bodies."""
-    x = tfm.embed(cfg, params, tokens)
+    x = tfm.embed(cfg, params, tokens, mw)
     positions = tfm._positions(x)
     n_sb, per = layout(cfg)
 
     def dense(p, x):
         return tfm._attn_block(cfg, p, x, positions, cfg.sliding_window,
-                               True, attention)[0]
+                               True, attention, mw)[0]
 
     def moe(p, x):
-        return _moe_layer(cfg, p, x, positions, attention)[:2]
+        return _moe_layer(cfg, p, x, positions, attention, mw)[:2]
 
     def run(fn, p, x):
         return (checkpoint(fn, p, x, use_reentrant=False) if remat
@@ -338,15 +418,17 @@ def _run(cfg, params, tokens, attention, remat: bool):
 
 
 @torch.no_grad()
-def forward(cfg, params, tokens):
+def forward(cfg, params, tokens, mw=None):
     """tokens (B,S) -> (logits (B,S,V), aux); prefill attention through
-    ``cm.blocked_attention`` (K3 on CUDA tensors)."""
-    x, aux = _run(cfg, params, tokens, cm.blocked_attention, remat=False)
-    return tfm.unembed(cfg, params, x), aux
+    ``cm.blocked_attention`` (K3 on CUDA tensors).  With a vocab-split
+    model world the logits are the rank's vocab columns."""
+    x, aux = _run(cfg, params, tokens, cm.blocked_attention, remat=False,
+                  mw=mw)
+    return tfm.unembed(cfg, params, x, mw), aux
 
 
 def forward_train(cfg, params, tokens, remat: bool = True,
-                  return_hidden: bool = False):
+                  return_hidden: bool = False, mw=None):
     """tokens (B,S) -> (logits (B,S,V), aux) with autograd: the JAX
     ``forward``.  With ``return_hidden`` the hidden state after ``ln_f``
     in place of the logits (the chunked cross-entropy's input).
@@ -354,8 +436,8 @@ def forward_train(cfg, params, tokens, remat: bool = True,
     the JAX training loss); ``remat`` recomputes each layer in the
     backward."""
     x, aux = _run(cfg, params, tokens, cm.differentiable_blocked_attention,
-                  remat)
-    return (x if return_hidden else tfm.unembed(cfg, params, x)), aux
+                  remat, mw)
+    return (x if return_hidden else tfm.unembed(cfg, params, x, mw)), aux
 
 
 # ---------------------------------------------------------------------------
@@ -367,30 +449,31 @@ def _cache_len(cfg, max_len: int) -> int:
         else max_len
 
 
-def init_caches(cfg, batch: int, max_len: int, device="cuda"):
+def init_caches(cfg, batch: int, max_len: int, device="cuda", mw=None):
     """``first``: (first_dense, B, S, KH, hd) K/V; ``blocks``: (n_sb, per,
-    B, S, KH, hd), S the window's ring under a sliding window."""
+    B, S, KH, hd), S the window's ring under a sliding window; KH the KV
+    heads the rank holds (``transformer.kv_heads_held``)."""
     dtype = tfm.torch_dtype(cfg)
     w = _cache_len(cfg, max_len)
     n_sb, per = layout(cfg)
+    kh = tfm.kv_heads_held(cfg, mw)
     caches = {}
     if cfg.first_dense:
-        caches["first"] = cm.init_kv_cache(cfg.first_dense, batch, w,
-                                           cfg.n_kv_heads, cfg.hd, dtype,
-                                           device)
-    c = cm.init_kv_cache(n_sb * per, batch, w, cfg.n_kv_heads, cfg.hd, dtype,
-                         device)
+        caches["first"] = cm.init_kv_cache(cfg.first_dense, batch, w, kh,
+                                           cfg.hd, dtype, device)
+    c = cm.init_kv_cache(n_sb * per, batch, w, kh, cfg.hd, dtype, device)
     caches["blocks"] = {n: a.reshape((n_sb, per) + a.shape[1:])
                         for n, a in c.items()}
     return caches
 
 
 @torch.no_grad()
-def prefill(cfg, params, tokens, max_len: Optional[int] = None):
+def prefill(cfg, params, tokens, max_len: Optional[int] = None, mw=None):
     """Fill the caches for tokens (B,S); returns (last-token logits,
     caches): each layer's K/V after rope, padded to ``max_len`` (or the
-    trailing window in ring order)."""
-    x = tfm.embed(cfg, params, tokens)
+    trailing window in ring order); the rank's KV heads and vocab columns
+    with a model world."""
+    x = tfm.embed(cfg, params, tokens, mw)
     max_len = max_len or x.shape[1]
     positions = tfm._positions(x)
     n_sb, per = layout(cfg)
@@ -402,7 +485,7 @@ def prefill(cfg, params, tokens, max_len: Optional[int] = None):
 
     def dense(p, x):
         x, k, v = tfm._attn_block(cfg, p, x, positions, cfg.sliding_window,
-                                  True)
+                                  True, mw=mw)
         return x, entry(k), entry(v)
 
     caches = {}
@@ -421,43 +504,44 @@ def prefill(cfg, params, tokens, max_len: Optional[int] = None):
             x, k, v = dense(bp["dense"], x)
             ks.append(k)
             vs.append(v)
-        x, _, k, v = _moe_layer(cfg, bp["moe"], x, positions)
+        x, _, k, v = _moe_layer(cfg, bp["moe"], x, positions, mw=mw)
         ks.append(entry(k))
         vs.append(entry(v))
         bk.append(torch.stack(ks))
         bv.append(torch.stack(vs))
     caches["blocks"] = {"k": torch.stack(bk), "v": torch.stack(bv)}
     x = tfm.norm_apply(cfg, x, params["ln_f"])
-    return tfm.unembed(cfg, params, x[:, -1:]), caches
+    return tfm.unembed(cfg, params, x[:, -1:], mw), caches
 
 
-def _decode_moe(cfg, p, x, ck, cv, pos):
+def _decode_moe(cfg, p, x, ck, cv, pos, mw=None):
     """One moe decode layer; capacity max(B, 8)."""
-    x = tfm.decode_attn_residual(cfg, p, x, ck, cv, pos, cfg.sliding_window)
+    x = tfm.decode_attn_residual(cfg, p, x, ck, cv, pos, cfg.sliding_window,
+                                 mw)
     y, _ = moe_ffn(cfg, p["moe"], tfm.norm_apply(cfg, x, p["ln2"]),
-                   capacity=max(x.shape[0], DECODE_CAPACITY))
+                   capacity=max(x.shape[0], DECODE_CAPACITY), mw=mw)
     return x + y
 
 
 @torch.no_grad()
-def decode_step(cfg, params, caches, token, pos):
+def decode_step(cfg, params, caches, token, pos, mw=None):
     """token (B,1) int; pos an int or a (B,) int tensor -> (logits (B,1,V),
     caches).  The caches are updated in place and returned."""
-    x = tfm.embed(cfg, params, token)
+    x = tfm.embed(cfg, params, token, mw)
     pos = torch.as_tensor(pos, device=x.device).to(torch.int64)
     n_sb, per = layout(cfg)
     for i in range(cfg.first_dense):
         x = tfm._decode_layer(cfg, tfm._index(params["first"], i), x,
                               caches["first"]["k"][i],
                               caches["first"]["v"][i], pos,
-                              cfg.sliding_window)
+                              cfg.sliding_window, mw)
     ck, cv = caches["blocks"]["k"], caches["blocks"]["v"]
     for i in range(n_sb):
         bp = tfm._index(params["blocks"], i)
         if per == 2:
             x = tfm._decode_layer(cfg, bp["dense"], x, ck[i, 0], cv[i, 0],
-                                  pos, cfg.sliding_window)
+                                  pos, cfg.sliding_window, mw)
         x = _decode_moe(cfg, bp["moe"], x, ck[i, per - 1], cv[i, per - 1],
-                        pos)
+                        pos, mw)
     x = tfm.norm_apply(cfg, x, params["ln_f"])
-    return tfm.unembed(cfg, params, x), caches
+    return tfm.unembed(cfg, params, x, mw), caches

@@ -18,14 +18,16 @@ aux (``load_balance``, ``router_z``, ``dropped``) beside the logits, and
 its loss adds ``router_aux_coef`` times the two router losses to the
 cross-entropy, as the JAX loss does.
 
-``build_model(cfg, device, model_world)`` gives the dense, hybrid, audio
-and vlm families the model axis (``common.ModelWorld``, the model ranks
-of one replica): their params are the rank's slices by
-``common.placement``, their entry points compute the rank's part
+``build_model(cfg, device, model_world)`` gives every family the model
+axis (``common.ModelWorld``, the model ranks of one replica): ``init``
+returns the rank's slices by ``common.placement`` (the ssm and moe
+families draw the whole init's numbers and keep only their slices; the
+others cut the whole tree), the entry points compute the rank's part
 (``models/transformer.py``, ``models/rglru.py``, ``models/encdec.py``,
-``models/vlm.py``), their logits are the rank's vocab columns and their
-loss the vocab-parallel cross-entropy (chunked at vocab >= 65536).  The
-moe and ssm families with a model world raise, naming slice 4c.
+``models/vlm.py``, ``models/xlstm.py``, ``models/moe.py``: a moe rank
+holds its share of the experts), the logits are the rank's vocab columns
+and the loss the vocab-parallel cross-entropy (chunked at vocab >=
+65536).
 
 ``layered`` is the dense family's per-layer decomposition for the
 layer-streamed FSDP engine (``core/streaming.py``): stem -> superblock
@@ -48,7 +50,7 @@ from repro_torch.models import transformer as tfm
 class ModelAPI(NamedTuple):
     cfg: Any
     device: Any
-    init: Callable                  # torch.Generator -> params
+    init: Callable                  # Generator -> params (a rank's slices)
     forward: Callable               # (params, batch) -> (logits, aux)
     loss: Callable                  # (params, batch, remat=True) -> (loss, metrics)
     init_caches: Callable           # (batch, max_len) -> caches
@@ -62,10 +64,8 @@ class ModelAPI(NamedTuple):
 
 
 CHUNKED_CE_VOCAB = 65536
-# the families whose entry points take a model world
-MODEL_AXIS_FAMILIES = ("dense", "hybrid", "audio", "vlm")
-MODEL_AXIS_SLICE = ("slice 4c: the model axis of the moe and ssm families "
-                    "(ROADMAP.md)")
+# the families whose init keeps only a rank's slices of each leaf it draws
+SLICED_INIT_FAMILIES = ("ssm", "moe")
 
 
 def _chunked_ce(cfg, params, hidden, labels, mask, mw=None):
@@ -190,15 +190,13 @@ def _no_aux(fn):
 def build_model(cfg, device="cuda", model_world=None) -> ModelAPI:
     """The dense, moe, hybrid, ssm, audio or vlm family's API; entry points
     run on ``device`` (CUDA unless the caller asks for the CPU).  With a
-    ``model_world`` of more than one rank (``MODEL_AXIS_FAMILIES``)
-    the entry points take and compute this rank's slices; ``init`` still
-    draws the whole tree, which ``common.take_slices`` cuts."""
+    ``model_world`` of more than one rank ``init`` returns this rank's
+    slices (``common.take_slices`` of the whole init, bit for bit) and the
+    entry points take and compute them."""
     mw = model_world if model_world is not None and model_world.size > 1 \
         else None
-    if mw is not None and cfg.family not in MODEL_AXIS_FAMILIES:
-        raise NotImplementedError(
-            f"the model axis of the {cfg.family!r} family is not ported "
-            f"yet; it belongs to {MODEL_AXIS_SLICE}")
+    if mw is not None and cfg.family == "ssm":
+        xlstm.heads_held(cfg, mw)          # raises where a head would split
     # the model world, for the entry points of the families that take it
     tp = {} if mw is None else {"mw": mw}
     text_slice = 0
@@ -243,10 +241,19 @@ def build_model(cfg, device="cuda", model_world=None) -> ModelAPI:
         raise ValueError(f"unknown family {cfg.family!r}")
     if cfg.family not in AUX_FAMILIES:
         forward, forward_train = _no_aux(forward), _no_aux(forward_train)
+
+    def init(generator):
+        if cfg.family in SLICED_INIT_FAMILIES:
+            return mod.init_params(cfg, generator, device, **tp)
+        params = mod.init_params(cfg, generator, device)
+        if mw is None:
+            return params
+        return cm.take_slices(params, cm.placement(cfg, params, mw.size), mw)
+
     return ModelAPI(
         cfg=cfg,
         device=device,
-        init=lambda generator: mod.init_params(cfg, generator, device),
+        init=init,
         forward=forward,
         loss=_loss(cfg, forward_train, chunked, text_slice, mw),
         init_caches=lambda batch, max_len: mod.init_caches(

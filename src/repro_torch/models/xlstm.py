@@ -19,8 +19,26 @@ batched matrix-vector products).
 Parameters are a dict with the JAX package's tree and layouts: ``emb``,
 ``blocks/mlstm/*`` and ``blocks/slstm/*`` stacked on a leading superblock
 axis of ``n_layers // 2``, and ``ln_f``; ``bif`` and ``bg`` are float32
-whatever ``cfg.dtype`` is.  Serving state is the recurrent state (O(1) a
-token): ``prefill`` returns it, ``decode_step`` writes it in place.
+whatever ``cfg.dtype`` is.  ``bg`` is laid out gate-major (z and i zero,
+f 3, o zero, each ``d`` long) but read head-major, as the reference reads
+it: at 4 heads head 2's four gates all start at 3.  Serving state is the
+recurrent state (O(1) a token): ``prefill`` returns it, ``decode_step``
+writes it in place.
+
+**The model axis.**  Every entry point takes ``mw``, the model world of
+one replica (``common.ModelWorld``), or ``None``; a rank computes
+``n_heads / mw.size`` whole heads (:func:`heads_held`).  Both blocks'
+gates are head-major, so the placement's even column splits hand each
+rank whole heads: ``wq``/``wk``/``wv`` and sLSTM's ``wg`` by column,
+``w_down`` by row.  The exception is mLSTM's ``w_up``, whose columns are
+``[inner | z]``: a rank's columns go through ``common.gather_from_model``,
+and each rank reads ``inner`` whole and the ``z`` columns of its heads.
+The leaves held whole (``wif``, ``bif``, ``bg``, ``r``, the norms) are
+read at the rank's heads under ``copy_to_model``, so that their
+gradients are whole; each block's input passes ``copy_to_model`` and its
+``w_down`` product ``reduce_from_model``.  The embedding is split by
+vocab, as the dense family's.  A rank's state holds its heads, and no
+collective runs inside a time loop.
 """
 
 from __future__ import annotations
@@ -102,15 +120,18 @@ def _bias(init, width: int) -> torch.Tensor:
                       torch.zeros(d)])
 
 
-def init_params(cfg, generator: torch.Generator, device="cuda"):
+def init_params(cfg, generator: torch.Generator, device="cuda", mw=None):
     """Random weights with the JAX init's distributions: N(0, 1/d_in) dense
     kernels, N(0, 0.01^2) for ``wif``, N(0, 1/dh) recurrent ``r``,
     N(0, 0.02^2) embeddings, zero norm scales and the deterministic float32
     gate biases.  Numbers are drawn on the generator's device, one leaf at a
-    time."""
+    time.  With a model world every leaf is drawn whole, as without, and
+    only the rank's slice of it is kept (``common.dims_in_order``)."""
     dtype = tfm.torch_dtype(cfg)
+    dims = iter(cm.dims_in_order(cfg, _param_tree, mw.size)
+                if mw is not None else ())
 
-    def leaf(shape, init):
+    def whole(shape, init):
         if init in (BIF, BG):
             return _bias(init, shape[-1]).to(device).expand(shape).clone()
         if init is None:
@@ -119,25 +140,58 @@ def init_params(cfg, generator: torch.Generator, device="cuda"):
                         device=generator.device) * init
         return x.to(device=device, dtype=dtype)
 
+    def leaf(shape, init):
+        a, dim = whole(shape, init), next(dims, None)
+        if dim is None:
+            return a
+        n = shape[dim] // mw.size
+        return a.narrow(dim, mw.rank * n, n).clone()
+
     return _param_tree(cfg, leaf)
+
+
+def heads_held(cfg, mw) -> int:
+    """The heads a rank computes: ``n_heads / mw.size``, all without a
+    model world.  A model axis that does not divide the heads raises: the
+    placement's even splits would then cut a head."""
+    if mw is None:
+        return cfg.n_heads
+    if cfg.n_heads % mw.size:
+        raise ValueError(f"xLSTM's {cfg.n_heads} heads do not divide over "
+                         f"{mw.size} model ranks")
+    return cfg.n_heads // mw.size
+
+
+def _rank_cols(a, mw, width: int):
+    """The rank's ``width`` columns (last dim) of a leaf held whole, under
+    ``copy_to_model`` so that its gradient is whole."""
+    if mw is None:
+        return a
+    return cm.copy_to_model(a, mw).narrow(-1, mw.rank * width, width)
 
 
 # ---------------------------------------------------------------------------
 # mLSTM
 # ---------------------------------------------------------------------------
 
-def _mlstm_preacts(cfg, p, x):
+def _mlstm_preacts(cfg, p, x, mw=None):
+    """q, k, v, the i and f pre-activations and the z gate of the heads the
+    rank computes (all of them without a model world)."""
     b, s, d = x.shape
-    H = cfg.n_heads
-    dh = PROJ_FACTOR * d // H
-    h = cm.rms_norm(x, p["ln"]["scale"], cfg.norm_eps)
-    inner, z = (h @ p["w_up"]).chunk(2, dim=-1)
-    q = (inner @ p["wq"]).reshape(b, s, H, dh)
+    H, hl = cfg.n_heads, heads_held(cfg, mw)
+    di = PROJ_FACTOR * d
+    dh = di // H
+    h = cm.copy_to_model(cm.rms_norm(x, p["ln"]["scale"], cfg.norm_eps), mw)
+    inner, z = cm.gather_from_model(h @ p["w_up"], mw).chunk(2, dim=-1)
+    if mw is not None:
+        z = z.narrow(-1, mw.rank * hl * dh, hl * dh)
+    q = (inner @ p["wq"]).reshape(b, s, hl, dh)
     # the key's scale is taken in the activations' dtype, as in JAX
-    k = (inner @ p["wk"]).reshape(b, s, H, dh) / torch.tensor(
+    k = (inner @ p["wk"]).reshape(b, s, hl, dh) / torch.tensor(
         math.sqrt(float(dh)), dtype=torch.float32).to(x.dtype)
-    v = (inner @ p["wv"]).reshape(b, s, H, dh)
-    gates = ((inner @ p["wif"]).float() + p["bif"]).reshape(b, s, H, 2)
+    v = (inner @ p["wv"]).reshape(b, s, hl, dh)
+    wif, bif = (_rank_cols(p[n], mw, 2 * hl) for n in ("wif", "bif"))
+    gates = ((inner @ wif).float() + bif).reshape(b, s, hl, 2)
     return q, k, v, gates[..., 0], gates[..., 1], z
 
 
@@ -169,22 +223,25 @@ def mlstm_init_state(batch: int, H: int, dh: int, device):
                        device=device))
 
 
-def mlstm_block(cfg, p, x, state=None):
-    """x (B,S,d) -> (x + out, final state): one ``mlstm_step`` a token."""
+def mlstm_block(cfg, p, x, state=None, mw=None):
+    """x (B,S,d) -> (x + out, final state): one ``mlstm_step`` a token,
+    over the rank's heads with a model world (``w_down``'s partial
+    product summed over the ranks)."""
     b, s, d = x.shape
-    H = cfg.n_heads
-    q, k, v, i_pre, f_pre, z = _mlstm_preacts(cfg, p, x)
+    q, k, v, i_pre, f_pre, z = _mlstm_preacts(cfg, p, x, mw)
     # the step's float32 casts, once for the whole sequence
     q, k, v = q.float(), k.float(), v.float()
     if state is None:
-        state = mlstm_init_state(b, H, PROJ_FACTOR * d // H, x.device)
+        state = mlstm_init_state(b, heads_held(cfg, mw),
+                                 PROJ_FACTOR * d // cfg.n_heads, x.device)
     hs = []
     for t in range(s):
         state, h = mlstm_step(state, (q[:, t], k[:, t], v[:, t],
                                       i_pre[:, t], f_pre[:, t]))
         hs.append(h)
-    hs = torch.stack(hs, dim=1).reshape(b, s, -1)           # (B,S,di)
-    out = (hs.to(x.dtype) * F.silu(z)) @ p["w_down"]
+    hs = torch.stack(hs, dim=1).reshape(b, s, -1)        # (B,S,di/M)
+    out = cm.reduce_from_model((hs.to(x.dtype) * F.silu(z)) @ p["w_down"],
+                               mw)
     return x + out, state
 
 
@@ -192,11 +249,15 @@ def mlstm_block(cfg, p, x, state=None):
 # sLSTM
 # ---------------------------------------------------------------------------
 
-def slstm_step_fn(p, H: int, dh: int):
+def slstm_step_fn(p, H: int, dh: int, mw=None):
     """The sLSTM step over state (c, n, m, h), each (B,H,dh) float32, and
     one token's gate pre-activations (B,H,4dh); the recurrent weights are
-    applied per head in float32."""
-    r = p["r"].float()
+    applied per head in float32 (with a model world ``H`` is the rank's
+    heads, and ``r`` is read at them)."""
+    r = p["r"]
+    if mw is not None:
+        r = cm.copy_to_model(r, mw).narrow(0, mw.rank * H, H)
+    r = r.float()
 
     def step(state, x_gates):
         c, n, m, h_prev = state
@@ -222,105 +283,114 @@ def slstm_init_state(batch: int, H: int, dh: int, device):
             zero())
 
 
-def slstm_block(cfg, p, x, state=None):
-    """x (B,S,d) -> (x + out, final state): one sLSTM step a token."""
+def slstm_block(cfg, p, x, state=None, mw=None):
+    """x (B,S,d) -> (x + out, final state): one sLSTM step a token, over
+    the rank's heads with a model world."""
     b, s, d = x.shape
-    H = cfg.n_heads
-    dh = d // H
-    hnorm = cm.rms_norm(x, p["ln"]["scale"], cfg.norm_eps)
-    gates = ((hnorm @ p["wg"]).float() + p["bg"]).reshape(b, s, H, 4 * dh)
+    H = heads_held(cfg, mw)
+    dh = d // cfg.n_heads
+    hnorm = cm.copy_to_model(cm.rms_norm(x, p["ln"]["scale"], cfg.norm_eps),
+                             mw)
+    bg = _rank_cols(p["bg"], mw, 4 * H * dh)
+    gates = ((hnorm @ p["wg"]).float() + bg).reshape(b, s, H, 4 * dh)
     if state is None:
         state = slstm_init_state(b, H, dh, x.device)
-    step = slstm_step_fn(p, H, dh)
+    step = slstm_step_fn(p, H, dh, mw)
     hs = []
     for t in range(s):
         state, h = step(state, gates[:, t])
         hs.append(h)
-    hs = torch.stack(hs, dim=1).reshape(b, s, d)
-    return x + hs.to(x.dtype) @ p["w_down"], state
+    hs = torch.stack(hs, dim=1).reshape(b, s, H * dh)
+    return x + cm.reduce_from_model(hs.to(x.dtype) @ p["w_down"], mw), state
 
 
 # ---------------------------------------------------------------------------
 # Forward / serving
 # ---------------------------------------------------------------------------
 
-def _superblock(cfg, bp, x, ms=None, ss=None):
+def _superblock(cfg, bp, x, ms=None, ss=None, mw=None):
     """One (mLSTM, sLSTM) pair -> (x, mLSTM state, sLSTM state)."""
-    x, ms = mlstm_block(cfg, bp["mlstm"], x, ms)
-    x, ss = slstm_block(cfg, bp["slstm"], x, ss)
+    x, ms = mlstm_block(cfg, bp["mlstm"], x, ms, mw)
+    x, ss = slstm_block(cfg, bp["slstm"], x, ss, mw)
     return x, ms, ss
 
 
-def _final(cfg, params, x):
+def _final(cfg, params, x, mw=None):
     x = cm.rms_norm(x, params["ln_f"]["scale"], cfg.norm_eps)
-    return tfm.unembed(cfg, params, x)
+    return tfm.unembed(cfg, params, x, mw)
 
 
 @torch.no_grad()
-def forward(cfg, params, tokens):
-    """tokens (B,S) -> logits (B,S,V)."""
-    x = tfm.embed(cfg, params, tokens)
+def forward(cfg, params, tokens, mw=None):
+    """tokens (B,S) -> logits (B,S,V) (the rank's vocab columns with a
+    vocab-split model world)."""
+    x = tfm.embed(cfg, params, tokens, mw)
     for i in range(cfg.n_layers // 2):
-        x = _superblock(cfg, tfm._index(params["blocks"], i), x)[0]
-    return _final(cfg, params, x)
+        x = _superblock(cfg, tfm._index(params["blocks"], i), x, mw=mw)[0]
+    return _final(cfg, params, x, mw)
 
 
 def forward_train(cfg, params, tokens, remat: bool = True,
-                  return_hidden: bool = False):
+                  return_hidden: bool = False, mw=None):
     """tokens (B,S) -> logits (B,S,V) with autograd: the JAX ``forward``.
     With ``return_hidden`` the hidden state after ``ln_f`` instead.
     ``remat`` recomputes each superblock in the backward
     (``torch.utils.checkpoint``), as ``jax.remat`` wraps the superblock
-    body that JAX scans."""
-    x = tfm.embed(cfg, params, tokens)
+    body that JAX scans.  With a model world the logits are the rank's
+    vocab columns; the hidden state is whole."""
+    x = tfm.embed(cfg, params, tokens, mw)
 
     def superblock(x, bp):
-        return _superblock(cfg, bp, x)[0]
+        return _superblock(cfg, bp, x, mw=mw)[0]
 
     for i in range(cfg.n_layers // 2):
         bp = tfm._index(params["blocks"], i)
         x = (checkpoint(superblock, x, bp, use_reentrant=False) if remat
              else superblock(x, bp))
     x = cm.rms_norm(x, params["ln_f"]["scale"], cfg.norm_eps)
-    return x if return_hidden else tfm.unembed(cfg, params, x)
+    return x if return_hidden else tfm.unembed(cfg, params, x, mw)
 
 
-def init_caches(cfg, batch: int, max_len: int, device="cuda"):
+def init_caches(cfg, batch: int, max_len: int, device="cuda", mw=None):
     """The zero recurrent state of every superblock, stacked on a leading
-    axis; ``max_len`` plays no part (O(1) state a token)."""
-    n_sb, H, d = cfg.n_layers // 2, cfg.n_heads, cfg.d_model
+    axis, of the rank's heads; ``max_len`` plays no part (O(1) state a
+    token)."""
+    n_sb, H, d = cfg.n_layers // 2, heads_held(cfg, mw), cfg.d_model
     stack = lambda state: tuple(a[None].expand((n_sb,) + a.shape).clone()
                                 for a in state)
-    return {"mlstm": stack(mlstm_init_state(batch, H, PROJ_FACTOR * d // H,
-                                            device)),
-            "slstm": stack(slstm_init_state(batch, H, d // H, device))}
+    return {"mlstm": stack(mlstm_init_state(
+                batch, H, PROJ_FACTOR * d // cfg.n_heads, device)),
+            "slstm": stack(slstm_init_state(batch, H, d // cfg.n_heads,
+                                            device))}
 
 
 @torch.no_grad()
-def prefill(cfg, params, tokens, max_len: Optional[int] = None):
+def prefill(cfg, params, tokens, max_len: Optional[int] = None, mw=None):
     """Run the prompt (B,S) through; returns (last-token logits, the final
-    states as the caches)."""
-    x = tfm.embed(cfg, params, tokens)
+    states as the caches): the rank's heads and vocab columns with a model
+    world."""
+    x = tfm.embed(cfg, params, tokens, mw)
     ms_all, ss_all = [], []
     for i in range(cfg.n_layers // 2):
-        x, ms, ss = _superblock(cfg, tfm._index(params["blocks"], i), x)
+        x, ms, ss = _superblock(cfg, tfm._index(params["blocks"], i), x,
+                                mw=mw)
         ms_all.append(ms)
         ss_all.append(ss)
     stack = lambda states: tuple(torch.stack(parts) for parts in zip(*states))
     caches = {"mlstm": stack(ms_all), "slstm": stack(ss_all)}
-    return _final(cfg, params, x[:, -1:]), caches
+    return _final(cfg, params, x[:, -1:], mw), caches
 
 
 @torch.no_grad()
-def decode_step(cfg, params, caches, token, pos=None):
+def decode_step(cfg, params, caches, token, pos=None, mw=None):
     """token (B,1) int -> (logits (B,1,V), caches); the states are written
     in place and returned.  ``pos`` plays no part."""
-    x = tfm.embed(cfg, params, token)
+    x = tfm.embed(cfg, params, token, mw)
     for i in range(cfg.n_layers // 2):
         ms = tuple(a[i] for a in caches["mlstm"])
         ss = tuple(a[i] for a in caches["slstm"])
         x, ms_new, ss_new = _superblock(cfg, tfm._index(params["blocks"], i),
-                                        x, ms, ss)
+                                        x, ms, ss, mw)
         for dst, src in zip(ms + ss, ms_new + ss_new):
             dst.copy_(src)
-    return _final(cfg, params, x), caches
+    return _final(cfg, params, x, mw), caches

@@ -5,20 +5,24 @@ Every request of a batch shares one position and reserves ``max_len``
 cache positions up front.  This is the uncontended reference the paged
 scheduler is held against.
 
-Over a model world (``build_model(..., model_world=)``, the dense,
-hybrid, audio and vlm families) the steps run on each model rank of a
-replica: the caches hold the rank's KV heads (an encoder-decoder's cross
-caches too; a recurrent layer's state the rank's channels), the logits
-come out of the model as the rank's vocab columns, and the steps gather
-them and pick the greedy token over the ranks (:func:`greedy_pick`,
-which the paged steps share).  A dp rank serves its own rows of the
-batch; ``build_prefill`` passes a batch's ``frames``, ``src`` or
-``patches`` through to the model.
+Over a model world (``build_model(..., model_world=)``, every family)
+the steps run on each model rank of a replica: the caches hold the
+rank's KV heads (an encoder-decoder's cross caches too; a recurrent
+layer's state the rank's channels, an xLSTM state the rank's heads), the
+logits come out of the model as the rank's vocab columns, and the steps
+gather them and pick the greedy token over the ranks
+(:func:`greedy_pick`, which the paged steps share).  A dp rank serves
+its own rows of the batch; ``build_prefill`` passes a batch's
+``frames``, ``src`` or ``patches`` through to the model.  A moe model
+routes each dp rank's rows on their own: ``build_prefill`` and
+``build_serve_step`` refuse ``data`` > 1 dp ranks where the reference
+routes the whole batch (:func:`check_routing`).
 ``cache_shardings`` and ``serve_param_shardings`` are the reference's
 placement tables, as tuples of axis names; the port computes with the
 model entry on the KV-head dim where the KV heads divide over the model
-ranks (the head-local attention reads only its own heads), where the
-reference's code puts it on the head dim.
+ranks (the head-local attention reads only its own heads), and on the
+head dim of an xLSTM state, where the reference's code puts it on the
+last dim.
 """
 
 from __future__ import annotations
@@ -42,7 +46,8 @@ def cache_shardings(mesh_shape: dict, cache_shapes, batch: int,
     S, KH, hd)``; recurrent states are rank 3-5 with B in position 1.  We
     shard B over dp when divisible, else the largest seq-like dim; KH goes
     on the model axis when divisible (recurrent states: their last,
-    channel dim).
+    channel dim; an xLSTM state, under ``mlstm`` or ``slstm``: its heads,
+    the dim after B).
 
     Raises ``ValueError`` when the dp extent divides *neither* the batch
     nor any other dim of a leaf — silently replicating a cache across a
@@ -54,7 +59,7 @@ def cache_shardings(mesh_shape: dict, cache_shapes, batch: int,
         n_dp *= mesh_shape[a]
     n_model = mesh_shape.get(model_axis, 1)
 
-    def spec(shape):
+    def spec(path, shape):
         entries = [None] * len(shape)
         # Locate the batch dim.  Several dims can equal `batch` (a ring
         # window, seq, or head count sized exactly B), so collect every
@@ -79,14 +84,18 @@ def cache_shardings(mesh_shape: dict, cache_shapes, batch: int,
                     f"(batch={batch}) divides the dp extent {n_dp}; "
                     "refusing to silently replicate — resize the batch/"
                     "cache or serve on a smaller dp mesh")
-        # model axis: KH of a KV cache, the channel of a recurrent state
+        # model axis: KH of a KV cache, the channel of a recurrent state,
+        # the heads of an xLSTM state
         i = len(shape) - (2 if len(shape) >= 5 else 1)
+        if path.split("/")[0] in ("mlstm", "slstm"):
+            i = 2
         if entries[i] is None and shape[i] % n_model == 0 \
                 and shape[i] >= n_model and i != b_idx:
             entries[i] = model_axis
         return tuple(entries)
 
-    return cm.map_with_path(lambda _, leaf: spec(cm.shape_of(leaf)),
+    return cm.map_with_path(lambda path, leaf: spec(path,
+                                                    cm.shape_of(leaf)),
                              cache_shapes)
 
 
@@ -124,11 +133,37 @@ def greedy_pick(model, last):
     return cand.min(0).values.long(), cm.model_all_gather(last, mw)
 
 
-def build_serve_step(model):
+def check_routing(model, data: int) -> None:
+    """Refuse to serve a moe model over ``data`` > 1 dp ranks where the
+    reference routes the whole batch at once: the port's dp ranks each
+    route their own rows, with a capacity from their own tokens, which is
+    the reference's ``shardmap`` path (``moe_impl`` ``shardmap`` over a
+    model axis that divides ``n_experts``), and not its ``slotmap`` or
+    ``onehot_scatter`` path, nor its slot-map fallback (a model axis of 1
+    or one that does not divide ``n_experts``), which route the whole
+    batch through one capacity."""
+    cfg, mw = model.cfg, model.model_world
+    if cfg.family != "moe" or data <= 1:
+        return
+    n_model = mw.size if mw is not None else 1
+    if cfg.moe_impl == "shardmap" and n_model > 1 \
+            and cfg.n_experts % n_model == 0:
+        return
+    raise ValueError(
+        f"serving {cfg.name} over {data} dp ranks routes each rank's rows "
+        f"on their own (the reference's shardmap path), but with "
+        f"moe_impl={cfg.moe_impl!r} over {n_model} model ranks and "
+        f"{cfg.n_experts} experts the reference routes the whole batch "
+        f"through one capacity; serve it on one dp rank")
+
+
+def build_serve_step(model, data: int = 1):
     """``serve_step(params, caches, token (B,1), pos) -> (next_token (B,1),
     logits, caches)``; the caches are updated in place.  The token is
     :func:`greedy_pick`'s, the logits (B, 1, V) masked and, over a
-    vocab-split model world, gathered."""
+    vocab-split model world, gathered.  ``data``: the dp ranks serving
+    the batch, each its own rows (:func:`check_routing`)."""
+    check_routing(model, data)
 
     def serve_step(params, caches, token, pos):
         logits, caches = model.decode_step(params, caches, token, pos)
@@ -138,10 +173,12 @@ def build_serve_step(model):
     return serve_step
 
 
-def build_prefill(model, max_len: int):
+def build_prefill(model, max_len: int, data: int = 1):
     """``prefill_step(params, batch) -> (last_logits, caches)`` with caches
     padded to ``max_len``; over a vocab-split model world the last logits
-    are gathered."""
+    are gathered.  ``data``: the dp ranks serving the batch, each its own
+    rows (:func:`check_routing`)."""
+    check_routing(model, data)
     mw = model.model_world
 
     def prefill_step(params, batch):

@@ -109,12 +109,8 @@ def local_rows(averager) -> int:
 
 def stacked_init(model, n_replicas: int, generator: torch.Generator):
     """One init, broadcast to ``n_replicas`` rows: (P, ...) leaves; with a
-    model world, this rank's slices of it."""
+    model world, this rank's slices of it (``model.init``'s)."""
     params0 = model.init(generator)
-    mw = model.model_world
-    if mw is not None:
-        params0 = cm.take_slices(
-            params0, cm.placement(model.cfg, params0, mw.size), mw)
     return tr.tree_map(
         lambda a: a[None].expand((n_replicas,) + tuple(a.shape)).clone(),
         params0)

@@ -199,13 +199,19 @@ def planted(fault):
     ``"w_r_unsummed"`` only the RG-LRU gate kernel ``w_r``'s;
     ``"enc_out_unsummed"`` leaves out the one on the encoder output that
     the cross-attention reads; ``"local_pick"`` makes the paged steps pick
-    the greedy token among the rank's own vocab columns."""
+    the greedy token among the rank's own vocab columns;
+    ``"router_gather_summed"`` gives the MoE router's logits the gather
+    whose gradient sums over the ranks, ``"gate_unsummed"`` leaves out the
+    MoE gates' ``copy_to_model`` and ``"wif_unsummed"`` the mLSTM's
+    ``wif``'s."""
     from repro_torch.models import common as cm
-    from repro_torch.models import encdec, rglru
+    from repro_torch.models import encdec, moe, rglru, xlstm
     from repro_torch.models import transformer as tfm
     from repro_torch.serve import kv_cache
     copy, qkv, gates = cm.copy_to_model, tfm._qkv, rglru._gates
     cross, pick = encdec._cross_input, kv_cache.greedy_pick
+    gather, topk = cm.gather_replicated_from_model, moe.router_topk
+    preacts = xlstm._mlstm_preacts
     seen = {}
     if fault == "no_f_backward":
         cm.copy_to_model = lambda x, mw: x
@@ -223,6 +229,19 @@ def planted(fault):
         encdec._cross_input = lambda cfg, enc_out, mw=None: enc_out
     elif fault == "local_pick":
         kv_cache.greedy_pick = local_pick
+    elif fault == "router_gather_summed":
+        cm.gather_replicated_from_model = cm.gather_from_model
+    elif fault == "gate_unsummed":
+        def topk_noting(cfg, logits):
+            idx, gate, aux = topk(cfg, logits)
+            seen["leaf"] = gate
+            return idx, gate, aux
+        moe.router_topk = topk_noting
+    elif fault == "wif_unsummed":
+        def preacts_noting(cfg, p, x, mw=None):
+            seen["leaf"] = p["wif"]
+            return preacts(cfg, p, x, mw)
+        xlstm._mlstm_preacts = preacts_noting
     elif fault is not None:
         raise ValueError(f"unknown fault {fault!r}")
     if "unsummed" in (fault or "") and fault != "enc_out_unsummed":
@@ -233,6 +252,8 @@ def planted(fault):
     finally:
         cm.copy_to_model, tfm._qkv, rglru._gates = copy, qkv, gates
         encdec._cross_input, kv_cache.greedy_pick = cross, pick
+        cm.gather_replicated_from_model, moe.router_topk = gather, topk
+        xlstm._mlstm_preacts = preacts
 
 
 def local_pick(model, last):
@@ -310,7 +331,8 @@ def serve_greedy(world, serve):
     """``serve`` (arch, params, prompts, max_len, steps, optionally
     n_layers and ``extra``, an npz of the encoder's or the prefix's inputs
     of every row): this dp rank's rows through ``build_prefill`` and
-    ``build_serve_step`` on its slices; returns the gathered logits of the
+    ``build_serve_step`` on its slices (over the world's dp ranks, each
+    routing its own rows); returns the gathered logits of the
     prefill and each step (B, steps + 1, V) and the greedy tokens.  A
     vlm's decode positions count its patches."""
     import torch
@@ -330,8 +352,9 @@ def serve_greedy(world, serve):
     if serve.get("extra"):
         batch.update({k: torch.from_numpy(v[mine])
                       for k, v in np.load(serve["extra"]).items()})
-    logits, caches = build_prefill(model, serve["max_len"])(params, batch)
-    step = build_serve_step(model)
+    logits, caches = build_prefill(model, serve["max_len"], world.P)(
+        params, batch)
+    step = build_serve_step(model, world.P)
     masked = torch.where(torch.arange(logits.shape[-1]) < cfg.vocab, logits,
                          cm.NEG_INF)
     tok = masked[:, -1].argmax(-1)[:, None]
@@ -403,6 +426,50 @@ def scheduler_worker(world, out, arch, params, prompts, new, sched_kw,
     return res
 
 
+def routed_count_worker(world, out, arch):
+    """A prefill of two rows of 8 tokens on this rank's slices of the
+    rank-sliced init from seed 2: the gathered last logits and the
+    ``routed`` all-reduces it made (``common.tp_stats``)."""
+    import torch
+    from repro_torch.models import common as cm
+    from repro_torch.models.registry import build_model
+    from repro_torch.serve.decode import build_prefill
+    cfg = smoke_cfg(arch)
+    model = build_model(cfg, "cpu", model_world=world.model_world)
+    params = model.init(torch.Generator().manual_seed(2))
+    tokens = torch.from_numpy(np.arange(16).reshape(2, 8) % cfg.vocab)
+    before = cm.tp_stats()["routed"]
+    logits, _ = build_prefill(model, 8)(params, {"tokens": tokens})
+    return {"logits": logits.numpy(),
+            "routed": np.asarray(cm.tp_stats()["routed"] - before)}
+
+
+def loss_grads_worker(world, out, arch, variant):
+    """The loss of one batch (4 rows of 16 tokens from numpy seed 0) and
+    its gradient on this rank's slices of the rank-sliced init from seed
+    3, ``arch``'s smoke config in float32 with ``variant``; the gradient
+    by leaf path (``grad/<path>``)."""
+    import torch
+    from repro_torch.core import tree as tr
+    from repro_torch.models import common as cm
+    from repro_torch.models.registry import build_model
+    cfg = smoke_cfg(arch).variant(**variant)
+    model = build_model(cfg, "cpu", model_world=world.model_world)
+    params = model.init(torch.Generator().manual_seed(3))
+    leaves = tr.tree_leaves(params)
+    for a in leaves:
+        a.requires_grad_(True)
+    tokens = np.random.default_rng(0).integers(0, cfg.vocab, (4, 17))
+    batch = {"tokens": torch.from_numpy(tokens[:, :-1]),
+             "labels": torch.from_numpy(tokens[:, 1:])}
+    loss, _ = model.loss(params, batch)
+    grads = torch.autograd.grad(loss, leaves)
+    paths = []
+    cm.map_with_path(lambda p, a: paths.append(p), params)
+    return dict({"loss": loss.detach().numpy()},
+                **{f"grad/{p}": g.numpy() for p, g in zip(paths, grads)})
+
+
 def _spec_tree(cfg):
     """The whole params tree of ``cfg`` as Specs."""
     from repro_torch.models.convert import PARAM_SPECS
@@ -446,4 +513,6 @@ def state_template(cfg, P: int, trainer_kw: dict):
 
 WORKERS = {"plan": plan_worker, "trainer": trainer_worker,
            "consolidated": consolidated_worker,
-           "model_axis": model_axis_worker, "scheduler": scheduler_worker}
+           "model_axis": model_axis_worker, "scheduler": scheduler_worker,
+           "routed_count": routed_count_worker,
+           "loss_grads": loss_grads_worker}

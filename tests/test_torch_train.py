@@ -250,7 +250,7 @@ def test_cli_trains_at_smoke_size_and_names_missing_slices():
     # test_torch_train_ranks.py), --sharding fsdp since slice 7a (tests/
     # test_torch_fsdp.py), its streamed layout since slice 7b (tests/
     # test_torch_streaming.py), --model-axis under torchrun since slice 4b
-    # (tests/test_torch_model_axis.py, the other families: slice 4c)
+    # (tests/test_torch_model_axis.py; every family since slice 4c)
     for streamed in ((), ("--streamed",)):
         out = _cli("--arch", ARCH, "--smoke", "--data-axis", "2",
                    "--pod-axis", "4", "--pod-dcn", "--sharding", "fsdp",
@@ -261,7 +261,7 @@ def test_cli_trains_at_smoke_size_and_names_missing_slices():
     for flags, slice_name in ((("--streamed",), "requires --sharding fsdp"),
                               (("--model-axis", "2"), "torchrun"),
                               (("--arch", "xlstm-350m", "--model-axis", "2"),
-                               "slice 4c"),
+                               "torchrun"),
                               (("--multi-pod",), "--pod-axis")):
         out = _cli("--smoke", "--data-axis", "8", "--steps", "1", *flags)
         assert out.returncode != 0 and slice_name in out.stderr, flags

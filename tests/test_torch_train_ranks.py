@@ -202,14 +202,10 @@ def _main(monkeypatch, *argv):
 
 
 def test_model_axis_raises_naming_slice_4b(monkeypatch):
-    """Slices 4b and 4c ported the model axis of the dense, hybrid, audio
-    and vlm families, under torchrun: another family raises naming slice
-    4c, one of those in one process exits saying how to start it."""
-    with pytest.raises(NotImplementedError, match="slice 4c"):
-        _main(monkeypatch, "--arch", "xlstm-350m", "--smoke",
-              "--data-axis", "4", "--model-axis", "2")
+    """Slices 4b and 4c ported the model axis of every family, under
+    torchrun: each in one process exits saying how to start it."""
     for arch in ("tinyllama-1.1b", "recurrentgemma-2b", "whisper-medium",
-                 "internvl2-2b"):
+                 "internvl2-2b", "xlstm-350m", "kimi-k2-1t-a32b"):
         with pytest.raises(SystemExit, match="torchrun"):
             _main(monkeypatch, "--arch", arch, "--smoke", "--data-axis",
                   "4", "--model-axis", "2")
