@@ -176,10 +176,20 @@
    ``RANKS_LOSS_RTOL`` of the ranks' losses and ends with params
    bit-identical to the checkpoint's, which must have moved from the
    initial ones (the first step at which the losses part and the largest
-   change from the initial params printed).  Prints the median step,
-   its split (grads, update, exchange as device-to-host, wire and
-   host-to-device, combine; the sync), each rank's peak memory, the
-   device's idle share over a profiled step and the phase's wall time.
+   change from the initial params printed); (g) on every rank and group
+   step the wire's event log (``RankWire.events``) follows
+   ``pipeline_schedule``: bucket k+1's exchange issued before bucket k's
+   receipt is resolved, each resolve before its combine, at least 2 and
+   at most ``overlap.max_in_flight`` receipts in flight, no more host
+   slots than that; (h) once, the same pre-average rows averaged with
+   ``overlap=False`` (the same buckets) and asynchronously are
+   ``torch.equal`` on every rank (their exposed wait, span, staging and
+   the rest printed side by side), and the wavefront handing bucket k's
+   combine bucket k+1's receipt must fail check (c).  Prints the median
+   step, its split (grads, update, exchange as device-to-host, exposed
+   wait and host-to-device, combine; the sync), each rank's peak memory,
+   the device's idle share over a profiled step and the phase's wall
+   time.
    Model phase (slice 4b, ``model_phase``): the same model and step with
    each of 4 replicas split over 2 model ranks (Megatron's split): 8 ranks
    started by ``torch.distributed.run`` (this script with
@@ -204,7 +214,8 @@
    ``LOGIT_RTOL`` of the largest one-rank logit, the tokens equal at every
    step whose one-rank top-2 margin exceeds the logit gap there (the
    counts printed); (f) finite losses, no skip, and a step whose layer-2
-   MLP leaves out f's backward all-reduce must fail (c).  Prints the
+   MLP leaves out f's backward all-reduce must fail (c); (g) and (h) as
+   the ranks phase's, the mispaired receipts failing (b).  Prints the
    step's split (grads, the TP all-reduces' time and bytes, update, the dp
    exchange), each rank's peak memory, the device's idle share over a
    profiled step and the phase's seconds.
@@ -238,8 +249,15 @@
    one a power-of-two capacity and dtype, printed; (e) transformer-wmt
    served with the cross-attention's g left out must fail (b), and the
    paged steps keeping the rank-local greedy pick must fail (c); (f)
-   finite logits, in-vocab tokens.  Prints each model's serving seconds
-   by rank, peak memory and the phase's seconds.
+   finite logits, in-vocab tokens; (g) the same 8 requests through
+   ``DisaggregatedScheduler`` over the ranks (each rank's prefill worker
+   exports its KV heads through its own connector) give the paged run's
+   tokens, admissions, preemptions and decode shapes, K3 22 a prefill,
+   each rank's connector one insert a prefill of its KV heads' 180,224
+   bytes a block, and rank 1's wire flipping the top exponent bit of
+   request 0's first V element must fail (g).  Prints each model's
+   serving seconds by rank, each rank's staging ms, peak memory and the
+   phase's seconds.
    Ep model phase (slice 4c, third part, ``ep_model_phase``): 2 ranks
    started by ``torch.distributed.run`` (this script with
    ``--ep-model-worker``), gloo, data 1 x model 2 on the one card,
@@ -311,7 +329,9 @@
    before its sync and identical at it, and the gossip baselines' mix of
    the rows on the card bit-identical to the CPU's mix of the same rows on
    the first step of each phase (4 at P 16 for SGP and AD-PSGD, 1 for
-   D-PSGD); (c) finite losses, no skipped update.  Prints each averager's
+   D-PSGD; the CPU mixes run on a thread behind the steps that follow,
+   ``GossipChecks``, settled at the phase's end); (c) finite losses, no
+   skipped update.  Prints each averager's
    step time, tokens/s, host split and peak memory, and a profiler window
    over one step of ``wagma`` and of ``allreduce``.  (2) Paper Fig. 5 at
    that width: ``staleness.wagma_sim_step`` under two stragglers an
@@ -2983,12 +3003,26 @@ def print_streamed(stats, card: str):
 def ranks_spec(device="cuda", smoke: bool = False,
                n_layers: Optional[int] = RANKS_LAYERS,
                seq_len: int = TRAIN_SEQ, global_batch: int = RANKS_GB,
-               steps: int = RANKS_STEPS) -> dict:
+               steps: int = RANKS_STEPS,
+               bucket_bytes: Optional[int] = None) -> dict:
     """What the ranks and the parent's stacked twin both run (JSON, handed
-    to every rank on its command line)."""
+    to every rank on its command line); ``bucket_bytes`` pins the plan's
+    budget (:func:`spec_topology`)."""
     return {"device": device, "smoke": smoke, "n_layers": n_layers,
             "seq_len": seq_len, "global_batch": global_batch,
-            "steps": steps}
+            "steps": steps, "bucket_bytes": bucket_bytes}
+
+
+def spec_topology(spec: dict, data: int):
+    """A rank phase's topology: ``None`` (the Trainer's own, its budget
+    chosen by the cost model) unless ``spec["bucket_bytes"]`` pins the
+    link's budget, as a rehearsal at smoke size does so that a group step
+    has several buckets in flight."""
+    from repro_torch.core import plan as plan_mod
+    if not spec.get("bucket_bytes"):
+        return None
+    return plan_mod.Topology.flat(("data",), (data,), link=plan_mod.LinkClass(
+        "link", bucket_bytes=spec["bucket_bytes"]))
 
 
 def ranks_trainer(spec: dict, world=None):
@@ -3003,7 +3037,8 @@ def ranks_trainer(spec: dict, world=None):
                                                      spec["device"]}
     return Trainer(cfg, RANKS_P, group_size=RANKS_S, tau=TRAIN_TAU,
                    learning_rate=TRAIN_LR, seq_len=spec["seq_len"],
-                   global_batch=spec["global_batch"], seed=0, **kw)
+                   global_batch=spec["global_batch"], seed=0,
+                   topology=spec_topology(spec, RANKS_P), **kw)
 
 
 def tensor_digest(t) -> str:
@@ -3068,11 +3103,15 @@ def union_ns(intervals) -> int:
 def instrument_rank_trainer(trainer, world, plan):
     """Time a rank ``Trainer``'s step parts into ``split`` (grads, update,
     average, sync; host clock, synchronised), add the wire's seconds and
-    bytes of each average and sync into ``wire`` (``plan.wire_stats``),
-    and gather the rows ``comm`` averages (``mesh.gather_rows``) into
-    ``pending`` once an offset not yet in ``checked``, their seconds in
-    ``check_s[0]``.  Returns (split, wire, pending, checked, check_s)."""
+    counts of each average and sync into ``wire`` (``plan.wire_stats``;
+    its running ``in_flight_max`` left out: check (g) reads a step's from
+    the event log), and gather the rows ``comm`` averages
+    (``mesh.gather_rows``) into ``pending`` once an offset not yet in
+    ``checked``, their seconds in ``check_s[0]``; the first such offset
+    also keeps this rank's own pre-average rows in ``own`` (check (h)).
+    Returns (split, wire, pending, checked, check_s, own)."""
     from repro_torch.core import plan as plan_mod
+    from repro_torch.core import tree as tr
     from repro_torch.launch import mesh
     from repro_torch.optim.sgd import Optimizer
     from repro_torch.train import train_step
@@ -3086,27 +3125,128 @@ def instrument_rank_trainer(trainer, world, plan):
             before = plan_mod.wire_stats()
             res = fn(*args)
             for k, v in plan_mod.wire_stats().items():
-                wire[k] = wire.get(k, 0) + v - before[k]
+                if k != "in_flight_max":
+                    wire[k] = wire.get(k, 0) + v - before[k]
             return res
         return run
 
     trainer.opt = Optimizer(trainer.opt.init,
                             timed_("update", trainer.opt.update))
     comm = timed_("average", with_wire(avg.comm))
-    pending, checked, check_s = {}, {}, [0.0]
+    pending, checked, check_s, own = {}, {}, [0.0], {}
 
     def comm_checked(tree, phase):
         offset = plan.offsets[phase]
         if offset not in checked and offset not in pending:
             t0 = time.perf_counter()
             pending[offset] = mesh.gather_rows(world, tree)
+            if not checked and not own:
+                own[offset] = tr.tree_map(lambda a: a.clone(), tree)
             check_s[0] += time.perf_counter() - t0
         return comm(tree, phase)
 
     avg.comm = comm_checked
     avg.sync = timed_("sync", with_wire(avg.sync))
     train_step.value_and_grad = timed_("grads", train_step.value_and_grad)
-    return split, wire, pending, checked, check_s
+    return split, wire, pending, checked, check_s, own
+
+
+def receipt_events(wire, n_buckets: int, n_stages: int) -> dict:
+    """Check (g) of a rank group step: every wavefront the wire logged
+    (``wire.events``) follows ``pipeline_schedule``
+    (``overlap.check_event_log``: bucket k+1's issue before bucket k's
+    resolve, each resolve before its combine, at least 2 and at most the
+    schedule's count in flight), and the wire's slots are at most
+    ``max_in_flight(n_buckets, n_stages)``.  Returns the step's receipts
+    issued, the most in flight, that bound, the span from the first issue
+    to the last resolve (ms) and the slots."""
+    from repro_torch.core import overlap
+    if not wire.events:
+        raise AssertionError("check (g): a group step logged no wavefront")
+    runs = [overlap.check_event_log(r) for r in wire.events]
+    bound = overlap.max_in_flight(n_buckets, n_stages)
+    if wire.n_slots > bound:
+        raise AssertionError(f"check (g): {wire.n_slots} host slots; the "
+                             f"schedule has {bound} in flight")
+    return {"issued": sum(r["issued"] for r in runs),
+            "in_flight_max": max(r["in_flight_max"] for r in runs),
+            "bound": bound, "slots": wire.n_slots,
+            "span_ms": sum(r["span_s"] for r in runs) * 1e3}
+
+
+def mispaired_receipts():
+    """Check (h)'s planted fault: the wavefront hands bucket k's combine
+    bucket k+1's receipt where it is in flight (read into bucket k's
+    delivery as far as both reach); returns the undo."""
+    from repro_torch.core import overlap
+    take = overlap.take_receipt
+
+    def mispaired(inflight, k):
+        own = overlap.resolve(inflight.pop(k))
+        if k + 1 not in inflight:
+            return own
+        other = overlap.resolve(inflight[k + 1]).reshape(-1)
+        wrong = own.clone()
+        n = min(own.numel(), other.numel())
+        wrong.view(-1)[:n] = other[:n]
+        return wrong
+    overlap.take_receipt = mispaired
+
+    def undo():
+        overlap.take_receipt = take
+    return undo
+
+
+def rows_equal(want, got) -> bool:
+    """Every leaf of ``want`` (on any device) ``torch.equal`` to ``got``'s
+    (CPU)."""
+    import torch
+    from repro_torch.core import tree as tr
+    return all(torch.equal(a.cpu(), b) for a, b in
+               zip(tr.tree_leaves(want), tr.tree_leaves(got)))
+
+
+def overlap_pair(world, plan, pre, offset) -> tuple:
+    """Check (h) on this rank: ``pre`` (its own pre-average rows of a
+    group step at ``offset``) averaged by ``plan`` with ``overlap=False``
+    (the same buckets) and by ``plan`` itself (the asynchronous
+    wavefront), ``torch.equal`` leaf by leaf; each timed on the host
+    clock, synchronised, beside its exposed wait, the span with a receipt
+    pending, the staging and the rest (the combines and packing).  Then
+    the planted fault: ``pre`` averaged with :func:`mispaired_receipts`,
+    gathered to the coordinate's dp rank 0 (``mesh.gather_rows``) for
+    the stacked comparison.  Returns (the numbers, the faulty rows or
+    ``None``)."""
+    import torch
+    from repro_torch.core import plan as plan_mod
+    from repro_torch.core import tree as tr
+    from repro_torch.launch import mesh
+    serial = plan_mod.compile_plan(
+        plan.topology, plan.storage_struct, dataclasses.replace(
+            plan.cfg, overlap=False, bucket_bytes=plan.class_bucket_bytes[0]),
+        world=world)
+    out, res = {}, {}
+    for name, p in (("serial", serial), ("async", plan)):
+        _sync(world.device)
+        before, t0 = plan_mod.wire_stats(), time.perf_counter()
+        res[name] = p.average_offset(pre, offset)
+        _sync(world.device)
+        ms = (time.perf_counter() - t0) * 1e3
+        d = {k: (v - before[k]) * 1e3 for k, v in plan_mod.wire_stats(
+        ).items() if k.endswith("_s")}
+        staging = d["d2h_s"] + d["h2d_s"]
+        out[name] = {"ms": ms, "exposed_wait_ms": d["wire_s"],
+                     "span_ms": d["span_s"], "staging_ms": staging,
+                     "rest_ms": ms - d["wire_s"] - staging}
+    out["equal"] = all(torch.equal(a, b) for a, b in zip(
+        tr.tree_leaves(res["serial"]), tr.tree_leaves(res["async"])))
+    del res
+    undo = mispaired_receipts()
+    try:
+        faulty = plan.average_offset(pre, offset)
+    finally:
+        undo()
+    return out, mesh.gather_rows(world, faulty)
 
 
 def profiled_step(trainer, t: int, device) -> dict:
@@ -3208,16 +3348,17 @@ def ranks_worker(spec: dict, out: str) -> int:
                                              plan.storage_struct, plan.cfg)
         n_buckets = plan.class_layout(0).n_buckets
         n_stages = len(plan.runs_for_offset(0)[0].bits)
-        split, wire, pending, checked, check_s = instrument_rank_trainer(
-            trainer, world, plan)
+        split, wire, pending, checked, check_s, own = \
+            instrument_rank_trainer(trainer, world, plan)
         if on_card:
             torch.cuda.reset_peak_memory_stats()
-        log, peak_checks = [], None
+        log, peak_checks, check_h = [], None, None
         for t in range(spec["steps"]):
             for k in split:
                 split[k] = 0.0
             wire.clear()
             check_s[0] = 0.0
+            plan.wire.events = []
             before = ops.launch_counts()
             _sync(device)
             t0 = time.perf_counter()
@@ -3227,6 +3368,9 @@ def ranks_worker(spec: dict, out: str) -> int:
             after = ops.launch_counts()
             sync = avg.sync_due(t)
             offset = None if sync else plan.offsets[avg.phase_for_step(t)]
+            g = None if sync else receipt_events(plan.wire, n_buckets,
+                                                 n_stages)   # check (g)
+            plan.wire.events = None
             # check (b) on rank 0, from every rank's digest of its params
             t0 = time.perf_counter()
             rows = [None] * RANKS_P if world.rank == 0 else None
@@ -3242,23 +3386,29 @@ def ranks_worker(spec: dict, out: str) -> int:
                     raise AssertionError(
                         f"step {t}: ranks of a group bit-identical {same}, "
                         f"groups differ {differ}, groups {groups}")
-            # check (c), once an offset, on the rows gathered to rank 0
+            # check (c), once an offset, on the rows gathered to rank 0;
+            # check (h) and its fault at the first
             if offset in pending:
                 pre = pending.pop(offset)
                 post = mesh.gather_rows(world, trainer.state.params)
                 checked[offset] = None         # rank 0 holds the verdict
+                faulty = None
+                if offset in own:
+                    check_h, faulty = overlap_pair(world, plan,
+                                                   own.pop(offset), offset)
                 if world.rank == 0:
                     want = stacked_plan.average_offset(
                         tr.tree_map(lambda a: a.to(device), pre), offset)
-                    checked[offset] = all(
-                        torch.equal(a.cpu(), b) for a, b in
-                        zip(tr.tree_leaves(want), tr.tree_leaves(post)))
+                    checked[offset] = rows_equal(want, post)
                     if not checked[offset]:
                         raise AssertionError(
                             f"step {t}: the wire average at offset "
                             f"{offset} differs from the stacked plan's")
+                    if faulty is not None:
+                        check_h["fault_parts"] = not rows_equal(want,
+                                                                faulty)
                     del want
-                del pre, post
+                del pre, post, faulty
             log.append({
                 "t": t, "loss": loss, "sync": sync, "offset": offset,
                 "step_ms": step_s * 1e3,
@@ -3266,7 +3416,7 @@ def ranks_worker(spec: dict, out: str) -> int:
                 "exchange_ms": {k[:-2]: wire.get(k, 0.0) * 1e3
                                 for k in ("d2h_s", "wire_s", "h2d_s")},
                 "wire_bytes": wire.get("bytes", 0),
-                "wire_ops": wire.get("ops", 0),
+                "wire_ops": wire.get("ops", 0), "check_g": g,
                 "check_ms": (check_s[0] + time.perf_counter() - t0) * 1e3,
                 "skipped": trainer.last_metrics["skipped_nonfinite"],
                 **{key: after[name] - before[name] for key, name in (
@@ -3289,7 +3439,7 @@ def ranks_worker(spec: dict, out: str) -> int:
         window = profiled_step(trainer, spec["steps"], device)
         mine = {"rank": world.rank, "device": str(device), "log": log,
                 "peak": peak, "peak_steps_0_1": peak_checks,
-                "window": window, "init_s": init_s}
+                "window": window, "init_s": init_s, "check_h": check_h}
         everyone = [None] * RANKS_P if world.rank == 0 else None
         dist.gather_object(mine, everyone, dst=0)
         if world.rank == 0:
@@ -3308,6 +3458,37 @@ def ranks_worker(spec: dict, out: str) -> int:
         return 0
     finally:
         mesh.shutdown()
+
+
+def check_overlap(stats) -> dict:
+    """Checks (g) and (h) of a rank phase on what its ranks report: (g)
+    every rank logged and held every group step's wavefront to the
+    schedule (:func:`receipt_events`, in the worker); (h) on every rank
+    the serial and the asynchronous average of the same pre-step rows
+    are equal, and, wherever a group step has a second bucket (on the
+    card it always has), the mispaired receipts part from the stacked
+    plan at every coordinate's dp rank 0.  Returns what the phase prints:
+    rank 0's (g) numbers over its group steps and (h)'s."""
+    for r in stats["ranks"]:
+        for e in r["log"]:
+            if not e["sync"] and not e["check_g"]:
+                raise AssertionError(f"check (g): rank {r['rank']} step "
+                                     f"{e['t']} logged no wavefront")
+    hs = [r["check_h"] for r in stats["ranks"]]
+    if any(h is None or not h["equal"] for h in hs):
+        raise AssertionError(f"check (h): the serial and the asynchronous "
+                             f"average part: {hs}")
+    parts = [h["fault_parts"] for h in hs if "fault_parts" in h]
+    if stats["n_buckets"] >= 2 and not (parts and all(parts)):
+        raise AssertionError(f"check (h): mispaired receipts passed the "
+                             f"stacked-plan equality ({parts})")
+    g = [e["check_g"] for e in stats["ranks"][0]["log"] if e["check_g"]]
+    return {"issued": g[0]["issued"],
+            "in_flight_max": max(x["in_flight_max"] for x in g),
+            "bound": g[0]["bound"], "slots": g[-1]["slots"],
+            "span_ms": statistics.median(x["span_ms"] for x in g),
+            "h": {k: hs[0][k] for k in ("serial", "async")},
+            "fault_parts": parts}
 
 
 def check_ranks_launches(stats):
@@ -3361,6 +3542,25 @@ def ranks_summary(stats: dict) -> dict:
     }
 
 
+def print_overlap(label: str, o: dict, card: str):
+    """Checks (g) and (h) of a rank phase (:func:`check_overlap`): the
+    asynchronous wavefront's numbers on rank 0 and the serial and the
+    asynchronous average of one group step's pre-average rows side by
+    side (host clock, synchronised; no limit)."""
+    side = lambda k: " vs ".join(f"{o['h'][n][k]:.1f}"
+                                 for n in ("serial", "async"))
+    print(f"{label} checks (g), (h) [{card}]: a group step issues "
+          f"{o['issued']} receipts, at most {o['in_flight_max']} in flight "
+          f"(the schedule's {o['bound']}), {o['slots']} host slots, median "
+          f"span first issue to last resolve {o['span_ms']:.1f} ms; one "
+          f"average of the same rows, serial vs async: {side('ms')} ms, "
+          f"exposed wait {side('exposed_wait_ms')}, span with a receipt "
+          f"pending {side('span_ms')}, staging {side('staging_ms')}, the "
+          f"rest {side('rest_ms')} ms; equal on every rank; mispaired "
+          f"receipts part from the stacked plan {o['fault_parts']}",
+          flush=True)
+
+
 def print_ranks(stats: dict, card: str):
     s = stats["summary"]
     e = stats["check_e"]
@@ -3387,6 +3587,7 @@ def print_ranks(stats: dict, card: str):
           f"busy {s['device_busy_ms']} ms (by rank, overlaps counted "
           f"twice: {s['device_busy_ms_by_rank']}), idle share "
           f"{s['device_idle_share']}", flush=True)
+    print_overlap("ranks", stats["overlap"], card)
     print(f"ranks checkpoint: {json.dumps(stats['ckpt_s'])} s on rank 0, "
           f"reload {json.dumps(stats['reload_s'])} s, stacked twin "
           f"{stats['stacked_s']:.1f} s", flush=True)
@@ -3447,6 +3648,7 @@ def ranks_phase(spec: dict, out: Path, timeout: int = RANKS_TIMEOUT) -> dict:
     if any(e["loss"] != f["loss"] for r in stats["ranks"]
            for e, f in zip(r["log"], log0)):
         raise AssertionError("the ranks report different mean losses")
+    stats["overlap"] = check_overlap(stats)                     # (g), (h)
 
     # check (e): the checkpoint, then the stacked twin
     t0 = time.perf_counter()
@@ -3505,16 +3707,18 @@ def model_spec(device="cuda", smoke: bool = False,
                seq_len: int = TRAIN_SEQ, global_batch: int = MODEL_GB,
                steps: int = MODEL_STEPS, prompt: int = MODEL_PROMPT,
                new: int = MODEL_NEW, arch: str = ARCH,
-               data: int = MODEL_DATA, rows: int = MODEL_ROWS) -> dict:
+               data: int = MODEL_DATA, rows: int = MODEL_ROWS,
+               bucket_bytes: Optional[int] = None) -> dict:
     """What a model phase's ranks and the parent's stacked twin run
     (JSON, handed to every rank on its command line): ``arch`` over
     ``data`` x ``MODEL_M`` ranks at S ``MODEL_S``, then ``rows`` prompts a
     dp rank served; ``serve_layers`` None serves the config's own
-    depth."""
+    depth; ``bucket_bytes`` as :func:`ranks_spec`'s."""
     return {"device": device, "smoke": smoke, "n_layers": n_layers,
             "serve_layers": serve_layers, "seq_len": seq_len,
             "global_batch": global_batch, "steps": steps, "prompt": prompt,
-            "new": new, "arch": arch, "data": data, "rows": rows}
+            "new": new, "arch": arch, "data": data, "rows": rows,
+            "bucket_bytes": bucket_bytes}
 
 
 def rg_model_spec(device="cuda", smoke: bool = False,
@@ -3522,12 +3726,14 @@ def rg_model_spec(device="cuda", smoke: bool = False,
                   serve_layers: Optional[int] = None,
                   seq_len: int = TRAIN_SEQ, global_batch: int = RG_MODEL_GB,
                   steps: int = RG_MODEL_STEPS, prompt: int = RG_MODEL_PROMPT,
-                  new: int = MODEL_NEW) -> dict:
+                  new: int = MODEL_NEW,
+                  bucket_bytes: Optional[int] = None) -> dict:
     """The rg model phase's spec: recurrentgemma-2b over data
     ``RG_MODEL_DATA`` x model ``MODEL_M`` ranks."""
     return model_spec(device, smoke, n_layers, serve_layers, seq_len,
                       global_batch, steps, prompt, new, arch=RG_ARCH,
-                      data=RG_MODEL_DATA, rows=RG_MODEL_ROWS)
+                      data=RG_MODEL_DATA, rows=RG_MODEL_ROWS,
+                      bucket_bytes=bucket_bytes)
 
 
 def model_cfg(spec: dict, n_layers: Optional[int]):
@@ -3547,13 +3753,14 @@ def model_trainer(spec: dict, world=None):
     return Trainer(model_cfg(spec, spec["n_layers"]), spec["data"],
                    group_size=MODEL_S, tau=TRAIN_TAU, learning_rate=TRAIN_LR,
                    seq_len=spec["seq_len"], global_batch=spec["global_batch"],
-                   seed=0, **kw)
+                   seed=0, topology=spec_topology(spec, spec["data"]), **kw)
 
 
-def model_slice_plan(cfg, data: int = MODEL_DATA):
+def model_slice_plan(cfg, data: int = MODEL_DATA,
+                     bucket_bytes: Optional[int] = None):
     """A rank's compiled plan on a model path: the plan over one replica's
     slices (``MODEL_M`` model ranks) at ``data`` dp ranks, S
-    ``MODEL_S``."""
+    ``MODEL_S`` (``bucket_bytes`` as :func:`spec_topology`'s)."""
     from repro_torch.core import plan as plan_mod
     from repro_torch.models import common as cm
     from repro_torch.models.convert import PARAM_SPECS
@@ -3561,7 +3768,8 @@ def model_slice_plan(cfg, data: int = MODEL_DATA):
     local = cm.take_slices(specs, cm.placement(cfg, specs, MODEL_M),
                            cm.ModelWorld(MODEL_M, 0))
     return plan_mod.compile_plan(
-        plan_mod.Topology.flat(("data",), (data,)), local,
+        spec_topology({"bucket_bytes": bucket_bytes}, data)
+        or plan_mod.Topology.flat(("data",), (data,)), local,
         plan_mod.AveragingConfig(group_size=MODEL_S, tau=TRAIN_TAU))
 
 
@@ -3776,16 +3984,17 @@ def model_worker(spec: dict, out: str) -> int:
         n_buckets = plan.class_layout(0).n_buckets
         n_stages = len(plan.runs_for_offset(0)[0].bits)
         dims = cm.placement(cfg, trainer.state.params, MODEL_M)
-        split, wire, pending, checked, check_s = instrument_rank_trainer(
-            trainer, world, plan)
+        split, wire, pending, checked, check_s, own = \
+            instrument_rank_trainer(trainer, world, plan)
         if on_card:
             torch.cuda.reset_peak_memory_stats()
-        log, c_held = [], []
+        log, c_held, check_h = [], [], None
         for t in range(spec["steps"]):
             for k in split:
                 split[k] = 0.0
             wire.clear()
             check_s[0] = 0.0
+            plan.wire.events = []
             before, tp0 = ops.launch_counts(), cm.tp_stats()
             _sync(device)
             t0 = time.perf_counter()
@@ -3795,6 +4004,9 @@ def model_worker(spec: dict, out: str) -> int:
             after, tp1 = ops.launch_counts(), cm.tp_stats()
             sync = avg.sync_due(t)
             offset = None if sync else plan.offsets[avg.phase_for_step(t)]
+            g = None if sync else receipt_events(plan.wire, n_buckets,
+                                                 n_stages)   # check (g)
+            plan.wire.events = None
             t0 = time.perf_counter()
             rows = model_digests(world, trainer.state.params, dims)
             if rank0:
@@ -3807,12 +4019,17 @@ def model_worker(spec: dict, out: str) -> int:
                 pre = pending.pop(offset)
                 post = mesh.gather_rows(world, trainer.state.params)
                 checked[offset] = None
+                faulty = None            # check (h) and its fault, once
+                if offset in own:
+                    check_h, faulty = overlap_pair(world, plan,
+                                                   own.pop(offset), offset)
                 if world.rank == 0:      # dp rank 0 of each coordinate
                     want = stacked_plan.average_offset(
                         tr.tree_map(lambda a: a.to(device), pre), offset)
-                    checked[offset] = all(
-                        torch.equal(a.cpu(), b) for a, b in
-                        zip(tr.tree_leaves(want), tr.tree_leaves(post)))
+                    checked[offset] = rows_equal(want, post)
+                    if faulty is not None:
+                        check_h["fault_parts"] = not rows_equal(want,
+                                                                faulty)
                     del want
                 verdicts = gather_to_rank0(world, checked[offset])
                 if rank0:
@@ -3821,7 +4038,7 @@ def model_worker(spec: dict, out: str) -> int:
                         raise AssertionError(
                             f"step {t}: the wire average at offset {offset}"
                             f" differs from the stacked plan's")
-                del pre, post
+                del pre, post, faulty
             log.append({
                 "t": t, "loss": loss, "sync": sync, "offset": offset,
                 "step_ms": step_s * 1e3,
@@ -3831,7 +4048,7 @@ def model_worker(spec: dict, out: str) -> int:
                 "tp_ops": tp1["ops"] - tp0["ops"],
                 "exchange_ms": {k[:-2]: wire.get(k, 0.0) * 1e3
                                 for k in ("d2h_s", "wire_s", "h2d_s")},
-                "wire_bytes": wire.get("bytes", 0),
+                "wire_bytes": wire.get("bytes", 0), "check_g": g,
                 "check_ms": (check_s[0] + time.perf_counter() - t0) * 1e3,
                 "skipped": trainer.last_metrics["skipped_nonfinite"],
                 **{key: after[name] - before[name] for key, name in (
@@ -3877,7 +4094,8 @@ def model_worker(spec: dict, out: str) -> int:
             "rank": world.torch_rank, "dp": world.rank,
             "model": world.model_rank, "device": str(device), "log": log,
             "peak": peak, "window": window, "init_s": init_s,
-            "train_s": train_s, "serve": serve, "served": got})
+            "train_s": train_s, "serve": serve, "served": got,
+            "check_h": check_h})
         if rank0:
             # check (e)'s reference: rank 0 serves the whole model on every
             # prompt
@@ -3993,9 +4211,9 @@ def check_model_held(stats, combines) -> None:
     """Check (a): the ranks' plan is the plan whose combine operands the
     K1/K2 phase held (``model_combines``)."""
     spec = stats["spec"]
-    plan_sizes = list(model_slice_plan(model_cfg(spec, spec["n_layers"]),
-                                       spec["data"]).class_layout(0
-                                                                  ).bucket_sizes)
+    plan_sizes = list(model_slice_plan(
+        model_cfg(spec, spec["n_layers"]), spec["data"],
+        spec.get("bucket_bytes")).class_layout(0).bucket_sizes)
     if stats["bucket_sizes"] != plan_sizes:
         raise AssertionError(f"the ranks compiled buckets "
                              f"{stats['bucket_sizes']}; the K1/K2 phase held "
@@ -4067,6 +4285,7 @@ def model_phase(spec: dict, out: Path, timeout: int = MODEL_TIMEOUT) -> dict:
     if stats["fault_check_c"] is not False:                     # check (f)
         raise AssertionError("check (c) holds on a step that left out a "
                              "backward sum in one layer")
+    stats["overlap"] = check_overlap(stats)                     # (g), (h)
     if not stats["serve_check"]["ok"]:                          # check (e)
         raise AssertionError(f"check (e): {stats['serve_check']}")
     # check (d): the one-process stacked twin, whole replicas as rows
@@ -4133,6 +4352,7 @@ def print_model(stats: dict, card: str, label: str = "model"):
           f"{[round(x, 2) for x in s['serve_run_s_by_rank']]}"
           f" s by rank, the one-rank reference {stats['ref_s']:.1f} s",
           flush=True)
+    print_overlap(label, stats["overlap"], card)
 
 
 # ---------------------------------------------------------------------------
@@ -4328,14 +4548,15 @@ def sched_prompts(cfg, spec: dict) -> list:
 
 
 def sched_run(model, params, prompts: list, new: int, spec: dict,
-              pick=None) -> dict:
-    """``prompts`` through the paged ``ServeScheduler`` (``new`` tokens
-    each) from a pool with no block to spare, so that growth preempts;
-    ``pick`` in place of the paged steps' greedy pick where given.
-    Records each request's gathered logits (its prefill's and each decode
-    step's, from its last admission), the admissions and preemptions (at
-    the decode step count), the decode shapes and each prefill's and
-    decode step's launches."""
+              pick=None, sched_cls=None, **sched_kw) -> dict:
+    """``prompts`` through the paged ``ServeScheduler`` (or ``sched_cls``
+    with ``sched_kw``; ``new`` tokens each) from a pool with no block to
+    spare, so that growth preempts; ``pick`` in place of the paged steps'
+    greedy pick where given.  Records each request's gathered logits (its
+    prefill's and each decode step's, from its last admission), the
+    admissions and preemptions (at the decode step count), the decode
+    shapes, each prefill's and decode step's launches, and a
+    disaggregated scheduler's staging seconds and ``TransferStats``."""
     from repro_torch.kernels import ops
     from repro_torch.serve import Request, ServeScheduler, kv_cache
     from repro_torch.serve.decode import greedy_pick
@@ -4353,10 +4574,11 @@ def sched_run(model, params, prompts: list, new: int, spec: dict,
         logits[current[0]] = [greedy_pick(model, out[:, -1])[1][0].float()
                               .cpu()]
         return out, caches
-    sched = ServeScheduler(model._replace(prefill=recording_prefill), params,
-                           n_blocks=n_blocks, block_size=bs,
-                           max_blocks_per_req=spec["max_blocks"],
-                           max_batch=MAX_BATCH)
+    sched = (sched_cls or ServeScheduler)(
+        model._replace(prefill=recording_prefill), params,
+        n_blocks=n_blocks, block_size=bs,
+        max_blocks_per_req=spec["max_blocks"], max_batch=MAX_BATCH,
+        **sched_kw)
     do_prefill, decode, preempt = (sched._do_prefill, sched._decode,
                                    sched._preempt)
     kinds = (K1, K2, K3, K4)
@@ -4409,7 +4631,10 @@ def sched_run(model, params, prompts: list, new: int, spec: dict,
             "n_decode_steps": sched.n_decode_steps,
             "shapes": sorted(sched.decode_shapes_compiled),
             "launches": launches, "times_ms": times, "wall_s": wall_s,
-            "blocks_free": sched.blocks.n_free}
+            "blocks_free": sched.blocks.n_free,
+            "staging": getattr(sched, "staging", None),
+            "transfer": (dataclasses.asdict(sched.connector.stats)
+                         if hasattr(sched, "connector") else None)}
 
 
 def first_parting_step(tokens, want, ref_logits, gap) -> Optional[int]:
@@ -4436,7 +4661,10 @@ def attn_sched_serve(spec: dict, world) -> Optional[dict]:
     gathers every rank's tokens, logs and shapes and returns the
     verdicts; the other ranks return ``None``."""
     import torch
+    from repro_torch.core import tree as tr
+    from repro_torch.models import transformer as tfm
     from repro_torch.models.registry import build_model
+    from repro_torch.serve import DisaggregatedScheduler, LinkCostedConnector
     device, mw = world.device, world.model_world
     on_card = device.type == "cuda"
     cfg = attn_model_cfg(spec, spec["sched_arch"], spec["sched_layers"])
@@ -4462,8 +4690,26 @@ def attn_sched_serve(spec: dict, world) -> Optional[dict]:
     fault_prompts = prompts[:SCHED_FAULT_REQUESTS]
     fault = sched_run(model, params, fault_prompts, new, spec,
                       pick=rank_local_pick)
+    # check (g): the same requests through the disaggregated scheduler,
+    # each rank shipping its KV heads; then the fault's requests with rank
+    # 1's wire flipping the top exponent bit of request 0's first V element
+    prefill_params = tr.tree_map(torch.clone, params)
+    disagg = sched_run(model, params, prompts, new, spec,
+                       sched_cls=DisaggregatedScheduler,
+                       prefill_params=prefill_params)
+    kh = tfm.kv_heads_held(cfg, mw)
+    flip_conn = None
+    if world.model_rank == 1:
+        n_ship = -(-(len(prompts[0]) + 1) // spec["block_size"])
+        at = first_v_element(cfg, n_ship, LinkCostedConnector(),
+                             kv_heads=kh, block_size=spec["block_size"])
+        flip_conn = LinkCostedConnector(transport=bit_flip_transport(
+            at, 8 * tfm.torch_dtype(cfg).itemsize - 2))
+    flip = sched_run(model, params, fault_prompts, new, spec,
+                     sched_cls=DisaggregatedScheduler,
+                     prefill_params=prefill_params, connector=flip_conn)
     peak = torch.cuda.max_memory_allocated() if on_card else None
-    del params, model
+    del params, model, prefill_params
     logs = lambda r: {k: r[k] for k in ("tokens", "admissions",
                                         "preemptions", "shapes")}
     everyone = gather_to_rank0(world, {
@@ -4471,7 +4717,11 @@ def attn_sched_serve(spec: dict, world) -> Optional[dict]:
         "fault": logs(fault), "launches": run["launches"],
         "times_ms": run["times_ms"],
         "dense_launches": [d[2] for d in dense.values()],
-        "wall_s": run["wall_s"], "dense_s": dense_s, "peak": peak})
+        "wall_s": run["wall_s"], "dense_s": dense_s, "peak": peak,
+        "disagg": logs(disagg), "disagg_launches": disagg["launches"],
+        "disagg_wall_s": disagg["wall_s"], "staging": disagg["staging"],
+        "transfer": disagg["transfer"], "flip": logs(flip),
+        "kv_heads": kh})
     if world.torch_rank != 0:
         return None
     same = all(r["run"] == everyone[0]["run"] for r in everyone)
@@ -4496,8 +4746,10 @@ def attn_sched_serve(spec: dict, world) -> Optional[dict]:
         fault["tokens"][rid], run["tokens"][rid], dense[rid][0][..., :v],
         compares[rid]["max_logit_gap"])
         for rid in range(len(fault_prompts))}
+    disagg_check = check_disaggregated_ranks(everyone, cfg, prompts, spec)
     return {"arch": cfg.name, "n_layers": cfg.n_layers,
             "prompt_lens": [len(p) for p in prompts], "new": new,
+            "disagg": disagg_check,
             "n_blocks": run["n_blocks"], "evictions": run["evictions"],
             "preemptions": run["preemptions"],
             "admissions": run["admissions"],
@@ -4511,6 +4763,47 @@ def attn_sched_serve(spec: dict, world) -> Optional[dict]:
             "fault_fails": (not fault_same) or any(
                 v is not None for v in fault_parting.values()),
             "tokens": run["tokens"], "ranks": everyone}
+
+
+def check_disaggregated_ranks(everyone: list, cfg, prompts: list,
+                              spec: dict) -> dict:
+    """Check (g) of the attn model phase on rank 0, from every rank's
+    logs: on each rank the disaggregated run's tokens, admissions,
+    preemptions and decode shapes equal the colocated paged run's, and
+    its connector took one insert a prefill (a preempted request ships
+    again) of each prefill's ``ceil((prompt + 1) / block_size)`` blocks,
+    the rank's KV heads' share of ``kv_payload_bytes`` of a block each;
+    the run of ``SCHED_FAULT_REQUESTS`` requests with rank 1's flipped bit
+    in request 0 must fail it (its tokens part from the colocated run's).
+    Returns the verdicts and each rank's staging ms and bytes."""
+    from repro_torch.serve.kv_transfer import kv_payload_bytes
+    bs = spec["block_size"]
+    out = {"ranks": []}
+    ok = True
+    for r in everyone:
+        d = r["disagg"]
+        blocks = sum(-(-(len(prompts[rid]) + 1) // bs)
+                     for _, rid in d["admissions"])
+        per_block = kv_payload_bytes(cfg, bs) * r["kv_heads"] \
+            // cfg.n_kv_heads
+        want = {"requests": len(d["admissions"]), "blocks": blocks,
+                "payload_bytes": blocks * per_block}
+        got = {k: r["transfer"][k] for k in want}
+        same = d == r["run"]
+        ok = ok and same and got == want
+        out["ranks"].append({
+            "rank": r["rank"], "equal_to_colocated": same,
+            "transfer": r["transfer"], "want": want,
+            "bytes_a_block": per_block, "wall_s": r["disagg_wall_s"],
+            "staging_ms": {k[:-2]: v * 1e3
+                           for k, v in r["staging"].items()}})
+    out["ok"] = ok
+    colocated = {rid: everyone[0]["run"]["tokens"][rid]
+                 for rid in range(SCHED_FAULT_REQUESTS)}
+    out["flip_tokens_differ"] = [r["flip"]["tokens"] != colocated
+                                 for r in everyone]
+    out["flip_fails"] = any(out["flip_tokens_differ"])
+    return out
 
 
 def host_buffers() -> dict:
@@ -4601,6 +4894,11 @@ def attn_model_phase(spec: dict, out: Path,
     if not sched["fault_fails"]:                                # check (e)
         raise AssertionError("check (e): check (c) holds on paged steps "
                              "that keep the rank-local pick")
+    if not sched["disagg"]["ok"]:                               # check (g)
+        raise AssertionError(f"check (g): {json.dumps(sched['disagg'])}")
+    if not sched["disagg"]["flip_fails"]:                       # check (g)
+        raise AssertionError("check (g): a wire that flipped one bit on "
+                             "rank 1 passed")
     for h in stats["host"]:                                     # check (d)
         if h["buffers"] > h["bound"]:
             raise AssertionError(f"check (d): {h['buffers']} pinned buffers "
@@ -4635,8 +4933,8 @@ def check_attn_model_launches(stats) -> None:
     cfg = attn_model_cfg(spec, spec["sched_arch"], spec["sched_layers"])
     want = dict(zero, **{K3: cfg.n_layers})
     for r in stats["sched"]["ranks"]:
-        runs = [r["launches"]] + [{"prefill": d[:1], "decode": d[1:]}
-                                  for d in r["dense_launches"]]
+        runs = [r["launches"], r["disagg_launches"]] + [
+            {"prefill": d[:1], "decode": d[1:]} for d in r["dense_launches"]]
         for l in runs:
             pre = [{k: x[k] for k in zero} for x in l["prefill"]]
             dec = [{k: x[k] for k in zero} for x in l["decode"]]
@@ -4711,6 +5009,20 @@ def print_attn_model(stats: dict, card: str):
           f"{[(h['buffers'], h['bound'], h['bytes']) for h in stats['host']]}"
           f" (count, bound, bytes), capacities "
           f"{stats['host'][0]['capacities']}", flush=True)
+    g = s["disagg"]
+    for r in g["ranks"]:
+        print(f"attn model disaggregated rank {r['rank']} [{card}]: tokens, "
+              f"admissions, preemptions and shapes == the colocated run's "
+              f"{r['equal_to_colocated']}; {r['transfer']['requests']} "
+              f"inserts, {r['transfer']['blocks']} blocks, "
+              f"{r['transfer']['payload_bytes']} bytes ({r['bytes_a_block']} "
+              f"a block: the rank's KV heads; want {r['want']}); staging ms "
+              f"{ {k: round(v, 3) for k, v in r['staging_ms'].items()} }; "
+              f"run {r['wall_s']:.2f} s", flush=True)
+    print(f"attn model disaggregated checks: (g) {g['ok']}; a wire flipping "
+          f"one bit of request 0 on rank 1: tokens part by rank "
+          f"{g['flip_tokens_differ']}, (g) fails {g['flip_fails']}",
+          flush=True)
 
 
 def ep_model_spec(device="cuda", smoke: bool = False, new: int = MODEL_NEW,
@@ -5224,7 +5536,7 @@ def paper_train_run(cfg, averager: str, device="cuda",
                     steps: Optional[int] = None, replicas: int = PAPER_P,
                     group_size: int = PAPER_S, tau: int = PAPER_TAU,
                     seq_len: int = PAPER_SEQ, global_batch: int = PAPER_GB,
-                    profile: bool = False):
+                    profile: bool = False, checks=None):
     """``steps`` Trainer steps under ``averager`` (by default
     :func:`paper_steps`) with checks (b) and (c); returns the run's numbers
     and each step's launches for check (a).
@@ -5238,7 +5550,10 @@ def paper_train_run(cfg, averager: str, device="cuda",
     rows on ``device``, on the first step of each phase, bit-identical to
     the same averager's mix of those rows copied to the CPU (IEEE adds and
     one product).  Every other step passes only if its phase's check did.
-    The checks' time is kept out of the step's."""
+    The checks' time is kept out of the step's.  With ``checks`` (a
+    :class:`GossipChecks`) the CPU mixes run on its thread behind the
+    steps that follow: ``phase_checks`` then holds a gossip run's futures,
+    and :meth:`GossipChecks.settle` holds its steps to them."""
     import torch
     from repro_torch.core import grouping
     from repro_torch.core import tree as tr
@@ -5271,13 +5586,16 @@ def paper_train_run(cfg, averager: str, device="cuda",
             return comm(tree, phase)
         t0 = time.perf_counter()
         host = None if plan is not None else tr.tree_map(
-            lambda a: a.cpu(), tree)
+            lambda a: a.to("cpu", copy=True), tree)
         check_s[0] += time.perf_counter() - t0
         out = comm(tree, phase)
         t0 = time.perf_counter()
         if plan is not None:
             checked[phase] = fused_equals_per_leaf(ref_plan, out, tree,
                                                    plan.offsets[phase])
+        elif checks is not None:
+            checked[phase] = checks.submit(raw_comm, host, phase, out)
+            del host
         else:
             want = raw_comm(host, phase)
             checked[phase] = all(torch.equal(a.cpu(), b) for a, b in zip(
@@ -5320,6 +5638,8 @@ def paper_train_run(cfg, averager: str, device="cuda",
             elif averager == "local_sgd":
                 ok = not group_rows_agree(params,
                                           (tuple(range(replicas)),))[0]
+            elif checks is not None:     # its verdict: GossipChecks.settle
+                ok = phase in checked
             else:
                 ok = checked.get(phase, False)
             if not ok:                                          # check (b)
@@ -5364,6 +5684,62 @@ def paper_train_run(cfg, averager: str, device="cuda",
     if on_card:
         torch.cuda.empty_cache()
     return out
+
+
+class GossipChecks:
+    """The paper phase's gossip checks (b) on a thread: each submitted
+    check copies the card's mix to the host, then computes the CPU mix of
+    the pre-mix rows on the thread and compares them there, while the
+    steps that follow run on the card.  At most ``depth`` checks are
+    pending at once (each holds two host copies of the 16 replicas).
+    The CPU mixes read the plan caches the main thread reads too; they
+    add entries to none (the card run compiled the plan already)."""
+
+    def __init__(self, depth: int = 2):
+        import threading
+        from concurrent.futures import ThreadPoolExecutor
+        self.pool = ThreadPoolExecutor(1)
+        self.room = threading.BoundedSemaphore(depth)
+
+    def submit(self, mix, host, phase, out):
+        """Check that ``mix(host, phase)`` equals ``out`` (the card's)
+        bit for bit, on the thread; returns the future."""
+        from repro_torch.core import tree as tr
+        self.room.acquire()
+        try:
+            got = tr.tree_map(lambda a: a.to("cpu", copy=True), out)
+        except BaseException:
+            self.room.release()
+            raise
+
+        def check():
+            import torch
+            try:
+                want = mix(host, phase)
+                return all(torch.equal(a, b) for a, b in zip(
+                    tr.tree_leaves(got), tr.tree_leaves(want)))
+            finally:
+                self.room.release()
+        return self.pool.submit(check)
+
+    def settle(self, paper: dict) -> float:
+        """Wait for every gossip run's checks, put their verdicts in its
+        ``phase_checks`` and fail check (b) where one is false; returns
+        the seconds waited."""
+        t0 = time.perf_counter()
+        try:
+            for name, run in paper.items():
+                if name not in GOSSIP:
+                    continue
+                run["phase_checks"] = {p: f.result() for p, f in
+                                       run["phase_checks"].items()}
+                if not all(run["phase_checks"].values()):  # check (b)
+                    raise AssertionError(
+                        f"{name}: the card's mix differs from the CPU's by "
+                        f"phase {run['phase_checks']}")
+        finally:
+            self.pool.shutdown(wait=True)
+        return time.perf_counter() - t0
 
 
 def check_paper_launches(stats):
@@ -5667,16 +6043,19 @@ def bit_flip_transport(at: int, bit: int):
     return BitFlip()
 
 
-def first_v_element(cfg, n_ship: int, connector) -> int:
+def first_v_element(cfg, n_ship: int, connector,
+                    kv_heads: Optional[int] = None,
+                    block_size: int = BLOCK_SIZE) -> int:
     """Where the connector packs the first V element (layer 0, block 0,
-    position 0, KV head 0, dim 0) of a request's ``n_ship`` blocks: its
-    index in the payload, counted across the messages in order.  Every
-    later decode step of every layer-0 query attends to it."""
+    position 0, KV head 0, dim 0) of a request's ``n_ship`` blocks of
+    ``kv_heads`` heads (a model rank's; by default all): its index in the
+    payload, counted across the messages in order.  Every later decode
+    step of every layer-0 query attends to it."""
     from repro_torch.core import bucketing
     from repro_torch.core import tree as tr
     from repro_torch.models.transformer import torch_dtype
-    spec = tr.Spec((cfg.n_layers, n_ship, BLOCK_SIZE, cfg.n_kv_heads,
-                    cfg.hd), torch_dtype(cfg))
+    spec = tr.Spec((cfg.n_layers, n_ship, block_size,
+                    kv_heads or cfg.n_kv_heads, cfg.hd), torch_dtype(cfg))
     tree = {"global": {"k": spec, "v": spec}}
     layout = bucketing.layout_for(tree, max_bucket_bytes=connector.budget_for(
         bucketing.tree_payload_bytes(tree)))
@@ -6347,6 +6726,15 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     card = gpu_identity()
     print(f"card: {card}", flush=True)
+    seconds, since = {}, [time.perf_counter()]
+
+    def phase_done(label: str):
+        """:func:`free_memory` after a phase, and its seconds (from the
+        end of the one before) into ``seconds``."""
+        free_memory(label)
+        now = time.perf_counter()
+        seconds[label] = round(now - since[0], 1)
+        since[0] = now
 
     t = time.perf_counter()
     reports = _build.build(_build.sources())
@@ -6463,7 +6851,7 @@ def main() -> int:
                       "planted_fault": fault, "card": card}), flush=True)
     print_handoff(stats, colo_again, disagg, fault, card)
     del model, params
-    free_memory("tinyllama serving and handoff")
+    phase_done("tinyllama serving and handoff")
 
     # -- training phase (K1, K2); handoff check (c) on its state ----------
     tcfg = train_config()
@@ -6516,7 +6904,7 @@ def main() -> int:
           f" ms, peak memory {train['max_memory_allocated'] / 2**30:.2f} GiB,"
           f" launches {train['launches']}", flush=True)
     _print_window(f"train group step {TRAIN_STEPS}", window, card)
-    free_memory("tinyllama training")
+    phase_done("tinyllama training")
 
     # -- elastic phase: the training model through ElasticTrainer, worlds
     # of 8, 4 and 2 rows (K1, K2) ------------------------------------------
@@ -6528,7 +6916,7 @@ def main() -> int:
                       "elastic_summary": elastic_summary(elastic),
                       "card": card}), flush=True)
     print_elastic(elastic, card)
-    free_memory("elastic phase")
+    phase_done("elastic phase")
 
     # -- FSDP phase: 4 pods of 2 at 22 layers, the pods' shard buffers
     # averaged pod to pod (K1, K2), the consolidated model served (K3) ----
@@ -6539,7 +6927,7 @@ def main() -> int:
     check_fsdp_memory(fsdp)                                     # check (f)
     print(json.dumps({"fsdp": fsdp, "card": card}), flush=True)
     print_fsdp(fsdp, card)
-    free_memory("FSDP phase")
+    phase_done("FSDP phase")
 
     # -- streamed phase: the same run through the layer-streamed engine,
     # 22 spans, 24 grouped shard buckets averaged pod to pod (K1, K2) ----
@@ -6550,14 +6938,14 @@ def main() -> int:
     check_streamed_memory(streamed)                             # check (e)
     print(json.dumps({"streamed": streamed, "card": card}), flush=True)
     print_streamed(streamed, card)
-    free_memory("streamed phase")
+    phase_done("streamed phase")
 
     # -- ranks phase: the same model, one replica a rank over gloo (K1, K2)
     ranks = ranks_phase(ranks_spec(), ROOT / "build" / "ranks")
     check_ranks_launches(ranks)                                 # check (a)
     print(json.dumps({"ranks": ranks, "card": card}), flush=True)
     print_ranks(ranks, card)
-    free_memory("ranks phase")
+    phase_done("ranks phase")
 
     # -- model phase: the same model, each replica split over 2 model ranks,
     # 4 x 2 gloo ranks (K1, K2 on a rank's slices; K3 at its local heads)
@@ -6566,7 +6954,7 @@ def main() -> int:
     check_model_held(tp, ga_line["K1 model"])                   # check (a)
     print(json.dumps({"model": tp, "card": card}), flush=True)
     print_model(tp, card)
-    free_memory("model phase")
+    phase_done("model phase")
 
     # -- rg model phase: recurrentgemma-2b, each replica split over 2 model
     # ranks, 2 x 2 gloo ranks (K1/K2 on a rank's slices, K4 on its 1,280
@@ -6576,7 +6964,7 @@ def main() -> int:
     check_model_held(rg_tp, ga_line["K1 rg model"])             # check (a)
     print(json.dumps({"rg_model": rg_tp, "card": card}), flush=True)
     print_model(rg_tp, card, label="rg model")
-    free_memory("rg model phase")
+    phase_done("rg model phase")
 
     # -- attn model phase: whisper-medium, internvl2-2b and transformer-wmt
     # served over data 1 x model 2 gloo ranks, then the paged scheduler on
@@ -6585,7 +6973,7 @@ def main() -> int:
     check_attn_model_launches(attn)                             # check (a)
     print(json.dumps({"attn_model": attn, "card": card}), flush=True)
     print_attn_model(attn, card)
-    free_memory("attn model phase")
+    phase_done("attn model phase")
 
     # -- ep model phase: xlstm-350m by heads and the expert-parallel moe
     # family served over data 1 x model 2 gloo ranks (K3 at a rank's heads)
@@ -6593,7 +6981,7 @@ def main() -> int:
     check_ep_model_launches(ep)                                 # check (a)
     print(json.dumps({"ep_model": ep, "card": card}), flush=True)
     print_ep_model(ep, card)
-    free_memory("ep model phase")
+    phase_done("ep model phase")
 
     # -- recurrentgemma phase (K4, K3 at head dim 256) ---------------------
     from repro_torch.models import rglru
@@ -6607,7 +6995,7 @@ def main() -> int:
     rg_windows = rg_profile(model, params)
     f32 = rg_f32_check(rcfg, params)
     del model, params
-    free_memory("recurrentgemma serving")
+    phase_done("recurrentgemma serving")
     print(json.dumps({"recurrentgemma": rg, "profile": rg_windows,
                       "float32_check": f32, "card": card}), flush=True)
     print(f"recurrentgemma [{card}]: {rcfg.name} full width, "
@@ -6638,7 +7026,7 @@ def main() -> int:
           f"{scan_train['bound_ms']:.4f} ms a scan (bytes); plain forward "
           f"{scan_train['plain_forward_ms']:.3f} ms, backward "
           f"{scan_train['plain_backward_ms']:.3f} ms", flush=True)
-    free_memory("K4 training scan")
+    phase_done("K4 training scan")
     rtcfg = rg_train_config()
     rg_train, trainer = train_phase(rtcfg, replicas=RG_TRAIN_P,
                                     group_size=RG_TRAIN_S,
@@ -6669,19 +7057,21 @@ def main() -> int:
           f"{rg_train['max_memory_allocated_after_first'] / 2**30:.2f} GiB), "
           f"launches {rg_train['launches']}", flush=True)
     _print_window(f"rg train group step {TRAIN_STEPS}", rg_train_window, card)
-    free_memory("recurrentgemma training")
+    phase_done("recurrentgemma training")
 
     # -- paper phase: transformer-wmt under the seven averagers (K1, K2),
     # Fig. 5, and translation serving (K3) --------------------------------
     pcfg = get_config(PAPER_ARCH)
     t_paper = time.perf_counter()
-    paper = {}
+    paper, gossip = {}, GossipChecks()
     for name in PAPER_AVERAGERS:
-        run = paper_train_run(pcfg, name, profile=name in PAPER_PROFILED)
-        free_memory(f"paper training {name}")
+        run = paper_train_run(pcfg, name, profile=name in PAPER_PROFILED,
+                              checks=gossip)
+        phase_done(f"paper training {name}")
         check_paper_launches(run)                               # check (a)
         paper[name] = run
-        print(json.dumps({"paper_train": run, "card": card}), flush=True)
+        print(json.dumps({"paper_train": run, "card": card}, default=str),
+              flush=True)
         print(f"paper train {name} [{card}]: {pcfg.name} full width and "
               f"depth bf16, {PAPER_P} replicas, seq {PAPER_SEQ}, batch "
               f"{PAPER_GB}: median step {run['median_step_ms']:.1f} ms after "
@@ -6693,9 +7083,8 @@ def main() -> int:
               f"step {run['expected_k1_k2_per_group_step']}"
               + (f", fused average equals the per-leaf one by phase "
                  f"{run['phase_checks']}" if name == "wagma" else "")
-              + (f", gossip mix equals the CPU's by phase "
-                 f"{run['phase_checks']}" if name in GOSSIP else ""),
-              flush=True)
+              + (f", gossip mix against the CPU's on a thread (below)"
+                 if name in GOSSIP else ""), flush=True)
         print(f"paper train {name} losses: "
               f"{[round(x, 4) for x in run['losses']]}", flush=True)
         if run["profile"]:
@@ -6716,11 +7105,15 @@ def main() -> int:
           f"allreduce "
           f"{statistics.median(fig5['runs']['allreduce']['step_ms']):.1f}",
           flush=True)
-    free_memory("Fig. 5")
+    phase_done("Fig. 5")
     wmt = family_serve_phase(pcfg, batch=WMT_BATCH, prompt_len=WMT_PROMPT,
                              new=WMT_NEW, f32_steps=WMT_F32_STEPS)
     check_family_launches(wmt, pcfg)                           # check (a)
-    free_memory("transformer-wmt serving")
+    phase_done("transformer-wmt serving")
+    waited = gossip.settle(paper)                               # check (b)
+    print(f"paper gossip checks: the card's mix equals the CPU's by phase "
+          f"{ {n: paper[n]['phase_checks'] for n in GOSSIP} } (waited "
+          f"{waited:.1f} s at the end of the phase)", flush=True)
     paper_s = time.perf_counter() - t_paper
     print_family_serving("wmt serving", wmt, card)
     print(f"paper phase {paper_s:.1f} s", flush=True)
@@ -6740,7 +7133,7 @@ def main() -> int:
         t0 = time.perf_counter()
         run = family_serve_phase(fcfg, **kw)
         check_family_launches(run, fcfg)                       # check (a)
-        free_memory(f"{arch} serving")
+        phase_done(f"{arch} serving")
         family[arch] = run
         print_family_serving(f"{arch} serving", run, card,
                              seconds=time.perf_counter() - t0)
@@ -6752,7 +7145,7 @@ def main() -> int:
         t0 = time.perf_counter()
         run = moe_serve_phase(mcfg)
         check_family_launches(run, mcfg)                       # check (a)
-        free_memory(f"{arch} serving")
+        phase_done(f"{arch} serving")
         family[arch] = run
         print_family_serving(f"{arch} serving", run, card,
                              seconds=time.perf_counter() - t0)
@@ -6839,6 +7232,9 @@ def main() -> int:
         "paged": sum(x[K3] for r in attn["sched"]["ranks"]
                      for key in ("prefill", "decode")
                      for x in r["launches"][key]),
+        "disaggregated": sum(x[K3] for r in attn["sched"]["ranks"]
+                             for key in ("prefill", "decode")
+                             for x in r["disagg_launches"][key]),
         "dense": sum(x[K3] for r in attn["sched"]["ranks"]
                      for d in r["dense_launches"] for x in d)}
     sched_k3 = sum(sched_k3_by.values())
@@ -6971,11 +7367,13 @@ def main() -> int:
               bound_by=sched_row["bound_by"], shape=sched_row["shape"],
               dtype="bfloat16",
               launches_by_path={"paged scheduler": sched_k3_by["paged"],
+                                "disaggregated scheduler":
+                                sched_k3_by["disaggregated"],
                                 "dense model-world runs of check (c)":
                                 sched_k3_by["dense"]},
-              path=f"{ARCH} paged scheduler, data {ATTN_MODEL_DATA} x "
-                   f"model {MODEL_M} ranks (a rank's heads; the longest "
-                   f"prompt)"),
+              path=f"{ARCH} paged and disaggregated schedulers, data "
+                   f"{ATTN_MODEL_DATA} x model {MODEL_M} ranks (a rank's "
+                   f"heads; the longest prompt)"),
     ] + [
         entry(K3, "src/repro_torch/kernels/csrc/flash_attention.cu",
               "src/repro/kernels/flash_attention.py:70",
@@ -7028,6 +7426,9 @@ def main() -> int:
                   "walk": rg_model_launches[K4] - rg_model_launches[K4_TMA]},
               path=f"{rg_model_path} (a rank's channels)"),
     ]
+    print(f"phase seconds (each from the end of the one before; the "
+          f"first with the build and the kernel phases): "
+          f"{json.dumps(seconds)}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

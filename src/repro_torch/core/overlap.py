@@ -24,9 +24,14 @@ exchange runs are mutually independent and are handed to the caller *as a
 batch*, which the fused path feeds to the multi-pair kernel K2 (one launch
 per batch and scale) instead of one launch per bucket.
 
-Over ranks (``plan.RankWire``) each exchange is issued and waited at
-once, in this order, so the combines and their K1/K2 batches are the
-stacked path's; the wire does not yet run behind the combines.
+Over ranks (``plan.RankWire``) the reference's asynchronous
+collective-permute (start/done) is made explicit: an exchange returns a
+:class:`Receipt` at its tick, and the wavefront waits on it
+(:func:`resolve`) only right before its combine batch, so bucket k+1's
+payload is on the wire while bucket k combines.  The combines and their
+K1/K2 batches are the stacked path's.  Asked for a log, the wavefront
+records each cell's issue, resolve and combine (:func:`check_event_log`
+holds a log to the schedule).
 
 ``overlapped_stage_seconds`` models the throughput claim: the per-stage
 alpha-beta cost becomes ``launch + max(wire, combine) + fill/drain``.
@@ -34,11 +39,15 @@ alpha-beta cost becomes ``launch + max(wire, combine) + fill/drain``.
 
 from __future__ import annotations
 
+import time
 from functools import lru_cache
-from typing import Callable, Dict, List, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 EXCHANGE = "exchange"
 COMBINE = "combine"
+# the event log's kinds beside COMBINE
+ISSUE = "issue"
+RESOLVE = "resolve"
 
 # (phase, bucket, stage): phase is EXCHANGE or COMBINE
 Event = Tuple[str, int, int]
@@ -112,8 +121,94 @@ def combine_batches(events: Sequence[Event]) -> List[List[Tuple[int, int]]]:
     return batches
 
 
+@lru_cache(maxsize=None)
+def max_in_flight(n_buckets: int, n_stages: int) -> int:
+    """The most exchanges :func:`overlapped_butterfly` has issued and not
+    yet resolved at once: an exchange adds one, and the combine batch
+    flushed before the next exchange (or at the end) resolves its cells.
+    2 wherever there are 2 or more buckets and one stage."""
+    most = cur = pending = 0
+    for ph, _, _ in pipeline_schedule(n_buckets, n_stages):
+        if ph == EXCHANGE:
+            cur += 1 - pending
+            pending = 0
+            most = max(most, cur)
+        else:
+            pending += 1
+    return most
+
+
+class Receipt:
+    """A delivery a wire has issued and not yet waited for (the reference's
+    collective-permute *start*).  ``wait()`` blocks until it has landed
+    and returns the tensor, the same one on every later call (the
+    *done*)."""
+
+    def wait(self):
+        raise NotImplementedError
+
+
+def resolve(recv):
+    """What a wire delivered, made tensors: a :class:`Receipt` waited for,
+    a tuple element by element, anything else as it is (the stacked
+    wire's tensors)."""
+    if isinstance(recv, tuple):
+        return tuple(resolve(r) for r in recv)
+    return recv.wait() if isinstance(recv, Receipt) else recv
+
+
+def take_receipt(inflight: Dict[int, object], k: int):
+    """Bucket ``k``'s delivery, resolved; its receipt leaves ``inflight``
+    (which holds the receipt of every bucket's exchange in flight)."""
+    return resolve(inflight.pop(k))
+
+
+def _note(events: Optional[list], kind: str, cells) -> None:
+    if events is not None:
+        t = time.perf_counter()
+        events.extend((kind, k, s, t) for k, s in cells)
+
+
+def check_event_log(record: dict) -> dict:
+    """Hold one :func:`overlapped_butterfly` run's event log (``record``:
+    its ``buckets``, ``stages`` and ``events``, each ``(kind, k, s,
+    seconds)``) to :func:`pipeline_schedule`: every cell issued, resolved
+    and combined once, in that order; bucket k+1's issue before bucket
+    k's resolve at each stage; the most in flight at once at least 2
+    where there are 2 or more buckets and at most :func:`max_in_flight`.
+    Returns the run's ``issued``, ``in_flight_max``, its bound and
+    ``span_s`` (first issue to last resolve); raises AssertionError."""
+    n_b, n_s, events = record["buckets"], record["stages"], record["events"]
+    pos = {(kind, k, s): i for i, (kind, k, s, _) in enumerate(events)}
+    if not (len(pos) == len(events) == 3 * n_b * n_s):
+        raise AssertionError(f"{len(events)} events for {n_b} buckets x "
+                             f"{n_s} stages: a cell issued, resolved or "
+                             f"combined other than once")
+    for k in range(n_b):
+        for s in range(n_s):
+            if not (pos[(ISSUE, k, s)] < pos[(RESOLVE, k, s)]
+                    < pos[(COMBINE, k, s)]):
+                raise AssertionError(f"cell {(k, s)}: issue, resolve and "
+                                     f"combine out of order")
+            if k + 1 < n_b and pos[(ISSUE, k + 1, s)] > pos[(RESOLVE, k, s)]:
+                raise AssertionError(f"bucket {k + 1}'s issue at stage {s} "
+                                     f"after bucket {k}'s resolve")
+    most = cur = 0
+    for kind, _, _, _ in events:
+        cur += {ISSUE: 1, RESOLVE: -1}.get(kind, 0)
+        most = max(most, cur)
+    bound = max_in_flight(n_b, n_s)
+    if most > bound or (n_b >= 2 and most < 2):
+        raise AssertionError(f"{most} exchanges in flight at once; the "
+                             f"schedule has {bound}")
+    times = [t for kind, _, _, t in events if kind in (ISSUE, RESOLVE)]
+    return {"issued": n_b * n_s, "in_flight_max": most, "bound": bound,
+            "span_s": (max(times) - min(times)) if times else 0.0}
+
+
 def overlapped_butterfly(bufs: Sequence, bits: Sequence[int], inv_s: float,
-                         exchange: Callable, combine_many: Callable) -> list:
+                         exchange: Callable, combine_many: Callable,
+                         log: Optional[list] = None) -> list:
     """Run the butterfly over flat buckets in wavefront order.
 
     ``bufs``          per-bucket buffers (``(P, n_b)`` on the stacked
@@ -122,11 +217,16 @@ def overlapped_butterfly(bufs: Sequence, bits: Sequence[int], inv_s: float,
     ``inv_s``         final scale, applied inside the *last* combine only —
                       exactly the serial path's arithmetic.
     ``exchange(buf, bit) -> recv``
-                      one butterfly wire step (the XOR partner's buffer).
+                      one butterfly wire step (the XOR partner's buffer,
+                      or a :class:`Receipt` for it).
     ``combine_many(accs, recvs, scale) -> list``
                       combine a batch of independent (acc, recv) pairs —
                       the fused path maps this to ONE multi-pair kernel
                       launch; the reference path does per-pair torch math.
+    ``log``           where given, gets one record of this run: its live
+                      ``buckets``, ``stages`` and ``events``, each cell's
+                      issue, resolve (right before its batch's combine)
+                      and combine as ``(kind, k, s, seconds)``.
     """
     state = list(bufs)
     if not bits:
@@ -135,17 +235,25 @@ def overlapped_butterfly(bufs: Sequence, bits: Sequence[int], inv_s: float,
     n_stages = len(bits)
     inflight: Dict[int, object] = {}
     pending: List[Tuple[int, int]] = []   # current combine batch
+    events = None
+    if log is not None:
+        events = []
+        log.append({"buckets": len(live), "stages": n_stages,
+                    "events": events})
 
     def flush():
         if not pending:
             return
-        by_scale: Dict[float, List[int]] = {}
+        by_scale: Dict[float, List[Tuple[int, int]]] = {}
         for k, s in pending:
             scale = inv_s if s == n_stages - 1 else 1.0
-            by_scale.setdefault(scale, []).append(k)
-        for scale, ks in by_scale.items():
-            outs = combine_many([state[live[k]] for k in ks],
-                                [inflight.pop(k) for k in ks], scale)
+            by_scale.setdefault(scale, []).append((k, s))
+        for scale, cells in by_scale.items():
+            ks = [k for k, _ in cells]
+            recvs = [take_receipt(inflight, k) for k in ks]
+            _note(events, RESOLVE, cells)
+            outs = combine_many([state[live[k]] for k in ks], recvs, scale)
+            _note(events, COMBINE, cells)
             for k, out in zip(ks, outs):
                 state[live[k]] = out
         pending.clear()
@@ -154,6 +262,7 @@ def overlapped_butterfly(bufs: Sequence, bits: Sequence[int], inv_s: float,
         if ph == EXCHANGE:
             flush()
             inflight[k] = exchange(state[live[k]], bits[s])
+            _note(events, ISSUE, ((k, s),))
         else:
             pending.append((k, s))
     flush()
@@ -166,11 +275,13 @@ def overlapped_mix(bufs: Sequence, issue: Callable,
 
     Issues every bucket's collective(s) before running any bucket's combine
     arithmetic, so the wire of bucket k+1 overlaps the combine of bucket k.
-    ``issue(buf)`` returns whatever the collective(s) deliver (a buffer or a
-    tuple of buffers); ``combine(buf, recv)`` is the local arithmetic.
+    ``issue(buf)`` returns whatever the collective(s) deliver (a buffer, a
+    :class:`Receipt`, or a tuple of them), resolved right before its
+    bucket's ``combine(buf, recv)``, the local arithmetic.
     """
     recvs = [issue(b) if b.numel() else None for b in bufs]
-    return [combine(b, r) if b.numel() else b for b, r in zip(bufs, recvs)]
+    return [combine(b, resolve(r)) if b.numel() else b
+            for b, r in zip(bufs, recvs)]
 
 
 # ---------------------------------------------------------------------------

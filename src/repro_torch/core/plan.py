@@ -33,11 +33,14 @@ each process holds its own replica as ``(1, ...)`` leaves, as JAX's
 ``shard_map`` sees a ``(1, ...)`` block, and the primitives are
 point-to-point ``torch.distributed`` ops (``batch_isend_irecv``) and one
 float32 ``all_reduce(SUM)`` per bucket.  On gloo each exchange stages
-through pinned host buffers reused per bucket size (gloo takes CPU
-tensors); on nccl the device buffers go to the wire as they are.  Each
-exchange is issued and waited at once, in the wavefront order
-(``core/overlap.py``), so the combines and their K1/K2 launches are those
-of the stacked path.
+through pinned host buffers (gloo takes CPU tensors); on nccl the device
+buffers go to the wire as they are.  An exchange returns a receipt
+(``overlap.Receipt``) at its tick of the wavefront (``core/overlap.py``)
+and is waited on only right before its combine, so bucket k+1's payload is
+on the wire while bucket k combines, as the reference's asynchronous
+collective-permute does; the combines and their K1/K2 launches are those
+of the stacked path.  The serial path (``overlap=False``) waits right
+after it issues, and ``sync`` posts and waits at once.
 
 Per element the arithmetic is the JAX plan's: the tree is cast to the
 accumulation dtype (here while packing), ``log2(S)`` adds run in stage
@@ -312,7 +315,9 @@ def butterfly_exchange(buf: torch.Tensor, bit: int) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 class StackedWire:
-    """The primitives on stacked ``(P, ...)`` rows of one tensor."""
+    """The primitives on stacked ``(P, ...)`` rows of one tensor (tensors,
+    never receipts; no event log)."""
+    events = None
     butterfly_exchange = staticmethod(butterfly_exchange)
     ring_shift = staticmethod(ring_shift)
     pmean_rows = staticmethod(pmean_rows)
@@ -325,16 +330,38 @@ class StackedWire:
 
 STACKED_WIRE = StackedWire()
 
-# Host seconds and bytes of every rank exchange so far:
-# ``d2h_s``/``h2d_s`` the staging copies (gloo on a card), ``wire_s`` the
-# send/recv or all_reduce from issue to completion, ``bytes`` sent by this
-# rank, ``ops`` exchanges and all_reduces.
+# Host seconds and counts of every rank exchange so far: ``d2h_s`` and
+# ``h2d_s`` the host's time staging (gloo on a card: the copy to pinned
+# memory, which the send waits for, and the issue of the copy back),
+# ``wire_s`` the exposed wait (the host blocked on a receipt's works or on
+# a synchronous all_reduce), ``bytes`` sent by this rank, ``ops``
+# exchanges and all_reduces; ``issued`` the receipts issued,
+# ``in_flight_max`` the most pending at once (a running maximum),
+# ``span_s`` the seconds with a receipt pending (from an issue that finds
+# none to the resolve that leaves none).
 _WIRE_STATS = {"d2h_s": 0.0, "wire_s": 0.0, "h2d_s": 0.0, "bytes": 0,
-               "ops": 0}
+               "ops": 0, "issued": 0, "in_flight_max": 0, "span_s": 0.0}
 
 
 def wire_stats() -> dict:
     return dict(_WIRE_STATS)
+
+
+class _RankReceipt(pipeline.Receipt):
+    """One exchange or all_reduce a :class:`RankWire` has posted: its
+    works, where the delivery lands (``recv``, a host buffer when staged),
+    how it becomes the tensor ``wait`` returns (``finish``) and the host
+    buffers it holds until then (``held``: (role, buffer) pairs)."""
+
+    def __init__(self, wire, works, recv, finish, held=()):
+        self.wire, self.works, self.recv = wire, works, recv
+        self.finish, self.held = finish, held
+        self.out = None
+
+    def wait(self):
+        if self.out is None:
+            self.out = self.wire._resolve(self)
+        return self.out
 
 
 class RankWire:
@@ -344,71 +371,153 @@ class RankWire:
     and the all-reduces run over its dp group, so with a model axis each
     model coordinate averages its own slices.
 
-    With gloo on a card (``world.stages_through_host``) each exchange
-    copies its buffer into a pinned host buffer, sends that, and copies
-    what it received back to the card; the host buffers are kept per
-    (role, size, dtype) and reused.  Otherwise (nccl on a card, gloo on the
-    CPU) the buffers go to the wire as they are.
+    ``butterfly_exchange``, ``ring_shift`` and ``pmean_rows`` post their
+    ops and return a receipt (``overlap.Receipt``); its ``wait`` waits on
+    the works and hands back the tensor.  ``n_slots`` is the most
+    receipts pending at once so far: each holds its own host buffers (a
+    slot) from posting to its wait.  ``sync_rows_`` posts and waits at
+    once (the reference's tau-sync is a plain bucketed ``psum``).
+    ``events``, a list where asked for (``None`` otherwise), gets the
+    wavefronts' event logs (``overlap``).
+
+    With gloo on a card (``world.stages_through_host``) each op stages
+    through pinned host buffers, taken from a free list per (role, size,
+    dtype) when it is posted and given back when it is resolved, so a
+    buffer still on the wire is never written: the copy to the host runs
+    on a side CUDA stream after an event recorded behind the buffer's
+    producer, and the send is posted once it landed; the copy back runs
+    on the side stream too and the caller's stream waits on its event,
+    so the combine reads the delivery only after it landed, and the
+    buffer is taken again only after that copy is done.  Otherwise (nccl
+    on a card, gloo on the CPU) the buffers go to the wire as they are.
     """
 
     def __init__(self, world):
         self.world = world
-        self._host: Dict[tuple, torch.Tensor] = {}
+        # (role, size, dtype) -> free pinned buffers, each beside the
+        # event of its last copy back (None: nothing reads it)
+        self._host: Dict[tuple, list] = {}
+        self.n_slots = 0
+        self.in_flight = 0
+        self._since = 0.0
+        self._side = None
+        self.events: Optional[list] = None
 
-    def _host_buffer(self, role: str, like: torch.Tensor) -> torch.Tensor:
-        key = (role, like.numel(), like.dtype)
-        buf = self._host.get(key)
-        if buf is None:
-            buf = self._host[key] = torch.empty(
-                like.numel(), dtype=like.dtype, pin_memory=True)
+    # -- receipts in flight and staging ------------------------------------
+    def _post(self) -> None:
+        if self.in_flight == 0:
+            self._since = time.perf_counter()
+        self.in_flight += 1
+        self.n_slots = max(self.n_slots, self.in_flight)
+        _WIRE_STATS["issued"] += 1
+        _WIRE_STATS["in_flight_max"] = max(_WIRE_STATS["in_flight_max"],
+                                           self.in_flight)
+
+    def _take(self, role: str, like: torch.Tensor) -> torch.Tensor:
+        """A pinned host buffer of ``like``'s size and dtype that nothing
+        else holds: a given-back one, once its copy back is done, or a new
+        one."""
+        free = self._host.setdefault((role, like.numel(), like.dtype), [])
+        if not free:
+            return torch.empty(like.numel(), dtype=like.dtype,
+                               pin_memory=True)
+        buf, done = free.pop()
+        if done is not None:
+            done.synchronize()
         return buf
 
-    def _to_host(self, role: str, buf: torch.Tensor) -> torch.Tensor:
+    def _give(self, role: str, buf: torch.Tensor, done=None) -> None:
+        self._host[(role, buf.numel(), buf.dtype)].append((buf, done))
+
+    def _side_stream(self):
+        if self._side is None:
+            self._side = torch.cuda.Stream(device=self.world.device)
+        return self._side
+
+    def _to_host(self, host: torch.Tensor, buf: torch.Tensor
+                 ) -> torch.Tensor:
+        """``buf`` copied into the pinned ``host`` on the side stream,
+        behind an event recorded on the caller's stream after ``buf``'s
+        producer; returns once the copy has landed (the send reads it)."""
         t = time.perf_counter()
-        host = self._host_buffer(role, buf)
-        host.copy_(buf.reshape(-1))
+        src = buf.reshape(-1)
+        ready = torch.cuda.Event()
+        ready.record()
+        side = self._side_stream()
+        with torch.cuda.stream(side):
+            side.wait_event(ready)
+            host.copy_(src, non_blocking=True)
+            landed = torch.cuda.Event()
+            landed.record(side)
+        src.record_stream(side)
+        landed.synchronize()
         _WIRE_STATS["d2h_s"] += time.perf_counter() - t
         return host
 
-    def _from_host(self, host: torch.Tensor, out: torch.Tensor):
+    def _from_host(self, host: torch.Tensor, like: torch.Tensor):
+        """A new device tensor shaped like ``like`` holding ``host``, and
+        the event of the copy: it runs on the side stream and the caller's
+        stream waits for it."""
         t = time.perf_counter()
-        out.copy_(host.view(out.shape))
+        side = self._side_stream()
+        with torch.cuda.stream(side):
+            out = torch.empty(like.shape, dtype=like.dtype,
+                              device=like.device)
+            out.copy_(host.view(like.shape), non_blocking=True)
+            landed = torch.cuda.Event()
+            landed.record(side)
+        torch.cuda.current_stream().wait_event(landed)
+        out.record_stream(torch.cuda.current_stream())
         _WIRE_STATS["h2d_s"] += time.perf_counter() - t
-        return out
+        return out, landed
 
-    def _wait(self, work, sent: torch.Tensor) -> None:
+    def _wait(self, works, sent: torch.Tensor) -> None:
         t = time.perf_counter()
-        for w in work:
+        for w in works:
             w.wait()
         _WIRE_STATS["wire_s"] += time.perf_counter() - t
         _WIRE_STATS["bytes"] += sent.numel() * sent.element_size()
         _WIRE_STATS["ops"] += 1
 
-    def _exchange(self, buf: torch.Tensor, send_to: int,
-                  recv_from: int) -> torch.Tensor:
-        """Send ``buf`` to dp rank ``send_to``, return what dp rank
-        ``recv_from`` sent (a new tensor shaped like ``buf``)."""
+    def _resolve(self, receipt: _RankReceipt) -> torch.Tensor:
+        self._wait(receipt.works, receipt.recv)
+        out, done = receipt.finish(receipt.recv)
+        for role, buf in receipt.held:      # a send buffer gloo has read
+            self._give(role, buf, None if role == "send" else done)
+        self.in_flight -= 1
+        if self.in_flight == 0:
+            _WIRE_STATS["span_s"] += time.perf_counter() - self._since
+        return out
+
+    # -- the primitives ----------------------------------------------------
+    def _exchange(self, buf: torch.Tensor, send_to: int, recv_from: int):
+        """Post the send of ``buf`` to dp rank ``send_to`` and the receive
+        of what dp rank ``recv_from`` sends (shaped like ``buf``); returns
+        its receipt (a copy of ``buf`` where both are this rank)."""
         rank = self.world.rank
         if send_to == rank and recv_from == rank:
             return buf.clone()
         send_to, recv_from = (self.world.torch_rank_of(send_to),
                               self.world.torch_rank_of(recv_from))
         src = buf.contiguous()
-        staged = self.world.stages_through_host
-        if staged:
-            send, recv = self._to_host("send", src), \
-                self._host_buffer("recv", src)
+        held = ()
+        if self.world.stages_through_host:
+            send = self._to_host(self._take("send", src), src)
+            recv = self._take("recv", src)
+            held = (("send", send), ("recv", recv))
+            finish = lambda recv: self._from_host(recv, src)
         else:
             send, recv = src, torch.empty_like(src)
-        work = dist.batch_isend_irecv([dist.P2POp(dist.isend, send, send_to),
-                                       dist.P2POp(dist.irecv, recv,
-                                                  recv_from)])
-        self._wait(work, send)
-        return self._from_host(recv, torch.empty_like(src)) if staged \
-            else recv
+            finish = lambda recv: (recv, None)
+        self._post()
+        works = dist.batch_isend_irecv([
+            dist.P2POp(dist.isend, send, send_to),
+            dist.P2POp(dist.irecv, recv, recv_from)])
+        return _RankReceipt(self, works, recv, finish, held)
 
-    def butterfly_exchange(self, buf: torch.Tensor, bit: int) -> torch.Tensor:
-        """The XOR partner's buffer: rank ``r ^ (1 << bit)``."""
+    def butterfly_exchange(self, buf: torch.Tensor, bit: int):
+        """The XOR partner's buffer (rank ``r ^ (1 << bit)``), as a
+        receipt."""
         ax, local_bit = grouping.split_bit_over_axes(bit,
                                                      self.world.axis_sizes)
         coords = list(self.world.coords)
@@ -416,11 +525,10 @@ class RankWire:
         peer = self.world.rank_of(coords)
         return self._exchange(buf, peer, peer)
 
-    def ring_shift(self, buf: torch.Tensor, shift: int, n: int
-                   ) -> torch.Tensor:
+    def ring_shift(self, buf: torch.Tensor, shift: int, n: int):
         """Send to the rank ``shift`` ahead in this rank's ring of ``n``
         over the minor dp axis, receive from the rank ``shift`` behind (JAX's
-        perm ``(i, (i + shift) % n)``)."""
+        perm ``(i, (i + shift) % n)``); returns the receipt."""
         minor = self.world.axis_sizes[0]
         if minor % n:
             raise ValueError(f"a ring of {n} does not tile the minor axis of "
@@ -434,23 +542,42 @@ class RankWire:
         return self._exchange(buf, self.world.rank_of(ahead),
                               self.world.rank_of(behind))
 
-    def sync_rows_(self, buf: torch.Tensor) -> torch.Tensor:
-        """One float32 ``all_reduce(SUM)`` of ``buf`` over every dp rank,
-        then one scale by ``1/P``, in place."""
+    def _all_reduce(self, buf: torch.Tensor):
+        """Post one float32 ``all_reduce(SUM)`` of ``buf`` over every dp
+        rank, in place, or in a host buffer it is staged into; returns the
+        work and the tensor it sums."""
         # the dp group, where a model axis makes one (else the world)
         kw = {} if self.world.dp_group is None else {
             "group": self.world.dp_group}
         if self.world.stages_through_host:
-            host = self._to_host("sum", buf)
-            self._wait([dist.all_reduce(host, async_op=True, **kw)], host)
-            self._from_host(host, buf)
-        else:
-            self._wait([dist.all_reduce(buf, async_op=True, **kw)], buf)
+            buf = self._to_host(self._take("sum", buf), buf)
+        return dist.all_reduce(buf, async_op=True, **kw), buf
+
+    def sync_rows_(self, buf: torch.Tensor) -> torch.Tensor:
+        """One float32 ``all_reduce(SUM)`` of ``buf`` over every dp rank,
+        posted and waited at once, then one scale by ``1/P``, in place."""
+        work, summed = self._all_reduce(buf)
+        self._wait([work], summed)
+        if summed is not buf:
+            t = time.perf_counter()
+            buf.copy_(summed.view(buf.shape))
+            _WIRE_STATS["h2d_s"] += time.perf_counter() - t
+            self._give("sum", summed)
         return buf.mul_(1.0 / self.world.P)
 
-    def pmean_rows(self, buf: torch.Tensor) -> torch.Tensor:
-        """The mean over every dp rank in a new tensor."""
-        return self.sync_rows_(buf.clone())
+    def pmean_rows(self, buf: torch.Tensor):
+        """The mean over every dp rank in a new tensor (``sync_rows_``'s
+        arithmetic); returns its receipt."""
+        staged = self.world.stages_through_host
+        work, summed = self._all_reduce(buf if staged else buf.clone())
+        self._post()
+
+        def finish(summed):
+            out, done = (self._from_host(summed, buf) if staged
+                         else (summed, None))
+            return out.mul_(1.0 / self.world.P), done
+        return _RankReceipt(self, [work], summed, finish,
+                            (("sum", summed),) if staged else ())
 
 
 _WIRES: Dict[object, RankWire] = {}
@@ -921,13 +1048,14 @@ class AveragingPlan:
         if self.cfg.overlap:
             work = pipeline.overlapped_butterfly(
                 work, bits, inv_s, exchange=exchange,
-                combine_many=_combine_many)
+                combine_many=_combine_many,
+                log=getattr(self.wire, "events", None))
         else:
             out = []
             for buf in work:
                 if buf.numel():
                     for i, bit in enumerate(bits):
-                        recv = exchange(buf, bit)
+                        recv = pipeline.resolve(exchange(buf, bit))
                         s = inv_s if i == len(bits) - 1 else 1.0
                         buf = _stage_combine(buf, recv, s)
                 out.append(buf)
@@ -949,7 +1077,7 @@ class AveragingPlan:
                 acc = w.to(self.avg_dtype) if self.avg_dtype is not None \
                     else w
                 for bit in bits:
-                    acc = acc + exchange(acc, bit)
+                    acc = acc + pipeline.resolve(exchange(acc, bit))
                 return (acc * inv_s).to(w.dtype)
 
             return tr.tree_map(avg_leaf, tree)
@@ -966,11 +1094,12 @@ class AveragingPlan:
             if self.cfg.overlap:
                 bufs = pipeline.overlapped_butterfly(
                     bufs, run.bits, scale, exchange=exchange,
-                    combine_many=_combine_many)
+                    combine_many=_combine_many,
+                log=getattr(self.wire, "events", None))
             else:
                 def mix(acc, run=run, scale=scale):
                     for i, bit in enumerate(run.bits):
-                        recv = exchange(acc, bit)
+                        recv = pipeline.resolve(exchange(acc, bit))
                         s = scale if i == len(run.bits) - 1 else 1.0
                         acc = _stage_combine(acc, recv, s)
                     return acc
@@ -1019,13 +1148,14 @@ class AveragingPlan:
 
         ``issue(buf) -> recv`` is the collective half on a whole buffer,
         through the plan's wire (``wire.pmean_rows``, ``wire.ring_shift``,
-        ``wire.butterfly_exchange``), ``combine(buf, recv) -> buf`` the
-        local arithmetic; every granularity computes the same element math.
+        ``wire.butterfly_exchange``; over ranks a receipt, resolved right
+        before its combine), ``combine(buf, recv) -> buf`` the local
+        arithmetic; every granularity computes the same element math.
         With ``overlap=True`` every bucket's collectives are issued before
         any bucket's combine (``overlap.overlapped_mix``).  Sharded plans
         mix the shard buffers' pod rows directly (``bits`` in pod space).
         """
-        mixfn = lambda buf: combine(buf, issue(buf))
+        mixfn = lambda buf: combine(buf, pipeline.resolve(issue(buf)))
         if self.sharding.is_sharded:
             work = [b.float() if b.numel() else b for b in tree]
             if self.cfg.overlap:

@@ -206,16 +206,19 @@ class DisaggregatedScheduler(ServeScheduler):
     each part): ``d2h_s`` the blocks' copy off the card, ``connector_s``
     insert and select (pack, the transport's copy, unpack), ``h2d_s`` the
     write into the pool.
+
+    Over model ranks (a model built with ``model_world=``) every rank runs
+    this scheduler on its own slices with the same requests in the same
+    order, as :class:`ServeScheduler` does: its prefill worker exports the
+    rank's KV heads from its slices of ``prefill_params``, ships them
+    through its own connector into its own pool, and the first token is
+    ``greedy_pick``'s gathered one, equal on every rank.  ``staging`` and
+    the connector's ``TransferStats`` are the rank's.
     """
 
     def __init__(self, model, params, *, prefill_params=None,
                  connector: Optional[KVConnector] = None,
                  link: plan_mod.LinkClass = plan_mod.DCN, **kw):
-        if getattr(model, "model_world", None) is not None:
-            raise NotImplementedError(
-                "the disaggregated scheduler over model ranks belongs to "
-                "slice 4c (ROADMAP.md); serve a model world through "
-                "serve.scheduler.ServeScheduler")
         super().__init__(model, params, **kw)
         self.prefill_params = params if prefill_params is None \
             else prefill_params

@@ -407,5 +407,5 @@ def mean_over_ranks(world, metrics: dict) -> dict:
     keys = list(metrics)
     vec = torch.stack([metrics[k].to(world.device, torch.float32)
                        for k in keys])[None]
-    mean = plan_mod.wire_for(world).pmean_rows(vec)[0].cpu()
+    mean = plan_mod.wire_for(world).sync_rows_(vec)[0].cpu()
     return dict(zip(keys, mean.unbind(0)))

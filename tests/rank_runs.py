@@ -102,9 +102,14 @@ def plan_worker(world, out, leaves, bf16, variants, group_sizes,
                 hierarchical=False):
     """This rank's row of ``tree_inputs`` through every plan variant on
     every phase offset (``average``), ``sync`` and the wire's ``pmean``,
-    and through each baseline's ``comm`` on each phase and its ``sync``."""
+    and through each baseline's ``comm`` on each phase and its ``sync``.
+    Overlapped variants also record the wire's event log of each average
+    (``events/<S>/<variant>/<offset>``, JSON) and run each offset again
+    with mispaired receipts planted (``fault/<S>/<variant>/<offset>``);
+    ``slots/<S>`` the wire's slots after the group averages at S."""
+    import json
     import torch
-    from repro_torch.core import baselines
+    from repro_torch.core import baselines, overlap
     from repro_torch.core import plan as plan_mod
     from repro_torch.core import tree as tr
     arrs = tree_inputs(leaves, bf16, world.P)
@@ -114,18 +119,29 @@ def plan_worker(world, out, leaves, bf16, variants, group_sizes,
                                            world.axis_sizes)
             if hierarchical else
             plan_mod.Topology.flat(world.axis_names, world.axis_sizes))
+    wire = plan_mod.wire_for(world)
     res = {}
     for S in group_sizes:
         for name, cfg_kw in variants.items():
             cfg = plan_mod.AveragingConfig(group_size=S, **cfg_kw)
             plan = plan_mod.compile_plan(topo, tr.struct(tree, drop=1), cfg,
                                          world=world)
+            logged = cfg.fused and cfg.overlap
             for off in plan.offsets:
+                wire.events = [] if logged else None
                 _save_tree(res, f"avg/{S}/{name}/{off}",
                            plan.average_offset(tree, off))
+                if logged:
+                    res[f"events/{S}/{name}/{off}"] = np.asarray(
+                        json.dumps(wire.events))
+                    with planted("mispaired_receipts"):
+                        _save_tree(res, f"fault/{S}/{name}/{off}",
+                                   plan.average_offset(tree, off))
+                wire.events = None
             _save_tree(res, f"sync/{S}/{name}", plan.sync(tree))
-    res["pmean"] = plan_mod.wire_for(world).pmean_rows(
-        tree["w"].float()).numpy()
+        res[f"slots/{S}"] = np.asarray(wire.n_slots)
+    res["pmean"] = overlap.resolve(wire.pmean_rows(
+        tree["w"].float())).numpy()
     for name in baselines.BASELINES:
         av = baselines.make_averager(name, world.axis_names,
                                      world.axis_sizes, topology=topo,
@@ -203,12 +219,15 @@ def planted(fault):
     ``"router_gather_summed"`` gives the MoE router's logits the gather
     whose gradient sums over the ranks, ``"gate_unsummed"`` leaves out the
     MoE gates' ``copy_to_model`` and ``"wif_unsummed"`` the mLSTM's
-    ``wif``'s."""
+    ``wif``'s; ``"mispaired_receipts"`` makes the wavefront's combine of
+    bucket k read bucket k+1's receipt (:func:`mispaired_take`)."""
+    from repro_torch.core import overlap
     from repro_torch.models import common as cm
     from repro_torch.models import encdec, moe, rglru, xlstm
     from repro_torch.models import transformer as tfm
     from repro_torch.serve import kv_cache
     copy, qkv, gates = cm.copy_to_model, tfm._qkv, rglru._gates
+    take = overlap.take_receipt
     cross, pick = encdec._cross_input, kv_cache.greedy_pick
     gather, topk = cm.gather_replicated_from_model, moe.router_topk
     preacts = xlstm._mlstm_preacts
@@ -242,6 +261,8 @@ def planted(fault):
             seen["leaf"] = p["wif"]
             return preacts(cfg, p, x, mw)
         xlstm._mlstm_preacts = preacts_noting
+    elif fault == "mispaired_receipts":
+        overlap.take_receipt = mispaired_take
     elif fault is not None:
         raise ValueError(f"unknown fault {fault!r}")
     if "unsummed" in (fault or "") and fault != "enc_out_unsummed":
@@ -254,6 +275,22 @@ def planted(fault):
         encdec._cross_input, kv_cache.greedy_pick = cross, pick
         cm.gather_replicated_from_model, moe.router_topk = gather, topk
         xlstm._mlstm_preacts = preacts
+        overlap.take_receipt = take
+
+
+def mispaired_take(inflight, k):
+    """The receipt the wavefront must not hand bucket k's combine: bucket
+    k+1's, where it is in flight, read into bucket k's delivery as far as
+    both reach."""
+    from repro_torch.core import overlap
+    own = overlap.resolve(inflight.pop(k))
+    if k + 1 not in inflight:
+        return own
+    other = overlap.resolve(inflight[k + 1]).reshape(-1)
+    wrong = own.clone()
+    n = min(own.numel(), other.numel())
+    wrong.view(-1)[:n] = other[:n]
+    return wrong
 
 
 def local_pick(model, last):
@@ -369,7 +406,7 @@ def serve_greedy(world, serve):
 
 
 def scheduler_worker(world, out, arch, params, prompts, new, sched_kw,
-                     fault=None, staged_lengths=()):
+                     fault=None, staged_lengths=(), disagg=False):
     """The paged ``ServeScheduler`` on this rank's slices (``fault`` planted
     on every rank alike): every prompt of ``prompts`` (an npz of 1-D
     arrays keyed by request id, submitted in order, ``new[id]`` tokens
@@ -380,13 +417,19 @@ def scheduler_worker(world, out, arch, params, prompts, new, sched_kw,
     (``ModelWorld.staged``), one prefill at each of ``staged_lengths``
     against the same prefill unstaged (``staged_equal``: bit for bit) and
     the pinned buffers it left (``host_buffers``: capacity and element
-    size of each)."""
+    size of each).  With ``disagg``, the same requests through the
+    ``DisaggregatedScheduler`` (``disagg/...``: tokens, counts, shapes and
+    the rank's ``TransferStats``), then request 0 alone through it with
+    rank 1's connector flipping the top exponent bit of its first V
+    element (``flip/tokens/0``)."""
     import dataclasses
     import torch
     from repro_torch.checkpoint import load_checkpoint
+    from repro_torch.core import tree as tr
     from repro_torch.models import common as cm
     from repro_torch.models.registry import build_model
     from repro_torch.serve.decode import build_prefill
+    from repro_torch.serve.kv_transfer import DisaggregatedScheduler
     from repro_torch.serve.scheduler import Request, ServeScheduler
     cfg = smoke_cfg(arch)
     mw = world.model_world
@@ -405,6 +448,26 @@ def scheduler_worker(world, out, arch, params, prompts, new, sched_kw,
     res["counts"] = np.asarray([sched.n_prefills, sched.n_decode_steps,
                                 sched.blocks.evictions])
     res["shapes"] = np.asarray(sorted(sched.decode_shapes_compiled))
+    if disagg:
+        prefill_params = tr.tree_map(torch.clone, params)
+        for name, rids, conn in (
+                ("disagg", sorted(reqs, key=int), None),
+                ("flip", sorted(reqs, key=int)[:1],
+                 flipping_connector() if world.model_rank == 1 else None)):
+            d = DisaggregatedScheduler(model, params,
+                                       prefill_params=prefill_params,
+                                       connector=conn, **sched_kw)
+            for k in rids:
+                d.submit(Request(int(k), reqs[k], new[int(k)]))
+            for rid, toks in d.run().items():
+                res[f"{name}/tokens/{rid}"] = np.asarray(toks)
+            if name == "disagg":
+                res["disagg/counts"] = np.asarray([
+                    d.n_prefills, d.n_decode_steps, d.blocks.evictions])
+                res["disagg/shapes"] = np.asarray(
+                    sorted(d.decode_shapes_compiled))
+                res["disagg/stats"] = np.asarray(
+                    list(dataclasses.astuple(d.connector.stats)))
     if staged_lengths:
         cm._HOST.clear()
         staged = build_model(cfg, "cpu", model_world=dataclasses.replace(
@@ -424,6 +487,25 @@ def scheduler_worker(world, out, arch, params, prompts, new, sched_kw,
             [[cap, torch.empty((), dtype=dt).element_size()]
              for cap, dt in cm._HOST])
     return res
+
+
+def flipping_connector():
+    """A connector that flips the top exponent bit of the first V element
+    (layer 0, block 0, position 0, KV head 0, dim 0) of the first request
+    it ships, as it packs it for the wire: handoff check (d)'s fault."""
+    import torch
+    from repro_torch.serve import LinkCostedConnector
+
+    class Flip(LinkCostedConnector):
+        def insert(self, rid, kv_blocks, meta):
+            if self.stats.requests == 0:
+                v = kv_blocks["global"]["v"]
+                bits = 8 * v.element_size()
+                ints = v.view({16: torch.int16, 32: torch.int32}[bits])
+                ints.view(-1)[0] ^= 1 << (bits - 2)
+            super().insert(rid, kv_blocks, meta)
+
+    return Flip()
 
 
 def routed_count_worker(world, out, arch):

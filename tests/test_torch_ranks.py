@@ -9,11 +9,23 @@ within 1e-6 relative (a bfloat16 leaf within one bfloat16 step: the float32
 sums differ only in their order, and a last-bit difference can round the
 cast the other way); each baseline's ``comm`` on every phase and its
 ``sync`` against its stacked self (the gossip mixes bit for bit, the
-pmeans as ``sync``).  The hierarchical plan's link classes, budgets, layouts
-and stage runs match the JAX plan's.  Each world runs once per module
+pmeans as ``sync``).  The wavefront over ranks is asynchronous: each
+rank's event log issues bucket k+1's exchange before it resolves bucket
+k's, within the schedule's count in flight; the asynchronous average is
+the serial one's and the JAX plan's under ``shard_map`` bit for bit (data
+4, S 2 and 4, one JAX subprocess beside the gloo worlds); a wavefront that
+hands bucket k's combine bucket k+1's receipt parts from the stacked
+plan.  The hierarchical plan's link classes, budgets, layouts and stage
+runs match the JAX plan's.  Each world runs once per module
 (``rank_runs.spawn``, a timeout of its own); the rank world's bookkeeping
 and the backend rules are checked in process.
 """
+
+import json
+import os
+import subprocess
+import sys
+import textwrap
 
 import jax
 import numpy as np
@@ -21,9 +33,11 @@ import pytest
 import torch
 
 import rank_runs
+from subproc import SRC
 from repro.core import plan as jplan
 from repro.core.wagma import WagmaConfig as JConfig
 from repro_torch.core import baselines
+from repro_torch.core import overlap as to
 from repro_torch.core import plan as tp
 from repro_torch.core import tree as tr
 from repro_torch.launch import mesh
@@ -44,18 +58,71 @@ WORLDS = {
     "pod2x2": (2, 2, True, (2, 4)),
 }
 GOSSIP = ("dpsgd", "sgp", "adpsgd")
+OVERLAP = "fused_overlap"
+
+# the JAX plan's fused overlapped average under shard_map on 4 host
+# devices (the data4 world's inputs), every offset at S 2 and 4
+JAX_AVERAGE = """
+    import os
+    os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+    import sys
+    sys.path.insert(0, {src!r})
+    import jax, jax.numpy as jnp
+    import numpy as np
+    from jax.sharding import PartitionSpec as P
+    from repro import compat
+    from repro.core import plan as plan_mod
+    arrs = dict(np.load({inp!r}))
+    tree = {{k: jnp.asarray(a, jnp.bfloat16 if k in {bf16!r} else
+                           jnp.float32) for k, a in arrs.items()}}
+    local = jax.tree.map(lambda a: a[0], tree)
+    mesh = jax.make_mesh((4,), ("data",))
+    out = {{}}
+    for S in (2, 4):
+        pl = plan_mod.compile_plan(
+            plan_mod.Topology.flat(("data",), (4,)), local,
+            plan_mod.AveragingConfig(group_size=S, bucket_bytes={small}))
+        for off in pl.offsets:
+            f = compat.shard_map(
+                lambda t, pl=pl, off=off: pl.average_offset(t, off),
+                mesh=mesh, in_specs=P("data"), out_specs=P("data"),
+                axis_names={{"data"}})
+            for k, v in jax.jit(f)(tree).items():
+                out[f"{{S}}/{{off}}/{{k}}"] = np.asarray(v, np.float32)
+    np.savez({outp!r}, **out)
+    print("JAX_AVERAGE_DONE")
+"""
 
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
+    """Every world's ranks, and beside them the JAX plan's average of the
+    data4 world's inputs (under ``"jax"``)."""
+    d = tmp_path_factory.mktemp("jax_average")
+    inp, outp = str(d / "in.npz"), str(d / "out.npz")
+    np.savez(inp, **rank_runs.tree_inputs(LEAVES, BF16, 4))
+    env = dict(os.environ)
+    env.pop("XLA_FLAGS", None)
+    proc = subprocess.Popen(
+        [sys.executable, "-c", textwrap.dedent(JAX_AVERAGE.format(
+            src=SRC, inp=inp, outp=outp, bf16=BF16, small=SMALL))],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
     out = {}
-    for name, (data, pod, hier, sizes) in WORLDS.items():
-        n = data * (pod or 1)
-        rows = rank_runs.spawn(
-            "plan", n, str(tmp_path_factory.mktemp(name)), data=data,
-            pod=pod, leaves=LEAVES, bf16=BF16, variants=VARIANTS,
-            group_sizes=sizes, hierarchical=hier)
-        out[name] = rows
+    try:
+        for name, (data, pod, hier, sizes) in WORLDS.items():
+            n = data * (pod or 1)
+            rows = rank_runs.spawn(
+                "plan", n, str(tmp_path_factory.mktemp(name)), data=data,
+                pod=pod, leaves=LEAVES, bf16=BF16, variants=VARIANTS,
+                group_sizes=sizes, hierarchical=hier)
+            out[name] = rows
+        stdout, stderr = proc.communicate(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+    assert proc.returncode == 0 and "JAX_AVERAGE_DONE" in stdout, \
+        stderr[-3000:]
+    out["jax"] = dict(np.load(outp))
     return out
 
 
@@ -114,6 +181,77 @@ def test_group_average_over_ranks_is_bit_identical_to_stacked(
         _assert_equal(_rows(runs[world], f"avg/{S}/{variant}/{off}"),
                       _as_np(plan.average_offset(tree, off)),
                       f"{world} S={S} {variant} offset {off}")
+
+
+def _overlap_plan(world, S):
+    return tp.compile_plan(_topology(world),
+                           tr.struct(_stacked_tree(world), drop=1),
+                           tp.AveragingConfig(group_size=S,
+                                              **VARIANTS[OVERLAP]))
+
+
+@pytest.mark.parametrize("world,S", [(w, S) for w, (_, _, _, sizes)
+                                     in WORLDS.items() for S in sizes])
+def test_event_log_over_ranks_follows_the_wavefront(runs, world, S):
+    """On every rank and offset the overlapped average's log follows
+    ``pipeline_schedule`` over the plan's buckets and stage runs: each
+    cell issued, resolved and combined in that order, bucket k+1's issue
+    before bucket k's resolve, at least 2 and at most the schedule's
+    count in flight; the wire's slots never exceed that count."""
+    plan = _overlap_plan(world, S)
+    bound = 0
+    for off in plan.offsets:
+        runs_ = plan.runs_for_offset(off)
+        want = [(plan.class_layout(r.class_index).n_buckets, len(r.bits))
+                for r in runs_]
+        bound = max([bound] + [to.max_in_flight(*w) for w in want])
+        for rank, r in enumerate(runs[world]):
+            records = json.loads(str(r[f"events/{S}/{OVERLAP}/{off}"]))
+            assert [(x["buckets"], x["stages"]) for x in records] == want
+            for x in records:
+                summary = to.check_event_log(x)
+                pos = {(kind, k, s): i for i, (kind, k, s, _)
+                       in enumerate(x["events"])}
+                for k in range(x["buckets"] - 1):
+                    for s in range(x["stages"]):
+                        assert pos[(to.ISSUE, k + 1, s)] < \
+                            pos[(to.RESOLVE, k, s)], (rank, off, k, s)
+                assert 2 <= summary["in_flight_max"] <= summary["bound"]
+    for r in runs[world]:
+        assert 2 <= int(r[f"slots/{S}"]) <= bound
+
+
+@pytest.mark.parametrize("S", [2, 4])
+def test_async_average_over_ranks_is_serial_and_jax_bit_for_bit(runs, S):
+    """Over 4 ranks the asynchronous wavefront gives the serial path's
+    average and the JAX plan's (``shard_map`` on 4 host devices, the same
+    inputs) bit for bit on every offset."""
+    plan = _overlap_plan("data4", S)
+    for off in plan.offsets:
+        got = _rows(runs["data4"], f"avg/{S}/{OVERLAP}/{off}")
+        _assert_equal(got, _rows(runs["data4"],
+                                 f"avg/{S}/fused_serial/{off}"),
+                      f"S={S} offset {off} async vs serial")
+        _assert_equal(got, {k: runs["jax"][f"{S}/{off}/{k}"]
+                            for k in LEAVES},
+                      f"S={S} offset {off} async vs the JAX plan")
+
+
+@pytest.mark.parametrize("world,S", [(w, S) for w, (_, _, _, sizes)
+                                     in WORLDS.items() for S in sizes])
+def test_mispaired_receipts_part_from_stacked(runs, world, S):
+    """A wavefront that hands bucket k's combine bucket k+1's receipt must
+    fail the stacked-plan equality: some rank's rows part on some
+    offset."""
+    plan = _overlap_plan(world, S)
+    tree = _stacked_tree(world)
+    parted = []
+    for off in plan.offsets:
+        want = _as_np(plan.average_offset(tree, off))
+        got = _rows(runs[world], f"fault/{S}/{OVERLAP}/{off}")
+        parted.append(any(not np.array_equal(got[k], want[k])
+                          for k in LEAVES))
+    assert any(parted), parted
 
 
 @pytest.mark.parametrize("world,S,variant", CASES)

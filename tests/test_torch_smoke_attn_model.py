@@ -2,8 +2,9 @@
 phase: whisper-medium, internvl2-2b and transformer-wmt served over data
 1 x model 2 gloo ranks under torchrun against rank 0 serving each whole,
 then the paged scheduler over the same ranks against the dense
-model-world runs, with the phase's planted faults.  The test's own
-process stays on one torch thread."""
+model-world runs, and the disaggregated scheduler over them against the
+paged run, with the phase's planted faults.  The test's own process stays
+on one torch thread."""
 
 from smoke_rehearsal import load_chip_smoke as _chip_smoke
 from smoke_rehearsal import one_torch_thread  # noqa: F401
@@ -14,11 +15,14 @@ def test_chip_smoke_attn_model_phase_at_smoke_size_on_cpu(tmp_path):
     logits and tokens are the one-rank run's, and not with the
     cross-attention's g left out; the scheduler preempts, its ranks agree
     on tokens, admissions, preemptions and shapes, each request holds to
-    its dense model-world run, and the rank-local pick fails that; no
-    pinned buffer is left off the card (nothing is staged); every logit
-    finite.  No kernel launches off the card, so check (a) refuses the CPU
-    run."""
+    its dense model-world run, and the rank-local pick fails that; (g) the
+    disaggregated scheduler over the ranks gives the paged run's tokens
+    and schedule, each rank shipping its KV heads' bytes, and a bit
+    flipped on rank 1's wire fails that; no pinned buffer is left off the
+    card (nothing is staged); every logit finite.  No kernel launches off
+    the card, so check (a) refuses the CPU run."""
     import pytest
+    from repro_torch.serve.kv_transfer import kv_payload_bytes
 
     smoke = _chip_smoke()
     spec = smoke.attn_model_spec(
@@ -42,6 +46,15 @@ def test_chip_smoke_attn_model_phase_at_smoke_size_on_cpu(tmp_path):
     assert s["ok"] and s["ranks_equal"] and s["evictions"] >= 1
     assert len(set(s["prompt_lens"])) == smoke.SCHED_REQUESTS
     assert s["fault_fails"]
+    g = s["disagg"]
+    assert g["ok"] and g["flip_fails"]
+    assert [r["rank"] for r in g["ranks"]] == [0, 1]
+    for r in g["ranks"]:
+        assert r["equal_to_colocated"] and r["transfer"]["requests"] >= \
+            smoke.SCHED_REQUESTS + 1             # a preemption ships again
+        assert 2 * r["bytes_a_block"] == kv_payload_bytes(
+            smoke.attn_model_cfg(spec, spec["sched_arch"]), 4)
+        assert set(r["staging_ms"]) == {"d2h", "connector", "h2d"}
     assert all(h["buffers"] == 0 for h in stats["host"])
     with pytest.raises(AssertionError, match="launches"):
         smoke.check_attn_model_launches(stats)

@@ -101,3 +101,37 @@ def test_chip_smoke_paper_baselines_run_only_the_steps_their_checks_need():
     assert {name: smoke.paper_steps(name, 4 if name in ("sgp", "adpsgd")
                                     else 1)
             for name in smoke.PAPER_AVERAGERS} == want
+
+
+def test_chip_smoke_gossip_checks_run_on_a_thread():
+    """The paper phase's gossip checks (b) on a thread (``GossipChecks``):
+    D-PSGD's and SGP's steps pass on the check having been issued, and
+    ``settle`` puts every phase's verdict (the CPU mix equal to the
+    card's, here both on the CPU) in ``phase_checks``; a mix that parts
+    from the run's fails ``settle`` on check (b)."""
+    import pytest
+    import torch
+
+    from repro_torch.configs import get_config
+
+    smoke = _chip_smoke()
+    cfg = get_config(smoke.PAPER_ARCH, smoke=True)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        checks = smoke.GossipChecks()
+        runs = {name: smoke.paper_train_run(
+            cfg, name, device="cpu", steps=3, replicas=4, group_size=2,
+            tau=3, seq_len=16, global_batch=8, checks=checks)
+            for name in ("dpsgd", "sgp")}
+        checks.settle(runs)
+        assert {n: r["phase_checks"] for n, r in runs.items()} == \
+            {"dpsgd": {0: True}, "sgp": {0: True, 1: True}}
+        bad = smoke.GossipChecks()
+        out = {"w": torch.ones(4, 3)}
+        run = {"phase_checks": {0: bad.submit(
+            lambda host, phase: {"w": host["w"] * 2}, out, 0, out)}}
+        with pytest.raises(AssertionError, match="differs from the CPU"):
+            bad.settle({"sgp": run})
+    finally:
+        torch.set_num_threads(threads)

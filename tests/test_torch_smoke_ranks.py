@@ -1,7 +1,10 @@
 """Rehearsals on the CPU, at smoke size, of chip_smoke.py's rank phases:
 the ranks phase (one replica a gloo rank), the model phase (the dense
 family over data x model ranks) and the rg model phase (the hybrid
-family over data x model ranks).  Each starts a torchrun world; they
+family over data x model ranks), each with its checks (g) and (h) of
+the asynchronous wire (at a pinned bucket budget, ``SMOKE_BUCKET``, so
+that a group step has several buckets in flight).  Each starts a
+torchrun world; they
 share one file so that one worker runs them one after another, since
 gloo ranks of several worlds side by side contend for the cores.  Each
 runs its stacked twin in this process, on one torch thread: under the
@@ -15,6 +18,23 @@ from smoke_rehearsal import load_chip_smoke as _chip_smoke
 # each rehearsal's stacked twin runs in this process
 from smoke_rehearsal import one_torch_thread  # noqa: F401
 
+# bytes: a smoke model's plan in several buckets, so that receipts overlap
+SMOKE_BUCKET = 1 << 18
+
+
+def _assert_overlap(stats):
+    """Checks (g) and (h) held: every group step of rank 0 logged its
+    wavefronts with at least 2 receipts in flight, within the schedule's
+    bound, its slots too; the serial and the asynchronous average agreed
+    and the mispaired receipts parted from the stacked plan."""
+    o = stats["overlap"]
+    assert 2 <= o["in_flight_max"] <= o["bound"] and o["slots"] <= o["bound"]
+    assert o["issued"] >= 2 and o["fault_parts"] and all(o["fault_parts"])
+    for r in stats["ranks"]:
+        assert r["check_h"]["equal"]
+        for e in r["log"]:
+            assert e["sync"] == (e["check_g"] is None)
+
 
 def test_chip_smoke_ranks_phase_at_smoke_size_on_cpu(tmp_path):
     """chip_smoke's ranks phase rehearsed on the CPU at smoke size: four
@@ -27,9 +47,11 @@ def test_chip_smoke_ranks_phase_at_smoke_size_on_cpu(tmp_path):
 
     smoke = _chip_smoke()
     spec = smoke.ranks_spec(device="cpu", smoke=True, n_layers=None,
-                            seq_len=16, global_batch=8, steps=6)
+                            seq_len=16, global_batch=8, steps=6,
+                            bucket_bytes=SMOKE_BUCKET)
     stats = smoke.ranks_phase(spec, tmp_path / "ranks", timeout=240)
     assert stats["stacked_equals_wire"] == {"0": True, "1": True}
+    _assert_overlap(stats)
     assert [e["sync"] for e in stats["ranks"][0]["log"]] == \
         [False] * 4 + [True, False]
     assert [r["rank"] for r in stats["ranks"]] == [0, 1, 2, 3]
@@ -107,8 +129,9 @@ def test_chip_smoke_model_phase_at_smoke_size_on_cpu(tmp_path):
     smoke = _chip_smoke()
     spec = smoke.model_spec(device="cpu", smoke=True, n_layers=None,
                             seq_len=16, global_batch=8, steps=6, prompt=16,
-                            new=4)
+                            new=4, bucket_bytes=SMOKE_BUCKET)
     stats = smoke.model_phase(spec, tmp_path / "model", timeout=240)
+    _assert_overlap(stats)
     assert stats["stacked_equals_wire"] == {"0": [True, True],
                                             "1": [True, True]}
     assert stats["check_c"] == [True] * 6 and stats["fault_check_c"] is False
@@ -140,8 +163,9 @@ def test_chip_smoke_rg_model_phase_at_smoke_size_on_cpu(tmp_path):
     smoke = _chip_smoke()
     spec = smoke.rg_model_spec(device="cpu", smoke=True, n_layers=None,
                                seq_len=16, global_batch=4, steps=5,
-                               prompt=16, new=4)
+                               prompt=16, new=4, bucket_bytes=SMOKE_BUCKET)
     stats = smoke.model_phase(spec, tmp_path / "rg_model", timeout=240)
+    _assert_overlap(stats)
     assert stats["stacked_equals_wire"] == {"0": [True, True]}
     assert stats["check_c"] == [True] * 5 and stats["fault_check_c"] is False
     assert stats["fault_layer"] == 0
