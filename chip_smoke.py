@@ -38,7 +38,9 @@
    in each world of 8, 4 and 2 rows, at scale 1/2), the FSDP phase's
    (``fsdp_combines``: the 22-layer sharded plan's ``(4, n_b)`` buffers
    at scale 1/2) and the streamed phase's (``streamed_combines``: the
-   22-layer grouped plan's); times each against
+   22-layer grouped plan's) and the fsdp ranks phase's
+   (``fsdp_rank_combines``: a rank's ``(1, n_b / 2)`` slices of the
+   2-layer sharded plan's buckets); times each against
    the HBM bound ``3*n*itemsize/3.35e12 s``,
    the plain version and, at scale 1, ``torch.add``/``torch._foreach_add``;
    every case also in place (``out`` is ``w``), and K1 against
@@ -162,7 +164,7 @@
    a rank: 4 ranks started by ``torch.distributed.run`` (this script with
    ``--ranks-worker``), gloo, all on the one card (the kernels built
    before they start), each a ``Trainer`` over its rank world, S 2, tau 5,
-   global batch 32, 10 steps.  Checks (a) each rank's K1/K2 launches equal
+   global batch 32, 6 steps.  Checks (a) each rank's K1/K2 launches equal
    the schedule for one wire stage a group step, syncs and K3/K4 none; (b)
    after every group step the ranks of each group hold bit-identical
    params, after each sync all four (each rank's sha256 of its params
@@ -190,12 +192,45 @@
    wait and host-to-device, combine; the sync), each rank's peak memory,
    the device's idle share over a profiled step and the phase's wall
    time.
+   Fsdp ranks phase (slice 7c-1, ``fsdp_ranks_phase``): gather-all FSDP
+   over a rank world: 8 ranks started by ``torch.distributed.run`` (this
+   script with ``--fsdp-ranks-worker``), gloo, all on the one card, data
+   2 (the shard axis) x pod 4 on the FSDP phase's topology, each rank one
+   member of its pod holding its column slice ``(1, n_b / 2)`` of the
+   pod's shard buckets, the ranks phase's model and depth, S 2, tau 5,
+   global batch 64, 5 steps.  Checks (a) each rank's K1/K2 a group step =
+   one stage of the sharded plan's shard buckets, the sync none, K3/K4
+   none, and its combine operands those the K1/K2 phase held
+   (``fsdp_rank_combines``); (b) after each group step at each shard
+   coordinate the slices of a group's pods have equal sha256 and the
+   groups differ, after the sync all four pods agree, and once an offset
+   the one-process sharded plan's ``_average_sharded`` of the pre-average
+   slices gathered to rank 0 as ``(4, n_b)`` buffers, sliced as each rank
+   holds them, has the sha256 of every rank's post-average slices; (c) at
+   step 2 each rank's all-gathered buckets have the sha256 of its pod's
+   row of the state, and pod 0's reduce-scattered float32 slices joined
+   in shard-axis order equal the one-process ``grad_shards`` of its two
+   members' gradients bit for bit, joined in swapped order they must
+   not; (d) the one-process ``Trainer(sharding="fsdp")`` with the same
+   config, seed and batches (run in this process once the ranks' steps
+   are done) within ``RANKS_LOSS_RTOL`` of the ranks' losses, and every
+   leaf of its own save with the sha256 of the ranks' checkpoint state
+   (gathered to rank 0 and converted as the checkpoint writes it), the
+   same step and phase, its manifest naming the same leaves; (e) finite losses, no skip, and
+   in one more step a NaN in one element of a member's gradient (it
+   lands in one member's slice) skips its whole pod (pod 1) under the MIN
+   over the pod, while in pod 2, whose guard leaves the MIN out (planted),
+   the same NaN parts the members' counts.  Prints rank 0's
+   step split (the all-gather, fwd+bwd, the reduce-scatter with their
+   bytes, update, the butterfly's exchange and combine, the sync), each
+   rank's peak memory, the device's idle share over a profiled step (the
+   union of the 8 ranks' device intervals) and the phase's seconds.
    Model phase (slice 4b, ``model_phase``): the same model and step with
    each of 4 replicas split over 2 model ranks (Megatron's split): 8 ranks
    started by ``torch.distributed.run`` (this script with
    ``--model-worker``), gloo, all on the one card, model minor, each a
    ``Trainer`` over its rank world, S 2, tau 5, global batch 32, 6 steps;
-   then a fresh tinyllama-1.1b at full width and all 22 layers served on
+   then a fresh tinyllama-1.1b at full width and 6 layers served on
    the same ranks, 2 prompts of 512 tokens a dp rank, 16 decode steps
    through ``build_prefill``/``build_serve_step`` (K3 at the rank's 16
    heads over 2 KV heads), against rank 0 serving the whole model on all
@@ -221,7 +256,7 @@
    profiled step and the phase's seconds.
    rg model phase (slice 4c, first part): the model phase's run and
    checks for recurrentgemma-2b at 3 layers over data 2 x model 2 ranks,
-   then 26-layer serving of one 3000-token prompt a dp rank
+   then 6-layer serving of one 3000-token prompt a dp rank
    (``rg_model_spec``; K4 on a rank's 1,280 channels, K3 at its 5 heads).
    Attn model phase (slice 4c, second part, ``attn_model_phase``): 2
    ranks started by ``torch.distributed.run`` (this script with
@@ -233,7 +268,7 @@
    rank, a prefill and 16 greedy decode steps through
    ``build_prefill``/``build_serve_step`` on the rank's heads, each
    against rank 0 serving the whole model fed the world's tokens.  (2)
-   ``ServeScheduler`` over the same ranks on tinyllama-1.1b at 22 layers:
+   ``ServeScheduler`` over the same ranks on tinyllama-1.1b at 6 layers:
    8 requests of distinct prompt lengths in [64, 512], 16 new tokens,
    from a pool with no block to spare, each request then through the
    dense model-world steps fed its tokens.  Checks (a) K3 72 a whisper
@@ -313,8 +348,11 @@
 9. Paper phase: transformer-wmt (the paper's own model) at full width and
    depth (6 + 6 layers, d 512, 8 heads, d_ff 2048, vocab 32768 tied, bf16;
    79,724,544 params a replica, random weights from a seeded torch
-   generator).  (1) Training: the port's ``Trainer`` with 16 replicas as
-   rows of one state, SGD momentum 0.9, lr 0.1, target seq 256 over 64
+   generator).  (1) Training, depth cut to ``PAPER_TRAIN_LAYERS`` (one
+   encoder and one decoder layer, the least with every block kind; the
+   step is host-bound, its time about in proportion to the layers): the
+   port's ``Trainer`` with 16 replicas as rows of one state, SGD momentum
+   0.9, lr 0.1, target seq 256 over 64
    source tokens, global batch 64, under each of the paper's seven
    averagers: 10 steps of ``wagma`` at S 4 and tau 10 and of
    ``local_sgd`` syncing every 10 (both offsets and the sync at t = 9);
@@ -385,7 +423,8 @@
    shape, with the walk route's launches; K1/K2 with their launches on the
    six training paths, the elastic, the ranks' and the FSDP one among
    them, and those paths' own shapes and times, ``elastic_row`` by world,
-   ``fsdp_row``, ``ranks_row`` and ``model_row``, a rank's slice buckets;
+   ``fsdp_row``, ``ranks_row``, ``model_row`` and ``fsdp_ranks_row``, a
+   rank's slice buckets;
    K3 also at the model phase's prefill, a rank's 16 heads over 2 KV
    heads, at the attn model phase's rank shapes and at the ep model
    phase's moe prefills, a rank's 20 or 32 heads over 4 KV heads), then
@@ -662,18 +701,42 @@ RANKS_WORKER_FLAG = "--ranks-worker"
 # their float32 mean differs, a few units in the last place)
 RANKS_LOSS_RTOL = 1e-6
 
+# fsdp ranks phase (slice 7c-1): gather-all FSDP over a rank world, the
+# FSDP phase's topology (data 2 x pod 4, sharded over data, P_eff 4) with
+# one member a gloo rank, all on the one card, at the ranks phase's depth,
+# S 2, tau 5, lr and sequence as the training phase, 8 rows a rank, 5
+# steps (group steps on both offsets twice, the sync at t = 4; cut from 6
+# for time, PERF.md §6); check (c) at step FSDP_RANKS_GRAD_STEP, the
+# profiled window step FSDP_RANKS_PROFILED; check (e)'s planted NaN in
+# the gradient of one member of each pod of FSDP_RANKS_BAD_PODS: the
+# first keeps the MIN over the pod, the second runs the planted guard
+# without it, in one step
+FSDP_RANKS_P, FSDP_RANKS_STEPS = FSDP_DATA * FSDP_POD, 5
+FSDP_RANKS_GB = 8 * FSDP_RANKS_P
+FSDP_RANKS_GRAD_STEP, FSDP_RANKS_PROFILED = 2, 3
+FSDP_RANKS_BAD_PODS = (1, 2)
+FSDP_RANKS_TIMEOUT = 600
+FSDP_RANKS_WORKER_FLAG = "--fsdp-ranks-worker"
+FSDP_RANKS_PATH = (f"tinyllama-1.1b fsdp, data {FSDP_DATA} x pod {FSDP_POD} "
+                   f"ranks")
+
 # model phase (slice 4b): the ranks phase's model and step with each
 # replica's model split over MODEL_M ranks (Megatron's split, model minor):
 # MODEL_DATA x MODEL_M ranks started by torchrun over gloo, all on the one
 # card, S 2, tau, lr and sequence as the training phase, global batch 32
 # (8 rows a replica), 6 steps (both offsets and the sync at t = 4); then a
-# fresh model at full depth served on the same ranks, MODEL_ROWS prompts
-# of MODEL_PROMPT tokens a dp rank and MODEL_NEW decode steps, against
-# rank 0 serving the whole model on every prompt
+# fresh model at MODEL_SERVE_LAYERS layers served on the same ranks,
+# MODEL_ROWS prompts of MODEL_PROMPT tokens a dp rank and MODEL_NEW decode
+# steps, against rank 0 serving the whole model on every prompt
 MODEL_DATA, MODEL_M, MODEL_S, MODEL_GB, MODEL_STEPS = 4, 2, 2, 32, 6
 # the model phase's training depth: 6 (the training phase's) until the
 # attn model phase needed the room; none of its checks depends on depth
 MODEL_LAYERS = 2
+# the model phases' serving depths and the attn model phase's scheduler's:
+# each model's own (22 tinyllama, 26 recurrentgemma) until the fsdp ranks
+# phase needed the time; no check depends on depth, and 6 recurrentgemma
+# layers hold both block kinds twice
+MODEL_SERVE_LAYERS, RG_MODEL_SERVE_LAYERS, SCHED_LAYERS = 6, 6, 6
 MODEL_ROWS, MODEL_PROMPT, MODEL_NEW, MODEL_SERVE_SEED = 2, 512, 16, 3
 MODEL_TIMEOUT = 600
 MODEL_WORKER_FLAG = "--model-worker"
@@ -690,10 +753,10 @@ MODEL_LOSS_RTOL = 1e-4
 # block kind), each replica split over MODEL_M model ranks, RG_MODEL_DATA
 # x MODEL_M gloo ranks on the one card, S 2, tau, lr and sequence as the
 # recurrentgemma training phase, 4 rows a replica, 5 steps (t = 0..3 group
-# steps, both offsets twice, the sync at t = 4); then a fresh model at all
-# 26 layers served on the same ranks, RG_MODEL_ROWS prompt of
-# RG_MODEL_PROMPT tokens (past the 2048-token window) a dp rank and
-# MODEL_NEW decode steps, against rank 0 serving the whole model; check
+# steps, both offsets twice, the sync at t = 4); then a fresh model at
+# RG_MODEL_SERVE_LAYERS layers served on the same ranks, RG_MODEL_ROWS
+# prompt of RG_MODEL_PROMPT tokens (past the 2048-token window) a dp rank
+# and MODEL_NEW decode steps, against rank 0 serving the whole model; check
 # (f)'s planted fault leaves out the sum that makes w_r's gradient whole
 # in the first recurrent layer
 RG_MODEL_DATA, RG_MODEL_LAYERS, RG_MODEL_GB, RG_MODEL_STEPS = 2, 3, 8, 5
@@ -705,7 +768,7 @@ RG_MODEL_ROWS, RG_MODEL_PROMPT = 1, 3000
 # width and depth, random weights from ATTN_MODEL_SEED, one prompt of
 # ATTN_MODEL_PROMPTS[arch] tokens a dp rank and MODEL_NEW decode steps,
 # each against rank 0 serving the whole model; then the paged scheduler on
-# tinyllama-1.1b at 22 layers over the same ranks, SCHED_REQUESTS
+# tinyllama-1.1b at SCHED_LAYERS layers over the same ranks, SCHED_REQUESTS
 # requests of distinct lengths (SCHED_PROMPT's range) and SCHED_NEW new
 # tokens each from a pool with no block to spare, each request against
 # the dense model-world run of it; check (e)'s rank-local pick on the
@@ -749,8 +812,10 @@ RG_TRAIN_LAYERS, RG_TRAIN_P, RG_TRAIN_S, RG_TRAIN_GB = 5, 4, 2, 32
 # one training layer's scan: (rows a replica, TRAIN_SEQ, lru_width)
 SCAN_TRAIN_SHAPE = (RG_TRAIN_GB // RG_TRAIN_P, TRAIN_SEQ, 2560)
 
-# paper phase: transformer-wmt (the paper's own model) at full width and
-# depth in bf16, P = 16 replicas (Fig. 5's worker count), S = 4 (the default
+# paper phase: transformer-wmt (the paper's own model) at full width in
+# bf16, the Trainer's runs at PAPER_TRAIN_LAYERS encoder and decoder
+# layers (6 + 6 until the fsdp ranks phase needed the time: none of their
+# checks depends on depth; Fig. 5 and serving keep all 12), P = 16 replicas (Fig. 5's worker count), S = 4 (the default
 # group size at 16), tau = 10 (so both phase offsets and the sync at t = 9
 # run), SGD momentum 0.9, lr 0.1, target seq 256 over the synthetic
 # batch's 64 source tokens, global batch 64 (4 rows a replica), under each
@@ -759,6 +824,7 @@ PAPER_ARCH = "transformer-wmt"
 PAPER_AVERAGERS = ("wagma", "allreduce", "local_sgd", "dpsgd", "sgp",
                    "adpsgd", "eager_sgd")
 PAPER_P, PAPER_S, PAPER_TAU = 16, 4, 10
+PAPER_TRAIN_LAYERS = 1
 PAPER_SEQ, PAPER_GB, PAPER_STEPS, PAPER_LR = 256, 64, 10, 0.1
 PAPER_PROFILED = ("wagma", "allreduce")
 # the gossip baselines, whose card mix is held to the CPU's, bit for bit
@@ -1156,14 +1222,17 @@ def expected_combine_launches(n_buckets: int, n_stages: int):
     return sizes[False], sizes[True]
 
 
-def plan_combines(plan, rows: int):
+def plan_combines(plan, rows: int, per_rank: bool = False):
     """The combine operands of one group step of ``plan`` over ``(rows,
     n_b)`` float32 buckets: the (elements, scale) of every K1 launch and
     the sizes and scale of its multi-pair K2 batch (None if it has none:
     a smoke config's few buckets).  A sharded plan's buckets are its
-    shard layout's."""
+    shard layout's; ``per_rank``, a rank's column slices of them (FSDP
+    over ranks)."""
     sizes = (plan.shard_layout if plan.sharding.is_sharded
              else plan.class_layout(0)).bucket_sizes
+    if per_rank:
+        sizes = [n // plan.shard_size for n in sizes]
     n_stages = len(plan.runs_for_offset(0)[0].bits)
     groups = [(0.5 ** n_stages if last else 1.0,
                [rows * sizes[k] for k in ks])
@@ -1357,6 +1426,28 @@ def combine_kernel_phase(device="cuda"):
     rows.extend(k1_rows + [k2])
     line["fsdp"] = {"combines": combines, "K2": k2,
                     "K1": max(k1_rows, key=lambda r: r["n"][0])}
+    # the fsdp ranks path's: a rank's (1, n_b / 2) float32 slices of the
+    # sharded plan's buckets at the ranks phase's depth (check (a) of the
+    # fsdp ranks phase ties them to the plan its ranks compiled)
+    combines = fsdp_rank_combines(ranks_config())
+    k1, tail = combines
+    k1_rows = [k1_row(n, "float32", scale, case="fsdp ranks")[0]
+               for n, scale in k1]
+    rows.extend(k1_rows)
+    line["fsdp ranks"] = {"combines": combines,
+                          "K1": max(k1_rows, key=lambda r: r["n"][0])}
+    # torch.add at the largest slice (the sum alone, no scale: beside
+    # the row, not its library call)
+    w, r = operands(line["fsdp ranks"]["K1"]["n"][0], "float32")
+    o = torch.empty_like(w)
+    line["fsdp ranks"]["K1"]["add_ms"] = time_ms(
+        lambda: torch.add(w, r, out=o))
+    del w, r, o
+    if tail is not None:
+        line["fsdp ranks"]["K2"] = k2_row(
+            "fsdp ranks tail batch", tail[0], [0] * len(tail[0]), "float32",
+            tail[1])
+        rows.append(line["fsdp ranks"]["K2"])
     # the streamed path's: the 22-layer grouped plan's K1 sizes and K2
     # batch over its (P_eff, n_b) float32 shard buffers at scale 1/S
     combines = streamed_combines(fsdp_config())
@@ -1430,7 +1521,8 @@ def rglru_kernel_phase(device="cuda"):
             "equal": bool(torch.equal(got, want)),
             "max_abs_err": float((got.float() - want.float()).abs().max()),
             "ms": kernel_ms, "host_us": host_us,
-            "plain_ms": time_ms(lambda: rg.rglru_scan_plain(a, x, h0)),
+            "plain_ms": time_ms(lambda: rg.rglru_scan_plain(a, x, h0),
+                                iters=5, warmup=1),
             "bound_ms": scan_bound_ms(b, s, w, item, item, with_h0),
             "bound_by": "bytes", "library_ms": None})
         del a, x, h0, got, want
@@ -2146,6 +2238,13 @@ def fsdp_combines(cfg):
     float32 shard buffers, at scale 1/S."""
     plan = fsdp_plan(cfg)
     return plan_combines(plan, plan.P_eff)
+
+
+def fsdp_rank_combines(cfg):
+    """The fsdp ranks path's combine operands: each K1 size and the K2
+    tail batch of one group step of the sharded plan over a rank's ``(1,
+    n_b / 2)`` float32 slices, at scale 1/S."""
+    return plan_combines(fsdp_plan(cfg), 1, per_rank=True)
 
 
 def streamed_plan(cfg):
@@ -3253,20 +3352,7 @@ def profiled_step(trainer, t: int, device) -> dict:
     """Step ``t`` under ``torch.profiler`` (after one warm start of it):
     its host-clock start and end, the device intervals (on the card) and
     :func:`_window`'s summary."""
-    import torch
-    from torch.profiler import profile
-    with profile(activities=_activities(device)):   # the profiler's
-        torch.ones(1, device=device).add_(1)        # first start
-        _sync(device)
-    with profile(activities=_activities(device)) as prof:
-        start_ns = time.time_ns()
-        trainer.step_once(t)
-        _sync(device)
-        end_ns = time.time_ns()
-    return {"start_ns": start_ns, "end_ns": end_ns,
-            "intervals": (device_intervals(prof) if device.type == "cuda"
-                          else None),
-            **_window(prof, (end_ns - start_ns) / 1e6)}
+    return profiled_call(lambda: trainer.step_once(t), device)[1]
 
 
 def device_idle(windows) -> dict:
@@ -3285,14 +3371,11 @@ def device_idle(windows) -> dict:
             "device_idle_share": 1 - busy_ms / wall_ms if on_card else None}
 
 
-def run_torchrun(n: int, flag: str, spec: dict, out: Path,
-                 timeout: int) -> float:
-    """``python -m torch.distributed.run`` of ``n`` ranks of this script
-    with ``flag SPEC OUT`` over gloo (their log in ``out/torchrun.log``);
-    fails if torchrun does not exit 0 within ``timeout``.  Returns its
-    seconds."""
+def start_torchrun(n: int, flag: str, spec: dict, out: Path) -> dict:
+    """Start ``python -m torch.distributed.run`` of ``n`` ranks of this
+    script with ``flag SPEC OUT`` over gloo (their log in
+    ``out/torchrun.log``); :func:`wait_torchrun` ends it."""
     import os
-    import signal
     log_path = out / "torchrun.log"
     env = dict(os.environ, REPRO_TORCH_BACKEND="gloo",
                PYTHONPATH=os.pathsep.join(
@@ -3301,20 +3384,41 @@ def run_torchrun(n: int, flag: str, spec: dict, out: Path,
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
            "--nproc-per-node", str(n), str(ROOT / "chip_smoke.py"), flag,
            json.dumps(spec), str(out)]
-    t0 = time.perf_counter()
-    with open(log_path, "w") as log:
-        proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT,
-                                env=env, start_new_session=True)
-        try:
-            rc = proc.wait(timeout=timeout)
-        except subprocess.TimeoutExpired:
-            os.killpg(proc.pid, signal.SIGKILL)
-            proc.wait()
-            rc = "timeout"
+    log = open(log_path, "w")
+    proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT,
+                            env=env, start_new_session=True)
+    return {"proc": proc, "log": log, "path": log_path,
+            "t0": time.perf_counter()}
+
+
+def wait_torchrun(run: dict, timeout: float) -> float:
+    """Wait for :func:`start_torchrun`'s ranks, at most ``timeout``
+    seconds from their start (then kill them all); fails unless torchrun
+    exits 0.  Returns its seconds."""
+    import os
+    import signal
+    proc = run["proc"]
+    try:
+        rc = proc.wait(timeout=max(timeout - (time.perf_counter()
+                                              - run["t0"]), 1))
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait()
+        rc = "timeout"
+    run["log"].close()
     if rc != 0:
         raise AssertionError(f"torchrun exited {rc}; its log ends:\n"
-                             + log_path.read_text()[-6000:])
-    return time.perf_counter() - t0
+                             + run["path"].read_text()[-6000:])
+    return time.perf_counter() - run["t0"]
+
+
+def run_torchrun(n: int, flag: str, spec: dict, out: Path,
+                 timeout: int) -> float:
+    """``python -m torch.distributed.run`` of ``n`` ranks of this script
+    with ``flag SPEC OUT`` over gloo (their log in ``out/torchrun.log``);
+    fails if torchrun does not exit 0 within ``timeout``.  Returns its
+    seconds."""
+    return wait_torchrun(start_torchrun(n, flag, spec, out), timeout)
 
 
 def ranks_worker(spec: dict, out: str) -> int:
@@ -3698,6 +3802,667 @@ def ranks_phase(spec: dict, out: Path, timeout: int = RANKS_TIMEOUT) -> dict:
                              f"part (or the params never moved): {e}")
     stats["phase_s"] = time.perf_counter() - t_phase
     stats["summary"] = ranks_summary(stats)
+    return stats
+
+
+# ---------------------------------------------------------------------------
+# FSDP ranks phase: gather-all FSDP over a rank world (K1, K2 on the slices)
+# ---------------------------------------------------------------------------
+
+def fsdp_ranks_spec(device="cuda", smoke: bool = False,
+                    n_layers: Optional[int] = RANKS_LAYERS,
+                    seq_len: int = TRAIN_SEQ,
+                    global_batch: int = FSDP_RANKS_GB,
+                    steps: int = FSDP_RANKS_STEPS,
+                    bucket_bytes: Optional[int] = None) -> dict:
+    """What the ranks and the parent's one-process twin both run (JSON,
+    handed to every rank); ``bucket_bytes`` pins both link classes'
+    budget, as a rehearsal at smoke size does so that a group step has
+    several shard buckets."""
+    return {"device": device, "smoke": smoke, "n_layers": n_layers,
+            "seq_len": seq_len, "global_batch": global_batch,
+            "steps": steps, "bucket_bytes": bucket_bytes}
+
+
+def fsdp_ranks_trainer(spec: dict, world=None):
+    """The phase's FSDP ``Trainer``: one member on a rank of ``world``, or
+    every pod as a row of one state on ``spec["device"]`` (the twin)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import plan as plan_mod
+    from repro_torch.launch.train import Trainer
+    cfg = get_config(ARCH, smoke=spec["smoke"])
+    if spec["n_layers"]:
+        cfg = cfg.variant(n_layers=spec["n_layers"])
+    topology = fsdp_topology()
+    if spec.get("bucket_bytes"):
+        pin = lambda l: dataclasses.replace(l, bucket_bytes=spec[
+            "bucket_bytes"])
+        topology = plan_mod.Topology(
+            topology.axis_names, topology.axis_sizes,
+            tuple(pin(l) for l in topology.link_classes), topology.axis_class)
+    kw = {"world": world} if world is not None else {"device":
+                                                     spec["device"]}
+    return Trainer(cfg, FSDP_DATA, pod_axis=FSDP_POD, group_size=FSDP_S,
+                   tau=FSDP_TAU, learning_rate=TRAIN_LR,
+                   seq_len=spec["seq_len"], global_batch=spec["global_batch"],
+                   seed=0, topology=topology, sharding="fsdp", **kw)
+
+
+def profiled_call(fn, device) -> tuple:
+    """``fn()`` under ``torch.profiler`` (after one warm start of it): its
+    result, and its host-clock start and end, the device intervals (on
+    the card) and :func:`_window`'s summary."""
+    import torch
+    from torch.profiler import profile
+    with profile(activities=_activities(device)):   # the profiler's
+        torch.ones(1, device=device).add_(1)        # first start
+        _sync(device)
+    with profile(activities=_activities(device)) as prof:
+        start_ns = time.time_ns()
+        out = fn()
+        _sync(device)
+        end_ns = time.time_ns()
+    return out, {"start_ns": start_ns, "end_ns": end_ns,
+                 "intervals": (device_intervals(prof)
+                               if device.type == "cuda" else None),
+                 **_window(prof, (end_ns - start_ns) / 1e6)}
+
+
+def instrument_fsdp_ranks(trainer, world, plan, step_no: list):
+    """Time an FSDP rank ``Trainer``'s step parts into ``split`` (the
+    all-gather, the members' fwd+bwd, the reduce-scatter, update,
+    average, sync; host clock, synchronised) with the wire's counts of
+    each into ``wire``; gather the slices ``comm`` averages to rank 0 as
+    ``(P_eff, n_b)`` buffers (``pending``) once an offset not yet in
+    ``checked``, their seconds in ``check_s[0]``; at step
+    ``FSDP_RANKS_GRAD_STEP`` (``step_no[0]``) keep in ``grab`` the digest
+    of each gathered bucket, this member's gradient and its reduce-
+    scattered slices (check (c)).  Returns (split, wire, pending,
+    checked, check_s, grab)."""
+    from repro_torch.core import plan as plan_mod
+    from repro_torch.core import tree as tr
+    from repro_torch.core.replica import join_rank_slices
+    from repro_torch.launch import mesh
+    from repro_torch.optim.sgd import Optimizer
+    from repro_torch.train import train_step
+    avg = trainer.averager
+    split = dict.fromkeys(("gather", "fwd_bwd", "scatter", "update",
+                           "average", "sync"), 0.0)
+    timed_ = split_timer(split, world.device)
+    wire, grab = {}, {}
+    at_grad_step = lambda: step_no[0] == FSDP_RANKS_GRAD_STEP
+
+    def with_wire(key, fn):
+        def run(*args):
+            before = plan_mod.wire_stats()
+            res = fn(*args)
+            d = wire.setdefault(key, {})
+            for k, v in plan_mod.wire_stats().items():
+                if k != "in_flight_max":
+                    d[k] = d.get(k, 0) + v - before[k]
+            return res
+        return run
+
+    vag = train_step.value_and_grad
+
+    def vag_noting(model, params, batch):
+        grads, metrics = vag(model, params, batch)
+        if at_grad_step():
+            grab["grads"] = tr.tree_map(lambda a: a.clone(), grads)
+        return grads, metrics
+
+    all_gather = plan.shard_wire.shard_all_gather
+
+    def all_gather_noting(buf, axis):
+        out = all_gather(buf, axis)
+        if at_grad_step():
+            grab.setdefault("gathered", []).append(tensor_digest(out))
+        return out
+
+    grad_shards = plan.grad_shards
+
+    def grad_shards_noting(member_grads):
+        out = grad_shards(member_grads)
+        if at_grad_step():
+            grab["slices"] = tuple(b.clone() for b in out)
+        return out
+
+    train_step.value_and_grad = timed_("fwd_bwd", vag_noting)
+    plan.shard_wire.shard_all_gather = all_gather_noting
+    plan.unshard_tree = timed_("gather", with_wire("gather",
+                                                   plan.unshard_tree))
+    plan.grad_shards = timed_("scatter", with_wire("scatter",
+                                                   grad_shards_noting))
+    trainer.opt = Optimizer(trainer.opt.init,
+                            timed_("update", trainer.opt.update))
+    comm = timed_("average", with_wire("average", avg.comm))
+    pending, checked, check_s = {}, {}, [0.0]
+
+    def comm_checked(tree, phase):
+        offset = plan.offsets[phase]
+        if offset not in checked and offset not in pending:
+            t0 = time.perf_counter()
+            got = mesh.gather_rows(world, tree)
+            pending[offset] = (None if got is None else join_rank_slices(
+                tuple(b.to(world.device) for b in got), plan))
+            check_s[0] += time.perf_counter() - t0
+        return comm(tree, phase)
+
+    avg.comm = comm_checked
+    avg.sync = timed_("sync", with_wire("sync", avg.sync))
+    return split, wire, pending, checked, check_s, grab
+
+
+def slice_digest(buffers, pod: int, coord: int) -> str:
+    """The digest :func:`row_digests` gives the rank of pod ``pod`` at
+    shard coordinate ``coord`` of its slices, from ``(P_eff, n_b)``
+    global buffers (pods of ``FSDP_DATA``)."""
+    import hashlib
+    per_bucket = digests([b[pod].view(FSDP_DATA, -1)[coord]
+                          for b in buffers])
+    return hashlib.sha256("".join(per_bucket).encode()).hexdigest()
+
+
+def saved_digests(state) -> dict:
+    """sha256 of every array a checkpoint of ``state`` holds, by its npz
+    key (``checkpoint.ckpt``'s own conversion of each leaf), hashed on 8
+    threads."""
+    import hashlib
+    from concurrent.futures import ThreadPoolExecutor
+    from repro_torch.checkpoint import ckpt
+    out = {}
+    for name, tree in (("params", state.params),
+                       ("opt_state", state.opt_state)):
+        arrays = ckpt._flatten(tree)
+        with ThreadPoolExecutor(8) as pool:
+            sums = pool.map(lambda a: hashlib.sha256(
+                np.ascontiguousarray(a).reshape(-1).view(np.uint8)
+            ).hexdigest(), arrays.values())
+            out.update({f"{name}/{k}": d for k, d in zip(arrays, sums)})
+    return out
+
+
+def fsdp_ranks_check_c(world, plan, stacked_plan, grab, kept) -> dict:
+    """Check (c) at ``FSDP_RANKS_GRAD_STEP`` (rank 0 decides): every
+    rank's gathered buckets have the sha256 of its pod's row of the
+    state before the step (``kept`` on rank 0: check (b)'s one-process
+    average, which every rank's slices equal), and pod 0's reduce-
+    scattered float32 slices, joined in shard-axis order, equal the
+    one-process ``grad_shards`` of its members' gradients (gathered to
+    rank 0 over the pod's group) bit for bit; joined in swapped order
+    (the planted fault) they must not.  Returns rank 0's verdicts
+    (``None`` elsewhere)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import tree as tr
+    from repro_torch.core.replica import effective_rank_map
+    from repro_torch.launch import mesh
+    axis = plan.sharding.shard_axis
+    members = world.shard_members(axis)
+    digests_ = [None] * world.P if world.rank == 0 else None
+    dist.gather_object(grab["gathered"], digests_, dst=0)
+    size = len(members)
+    if world.pod_of(axis) != 0:
+        grab.clear()
+        return None
+    treedef = tr.tree_flatten(grab["grads"])[1]
+    grads = mesh._gather_leaves(world, tr.tree_map(lambda a: a[None],
+                                                   grab["grads"]), size,
+                                world.shard_group, dst=members[0])
+    slices = mesh._gather_leaves(world, tuple(b[None] for b in
+                                              grab["slices"]), size,
+                                 world.shard_group, dst=members[0])
+    grab.clear()
+    if world.rank != 0:
+        return None
+    device = world.device
+    eff = effective_rank_map(world.axis_sizes, world.axis_names.index(axis))
+    rows = [[tensor_digest(b[p]) for b in kept if b.numel()]
+            for p in range(plan.P_eff)]
+    gathered_equal = all(digests_[r] == rows[eff[r]]
+                         for r in range(world.P))
+    per_member = [tr.tree_unflatten(treedef, [g[m].to(device)
+                                              for g in grads])
+                  for m in range(size)]
+    want = stacked_plan.grad_shards(iter(per_member))
+    del per_member, grads
+    nonempty = [i for i, b in enumerate(want) if b.numel()]
+    join = lambda order: [torch.cat([slices[i][m] for m in order]
+                                    ).to(device) for i in nonempty]
+    joined, swapped = join(range(size)), join(range(size)[::-1])
+    grads_equal = all(torch.equal(a, want[i])
+                      for a, i in zip(joined, nonempty))
+    swapped_parts = not all(torch.equal(a, want[i])
+                            for a, i in zip(swapped, nonempty))
+    if not (gathered_equal and grads_equal and swapped_parts):
+        raise AssertionError(
+            f"check (c): gathered trees = pods' rows {gathered_equal}, "
+            f"joined slices = grad_shards {grads_equal}, swapped join "
+            f"parts {swapped_parts}")
+    return {"gathered_equal": gathered_equal, "grads_equal": grads_equal,
+            "swapped_join_parts": swapped_parts,
+            "buckets": len(nonempty)}
+
+
+def fsdp_ranks_guard(trainer, world, t: int) -> Optional[list]:
+    """Check (e)'s planted NaN, in one step ``t`` from this state: the
+    last member of each pod of ``FSDP_RANKS_BAD_PODS`` puts a NaN in the
+    first element of its gradient (it lands in the pod's first member's
+    slice); the first pod keeps the MIN over the pod, so both its members
+    must skip, the second runs a guard without it (the planted fault), so
+    its members must part; every other member updates.  The state is put
+    back after.  Returns rank 0's gathered counts (``None`` elsewhere)."""
+    import torch.distributed as dist
+    from repro_torch.core import tree as tr
+    from repro_torch.core.replica import ReplicaState, map_opt_state
+    from repro_torch.train import train_step
+    saved = trainer.state
+    clone = lambda t_: tr.tree_map(lambda a: a.clone(), t_)
+    vag, guard = train_step.value_and_grad, train_step.pod_all_finite
+    pod, coord = world.pod_of("data"), world.shard_coord("data")
+
+    def poisoned(model, params, batch):
+        grads, metrics = vag(model, params, batch)
+        tr.tree_leaves(grads)[0].view(-1)[0] = float("nan")
+        return grads, metrics
+
+    trainer.state = ReplicaState(clone(saved.params), map_opt_state(
+        saved.opt_state, clone, lambda c: c.clone()), saved.step,
+        saved.phase)
+    if pod in FSDP_RANKS_BAD_PODS and coord == FSDP_DATA - 1:
+        train_step.value_and_grad = poisoned
+    if pod == FSDP_RANKS_BAD_PODS[1]:
+        train_step.pod_all_finite = lambda plan, finite: finite
+    try:
+        trainer.step_once(t)
+    finally:
+        train_step.value_and_grad, train_step.pod_all_finite = vag, guard
+    counts = [None] * world.P if world.rank == 0 else None
+    dist.gather_object(int(trainer.state.opt_state.count[0]), counts, dst=0)
+    trainer.state = saved
+    return counts
+
+
+def fsdp_ranks_worker(spec: dict, out: str) -> int:
+    """One rank (one pod member) of the fsdp ranks phase, started by
+    torchrun: the port's FSDP ``Trainer`` on this rank's slices for
+    ``spec["steps"]`` steps with checks (a)-(c) and (e), step
+    ``FSDP_RANKS_PROFILED`` profiled, check (e)'s planted NaN, then
+    (``out/steps_done`` tells the parent its twin may start) check (d)'s
+    gathered state, the one ``Trainer.save_checkpoint`` writes, hashed on
+    rank 0 as the checkpoint converts it (its write under torchrun is the
+    CPU tests'); rank 0 writes ``out/fsdp_ranks.json``."""
+    import os
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import grouping
+    from repro_torch.core import plan as plan_mod
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh
+
+    t_start = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    world = mesh.init_rank_world(FSDP_DATA, FSDP_POD,
+                                 backend=os.environ["REPRO_TORCH_BACKEND"],
+                                 device_type=spec["device"],
+                                 shard_axis="data")
+    device = world.device
+    on_card = device.type == "cuda"
+    try:
+        trainer = fsdp_ranks_trainer(spec, world)
+        init_s = time.perf_counter() - t_start
+        avg = trainer.averager
+        plan = trainer.plan()
+        stacked_plan = plan_mod.compile_plan(plan.topology,
+                                             plan.storage_struct, plan.cfg,
+                                             plan.sharding)
+        n_buckets = plan.shard_layout.n_buckets
+        n_stages = len(plan.runs_for_offset(0)[0].bits)
+        step_no = [-1]
+        split, wire, pending, checked, check_s, grab = \
+            instrument_fsdp_ranks(trainer, world, plan, step_no)
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        log, kept, check_c, window = [], None, None, None
+        steps = spec["steps"]
+        for t in range(steps):
+            for k in split:
+                split[k] = 0.0
+            wire.clear()
+            check_s[0] = 0.0
+            step_no[0] = t
+            before = ops.launch_counts()
+            if t == FSDP_RANKS_PROFILED:    # every rank's window: one step
+                dist.barrier()
+            _sync(device)
+            t0 = time.perf_counter()
+            if t == FSDP_RANKS_PROFILED:
+                loss, window = profiled_call(lambda: trainer.step_once(t),
+                                             device)
+            else:
+                loss = trainer.step_once(t)
+            _sync(device)
+            step_s = time.perf_counter() - t0 - check_s[0]
+            after = ops.launch_counts()
+            sync = avg.sync_due(t)
+            offset = None if sync else plan.offsets[avg.phase_for_step(t)]
+            # check (b): at each shard coordinate the slices of a group's
+            # pods equal, the groups apart; after a sync all four
+            t0 = time.perf_counter()
+            rows = [None] * world.P if world.rank == 0 else None
+            dist.gather_object(row_digests(trainer.state.params)[0], rows,
+                               dst=0)
+            if world.rank == 0:
+                groups = ((tuple(range(plan.P_eff)),) if sync else
+                          grouping.groups_for_offset(plan.P_eff, FSDP_S,
+                                                     offset))
+                for c in range(FSDP_DATA):
+                    at = lambda p: rows[p * FSDP_DATA + c]
+                    same = all(at(m) == at(g[0]) for g in groups for m in g)
+                    differ = len({at(g[0]) for g in groups}) == len(groups)
+                    if not same or (not sync and not differ):
+                        raise AssertionError(
+                            f"step {t} coordinate {c}: a group's pods equal "
+                            f"{same}, groups apart {differ}, {groups}")
+            if offset in pending:
+                # the one-process average of the gathered pre-average
+                # buffers, sliced as each rank holds them, against every
+                # rank's post-average slices (their sha256, gathered above)
+                pre = pending.pop(offset)
+                checked[offset] = None          # rank 0 holds the verdict
+                if world.rank == 0:
+                    want = stacked_plan._average_sharded(pre, offset)
+                    checked[offset] = rows == [
+                        slice_digest(want, r // FSDP_DATA, r % FSDP_DATA)
+                        for r in range(world.P)]
+                    if not checked[offset]:
+                        raise AssertionError(
+                            f"step {t}: the ranks' average at offset "
+                            f"{offset} differs from the one-process plan's")
+                    if t == FSDP_RANKS_GRAD_STEP - 1:
+                        kept = want             # the state step 2 starts from
+                    del want
+                del pre
+            if t == FSDP_RANKS_GRAD_STEP:
+                check_c = fsdp_ranks_check_c(world, plan, stacked_plan,
+                                             grab, kept)
+                kept = None
+            log.append({
+                "t": t, "loss": loss, "sync": sync, "offset": offset,
+                "step_ms": step_s * 1e3,
+                "profiled": t == FSDP_RANKS_PROFILED,
+                **{k + "_ms": v * 1e3 for k, v in split.items()},
+                "wire": {part: {k: (v * 1e3 if k.endswith("_s") else v)
+                                for k, v in d.items()}
+                         for part, d in wire.items()},
+                "check_ms": (check_s[0] + time.perf_counter() - t0) * 1e3,
+                "skipped": trainer.last_metrics["skipped_nonfinite"],
+                **{key: after[name] - before[name] for key, name in (
+                    ("k1", K1), ("k2", K2), ("k3", K3), ("k4", K4))}})
+        step_no[0] = -1
+        peak = torch.cuda.max_memory_allocated() if on_card else None
+        t0 = time.perf_counter()
+        guard = fsdp_ranks_guard(trainer, world, steps)
+        guard_s = time.perf_counter() - t0
+        if on_card:                 # room on the card for the parent's twin
+            torch.cuda.empty_cache()
+        dist.barrier()
+        if world.rank == 0:             # the parent's twin may start now
+            (Path(out) / "steps_done").write_text(json.dumps(
+                [e["loss"] for e in log]))
+        t0 = time.perf_counter()
+        state = trainer.gathered_state()
+        ckpt_s = time.perf_counter() - t0
+        saved = saved_digests(state) if state is not None else None
+        step_phase = ([int(state.step), int(state.phase)]
+                      if state is not None else None)
+        del state
+        mine = {"rank": world.rank, "pod": world.pod_of("data"),
+                "device": str(device), "log": log, "peak": peak,
+                "window": window, "init_s": init_s,
+                "combines": plan_combines(plan, 1, per_rank=True)}
+        everyone = [None] * world.P if world.rank == 0 else None
+        dist.gather_object(mine, everyone, dst=0)
+        if world.rank == 0:
+            result = {
+                "world": {"P": world.P, "axes": dict(zip(
+                    world.axis_names, world.axis_sizes)),
+                    "backend": world.backend},
+                "pods": plan.P_eff, "pod_size": plan.shard_size,
+                "n_buckets": n_buckets, "n_stages": n_stages,
+                "bucket_bytes": plan.shard_bucket_bytes,
+                "expected_k1_k2_per_group_step": expected_combine_launches(
+                    n_buckets, n_stages),
+                "stacked_equals_wire": checked, "check_c": check_c,
+                "guard": guard, "guard_s": guard_s, "ckpt_s": ckpt_s,
+                "saved_digests": saved, "step_phase": step_phase,
+                "ranks": everyone,
+                "worker_s": time.perf_counter() - t_start}
+            (Path(out) / "fsdp_ranks.json").write_text(json.dumps(result))
+        return 0
+    finally:
+        mesh.shutdown()
+
+
+def check_fsdp_ranks_launches(stats, held: Optional[dict] = None):
+    """Check (a) of the fsdp ranks phase, on every rank: each group step
+    launched the K1 and K2 counts of one stage of the sharded plan's
+    shard buckets, the sync none, no step K3 or K4; and (where ``held``,
+    the K1/K2 phase's ``fsdp ranks`` entry, is given) each rank's combine
+    operands are those the K1/K2 phase held."""
+    want_k1, want_k2 = stats["expected_k1_k2_per_group_step"]
+    for r in stats["ranks"]:
+        for e in r["log"]:
+            want = (0, 0) if e["sync"] else (want_k1, want_k2)
+            got = (e["k1"], e["k2"], e["k3"], e["k4"])
+            if got != want + (0, 0):
+                raise AssertionError(f"rank {r['rank']} step {e['t']}: K1, "
+                                     f"K2, K3, K4 launched {got}; the "
+                                     f"schedule predicts {want + (0, 0)}")
+        if held is not None and json.loads(json.dumps(
+                held["combines"])) != r["combines"]:
+            raise AssertionError(
+                f"rank {r['rank']}: combine operands {r['combines']}; the "
+                f"K1/K2 phase held {held['combines']}")
+
+
+def check_fsdp_ranks_guard(counts: list) -> dict:
+    """Check (e)'s planted NaN on the counts rank 0 gathered (one a
+    member, in rank order): the pod that keeps the MIN over the pod keeps
+    its count on both members and every pod without a NaN counts one
+    more; the pod whose guard leaves the MIN out (the planted fault) must
+    part its members.  Returns the verdicts."""
+    pods = [counts[e * FSDP_DATA:(e + 1) * FSDP_DATA]
+            for e in range(len(counts) // FSDP_DATA)]
+    kept, planted = FSDP_RANKS_BAD_PODS
+    base = pods[kept][0]
+    whole = (set(pods[kept]) == {base} and all(
+        set(c) == {base + 1} for e, c in enumerate(pods)
+        if e not in FSDP_RANKS_BAD_PODS))
+    parted = len(set(pods[planted])) > 1
+    if not (whole and parted):
+        raise AssertionError(f"check (e): the pod MIN skips the whole pod "
+                             f"{whole}, without it the members part "
+                             f"{parted}: {counts}")
+    return {"pod_skipped_whole": whole, "without_min_members_part": parted}
+
+
+def fsdp_ranks_summary(stats: dict) -> dict:
+    """The phase's numbers: rank 0's median group step (the profiled one
+    left out) and its split (the all-gather, the members' fwd+bwd and the
+    reduce-scatter, each with its wire bytes; update; the butterfly's
+    exchange and combine; the sync), each rank's peak memory, and the
+    device's idle share over the profiled step, the union of every
+    rank's device activity on the host's clock."""
+    steady = [e for e in stats["ranks"][0]["log"][1:] if not e["profiled"]]
+    group = [e for e in steady if not e["sync"]]
+    med = lambda es, f: statistics.median(f(e) for e in es) if es else None
+    part = lambda e, p, k: e["wire"].get(p, {}).get(k, 0)
+    exchange = {k: med(group, lambda e: part(e, "average", k + "_s"))
+                for k in ("d2h", "wire", "h2d")}
+    windows = [r["window"] for r in stats["ranks"]]
+    return {
+        "median_group_step_ms": med(group, lambda e: e["step_ms"]),
+        "sync_step_ms": med([e for e in steady if e["sync"]],
+                            lambda e: e["step_ms"]),
+        # grad_shards takes the member's gradient from its generator, so
+        # the scatter's timer holds the fwd+bwd
+        "group_split_ms": {
+            "grads": med(group, lambda e: e["gather_ms"] + e["scatter_ms"]),
+            "all_gather": med(group, lambda e: e["gather_ms"]),
+            "fwd_bwd": med(group, lambda e: e["fwd_bwd_ms"]),
+            "reduce_scatter": med(group, lambda e: e["scatter_ms"]
+                                  - e["fwd_bwd_ms"]),
+            "update": med(group, lambda e: e["update_ms"]),
+            "exchange": exchange,
+            "combine": med(group, lambda e: e["average_ms"] - sum(
+                part(e, "average", k) for k in ("d2h_s", "wire_s",
+                                                "h2d_s"))),
+            "other": med(group, lambda e: e["step_ms"] - e["gather_ms"]
+                         - e["scatter_ms"] - e["update_ms"]
+                         - e["average_ms"])},
+        "bytes_a_group_step": {p: group[0]["wire"].get(p, {}).get("bytes")
+                               for p in ("gather", "scatter", "average")}
+        if group else None,
+        "sync_ms": med([e for e in steady if e["sync"]],
+                       lambda e: e["sync_ms"]),
+        "sync_bytes": next((e["wire"].get("sync", {}).get("bytes")
+                            for e in steady if e["sync"]), None),
+        "peak_bytes_by_rank": [r["peak"] for r in stats["ranks"]],
+        "device_busy_ms_by_rank": [w["device_busy_ms"] for w in windows],
+        **device_idle(windows),
+    }
+
+
+def print_fsdp_ranks(stats: dict, card: str):
+    s, d = stats["summary"], stats["check_d"]
+    gib = lambda b: round(b / 2 ** 30, 2) if b is not None else None
+    print(f"fsdp ranks [{card}]: {ARCH} full width, "
+          f"{stats['spec']['n_layers']} layers, data {FSDP_DATA} x pod "
+          f"{FSDP_POD} = {FSDP_RANKS_P} gloo ranks on one card, pods of "
+          f"{stats['pod_size']}, S={FSDP_S} tau={FSDP_TAU}, "
+          f"{stats['n_buckets']} shard buckets of "
+          f"{stats['bucket_bytes'] >> 20} MiB, K1/K2 a group step "
+          f"{stats['expected_k1_k2_per_group_step']}; phase "
+          f"{stats['phase_s']:.1f} s (torchrun {stats['torchrun_s']:.1f} s, "
+          f"checkpoint state gathered {stats['ckpt_s']:.1f} s, twin "
+          f"{json.dumps(d['twin_s'])} s)", flush=True)
+    print(f"fsdp ranks losses: "
+          f"{[round(x['loss'], 4) for x in stats['ranks'][0]['log']]}",
+          flush=True)
+    print(f"fsdp ranks [{card}]: rank 0 median group step "
+          f"{s['median_group_step_ms']:.1f} ms, split "
+          f"{json.dumps(s['group_split_ms'])} ms, wire bytes a rank "
+          f"{json.dumps(s['bytes_a_group_step'])}; sync step "
+          f"{s['sync_step_ms']} ms (sync {s['sync_ms']} ms, "
+          f"{s['sync_bytes']} bytes); peak memory by rank "
+          f"{[gib(b) for b in s['peak_bytes_by_rank']]} GiB; profiled "
+          f"step: wall {s['profile_wall_ms']:.1f} ms, device busy "
+          f"{s['device_busy_ms']} ms, idle share {s['device_idle_share']}",
+          flush=True)
+    print(f"fsdp ranks checks: (b) ranks = one-process average by offset "
+          f"{stats['stacked_equals_wire']}; (c) {json.dumps(stats['check_c'])}"
+          f"; (d) losses max rel diff {d['max_loss_rel_diff']:.3g} (tol "
+          f"{d['loss_rtol']}), every leaf's sha256 = the twin's save "
+          f"{d['state_bit_identical']} ({d['leaves']} leaves), step and "
+          f"phase {d['step_phase_equal']}, its manifest names them "
+          f"{d['manifest_names_the_leaves']}, largest "
+          f"change from the initial params {d['max_param_change']:.3g}; "
+          f"(e) {json.dumps(stats['check_e'])}", flush=True)
+
+
+def fsdp_ranks_phase(spec: dict, out: Path,
+                     timeout: int = FSDP_RANKS_TIMEOUT) -> dict:
+    """Start ``FSDP_RANKS_P`` ranks through torchrun (gloo, all on one
+    card); once their steps are done run check (d)'s one-process FSDP
+    ``Trainer`` (same config, seed and batches) and its own save beside
+    their gather of the checkpoint state; then check (e) on their losses
+    and the planted NaN, and check (d): the twin's losses within
+    ``RANKS_LOSS_RTOL`` of the ranks', and its save against the ranks'
+    checkpoint state: every leaf's sha256 (its final params, momentum and
+    counts bit for bit), the step and phase, and the leaves its manifest
+    names.  A rank that fails fails the phase.  ``out`` is the
+    phase's own directory (emptied first)."""
+    import shutil
+    import torch
+
+    t_phase = time.perf_counter()
+    out = Path(out)
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    run = start_torchrun(FSDP_RANKS_P, FSDP_RANKS_WORKER_FLAG, spec, out)
+    try:
+        # check (d)'s one-process twin runs once the ranks' steps are done
+        # (their checkpoint and teardown go on beside it): its losses, its
+        # own save, every leaf's sha256 of the arrays it saves
+        while not (out / "steps_done").exists():
+            if run["proc"].poll() is not None or \
+                    time.perf_counter() - run["t0"] > timeout:
+                wait_torchrun(run, timeout)
+                raise AssertionError("the ranks ended before their steps")
+            time.sleep(0.5)
+        t0 = time.perf_counter()
+        twin = fsdp_ranks_trainer(spec)
+        initial = [a.clone() for a in twin.state.params]
+        losses = [twin.step_once(t) for t in range(spec["steps"])]
+        change = max(float((b.float() - a.float()).abs().max())
+                     for a, b in zip(initial, twin.state.params))
+        t1 = time.perf_counter()
+        twin_state = twin.save_checkpoint(str(out / "twin"))
+        t2 = time.perf_counter()
+        twin_sums = saved_digests(twin_state)
+        twin_step_phase = [int(twin_state.step), int(twin_state.phase)]
+        del twin, initial, twin_state
+        if torch.device(spec["device"]).type == "cuda":
+            torch.cuda.empty_cache()
+        twin_s = {"run": t1 - t0, "save": t2 - t1,
+                  "digests": time.perf_counter() - t2}
+        stats_s = wait_torchrun(run, timeout)
+    finally:
+        if run["proc"].poll() is None:          # the parent failed first
+            import os
+            import signal
+            os.killpg(run["proc"].pid, signal.SIGKILL)
+            run["proc"].wait()
+    stats = json.loads((out / "fsdp_ranks.json").read_text())
+    stats["spec"], stats["torchrun_s"] = spec, stats_s
+    log0 = stats["ranks"][0]["log"]
+    bad = [e for r in stats["ranks"] for e in r["log"]
+           if not math.isfinite(e["loss"]) or e["skipped"]]
+    if bad:                                                     # check (e)
+        raise AssertionError(f"non-finite losses or skipped updates: {bad}")
+    if any(e["loss"] != f["loss"] for r in stats["ranks"]
+           for e, f in zip(r["log"], log0)):
+        raise AssertionError("the ranks report different mean losses")
+    stats["check_e"] = check_fsdp_ranks_guard(stats["guard"])
+
+    # check (d): the twin's save against the ranks' checkpoint state:
+    # every leaf's sha256 (the params, momentum and counts bit for bit),
+    # the step and phase, and the leaves the twin's manifest names
+    manifest = json.loads((out / "twin" / "manifest.json").read_text())
+    named = sorted([f"params/{k}" for k in manifest["keys"]]
+                   + [f"opt_state/{k}" for k in manifest["opt_checksums"]])
+    rank_losses = [e["loss"] for e in log0]
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses, rank_losses))
+    stats["check_d"] = {
+        "twin_losses": losses, "max_loss_rel_diff": loss_rel,
+        "loss_rtol": RANKS_LOSS_RTOL,
+        "state_bit_identical": stats["saved_digests"] == twin_sums,
+        "step_phase_equal": stats.pop("step_phase") == twin_step_phase,
+        "manifest_names_the_leaves": named == sorted(
+            stats.pop("saved_digests")),
+        "leaves": len(twin_sums), "max_param_change": change,
+        "twin_s": twin_s}
+    d = stats["check_d"]
+    if (loss_rel > RANKS_LOSS_RTOL or not d["state_bit_identical"]
+            or not d["step_phase_equal"]
+            or not d["manifest_names_the_leaves"] or change == 0.0):
+        raise AssertionError(f"check (d): the ranks and the one-process "
+                             f"twin part (or the params never moved): {d}")
+    shutil.rmtree(out / "twin")
+    stats["phase_s"] = time.perf_counter() - t_phase
+    stats["summary"] = fsdp_ranks_summary(stats)
     return stats
 
 
@@ -6756,6 +7521,7 @@ def main() -> int:
         print(f"ptxas {name}: {r}", flush=True)
     print(f"ptxas: {len(k4_build)} K4 TMA-route kernels, 0 spill bytes",
           flush=True)
+    phase_done("build")
 
     # -- kernel phase: K3 ---------------------------------------------------
     rows = kernel_phase()
@@ -6772,6 +7538,7 @@ def main() -> int:
         print(f"K3 host {r['shape']} {r['dtype']}: wrapper "
               f"{r['host_us']:.1f} us per call", flush=True)
     print(json.dumps({"k3_shapes": rows, "card": card}), flush=True)
+    phase_done("K3 kernel phase")
 
     # -- kernel phase: K1/K2 ------------------------------------------------
     ga_rows, ga_line = combine_kernel_phase()
@@ -6796,6 +7563,7 @@ def main() -> int:
               flush=True)
     print(json.dumps({"k1_k2_cases": ga_rows, "k1_vs_add": vs_add,
                       "card": card}), flush=True)
+    phase_done("K1/K2 kernel phase")
 
     # -- kernel phase: K4 ---------------------------------------------------
     k4_rows, k4_edges, k4_pair = rglru_kernel_phase()
@@ -6821,6 +7589,7 @@ def main() -> int:
           f" ms [{card}]", flush=True)
     print(json.dumps({"k4_cases": k4_rows, "k4_edges": k4_edges,
                       "k4_routes": k4_pair, "card": card}), flush=True)
+    phase_done("K4 kernel phase")
 
     # -- serving phase (K3) -------------------------------------------------
     cfg = get_config(ARCH)
@@ -6840,6 +7609,7 @@ def main() -> int:
     for name, w in windows.items():
         _print_window(name, w, card)
     print(json.dumps({"profile": windows, "card": card}), flush=True)
+    phase_done("tinyllama serving")
 
     # -- handoff phase (a), (b), (d): the same model and requests served
     # disaggregated, the KV blocks through the host (K3) ------------------
@@ -6851,7 +7621,7 @@ def main() -> int:
                       "planted_fault": fault, "card": card}), flush=True)
     print_handoff(stats, colo_again, disagg, fault, card)
     del model, params
-    phase_done("tinyllama serving and handoff")
+    phase_done("handoff (a), (b), (d)")
 
     # -- training phase (K1, K2); handoff check (c) on its state ----------
     tcfg = train_config()
@@ -6947,9 +7717,19 @@ def main() -> int:
     print_ranks(ranks, card)
     phase_done("ranks phase")
 
+    # -- fsdp ranks phase: the same model, gather-all FSDP over data 2 x
+    # pod 4 gloo ranks, one member a rank (K1, K2 on a rank's slices)
+    fsdp_ranks = fsdp_ranks_phase(fsdp_ranks_spec(),
+                                  ROOT / "build" / "fsdp_ranks")
+    check_fsdp_ranks_launches(fsdp_ranks, ga_line["fsdp ranks"])  # (a)
+    print(json.dumps({"fsdp_ranks": fsdp_ranks, "card": card}), flush=True)
+    print_fsdp_ranks(fsdp_ranks, card)
+    phase_done("fsdp ranks phase")
+
     # -- model phase: the same model, each replica split over 2 model ranks,
     # 4 x 2 gloo ranks (K1, K2 on a rank's slices; K3 at its local heads)
-    tp = model_phase(model_spec(), ROOT / "build" / "model")
+    tp = model_phase(model_spec(serve_layers=MODEL_SERVE_LAYERS),
+                     ROOT / "build" / "model")
     check_model_launches(tp)                                    # check (a)
     check_model_held(tp, ga_line["K1 model"])                   # check (a)
     print(json.dumps({"model": tp, "card": card}), flush=True)
@@ -6959,7 +7739,8 @@ def main() -> int:
     # -- rg model phase: recurrentgemma-2b, each replica split over 2 model
     # ranks, 2 x 2 gloo ranks (K1/K2 on a rank's slices, K4 on its 1,280
     # channels, K3 at its 5 heads)
-    rg_tp = model_phase(rg_model_spec(), ROOT / "build" / "rg_model")
+    rg_tp = model_phase(rg_model_spec(serve_layers=RG_MODEL_SERVE_LAYERS),
+                        ROOT / "build" / "rg_model")
     check_model_launches(rg_tp)                                 # check (a)
     check_model_held(rg_tp, ga_line["K1 rg model"])             # check (a)
     print(json.dumps({"rg_model": rg_tp, "card": card}), flush=True)
@@ -6969,7 +7750,8 @@ def main() -> int:
     # -- attn model phase: whisper-medium, internvl2-2b and transformer-wmt
     # served over data 1 x model 2 gloo ranks, then the paged scheduler on
     # tinyllama-1.1b over them (K3 at a rank's heads)
-    attn = attn_model_phase(attn_model_spec(), ROOT / "build" / "attn_model")
+    attn = attn_model_phase(attn_model_spec(sched_layers=SCHED_LAYERS),
+                            ROOT / "build" / "attn_model")
     check_attn_model_launches(attn)                             # check (a)
     print(json.dumps({"attn_model": attn, "card": card}), flush=True)
     print_attn_model(attn, card)
@@ -7062,18 +7844,21 @@ def main() -> int:
     # -- paper phase: transformer-wmt under the seven averagers (K1, K2),
     # Fig. 5, and translation serving (K3) --------------------------------
     pcfg = get_config(PAPER_ARCH)
+    ptcfg = pcfg.variant(n_layers=PAPER_TRAIN_LAYERS,
+                         encoder_layers=PAPER_TRAIN_LAYERS)
     t_paper = time.perf_counter()
     paper, gossip = {}, GossipChecks()
     for name in PAPER_AVERAGERS:
-        run = paper_train_run(pcfg, name, profile=name in PAPER_PROFILED,
+        run = paper_train_run(ptcfg, name, profile=name in PAPER_PROFILED,
                               checks=gossip)
         phase_done(f"paper training {name}")
         check_paper_launches(run)                               # check (a)
         paper[name] = run
         print(json.dumps({"paper_train": run, "card": card}, default=str),
               flush=True)
-        print(f"paper train {name} [{card}]: {pcfg.name} full width and "
-              f"depth bf16, {PAPER_P} replicas, seq {PAPER_SEQ}, batch "
+        print(f"paper train {name} [{card}]: {pcfg.name} full width, "
+              f"{PAPER_TRAIN_LAYERS} + {PAPER_TRAIN_LAYERS} layers, bf16, "
+              f"{PAPER_P} replicas, seq {PAPER_SEQ}, batch "
               f"{PAPER_GB}: median step {run['median_step_ms']:.1f} ms after "
               f"the first, {run['tokens_per_s']:.0f} tokens/s, host split "
               f"{ {k: round(v, 1) for k, v in run['median_split_ms'].items()} }"
@@ -7168,9 +7953,10 @@ def main() -> int:
     paper_launches = {name: sum(e[key] for run in paper.values()
                                 for e in run["steps"])
                       for name, key in ((K1, "k1"), (K2, "k2"), (K4, "k4"))}
-    ranks_launches = {name: sum(e[key] for r in ranks["ranks"]
-                                for e in r["log"])
-                      for name, key in ((K1, "k1"), (K2, "k2"), (K4, "k4"))}
+    ranks_launches, fsdp_ranks_launches = (
+        {name: sum(e[key] for r in run["ranks"] for e in r["log"])
+         for name, key in ((K1, "k1"), (K2, "k2"), (K4, "k4"))}
+        for run in (ranks, fsdp_ranks))
     model_launches, rg_model_launches = (
         {name: sum(e[key] for r in run["ranks"] for e in r["log"])
          for name, key in ((K1, "k1"), (K2, "k2"), (K4, "k4"),
@@ -7194,6 +7980,7 @@ def main() -> int:
         f"{ARCH} elastic, pool {ELASTIC_POOL}": sum(
             run["launches"][name] for run in elastic["runs"].values()),
         f"{ARCH} training, {RANKS_P} ranks": ranks_launches[name],
+        FSDP_RANKS_PATH: fsdp_ranks_launches[name],
         model_path: model_launches[name],
         rg_model_path: rg_model_launches[name],
         FSDP_PATH: fsdp["launches"][name],
@@ -7249,6 +8036,13 @@ def main() -> int:
     streamed_row = lambda k: dict(ranks_row(ga_line["streamed"][k]),
                                   n_layers=streamed["n_layers"],
                                   pods=streamed["pods"])
+    # a rank's largest slice operand (K1) and its K2 batch, where it has one
+    fsdp_ranks_row = lambda k: (dict(
+        ranks_row(ga_line["fsdp ranks"][k]),
+        add_ms=ga_line["fsdp ranks"][k].get("add_ms"),
+        n_layers=fsdp_ranks["spec"]["n_layers"], pods=fsdp_ranks["pods"],
+        pod_size=fsdp_ranks["pod_size"])
+        if k in ga_line["fsdp ranks"] else None)
     kernels = [
         entry(K1, "src/repro_torch/kernels/csrc/group_average.cu",
               "src/repro/kernels/group_average.py:68",
@@ -7257,6 +8051,7 @@ def main() -> int:
               launches_by_path=by_path(K1),
               elastic_row=elastic_row("K1"), fsdp_row=fsdp_row("K1"),
               streamed_row=streamed_row("K1"),
+              fsdp_ranks_row=fsdp_ranks_row("K1"),
               ranks_row=ranks_row(ga_line["K1 ranks"]),
               model_row=ranks_row(ga_line["K1 model"]),
               rg_model_row=ranks_row(ga_line["K1 rg model"])),
@@ -7267,6 +8062,7 @@ def main() -> int:
               launches_by_path=by_path(K2),
               elastic_row=elastic_row("K2"), fsdp_row=fsdp_row("K2"),
               streamed_row=streamed_row("K2"),
+              fsdp_ranks_row=fsdp_ranks_row("K2"),
               ranks_row=ranks_row(ga_line["K2 ranks"]),
               model_row=ranks_row(ga_line["K2 model"]),
               rg_model_row=ranks_row(ga_line["K2 rg model"])),
@@ -7426,8 +8222,7 @@ def main() -> int:
                   "walk": rg_model_launches[K4] - rg_model_launches[K4_TMA]},
               path=f"{rg_model_path} (a rank's channels)"),
     ]
-    print(f"phase seconds (each from the end of the one before; the "
-          f"first with the build and the kernel phases): "
+    print(f"phase seconds (each from the end of the one before): "
           f"{json.dumps(seconds)}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -7439,6 +8234,8 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == [RANKS_WORKER_FLAG]:
         sys.exit(ranks_worker(json.loads(sys.argv[2]), sys.argv[3]))
+    if sys.argv[1:2] == [FSDP_RANKS_WORKER_FLAG]:
+        sys.exit(fsdp_ranks_worker(json.loads(sys.argv[2]), sys.argv[3]))
     if sys.argv[1:2] == [MODEL_WORKER_FLAG]:
         sys.exit(model_worker(json.loads(sys.argv[2]), sys.argv[3]))
     if sys.argv[1:2] == [ATTN_MODEL_WORKER_FLAG]:

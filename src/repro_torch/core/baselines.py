@@ -27,7 +27,9 @@ the reference's.  No baseline combine runs a kernel, in either package:
 only the WAGMA butterfly calls K1/K2.
 
 Under ``fsdp_within_pod`` the trees are the ``(P_eff, n_b)`` shard
-buffers and every collective spans the pods (``comm_axis_*``, ``P_eff``).
+buffers (over a rank world this rank's ``(1, n_b / pod_size)`` slices) and
+every collective spans the pods (``comm_axis_*``, ``P_eff``; over ranks
+the plan's pod view).
 
 Semantics (D-PSGD's ring rides the minor dp axis, so with the one
 ``("data",)`` axis it spans all P replicas):

@@ -31,8 +31,10 @@ over dim 0.
 **Ranks** (compiled over a ``launch.mesh.RankWorld``, :class:`RankWire`):
 each process holds its own replica as ``(1, ...)`` leaves, as JAX's
 ``shard_map`` sees a ``(1, ...)`` block, and the primitives are
-point-to-point ``torch.distributed`` ops (``batch_isend_irecv``) and one
-float32 ``all_reduce(SUM)`` per bucket.  On gloo each exchange stages
+point-to-point ``torch.distributed`` ops (``batch_isend_irecv``) and a
+float32 sum per bucket that adds the ranks in rank order, as the stacked
+mean adds its rows (``all_to_all_single``, the adds, ``all_gather``).  On
+gloo each exchange stages
 through pinned host buffers (gloo takes CPU tensors); on nccl the device
 buffers go to the wire as they are.  An exchange returns a receipt
 (``overlap.Receipt``) at its tick of the wavefront (``core/overlap.py``)
@@ -73,6 +75,19 @@ replicated arithmetic over the ``P_eff`` rows (the butterfly's combines
 through K1/K2).  Per element that is the JAX plan's arithmetic, so the
 buffers agree with it bit for bit (pinned by tests).
 
+Over a rank world (gather-all) each rank is one member of its pod and
+holds the JAX plan's block, ``(1, n_b / shard_size)`` of every bucket:
+``shard_tree`` slices it, ``unshard_tree`` is one tiled all-gather a
+bucket over the pod's ranks (``RankWire.shard_all_gather``), and
+``grad_shards`` packs this member's gradient in float32 and
+reduce-scatters it, adding the members' slices in shard-axis order from
+member 0's and scaling by ``1/shard_size``
+(``RankWire.shard_reduce_scatter``), the one-card arithmetic bit for bit.
+``average``/``sync``/``mix`` run on the pod view's wire
+(``RankWorld.drop_axis``): the butterfly's bits, the ring and the mean
+are in pod space, and the view's sums add the pods in pod order, as the
+stacked mean adds its rows, times ``1/P_eff``.
+
 **Layer-streamed replicas** (DESIGN.md §11): ``sharding=ShardingPolicy.
 fsdp_within_pod(axis, streamed=True)`` compiles over the model's layered
 tree ``{"stem", "layers", "head"}`` with a layer-aware shard layout (every
@@ -81,8 +96,8 @@ group, pod=)`` reads one group's buckets of a pod's row as views (the JAX
 plan's per-group all-gather) and ``stream_grad_shards`` is the per-group
 twin of ``grad_shards``; ``core/streaming.py`` walks them.
 
-Not here: FSDP over a rank world (slice 7c) and the step-time models
-(ROADMAP.md).
+Not here: the layer-streamed engine over ranks (slice 7c-2), FSDP under a
+model axis (7c-3) and the step-time models (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -334,8 +349,8 @@ STACKED_WIRE = StackedWire()
 # ``h2d_s`` the host's time staging (gloo on a card: the copy to pinned
 # memory, which the send waits for, and the issue of the copy back),
 # ``wire_s`` the exposed wait (the host blocked on a receipt's works or on
-# a synchronous all_reduce), ``bytes`` sent by this rank, ``ops``
-# exchanges and all_reduces; ``issued`` the receipts issued,
+# a synchronous sum), ``bytes`` sent by this rank, ``ops`` collectives
+# waited on; ``issued`` the receipts issued,
 # ``in_flight_max`` the most pending at once (a running maximum),
 # ``span_s`` the seconds with a receipt pending (from an issue that finds
 # none to the resolve that leaves none).
@@ -348,7 +363,7 @@ def wire_stats() -> dict:
 
 
 class _RankReceipt(pipeline.Receipt):
-    """One exchange or all_reduce a :class:`RankWire` has posted: its
+    """One exchange or sum a :class:`RankWire` has posted: its
     works, where the delivery lands (``recv``, a host buffer when staged),
     how it becomes the tensor ``wait`` returns (``finish``) and the host
     buffers it holds until then (``held``: (role, buffer) pairs)."""
@@ -368,7 +383,7 @@ class RankWire:
     """The primitives over ``torch.distributed`` for one rank world: every
     buffer is this rank's own ``(1, ...)`` row.  Peers are dp ranks at
     this rank's model coordinate (its torch rank ``world.torch_rank_of``),
-    and the all-reduces run over its dp group, so with a model axis each
+    and the sums run over its dp group, so with a model axis each
     model coordinate averages its own slices.
 
     ``butterfly_exchange``, ``ring_shift`` and ``pmean_rows`` post their
@@ -413,14 +428,15 @@ class RankWire:
         _WIRE_STATS["in_flight_max"] = max(_WIRE_STATS["in_flight_max"],
                                            self.in_flight)
 
-    def _take(self, role: str, like: torch.Tensor) -> torch.Tensor:
-        """A pinned host buffer of ``like``'s size and dtype that nothing
-        else holds: a given-back one, once its copy back is done, or a new
-        one."""
-        free = self._host.setdefault((role, like.numel(), like.dtype), [])
+    def _take(self, role: str, like: torch.Tensor,
+              numel: Optional[int] = None) -> torch.Tensor:
+        """A pinned host buffer of ``like``'s dtype and size (``numel``
+        elements where given) that nothing else holds: a given-back one,
+        once its copy back is done, or a new one."""
+        numel = like.numel() if numel is None else numel
+        free = self._host.setdefault((role, numel, like.dtype), [])
         if not free:
-            return torch.empty(like.numel(), dtype=like.dtype,
-                               pin_memory=True)
+            return torch.empty(numel, dtype=like.dtype, pin_memory=True)
         buf, done = free.pop()
         if done is not None:
             done.synchronize()
@@ -454,16 +470,17 @@ class RankWire:
         _WIRE_STATS["d2h_s"] += time.perf_counter() - t
         return host
 
-    def _from_host(self, host: torch.Tensor, like: torch.Tensor):
-        """A new device tensor shaped like ``like`` holding ``host``, and
-        the event of the copy: it runs on the side stream and the caller's
-        stream waits for it."""
+    def _from_host(self, host: torch.Tensor, like: torch.Tensor,
+                   shape=None):
+        """A new device tensor on ``like``'s device, shaped like it (or
+        ``shape``), holding ``host``, and the event of the copy: it runs
+        on the side stream and the caller's stream waits for it."""
         t = time.perf_counter()
         side = self._side_stream()
+        shape = tuple(like.shape) if shape is None else tuple(shape)
         with torch.cuda.stream(side):
-            out = torch.empty(like.shape, dtype=like.dtype,
-                              device=like.device)
-            out.copy_(host.view(like.shape), non_blocking=True)
+            out = torch.empty(shape, dtype=host.dtype, device=like.device)
+            out.copy_(host.view(shape), non_blocking=True)
             landed = torch.cuda.Event()
             landed.record(side)
         torch.cuda.current_stream().wait_event(landed)
@@ -471,12 +488,14 @@ class RankWire:
         _WIRE_STATS["h2d_s"] += time.perf_counter() - t
         return out, landed
 
-    def _wait(self, works, sent: torch.Tensor) -> None:
+    def _wait(self, works, sent: torch.Tensor,
+              nbytes: Optional[int] = None) -> None:
         t = time.perf_counter()
         for w in works:
             w.wait()
         _WIRE_STATS["wire_s"] += time.perf_counter() - t
-        _WIRE_STATS["bytes"] += sent.numel() * sent.element_size()
+        _WIRE_STATS["bytes"] += (sent.numel() * sent.element_size()
+                                 if nbytes is None else nbytes)
         _WIRE_STATS["ops"] += 1
 
     def _resolve(self, receipt: _RankReceipt) -> torch.Tensor:
@@ -542,42 +561,190 @@ class RankWire:
         return self._exchange(buf, self.world.rank_of(ahead),
                               self.world.rank_of(behind))
 
-    def _all_reduce(self, buf: torch.Tensor):
-        """Post one float32 ``all_reduce(SUM)`` of ``buf`` over every dp
-        rank, in place, or in a host buffer it is staged into; returns the
-        work and the tensor it sums."""
-        # the dp group, where a model axis makes one (else the world)
-        kw = {} if self.world.dp_group is None else {
-            "group": self.world.dp_group}
+    def _dp_group(self) -> dict:
+        """The sums' group: the dp group where a model axis or a pod
+        view makes one, else the whole world."""
+        if self.world.dp_group is not None:
+            return {"group": self.world.dp_group}
+        if self.world.torch_ranks is not None:
+            raise ValueError(
+                f"a pod view's {self.world.P} ranks have no process group: "
+                "start the world with init_rank_world(..., shard_axis=...)")
+        return {}
+
+    def _rows_on(self, host: torch.Tensor, k: int, like: torch.Tensor):
+        """``host`` viewed as ``(k, n)`` rows on ``like``'s device (copied
+        back through the side stream when staged) and the copy's event
+        (``None`` where nothing was copied)."""
+        rows = host.view(k, -1)
+        if rows.device == like.device:
+            return rows, None
+        return self._from_host(host, like, rows.shape)
+
+    def _ordered_post(self, buf: torch.Tensor):
+        """Post the first half of a sum over the dp ranks in rank order
+        (gloo's and nccl's all-reduces fix no order of the adds: at four
+        ranks and more their float32 sum parts from the stacked mean's in
+        the last bits): ``buf`` cut into P column blocks (zero-padded to a
+        multiple of P), block q to dp rank q, one ``all_to_all_single``.  Returns the work, the delivery (every
+        rank's block q, in rank order) and the host buffers it holds."""
+        kw = self._dp_group()
+        ranks = [self.world.torch_rank_of(r) for r in range(self.world.P)]
+        if ranks != sorted(ranks):
+            raise ValueError(f"dp ranks {ranks} are not in their process "
+                             "group's order")
+        n, p = buf.numel(), self.world.P
+        flat = buf.reshape(-1)
+        if n % p:
+            flat = torch.cat([flat, flat.new_zeros(p - n % p)])
         if self.world.stages_through_host:
-            buf = self._to_host(self._take("sum", buf), buf)
-        return dist.all_reduce(buf, async_op=True, **kw), buf
+            src = self._to_host(self._take("send", flat), flat)
+            recv = self._take("recv", flat)
+            held = (("send", src), ("recv", recv))
+        else:
+            src, recv, held = flat.contiguous(), torch.empty_like(flat), ()
+        return (dist.all_to_all_single(recv, src, async_op=True, **kw), recv,
+                held)
+
+    def _ordered_finish(self, recv: torch.Tensor, like: torch.Tensor):
+        """The second half: this rank's block summed over the dp ranks in
+        rank order (:func:`_sum_rows`), then every rank's block
+        all-gathered.  Returns the sum shaped like ``like`` on its device
+        and the event of the copy that read ``recv`` (``None`` where
+        nothing was copied)."""
+        p = self.world.P
+        rows, done = self._rows_on(recv, p, like)
+        block = _sum_rows(rows)
+        if self.world.stages_through_host:
+            src = self._to_host(self._take("send", block), block)
+            out = self._take("gather", block, recv.numel())
+        else:
+            src = block
+            out = torch.empty(recv.numel(), dtype=block.dtype,
+                              device=block.device)
+        work = dist.all_gather_into_tensor(out, src, async_op=True,
+                                           **self._dp_group())
+        self._wait([work], src,
+                   (p - 1) * block.numel() * block.element_size())
+        total, landed = self._rows_on(out, 1, like)
+        if landed is not None:
+            self._give("send", src)
+            self._give("gather", out, landed)
+        return total.reshape(-1)[:like.numel()].view(like.shape), done
 
     def sync_rows_(self, buf: torch.Tensor) -> torch.Tensor:
-        """One float32 ``all_reduce(SUM)`` of ``buf`` over every dp rank,
+        """One float32 sum of ``buf`` over every dp rank in rank order,
         posted and waited at once, then one scale by ``1/P``, in place."""
-        work, summed = self._all_reduce(buf)
-        self._wait([work], summed)
-        if summed is not buf:
-            t = time.perf_counter()
-            buf.copy_(summed.view(buf.shape))
-            _WIRE_STATS["h2d_s"] += time.perf_counter() - t
-            self._give("sum", summed)
+        work, recv, held = self._ordered_post(buf)
+        self._wait([work], recv, (self.world.P - 1) * recv.numel()
+                   // self.world.P * recv.element_size())
+        total, done = self._ordered_finish(recv, buf)
+        buf.copy_(total)
+        for role, host in held:
+            self._give(role, host, None if role == "send" else done)
         return buf.mul_(1.0 / self.world.P)
 
     def pmean_rows(self, buf: torch.Tensor):
         """The mean over every dp rank in a new tensor (``sync_rows_``'s
         arithmetic); returns its receipt."""
-        staged = self.world.stages_through_host
-        work, summed = self._all_reduce(buf if staged else buf.clone())
+        inv = 1.0 / self.world.P
+        work, recv, held = self._ordered_post(buf)
         self._post()
 
-        def finish(summed):
-            out, done = (self._from_host(summed, buf) if staged
-                         else (summed, None))
-            return out.mul_(1.0 / self.world.P), done
-        return _RankReceipt(self, [work], summed, finish,
-                            (("sum", summed),) if staged else ())
+        def finish(recv):
+            out, done = self._ordered_finish(recv, buf)
+            return out.mul_(inv), done
+        return _RankReceipt(self, [work], recv, finish, held)
+
+    # -- the shard axis's collectives (FSDP within a pod) ------------------
+    def _shard_group(self, axis: str):
+        """This rank's pod (its members' torch ranks in shard-axis order)
+        and the process-group keyword of its collectives."""
+        members = self.world.shard_members(axis)
+        if self.world.shard_axis == axis and self.world.shard_group:
+            return members, {"group": self.world.shard_group}
+        if len(members) != self.world.P * self.world.model:
+            raise ValueError(
+                f"a pod of {len(members)} ranks has no process group: start "
+                f"the world with init_rank_world(..., shard_axis={axis!r})")
+        return members, {}
+
+    def shard_all_finite(self, finite: torch.Tensor, axis: str
+                         ) -> torch.Tensor:
+        """``finite`` (a bool) ANDed over the pod's ranks: one int32 MIN
+        over its group (the reference's ``pmin`` over the shard axis)."""
+        _, kw = self._shard_group(axis)
+        flag = finite.to(dtype=torch.int32).reshape(1)
+        flag = flag.cpu() if self.world.backend == "gloo" else flag.to(
+            self.world.device)
+        dist.all_reduce(flag, op=dist.ReduceOp.MIN, **kw)
+        return flag[0].bool()
+
+    def shard_all_gather(self, buf: torch.Tensor, axis: str
+                         ) -> torch.Tensor:
+        """The pod's members' ``(n,)`` slices joined in shard-axis order,
+        ``(pod_size * n,)`` on ``buf``'s device: one tiled all-gather over
+        the pod's group (the reference's ``all_gather(tiled=True)``)."""
+        members, kw = self._shard_group(axis)
+        n, size = buf.numel(), len(members)
+        src = buf.reshape(-1)
+        if self.world.stages_through_host:
+            src = self._to_host(self._take("send", buf), buf)
+            out = self._take("gather", buf, size * n)
+        else:
+            out = torch.empty(size * n, dtype=buf.dtype, device=buf.device)
+        work = dist.all_gather_into_tensor(out, src, async_op=True, **kw)
+        self._wait([work], src, (size - 1) * n * buf.element_size())
+        rows, done = self._rows_on(out, size, buf)
+        if done is not None:
+            self._give("send", src)
+            self._give("gather", out, done)
+        order = sorted(members)
+        if order != list(members):
+            rows = rows[[order.index(t) for t in members]]
+        return rows.reshape(-1)
+
+    def shard_reduce_scatter(self, buf: torch.Tensor, axis: str
+                             ) -> torch.Tensor:
+        """This member's ``(n,)`` slice of the sum of the pod's members'
+        ``(pod_size * n,)`` float32 buffers, added in shard-axis order from
+        member 0's (:func:`_sum_rows`), a new tensor on ``buf``'s device
+        (not yet scaled).  gloo's ``reduce_scatter`` fixes no order, so it
+        is one ``all_to_all_single`` (slice k to member k) and the sum
+        here."""
+        members, kw = self._shard_group(axis)
+        size = len(members)
+        order = sorted(members)
+        cols = buf.reshape(size, -1)
+        if order != list(members):
+            cols = cols[[members.index(t) for t in order]]
+        src = cols.reshape(-1)
+        if self.world.stages_through_host:
+            src = self._to_host(self._take("send", buf), src)
+            out = self._take("scatter", buf)
+        else:
+            src = src.contiguous()
+            out = torch.empty_like(src)
+        work = dist.all_to_all_single(out, src, async_op=True, **kw)
+        self._wait([work], src, (size - 1) * (buf.numel() // size)
+                   * buf.element_size())
+        rows, done = self._rows_on(out, size, buf)
+        if done is not None:
+            self._give("send", src)
+            self._give("scatter", out, done)
+        if order != list(members):
+            rows = rows[[order.index(t) for t in members]]
+        return _sum_rows(rows)
+
+
+def _sum_rows(rows: torch.Tensor) -> torch.Tensor:
+    """The sum of a ``(k, n)`` tensor's rows in row order, starting from a
+    copy of row 0: the stacked mean's and the one-card ``grad_shards``'
+    order of float32 adds."""
+    acc = rows[0].clone()
+    for r in rows[1:]:
+        acc.add_(r)
+    return acc
 
 
 _WIRES: Dict[object, RankWire] = {}
@@ -734,7 +901,6 @@ class AveragingPlan:
                              f"match the topology's {topology.axis_sizes}")
         refuse_sharded_world(sharding, world)
         self.world = world
-        self.wire = wire_for(world)
         self.P = topology.P
         # Sharded plans butterfly over the *effective* (pod-level) replica
         # space: the shard axis's ranks share weights and act as ONE
@@ -760,6 +926,12 @@ class AveragingPlan:
             self.shard_axis_index = None
             self.shard_size = 1
             self.eff_topology = topology
+        # over ranks a sharded plan averages pod to pod on the pod view
+        # (its shard collectives run on the whole world's wire)
+        self.shard_wire = wire_for(world)
+        self.wire = wire_for(
+            world.drop_axis(sharding.shard_axis)
+            if world is not None and sharding.is_sharded else world)
         self.P_eff = self.eff_topology.P
         self.S = cfg.group_size or grouping.default_group_size(self.P_eff)
         if self.S > self.P_eff:
@@ -869,16 +1041,42 @@ class AveragingPlan:
         return tuple(tr.Spec((s // self.shard_size,), d)
                      for s, d in zip(lay.bucket_sizes, lay.bucket_dtypes))
 
+    @property
+    def _over_ranks(self) -> bool:
+        return self.world is not None and self.sharding.is_sharded
+
     def shard_tree(self, stacked_tree) -> tuple:
         """``(P_eff, ...)`` pod trees -> the ``(P_eff, n_b)`` shard
         buffers (new tensors): the stacked twin of the JAX plan's pack and
-        slice of each device's share."""
-        return bucketing.pack(stacked_tree, self.shard_layout)
+        slice of each device's share.  Over ranks, this rank's pod's
+        ``(1, ...)`` tree -> its ``(1, n_b / shard_size)`` slices."""
+        bufs = bucketing.pack(stacked_tree, self.shard_layout)
+        if not self._over_ranks:
+            return bufs
+        s = self.world.shard_coord(self.sharding.shard_axis)
+        out = []
+        for b in bufs:
+            n = b.shape[-1] // self.shard_size
+            out.append(b[..., s * n:(s + 1) * n].clone())
+        return tuple(out)
 
     def unshard_tree(self, shards, pod: Optional[int] = None):
         """Shard buffers -> pod ``pod``'s full tree (the JAX plan's
         all-gather over the shard axis), its leaves views into the pod's
-        row; with no ``pod``, every pod's tree stacked ``(P_eff, ...)``."""
+        row; with no ``pod``, every pod's tree stacked ``(P_eff, ...)``.
+        Over ranks one tiled all-gather a bucket of this rank's ``(1, n)``
+        slices over its pod's ranks: its pod's tree (``(1, ...)`` with no
+        ``pod``)."""
+        if self._over_ranks:
+            axis = self.sharding.shard_axis
+            if pod not in (None, self.world.pod_of(axis)):
+                raise ValueError(f"rank {self.world.rank} holds pod "
+                                 f"{self.world.pod_of(axis)}, not {pod}")
+            rows = tuple(self.shard_wire.shard_all_gather(b, axis)
+                         if b.numel() else b.reshape(-1) for b in shards)
+            if pod is None:
+                rows = tuple(r[None] for r in rows)
+            return bucketing.unpack(rows, self.shard_layout)
         rows = shards if pod is None else tuple(b[pod] for b in shards)
         return bucketing.unpack(rows, self.shard_layout)
 
@@ -891,8 +1089,25 @@ class AveragingPlan:
         first is packed in float32, each next one added into those buffers
         leaf by leaf, and the sum scaled by ``1/shard_size``: the JAX plan's
         tiled ``psum_scatter`` times ``1/shard_size``, every device's slice
-        at once.  Returns ``(n_b,)`` buffers.
+        at once.  Returns ``(n_b,)`` buffers.  Over ranks it yields this
+        member's alone, packed in float32 and reduce-scattered over its pod
+        (``RankWire.shard_reduce_scatter``: the same adds in the same
+        order): this rank's ``(n_b / shard_size,)`` slices.
         """
+        inv = 1.0 / self.shard_size
+        if self._over_ranks:
+            mine = list(member_grads)
+            if len(mine) != 1:
+                raise ValueError(f"grad_shards over ranks takes this "
+                                 f"member's gradient alone, got {len(mine)}")
+            axis = self.sharding.shard_axis
+            out = []
+            for b in bucketing.pack(mine.pop(), self.shard_layout,
+                                    dtype=torch.float32):
+                out.append(self.shard_wire.shard_reduce_scatter(b, axis)
+                           .mul_(inv) if b.numel() else b)
+                del b
+            return tuple(out)
         acc = None
         for g in member_grads:
             if acc is None:
@@ -903,7 +1118,6 @@ class AveragingPlan:
             del g
         if acc is None:
             raise ValueError("grad_shards: a pod with no members")
-        inv = 1.0 / self.shard_size
         return tuple(b.mul_(inv) for b in acc)
 
     # -- layer-streamed gather/scatter (DESIGN.md §11) ---------------------
@@ -1311,7 +1525,8 @@ def evict_topology(topology: Topology) -> int:
         for k in dead:
             del cache[k]
         removed += len(dead)
-    live = {k[4] for k in _PLAN_CACHE}
+    live = {getattr(w, "world", None) for p in _PLAN_CACHE.values()
+            for w in (p.wire, p.shard_wire)}
     for world in [w for w in _WIRES if w not in live]:
         del _WIRES[world]
     return removed
@@ -1361,9 +1576,11 @@ def compile_plan(topology: Topology, tree_shapes,
     _PLAN_CACHE[key] = plan
     if sharding.is_sharded:
         lay = plan.shard_layout
+        # over ranks the state is a rank's column slices
+        div = plan.shard_size if world is not None else 1
         for dtypes in (lay.bucket_dtypes,
                        (torch.float32,) * lay.n_buckets):
-            row = tuple(tr.Spec((n,), d)
+            row = tuple(tr.Spec((n // div,), d)
                         for n, d in zip(lay.bucket_sizes, dtypes))
             _SHARD_STRUCT_CACHE.setdefault(
                 (topology, config, sharding, _structure_key(row), world),

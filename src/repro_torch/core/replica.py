@@ -18,7 +18,10 @@ per-replica weights:
   package spreads each row's columns over the pod's devices; on one card
   the port holds that global array whole, as it holds the replicated one,
   so its layouts, checkpoints and conversions are the reference's byte for
-  byte.
+  byte.  Over a rank world (``launch/mesh.py``, the gather-all engine)
+  each rank is one member and holds the reference's block: its column
+  slice ``(1, n_b / pod_size)`` of its pod's row of every bucket and a
+  ``(1,)`` count (:func:`rank_slices`, :func:`join_rank_slices`).
 
 ``ShardingPolicy.fsdp_within_pod(shard_axis, streamed=True)`` (DESIGN.md
 §11) is the layer-streamed layout: the same ``(P_eff, n_b)`` buffers, laid
@@ -31,7 +34,9 @@ Host-side helpers translate whole states between the policies (a
 checkpoint written under one restores under the other), between the
 layered and canonical structures of a replicated state, and consolidate
 any layout into the one model a server loads (``serve/handoff.py``).
-FSDP over a rank world belongs to slice 7c and raises, naming it.
+FSDP over a rank world runs gather-all; the layer-streamed engine over
+ranks and FSDP under a model axis are later parts of slice 7c and raise,
+naming theirs.
 """
 
 from __future__ import annotations
@@ -47,7 +52,10 @@ from repro_torch.core import tree as tr
 
 REPLICATED_KIND = "replicated"
 FSDP_KIND = "fsdp_within_pod"
-FSDP_SLICE = "slice 7c: FSDP over ranks (ROADMAP.md)"
+FSDP_STREAMED_SLICE = "slice 7c-2: layer-streamed FSDP over ranks (ROADMAP.md)"
+FSDP_MODEL_SLICE = "slice 7c-3: FSDP under a model axis (ROADMAP.md)"
+FSDP_SLICE = ("slice 7c: FSDP over ranks, gather-all ported (7c-1); "
+              f"{FSDP_STREAMED_SLICE}; {FSDP_MODEL_SLICE}")
 
 
 @dataclass(frozen=True)
@@ -98,11 +106,20 @@ REPLICATED = ShardingPolicy.replicated()
 
 
 def refuse_sharded_world(sharding: ShardingPolicy, world) -> None:
-    """FSDP over a rank world is slice 7c's: raise, naming it."""
-    if sharding.is_sharded and world is not None:
+    """The parts of FSDP over a rank world not ported yet raise, naming
+    theirs: the streamed engine (7c-2) and a world with a model axis
+    (7c-3).  Gather-all FSDP over ranks passes."""
+    if not sharding.is_sharded or world is None:
+        return
+    if sharding.streamed:
         raise NotImplementedError(
             f"{sharding.describe()} over a rank world is not ported yet; it "
-            f"belongs to {FSDP_SLICE}")
+            f"belongs to {FSDP_STREAMED_SLICE}")
+    if world.model != 1:
+        raise NotImplementedError(
+            f"{sharding.describe()} over a world with a model axis of "
+            f"{world.model} is not ported yet; it belongs to "
+            f"{FSDP_MODEL_SLICE}")
 
 
 @dataclass
@@ -158,6 +175,28 @@ def pod_members(plan, pod: int) -> Tuple[int, ...]:
     """The dp ranks of pod ``pod`` of a sharded plan, in rank order."""
     eff = effective_rank_map(plan.topology.axis_sizes, plan.shard_axis_index)
     return tuple(int(r) for r in np.nonzero(eff == pod)[0])
+
+
+def rank_slices(buffers, plan, world) -> tuple:
+    """This rank's block of ``(P_eff, n_b)`` global shard buffers: its
+    pod's row, its column slice (``n_b / pod_size`` wide, at its shard
+    coordinate), as new ``(1, n_b / pod_size)`` tensors."""
+    axis = plan.sharding.shard_axis
+    pod, s = world.pod_of(axis), world.shard_coord(axis)
+    out = []
+    for b in buffers:
+        n = b.shape[1] // plan.shard_size
+        out.append(b[pod:pod + 1, s * n:(s + 1) * n].clone())
+    return tuple(out)
+
+
+def join_rank_slices(stacked, plan) -> tuple:
+    """Every dp rank's ``(1, n_b / pod_size)`` blocks, stacked ``(P,
+    n_b / pod_size)`` in dp-rank order, -> the ``(P_eff, n_b)`` global
+    buffers: each pod's members' slices joined in shard-axis order."""
+    members = [pod_members(plan, e) for e in range(plan.P_eff)]
+    return tuple(torch.stack([torch.cat([b[r] for r in rows])
+                              for rows in members]) for b in stacked)
 
 
 def _pack_rows(stacked_tree, layout, n_rows: int, dtype=None) -> tuple:

@@ -16,7 +16,9 @@ topology compiles to for the current tree structure.  The trees it is
 handed are stacked ``(P, ...)``, or, over a rank world
 (``launch/mesh.py``), this rank's ``(1, ...)`` row; under
 ``fsdp_within_pod`` the ``(P_eff, n_b)`` shard buffers, one row a pod, the
-groups formed over the ``P_eff`` pods.
+groups formed over the ``P_eff`` pods; over a rank world this rank's
+``(1, n_b / pod_size)`` slices of its pod's row, averaged pod to pod on the
+plan's pod view.
 """
 
 from __future__ import annotations

@@ -142,7 +142,8 @@ class ElasticTrainer:
                 "ElasticTrainer drives the replicated policy; sharded "
                 "worlds convert through core.elastic.handoff_state at pod "
                 "granularity, but pod-granular membership in the driver "
-                "is not in the reference either (future work there)")
+                "is not in the reference either (future work there, and "
+                "no part of slice 7c)")
         world = trainer_kw.get("world")
         if world is not None:
             raise NotImplementedError(

@@ -22,6 +22,19 @@ model coordinate (the ranks that hold the same slices, ``dp_group``),
 which the plan's all-reduces run over.  With ``M = 1`` neither exists
 and every collective runs over the whole world, as before.
 
+**FSDP within a pod** (``shard_axis="data"``): the ranks that differ only
+on the shard axis are one pod's members and share one set of weights,
+each holding its column slice of the pod's shard buckets.  Every rank
+creates, in the same order, one process group a pod (its members in
+shard-axis order, ``shard_group``: the all-gather and the reduce-scatter
+of ``core/plan.py``) and one a shard coordinate (the ranks holding the
+same slice of every pod, the pod view's ``dp_group``: its all-reduces).
+``RankWorld.drop_axis(shard_axis)`` is the pod view, the twin of
+``Topology.drop_axis``: a world over the remaining dp axes whose rank is
+this rank's pod and whose peers are the members at this rank's shard
+coordinate, so the plan's butterfly, ring and mean run pod to pod on the
+slices unchanged.
+
 The backend is the caller's explicit choice, never switched silently:
 ``nccl`` hands device tensors to the collectives and needs one card per
 local rank (it raises otherwise: NCCL refuses two ranks on one card);
@@ -34,6 +47,7 @@ The reference's TPU v5e constants have no counterpart here.
 
 from __future__ import annotations
 
+import dataclasses
 import os
 from dataclasses import dataclass, field
 from typing import Optional, Sequence, Tuple
@@ -56,6 +70,11 @@ class RankWorld:
     radix, minor first).  ``model`` ranks split each replica's model, this
     one at ``model_rank``; the torch rank is ``rank * model +
     model_rank`` (the dp rank itself at ``model`` 1).
+
+    ``shard_axis`` names the FSDP shard axis the world was started for
+    (``init_rank_world``), ``shard_group`` this rank's pod's group and
+    ``coord_groups`` the group of each shard coordinate.  A pod view
+    (:meth:`drop_axis`) lists its ranks' torch ranks in ``torch_ranks``.
     """
     axis_names: Tuple[str, ...]
     axis_sizes: Tuple[int, ...]
@@ -66,6 +85,10 @@ class RankWorld:
     model_rank: int = 0
     model_group: object = field(default=None, compare=False, repr=False)
     dp_group: object = field(default=None, compare=False, repr=False)
+    shard_axis: Optional[str] = None
+    shard_group: object = field(default=None, compare=False, repr=False)
+    coord_groups: tuple = field(default=(), compare=False, repr=False)
+    torch_ranks: Optional[Tuple[int, ...]] = None
 
     def __post_init__(self):
         if len(self.axis_names) != len(self.axis_sizes):
@@ -104,8 +127,71 @@ class RankWorld:
 
     def torch_rank_of(self, dp_rank: int) -> int:
         """The torch rank of dp rank ``dp_rank`` at this rank's model
-        coordinate."""
+        coordinate (in a pod view, of pod ``dp_rank``'s member at this
+        rank's shard coordinate)."""
+        if self.torch_ranks is not None:
+            return self.torch_ranks[dp_rank]
         return dp_rank * self.model + self.model_rank
+
+    # -- FSDP within a pod ---------------------------------------------------
+    def _axis_index(self, name: str) -> int:
+        if name not in self.axis_names:
+            raise ValueError(f"axis {name!r} not in {self.axis_names}")
+        return self.axis_names.index(name)
+
+    def pod_of(self, name: str) -> int:
+        """This rank's pod: its dp rank with the shard axis ``name``
+        dropped (``replica.effective_rank_map``)."""
+        ax, rank, stride = self._axis_index(name), 0, 1
+        for i, (c, s) in enumerate(zip(self.coords, self.axis_sizes)):
+            if i != ax:
+                rank += c * stride
+                stride *= s
+        return rank
+
+    def shard_coord(self, name: str) -> int:
+        """This rank's coordinate on the shard axis ``name``."""
+        return self.coords[self._axis_index(name)]
+
+    def shard_members(self, name: str) -> Tuple[int, ...]:
+        """The torch ranks of this rank's pod, in shard-axis order."""
+        ax = self._axis_index(name)
+        coords = list(self.coords)
+        out = []
+        for s in range(self.axis_sizes[ax]):
+            coords[ax] = s
+            out.append(self.torch_rank_of(self.rank_of(coords)))
+        return tuple(out)
+
+    def drop_axis(self, name: str) -> "RankWorld":
+        """The pod view: a world over the dp axes but ``name`` whose rank
+        is this rank's pod and whose peers are each pod's member at this
+        rank's shard coordinate (their all-reduces over that coordinate's
+        group, summed in pod order).  FSDP over a model axis is not
+        ported (``replica.refuse_sharded_world``)."""
+        ax = self._axis_index(name)
+        if len(self.axis_names) == 1:
+            raise ValueError("cannot drop the only dp axis")
+        if self.model != 1:
+            raise ValueError("a pod view of a world with a model axis")
+        keep = [i for i in range(len(self.axis_names)) if i != ax]
+        names = tuple(self.axis_names[i] for i in keep)
+        sizes = tuple(self.axis_sizes[i] for i in keep)
+        coord = self.coords[ax]
+        coords = list(self.coords)
+        ranks = []
+        for pod in range(self.P // self.axis_sizes[ax]):
+            rem = pod
+            for i, s in zip(keep, sizes):
+                coords[i] = rem % s
+                rem //= s
+            coords[ax] = coord
+            ranks.append(self.torch_rank_of(self.rank_of(coords)))
+        group = (self.coord_groups[coord] if self.shard_axis == name
+                 and self.coord_groups else None)
+        return RankWorld(names, sizes, self.pod_of(name), self.device,
+                         self.backend, dp_group=group,
+                         torch_ranks=tuple(ranks))
 
     @property
     def torch_rank(self) -> int:
@@ -168,11 +254,15 @@ def rank_device(backend: str, device_type: str, local_rank: int,
 
 def init_rank_world(data: int, pod: Optional[int] = None, *, model: int = 1,
                     backend: Optional[str] = None, device_type: str = "cuda",
-                    init_method: str = "env://") -> RankWorld:
+                    init_method: str = "env://",
+                    shard_axis: Optional[str] = None) -> RankWorld:
     """Join the process group torchrun describes (``RANK``, ``WORLD_SIZE``,
     ``LOCAL_RANK``, ``LOCAL_WORLD_SIZE``) and return this rank's world.
     ``data x pod x model`` must equal the world size; with ``model`` > 1
-    every rank creates the model and dp groups."""
+    every rank creates the model and dp groups, with ``shard_axis`` (FSDP
+    within a pod, at ``model`` 1) the pod groups and the shard
+    coordinates' groups.  A process already in the group only creates the
+    groups of the world it asks for (every rank must ask alike)."""
     names, sizes = dp_axes(data, pod)
     world_size = int(os.environ["WORLD_SIZE"])
     rank = int(os.environ["RANK"])
@@ -201,9 +291,28 @@ def init_rank_world(data: int, pod: Optional[int] = None, *, model: int = 1,
             ranks = [d * model + m for d in range(p)]
             groups[("dp", m)] = dist.new_group(ranks)
     dp_rank, model_rank = divmod(rank, model)
-    return RankWorld(names, sizes, dp_rank, device, backend, model,
-                     model_rank, groups.get(("model", dp_rank)),
-                     groups.get(("dp", model_rank)))
+    world = RankWorld(names, sizes, dp_rank, device, backend, model,
+                      model_rank, groups.get(("model", dp_rank)),
+                      groups.get(("dp", model_rank)))
+    if shard_axis is None:
+        return world
+    if model != 1:
+        from repro_torch.core.replica import FSDP_MODEL_SLICE
+        raise NotImplementedError(
+            f"FSDP within a pod over a world with a model axis belongs to "
+            f"{FSDP_MODEL_SLICE}")
+    ax = world._axis_index(shard_axis)
+    probe = lambda r: dataclasses.replace(world, rank=r)
+    pods = {}
+    for r in range(p):          # every pod's members, in shard-axis order
+        pods.setdefault(probe(r).pod_of(shard_axis), []).append(r)
+    pod_groups = [dist.new_group(pods[e]) for e in sorted(pods)]
+    coord_groups = tuple(dist.new_group(
+        [members[c] for _, members in sorted(pods.items())])
+        for c in range(sizes[ax]))
+    return dataclasses.replace(
+        world, shard_axis=shard_axis, coord_groups=coord_groups,
+        shard_group=pod_groups[world.pod_of(shard_axis)])
 
 
 def shutdown() -> None:

@@ -1,6 +1,6 @@
 """Training driver: the data-parallel SGD loop (WAGMA-SGD or a baseline
 averager), replicated on one device or one replica a rank, or FSDP within
-a pod on one device.
+a pod on one device or one member a rank.
 
 Counterpart of ``repro/launch/train.py``.  Builds the model, optimiser and
 averager; keeps the cache of step variants (one per butterfly phase offset
@@ -17,6 +17,9 @@ rank, as JAX lays them over a mesh's ``pod`` and ``data`` axes.
         --pod-axis 2 --pod-dcn --ckpt-dir ckpt
     python -m repro_torch.launch.train --arch tinyllama-1.1b --data-axis 2 \\
         --pod-axis 4 --pod-dcn --sharding fsdp --group-size 2 --tau 5
+    python -m torch.distributed.run --standalone --nproc-per-node 8 \\
+        -m repro_torch.launch.train --arch tinyllama-1.1b --data-axis 2 \\
+        --pod-axis 4 --pod-dcn --sharding fsdp --group-size 2 --tau 5
 
 runs on the CUDA card; ``REPRO_TORCH_DEVICE=cpu`` asks for the CPU (add
 ``--smoke`` there).  Under torchrun (``WORLD_SIZE`` > 1) each rank trains
@@ -24,13 +27,18 @@ its own replica over the backend ``REPRO_TORCH_BACKEND`` names (default
 nccl on the card, gloo on the CPU; ``gloo`` lets ranks share one card).
 ``--model-axis M`` (every family) splits each replica's model over M
 ranks, model minor (``launch/mesh.py``):
-torchrun starts ``data x pod x M`` ranks.  ``--sharding fsdp`` makes the members of each pod (the ranks
-that differ on the minor dp axis) one logical worker sharing one set of
-shard buffers (``core/replica.py``), on one device; ``--streamed`` adds
-the layer-streamed engine (``core/streaming.py``), the dense family's
-only.  Flags
-of the JAX driver whose feature is not ported yet raise, naming their
-slice (ROADMAP.md): FSDP under torchrun is slice 7c's.
+torchrun starts ``data x pod x M`` ranks.  ``--sharding fsdp`` makes the
+members of each pod (the replicas that differ on the minor dp axis) one
+logical worker sharing one set of shard buffers (``core/replica.py``):
+on one device the rows of one state, under torchrun one member a rank,
+each holding its column slice of its pod's buffers (the gather-all
+engine: an all-gather, a reduce-scatter and the pod-to-pod butterfly
+over the ranks); a checkpoint gathers the slices on rank 0 and is the
+one-device run's, byte for byte.  ``--streamed`` adds the layer-streamed
+engine (``core/streaming.py``), the dense family's only, on one device.
+Flags of the JAX driver whose feature is not ported yet raise, naming
+their slice (ROADMAP.md): ``--streamed`` under torchrun is slice 7c-2's,
+``--sharding fsdp`` with ``--model-axis`` > 1 slice 7c-3's.
 """
 
 from __future__ import annotations
@@ -48,9 +56,11 @@ from repro_torch.configs import get_config
 from repro_torch.configs.base import InputShape
 from repro_torch.core.baselines import AVERAGERS, make_averager
 from repro_torch.core.plan import Topology
-from repro_torch.core.replica import (REPLICATED, ReplicaState,
+from repro_torch.core.replica import (FSDP_MODEL_SLICE, FSDP_STREAMED_SLICE,
+                                      REPLICATED, ReplicaState,
                                       ShardingPolicy, consolidate_state,
-                                      map_opt_state)
+                                      join_rank_slices, map_opt_state,
+                                      pod_members, rank_slices)
 from repro_torch.core import tree as tr
 from repro_torch.data import make_batch_fn
 from repro_torch.launch import mesh
@@ -159,6 +169,16 @@ class Trainer:
         if rows != self.averager.P_eff:
             raise ValueError(f"state has {rows} replica rows; this run has "
                              f"{self.averager.P_eff}")
+        if self.sharding.is_sharded and self.world is not None:
+            # a member's column slices of its pod's row, its pod's count
+            plan, world = self.plan(), self.world
+            pod = world.pod_of(self.sharding.shard_axis)
+            put = lambda t: tuple(a.to(self.device)
+                                  for a in rank_slices(t, plan, world))
+            return ReplicaState(put(state.params),
+                                map_opt_state(state.opt_state, put,
+                                              lambda c: c[pod:pod + 1].cpu()),
+                                state.step, state.phase)
         r = self._rows()
         mw = self.model.model_world
 
@@ -227,13 +247,27 @@ class Trainer:
         """The ``(P, ...)`` ReplicaState on the host: every rank's row
         gathered on rank 0 (``None`` on the other ranks); with a model
         world, every rank's slices joined into whole leaves, so the state
-        is the one a model-1 run would hold."""
+        is the one a model-1 run would hold; under FSDP, every member's
+        column slices joined into its pod's row, the one-process run's
+        ``(P_eff, n_b)`` state."""
+        st = self.state
         if self.world is None:
             get = lambda t: tr.tree_map(lambda a: a.cpu(), t)
+        elif self.sharding.is_sharded:
+            # every member's slices joined into each pod's row; a pod's
+            # count from its first member (its members skip together)
+            plan = self.plan()
+            firsts = [pod_members(plan, e)[0] for e in range(plan.P_eff)]
+
+            def get(t):
+                rows = mesh.gather_rows(self.world, t)
+                if rows is None:
+                    return None
+                return (join_rank_slices(rows, plan)
+                        if isinstance(t, tuple) else rows[firsts])
         else:
             get = lambda t: mesh.gather_model_slices(
                 self.world, t, cm.placement(self.cfg, t, self.world.model))
-        st = self.state
         params, opt = get(st.params), map_opt_state(st.opt_state, get, get)
         if self.world is not None and self.world.torch_rank != 0:
             return None
@@ -263,7 +297,10 @@ class Trainer:
             return serving_weights_from_state(self.state, plan=plan,
                                               model=self.model)
         state = self.gathered_state()
-        return None if state is None else consolidate_state(state)
+        if state is None:
+            return None
+        return consolidate_state(
+            state, self.plan() if self.sharding.is_sharded else None)
 
     def run(self, steps: int, log_every: int = 10, ckpt_dir=None,
             ckpt_every: int = 0):
@@ -338,13 +375,25 @@ def main():
             "TPU chips; give --data-axis and --pod-axis")
     if not args.data_axis:
         raise SystemExit("give --data-axis: the number of replicas")
+    fsdp = args.sharding == "fsdp"
+    if fsdp and args.streamed and ranks > 1:
+        raise NotImplementedError(
+            f"--sharding fsdp --streamed under torchrun belongs to "
+            f"{FSDP_STREAMED_SLICE}")
+    if fsdp and n_model > 1:
+        raise NotImplementedError(
+            f"--sharding fsdp with --model-axis {n_model} belongs to "
+            f"{FSDP_MODEL_SLICE}")
 
     device = os.environ.get("REPRO_TORCH_DEVICE", "cuda")
     world = None
     if ranks > 1:
         world = mesh.init_rank_world(
             args.data_axis, args.pod_axis, model=n_model, device_type=device,
-            backend=os.environ.get("REPRO_TORCH_BACKEND"))
+            backend=os.environ.get("REPRO_TORCH_BACKEND"),
+            shard_axis=(resolve_sharding(args.sharding, mesh.dp_axes(
+                args.data_axis, args.pod_axis)[0]).shard_axis
+                if fsdp else None))
     topology = None
     if args.pod_dcn:
         topology = Topology.hierarchical(

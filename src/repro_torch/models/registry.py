@@ -261,7 +261,8 @@ def build_model(cfg, device="cuda", model_world=None) -> ModelAPI:
         prefill=prefill,
         decode_step=lambda params, caches, token, pos: mod.decode_step(
             cfg, params, caches, token, pos, **tp),
-        # the layered engine over a model world (FSDP over ranks): slice 7c
+        # the layered engine over a model world (FSDP under a model axis):
+        # slice 7c-3
         layered=(_dense_layered(cfg, chunked)
                  if cfg.family == "dense" and mw is None else None),
         model_world=mw,

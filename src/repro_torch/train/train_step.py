@@ -1,6 +1,6 @@
 """Data-parallel train step (WAGMA-SGD and the baselines): replicated on
-one device or one replica a rank, and FSDP-within-pod on one device,
-gather-all or layer-streamed.
+one device or one replica a rank, FSDP-within-pod on one device,
+gather-all or layer-streamed, and gather-all FSDP over ranks.
 
 Counterpart of ``repro/train/train_step.py``.
 Per replica: local gradients, a local optimiser step guarded against
@@ -65,6 +65,18 @@ batch.  The step is the same code with one row: the rank's gradients, its
 guarded update, then ``averager.comm``/``sync`` over the wire
 (``core/plan.py``); the metrics are averaged over the ranks by one
 ``all_reduce``, as the reference's ``pmean`` over dp.
+
+**FSDP over ranks** (gather-all).  Each rank is one member of its pod
+and holds its column slices of the pod's shard buffers, ``(1, n_b /
+pod_size)``, and a ``(1,)`` count (``core/replica.py``).  The unit is
+this rank alone: ``plan.unshard_tree`` all-gathers its pod's tree over the
+pod's ranks, the gradients are taken on its own batch rows,
+``plan.grad_shards`` reduce-scatters them (per microbatch, accumulated as
+on one card), and the guarded update writes its slices.  The non-finite
+flag is the MIN over the pod's ranks (:func:`pod_all_finite`, the
+reference's ``pmin`` over the shard axis): one member's NaN lands in one
+slice only, and the whole pod must skip.  The metrics are the mean over
+every dp rank.
 
 **The model axis.**  Over a rank world with ``model`` ranks a replica
 (``launch/mesh.py``), each rank holds its replica's slices by
@@ -147,8 +159,14 @@ def init_replica_state(model, optimizer, averager,
     with a ``(P,)`` count (one row and a ``(1,)`` count on a rank).  Under
     ``fsdp_within_pod``: one init packed into the plan's shard layout and
     broadcast to ``(P_eff, n_b)`` buffers, float32 moments of the same
-    shapes and a ``(P_eff,)`` count."""
-    if averager.sharding.is_sharded:
+    shapes and a ``(P_eff,)`` count; over ranks this rank's ``(1, n_b /
+    pod_size)`` slices of them and a ``(1,)`` count."""
+    if averager.sharding.is_sharded and averager.world is not None:
+        plan = plan_of(model, averager)
+        params = plan.shard_tree(tr.tree_map(lambda a: a[None],
+                                             model.init(generator)))
+        rows = 1
+    elif averager.sharding.is_sharded:
         params0 = model.init(generator)
         plan = plan_of(model, averager)
         if averager.sharding.streamed:
@@ -185,6 +203,17 @@ def replica_all_finite(model, grads) -> torch.Tensor:
     flag = finite.to(device=tr.tree_leaves(grads)[0].device,
                      dtype=torch.int32).reshape(1)
     return cm.model_all_reduce(flag, mw, op=dist.ReduceOp.MIN)[0].bool()
+
+
+def pod_all_finite(plan, finite: torch.Tensor) -> torch.Tensor:
+    """A rank's non-finite flag over its pod under FSDP over ranks: the MIN
+    over the pod's members (the reference's ``pmin`` over the shard axis),
+    so that a NaN in one member's slice skips every member's update; the
+    flag itself elsewhere."""
+    if plan is None or not plan.sharding.is_sharded or plan.world is None:
+        return finite
+    return plan.shard_wire.shard_all_finite(finite,
+                                            plan.sharding.shard_axis)
 
 
 def guarded_update(optimizer, grads, opt_state, params, *, finite=None):
@@ -310,16 +339,18 @@ def build_train_step(model, optimizer, averager, *, phase: int, sync: bool,
             acc = tuple(a.div_(n_mb) for a in acc)
         return acc, {r: _mean_metrics(ms) for r, ms in metrics_all.items()}
 
-    def update_rows(state, r, grads):
+    def update_rows(state, r, grads, plan=None):
         """Row r's guarded update from ``grads`` (a replica's, or a pod's
-        under FSDP), written into its rows in place; returns whether the
-        non-finite guard skipped it."""
+        under FSDP; over ranks a member's slices, the flag over its pod),
+        written into its rows in place; returns whether the non-finite
+        guard skipped it."""
         params_r = _row(state.params, r)
         opt_r = map_opt_state(state.opt_state, lambda t: _row(t, r),
                               lambda c: c[r])
+        finite = replica_all_finite(model, grads)
         new_p, new_o, skipped = guarded_update(
             optimizer, grads, opt_r, params_r,
-            finite=replica_all_finite(model, grads))
+            finite=pod_all_finite(plan, finite))
         if not skipped:
             _write(params_r, new_p)
             for f in opt_r._fields:
@@ -337,8 +368,18 @@ def build_train_step(model, optimizer, averager, *, phase: int, sync: bool,
         b = rows // n_rep
         local = lambda r: {k: v[r * b:(r + 1) * b] for k, v in batch.items()}
         # a unit is a row of the state: a replica, or under FSDP a pod and
-        # its members (the dp ranks whose batch rows it trains on)
-        if sharded:
+        # its members (the dp ranks whose batch rows it trains on); over
+        # ranks this rank, one member of its pod
+        plan = None
+        if sharded and averager.world is not None:
+            plan = plan_of(model, averager)
+            units = [(0,)]
+            pod = averager.world.pod_of(plan.sharding.shard_axis)
+
+            def unit_grads(u):
+                return pod_grads_and_metrics(plan, state.params, pod,
+                                             units[u], local)
+        elif sharded:
             plan = plan_of(model, averager)
             units = [pod_members(plan, e) for e in range(plan.P_eff)]
 
@@ -377,14 +418,14 @@ def build_train_step(model, optimizer, averager, *, phase: int, sync: bool,
                      else averager.comm(stacked, phase))
             del stacked
             for u in range(len(units)):
-                note_skip(u, update_rows(state, u, _row(grads, u)))
+                note_skip(u, update_rows(state, u, _row(grads, u), plan))
             del grads
             params = state.params
         else:
             for u in range(len(units)):
                 grads, ms = unit_grads(u)
                 metrics_of.update(ms)
-                note_skip(u, update_rows(state, u, grads))
+                note_skip(u, update_rows(state, u, grads, plan))
                 del grads
             params = (averager.sync(state.params) if sync
                       else averager.comm(state.params, phase))
@@ -402,7 +443,7 @@ def build_train_step(model, optimizer, averager, *, phase: int, sync: bool,
 
 def mean_over_ranks(world, metrics: dict) -> dict:
     """This rank's float32 metrics averaged over every dp rank by one
-    ``all_reduce`` through the wire (the model ranks of a replica hold the
+    sum through the wire (the model ranks of a replica hold the
     same metrics)."""
     keys = list(metrics)
     vec = torch.stack([metrics[k].to(world.device, torch.float32)

@@ -6,7 +6,8 @@ a TCP port), one torch thread and a timeout of its own, and runs one of
 this module's workers in each.  The workers import torch, numpy and the
 port only; each writes its results to ``out/rank<r>.npz`` (r the torch
 rank; rank 0 also ``out/gathered``, a checkpoint of the gathered state).
-A ``model`` keyword lays the ranks out as dp x model, model minor."""
+A ``model`` keyword lays the ranks out as dp x model, model minor, a
+``shard_axis`` one makes the pods of FSDP within a pod."""
 
 import contextlib
 import json
@@ -65,7 +66,8 @@ def run(worker: str, kw: dict) -> None:
     world = mesh.init_rank_world(kw.pop("data"), kw.pop("pod", None),
                                  model=kw.pop("model", 1),
                                  device_type="cpu",
-                                 init_method=os.environ["REPRO_TEST_INIT"])
+                                 init_method=os.environ["REPRO_TEST_INIT"],
+                                 shard_axis=kw.pop("shard_axis", None))
     try:
         results = WORKERS[worker](world, **kw)
         np.savez(os.path.join(kw["out"], f"rank{world.torch_rank}.npz"),
@@ -552,6 +554,196 @@ def loss_grads_worker(world, out, arch, variant):
                 **{f"grad/{p}": g.numpy() for p, g in zip(paths, grads)})
 
 
+# ---------------------------------------------------------------------------
+# FSDP within a pod over ranks (gather-all)
+# ---------------------------------------------------------------------------
+
+def fsdp_topology(name: str, sizes, budget=None):
+    """The ("data", "pod") topology of the FSDP tests (the port's twin of
+    ``tests/test_torch_fsdp.py``'s): one link class, or ICI data and DCN
+    pod, each pinned to ``budget`` bytes (the cost model's where None)."""
+    from repro_torch.core import plan as plan_mod
+    if name == "flat":
+        return plan_mod.Topology(("data", "pod"), tuple(sizes), (
+            plan_mod.LinkClass("link", bucket_bytes=budget),), (0, 0))
+    return plan_mod.Topology(("data", "pod"), tuple(sizes), (
+        plan_mod.LinkClass("ici", alpha=1e-6, beta=1e-11,
+                           bucket_bytes=budget),
+        plan_mod.LinkClass("dcn", alpha=5e-5, beta=1e-10,
+                           bucket_bytes=budget)), (0, 1))
+
+
+def fsdp_plan_checks(world, tree, inputs, res, prefix):
+    """The sharded plan over ``world`` (its pods of FSDP within a pod) on
+    ``inputs`` (``pods/<k>``: the ``(P_eff, ...)`` pod trees; ``grads/<k>``
+    the ``(P, ...)`` member gradients; ``wire``: a ``(P, m)`` float32
+    row a rank): ``shard_tree``, ``unshard_tree``, ``grad_shards``,
+    ``_average_sharded`` on every offset, flat and hierarchical,
+    overlapped and serial, ``sync``, the pod wire's ``ring_shift`` and
+    ``pmean_rows``, and ``grad_shards`` again with the members' slices
+    added in reverse order (``reversed_sum``), into ``res`` under
+    ``prefix``."""
+    import torch
+    from repro_torch.core import overlap
+    from repro_torch.core import plan as plan_mod
+    from repro_torch.core.replica import ShardingPolicy
+    from repro_torch.core import tree as tr
+    fsdp = ShardingPolicy.fsdp_within_pod("data")
+    specs = {k: tr.Spec(tuple(sh), getattr(torch, d))
+             for k, (sh, d) in tree.items()}
+    pod = world.pod_of("data")
+    mine = lambda key, row: {k: torch.from_numpy(
+        inputs[f"{key}/{k}"][row:row + 1]).to(specs[k].dtype) for k in tree}
+    grads = {k: v[0] for k, v in mine("grads", world.rank).items()}
+    for topo in ("flat", "hier"):
+        for mode in ("overlap", "serial"):
+            plan = plan_mod.compile_plan(
+                fsdp_topology(topo, world.axis_sizes, 4096), specs,
+                plan_mod.AveragingConfig(group_size=2,
+                                         overlap=mode == "overlap"),
+                fsdp, world)
+            shards = plan.shard_tree(mine("pods", pod))
+            key = f"{prefix}/{topo}/{mode}"
+            for b, x in enumerate(shards):
+                res[f"{key}/shard/{b}"] = x.float().numpy()
+            for off in plan.offsets:
+                for b, x in enumerate(plan._average_sharded(shards, off)):
+                    res[f"{key}/avg/{off}/{b}"] = x.float().numpy()
+            if mode == "serial":
+                continue
+            _save_tree(res, f"{key}/unshard", plan.unshard_tree(shards))
+            for b, x in enumerate(plan.grad_shards(iter([grads]))):
+                res[f"{key}/grads/{b}"] = x.numpy()
+            for b, x in enumerate(plan.sync(shards)):
+                res[f"{key}/sync/{b}"] = x.float().numpy()
+            with reversed_sum():
+                for b, x in enumerate(plan.grad_shards(iter([grads]))):
+                    res[f"{key}/reversed/{b}"] = x.numpy()
+    row = torch.from_numpy(inputs["wire"][world.rank:world.rank + 1])
+    res[f"{prefix}/ring"] = overlap.resolve(plan.wire.ring_shift(
+        row, 1, plan.eff_topology.axis_sizes[0])).numpy()
+    res[f"{prefix}/pmean"] = overlap.resolve(plan.wire.pmean_rows(
+        row)).numpy()
+
+
+@contextlib.contextmanager
+def reversed_sum():
+    """The planted fault of the rank-order sums: ``plan._sum_rows`` adds
+    the rows from the last to the first."""
+    from repro_torch.core import plan as plan_mod
+    real = plan_mod._sum_rows
+    plan_mod._sum_rows = lambda rows: real(rows.flip(0))
+    try:
+        yield
+    finally:
+        plan_mod._sum_rows = real
+
+
+def fsdp_state_template(cfg, plan):
+    """A ``(P_eff, n_b)`` FSDP ReplicaState of Specs of ``plan`` (SGD)."""
+    import torch
+    from repro_torch.core import replica
+    from repro_torch.optim.sgd import SGDState
+    return replica.sharded_state_template(
+        plan, SGDState(None, torch.zeros(1, dtype=torch.int32)))
+
+
+def fsdp_trainer(world, arch, init, trainer_kw, seq_len, global_batch):
+    """The port's FSDP ``Trainer`` over ``world`` on the hierarchical
+    topology, warm-started from the FSDP checkpoint ``init``."""
+    from repro_torch.checkpoint import load_replica_state
+    from repro_torch.core.plan import Topology
+    from repro_torch.launch.train import Trainer
+    cfg = smoke_cfg(arch)
+    data, pod = world_axes(world)
+    kw = dict(trainer_kw, seq_len=seq_len, global_batch=global_batch,
+              seed=0, sharding="fsdp", topology=Topology.hierarchical(
+                  world.axis_names, world.axis_sizes, dcn_axes=("pod",)))
+    trainer = Trainer(cfg, data, pod_axis=pod, world=world, **kw)
+    state = load_replica_state(init, fsdp_state_template(
+        cfg, trainer.plan()), sharding=trainer.sharding)
+    trainer.state = trainer._put_state(state)
+    return trainer
+
+
+def poisoned_step(trainer, world, bad: int, how: str):
+    """Step 0 with member ``bad``'s batch poisoned: ``"mask"`` makes its
+    rows' loss mask NaN, ``"element"`` its gradient's first element (in
+    the first bucket's first slice: one member's slice alone)."""
+    import torch
+    from repro_torch.core import tree as tr
+    from repro_torch.train import train_step
+    batch = trainer._put_batch(0)
+    real = train_step.value_and_grad
+    if how == "mask":
+        batch["mask"] = torch.full_like(
+            batch["labels"], float("nan") if world.rank == bad else 1.0,
+            dtype=torch.float32)
+    elif world.rank == bad:
+        def poisoned(model, params, b):
+            grads, metrics = real(model, params, b)
+            tr.tree_leaves(grads)[0].view(-1)[0] = float("nan")
+            return grads, metrics
+        train_step.value_and_grad = poisoned
+    try:
+        trainer.state, metrics = trainer._step_fn(0)(trainer.state, batch)
+    finally:
+        train_step.value_and_grad = real
+    return float(metrics["skipped_nonfinite"])
+
+
+def fsdp_ranks_worker(world, out, tree, inputs, arch, inits, runs, seq_len,
+                      global_batch, steps, bad):
+    """All rank checks of gather-all FSDP over ranks in one world: the
+    plan checks (:func:`fsdp_plan_checks`) over this world (data 2 x pod
+    4) and over data 4 x pod 2 on the same ranks; then each of ``runs``
+    (name -> averager and Trainer kwargs) for ``steps`` steps from the
+    checkpoint ``inits[name]``, rank 0 writing the gathered state to
+    ``out/<name>``; then one step poisoned at member ``bad`` (its mask
+    rows, ``out/guard``; one element of its gradient, ``out/element``),
+    and the element again under a guard without the MIN over the pod
+    (``out/no_min``)."""
+    from repro_torch.launch import mesh
+    from repro_torch.train import train_step
+    inputs = dict(np.load(inputs))
+    res = {}
+    fsdp_plan_checks(world, tree, {k[len("2x4/"):]: v for k, v in
+                                   inputs.items() if k.startswith("2x4/")},
+                     res, "2x4")
+    other = mesh.init_rank_world(4, 2, device_type="cpu",
+                                 shard_axis="data")
+    fsdp_plan_checks(other, tree, {k[len("4x2/"):]: v for k, v in
+                                   inputs.items() if k.startswith("4x2/")},
+                     res, "4x2")
+    for name, kw in runs.items():
+        trainer = fsdp_trainer(world, arch, inits[name], kw, seq_len,
+                               global_batch)
+        res[f"{name}/losses"] = np.asarray(
+            [trainer.step_once(t) for t in range(steps)])
+        res[f"{name}/skipped"] = np.asarray(trainer.skipped_nonfinite)
+        cons = trainer.consolidated()
+        res[f"{name}/consolidated"] = np.asarray(cons is None)
+        if cons is not None:
+            _save_tree(res, f"{name}/cons", flat_tree(cons))
+        trainer.save_checkpoint(os.path.join(out, name))
+    for name, how, guard in (("guard", "mask", None),
+                             ("element", "element", None),
+                             ("no_min", "element", lambda plan, f: f)):
+        real = train_step.pod_all_finite
+        if guard is not None:
+            train_step.pod_all_finite = guard
+        try:
+            trainer = fsdp_trainer(world, arch, inits["wagma"],
+                                   runs["wagma"], seq_len, global_batch)
+            res[f"{name}/skipped"] = np.asarray(
+                poisoned_step(trainer, world, bad, how))
+        finally:
+            train_step.pod_all_finite = real
+        res[f"{name}/count"] = trainer.state.opt_state.count.numpy()
+        trainer.save_checkpoint(os.path.join(out, name))
+    return res
+
+
 def _spec_tree(cfg):
     """The whole params tree of ``cfg`` as Specs."""
     from repro_torch.models.convert import PARAM_SPECS
@@ -597,4 +789,5 @@ WORKERS = {"plan": plan_worker, "trainer": trainer_worker,
            "consolidated": consolidated_worker,
            "model_axis": model_axis_worker, "scheduler": scheduler_worker,
            "routed_count": routed_count_worker,
-           "loss_grads": loss_grads_worker}
+           "loss_grads": loss_grads_worker,
+           "fsdp_ranks": fsdp_ranks_worker}

@@ -393,12 +393,13 @@ def test_nccl_hands_device_buffers_to_the_wire(monkeypatch):
             handed.append(op.tensor)
         return [Done()]
 
-    def fake_all_reduce(t, async_op=False):
+    def fake_collective(out, t, async_op=False, **kw):
         handed.append(t)
         return Done()
 
     monkeypatch.setattr(tp.dist, "batch_isend_irecv", fake_batch)
-    monkeypatch.setattr(tp.dist, "all_reduce", fake_all_reduce)
+    monkeypatch.setattr(tp.dist, "all_to_all_single", fake_collective)
+    monkeypatch.setattr(tp.dist, "all_gather_into_tensor", fake_collective)
     monkeypatch.setattr(tp.dist, "P2POp",
                         lambda fn, t, peer: type("Op", (), {"tensor": t}))
     wire = tp.RankWire(_world(1, backend="nccl"))

@@ -63,16 +63,17 @@ def test_chip_smoke_attn_model_phase_at_smoke_size_on_cpu(tmp_path):
 def test_chip_smoke_predicts_the_attn_model_launches():
     """Check (a)'s counts at the card's sizes: K3 72 a whisper-medium
     prefill (24 encoder, 24 decoder, 24 cross), 24 an internvl2-2b one, 18
-    a transformer-wmt one; the scheduler's tinyllama prefill 22; its
+    a transformer-wmt one; the scheduler's tinyllama prefill 6 (its
+    served depth); its
     requests of distinct lengths; the K3 kernel phase holds each rank
     shape the phase runs, both dtypes."""
     smoke = _chip_smoke()
-    spec = smoke.attn_model_spec()
+    spec = smoke.attn_model_spec(sched_layers=smoke.SCHED_LAYERS)
     want = {"whisper-medium": 72, "internvl2-2b": 24, "transformer-wmt": 18}
     for arch, n in want.items():
         assert smoke.k3_per_prefill(smoke.attn_model_cfg(spec, arch)) == n
     cfg = smoke.attn_model_cfg(spec, spec["sched_arch"], spec["sched_layers"])
-    assert smoke.k3_per_prefill(cfg) == 22
+    assert smoke.k3_per_prefill(cfg) == 6
     lens = smoke.sched_lengths()
     assert len(set(lens)) == smoke.SCHED_REQUESTS
     assert all(64 <= n <= 512 for n in lens)

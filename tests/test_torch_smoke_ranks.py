@@ -187,18 +187,19 @@ def test_chip_smoke_rg_model_phase_at_smoke_size_on_cpu(tmp_path):
 def test_chip_smoke_predicts_the_rg_model_launches():
     """Check (a)'s counts at the card's sizes: a rank's training step
     scans K4 6 times (two recurrent layers under the superblock's
-    recompute: forward, again, backward); a 26-layer prefill K4 18 times
-    on the TMA route and K3 8 times, a decode step K4 18 times on the
-    walk route; a rank's plan over its 469,926,400 params holds 7 buckets,
+    recompute: forward, again, backward); a prefill at the served depth
+    (6 layers: two superblocks) K4 4 times on the TMA route and K3 2
+    times, a decode step K4 4 times on the walk route; a rank's plan over its 469,926,400 params holds 7 buckets,
     5 K1 and 1 K2 launches a group step."""
     smoke = _chip_smoke()
     cfg = smoke.rg_model_config()
     assert smoke.rg_train_k4_per_step(cfg, 1) == 6
     spec = smoke.rg_model_spec()
-    pre, step = smoke.model_serve_launches(smoke.model_cfg(spec, None))
-    assert (pre[smoke.K4], pre[smoke.K4_TMA], pre[smoke.K3]) == (18, 18, 8)
+    pre, step = smoke.model_serve_launches(smoke.model_cfg(
+        spec, smoke.RG_MODEL_SERVE_LAYERS))
+    assert (pre[smoke.K4], pre[smoke.K4_TMA], pre[smoke.K3]) == (4, 4, 2)
     assert (step[smoke.K4], step[smoke.K4_WALK], step[smoke.K3]) == \
-        (18, 18, 0)
+        (4, 4, 0)
     layout = smoke.model_slice_plan(cfg, smoke.RG_MODEL_DATA).class_layout(0)
     assert (layout.n_buckets, sum(layout.bucket_sizes)) == (7, 469926400)
     assert smoke.expected_combine_launches(layout.n_buckets, 1) == (5, 1)

@@ -288,9 +288,10 @@ def test_split_and_merge_layered_match_jax(arch):
 def test_streamed_policy_and_refusals():
     """``streamed=True`` is a policy of its own (a plan distinct from the
     gather-all one); it needs FSDP, a layered tree and a dense model, and
-    FSDP over a rank world still raises, naming slice 7c."""
+    the streamed engine over a rank world still raises, naming slice
+    7c-2."""
     from repro_torch.core.baselines import make_averager
-    from repro_torch.core.replica import FSDP_SLICE
+    from repro_torch.core.replica import FSDP_STREAMED_SLICE
     from repro_torch.launch.mesh import RankWorld
     from repro_torch.launch.train import resolve_sharding
     from repro_torch.train.train_step import plan_of
@@ -315,10 +316,10 @@ def test_streamed_policy_and_refusals():
         plan_of(build_model(cfg, device="cpu"), avg)
     world = RankWorld(("data", "pod"), (2, 2), 0, torch.device("cpu"), "gloo")
     t = plan_mod.Topology.hierarchical(("data", "pod"), (2, 2))
-    with pytest.raises(NotImplementedError, match="slice 7c") as e:
+    with pytest.raises(NotImplementedError, match="slice 7c-2") as e:
         make_averager("wagma", ("data", "pod"), (2, 2), topology=t,
                       sharding=STREAM, world=world)
-    assert FSDP_SLICE in str(e.value)
+    assert FSDP_STREAMED_SLICE in str(e.value)
 
 
 # ---------------------------------------------------------------------------
