@@ -40,7 +40,9 @@
    at scale 1/2) and the streamed phase's (``streamed_combines``: the
    22-layer grouped plan's) and the fsdp ranks phase's
    (``fsdp_rank_combines``: a rank's ``(1, n_b / 2)`` slices of the
-   2-layer sharded plan's buckets); times each against
+   2-layer sharded plan's buckets) and its streamed ranks part's
+   (``streamed_rank_combines``: the same of the 2-layer grouped plan's);
+   times each against
    the HBM bound ``3*n*itemsize/3.35e12 s``,
    the plain version and, at scale 1, ``torch.add``/``torch._foreach_add``;
    every case also in place (``out`` is ``w``), and K1 against
@@ -225,6 +227,31 @@
    bytes, update, the butterfly's exchange and combine, the sync), each
    rank's peak memory, the device's idle share over a profiled step (the
    union of the 8 ranks' device intervals) and the phase's seconds.
+   Its streamed ranks part (slice 7c-2, ``streamed_ranks_run``; its own
+   key ``streamed_ranks``): on the same ranks, after the gather-all steps
+   and before check (e)'s planted NaN, a ``Trainer(sharding="fsdp",
+   streamed=True)`` with the same config, seed, batches and steps, each
+   rank holding ``(1, n_b / 2)`` of the grouped buckets, each span's
+   all-gathers posted before the previous span computes and its
+   reduce-scatters as soon as its VJP ends.  Checks (a) K1/K2 a group
+   step = one stage of the grouped plan's buckets, the sync none, K3/K4
+   none, the operands those the K1/K2 phase held
+   (``streamed_rank_combines``); (b) every rank's and step's event log
+   passes ``streaming.check_stream_event_log`` (gathers
+   ``expected_stream_gathers``, at most 2 span gathers live and 2
+   groups' reduce-scatters in flight, live gathered bytes at most
+   ``stream_peak_gathered_bytes``); (c) every loss ``==`` the gather-all
+   ranks', pod 0's step-2 reduce-scattered slices, unpacked through the
+   grouped layout and merged, = the gather-all ranks' bit for bit, and
+   the final gathered state merged to the canonical tree has every
+   leaf's sha256 of the gather-all ranks'; (d) one fwd+bwd with every
+   receipt resolved at once ``torch.equal`` to the asynchronous one on
+   every rank (host ms side by side), and with span k's compute handed
+   span k+1's gather (planted) parting from it; (e) finite, no skip.
+   Prints rank 0's split (the all-gathers' issue and exposed wait,
+   fwd+bwd, the reduce-scatters' issue and exposed wait, each with its
+   bytes; update, exchange, combine, sync), peaks and the idle share
+   beside the gather-all run's.
    Model phase (slice 4b, ``model_phase``): the same model and step with
    each of 4 replicas split over 2 model ranks (Megatron's split): 8 ranks
    started by ``torch.distributed.run`` (this script with
@@ -719,6 +746,11 @@ FSDP_RANKS_TIMEOUT = 600
 FSDP_RANKS_WORKER_FLAG = "--fsdp-ranks-worker"
 FSDP_RANKS_PATH = (f"tinyllama-1.1b fsdp, data {FSDP_DATA} x pod {FSDP_POD} "
                    f"ranks")
+# the fsdp ranks phase's streamed ranks part (slice 7c-2): the same ranks,
+# config, batches and steps through the layer-streamed engine, after the
+# gather-all steps and before check (e)'s planted NaN
+STREAMED_RANKS_PATH = (f"tinyllama-1.1b fsdp streamed, data {FSDP_DATA} x "
+                       f"pod {FSDP_POD} ranks")
 
 # model phase (slice 4b): the ranks phase's model and step with each
 # replica's model split over MODEL_M ranks (Megatron's split, model minor):
@@ -1448,6 +1480,20 @@ def combine_kernel_phase(device="cuda"):
             "fsdp ranks tail batch", tail[0], [0] * len(tail[0]), "float32",
             tail[1])
         rows.append(line["fsdp ranks"]["K2"])
+    # the streamed ranks path's: a rank's (1, n_b / 2) float32 slices of
+    # the grouped plan's buckets at the ranks phase's depth (check (a) of
+    # the streamed ranks part ties them to the plan its ranks compiled)
+    k1, tail = streamed_rank_combines(ranks_config())
+    k1_rows = [k1_row(n, "float32", scale, case="streamed ranks")[0]
+               for n, scale in k1]
+    rows.extend(k1_rows)
+    line["streamed ranks"] = {"combines": (k1, tail),
+                              "K1": max(k1_rows, key=lambda r: r["n"][0])}
+    if tail is not None:
+        line["streamed ranks"]["K2"] = k2_row(
+            "streamed ranks tail batch", tail[0], [0] * len(tail[0]),
+            "float32", tail[1])
+        rows.append(line["streamed ranks"]["K2"])
     # the streamed path's: the 22-layer grouped plan's K1 sizes and K2
     # batch over its (P_eff, n_b) float32 shard buffers at scale 1/S
     combines = streamed_combines(fsdp_config())
@@ -2268,6 +2314,13 @@ def streamed_combines(cfg):
     float32 shard buffers, at scale 1/S."""
     plan = streamed_plan(cfg)
     return plan_combines(plan, plan.P_eff)
+
+
+def streamed_rank_combines(cfg):
+    """The streamed ranks path's combine operands: each K1 size and the K2
+    tail batch of one group step of the grouped plan over a rank's ``(1,
+    n_b / 2)`` float32 slices, at scale 1/S."""
+    return plan_combines(streamed_plan(cfg), 1, per_rank=True)
 
 
 def grads_pass_reckoning(plan, cfg, seq_len: int, rows: int) -> dict:
@@ -3824,9 +3877,10 @@ def fsdp_ranks_spec(device="cuda", smoke: bool = False,
             "steps": steps, "bucket_bytes": bucket_bytes}
 
 
-def fsdp_ranks_trainer(spec: dict, world=None):
-    """The phase's FSDP ``Trainer``: one member on a rank of ``world``, or
-    every pod as a row of one state on ``spec["device"]`` (the twin)."""
+def fsdp_ranks_trainer(spec: dict, world=None, streamed: bool = False):
+    """The phase's FSDP ``Trainer`` (gather-all, or layer-streamed): one
+    member on a rank of ``world``, or every pod as a row of one state on
+    ``spec["device"]`` (the twin)."""
     from repro_torch.configs import get_config
     from repro_torch.core import plan as plan_mod
     from repro_torch.launch.train import Trainer
@@ -3845,7 +3899,8 @@ def fsdp_ranks_trainer(spec: dict, world=None):
     return Trainer(cfg, FSDP_DATA, pod_axis=FSDP_POD, group_size=FSDP_S,
                    tau=FSDP_TAU, learning_rate=TRAIN_LR,
                    seq_len=spec["seq_len"], global_batch=spec["global_batch"],
-                   seed=0, topology=topology, sharding="fsdp", **kw)
+                   seed=0, topology=topology, sharding="fsdp",
+                   streamed=streamed, **kw)
 
 
 def profiled_call(fn, device) -> tuple:
@@ -3879,6 +3934,7 @@ def instrument_fsdp_ranks(trainer, world, plan, step_no: list):
     of each gathered bucket, this member's gradient and its reduce-
     scattered slices (check (c)).  Returns (split, wire, pending,
     checked, check_s, grab)."""
+    from repro_torch.core import overlap
     from repro_torch.core import plan as plan_mod
     from repro_torch.core import tree as tr
     from repro_torch.core.replica import join_rank_slices
@@ -3915,7 +3971,8 @@ def instrument_fsdp_ranks(trainer, world, plan, step_no: list):
 
     def all_gather_noting(buf, axis):
         out = all_gather(buf, axis)
-        if at_grad_step():
+        if at_grad_step():              # unshard_tree resolves it at once
+            out = overlap.resolve(out)
             grab.setdefault("gathered", []).append(tensor_digest(out))
         return out
 
@@ -4083,6 +4140,327 @@ def fsdp_ranks_guard(trainer, world, t: int) -> Optional[list]:
     return counts
 
 
+def instrument_streamed_ranks(trainer, plan, step_no: list):
+    """Time a streamed FSDP rank ``Trainer``'s step parts into ``split``
+    (host clock): the engine's fwd+bwd (between two synchronisations);
+    the all-gathers' and the reduce-scatters' issue (the post, its copy to
+    the host included) and exposed wait (the resolve: the wait, the copy
+    back's issue and, for a reduce-scatter, the ordered sum); update,
+    average and sync; with the wire's counts of each into ``wire``.  At
+    step ``FSDP_RANKS_GRAD_STEP`` (``step_no[0]``) keep this member's
+    reduce-scattered slices in ``grab`` (check (c)).  Returns (split,
+    wire, grab, restore): ``restore()`` takes the wrappers off the shared
+    wire and the engine."""
+    from repro_torch.core import plan as plan_mod
+    from repro_torch.core import streaming
+    from repro_torch.optim.sgd import Optimizer
+    avg, shard_wire = trainer.averager, plan.shard_wire
+    split = dict.fromkeys(("engine", "gather_issue", "gather_wait",
+                           "scatter_issue", "scatter_wait", "update",
+                           "average", "sync"), 0.0)
+    timed_ = split_timer(split, trainer.device)
+    wire, grab, kinds = {}, {}, {}
+
+    def counted(key, before):
+        d = wire.setdefault(key, {})
+        for k, v in plan_mod.wire_stats().items():
+            if k != "in_flight_max":
+                d[k] = d.get(k, 0) + v - before[k]
+
+    def with_wire(key, fn):
+        def run(*args):
+            before = plan_mod.wire_stats()
+            out = fn(*args)
+            counted(key, before)
+            return out
+        return run
+
+    def posting(kind, fn):
+        def run(buf, axis):
+            before, t = plan_mod.wire_stats(), time.perf_counter()
+            receipt = fn(buf, axis)
+            split[kind + "_issue"] += time.perf_counter() - t
+            counted(kind, before)
+            kinds[id(receipt)] = kind
+            return receipt
+        return run
+
+    resolve = shard_wire._resolve
+
+    def resolving(receipt):
+        kind = kinds.pop(id(receipt), None)
+        before, t = plan_mod.wire_stats(), time.perf_counter()
+        out = resolve(receipt)
+        if kind is not None:
+            split[kind + "_wait"] += time.perf_counter() - t
+            counted(kind, before)
+        return out
+
+    engine = streaming.streamed_loss_and_grad_shards
+
+    def engine_noting(*args, **kw):
+        out = engine(*args, **kw)
+        if step_no[0] == FSDP_RANKS_GRAD_STEP:
+            grab["slices"] = tuple(b.clone() for b in out[2])
+        return out
+
+    shard_wire.shard_all_gather = posting("gather",
+                                          shard_wire.shard_all_gather)
+    shard_wire.shard_reduce_scatter = posting(
+        "scatter", shard_wire.shard_reduce_scatter)
+    shard_wire._resolve = resolving
+    streaming.streamed_loss_and_grad_shards = timed_("engine", engine_noting)
+    trainer.opt = Optimizer(trainer.opt.init,
+                            timed_("update", trainer.opt.update))
+    avg.comm = timed_("average", with_wire("average", avg.comm))
+    avg.sync = timed_("sync", with_wire("sync", avg.sync))
+
+    def restore():
+        for name in ("shard_all_gather", "shard_reduce_scatter", "_resolve"):
+            vars(shard_wire).pop(name, None)
+        streaming.streamed_loss_and_grad_shards = engine
+    return split, wire, grab, restore
+
+
+def mispaired_gathered(gathered, g):
+    """The gather the streamed engine must not hand group ``g``'s compute
+    (the planted fault of check (d)): group g+1's, where it is in flight
+    and has the same shapes (span k+1's, at span k's forward)."""
+    from repro_torch.core import overlap
+    from repro_torch.core import tree as tr
+    own = overlap.resolve(gathered.pop(g))
+    if g + 1 not in gathered:
+        return own
+    other = overlap.resolve(gathered[g + 1])
+    shapes = lambda t: [tuple(l.shape) for l in tr.tree_leaves(t)]
+    return other if shapes(other) == shapes(own) else own
+
+
+def streamed_pair(trainer, world, t: int) -> dict:
+    """Check (d): one fwd+bwd of this member's batch of step ``t`` on the
+    trainer's state (nothing updated) asynchronously, with every receipt
+    resolved as soon as it is posted (serial), and with span k's compute
+    handed span k+1's gather (planted, :func:`mispaired_gathered`):
+    serial must equal asynchronous (the loss and ``torch.equal`` slices),
+    the planted run must part from it.  Returns this rank's verdicts and
+    host ms (synchronised)."""
+    import torch
+    from repro_torch.core import streaming
+    plan, device = trainer.plan(), trainer.device
+    batch = trainer._put_batch(t)
+    pod = world.pod_of("data")
+    out, ms = {}, {}
+    take = streaming.take_gathered
+    for name, overlap in (("async", True), ("serial", False),
+                          ("mispaired", True)):
+        if name == "mispaired":
+            streaming.take_gathered = mispaired_gathered
+        try:
+            _sync(device)
+            t0 = time.perf_counter()
+            losses, _, grads = streaming.streamed_loss_and_grad_shards(
+                plan, trainer.model.layered, trainer.state.params, [batch],
+                pod=pod, overlap=overlap)
+            _sync(device)
+            ms[name] = (time.perf_counter() - t0) * 1e3
+        finally:
+            streaming.take_gathered = take
+        out[name] = (float(losses[0]), grads)
+    same = lambda a, b: a[0] == b[0] and all(
+        torch.equal(x, y) for x, y in zip(a[1], b[1]))
+    return {"serial_equal": same(out["serial"], out["async"]),
+            "mispaired_parts": not same(out["mispaired"], out["async"]),
+            "async_ms": ms["async"], "serial_ms": ms["serial"],
+            "mispaired_ms": ms["mispaired"]}
+
+
+def canonical_digests(state, plan, layered=None) -> dict:
+    """sha256 of every leaf of a gathered ``(P_eff, n_b)`` FSDP state's
+    pod trees, params and momentum, unpacked through ``plan``'s shard
+    layout (and merged to the canonical tree by ``layered`` for a
+    streamed state), beside its counts, step and phase: the same dict for
+    two layouts of one state."""
+    from repro_torch.core import bucketing
+    from repro_torch.core import tree as tr
+    out = {}
+    for name, bufs in (("params", state.params),
+                       ("momentum", state.opt_state.momentum)):
+        tree = bucketing.unpack(tuple(bufs), plan.shard_layout, cast=False)
+        if layered is not None:
+            tree = layered.merge(tree, lead=1)
+        leaves = tr.tree_leaves(tree)
+        out.update({f"{name}/{i}": d for i, d in enumerate(digests(leaves))})
+    out["count"] = state.opt_state.count.tolist()
+    out["step_phase"] = [int(state.step), int(state.phase)]
+    return out
+
+
+def streamed_ranks_check_c(world, plan, ga_plan, layered, mine, ga_mine):
+    """Check (c)'s slices (rank 0 decides): pod 0's streamed
+    reduce-scattered float32 slices at ``FSDP_RANKS_GRAD_STEP`` (``mine``
+    on each member), joined in shard-axis order and unpacked through the
+    grouped layout, merged to the canonical tree, equal the gather-all
+    ranks' slices of the same step (``ga_mine``) unpacked through the
+    flat layout, leaf for leaf bit for bit.  Returns rank 0's verdict
+    (``None`` elsewhere)."""
+    import torch
+    from repro_torch.core import bucketing
+    from repro_torch.core import tree as tr
+    from repro_torch.launch import mesh
+    axis = plan.sharding.shard_axis
+    if world.pod_of(axis) != 0:
+        return None
+    members = world.shard_members(axis)
+    size = len(members)
+
+    def joined(slices):
+        live = [b for b in slices if b.numel()]
+        rows = mesh._gather_leaves(world, tuple(b[None] for b in live),
+                                   size, world.shard_group, dst=members[0])
+        if rows is None:
+            return None
+        rows = iter(rows)
+        return tuple(torch.cat(list(next(rows))) if b.numel() else b.cpu()
+                     for b in slices)
+    got, want = joined(mine), joined(ga_mine)
+    if world.rank != 0:
+        return None
+    got = layered.merge(bucketing.unpack(got, plan.shard_layout, cast=False))
+    want = bucketing.unpack(want, ga_plan.shard_layout, cast=False)
+    pairs = list(zip(tr.tree_leaves(got), tr.tree_leaves(want)))
+    equal = len(pairs) == len(tr.tree_leaves(want)) and all(
+        a.dtype == b.dtype and torch.equal(a, b) for a, b in pairs)
+    if not equal:
+        raise AssertionError("check (c): pod 0's streamed reduce-scattered "
+                             "slices differ from the gather-all ranks' at "
+                             f"step {FSDP_RANKS_GRAD_STEP}")
+    return {"slices_equal": equal, "leaves": len(pairs)}
+
+
+def streamed_ranks_run(spec: dict, world, ga_plan, ga_losses: list,
+                       ga_slices) -> dict:
+    """The streamed ranks part of the fsdp ranks phase on this rank: a
+    second ``Trainer(sharding="fsdp", streamed=True)`` with the gather-all
+    run's config, seed, batches and steps, its checks (b) every step's
+    event log held to the schedule (``check_stream_event_log``: 2 span
+    gathers live at most, 2 groups' reduce-scatters in flight at most,
+    the bucket gathers ``expected_stream_gathers``, the live gathered
+    bytes at most ``stream_peak_gathered_bytes``), (c) every loss the
+    gather-all run's, step 2's slices (:func:`streamed_ranks_check_c`),
+    (d) :func:`streamed_pair` once after the steps; its final state's
+    canonical digests on rank 0 (check (c) against the gather-all
+    state's, in the worker).  Returns this rank's record: the per-step
+    log (split, wire counts, launches, the event logs' counts), peak
+    memory, the profiled window and (rank 0) the checks."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import streaming
+    from repro_torch.kernels import ops
+    t_start = time.perf_counter()
+    device = world.device
+    on_card = device.type == "cuda"
+    trainer = fsdp_ranks_trainer(spec, world, streamed=True)
+    init_s = time.perf_counter() - t_start
+    avg, plan = trainer.averager, trainer.plan()
+    layered = trainer.model.layered
+    step_no = [-1]
+    split, wire, grab, restore = instrument_streamed_ranks(trainer, plan,
+                                                           step_no)
+    plan.stream_log = []
+    try:
+        if on_card:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        log, window = [], None
+        for t in range(spec["steps"]):
+            for k in split:
+                split[k] = 0.0
+            wire.clear()
+            step_no[0] = t
+            before = ops.launch_counts()
+            if t == FSDP_RANKS_PROFILED:
+                dist.barrier()
+            _sync(device)
+            t0 = time.perf_counter()
+            if t == FSDP_RANKS_PROFILED:
+                loss, window = profiled_call(lambda: trainer.step_once(t),
+                                             device)
+            else:
+                loss = trainer.step_once(t)
+            _sync(device)
+            step_s = time.perf_counter() - t0
+            after = ops.launch_counts()
+            events = [streaming.check_stream_event_log(r, plan)   # (b)
+                      for r in plan.stream_log]
+            plan.stream_log.clear()
+            if loss != ga_losses[t]:                              # (c)
+                raise AssertionError(f"check (c): step {t} loss {loss} "
+                                     f"!= the gather-all ranks' "
+                                     f"{ga_losses[t]}")
+            sync = avg.sync_due(t)
+            exposed = sum(split[k] for k in ("gather_issue", "gather_wait",
+                                             "scatter_issue",
+                                             "scatter_wait"))
+            log.append({
+                "t": t, "loss": loss, "sync": sync,
+                "offset": None if sync else plan.offsets[
+                    avg.phase_for_step(t)],
+                "step_ms": step_s * 1e3,
+                "profiled": t == FSDP_RANKS_PROFILED,
+                **{k + "_ms": v * 1e3 for k, v in split.items()},
+                "fwd_bwd_ms": (split["engine"] - exposed) * 1e3,
+                "wire": {part: {k: (v * 1e3 if k.endswith("_s") else v)
+                                for k, v in d.items()}
+                         for part, d in wire.items()},
+                "events": events,
+                "skipped": trainer.last_metrics["skipped_nonfinite"],
+                **{key: after[name] - before[name] for key, name in (
+                    ("k1", K1), ("k2", K2), ("k3", K3), ("k4", K4))}})
+        step_no[0] = -1
+        peak = torch.cuda.max_memory_allocated() if on_card else None
+        check_c = streamed_ranks_check_c(world, plan, ga_plan, layered,
+                                         grab.pop("slices"), ga_slices)
+        pair = streamed_pair(trainer, world, spec["steps"])       # (d)
+        pairs = [None] * world.P if world.rank == 0 else None
+        dist.gather_object(pair, pairs, dst=0)
+        if world.rank == 0 and not all(p["serial_equal"]
+                                       and p["mispaired_parts"]
+                                       for p in pairs):
+            raise AssertionError(f"check (d): serial = asynchronous and the "
+                                 f"mispaired gathers parting, by rank: "
+                                 f"{pairs}")
+        t0 = time.perf_counter()
+        state = trainer.gathered_state()
+        canon = (canonical_digests(state, plan, layered)
+                 if state is not None else None)
+        gather_s = time.perf_counter() - t0
+        del state
+    finally:
+        restore()
+        plan.stream_log = None
+    lay = plan.shard_layout
+    record = {"rank": world.rank, "pod": world.pod_of("data"), "log": log,
+              "peak": peak, "window": window, "init_s": init_s,
+              "pair": pair,
+              "combines": plan_combines(plan, 1, per_rank=True),
+              "seconds": time.perf_counter() - t_start}
+    if world.rank == 0:
+        record.update({
+            "n_buckets": lay.n_buckets,
+            "n_stages": len(plan.runs_for_offset(0)[0].bits),
+            "bucket_bytes": plan.shard_bucket_bytes,
+            "group_bytes": plan.stream_group_bytes(),
+            "expected_gathers": streaming.expected_stream_gathers(plan),
+            "peak_gathered_bound": plan.stream_peak_gathered_bytes(),
+            "full_gathered_bytes": plan.full_gathered_bytes(),
+            "check_c": check_c, "pairs": pairs, "canonical": canon,
+            "gather_s": gather_s})
+    del trainer
+    if on_card:
+        torch.cuda.empty_cache()
+    return record
+
+
 def fsdp_ranks_worker(spec: dict, out: str) -> int:
     """One rank (one pod member) of the fsdp ranks phase, started by
     torchrun: the port's FSDP ``Trainer`` on this rank's slices for
@@ -4185,6 +4563,7 @@ def fsdp_ranks_worker(spec: dict, out: str) -> int:
                     del want
                 del pre
             if t == FSDP_RANKS_GRAD_STEP:
+                ga_slices = tuple(b.clone() for b in grab["slices"])
                 check_c = fsdp_ranks_check_c(world, plan, stacked_plan,
                                              grab, kept)
                 kept = None
@@ -4202,6 +4581,12 @@ def fsdp_ranks_worker(spec: dict, out: str) -> int:
                     ("k1", K1), ("k2", K2), ("k3", K3), ("k4", K4))}})
         step_no[0] = -1
         peak = torch.cuda.max_memory_allocated() if on_card else None
+        # the streamed ranks part, on the wire the gather-all steps used
+        # (their all-gather's wrapper taken off it first)
+        vars(plan.shard_wire).pop("shard_all_gather", None)
+        streamed = streamed_ranks_run(spec, world, plan,
+                                      [e["loss"] for e in log], ga_slices)
+        del ga_slices
         t0 = time.perf_counter()
         guard = fsdp_ranks_guard(trainer, world, steps)
         guard_s = time.perf_counter() - t0
@@ -4217,11 +4602,21 @@ def fsdp_ranks_worker(spec: dict, out: str) -> int:
         saved = saved_digests(state) if state is not None else None
         step_phase = ([int(state.step), int(state.phase)]
                       if state is not None else None)
+        if state is not None:       # check (c): the streamed final state
+            canon = canonical_digests(state, plan)
+            streamed["state_equal"] = streamed.pop("canonical") == canon
+            streamed["state_leaves"] = len(canon) - 2
+            if not streamed["state_equal"]:
+                raise AssertionError(
+                    "check (c): the streamed ranks' final state, merged to "
+                    "the canonical tree, differs from the gather-all "
+                    "ranks'")
         del state
         mine = {"rank": world.rank, "pod": world.pod_of("data"),
                 "device": str(device), "log": log, "peak": peak,
                 "window": window, "init_s": init_s,
-                "combines": plan_combines(plan, 1, per_rank=True)}
+                "combines": plan_combines(plan, 1, per_rank=True),
+                "streamed": streamed}
         everyone = [None] * world.P if world.rank == 0 else None
         dist.gather_object(mine, everyone, dst=0)
         if world.rank == 0:
@@ -4335,6 +4730,140 @@ def fsdp_ranks_summary(stats: dict) -> dict:
     }
 
 
+def streamed_ranks_stats(stats: dict) -> dict:
+    """The streamed ranks part's record, its own phase key, taken out of
+    the fsdp ranks phase's ranks: rank 0's checks beside every rank's
+    log; check (e) (finite losses, no skip) and the event logs' counts of
+    check (b) over every rank and step, and the summary."""
+    ranks = [r.pop("streamed") for r in stats["ranks"]]
+    first = ranks[0]
+    st = {k: first.pop(k) for k in (
+        "n_buckets", "n_stages", "bucket_bytes", "group_bytes",
+        "expected_gathers", "peak_gathered_bound", "full_gathered_bytes",
+        "check_c", "pairs", "gather_s", "state_equal", "state_leaves")}
+    st.update({"ranks": ranks, "pods": stats["pods"],
+               "pod_size": stats["pod_size"], "spec": stats["spec"],
+               "seconds": first["seconds"],
+               "expected_k1_k2_per_group_step": expected_combine_launches(
+                   st["n_buckets"], st["n_stages"])})
+    bad = [e for r in ranks for e in r["log"]
+           if not math.isfinite(e["loss"]) or e["skipped"]]
+    if bad:                                                     # check (e)
+        raise AssertionError(f"streamed ranks: non-finite losses or skipped "
+                             f"updates: {bad}")
+    events = [c for r in ranks for e in r["log"] for c in e["events"]]
+    st["check_b"] = {
+        "logs": len(events),
+        "gathers": sorted({c["gathers"] for c in events}),
+        "span_gathers_live_max": max(c["span_gathers_live_max"]
+                                     for c in events),
+        "scatters_in_flight_max": max(c["scatters_in_flight_max"]
+                                      for c in events),
+        "peak_gathered_bytes": max(c["peak_gathered_bytes"] for c in events),
+        "peak_bound": st["peak_gathered_bound"]}
+    steps = sum(len(r["log"]) for r in ranks)
+    if (len(events) != steps or st["check_b"]["gathers"]
+            != [st["expected_gathers"]]):                       # check (b)
+        raise AssertionError(f"check (b): {len(events)} event logs for "
+                             f"{steps} rank steps: {st['check_b']}")
+    st["check_e"] = {"finite": True, "skipped": 0}
+    st["summary"] = streamed_ranks_summary(st)
+    return st
+
+
+def streamed_ranks_summary(st: dict) -> dict:
+    """The streamed ranks part's numbers: rank 0's median group step (the
+    profiled one left out) and its split (the all-gathers' issue and
+    exposed wait, fwd+bwd, the reduce-scatters' issue and exposed wait,
+    each with its wire bytes; update; the butterfly's exchange and
+    combine; the sync), each rank's peak memory, check (d)'s host ms and
+    the device's idle share over the profiled step."""
+    steady = [e for e in st["ranks"][0]["log"][1:] if not e["profiled"]]
+    group = [e for e in steady if not e["sync"]]
+    med = lambda es, f: statistics.median(f(e) for e in es) if es else None
+    part = lambda e, p, k: e["wire"].get(p, {}).get(k, 0)
+    windows = [r["window"] for r in st["ranks"]]
+    return {
+        "median_group_step_ms": med(group, lambda e: e["step_ms"]),
+        "sync_step_ms": med([e for e in steady if e["sync"]],
+                            lambda e: e["step_ms"]),
+        "group_split_ms": {
+            "all_gather_issue": med(group, lambda e: e["gather_issue_ms"]),
+            "all_gather_wait": med(group, lambda e: e["gather_wait_ms"]),
+            "fwd_bwd": med(group, lambda e: e["fwd_bwd_ms"]),
+            "reduce_scatter_issue": med(group,
+                                        lambda e: e["scatter_issue_ms"]),
+            "reduce_scatter_wait": med(group,
+                                       lambda e: e["scatter_wait_ms"]),
+            "engine": med(group, lambda e: e["engine_ms"]),
+            "update": med(group, lambda e: e["update_ms"]),
+            "exchange": {k: med(group, lambda e: part(e, "average",
+                                                      k + "_s"))
+                         for k in ("d2h", "wire", "h2d")},
+            "combine": med(group, lambda e: e["average_ms"] - sum(
+                part(e, "average", k) for k in ("d2h_s", "wire_s",
+                                                "h2d_s"))),
+            "other": med(group, lambda e: e["step_ms"] - e["engine_ms"]
+                         - e["update_ms"] - e["average_ms"])},
+        "bytes_a_group_step": {p: group[0]["wire"].get(p, {}).get("bytes")
+                               for p in ("gather", "scatter", "average")}
+        if group else None,
+        "gathers_a_group_step": part(group[0], "gather", "issued")
+        if group else None,
+        "sync_ms": med([e for e in steady if e["sync"]],
+                       lambda e: e["sync_ms"]),
+        "pair_ms_by_rank": [{k: r["pair"][k] for k in ("async_ms",
+                                                        "serial_ms")}
+                            for r in st["ranks"]],
+        "peak_bytes_by_rank": [r["peak"] for r in st["ranks"]],
+        "device_busy_ms_by_rank": [w["device_busy_ms"] for w in windows],
+        **device_idle(windows),
+    }
+
+
+def print_streamed_ranks(st: dict, ga: dict, card: str):
+    """The streamed ranks part's lines, its numbers beside the gather-all
+    run's (``ga``: the fsdp ranks phase's summary)."""
+    s = st["summary"]
+    gib = lambda b: round(b / 2 ** 30, 2) if b is not None else None
+    print(f"streamed ranks [{card}]: {ARCH} full width, "
+          f"{st['spec']['n_layers']} layers, data {FSDP_DATA} x pod "
+          f"{FSDP_POD} gloo ranks on one card, {st['n_buckets']} grouped "
+          f"shard buckets {json.dumps(st['group_bytes'])} bytes by group, "
+          f"{st['expected_gathers']} bucket gathers a fwd+bwd, peak "
+          f"gathered {st['peak_gathered_bound']} of "
+          f"{st['full_gathered_bytes']} bytes, K1/K2 a group step "
+          f"{st['expected_k1_k2_per_group_step']}; part "
+          f"{st['seconds']:.1f} s (final state gathered "
+          f"{st['gather_s']:.1f} s)", flush=True)
+    print(f"streamed ranks losses: "
+          f"{[round(x['loss'], 4) for x in st['ranks'][0]['log']]}",
+          flush=True)
+    print(f"streamed ranks [{card}]: rank 0 median group step "
+          f"{s['median_group_step_ms']:.1f} ms (gather-all "
+          f"{ga['median_group_step_ms']:.1f} ms), split "
+          f"{json.dumps(s['group_split_ms'])} ms (gather-all "
+          f"{json.dumps(ga['group_split_ms'])} ms), wire bytes a rank "
+          f"{json.dumps(s['bytes_a_group_step'])} (gather-all "
+          f"{json.dumps(ga['bytes_a_group_step'])}), all-gathers a group "
+          f"step {s['gathers_a_group_step']}; sync step "
+          f"{s['sync_step_ms']} ms (sync {s['sync_ms']} ms, gather-all "
+          f"{ga['sync_ms']}); peak memory by rank "
+          f"{[gib(b) for b in s['peak_bytes_by_rank']]} GiB (gather-all "
+          f"{[gib(b) for b in ga['peak_bytes_by_rank']]}); profiled step: "
+          f"wall {s['profile_wall_ms']:.1f} ms, device busy "
+          f"{s['device_busy_ms']} ms, idle share {s['device_idle_share']} "
+          f"(gather-all {ga['device_idle_share']})", flush=True)
+    print(f"streamed ranks checks: (b) {json.dumps(st['check_b'])}; (c) "
+          f"every loss = the gather-all ranks', step "
+          f"{FSDP_RANKS_GRAD_STEP} slices {json.dumps(st['check_c'])}, "
+          f"final state = the gather-all ranks' {st['state_equal']} "
+          f"({st['state_leaves']} leaves); (d) serial = asynchronous and "
+          f"the mispaired gathers parting on every rank, host ms "
+          f"{json.dumps(s['pair_ms_by_rank'])}; (e) "
+          f"{json.dumps(st['check_e'])}", flush=True)
+
+
 def print_fsdp_ranks(stats: dict, card: str):
     s, d = stats["summary"], stats["check_d"]
     gib = lambda b: round(b / 2 ** 30, 2) if b is not None else None
@@ -4436,6 +4965,7 @@ def fsdp_ranks_phase(spec: dict, out: Path,
            for e, f in zip(r["log"], log0)):
         raise AssertionError("the ranks report different mean losses")
     stats["check_e"] = check_fsdp_ranks_guard(stats["guard"])
+    stats["streamed"] = streamed_ranks_stats(stats)
 
     # check (d): the twin's save against the ranks' checkpoint state:
     # every leaf's sha256 (the params, momentum and counts bit for bit),
@@ -7721,9 +8251,19 @@ def main() -> int:
     # pod 4 gloo ranks, one member a rank (K1, K2 on a rank's slices)
     fsdp_ranks = fsdp_ranks_phase(fsdp_ranks_spec(),
                                   ROOT / "build" / "fsdp_ranks")
+    streamed_ranks = fsdp_ranks.pop("streamed")
     check_fsdp_ranks_launches(fsdp_ranks, ga_line["fsdp ranks"])  # (a)
     print(json.dumps({"fsdp_ranks": fsdp_ranks, "card": card}), flush=True)
     print_fsdp_ranks(fsdp_ranks, card)
+    # -- its streamed ranks part: the same ranks and run through the
+    # layer-streamed engine (K1, K2 on a rank's grouped slices)
+    check_fsdp_ranks_launches(streamed_ranks,                  # (a)
+                              ga_line["streamed ranks"])
+    print(json.dumps({"streamed_ranks": streamed_ranks, "card": card}),
+          flush=True)
+    print_streamed_ranks(streamed_ranks, fsdp_ranks["summary"], card)
+    seconds["streamed ranks part (in the fsdp ranks phase)"] = round(
+        streamed_ranks["seconds"], 1)
     phase_done("fsdp ranks phase")
 
     # -- model phase: the same model, each replica split over 2 model ranks,
@@ -7953,10 +8493,10 @@ def main() -> int:
     paper_launches = {name: sum(e[key] for run in paper.values()
                                 for e in run["steps"])
                       for name, key in ((K1, "k1"), (K2, "k2"), (K4, "k4"))}
-    ranks_launches, fsdp_ranks_launches = (
+    ranks_launches, fsdp_ranks_launches, streamed_ranks_launches = (
         {name: sum(e[key] for r in run["ranks"] for e in r["log"])
          for name, key in ((K1, "k1"), (K2, "k2"), (K4, "k4"))}
-        for run in (ranks, fsdp_ranks))
+        for run in (ranks, fsdp_ranks, streamed_ranks))
     model_launches, rg_model_launches = (
         {name: sum(e[key] for r in run["ranks"] for e in r["log"])
          for name, key in ((K1, "k1"), (K2, "k2"), (K4, "k4"),
@@ -7981,6 +8521,7 @@ def main() -> int:
             run["launches"][name] for run in elastic["runs"].values()),
         f"{ARCH} training, {RANKS_P} ranks": ranks_launches[name],
         FSDP_RANKS_PATH: fsdp_ranks_launches[name],
+        STREAMED_RANKS_PATH: streamed_ranks_launches[name],
         model_path: model_launches[name],
         rg_model_path: rg_model_launches[name],
         FSDP_PATH: fsdp["launches"][name],
@@ -8043,6 +8584,11 @@ def main() -> int:
         n_layers=fsdp_ranks["spec"]["n_layers"], pods=fsdp_ranks["pods"],
         pod_size=fsdp_ranks["pod_size"])
         if k in ga_line["fsdp ranks"] else None)
+    streamed_ranks_row = lambda k: (dict(
+        ranks_row(ga_line["streamed ranks"][k]),
+        n_layers=streamed_ranks["spec"]["n_layers"],
+        pods=streamed_ranks["pods"], pod_size=streamed_ranks["pod_size"])
+        if k in ga_line["streamed ranks"] else None)
     kernels = [
         entry(K1, "src/repro_torch/kernels/csrc/group_average.cu",
               "src/repro/kernels/group_average.py:68",
@@ -8052,6 +8598,7 @@ def main() -> int:
               elastic_row=elastic_row("K1"), fsdp_row=fsdp_row("K1"),
               streamed_row=streamed_row("K1"),
               fsdp_ranks_row=fsdp_ranks_row("K1"),
+              streamed_ranks_row=streamed_ranks_row("K1"),
               ranks_row=ranks_row(ga_line["K1 ranks"]),
               model_row=ranks_row(ga_line["K1 model"]),
               rg_model_row=ranks_row(ga_line["K1 rg model"])),
@@ -8063,6 +8610,7 @@ def main() -> int:
               elastic_row=elastic_row("K2"), fsdp_row=fsdp_row("K2"),
               streamed_row=streamed_row("K2"),
               fsdp_ranks_row=fsdp_ranks_row("K2"),
+              streamed_ranks_row=streamed_ranks_row("K2"),
               ranks_row=ranks_row(ga_line["K2 ranks"]),
               model_row=ranks_row(ga_line["K2 model"]),
               rg_model_row=ranks_row(ga_line["K2 rg model"])),

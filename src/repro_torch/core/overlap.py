@@ -148,6 +148,21 @@ class Receipt:
         raise NotImplementedError
 
 
+class Mapped(Receipt):
+    """``fn`` of what ``parts`` deliver (a receipt, or a tuple of them and
+    tensors), made at the first wait: a group's gathered buckets unpacked
+    into its tree, a reduce-scattered slice scaled."""
+
+    def __init__(self, parts, fn: Callable):
+        self.parts, self.fn, self.out = parts, fn, None
+
+    def wait(self):
+        if self.out is None:
+            self.out = self.fn(resolve(self.parts))
+            self.parts = None
+        return self.out
+
+
 def resolve(recv):
     """What a wire delivered, made tensors: a :class:`Receipt` waited for,
     a tuple element by element, anything else as it is (the stacked

@@ -96,8 +96,14 @@ group, pod=)`` reads one group's buckets of a pod's row as views (the JAX
 plan's per-group all-gather) and ``stream_grad_shards`` is the per-group
 twin of ``grad_shards``; ``core/streaming.py`` walks them.
 
-Not here: the layer-streamed engine over ranks (slice 7c-2), FSDP under a
-model axis (7c-3) and the step-time models (ROADMAP.md).
+Over a rank world the streamed plan's ``stream_unshard`` posts one tiled
+all-gather a bucket of the group and returns its receipt, and
+``stream_grad_shards`` posts one reduce-scatter a bucket and returns
+theirs: the engine resolves each where its schedule needs it (gather-all's
+``unshard_tree``/``grad_shards`` resolve theirs at once).
+
+Not here: FSDP under a model axis (slice 7c-3) and the step-time models
+(ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -363,14 +369,18 @@ def wire_stats() -> dict:
 
 
 class _RankReceipt(pipeline.Receipt):
-    """One exchange or sum a :class:`RankWire` has posted: its
-    works, where the delivery lands (``recv``, a host buffer when staged),
-    how it becomes the tensor ``wait`` returns (``finish``) and the host
-    buffers it holds until then (``held``: (role, buffer) pairs)."""
+    """One exchange, sum or shard collective a :class:`RankWire` has
+    posted: its works, where the delivery lands (``recv``, a host buffer
+    when staged), how it becomes the tensor ``wait`` returns (``finish``),
+    the host buffers it holds until then (``held``: (role, buffer) pairs),
+    the buffer the wire reads (``sent``, kept alive until the wait) and the
+    bytes it counts (``nbytes``; ``recv``'s where None)."""
 
-    def __init__(self, wire, works, recv, finish, held=()):
+    def __init__(self, wire, works, recv, finish, held=(), sent=None,
+                 nbytes=None):
         self.wire, self.works, self.recv = wire, works, recv
         self.finish, self.held = finish, held
+        self.sent, self.nbytes = sent, nbytes
         self.out = None
 
     def wait(self):
@@ -386,7 +396,8 @@ class RankWire:
     and the sums run over its dp group, so with a model axis each
     model coordinate averages its own slices.
 
-    ``butterfly_exchange``, ``ring_shift`` and ``pmean_rows`` post their
+    ``butterfly_exchange``, ``ring_shift``, ``pmean_rows`` and the shard
+    axis's ``shard_all_gather`` and ``shard_reduce_scatter`` post their
     ops and return a receipt (``overlap.Receipt``); its ``wait`` waits on
     the works and hands back the tensor.  ``n_slots`` is the most
     receipts pending at once so far: each holds its own host buffers (a
@@ -499,8 +510,9 @@ class RankWire:
         _WIRE_STATS["ops"] += 1
 
     def _resolve(self, receipt: _RankReceipt) -> torch.Tensor:
-        self._wait(receipt.works, receipt.recv)
+        self._wait(receipt.works, receipt.recv, receipt.nbytes)
         out, done = receipt.finish(receipt.recv)
+        receipt.sent = None
         for role, buf in receipt.held:      # a send buffer gloo has read
             self._give(role, buf, None if role == "send" else done)
         self.in_flight -= 1
@@ -680,61 +692,66 @@ class RankWire:
         dist.all_reduce(flag, op=dist.ReduceOp.MIN, **kw)
         return flag[0].bool()
 
-    def shard_all_gather(self, buf: torch.Tensor, axis: str
-                         ) -> torch.Tensor:
-        """The pod's members' ``(n,)`` slices joined in shard-axis order,
-        ``(pod_size * n,)`` on ``buf``'s device: one tiled all-gather over
-        the pod's group (the reference's ``all_gather(tiled=True)``)."""
+    def shard_all_gather(self, buf: torch.Tensor, axis: str):
+        """Post one tiled all-gather of this member's ``(n,)`` slice over
+        its pod's group (the reference's ``all_gather(tiled=True)``);
+        returns its receipt, whose wait gives the pod's members' slices
+        joined in shard-axis order, ``(pod_size * n,)`` on ``buf``'s
+        device."""
         members, kw = self._shard_group(axis)
         n, size = buf.numel(), len(members)
-        src = buf.reshape(-1)
+        src, held = buf.reshape(-1), ()
         if self.world.stages_through_host:
             src = self._to_host(self._take("send", buf), buf)
             out = self._take("gather", buf, size * n)
+            held = (("send", src), ("gather", out))
         else:
             out = torch.empty(size * n, dtype=buf.dtype, device=buf.device)
-        work = dist.all_gather_into_tensor(out, src, async_op=True, **kw)
-        self._wait([work], src, (size - 1) * n * buf.element_size())
-        rows, done = self._rows_on(out, size, buf)
-        if done is not None:
-            self._give("send", src)
-            self._give("gather", out, done)
         order = sorted(members)
-        if order != list(members):
-            rows = rows[[order.index(t) for t in members]]
-        return rows.reshape(-1)
+        perm = (None if order == list(members)
+                else [order.index(t) for t in members])
 
-    def shard_reduce_scatter(self, buf: torch.Tensor, axis: str
-                             ) -> torch.Tensor:
-        """This member's ``(n,)`` slice of the sum of the pod's members'
-        ``(pod_size * n,)`` float32 buffers, added in shard-axis order from
-        member 0's (:func:`_sum_rows`), a new tensor on ``buf``'s device
-        (not yet scaled).  gloo's ``reduce_scatter`` fixes no order, so it
-        is one ``all_to_all_single`` (slice k to member k) and the sum
-        here."""
+        def finish(out):
+            rows, done = self._rows_on(out, size, buf)
+            return (rows if perm is None else rows[perm]).reshape(-1), done
+        self._post()
+        work = dist.all_gather_into_tensor(out, src, async_op=True, **kw)
+        return _RankReceipt(self, [work], out, finish, held, src,
+                            (size - 1) * n * buf.element_size())
+
+    def shard_reduce_scatter(self, buf: torch.Tensor, axis: str):
+        """Post the reduce-scatter of this member's ``(pod_size * n,)``
+        float32 buffer over its pod; returns its receipt, whose wait gives
+        this member's ``(n,)`` slice of the pod's members' sum, added in
+        shard-axis order from member 0's (:func:`_sum_rows`), a new tensor
+        on ``buf``'s device (not yet scaled).  gloo's ``reduce_scatter``
+        fixes no order, so it is one ``all_to_all_single`` (slice k to
+        member k) and the sum at the wait."""
         members, kw = self._shard_group(axis)
         size = len(members)
         order = sorted(members)
         cols = buf.reshape(size, -1)
         if order != list(members):
             cols = cols[[members.index(t) for t in order]]
-        src = cols.reshape(-1)
+        src, held = cols.reshape(-1), ()
         if self.world.stages_through_host:
             src = self._to_host(self._take("send", buf), src)
             out = self._take("scatter", buf)
+            held = (("send", src), ("scatter", out))
         else:
             src = src.contiguous()
             out = torch.empty_like(src)
+        perm = (None if order == list(members)
+                else [order.index(t) for t in members])
+
+        def finish(out):
+            rows, done = self._rows_on(out, size, buf)
+            return _sum_rows(rows if perm is None else rows[perm]), done
+        self._post()
         work = dist.all_to_all_single(out, src, async_op=True, **kw)
-        self._wait([work], src, (size - 1) * (buf.numel() // size)
-                   * buf.element_size())
-        rows, done = self._rows_on(out, size, buf)
-        if done is not None:
-            self._give("send", src)
-            self._give("scatter", out, done)
-        if order != list(members):
-            rows = rows[[order.index(t) for t in members]]
-        return _sum_rows(rows)
+        return _RankReceipt(self, [work], out, finish, held, src,
+                            (size - 1) * (buf.numel() // size)
+                            * buf.element_size())
 
 
 def _sum_rows(rows: torch.Tensor) -> torch.Tensor:
@@ -973,6 +990,9 @@ class AveragingPlan:
         # the non-empty buckets stream_unshard has read (one pod's read
         # serves all its members, as one device's gather does in JAX)
         self.stream_gathers = 0
+        # a list where asked for (None otherwise): each streamed fwd+bwd's
+        # event log (streaming.check_stream_event_log)
+        self.stream_log: Optional[list] = None
 
     # -- static schedule ---------------------------------------------------
     @property
@@ -1060,20 +1080,42 @@ class AveragingPlan:
             out.append(b[..., s * n:(s + 1) * n].clone())
         return tuple(out)
 
+    def _rank_pod(self, pod: Optional[int]) -> str:
+        """The shard axis, once ``pod`` (None: any) is this rank's pod."""
+        axis = self.sharding.shard_axis
+        if pod not in (None, self.world.pod_of(axis)):
+            raise ValueError(f"rank {self.world.rank} holds pod "
+                             f"{self.world.pod_of(axis)}, not {pod}")
+        return axis
+
+    def _all_gather(self, buf: torch.Tensor, axis: str):
+        """The receipt of one tiled all-gather of a rank's ``(1, n)``
+        slice over its pod (a zero-size slice as it is)."""
+        if not buf.numel():
+            return buf.reshape(-1)
+        return self.shard_wire.shard_all_gather(buf, axis)
+
+    def _reduce_scatter(self, buf: torch.Tensor):
+        """The receipt of one float32 bucket's reduce-scatter over this
+        rank's pod, scaled by ``1/shard_size`` once it lands (a zero-size
+        bucket as it is)."""
+        if not buf.numel():
+            return buf
+        inv = 1.0 / self.shard_size
+        return pipeline.Mapped(self.shard_wire.shard_reduce_scatter(
+            buf, self.sharding.shard_axis), lambda t: t.mul_(inv))
+
     def unshard_tree(self, shards, pod: Optional[int] = None):
         """Shard buffers -> pod ``pod``'s full tree (the JAX plan's
         all-gather over the shard axis), its leaves views into the pod's
         row; with no ``pod``, every pod's tree stacked ``(P_eff, ...)``.
         Over ranks one tiled all-gather a bucket of this rank's ``(1, n)``
-        slices over its pod's ranks: its pod's tree (``(1, ...)`` with no
-        ``pod``)."""
+        slices over its pod's ranks, each resolved as soon as it is
+        posted: its pod's tree (``(1, ...)`` with no ``pod``)."""
         if self._over_ranks:
-            axis = self.sharding.shard_axis
-            if pod not in (None, self.world.pod_of(axis)):
-                raise ValueError(f"rank {self.world.rank} holds pod "
-                                 f"{self.world.pod_of(axis)}, not {pod}")
-            rows = tuple(self.shard_wire.shard_all_gather(b, axis)
-                         if b.numel() else b.reshape(-1) for b in shards)
+            axis = self._rank_pod(pod)
+            rows = tuple(pipeline.resolve(self._all_gather(b, axis))
+                         for b in shards)
             if pod is None:
                 rows = tuple(r[None] for r in rows)
             return bucketing.unpack(rows, self.shard_layout)
@@ -1092,33 +1134,34 @@ class AveragingPlan:
         at once.  Returns ``(n_b,)`` buffers.  Over ranks it yields this
         member's alone, packed in float32 and reduce-scattered over its pod
         (``RankWire.shard_reduce_scatter``: the same adds in the same
-        order): this rank's ``(n_b / shard_size,)`` slices.
+        order), each bucket's resolved as soon as it is posted: this rank's
+        ``(n_b / shard_size,)`` slices.
         """
-        inv = 1.0 / self.shard_size
-        if self._over_ranks:
-            mine = list(member_grads)
-            if len(mine) != 1:
-                raise ValueError(f"grad_shards over ranks takes this "
-                                 f"member's gradient alone, got {len(mine)}")
-            axis = self.sharding.shard_axis
-            out = []
-            for b in bucketing.pack(mine.pop(), self.shard_layout,
-                                    dtype=torch.float32):
-                out.append(self.shard_wire.shard_reduce_scatter(b, axis)
-                           .mul_(inv) if b.numel() else b)
-                del b
-            return tuple(out)
-        acc = None
+        bufs = self._pod_mean(member_grads, self.shard_layout)
+        if not self._over_ranks:
+            return bufs
+        return tuple(pipeline.resolve(self._reduce_scatter(b)) for b in bufs)
+
+    def _pod_mean(self, member_grads, layout) -> tuple:
+        """``member_grads`` packed through ``layout`` in float32 and
+        summed in rank order, times ``1/shard_size``; over ranks this
+        member's alone, packed (the caller reduce-scatters it)."""
+        acc, n = None, 0
         for g in member_grads:
             if acc is None:
-                acc = bucketing.pack(g, self.shard_layout,
-                                     dtype=torch.float32)
+                acc = bucketing.pack(g, layout, dtype=torch.float32)
             else:
-                bucketing.pack_add_(g, self.shard_layout, acc)
+                bucketing.pack_add_(g, layout, acc)
+            n += 1
             del g
         if acc is None:
-            raise ValueError("grad_shards: a pod with no members")
-        return tuple(b.mul_(inv) for b in acc)
+            raise ValueError("a pod with no members")
+        if not self._over_ranks:
+            return tuple(b.mul_(1.0 / self.shard_size) for b in acc)
+        if n != 1:
+            raise ValueError(f"over ranks a pod mean takes this member's "
+                             f"gradients alone, got {n} members'")
+        return acc
 
     # -- layer-streamed gather/scatter (DESIGN.md §11) ---------------------
     def _require_streamed(self):
@@ -1174,16 +1217,26 @@ class AveragingPlan:
                        barrier: bool = False):
         """One group's buckets of pod ``pod``'s row -> its sub-tree, leaves
         views into the row (the JAX plan's per-group all-gather, as
-        :meth:`unshard_tree` reads a pod's whole row).
+        :meth:`unshard_tree` reads a pod's whole row).  Over ranks
+        ``pod`` is this rank's: one tiled all-gather a bucket of its
+        ``(1, n)`` slices over the pod's ranks is posted, and the receipt
+        returned (``overlap.resolve`` makes it the sub-tree, views into
+        the gathered rows).
 
         ``barrier`` is the JAX plan's fence against CSE of a backward
         re-gather with the forward one; eager PyTorch has nothing to
         fence, and the keyword keeps the engine the reference's.
         """
         self._require_streamed()
-        rows = tuple(shards[i][pod] for i in self.stream_bucket_indices(group))
-        self.stream_gathers += sum(1 for b in rows if b.numel())
-        return bucketing.unpack(rows, self.stream_sublayout(group))
+        idxs = self.stream_bucket_indices(group)
+        lay = self.stream_sublayout(group)
+        self.stream_gathers += sum(1 for i in idxs if shards[i].numel())
+        if self._over_ranks:
+            axis = self._rank_pod(pod)
+            return pipeline.Mapped(
+                tuple(self._all_gather(shards[i], axis) for i in idxs),
+                lambda rows: bucketing.unpack(rows, lay))
+        return bucketing.unpack(tuple(shards[i][pod] for i in idxs), lay)
 
     def stream_grad_shards(self, member_grads, group: int) -> tuple:
         """One group's gradients of a pod's members -> its float32 grad
@@ -1194,21 +1247,16 @@ class AveragingPlan:
         one added into those buffers leaf by leaf, and the sum scaled by
         ``1/shard_size``: per element the gather-all path's arithmetic, so
         streamed gradients are bit-identical to it.  Returns the group's
-        ``(n_b,)`` buffers in its bucket order.
+        ``(n_b,)`` buffers in its bucket order.  Over ranks it yields this
+        member's alone, and each bucket's reduce-scatter is posted: a
+        receipt a bucket (``overlap.resolve`` makes them this rank's
+        ``(n_b / shard_size,)`` slices, scaled).
         """
         self._require_streamed()
-        lay = self.stream_sublayout(group)
-        acc = None
-        for g in member_grads:
-            if acc is None:
-                acc = bucketing.pack(g, lay, dtype=torch.float32)
-            else:
-                bucketing.pack_add_(g, lay, acc)
-            del g
-        if acc is None:
-            raise ValueError("stream_grad_shards: a pod with no members")
-        inv = 1.0 / self.shard_size
-        return tuple(b.mul_(inv) for b in acc)
+        bufs = self._pod_mean(member_grads, self.stream_sublayout(group))
+        if not self._over_ranks:
+            return bufs
+        return tuple(self._reduce_scatter(b) for b in bufs)
 
     def stream_group_bytes(self) -> Dict[int, int]:
         """Gathered (padded storage) bytes per stream group."""

@@ -18,10 +18,12 @@ per-replica weights:
   package spreads each row's columns over the pod's devices; on one card
   the port holds that global array whole, as it holds the replicated one,
   so its layouts, checkpoints and conversions are the reference's byte for
-  byte.  Over a rank world (``launch/mesh.py``, the gather-all engine)
-  each rank is one member and holds the reference's block: its column
-  slice ``(1, n_b / pod_size)`` of its pod's row of every bucket and a
-  ``(1,)`` count (:func:`rank_slices`, :func:`join_rank_slices`).
+  byte.  Over a rank world (``launch/mesh.py``, the gather-all and the
+  layer-streamed engines) each rank is one member and holds the
+  reference's block: its column slice ``(1, n_b / pod_size)`` of its
+  pod's row of every bucket and a ``(1,)`` count (:func:`rank_slices`,
+  :func:`join_rank_slices`, which slice and join the flat and the
+  grouped layouts alike).
 
 ``ShardingPolicy.fsdp_within_pod(shard_axis, streamed=True)`` (DESIGN.md
 §11) is the layer-streamed layout: the same ``(P_eff, n_b)`` buffers, laid
@@ -34,9 +36,8 @@ Host-side helpers translate whole states between the policies (a
 checkpoint written under one restores under the other), between the
 layered and canonical structures of a replicated state, and consolidate
 any layout into the one model a server loads (``serve/handoff.py``).
-FSDP over a rank world runs gather-all; the layer-streamed engine over
-ranks and FSDP under a model axis are later parts of slice 7c and raise,
-naming theirs.
+FSDP over a rank world runs gather-all or layer-streamed; FSDP under a
+model axis is slice 7c's last part and raises, naming it.
 """
 
 from __future__ import annotations
@@ -52,7 +53,7 @@ from repro_torch.core import tree as tr
 
 REPLICATED_KIND = "replicated"
 FSDP_KIND = "fsdp_within_pod"
-FSDP_STREAMED_SLICE = "slice 7c-2: layer-streamed FSDP over ranks (ROADMAP.md)"
+FSDP_STREAMED_SLICE = "slice 7c-2: layer-streamed FSDP over ranks (ported)"
 FSDP_MODEL_SLICE = "slice 7c-3: FSDP under a model axis (ROADMAP.md)"
 FSDP_SLICE = ("slice 7c: FSDP over ranks, gather-all ported (7c-1); "
               f"{FSDP_STREAMED_SLICE}; {FSDP_MODEL_SLICE}")
@@ -106,15 +107,11 @@ REPLICATED = ShardingPolicy.replicated()
 
 
 def refuse_sharded_world(sharding: ShardingPolicy, world) -> None:
-    """The parts of FSDP over a rank world not ported yet raise, naming
-    theirs: the streamed engine (7c-2) and a world with a model axis
-    (7c-3).  Gather-all FSDP over ranks passes."""
+    """The part of FSDP over a rank world not ported yet raises, naming
+    its slice: a world with a model axis (7c-3).  Gather-all and
+    layer-streamed FSDP over ranks pass."""
     if not sharding.is_sharded or world is None:
         return
-    if sharding.streamed:
-        raise NotImplementedError(
-            f"{sharding.describe()} over a rank world is not ported yet; it "
-            f"belongs to {FSDP_STREAMED_SLICE}")
     if world.model != 1:
         raise NotImplementedError(
             f"{sharding.describe()} over a world with a model axis of "

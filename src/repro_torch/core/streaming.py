@@ -37,15 +37,31 @@ first in float32, adds the next ones in rank order and scales the sum by
 streamed gradients equal it bit for bit.  The per-span VJPs are the ops
 ``model.loss`` runs on the gathered tree, composed across the saved
 carries.
+
+**Over a rank world** each rank is one member of its pod holding its
+column slice of the grouped buckets, and the engine walks its own batch
+alone: a GATHER posts the group's tiled all-gathers over the pod's ranks
+(``plan.stream_unshard`` returns their receipt) and the group's COMPUTE
+or VJP resolves it right before it reads the tree (:func:`take_gathered`),
+so span k+1's buckets are on the wire while span k computes; a SCATTER
+posts the group's reduce-scatters (``plan.stream_grad_shards``, this
+member's gradients packed in float32) as soon as its VJP ends, and they
+land, scaled by ``1/pod_size``, at the latest before the engine returns
+(the step's guard reads them), with at most two groups' in flight.  The
+same code on one card resolves views.  The engine's event log
+(``plan.stream_log``) is held to :func:`stream_schedule` by
+:func:`check_stream_event_log`.
 """
 
 from __future__ import annotations
 
+import time
 from functools import lru_cache
 from typing import Dict, List, Sequence, Tuple
 
 import torch
 
+from repro_torch.core import overlap as pipeline
 from repro_torch.core import tree as tr
 
 # Ordered stream groups of a layered tree: stem, spans 1..n, head.
@@ -231,18 +247,142 @@ def _cotangent_tree(tree, grads):
 
 
 # ---------------------------------------------------------------------------
+# The engine's event log
+# ---------------------------------------------------------------------------
+
+# what the engine logs beside COMPUTE and GRAD (each when done)
+GATHER_POST = "gather_post"          # a group's gathers posted
+GATHER_RESOLVE = "gather_resolve"    # a group's gathers resolved
+SCATTER_POST = "scatter_post"        # a group's reduce-scatters posted
+SCATTER_RESOLVE = "scatter_resolve"  # a group's reduce-scatters resolved
+# reduce-scatters in flight at once, in groups (the engine lands the
+# oldest before it posts a third)
+MAX_SCATTERS_IN_FLIGHT = 2
+
+
+def _consumer(g: int, n_spans: int, second: bool) -> str:
+    """What consumes a group's gather: a span's forward gather its
+    compute, its re-gather and the head's gather a VJP, the stem's its
+    compute (it stays live to its VJP)."""
+    if g == STEM_GROUP or (0 < g <= n_spans and not second):
+        return COMPUTE
+    return GRAD
+
+
+def check_stream_event_log(record: dict, plan) -> dict:
+    """Hold one engine run's event log (``record``: its ``n_spans``,
+    ``events``, each ``(kind, group, seconds)``, ``gathers`` and
+    ``peak_gathered_bytes``) to :func:`stream_schedule`: the gathers
+    issued, the computes, the VJPs and the scatters posted in the
+    schedule's order; span k+1's gather issued before span k's compute
+    and span k-1's re-gather before span k's VJP; every gather resolved
+    after its issue and before its consumer, every scatter posted after
+    its VJP and resolved after its post and before the run ends; at most
+    2 span gathers live and at most :data:`MAX_SCATTERS_IN_FLIGHT` groups'
+    scatters in flight; the run's bucket gathers
+    :func:`expected_stream_gathers`; its live gathered bytes at most
+    ``plan.stream_peak_gathered_bytes()``.  Returns the run's counts and
+    bounds; raises AssertionError."""
+    n = record["n_spans"]
+    events = record["events"]
+    sched = stream_schedule(n)
+
+    def fail(msg):
+        raise AssertionError(f"stream event log: {msg}")
+
+    for kind, ph in ((GATHER_POST, GATHER), (COMPUTE, COMPUTE),
+                     (GRAD, GRAD), (SCATTER_POST, SCATTER)):
+        got = [g for k, g, _ in events if k == kind]
+        want = [g for p, g in sched if p == ph]
+        if got != want:
+            fail(f"{kind} order {got}, the schedule's {want}")
+    # positions of each kind's occurrences, by group
+    pos: Dict[Tuple[str, int], List[int]] = {}
+    for i, (kind, g, _) in enumerate(events):
+        pos.setdefault((kind, g), []).append(i)
+    at = lambda kind, g, j=0: pos[(kind, g)][j]
+    for k in range(n):
+        nxt = span_group(k + 1) if k + 1 < n else head_group(n)
+        if not at(GATHER_POST, nxt) < at(COMPUTE, span_group(k)):
+            fail(f"group {nxt}'s gather issued after span {k}'s compute")
+        if k and not at(GATHER_POST, span_group(k - 1), 1) < at(GRAD,
+                                                          span_group(k)):
+            fail(f"span {k - 1}'s re-gather issued after span {k}'s VJP")
+    for (kind, g), issues in pos.items():
+        if kind != GATHER_POST:
+            continue
+        resolves = pos.get((GATHER_RESOLVE, g), [])
+        if len(resolves) != len(issues):
+            fail(f"group {g}: {len(issues)} gathers, {len(resolves)} "
+                 f"resolves")
+        for j, (a, b) in enumerate(zip(issues, resolves)):
+            use = _consumer(g, n, j == 1)
+            if not a < b < at(use, g):
+                fail(f"group {g}'s gather {j} resolved out of order")
+    for g in {g for k, g, _ in events if k == SCATTER_POST}:
+        posts = pos[(SCATTER_POST, g)]
+        lands = pos.get((SCATTER_RESOLVE, g), [])
+        if len(lands) != 1 or not at(GRAD, g) < posts[0] < lands[0]:
+            fail(f"group {g}'s scatter out of order or never resolved")
+    scatters = most_spans = most_scatters = 0
+    live: set = set()
+    for kind, g, _ in events:
+        if kind == GATHER_POST:
+            live.add(g)
+        elif (kind == COMPUTE and g != STEM_GROUP) or kind == GRAD:
+            live.discard(g)
+        scatters += {SCATTER_POST: 1, SCATTER_RESOLVE: -1}.get(kind, 0)
+        most_spans = max(most_spans, sum(1 for x in live if 0 < x <= n))
+        most_scatters = max(most_scatters, scatters)
+    if most_spans > 2:
+        fail(f"{most_spans} span gathers live at once")
+    if most_scatters > MAX_SCATTERS_IN_FLIGHT:
+        fail(f"{most_scatters} groups' scatters in flight at once")
+    want_gathers = expected_stream_gathers(plan)
+    if record["gathers"] != want_gathers:
+        fail(f"{record['gathers']} bucket gathers, expected {want_gathers}")
+    bound = plan.stream_peak_gathered_bytes()
+    if record["peak_gathered_bytes"] > bound:
+        fail(f"{record['peak_gathered_bytes']} gathered bytes live at "
+             f"once, the schedule's peak {bound}")
+    return {"events": len(events), "gathers": record["gathers"],
+            "span_gathers_live_max": most_spans,
+            "scatters_in_flight_max": most_scatters,
+            "peak_gathered_bytes": record["peak_gathered_bytes"],
+            "peak_bound": bound}
+
+
+def take_gathered(gathered: Dict[int, object], g: int):
+    """Group ``g``'s gathered sub-tree, resolved; its receipt leaves
+    ``gathered`` (which holds every group's gather not yet consumed)."""
+    return pipeline.resolve(gathered.pop(g))
+
+
+# ---------------------------------------------------------------------------
 # The engine
 # ---------------------------------------------------------------------------
 
 def streamed_loss_and_grad_shards(plan, layered, shards, batches, *,
-                                  pod: int):
+                                  pod: int, overlap: bool = True):
     """One streamed fwd+bwd of pod ``pod``'s members.
 
     ``plan``     a streamed-policy :class:`~repro_torch.core.plan.
                  AveragingPlan` compiled over the layered param tree;
     ``layered``  the model's :class:`~repro_torch.models.common.LayeredModel`;
-    ``shards``   the ``(P_eff, n_b)`` shard buffers (the full tuple);
-    ``batches``  each member's batch, in rank order.
+    ``shards``   the ``(P_eff, n_b)`` shard buffers (the full tuple); over
+                 ranks this rank's ``(1, n_b / pod_size)`` slices;
+    ``batches``  each member's batch, in rank order; over ranks this
+                 member's alone.
+
+    A GATHER posts the group's gathers (over ranks, all-gathers whose
+    receipts the engine keeps; on one card views) and the group's COMPUTE
+    or VJP resolves them right before it reads them; a SCATTER posts the
+    group's reduce-scatters (over ranks) as soon as its VJP ends, and the
+    engine resolves them at the latest before it returns, with at most
+    :data:`MAX_SCATTERS_IN_FLIGHT` groups' in flight.  ``overlap=False``
+    resolves every receipt as soon as it is posted (the same arithmetic).
+    Where ``plan.stream_log`` is a list, the run's event log is appended
+    to it (:func:`check_stream_event_log`).
 
     A span's re-run under autograd in the backward is its
     rematerialisation, so it runs without ``checkpoint``: each span's
@@ -252,20 +392,26 @@ def streamed_loss_and_grad_shards(plan, layered, shards, batches, *,
 
     Returns ``(losses, metrics, grad_shards)``: each member's loss and
     metrics, and the pod's float32 pod-mean gradient buffers ``(n_b,)`` in
-    global bucket order, the object ``plan.grad_shards`` makes of the
-    members' whole gradient trees on the gather-all path, made without
-    one member's whole gradient tree ever existing.
+    global bucket order (over ranks this rank's slices of them), the
+    object ``plan.grad_shards`` makes of the members' whole gradient trees
+    on the gather-all path, made without one member's whole gradient tree
+    ever existing.
     """
     n = layered.n_spans
     head = head_group(n)
     if plan.n_stream_spans != n:
         raise ValueError(f"plan has {plan.n_stream_spans} spans, "
                          f"model decomposes into {n}")
+    if plan.world is not None and len(batches) != 1:
+        raise ValueError(f"over ranks the engine runs this member's batch "
+                         f"alone, got {len(batches)}")
     members = range(len(batches))
     gathered: Dict[int, object] = {}
+    unresolved: set = set()               # gathers posted, not resolved
     regathered: set = set()
     boundary: List[Dict[int, torch.Tensor]] = [{} for _ in members]
     pending: Dict[int, object] = {}       # group -> member grads to pack
+    scatters: List[Tuple[int, tuple]] = []    # posted, not yet resolved
     grad_list = [None] * plan.shard_layout.n_buckets
     carry = [None for _ in members]
     aux = [None for _ in members]
@@ -274,6 +420,37 @@ def streamed_loss_and_grad_shards(plan, layered, shards, batches, *,
     losses = [None for _ in members]
     metrics = [None for _ in members]
     stem_tree = None
+    events = None if plan.stream_log is None else []
+    group_bytes = plan.stream_group_bytes()
+    live_bytes = [0, 0]                   # live gathered bytes, their peak
+    gathers0 = plan.stream_gathers
+
+    def note(kind, g):
+        if events is not None:
+            events.append((kind, g, time.perf_counter()))
+
+    def hold(g, sign):
+        live_bytes[0] += sign * group_bytes.get(g, 0)
+        live_bytes[1] = max(live_bytes[1], live_bytes[0])
+
+    def take(g):
+        """Group ``g``'s gathered tree, resolved right before its use."""
+        tree = take_gathered(gathered, g)
+        if g in unresolved:
+            unresolved.discard(g)
+            note(GATHER_RESOLVE, g)
+        return tree
+
+    def done(kind, g):
+        note(kind, g)
+        hold(g, -1)
+
+    def land():
+        g, bufs = scatters.pop(0)
+        for bi, buf in zip(plan.stream_bucket_indices(g),
+                           pipeline.resolve(bufs)):
+            grad_list[bi] = buf
+        note(SCATTER_RESOLVE, g)
 
     def head_vjps(head_tree):
         for m in members:
@@ -293,6 +470,7 @@ def streamed_loss_and_grad_shards(plan, layered, shards, batches, *,
             del h, s, c, loss, met, grads
             yield d_head
             del d_head
+        done(GRAD, head)
 
     def span_vjps(g, span_tree):
         for m in members:
@@ -306,8 +484,10 @@ def streamed_loss_and_grad_shards(plan, layered, shards, batches, *,
             del p, c, out, grads
             yield d_span
             del d_span
+        done(GRAD, g)
 
     def stem_vjps():
+        nonlocal stem_tree
         for m in members:
             s, s_leaves = _requiring_grad(stem_tree)
             with torch.enable_grad():
@@ -323,38 +503,59 @@ def streamed_loss_and_grad_shards(plan, layered, shards, batches, *,
             del s, x
             yield _cotangent_tree(stem_tree, d_stem)
             del d_stem
+        stem_tree = None
+        done(GRAD, STEM_GROUP)
 
     for ph, g in stream_schedule(n):
         if ph == GATHER:
             gathered[g] = plan.stream_unshard(shards, g, pod=pod,
                                               barrier=g in regathered)
             regathered.add(g)
+            note(GATHER_POST, g)
+            hold(g, +1)
+            if overlap:
+                unresolved.add(g)
+            else:
+                gathered[g] = pipeline.resolve(gathered[g])
+                note(GATHER_RESOLVE, g)
         elif ph == COMPUTE:
             with torch.no_grad():
                 if g == STEM_GROUP:
-                    stem_tree = gathered[STEM_GROUP]   # live to its VJP
+                    stem_tree = take(STEM_GROUP)       # live to its VJP
                     for m in members:
                         carry[m], aux[m] = layered.stem(stem_tree,
                                                         batches[m])
+                    note(COMPUTE, g)
                 else:
                     # forward primal only: no residuals are kept (the
                     # backward re-runs the span inside its VJP)
-                    span_tree = gathered.pop(g)
+                    span_tree = take(g)
                     for m in members:
                         boundary[m][g] = carry[m]
                         carry[m] = layered.span(g - 1, span_tree, carry[m],
                                                 aux[m], remat=False)
+                    del span_tree
+                    done(COMPUTE, g)
         elif ph == GRAD:
             if g == head:
-                pending[g] = head_vjps(gathered.pop(head))
+                pending[g] = head_vjps(take(head))
             elif g == STEM_GROUP:
                 pending[g] = stem_vjps()
             else:
-                pending[g] = span_vjps(g, gathered.pop(g))
+                pending[g] = span_vjps(g, take(g))
         else:  # SCATTER: the members' float32 pod mean, bucket order
-            for bi, buf in zip(plan.stream_bucket_indices(g),
-                               plan.stream_grad_shards(pending.pop(g), g)):
-                grad_list[bi] = buf
-
+            if len(scatters) >= MAX_SCATTERS_IN_FLIGHT:
+                land()
+            scatters.append((g, plan.stream_grad_shards(pending.pop(g), g)))
+            note(SCATTER_POST, g)
+            if not overlap:
+                land()
+    while scatters:
+        land()
+    if events is not None:
+        plan.stream_log.append({
+            "n_spans": n, "events": events,
+            "gathers": plan.stream_gathers - gathers0,
+            "peak_gathered_bytes": live_bytes[1]})
     assert all(b is not None for b in grad_list)
     return losses, metrics, tuple(grad_list)

@@ -20,6 +20,9 @@ rank, as JAX lays them over a mesh's ``pod`` and ``data`` axes.
     python -m torch.distributed.run --standalone --nproc-per-node 8 \\
         -m repro_torch.launch.train --arch tinyllama-1.1b --data-axis 2 \\
         --pod-axis 4 --pod-dcn --sharding fsdp --group-size 2 --tau 5
+    python -m torch.distributed.run --standalone --nproc-per-node 8 \\
+        -m repro_torch.launch.train --arch tinyllama-1.1b --data-axis 2 \\
+        --pod-axis 4 --pod-dcn --sharding fsdp --streamed --group-size 2
 
 runs on the CUDA card; ``REPRO_TORCH_DEVICE=cpu`` asks for the CPU (add
 ``--smoke`` there).  Under torchrun (``WORLD_SIZE`` > 1) each rank trains
@@ -35,10 +38,12 @@ each holding its column slice of its pod's buffers (the gather-all
 engine: an all-gather, a reduce-scatter and the pod-to-pod butterfly
 over the ranks); a checkpoint gathers the slices on rank 0 and is the
 one-device run's, byte for byte.  ``--streamed`` adds the layer-streamed
-engine (``core/streaming.py``), the dense family's only, on one device.
-Flags of the JAX driver whose feature is not ported yet raise, naming
-their slice (ROADMAP.md): ``--streamed`` under torchrun is slice 7c-2's,
-``--sharding fsdp`` with ``--model-axis`` > 1 slice 7c-3's.
+engine (``core/streaming.py``), the dense family's only, on one device or
+under torchrun (each span's all-gathers posted before the previous span
+computes, its reduce-scatters as soon as its VJP ends).  Flags of the JAX
+launcher whose feature is not ported yet raise, naming their slice
+(ROADMAP.md): ``--sharding fsdp`` with ``--model-axis`` > 1 is slice
+7c-3's.
 """
 
 from __future__ import annotations
@@ -56,9 +61,8 @@ from repro_torch.configs import get_config
 from repro_torch.configs.base import InputShape
 from repro_torch.core.baselines import AVERAGERS, make_averager
 from repro_torch.core.plan import Topology
-from repro_torch.core.replica import (FSDP_MODEL_SLICE, FSDP_STREAMED_SLICE,
-                                      REPLICATED, ReplicaState,
-                                      ShardingPolicy, consolidate_state,
+from repro_torch.core.replica import (FSDP_MODEL_SLICE, REPLICATED,
+                                      ReplicaState, ShardingPolicy,
                                       join_rank_slices, map_opt_state,
                                       pod_members, rank_slices)
 from repro_torch.core import tree as tr
@@ -247,9 +251,10 @@ class Trainer:
         """The ``(P, ...)`` ReplicaState on the host: every rank's row
         gathered on rank 0 (``None`` on the other ranks); with a model
         world, every rank's slices joined into whole leaves, so the state
-        is the one a model-1 run would hold; under FSDP, every member's
-        column slices joined into its pod's row, the one-process run's
-        ``(P_eff, n_b)`` state."""
+        is the one a model-1 run would hold; under FSDP (gather-all or
+        streamed), every member's column slices joined into its pod's row,
+        the one-process run's ``(P_eff, n_b)`` state in its plan's flat or
+        grouped layout."""
         st = self.state
         if self.world is None:
             get = lambda t: tr.tree_map(lambda a: a.cpu(), t)
@@ -299,8 +304,9 @@ class Trainer:
         state = self.gathered_state()
         if state is None:
             return None
-        return consolidate_state(
-            state, self.plan() if self.sharding.is_sharded else None)
+        return serving_weights_from_state(
+            state, plan=self.plan() if self.sharding.is_sharded else None,
+            model=self.model)
 
     def run(self, steps: int, log_every: int = 10, ckpt_dir=None,
             ckpt_every: int = 0):
@@ -376,10 +382,6 @@ def main():
     if not args.data_axis:
         raise SystemExit("give --data-axis: the number of replicas")
     fsdp = args.sharding == "fsdp"
-    if fsdp and args.streamed and ranks > 1:
-        raise NotImplementedError(
-            f"--sharding fsdp --streamed under torchrun belongs to "
-            f"{FSDP_STREAMED_SLICE}")
     if fsdp and n_model > 1:
         raise NotImplementedError(
             f"--sharding fsdp with --model-axis {n_model} belongs to "

@@ -1,6 +1,6 @@
 """Data-parallel train step (WAGMA-SGD and the baselines): replicated on
-one device or one replica a rank, FSDP-within-pod on one device,
-gather-all or layer-streamed, and gather-all FSDP over ranks.
+one device or one replica a rank, FSDP-within-pod on one device or one
+member a rank, gather-all or layer-streamed.
 
 Counterpart of ``repro/train/train_step.py``.
 Per replica: local gradients, a local optimiser step guarded against
@@ -66,13 +66,16 @@ guarded update, then ``averager.comm``/``sync`` over the wire
 (``core/plan.py``); the metrics are averaged over the ranks by one
 ``all_reduce``, as the reference's ``pmean`` over dp.
 
-**FSDP over ranks** (gather-all).  Each rank is one member of its pod
-and holds its column slices of the pod's shard buffers, ``(1, n_b /
-pod_size)``, and a ``(1,)`` count (``core/replica.py``).  The unit is
-this rank alone: ``plan.unshard_tree`` all-gathers its pod's tree over the
-pod's ranks, the gradients are taken on its own batch rows,
+**FSDP over ranks** (gather-all or layer-streamed).  Each rank is one
+member of its pod and holds its column slices of the pod's shard buffers,
+``(1, n_b / pod_size)``, and a ``(1,)`` count (``core/replica.py``).  The
+unit is this rank alone: ``plan.unshard_tree`` all-gathers its pod's tree
+over the pod's ranks, the gradients are taken on its own batch rows,
 ``plan.grad_shards`` reduce-scatters them (per microbatch, accumulated as
-on one card), and the guarded update writes its slices.  The non-finite
+on one card), and the guarded update writes its slices.  Streamed, the
+engine walks this member's batch alone, posting each group's all-gathers
+before the previous span computes and its reduce-scatters as soon as its
+VJP ends (``core/streaming.py``), once a microbatch.  The non-finite
 flag is the MIN over the pod's ranks (:func:`pod_all_finite`, the
 reference's ``pmin`` over the shard axis): one member's NaN lands in one
 slice only, and the whole pod must skip.  The metrics are the mean over
@@ -163,8 +166,11 @@ def init_replica_state(model, optimizer, averager,
     pod_size)`` slices of them and a ``(1,)`` count."""
     if averager.sharding.is_sharded and averager.world is not None:
         plan = plan_of(model, averager)
-        params = plan.shard_tree(tr.tree_map(lambda a: a[None],
-                                             model.init(generator)))
+        params0 = model.init(generator)
+        if averager.sharding.streamed:
+            params0 = model.layered.split(params0)
+        params = plan.shard_tree(tr.tree_map(lambda a: a[None], params0))
+        del params0
         rows = 1
     elif averager.sharding.is_sharded:
         params0 = model.init(generator)
@@ -319,7 +325,7 @@ def build_train_step(model, optimizer, averager, *, phase: int, sync: bool,
                 return plan.grad_shards(member_grads(i))
             _, ms, gs = streaming.streamed_loss_and_grad_shards(
                 plan, layered, shards, [per_mb[r][i] for r in members],
-                pod=pod)
+                pod=pod, overlap=plan.cfg.overlap)
             for r, m in zip(members, ms):
                 metrics_all[r].append(m)
             return gs

@@ -648,20 +648,28 @@ def fsdp_state_template(cfg, plan):
         plan, SGDState(None, torch.zeros(1, dtype=torch.int32)))
 
 
-def fsdp_trainer(world, arch, init, trainer_kw, seq_len, global_batch):
-    """The port's FSDP ``Trainer`` over ``world`` on the hierarchical
-    topology, warm-started from the FSDP checkpoint ``init``."""
+def fsdp_trainer(world, arch, init, trainer_kw, seq_len, global_batch,
+                 streamed=False, budget=None):
+    """The port's FSDP ``Trainer`` over ``world`` (gather-all, or
+    layer-streamed) on the hierarchical topology (each link class's
+    budget pinned to ``budget`` bytes where given), warm-started from the
+    FSDP checkpoint ``init`` (either layout: a restore across them goes
+    through the canonical tree)."""
     from repro_torch.checkpoint import load_replica_state
     from repro_torch.core.plan import Topology
     from repro_torch.launch.train import Trainer
     cfg = smoke_cfg(arch)
     data, pod = world_axes(world)
+    topology = (Topology.hierarchical(world.axis_names, world.axis_sizes,
+                                      dcn_axes=("pod",))
+                if budget is None else fsdp_topology(
+                    "hier", world.axis_sizes, budget))
     kw = dict(trainer_kw, seq_len=seq_len, global_batch=global_batch,
-              seed=0, sharding="fsdp", topology=Topology.hierarchical(
-                  world.axis_names, world.axis_sizes, dcn_axes=("pod",)))
+              seed=0, sharding="fsdp", streamed=streamed, topology=topology)
     trainer = Trainer(cfg, data, pod_axis=pod, world=world, **kw)
     state = load_replica_state(init, fsdp_state_template(
-        cfg, trainer.plan()), sharding=trainer.sharding)
+        cfg, trainer.plan()), sharding=trainer.sharding,
+        plan=trainer.plan(), layered=trainer.model.layered)
     trainer.state = trainer._put_state(state)
     return trainer
 
@@ -744,6 +752,191 @@ def fsdp_ranks_worker(world, out, tree, inputs, arch, inits, runs, seq_len,
     return res
 
 
+# ---------------------------------------------------------------------------
+# Layer-streamed FSDP within a pod over ranks
+# ---------------------------------------------------------------------------
+
+def streamed_plan(sizes, budget, world=None):
+    """The streamed plan of the smoke tinyllama-1.1b's layered tree on the
+    ``(data, pod)`` ``sizes``, hierarchical, each class's budget pinned to
+    ``budget`` bytes; over ``world`` where given, else one process."""
+    from repro_torch.core import plan as plan_mod
+    from repro_torch.core.replica import ShardingPolicy
+    from repro_torch.models.registry import build_model
+    cfg = smoke_cfg("tinyllama-1.1b")
+    specs = build_model(cfg, "cpu").layered.split(_spec_tree(cfg))
+    return plan_mod.compile_plan(
+        fsdp_topology("hier", sizes, budget), specs,
+        plan_mod.AveragingConfig(group_size=2),
+        ShardingPolicy.fsdp_within_pod("data", streamed=True), world)
+
+
+def streamed_inputs(plan, seed: int = 0):
+    """The streamed plan checks' numpy inputs, made from ``seed``: the
+    pods' layered trees ``(P_eff, ...)`` and every member's gradient
+    ``(P, ...)``, as lists of float32 leaves in the plan's leaf order."""
+    from repro_torch.core import tree as tr
+    rng = np.random.default_rng(seed)
+    leaves = [tuple(s.shape) for s in tr.tree_leaves(plan.storage_struct)]
+    pods = [rng.standard_normal((plan.P_eff,) + s).astype(np.float32)
+            for s in leaves]
+    grads = [rng.standard_normal((plan.P,) + s).astype(np.float32)
+             for s in leaves]
+    return pods, grads
+
+
+def group_tree(plan, leaves, g):
+    """Group ``g``'s sub-tree of a layered tree given as its leaves."""
+    from repro_torch.core import streaming
+    from repro_torch.core import tree as tr
+    treedef = tr.tree_flatten(plan.storage_struct)[1]
+    tree = tr.tree_unflatten(treedef, list(leaves))
+    if g == streaming.STEM_GROUP:
+        return tree["stem"]
+    if g == streaming.head_group(plan.n_stream_spans):
+        return tree["head"]
+    return tree["layers"][g - 1]
+
+
+def streamed_plan_checks(world, budget, res, prefix):
+    """The streamed plan over ``world`` on :func:`streamed_inputs`: its
+    pod's row sliced by ``shard_tree``, every group's ``stream_unshard``
+    (resolved) and ``stream_grad_shards`` of this member's gradients
+    (resolved), into ``res`` under ``prefix``."""
+    import torch
+    from repro_torch.core import overlap
+    from repro_torch.core import tree as tr
+    plan = streamed_plan(world.axis_sizes, budget, world)
+    pods, grads = streamed_inputs(plan)
+    pod = world.pod_of("data")
+    treedef = tr.tree_flatten(plan.storage_struct)[1]
+    shards = plan.shard_tree(tr.tree_unflatten(treedef, [
+        torch.from_numpy(a[pod:pod + 1]) for a in pods]))
+    mine = [torch.from_numpy(a[world.rank]) for a in grads]
+    for g in sorted(set(plan.shard_layout.bucket_groups)):
+        tree = overlap.resolve(plan.stream_unshard(shards, g, pod=pod))
+        for i, leaf in enumerate(tr.tree_leaves(tree)):
+            res[f"{prefix}/unshard/{g}/{i}"] = leaf.numpy()
+        out = overlap.resolve(plan.stream_grad_shards(
+            iter([group_tree(plan, mine, g)]), g))
+        for b, x in enumerate(out):
+            res[f"{prefix}/grads/{g}/{b}"] = x.numpy()
+
+
+def mispaired_gathered(gathered, g):
+    """The gather the engine must not hand group ``g``'s compute: group
+    g+1's, where it is in flight and has the same shapes (span k+1's, at
+    span k's forward)."""
+    from repro_torch.core import overlap
+    from repro_torch.core import tree as tr
+    own = overlap.resolve(gathered.pop(g))
+    if g + 1 not in gathered:
+        return own
+    other = overlap.resolve(gathered[g + 1])
+    shapes = lambda t: [tuple(l.shape) for l in tr.tree_leaves(t)]
+    return other if shapes(other) == shapes(own) else own
+
+
+@contextlib.contextmanager
+def mispaired_gathers():
+    """The planted fault of the streamed engine: span k's compute reads
+    span k+1's gathered receipt (:func:`mispaired_gathered`)."""
+    from repro_torch.core import streaming
+    real = streaming.take_gathered
+    streaming.take_gathered = mispaired_gathered
+    try:
+        yield
+    finally:
+        streaming.take_gathered = real
+
+
+def engine_grads(trainer, t: int, **kw):
+    """One streamed fwd+bwd of this member's batch of step ``t`` on the
+    trainer's state (nothing updated): the loss and its grad slices."""
+    from repro_torch.core import streaming
+    plan = trainer.plan()
+    batch = trainer._put_batch(t)
+    losses, _, grads = streaming.streamed_loss_and_grad_shards(
+        plan, trainer.model.layered, trainer.state.params, [batch],
+        pod=trainer.world.pod_of("data"), **kw)
+    return losses[0], grads
+
+
+def streamed_ranks_worker(world, out, inits, runs, seq_len, global_batch,
+                          steps, bad, budget):
+    """Every rank check of layer-streamed FSDP over ranks in one world:
+    :func:`streamed_plan_checks` over this world (data 2 x pod 4) and
+    over data 4 x pod 2 on the same ranks; then each of ``runs`` for
+    ``steps`` steps, streamed and gather-all, from the streamed checkpoint
+    ``inits[name]``, every streamed fwd+bwd's event log held to the
+    schedule (``streaming.check_stream_event_log``), rank 0 writing each
+    gathered state to ``out/<name>`` and ``out/<name>_gather_all``; one
+    fwd+bwd from the first run's final state asynchronous, serial and with
+    mispaired gathers planted; two steps of the first run in two
+    microbatches (``out/microbatch``); then one streamed step whose batch
+    poisons member ``bad``'s mask rows (``out/guard``)."""
+    import torch
+    from repro_torch.core import streaming
+    from repro_torch.launch import mesh
+    res = {}
+    streamed_plan_checks(world, budget, res, "2x4")
+    other = mesh.init_rank_world(4, 2, device_type="cpu", shard_axis="data")
+    streamed_plan_checks(other, budget, res, "4x2")
+    first = None
+    for name, kw in runs.items():
+        for streamed, tag in ((True, name), (False, f"{name}_gather_all")):
+            trainer = fsdp_trainer(world, "tinyllama-1.1b", inits[name], kw,
+                                   seq_len, global_batch, streamed=streamed,
+                                   budget=budget)
+            plan = trainer.plan()
+            plan.stream_log = [] if streamed else None
+            res[f"{tag}/losses"] = np.asarray(
+                [trainer.step_once(t) for t in range(steps)])
+            res[f"{tag}/skipped"] = np.asarray(trainer.skipped_nonfinite)
+            if streamed:
+                checked = [streaming.check_stream_event_log(r, plan)
+                           for r in plan.stream_log]
+                plan.stream_log = None
+                res[f"{tag}/logs"] = np.asarray(len(checked))
+                for k in ("gathers", "span_gathers_live_max",
+                          "scatters_in_flight_max", "peak_gathered_bytes",
+                          "peak_bound"):
+                    res[f"{tag}/log/{k}"] = np.asarray(
+                        [c[k] for c in checked])
+                cons = trainer.consolidated()
+                if cons is not None:
+                    _save_tree(res, f"{tag}/cons", flat_tree(cons))
+                first = first or trainer
+            trainer.save_checkpoint(os.path.join(out, tag))
+    loss, grads = engine_grads(first, steps)
+    s_loss, serial = engine_grads(first, steps, overlap=False)
+    with mispaired_gathers():
+        m_loss, mispaired = engine_grads(first, steps)
+    res["pair/serial_equal"] = np.asarray(
+        float(s_loss) == float(loss)
+        and all(torch.equal(a, b) for a, b in zip(serial, grads)))
+    res["pair/mispaired_parts"] = np.asarray(not (
+        float(m_loss) == float(loss)
+        and all(torch.equal(a, b) for a, b in zip(mispaired, grads))))
+    for b, x in enumerate(grads):
+        res[f"pair/grads/{b}"] = x.numpy()
+    name = next(iter(runs))
+    trainer = fsdp_trainer(world, "tinyllama-1.1b", inits[name],
+                           dict(runs[name], microbatch=2), seq_len,
+                           global_batch, streamed=True, budget=budget)
+    res["microbatch/losses"] = np.asarray(
+        [trainer.step_once(t) for t in range(2)])
+    trainer.save_checkpoint(os.path.join(out, "microbatch"))
+    trainer = fsdp_trainer(world, "tinyllama-1.1b", inits[name], runs[name],
+                           seq_len, global_batch, streamed=True,
+                           budget=budget)
+    res["guard/skipped"] = np.asarray(poisoned_step(trainer, world, bad,
+                                                    "mask"))
+    res["guard/count"] = trainer.state.opt_state.count.numpy()
+    trainer.save_checkpoint(os.path.join(out, "guard"))
+    return res
+
+
 def _spec_tree(cfg):
     """The whole params tree of ``cfg`` as Specs."""
     from repro_torch.models.convert import PARAM_SPECS
@@ -790,4 +983,5 @@ WORKERS = {"plan": plan_worker, "trainer": trainer_worker,
            "model_axis": model_axis_worker, "scheduler": scheduler_worker,
            "routed_count": routed_count_worker,
            "loss_grads": loss_grads_worker,
-           "fsdp_ranks": fsdp_ranks_worker}
+           "fsdp_ranks": fsdp_ranks_worker,
+           "streamed_ranks": streamed_ranks_worker}

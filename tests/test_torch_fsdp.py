@@ -500,10 +500,11 @@ def test_handoff_state_sharded_shrink_matches_jax():
 
 def test_streamed_and_rank_worlds_raise_naming_slice_7b():
     """The streamed spellings resolve to the streamed policy (ported,
-    tests/test_torch_streaming.py).  Over a rank world the gather-all plan
-    and both averagers build (slice 7c-1, tests/test_torch_fsdp_ranks.py);
-    the streamed policy raises naming slice 7c-2, a world with a model
-    axis naming slice 7c-3."""
+    tests/test_torch_streaming.py).  Over a rank world the gather-all and
+    the streamed plans and both averagers build (slices 7c-1 and 7c-2,
+    tests/test_torch_fsdp_ranks.py and tests/test_torch_streamed_ranks.py),
+    each averaging on the world's pod view; only a world with a model axis
+    raises, naming slice 7c-3."""
     from repro_torch.core.replica import (FSDP_MODEL_SLICE,
                                           FSDP_STREAMED_SLICE)
     from repro_torch.launch.mesh import RankWorld
@@ -522,6 +523,11 @@ def test_streamed_and_rank_worlds_raise_naming_slice_7b():
         assert "slice 7c" in part and part in FSDP_SLICE
     world = RankWorld(("data", "pod"), (2, 2), 3, torch.device("cpu"), "gloo")
     t, _ = _topos("hier", (2, 2))
+    # the streamed policy compiles over a layered tree
+    layered = {"stem": {"emb": _ttree()["emb"]},
+               "layers": ({"w": _ttree()["w"]}, {"w": _ttree()["w"]}),
+               "head": {"h": _ttree()["h"], "e": _ttree()["e"]}}
+    trees = {FSDP: _ttree(), streamed: layered}
     builds = {
         "wagma": lambda pol, w: make_averager(
             "wagma", ("data", "pod"), (2, 2), topology=t, sharding=pol,
@@ -530,26 +536,28 @@ def test_streamed_and_rank_worlds_raise_naming_slice_7b():
             "allreduce", ("data", "pod"), (2, 2), topology=t, sharding=pol,
             world=w),
         "plan": lambda pol, w: plan_mod.compile_plan(
-            t, _ttree(), plan_mod.AveragingConfig(), pol, w)}
+            t, trees[pol], plan_mod.AveragingConfig(), pol, w)}
+    assert "ported" in FSDP_STREAMED_SLICE
     for name, build in builds.items():
-        built = build(FSDP, world)
-        plan = built if name == "plan" else built.plan_for(
-            {k: tr.Spec((1,) + tuple(v.shape), v.dtype)
-             for k, v in _ttree().items()})
-        assert plan.world is world and plan.P_eff == 2
-        # the butterfly runs pod to pod: pod 1's member at data 1
-        assert (plan.wire.world.rank, plan.wire.world.torch_ranks) == \
-            (1, (1, 3))
-        assert [tuple(s.shape) for s in plan.shard_struct()] == \
-            [(n // 2,) for n in plan.shard_layout.bucket_sizes]
-        with pytest.raises(NotImplementedError, match="slice 7c") as e:
-            build(streamed, world)
-        assert FSDP_STREAMED_SLICE in str(e.value)
+        for pol in (FSDP, streamed):
+            built = build(pol, world)
+            plan = built if name == "plan" else built.plan_for(
+                tr.tree_map(lambda v: tr.Spec((1,) + tuple(v.shape),
+                                              v.dtype), trees[pol]))
+            assert plan.world is world and plan.P_eff == 2
+            assert plan.sharding == pol
+            assert plan.shard_layout.grouped == pol.streamed
+            # the butterfly runs pod to pod: pod 1's member at data 1
+            assert (plan.wire.world.rank, plan.wire.world.torch_ranks) == \
+                (1, (1, 3))
+            assert [tuple(s.shape) for s in plan.shard_struct()] == \
+                [(n // 2,) for n in plan.shard_layout.bucket_sizes]
         model_world = RankWorld(("data", "pod"), (2, 2), 0,
                                 torch.device("cpu"), "gloo", model=2)
-        with pytest.raises(NotImplementedError, match="slice 7c") as e:
-            build(FSDP, model_world)
-        assert FSDP_MODEL_SLICE in str(e.value)
+        for pol in (FSDP, streamed):
+            with pytest.raises(NotImplementedError, match="slice 7c-3") as e:
+                build(pol, model_world)
+            assert FSDP_MODEL_SLICE in str(e.value)
 
 
 # ---------------------------------------------------------------------------

@@ -25,8 +25,9 @@ Every rank check runs in one world of 8 gloo ranks on the CPU
   members out of step.
 
 Then the launcher under torchrun (``--sharding fsdp --pod-dcn
---ckpt-dir``) against the one-process launcher, and the flags that still
-raise naming their part of slice 7c.
+--ckpt-dir``) against the one-process launcher; under torchrun
+``--streamed`` passes its checks (slice 7c-2), and a model axis with FSDP
+raises naming slice 7c-3.
 """
 
 import os
@@ -425,17 +426,32 @@ def test_cli_fsdp_under_torchrun_checkpoints_as_one_process(tmp_path):
 
 def test_cli_streamed_and_model_axis_fsdp_raise_naming_their_parts(
         monkeypatch):
-    """Under torchrun ``--streamed`` is slice 7c-2's and ``--sharding
-    fsdp`` with ``--model-axis`` 2 slice 7c-3's: each raises before any
-    rank joins a process group."""
+    """Under torchrun ``--streamed`` is ported (slice 7c-2): it passes the
+    launcher's checks and reaches the rank world's start, which it asks
+    for the shard axis.  ``--sharding fsdp`` with ``--model-axis`` 2 is
+    slice 7c-3's and still raises before any rank joins a process
+    group."""
     for k, v in dict(WORLD_SIZE="8", RANK="0", LOCAL_RANK="0",
                      LOCAL_WORLD_SIZE="8", REPRO_TORCH_DEVICE="cpu").items():
         monkeypatch.setenv(k, v)
-    for extra, part in ((["--streamed"], FSDP_STREAMED_SLICE),
-                        (["--model-axis", "2"], FSDP_MODEL_SLICE)):
-        monkeypatch.setattr(sys, "argv", [
-            "train", "--smoke", "--data-axis", "2", "--pod-axis", "2",
-            "--sharding", "fsdp", *extra])
-        with pytest.raises(NotImplementedError) as e:
-            train_mod.main()
-        assert part in str(e.value)
+    asked = {}
+
+    class Reached(Exception):
+        pass
+
+    def init_rank_world(*args, **kw):
+        asked.update(kw)
+        raise Reached
+
+    monkeypatch.setattr(train_mod.mesh, "init_rank_world", init_rank_world)
+    argv = ["train", "--smoke", "--data-axis", "2", "--pod-axis", "2",
+            "--sharding", "fsdp"]
+    monkeypatch.setattr(sys, "argv", argv + ["--streamed"])
+    assert "ported" in FSDP_STREAMED_SLICE
+    with pytest.raises(Reached):
+        train_mod.main()
+    assert asked["shard_axis"] == "data" and asked["model"] == 1
+    monkeypatch.setattr(sys, "argv", argv + ["--model-axis", "2"])
+    with pytest.raises(NotImplementedError) as e:
+        train_mod.main()
+    assert FSDP_MODEL_SLICE in str(e.value)

@@ -2,8 +2,10 @@
 phase: gather-all FSDP over data 2 x pod 4 gloo ranks started by
 torchrun, with checks (b)-(e), both planted faults (the swapped join of
 check (c) and the guard without the pod MIN of check (e)), and no kernel
-launched off the card, so that check (a) refuses the CPU run.  The budget
-is pinned (``SMOKE_BUCKET``) so that a group step has several shard
+launched off the card, so that check (a) refuses the CPU run; then its
+streamed ranks part on the same ranks (the layer-streamed engine, checks
+(b)-(e), the planted mispaired gathers of check (d)).  The budget is
+pinned (``SMOKE_BUCKET``) so that a group step has several shard
 buckets.  Its one-process twin runs in this process, on one torch
 thread."""
 
@@ -72,6 +74,41 @@ def test_chip_smoke_fsdp_ranks_phase_at_smoke_size_on_cpu(tmp_path):
         smoke.check_fsdp_ranks_launches(stats)
     # the operands a rank reports are its plan's slices
     assert stats["ranks"][0]["combines"][0]
+    _streamed_part_holds(smoke, stats["streamed"])
+
+
+def _streamed_part_holds(smoke, st):
+    """The streamed ranks part of the rehearsal: its keys, checks (b)-(e)
+    holding, the planted mispaired gathers parting on every rank, and
+    check (a) refusing a run without launches."""
+    assert {"n_buckets", "expected_gathers", "peak_gathered_bound",
+            "check_b", "check_c", "pairs", "state_equal", "check_e",
+            "summary", "seconds", "ranks",
+            "expected_k1_k2_per_group_step"} <= set(st)
+    assert st["n_buckets"] > 4 and st["pod_size"] == 2
+    b = st["check_b"]
+    assert b["logs"] == 8 * 5 and b["gathers"] == [st["expected_gathers"]]
+    assert b["span_gathers_live_max"] == 2
+    assert b["scatters_in_flight_max"] == 2
+    assert b["peak_gathered_bytes"] <= b["peak_bound"] \
+        == st["peak_gathered_bound"] < st["full_gathered_bytes"]
+    assert st["check_c"]["slices_equal"] and st["check_c"]["leaves"] > 0
+    assert st["state_equal"] and st["state_leaves"] > 0
+    assert [(p["serial_equal"], p["mispaired_parts"])
+            for p in st["pairs"]] == [(True, True)] * 8
+    assert st["check_e"] == {"finite": True, "skipped": 0}
+    log = st["ranks"][0]["log"]
+    assert [e["sync"] for e in log] == [False] * 4 + [True]
+    s = st["summary"]
+    assert s["gathers_a_group_step"] == st["expected_gathers"]
+    assert all(s["bytes_a_group_step"][p] > 0
+               for p in ("gather", "scatter", "average"))
+    assert s["device_idle_share"] is None       # no card, no device time
+    for r in st["ranks"]:
+        assert all(e["k1"] == e["k2"] == e["k3"] == e["k4"] == 0
+                   for e in r["log"])
+    with pytest.raises(AssertionError, match="K1, K2, K3, K4"):
+        smoke.check_fsdp_ranks_launches(st)
 
 
 def test_chip_smoke_fsdp_ranks_checks_fail_on_their_faults():

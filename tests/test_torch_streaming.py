@@ -287,11 +287,13 @@ def test_split_and_merge_layered_match_jax(arch):
 
 def test_streamed_policy_and_refusals():
     """``streamed=True`` is a policy of its own (a plan distinct from the
-    gather-all one); it needs FSDP, a layered tree and a dense model, and
-    the streamed engine over a rank world still raises, naming slice
-    7c-2."""
+    gather-all one); it needs FSDP, a layered tree and a dense model.
+    Over a rank world it builds (slice 7c-2, ported: its averager and its
+    plan, whose butterfly runs on the world's pod view); only a world with
+    a model axis raises, naming slice 7c-3."""
     from repro_torch.core.baselines import make_averager
-    from repro_torch.core.replica import FSDP_STREAMED_SLICE
+    from repro_torch.core.replica import (FSDP_MODEL_SLICE,
+                                          FSDP_STREAMED_SLICE)
     from repro_torch.launch.mesh import RankWorld
     from repro_torch.launch.train import resolve_sharding
     from repro_torch.train.train_step import plan_of
@@ -316,10 +318,22 @@ def test_streamed_policy_and_refusals():
         plan_of(build_model(cfg, device="cpu"), avg)
     world = RankWorld(("data", "pod"), (2, 2), 0, torch.device("cpu"), "gloo")
     t = plan_mod.Topology.hierarchical(("data", "pod"), (2, 2))
-    with pytest.raises(NotImplementedError, match="slice 7c-2") as e:
+    assert "7c-2" in FSDP_STREAMED_SLICE and "ported" in FSDP_STREAMED_SLICE
+    ranked = make_averager("wagma", ("data", "pod"), (2, 2), topology=t,
+                           sharding=STREAM, world=world)
+    rank_plan = ranked.plan_for(tr.tree_map(
+        lambda s: tr.Spec((1,) + tuple(s.shape), s.dtype),
+        _ttree(GROUPED)))
+    assert rank_plan.world is world and rank_plan.sharding == STREAM
+    assert rank_plan.shard_layout.grouped and rank_plan.P_eff == 2
+    assert rank_plan.wire.world.torch_ranks == (0, 2)
+    assert rank_plan.n_stream_spans == 2
+    model_world = RankWorld(("data", "pod"), (2, 2), 0, torch.device("cpu"),
+                            "gloo", model=2)
+    with pytest.raises(NotImplementedError, match="slice 7c-3") as e:
         make_averager("wagma", ("data", "pod"), (2, 2), topology=t,
-                      sharding=STREAM, world=world)
-    assert FSDP_STREAMED_SLICE in str(e.value)
+                      sharding=STREAM, world=model_world)
+    assert FSDP_MODEL_SLICE in str(e.value)
 
 
 # ---------------------------------------------------------------------------
