@@ -41,8 +41,10 @@
    22-layer grouped plan's) and the fsdp ranks phase's
    (``fsdp_rank_combines``: a rank's ``(1, n_b / 2)`` slices of the
    2-layer sharded plan's buckets) and its streamed ranks part's
-   (``streamed_rank_combines``: the same of the 2-layer grouped plan's);
-   times each against
+   (``streamed_rank_combines``: the same of the 2-layer grouped plan's)
+   and the fsdp model phase's (``fsdp_model_combines``: a rank's ``(1,
+   n_b / 2)`` slices of its model coordinate's buckets, gather-all and
+   grouped); times each against
    the HBM bound ``3*n*itemsize/3.35e12 s``,
    the plain version and, at scale 1, ``torch.add``/``torch._foreach_add``;
    every case also in place (``out`` is ``w``), and K1 against
@@ -252,6 +254,40 @@
    fwd+bwd, the reduce-scatters' issue and exposed wait, each with its
    bytes; update, exchange, combine, sync), peaks and the idle share
    beside the gather-all run's.
+   Fsdp model phase (slice 7c-3, ``fsdp_model_phase``): FSDP under a
+   model axis: 8 ranks started by ``torch.distributed.run`` (this script
+   with ``--fsdp-model-worker``), gloo, all on the one card, pod 2 x data
+   2 (the shard axis) x model 2, each rank one member of its pod at one
+   model coordinate holding ``(1, n_b / 2)`` of that coordinate's shard
+   buckets (the plan compiled over its slice tree), the ranks phase's
+   model and depth, S 2, tau 5, global batch 32, 5 steps gather-all and
+   then 5 streamed on the same ranks.  Checks (a) each rank's K1/K2 a
+   group step = one stage of its plan's buckets, the sync none, K3/K4
+   none, the operands those the K1/K2 phase held (``fsdp_model_combines``);
+   (b) after each step at every (shard, model) coordinate the pods'
+   slices have equal sha256, and once an offset each coordinate's
+   one-process plan averages the pre-average slices gathered to rank 0
+   into every rank's post-average sha256, while a pod view pairing the
+   other model coordinate's members (planted) must part; (c) the leaves
+   held whole (the norm scales) bit-identical over every model group
+   after every step; (d) at step 2 pod 0's reduce-scattered float32
+   slices at each model coordinate, joined in shard-axis order, = the
+   one-process ``grad_shards`` of its members' slice gradients bit for
+   bit, joined swapped (planted) they must part; (e) the one-process
+   model-1 ``Trainer(sharding="fsdp")`` (same config, seed, batches)
+   within ``MODEL_LOSS_RTOL`` of the ranks' losses, the gathered state in
+   its layout (buckets, leaves, step and phase); (f) the streamed run's
+   event logs held to the schedule on every rank and step, every loss
+   ``==`` the gather-all run's, the final states merged to the canonical
+   tree with equal sha256 by leaf, serial fwd+bwd ``torch.equal`` to the
+   asynchronous one; (g) finite, no skip, and in one more step a NaN in
+   one member's gradient of pod 1 at model rank 1 skips all four of pod
+   1's ranks while pod 0 updates, and under the pod's MIN alone
+   (planted) a model group's counts part.  Prints rank 0's split of
+   each run (the all-gathers' and reduce-scatters' issue and exposed
+   wait, fwd+bwd with its TP all-reduces apart, update, exchange,
+   combine, sync; the bytes of each), each rank's peak and the idle
+   share over the union of the 8 ranks' device intervals.
    Model phase (slice 4b, ``model_phase``): the same model and step with
    each of 4 replicas split over 2 model ranks (Megatron's split): 8 ranks
    started by ``torch.distributed.run`` (this script with
@@ -779,6 +815,28 @@ MODEL_FAULT_LAYER = 2
 # another order than one matmul's; the gap measured 2.44e-5 on the H100
 # (6 steps), the bound four times that
 MODEL_LOSS_RTOL = 1e-4
+
+# fsdp model phase (slice 7c-3): FSDP under a model axis, pod 2 x data 2
+# (the shard axis) x model MODEL_M gloo ranks on the one card, each one
+# member of its pod at one model coordinate holding its (1, n_b / 2)
+# slice of that coordinate's shard buckets (P_eff 2: one group spans both
+# pods), the ranks phase's depth, S 2, tau 5, lr and sequence as the
+# training phase, 8 rows a replica, 5 steps gather-all and then 5
+# streamed on the same ranks; check (d) at step FSDP_MODEL_GRAD_STEP, the
+# profiled step FSDP_MODEL_PROFILED; check (g)'s NaN in the gradient of
+# dp rank FSDP_MODEL_BAD (pod 1) at model rank 1
+FSDP_MODEL_POD, FSDP_MODEL_STEPS = 2, 5
+FSDP_MODEL_P = FSDP_DATA * FSDP_MODEL_POD
+FSDP_MODEL_RANKS = FSDP_MODEL_P * MODEL_M
+FSDP_MODEL_GB = 8 * FSDP_MODEL_P
+FSDP_MODEL_GRAD_STEP, FSDP_MODEL_PROFILED, FSDP_MODEL_BAD = 2, 3, 3
+FSDP_MODEL_TIMEOUT = 600
+FSDP_MODEL_WORKER_FLAG = "--fsdp-model-worker"
+FSDP_MODEL_PATH = (f"tinyllama-1.1b fsdp, pod {FSDP_MODEL_POD} x data "
+                   f"{FSDP_DATA} x model {MODEL_M} ranks")
+STREAMED_MODEL_PATH = (f"tinyllama-1.1b fsdp streamed, pod {FSDP_MODEL_POD} "
+                       f"x data {FSDP_DATA} x model {MODEL_M} ranks")
+
 # rg model phase (slice 4c): the model phase's run for recurrentgemma-2b at
 # full width and vocab, RG_MODEL_LAYERS layers (one superblock: two
 # recurrent layers and the local attention, the smallest depth with every
@@ -1494,6 +1552,26 @@ def combine_kernel_phase(device="cuda"):
             "streamed ranks tail batch", tail[0], [0] * len(tail[0]),
             "float32", tail[1])
         rows.append(line["streamed ranks"]["K2"])
+    # the fsdp model path's: a rank's (1, n_b / 2) float32 slices of its
+    # model coordinate's buckets, gather-all and layer-streamed (check (a)
+    # of the fsdp model phase ties them to the plans its ranks compiled)
+    for key, streamed in (("fsdp model", False), ("streamed model", True)):
+        k1, tail = fsdp_model_combines(ranks_config(), streamed)
+        k1_rows = [k1_row(n, "float32", scale, case=key)[0]
+                   for n, scale in k1]
+        rows.extend(k1_rows)
+        line[key] = {"combines": (k1, tail),
+                     "K1": max(k1_rows, key=lambda r: r["n"][0])}
+        if tail is not None:
+            line[key]["K2"] = k2_row(f"{key} tail batch", tail[0],
+                                     [0] * len(tail[0]), "float32", tail[1])
+            rows.append(line[key]["K2"])
+    # torch.add at the gather-all path's largest slice (beside the row)
+    w, r = operands(line["fsdp model"]["K1"]["n"][0], "float32")
+    o = torch.empty_like(w)
+    line["fsdp model"]["K1"]["add_ms"] = time_ms(
+        lambda: torch.add(w, r, out=o))
+    del w, r, o
     # the streamed path's: the 22-layer grouped plan's K1 sizes and K2
     # batch over its (P_eff, n_b) float32 shard buffers at scale 1/S
     combines = streamed_combines(fsdp_config())
@@ -2258,11 +2336,11 @@ def print_elastic(stats, card: str):
 # FSDP phase: 4 pods of 2 sharing shard buffers, 22 layers (K1, K2; K3)
 # ---------------------------------------------------------------------------
 
-def fsdp_topology():
-    """``Topology.hierarchical(("data", "pod"), (2, 4))``: data rides ICI
+def fsdp_topology(pod: int = FSDP_POD):
+    """``Topology.hierarchical(("data", "pod"), (2, pod))``: data rides ICI
     (the shard axis), pod rides DCN (the pod-to-pod butterfly)."""
     from repro_torch.core.plan import Topology
-    return Topology.hierarchical(("data", "pod"), (FSDP_DATA, FSDP_POD),
+    return Topology.hierarchical(("data", "pod"), (FSDP_DATA, pod),
                                  dcn_axes=("pod",))
 
 
@@ -2321,6 +2399,34 @@ def streamed_rank_combines(cfg):
     tail batch of one group step of the grouped plan over a rank's ``(1,
     n_b / 2)`` float32 slices, at scale 1/S."""
     return plan_combines(streamed_plan(cfg), 1, per_rank=True)
+
+
+def fsdp_model_plan(cfg, streamed: bool = False):
+    """The fsdp model phase's sharded plan of one model coordinate: the
+    plan over a rank's slice tree (``MODEL_M`` model ranks) on data 2 x
+    pod ``FSDP_MODEL_POD``, gather-all or layer-streamed, in one process
+    (its ranks' plans have its layout)."""
+    from repro_torch.core import plan as plan_mod
+    from repro_torch.core.replica import ShardingPolicy
+    from repro_torch.models import common as cm
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.registry import build_model
+    specs = tfm.param_specs(cfg)
+    local = cm.take_slices(specs, cm.placement(cfg, specs, MODEL_M),
+                           cm.ModelWorld(MODEL_M, 0))
+    if streamed:
+        local = build_model(cfg, device="cpu").layered.split(local)
+    return plan_mod.compile_plan(
+        fsdp_topology(FSDP_MODEL_POD), local,
+        plan_mod.AveragingConfig(group_size=FSDP_S, tau=FSDP_TAU),
+        ShardingPolicy.fsdp_within_pod("data", streamed=streamed))
+
+
+def fsdp_model_combines(cfg, streamed: bool = False):
+    """The fsdp model path's combine operands: each K1 size and the K2
+    tail batch of one group step over a rank's ``(1, n_b / 2)`` float32
+    slices of its model coordinate's buckets, at scale 1/S."""
+    return plan_combines(fsdp_model_plan(cfg, streamed), 1, per_rank=True)
 
 
 def grads_pass_reckoning(plan, cfg, seq_len: int, rows: int) -> dict:
@@ -3877,17 +3983,19 @@ def fsdp_ranks_spec(device="cuda", smoke: bool = False,
             "steps": steps, "bucket_bytes": bucket_bytes}
 
 
-def fsdp_ranks_trainer(spec: dict, world=None, streamed: bool = False):
-    """The phase's FSDP ``Trainer`` (gather-all, or layer-streamed): one
-    member on a rank of ``world``, or every pod as a row of one state on
-    ``spec["device"]`` (the twin)."""
+def fsdp_ranks_trainer(spec: dict, world=None, streamed: bool = False,
+                       pod: int = FSDP_POD):
+    """The phase's FSDP ``Trainer`` (gather-all, or layer-streamed) over
+    data 2 x ``pod``: one member on a rank of ``world`` (with its model
+    axis), or every pod as a row of one state on ``spec["device"]`` (the
+    twin)."""
     from repro_torch.configs import get_config
     from repro_torch.core import plan as plan_mod
     from repro_torch.launch.train import Trainer
     cfg = get_config(ARCH, smoke=spec["smoke"])
     if spec["n_layers"]:
         cfg = cfg.variant(n_layers=spec["n_layers"])
-    topology = fsdp_topology()
+    topology = fsdp_topology(pod)
     if spec.get("bucket_bytes"):
         pin = lambda l: dataclasses.replace(l, bucket_bytes=spec[
             "bucket_bytes"])
@@ -3896,7 +4004,7 @@ def fsdp_ranks_trainer(spec: dict, world=None, streamed: bool = False):
             tuple(pin(l) for l in topology.link_classes), topology.axis_class)
     kw = {"world": world} if world is not None else {"device":
                                                      spec["device"]}
-    return Trainer(cfg, FSDP_DATA, pod_axis=FSDP_POD, group_size=FSDP_S,
+    return Trainer(cfg, FSDP_DATA, pod_axis=pod, group_size=FSDP_S,
                    tau=FSDP_TAU, learning_rate=TRAIN_LR,
                    seq_len=spec["seq_len"], global_batch=spec["global_batch"],
                    seed=0, topology=topology, sharding="fsdp",
@@ -4994,6 +5102,721 @@ def fsdp_ranks_phase(spec: dict, out: Path,
     stats["phase_s"] = time.perf_counter() - t_phase
     stats["summary"] = fsdp_ranks_summary(stats)
     return stats
+
+
+def fsdp_model_spec(device="cuda", smoke: bool = False,
+                    n_layers: Optional[int] = RANKS_LAYERS,
+                    seq_len: int = TRAIN_SEQ,
+                    global_batch: int = FSDP_MODEL_GB,
+                    steps: int = FSDP_MODEL_STEPS,
+                    bucket_bytes: Optional[int] = None) -> dict:
+    """What the fsdp model phase's ranks and its one-process twin run
+    (:func:`fsdp_ranks_spec`'s keys)."""
+    return fsdp_ranks_spec(device, smoke, n_layers, seq_len, global_batch,
+                           steps, bucket_bytes)
+
+
+def whole_leaf_slots(trainer, plan) -> list:
+    """(bucket, start, end) of every piece of this rank's columns of its
+    shard buckets that holds a leaf the placement keeps whole over the
+    model ranks (the norm scales): a model group's ranks hold them at the
+    same offsets, since every model coordinate's slice tree has one
+    layout."""
+    from repro_torch.models import common as cm
+    whole = trainer.whole_plan().storage_struct
+    held = []                   # a flag a leaf, in leaf order
+    cm._zip_map(lambda leaf, d: held.append(d is None), whole,
+                cm.placement(trainer.cfg, whole, MODEL_M))
+    s = trainer.world.shard_coord("data")
+    out = []
+    for kept, slot in zip(held, plan.shard_layout.slots):
+        if not kept:
+            continue
+        n = plan.shard_layout.bucket_sizes[slot.bucket] // plan.shard_size
+        lo, hi = max(slot.offset, s * n), min(slot.offset + slot.size,
+                                              (s + 1) * n)
+        if lo < hi:
+            out.append((slot.bucket, lo - s * n, hi - s * n))
+    return out
+
+
+def whole_leaf_digest(params, slots) -> tuple:
+    """sha256 of this rank's pieces of the leaves held whole (``slots``
+    from :func:`whole_leaf_slots`) and their element count."""
+    import torch
+    pieces = [params[b][0, lo:hi] for b, lo, hi in slots]
+    if not pieces:
+        return tensor_digest(torch.zeros(0)), 0
+    joined = torch.cat(pieces)
+    return tensor_digest(joined), joined.numel()
+
+
+def instrument_fsdp_model(trainer, world, plan, step_no: list):
+    """Time a rank's FSDP ``Trainer`` under a model axis (gather-all or
+    streamed): :func:`instrument_streamed_ranks`'s split (the all-gathers'
+    and reduce-scatters' issue and exposed wait, the engine, update,
+    average, sync) and, gather-all, the fwd+bwd (``value_and_grad``); at
+    step ``FSDP_MODEL_GRAD_STEP`` keep this member's gradient and its
+    reduce-scattered slices in ``grab`` (check (d)); once an offset keep
+    the slices ``comm`` averages in ``pending`` (check (b)): this rank's,
+    and on torch rank 0 every rank's joined into each model coordinate's
+    ``(P_eff, n_b)`` buffers (their seconds in ``check_s[0]``).  Returns
+    (split, wire, grab, pending, check_s, restore)."""
+    from repro_torch.core.replica import join_rank_slices
+    from repro_torch.core import tree as tr
+    from repro_torch.launch import mesh
+    from repro_torch.train import train_step
+    split, wire, grab, restore_wire = instrument_streamed_ranks(
+        trainer, plan, step_no)
+    split["fwd_bwd"] = 0.0
+    timed_ = split_timer(split, trainer.device)
+    at_grad_step = lambda: step_no[0] == FSDP_MODEL_GRAD_STEP
+    vag, grad_shards = train_step.value_and_grad, plan.grad_shards
+
+    def vag_noting(model, params, batch):
+        grads, metrics = vag(model, params, batch)
+        if at_grad_step():
+            grab["grads"] = tr.tree_map(lambda a: a.clone(), grads)
+        return grads, metrics
+
+    def grad_shards_noting(member_grads):
+        out = grad_shards(member_grads)
+        if at_grad_step():
+            grab["slices"] = tuple(b.clone() for b in out)
+        return out
+
+    train_step.value_and_grad = timed_("fwd_bwd", vag_noting)
+    plan.grad_shards = grad_shards_noting
+    avg = trainer.averager
+    comm, pending, check_s = avg.comm, {}, [0.0]
+
+    def comm_checked(tree, phase):
+        offset = plan.offsets[phase]
+        if offset not in pending:
+            t0 = time.perf_counter()
+            rows = mesh.gather_world_rows(world, tree)
+            joined = None if rows is None else [join_rank_slices(
+                tuple(b[m::MODEL_M].to(world.device) for b in rows), plan)
+                for m in range(MODEL_M)]
+            pending[offset] = (tuple(b.clone() for b in tree), joined)
+            check_s[0] += time.perf_counter() - t0
+        return comm(tree, phase)
+
+    avg.comm = comm_checked
+
+    def restore():
+        restore_wire()
+        train_step.value_and_grad = vag
+        vars(plan).pop("grad_shards", None)
+    return split, wire, grab, pending, check_s, restore
+
+
+def fsdp_model_check_b(world, plan, stacked_plan, pending, offset, rows,
+                       t: int) -> Optional[dict]:
+    """Check (b) once an offset, after its step (rank 0 decides): each
+    model coordinate's one-process plan (``stacked_plan``: its slice
+    tree's layout) averages the pre-average ``(P_eff, n_b)`` buffers
+    gathered on rank 0, and every rank's post-average slices
+    (``rows``: their digests by torch rank) must carry the digest of its
+    pod's and shard coordinate's slice of its coordinate's result; then
+    every rank averages its own pre-average slices again with its pod
+    view pairing the other model coordinate's members (planted), which
+    must part from it on some rank."""
+    import torch.distributed as dist
+    from repro_torch.core import plan as plan_mod
+    mine, joined = pending[offset]
+    want = None
+    if joined is not None:
+        want = {}
+        for m, pre in enumerate(joined):
+            out = stacked_plan._average_sharded(pre, offset)
+            for d in range(world.P):
+                want[d * MODEL_M + m] = slice_digest(
+                    out, d // FSDP_DATA, d % FSDP_DATA)
+            del out
+        equal = rows == [want[r] for r in range(len(rows))]
+        if not equal:
+            raise AssertionError(f"check (b): step {t}: the ranks' average "
+                                 f"at offset {offset} differs from each "
+                                 f"model coordinate's one-process plan's")
+    real = plan.wire
+    view = real.world
+    plan.wire = plan_mod.RankWire(dataclasses.replace(
+        view, torch_ranks=tuple(r if e == view.rank else r ^ 1
+                                for e, r in enumerate(view.torch_ranks))))
+    try:
+        bad = plan._average_sharded(mine, offset)
+    finally:
+        plan.wire = real
+    got = [None] * FSDP_MODEL_RANKS if world.torch_rank == 0 else None
+    dist.gather_object(row_digests(bad)[0], got, dst=0)
+    if want is None:
+        return None
+    parts = got != [want[r] for r in range(len(got))]
+    if not parts:
+        raise AssertionError("check (b): a pod view pairing the other model "
+                             "coordinate's members averaged as the plan")
+    return {"offset": offset, "equal": equal, "other_coordinate_parts": parts}
+
+
+def fsdp_model_check_d(world, plan, stacked_plan, grab) -> Optional[dict]:
+    """Check (d) at ``FSDP_MODEL_GRAD_STEP``: at each model coordinate
+    pod 0's reduce-scattered float32 slices, joined in shard-axis order,
+    equal the one-process ``grad_shards`` (``stacked_plan``, the slice
+    tree's layout) of its two members' slice gradients, gathered over the
+    pod's group to its first member (dp rank 0 at that coordinate), bit
+    for bit; joined in swapped order (planted) they must part.  Returns
+    every coordinate's verdict on torch rank 0 (``None`` elsewhere)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import tree as tr
+    from repro_torch.launch import mesh
+    verdict = None
+    if world.pod_of("data") == 0:
+        members = world.shard_members("data")
+        size = len(members)
+        treedef = tr.tree_flatten(grab["grads"])[1]
+        grads = mesh._gather_leaves(world, tr.tree_map(
+            lambda a: a[None], grab["grads"]), size, world.shard_group,
+            dst=members[0])
+        slices = mesh._gather_leaves(world, tuple(
+            b[None] for b in grab["slices"]), size, world.shard_group,
+            dst=members[0])
+        if world.rank == 0:
+            device = world.device
+            per_member = [tr.tree_unflatten(treedef, [g[m].to(device)
+                                                      for g in grads])
+                          for m in range(size)]
+            want = stacked_plan.grad_shards(iter(per_member))
+            del per_member, grads
+            live = [i for i, b in enumerate(want) if b.numel()]
+            join = lambda order: [torch.cat([slices[i][m] for m in order]
+                                            ).to(device) for i in live]
+            verdict = {
+                "model_rank": world.model_rank, "buckets": len(live),
+                "grads_equal": all(torch.equal(a, want[i]) for a, i in zip(
+                    join(range(size)), live)),
+                "swapped_join_parts": not all(
+                    torch.equal(a, want[i]) for a, i in zip(
+                        join(range(size)[::-1]), live))}
+    grab.clear()
+    got = [None] * FSDP_MODEL_RANKS if world.torch_rank == 0 else None
+    dist.gather_object(verdict, got, dst=0)
+    if got is None:
+        return None
+    verdicts = [v for v in got if v is not None]
+    if len(verdicts) != MODEL_M or not all(
+            v["grads_equal"] and v["swapped_join_parts"] for v in verdicts):
+        raise AssertionError(f"check (d): pod 0's joined slices against "
+                             f"grad_shards by model coordinate: {verdicts}")
+    return {"by_model_rank": verdicts}
+
+
+def fsdp_model_run(spec: dict, world, streamed: bool,
+                   ga_losses: Optional[list] = None) -> tuple:
+    """One run of the fsdp model phase on this rank: the FSDP ``Trainer``
+    (gather-all, or streamed) on this rank's slices for ``spec["steps"]``
+    steps with checks (b) every step (the pods' slices equal at every
+    shard and model coordinate; once an offset :func:`fsdp_model_check_b`)
+    and (c) (the leaves held whole bit-identical over every model group),
+    gather-all (d) at ``FSDP_MODEL_GRAD_STEP``, streamed (f) (every event
+    log held to the schedule, every loss the gather-all run's, serial =
+    asynchronous); step ``FSDP_MODEL_PROFILED`` profiled.  Returns (this
+    rank's record, the trainer)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import plan as plan_mod
+    from repro_torch.core import streaming
+    from repro_torch.kernels import ops
+    from repro_torch.models import common as cm
+    t_start = time.perf_counter()
+    device = world.device
+    on_card = device.type == "cuda"
+    rank0 = world.torch_rank == 0
+    trainer = fsdp_ranks_trainer(spec, world, streamed=streamed,
+                                 pod=FSDP_MODEL_POD)
+    init_s = time.perf_counter() - t_start
+    avg, plan = trainer.averager, trainer.plan()
+    stacked_plan = plan_mod.compile_plan(plan.topology, plan.storage_struct,
+                                         plan.cfg, plan.sharding)
+    slots = whole_leaf_slots(trainer, plan)
+    step_no = [-1]
+    split, wire, grab, pending, check_s, restore = instrument_fsdp_model(
+        trainer, world, plan, step_no)
+    plan.stream_log = [] if streamed else None
+    checks = {"b": [], "c": [], "d": None}
+    try:
+        if on_card:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        log, window = [], None
+        for t in range(spec["steps"]):
+            for k in split:
+                split[k] = 0.0
+            wire.clear()
+            check_s[0] = 0.0
+            step_no[0] = t
+            before, tp0 = ops.launch_counts(), cm.tp_stats()
+            if t == FSDP_MODEL_PROFILED:
+                dist.barrier()
+            _sync(device)
+            t0 = time.perf_counter()
+            if t == FSDP_MODEL_PROFILED:
+                loss, window = profiled_call(lambda: trainer.step_once(t),
+                                             device)
+            else:
+                loss = trainer.step_once(t)
+            _sync(device)
+            step_s = time.perf_counter() - t0 - check_s[0]
+            after, tp1 = ops.launch_counts(), cm.tp_stats()
+            sync = avg.sync_due(t)
+            offset = None if sync else plan.offsets[avg.phase_for_step(t)]
+            events = []
+            if streamed:                                        # (f)
+                events = [streaming.check_stream_event_log(r, plan)
+                          for r in plan.stream_log]
+                plan.stream_log.clear()
+                if loss != ga_losses[t]:
+                    raise AssertionError(f"check (f): step {t} loss {loss} "
+                                         f"!= the gather-all ranks' "
+                                         f"{ga_losses[t]}")
+            t0 = time.perf_counter()
+            # (b) every pod's slices equal at each shard and model
+            # coordinate (one group spans both pods); (c) the leaves held
+            # whole equal over each model group
+            rows = [None] * FSDP_MODEL_RANKS if rank0 else None
+            dist.gather_object(row_digests(trainer.state.params)[0], rows,
+                               dst=0)
+            whole = [None] * FSDP_MODEL_RANKS if rank0 else None
+            dist.gather_object(whole_leaf_digest(trainer.state.params,
+                                                 slots), whole, dst=0)
+            if rank0:
+                for c in range(FSDP_DATA):
+                    for m in range(MODEL_M):
+                        at = {(d * MODEL_M + m) for d in range(world.P)
+                              if d % FSDP_DATA == c}
+                        if len({rows[r] for r in at}) != 1:
+                            raise AssertionError(
+                                f"check (b): step {t}: the pods' slices at "
+                                f"shard {c}, model {m} differ")
+                groups = [whole[d * MODEL_M:(d + 1) * MODEL_M]
+                          for d in range(world.P)]
+                held = all(len(set(g)) == 1 for g in groups)
+                if not held or not any(n for _, n in whole):
+                    raise AssertionError(f"check (c): step {t}: the leaves "
+                                         f"held whole by model group "
+                                         f"{groups}")
+                checks["c"].append(sum(n for _, n in whole))
+            if offset in pending and pending[offset] is not None:
+                checks["b"].append(fsdp_model_check_b(
+                    world, plan, stacked_plan, pending, offset, rows, t))
+                pending[offset] = None
+            if not streamed and t == FSDP_MODEL_GRAD_STEP:
+                checks["d"] = fsdp_model_check_d(world, plan, stacked_plan,
+                                                 grab)
+            exposed = sum(split[k] for k in ("gather_issue", "gather_wait",
+                                             "scatter_issue",
+                                             "scatter_wait"))
+            log.append({
+                "t": t, "loss": loss, "sync": sync, "offset": offset,
+                "step_ms": step_s * 1e3,
+                "profiled": t == FSDP_MODEL_PROFILED,
+                **{k + "_ms": v * 1e3 for k, v in split.items()},
+                "fwd_bwd_ms": (split["fwd_bwd"] if not streamed else
+                               split["engine"] - exposed) * 1e3,
+                "tp_ms": (tp1["s"] - tp0["s"]) * 1e3,
+                "tp_bytes": tp1["bytes"] - tp0["bytes"],
+                "tp_ops": tp1["ops"] - tp0["ops"],
+                "wire": {part: {k: (v * 1e3 if k.endswith("_s") else v)
+                                for k, v in d.items()}
+                         for part, d in wire.items()},
+                "events": events,
+                "check_ms": (check_s[0] + time.perf_counter() - t0) * 1e3,
+                "skipped": trainer.last_metrics["skipped_nonfinite"],
+                **{key: after[name] - before[name] for key, name in (
+                    ("k1", K1), ("k2", K2), ("k3", K3), ("k4", K4))}})
+        step_no[0] = -1
+        peak = torch.cuda.max_memory_allocated() if on_card else None
+        pair = None
+        if streamed:                                            # (f)
+            pair = streamed_pair(trainer, world, spec["steps"])
+            pairs = [None] * FSDP_MODEL_RANKS if rank0 else None
+            dist.gather_object(pair, pairs, dst=0)
+            if rank0 and not all(p["serial_equal"] for p in pairs):
+                raise AssertionError(f"check (f): serial = asynchronous by "
+                                     f"rank: {pairs}")
+            checks["pairs"] = pairs
+    finally:
+        restore()
+        plan.stream_log = None
+    lay = plan.shard_layout
+    record = {"rank": world.torch_rank, "dp_rank": world.rank,
+              "model_rank": world.model_rank, "pod": world.pod_of("data"),
+              "log": log, "peak": peak, "window": window, "init_s": init_s,
+              "pair": pair,
+              "combines": plan_combines(plan, 1, per_rank=True),
+              "seconds": time.perf_counter() - t_start}
+    if rank0:
+        record.update({
+            "n_buckets": lay.n_buckets,
+            "bucket_sizes": list(lay.bucket_sizes),
+            "n_stages": len(plan.runs_for_offset(0)[0].bits),
+            "bucket_bytes": plan.shard_bucket_bytes, "checks": checks,
+            "whole_bucket_sizes": list(
+                trainer.whole_plan().shard_layout.bucket_sizes)})
+    return record, trainer
+
+
+def fsdp_model_guard(trainer, world, t: int) -> Optional[dict]:
+    """Check (g)'s planted NaN, in step ``t`` from the trainer's state,
+    twice (the state put back between and after): dp rank
+    ``FSDP_MODEL_BAD`` (pod 1) puts a NaN in the first element of its
+    gradient at model rank 1 alone.  Under the guard (the MIN over the
+    model group, then over the pod) all four of pod 1's ranks skip and
+    pod 0 updates; under a guard of the pod's MIN alone (planted) only
+    the poisoned model coordinate skips, so a model group's counts part.
+    Returns rank 0's verdicts and the counts by torch rank."""
+    import torch.distributed as dist
+    from repro_torch.core import tree as tr
+    from repro_torch.core.replica import ReplicaState, map_opt_state
+    from repro_torch.train import train_step
+    saved = trainer.state
+    clone = lambda t_: tr.tree_map(lambda a: a.clone(), t_)
+    vag, finite = train_step.value_and_grad, train_step.replica_all_finite
+
+    def poisoned(model, params, batch):
+        grads, metrics = vag(model, params, batch)
+        tr.tree_leaves(grads)[0].view(-1)[0] = float("nan")
+        return grads, metrics
+
+    counts = {}
+    for name, planted in (("guard", False), ("pod_min_only", True)):
+        trainer.state = ReplicaState(clone(saved.params), map_opt_state(
+            saved.opt_state, clone, lambda c: c.clone()), saved.step,
+            saved.phase)
+        if world.rank == FSDP_MODEL_BAD and world.model_rank == 1:
+            train_step.value_and_grad = poisoned
+        if planted:
+            train_step.replica_all_finite = \
+                lambda model, grads: train_step.tree_all_finite(grads)
+        try:
+            trainer.step_once(t)
+        finally:
+            train_step.value_and_grad = vag
+            train_step.replica_all_finite = finite
+        got = [None] * FSDP_MODEL_RANKS if world.torch_rank == 0 else None
+        dist.gather_object(int(trainer.state.opt_state.count[0]), got, dst=0)
+        counts[name] = got
+    trainer.state = saved
+    if world.torch_rank != 0:
+        return None
+    return check_fsdp_model_guard(counts)
+
+
+def check_fsdp_model_guard(counts: dict) -> dict:
+    """Check (g)'s verdict on the counts by torch rank: under the guard
+    pod 1's four ranks keep their count and pod 0's count one more; under
+    the pod's MIN alone (planted) some model group's counts part."""
+    pod_of = lambda r: r // MODEL_M // FSDP_DATA
+    g = counts["guard"]
+    base = g[-1]
+    whole = g == [base if pod_of(r) == 1 else base + 1
+                  for r in range(len(g))]
+    p = counts["pod_min_only"]
+    parted = any(len(set(p[d * MODEL_M:(d + 1) * MODEL_M])) > 1
+                 for d in range(len(p) // MODEL_M))
+    if not (whole and parted):
+        raise AssertionError(f"check (g): the MIN over the model group and "
+                             f"the pod skips pod 1 whole {whole}, the pod's "
+                             f"MIN alone parts a model group {parted}: "
+                             f"{counts}")
+    return {"pod_skipped_whole": whole, "pod_min_only_parts": parted,
+            "counts": counts}
+
+
+def state_layout(state) -> dict:
+    """An FSDP state's bucket shapes, the leaves a checkpoint of it names
+    and its step and phase."""
+    from repro_torch.checkpoint import ckpt
+    leaves = lambda name, tree: [f"{name}/{k}" for k, _ in
+                                 ckpt._leaves_with_paths(tree)]
+    return {"bucket_shapes": [list(b.shape) for b in state.params],
+            "leaves": sorted(leaves("params", state.params)
+                             + leaves("opt_state", state.opt_state)),
+            "step_phase": [int(state.step), int(state.phase)]}
+
+
+def fsdp_model_worker(spec: dict, out: str) -> int:
+    """One rank (one pod member at one model coordinate) of the fsdp model
+    phase, started by torchrun: :func:`fsdp_model_run` gather-all, then
+    streamed on the same ranks, then check (g)'s planted NaN on the
+    gather-all trainer's final state; (``out/steps_done`` tells the
+    parent its twin may start) the gathered states in the model-1 layout
+    (check (e)'s leaves and bucket sizes, check (f)'s canonical digests);
+    rank 0 writes ``out/fsdp_model.json``."""
+    import os
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch import mesh
+    t_start = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    world = mesh.init_rank_world(FSDP_DATA, FSDP_MODEL_POD, model=MODEL_M,
+                                 backend=os.environ["REPRO_TORCH_BACKEND"],
+                                 device_type=spec["device"],
+                                 shard_axis="data")
+    on_card = world.device.type == "cuda"
+    rank0 = world.torch_rank == 0
+    try:
+        ga, ga_trainer = fsdp_model_run(spec, world, streamed=False)
+        st, st_trainer = fsdp_model_run(spec, world, streamed=True,
+                                        ga_losses=[e["loss"]
+                                                   for e in ga["log"]])
+        t0 = time.perf_counter()
+        guard = fsdp_model_guard(ga_trainer, world, spec["steps"])
+        guard_s = time.perf_counter() - t0
+        if on_card:
+            torch.cuda.empty_cache()
+        dist.barrier()
+        if rank0:                       # the parent's twin may start now
+            (Path(out) / "steps_done").write_text("")
+        t0 = time.perf_counter()
+        canon, layout = {}, None
+        for name, tr_ in (("gather_all", ga_trainer),
+                          ("streamed", st_trainer)):
+            state = tr_.gathered_state()
+            if state is not None:
+                whole = tr_.whole_plan()
+                canon[name] = canonical_digests(
+                    state, whole, tr_.model.layered
+                    if tr_.sharding.streamed else None)
+                if name == "gather_all":
+                    layout = state_layout(state)
+            del state
+        ckpt_s = time.perf_counter() - t0
+        del ga_trainer, st_trainer
+        mine = {"ga": ga, "streamed": st, "device": str(world.device)}
+        everyone = [None] * FSDP_MODEL_RANKS if rank0 else None
+        dist.gather_object(mine, everyone, dst=0)
+        if rank0:
+            if canon["streamed"] != canon["gather_all"]:
+                raise AssertionError("check (f): the streamed final state, "
+                                     "merged to the canonical tree, "
+                                     "differs from the gather-all one")
+            result = {
+                "world": {"ranks": FSDP_MODEL_RANKS, "axes": dict(zip(
+                    world.axis_names, world.axis_sizes)),
+                    "model": MODEL_M, "backend": world.backend},
+                "pods": FSDP_MODEL_POD, "pod_size": FSDP_DATA,
+                "guard": guard, "guard_s": guard_s, "ckpt_s": ckpt_s,
+                "layout": layout, "state_leaves": len(canon["gather_all"])
+                - 2, "streamed_state_equal": True,
+                "ranks": [e["ga"] for e in everyone],
+                "streamed_ranks": [e["streamed"] for e in everyone],
+                "worker_s": time.perf_counter() - t_start}
+            (Path(out) / "fsdp_model.json").write_text(json.dumps(result))
+        return 0
+    finally:
+        mesh.shutdown()
+
+
+def fsdp_model_stats(result: dict, key: str) -> dict:
+    """One run's record (``"ranks"`` gather-all, ``"streamed_ranks"``)
+    in the shape :func:`check_fsdp_ranks_launches` reads: rank 0's layout
+    and checks beside every rank's log; check (g)'s first half (finite,
+    no skip)."""
+    ranks = result[key]
+    first = ranks[0]
+    st = {k: first.pop(k) for k in ("n_buckets", "bucket_sizes",
+                                    "n_stages", "bucket_bytes", "checks",
+                                    "whole_bucket_sizes")}
+    st.update({"ranks": ranks, "seconds": first["seconds"],
+               "expected_k1_k2_per_group_step": expected_combine_launches(
+                   st["n_buckets"], st["n_stages"])})
+    bad = [e for r in ranks for e in r["log"]
+           if not math.isfinite(e["loss"]) or e["skipped"]]
+    if bad:                                                     # (g)
+        raise AssertionError(f"{key}: non-finite losses or skipped updates: "
+                             f"{bad}")
+    losses = [[e["loss"] for e in r["log"]] for r in ranks]
+    if any(x != losses[0] for x in losses):
+        raise AssertionError(f"{key}: the ranks report different mean "
+                             f"losses")
+    if key == "streamed_ranks":                                 # (f)
+        events = [c for r in ranks for e in r["log"] for c in e["events"]]
+        if len(events) != sum(len(r["log"]) for r in ranks):
+            raise AssertionError(f"check (f): {len(events)} event logs")
+        st["event_logs"] = len(events)
+        st["span_gathers_live_max"] = max(c["span_gathers_live_max"]
+                                          for c in events)
+        st["scatters_in_flight_max"] = max(c["scatters_in_flight_max"]
+                                           for c in events)
+    st["summary"] = fsdp_model_summary(st)
+    return st
+
+
+def fsdp_model_summary(st: dict) -> dict:
+    """A run's numbers: rank 0's median group step (the profiled one left
+    out) and its split (the all-gathers' and reduce-scatters' issue and
+    exposed wait, fwd+bwd with its TP all-reduces apart, update, the
+    butterfly's exchange and combine, the sync; the bytes of each), each
+    rank's peak memory and the device's idle share over the profiled
+    step (the union of the 8 ranks' device intervals)."""
+    steady = [e for e in st["ranks"][0]["log"][1:] if not e["profiled"]]
+    group = [e for e in steady if not e["sync"]]
+    med = lambda es, f: statistics.median(f(e) for e in es) if es else None
+    part = lambda e, p, k: e["wire"].get(p, {}).get(k, 0)
+    windows = [r["window"] for r in st["ranks"]]
+    return {
+        "median_group_step_ms": med(group, lambda e: e["step_ms"]),
+        "sync_step_ms": med([e for e in steady if e["sync"]],
+                            lambda e: e["step_ms"]),
+        "group_split_ms": {
+            "all_gather_issue": med(group, lambda e: e["gather_issue_ms"]),
+            "all_gather_wait": med(group, lambda e: e["gather_wait_ms"]),
+            "fwd_bwd": med(group, lambda e: e["fwd_bwd_ms"]),
+            "of_it_tp_all_reduces": med(group, lambda e: e["tp_ms"]),
+            "reduce_scatter_issue": med(group,
+                                        lambda e: e["scatter_issue_ms"]),
+            "reduce_scatter_wait": med(group,
+                                       lambda e: e["scatter_wait_ms"]),
+            "update": med(group, lambda e: e["update_ms"]),
+            "exchange": {k: med(group, lambda e: part(e, "average",
+                                                      k + "_s"))
+                         for k in ("d2h", "wire", "h2d")},
+            "combine": med(group, lambda e: e["average_ms"] - sum(
+                part(e, "average", k) for k in ("d2h_s", "wire_s",
+                                                "h2d_s")))},
+        "bytes_a_group_step": dict({p: group[0]["wire"].get(p, {}).get(
+            "bytes") for p in ("gather", "scatter", "average")},
+            tp=group[0]["tp_bytes"], tp_ops=group[0]["tp_ops"])
+        if group else None,
+        "sync_ms": med([e for e in steady if e["sync"]],
+                       lambda e: e["sync_ms"]),
+        "sync_bytes": next((e["wire"].get("sync", {}).get("bytes")
+                            for e in steady if e["sync"]), None),
+        "peak_bytes_by_rank": [r["peak"] for r in st["ranks"]],
+        "device_busy_ms_by_rank": [w["device_busy_ms"] for w in windows],
+        **device_idle(windows),
+    }
+
+
+def fsdp_model_phase(spec: dict, out: Path,
+                     timeout: int = FSDP_MODEL_TIMEOUT) -> dict:
+    """Start ``FSDP_MODEL_RANKS`` ranks through torchrun (gloo, all on one
+    card); once their steps are done run check (e)'s one-process model-1
+    ``Trainer(sharding="fsdp")`` (same config, seed and batches) beside
+    their gather of the final states; then check (e): the twin's losses
+    within ``MODEL_LOSS_RTOL`` of the ranks', the gathered state in the
+    twin's layout (the same buckets, the same leaves its save names, the
+    same step and phase).  A rank that fails fails the phase.  ``out``
+    is the phase's own directory (emptied first).  Returns the gather-all
+    run's stats with the streamed run's under ``"streamed"``."""
+    import shutil
+    import torch
+    t_phase = time.perf_counter()
+    out = Path(out)
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    run = start_torchrun(FSDP_MODEL_RANKS, FSDP_MODEL_WORKER_FLAG, spec, out)
+    try:
+        while not (out / "steps_done").exists():
+            if run["proc"].poll() is not None or \
+                    time.perf_counter() - run["t0"] > timeout:
+                wait_torchrun(run, timeout)
+                raise AssertionError("the ranks ended before their steps")
+            time.sleep(0.5)
+        t0 = time.perf_counter()
+        twin = fsdp_ranks_trainer(spec, pod=FSDP_MODEL_POD)
+        losses = [twin.step_once(t) for t in range(spec["steps"])]
+        twin_layout = state_layout(twin.state)
+        del twin
+        if torch.device(spec["device"]).type == "cuda":
+            torch.cuda.empty_cache()
+        twin_s = time.perf_counter() - t0
+        torchrun_s = wait_torchrun(run, timeout)
+    finally:
+        if run["proc"].poll() is None:          # the parent failed first
+            import os
+            import signal
+            os.killpg(run["proc"].pid, signal.SIGKILL)
+            run["proc"].wait()
+    result = json.loads((out / "fsdp_model.json").read_text())
+    stats = fsdp_model_stats(result, "ranks")
+    streamed = fsdp_model_stats(result, "streamed_ranks")
+    for k in ("pods", "pod_size", "world"):
+        stats[k] = streamed[k] = result[k]
+    stats["spec"] = streamed["spec"] = spec
+    streamed["state_equal"] = result["streamed_state_equal"]
+    streamed["state_leaves"] = result["state_leaves"]
+    rank_losses = [e["loss"] for e in stats["ranks"][0]["log"]]
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses, rank_losses))
+    stats["check_e"] = {
+        "twin_losses": losses, "max_loss_rel_diff": loss_rel,
+        "loss_rtol": MODEL_LOSS_RTOL,
+        "layout_is_the_twins": result["layout"] == twin_layout,
+        "leaves": len(twin_layout["leaves"]), "twin_s": twin_s}
+    if loss_rel > MODEL_LOSS_RTOL or not stats["check_e"][
+            "layout_is_the_twins"]:
+        raise AssertionError(f"check (e): the ranks and the one-process "
+                             f"model-1 twin part: {stats['check_e']}, "
+                             f"{result['layout']} vs {twin_layout}")
+    stats["check_g"] = result["guard"]
+    stats["guard_s"], stats["ckpt_s"] = result["guard_s"], result["ckpt_s"]
+    stats["torchrun_s"] = torchrun_s
+    stats["phase_s"] = time.perf_counter() - t_phase
+    stats["streamed"] = streamed
+    return stats
+
+
+def print_fsdp_model(stats: dict, card: str):
+    """The phase's lines: each run's numbers, then the checks."""
+    gib = lambda b: round(b / 2 ** 30, 2) if b is not None else None
+    st = stats["streamed"]
+    print(f"fsdp model [{card}]: {ARCH} full width, "
+          f"{stats['spec']['n_layers']} layers, pod {FSDP_MODEL_POD} x data "
+          f"{FSDP_DATA} x model {MODEL_M} = {FSDP_MODEL_RANKS} gloo ranks on "
+          f"one card, pods of {stats['pod_size']}, S={FSDP_S} "
+          f"tau={FSDP_TAU}; a rank's slice buckets {stats['bucket_sizes']} "
+          f"(whole tree {stats['whole_bucket_sizes']}), K1/K2 a group step "
+          f"{stats['expected_k1_k2_per_group_step']}; streamed "
+          f"{st['bucket_sizes']}, K1/K2 "
+          f"{st['expected_k1_k2_per_group_step']}; phase "
+          f"{stats['phase_s']:.1f} s (torchrun {stats['torchrun_s']:.1f} s, "
+          f"gather-all {stats['seconds']:.1f} s, streamed "
+          f"{st['seconds']:.1f} s, guard {stats['guard_s']:.1f} s, final "
+          f"states gathered {stats['ckpt_s']:.1f} s, twin "
+          f"{stats['check_e']['twin_s']:.1f} s)", flush=True)
+    print(f"fsdp model losses: "
+          f"{[round(x['loss'], 4) for x in stats['ranks'][0]['log']]}",
+          flush=True)
+    for name, run in (("gather-all", stats), ("streamed", st)):
+        s = run["summary"]
+        print(f"fsdp model {name} [{card}]: rank 0 median group step "
+              f"{s['median_group_step_ms']:.1f} ms, split "
+              f"{json.dumps(s['group_split_ms'])} ms, bytes a rank "
+              f"{json.dumps(s['bytes_a_group_step'])}; sync step "
+              f"{s['sync_step_ms']} ms (sync {s['sync_ms']} ms, "
+              f"{s['sync_bytes']} bytes); peak memory by rank "
+              f"{[gib(b) for b in s['peak_bytes_by_rank']]} GiB; profiled "
+              f"step: wall {s['profile_wall_ms']:.1f} ms, device busy "
+              f"{s['device_busy_ms']} ms, idle share "
+              f"{s['device_idle_share']}", flush=True)
+    c, e = stats["checks"], stats["check_e"]
+    print(f"fsdp model checks: (b) {json.dumps(c['b'])}, the pods equal at "
+          f"every coordinate after every step; (c) held-whole elements a "
+          f"step over the 8 ranks {c['c']}; (d) {json.dumps(c['d'])}; (e) "
+          f"losses max rel diff {e['max_loss_rel_diff']:.3g} (tol "
+          f"{e['loss_rtol']}), the gathered state in the twin's layout "
+          f"{e['layout_is_the_twins']} ({e['leaves']} leaves); (f) "
+          f"{st['event_logs']} event logs held (span gathers live "
+          f"{st['span_gathers_live_max']}, scatters in flight "
+          f"{st['scatters_in_flight_max']}), every loss = gather-all's, "
+          f"final state = gather-all's {st['state_equal']} "
+          f"({st['state_leaves']} leaves), serial = asynchronous, host ms "
+          f"{[round(p['async_ms'], 1) for p in st['checks']['pairs']]} / "
+          f"{[round(p['serial_ms'], 1) for p in st['checks']['pairs']]}; "
+          f"(g) {json.dumps(stats['check_g'])}", flush=True)
 
 
 def model_spec(device="cuda", smoke: bool = False,
@@ -8266,6 +9089,21 @@ def main() -> int:
         streamed_ranks["seconds"], 1)
     phase_done("fsdp ranks phase")
 
+    # -- fsdp model phase: the same model, FSDP under a model axis over pod
+    # 2 x data 2 x model 2 gloo ranks, gather-all then streamed (K1, K2 on
+    # a rank's slices of its model coordinate's buckets)
+    fsdp_model = fsdp_model_phase(fsdp_model_spec(),
+                                  ROOT / "build" / "fsdp_model")
+    streamed_model = fsdp_model.pop("streamed")
+    check_fsdp_ranks_launches(fsdp_model, ga_line["fsdp model"])  # (a)
+    check_fsdp_ranks_launches(streamed_model,                  # (a)
+                              ga_line["streamed model"])
+    print(json.dumps({"fsdp_model": fsdp_model,
+                      "streamed_model": streamed_model, "card": card}),
+          flush=True)
+    print_fsdp_model(dict(fsdp_model, streamed=streamed_model), card)
+    phase_done("fsdp model phase")
+
     # -- model phase: the same model, each replica split over 2 model ranks,
     # 4 x 2 gloo ranks (K1, K2 on a rank's slices; K3 at its local heads)
     tp = model_phase(model_spec(serve_layers=MODEL_SERVE_LAYERS),
@@ -8493,10 +9331,12 @@ def main() -> int:
     paper_launches = {name: sum(e[key] for run in paper.values()
                                 for e in run["steps"])
                       for name, key in ((K1, "k1"), (K2, "k2"), (K4, "k4"))}
-    ranks_launches, fsdp_ranks_launches, streamed_ranks_launches = (
+    (ranks_launches, fsdp_ranks_launches, streamed_ranks_launches,
+     fsdp_model_launches, streamed_model_launches) = (
         {name: sum(e[key] for r in run["ranks"] for e in r["log"])
          for name, key in ((K1, "k1"), (K2, "k2"), (K4, "k4"))}
-        for run in (ranks, fsdp_ranks, streamed_ranks))
+        for run in (ranks, fsdp_ranks, streamed_ranks, fsdp_model,
+                    streamed_model))
     model_launches, rg_model_launches = (
         {name: sum(e[key] for r in run["ranks"] for e in r["log"])
          for name, key in ((K1, "k1"), (K2, "k2"), (K4, "k4"),
@@ -8522,6 +9362,8 @@ def main() -> int:
         f"{ARCH} training, {RANKS_P} ranks": ranks_launches[name],
         FSDP_RANKS_PATH: fsdp_ranks_launches[name],
         STREAMED_RANKS_PATH: streamed_ranks_launches[name],
+        FSDP_MODEL_PATH: fsdp_model_launches[name],
+        STREAMED_MODEL_PATH: streamed_model_launches[name],
         model_path: model_launches[name],
         rg_model_path: rg_model_launches[name],
         FSDP_PATH: fsdp["launches"][name],
@@ -8589,6 +9431,13 @@ def main() -> int:
         n_layers=streamed_ranks["spec"]["n_layers"],
         pods=streamed_ranks["pods"], pod_size=streamed_ranks["pod_size"])
         if k in ga_line["streamed ranks"] else None)
+    # a rank's largest slice of its model coordinate's buckets (K1), its
+    # K2 batch, gather-all and streamed
+    fsdp_model_row = lambda key, k: (dict(
+        ranks_row(ga_line[key][k]), add_ms=ga_line[key][k].get("add_ms"),
+        n_layers=fsdp_model["spec"]["n_layers"], pods=fsdp_model["pods"],
+        pod_size=fsdp_model["pod_size"], model=MODEL_M)
+        if k in ga_line[key] else None)
     kernels = [
         entry(K1, "src/repro_torch/kernels/csrc/group_average.cu",
               "src/repro/kernels/group_average.py:68",
@@ -8599,6 +9448,8 @@ def main() -> int:
               streamed_row=streamed_row("K1"),
               fsdp_ranks_row=fsdp_ranks_row("K1"),
               streamed_ranks_row=streamed_ranks_row("K1"),
+              fsdp_model_row=fsdp_model_row("fsdp model", "K1"),
+              streamed_model_row=fsdp_model_row("streamed model", "K1"),
               ranks_row=ranks_row(ga_line["K1 ranks"]),
               model_row=ranks_row(ga_line["K1 model"]),
               rg_model_row=ranks_row(ga_line["K1 rg model"])),
@@ -8611,6 +9462,8 @@ def main() -> int:
               streamed_row=streamed_row("K2"),
               fsdp_ranks_row=fsdp_ranks_row("K2"),
               streamed_ranks_row=streamed_ranks_row("K2"),
+              fsdp_model_row=fsdp_model_row("fsdp model", "K2"),
+              streamed_model_row=fsdp_model_row("streamed model", "K2"),
               ranks_row=ranks_row(ga_line["K2 ranks"]),
               model_row=ranks_row(ga_line["K2 model"]),
               rg_model_row=ranks_row(ga_line["K2 rg model"])),
@@ -8784,6 +9637,8 @@ if __name__ == "__main__":
         sys.exit(ranks_worker(json.loads(sys.argv[2]), sys.argv[3]))
     if sys.argv[1:2] == [FSDP_RANKS_WORKER_FLAG]:
         sys.exit(fsdp_ranks_worker(json.loads(sys.argv[2]), sys.argv[3]))
+    if sys.argv[1:2] == [FSDP_MODEL_WORKER_FLAG]:
+        sys.exit(fsdp_model_worker(json.loads(sys.argv[2]), sys.argv[3]))
     if sys.argv[1:2] == [MODEL_WORKER_FLAG]:
         sys.exit(model_worker(json.loads(sys.argv[2]), sys.argv[3]))
     if sys.argv[1:2] == [ATTN_MODEL_WORKER_FLAG]:

@@ -57,8 +57,7 @@ import numpy as np
 from repro_torch.core import bucketing, grouping
 from repro_torch.core import plan as plan_mod
 from repro_torch.core import tree as tr
-from repro_torch.core.replica import (REPLICATED, ShardingPolicy,
-                                      refuse_sharded_world)
+from repro_torch.core.replica import REPLICATED, ShardingPolicy
 
 
 def _divide(x, d: float):
@@ -87,7 +86,6 @@ class _AveragerBase:
             raise ValueError(
                 f"topology axes {topology.axis_names}/{topology.axis_sizes} "
                 f"do not match dp axes {self.axis_names}/{self.axis_sizes}")
-        refuse_sharded_world(sharding, world)
         self.topology = topology
         self.sharding = sharding
         self.world = world

@@ -102,8 +102,12 @@ all-gather a bucket of the group and returns its receipt, and
 theirs: the engine resolves each where its schedule needs it (gather-all's
 ``unshard_tree``/``grad_shards`` resolve theirs at once).
 
-Not here: FSDP under a model axis (slice 7c-3) and the step-time models
-(ROADMAP.md).
+Under a model axis a sharded plan is compiled over one model
+coordinate's slice tree, and its shard collectives and pod view run over
+that coordinate's groups (``launch/mesh.py``): each coordinate averages
+its own slices, which is the whole rows' average element by element.
+
+Not here: the step-time models (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -122,8 +126,7 @@ import torch.distributed as dist
 from repro_torch.core import bucketing, grouping, streaming
 from repro_torch.core import overlap as pipeline
 from repro_torch.core import tree as tr
-from repro_torch.core.replica import (REPLICATED, ShardingPolicy,
-                                      refuse_sharded_world)
+from repro_torch.core.replica import REPLICATED, ShardingPolicy
 
 
 # ---------------------------------------------------------------------------
@@ -670,8 +673,10 @@ class RankWire:
 
     # -- the shard axis's collectives (FSDP within a pod) ------------------
     def _shard_group(self, axis: str):
-        """This rank's pod (its members' torch ranks in shard-axis order)
-        and the process-group keyword of its collectives."""
+        """This rank's pod at its model coordinate (its members' torch
+        ranks in shard-axis order) and the process-group keyword of its
+        collectives: the pod's group, or none where the pod is the whole
+        torch world (one pod, no model axis)."""
         members = self.world.shard_members(axis)
         if self.world.shard_axis == axis and self.world.shard_group:
             return members, {"group": self.world.shard_group}
@@ -916,7 +921,6 @@ class AveragingPlan:
                 topology.axis_sizes:
             raise ValueError(f"rank world axes {world.axis_sizes} do not "
                              f"match the topology's {topology.axis_sizes}")
-        refuse_sharded_world(sharding, world)
         self.world = world
         self.P = topology.P
         # Sharded plans butterfly over the *effective* (pod-level) replica

@@ -23,7 +23,14 @@ per-replica weights:
   reference's block: its column slice ``(1, n_b / pod_size)`` of its
   pod's row of every bucket and a ``(1,)`` count (:func:`rank_slices`,
   :func:`join_rank_slices`, which slice and join the flat and the
-  grouped layouts alike).
+  grouped layouts alike).  Under a model axis the buckets are those of
+  the rank's model coordinate: its plan is compiled over its slice tree
+  (``models/common.placement``), so a rank holds ``(1, n_b / pod_size)``
+  of its coordinate's buckets, the reference's ``(P_eff, n_b)`` block
+  cut ``pod_size x model`` ways (the reference repeats it over
+  ``model``).  :func:`model_rank_slices` and :func:`join_model_slices`
+  carry a state between that layout and the model-1 one, which the
+  gathered state and the checkpoint keep.
 
 ``ShardingPolicy.fsdp_within_pod(shard_axis, streamed=True)`` (DESIGN.md
 §11) is the layer-streamed layout: the same ``(P_eff, n_b)`` buffers, laid
@@ -36,8 +43,8 @@ Host-side helpers translate whole states between the policies (a
 checkpoint written under one restores under the other), between the
 layered and canonical structures of a replicated state, and consolidate
 any layout into the one model a server loads (``serve/handoff.py``).
-FSDP over a rank world runs gather-all or layer-streamed; FSDP under a
-model axis is slice 7c's last part and raises, naming it.
+FSDP over a rank world runs gather-all or layer-streamed, under a model
+axis too.
 """
 
 from __future__ import annotations
@@ -54,7 +61,7 @@ from repro_torch.core import tree as tr
 REPLICATED_KIND = "replicated"
 FSDP_KIND = "fsdp_within_pod"
 FSDP_STREAMED_SLICE = "slice 7c-2: layer-streamed FSDP over ranks (ported)"
-FSDP_MODEL_SLICE = "slice 7c-3: FSDP under a model axis (ROADMAP.md)"
+FSDP_MODEL_SLICE = "slice 7c-3: FSDP under a model axis (ported)"
 FSDP_SLICE = ("slice 7c: FSDP over ranks, gather-all ported (7c-1); "
               f"{FSDP_STREAMED_SLICE}; {FSDP_MODEL_SLICE}")
 
@@ -104,19 +111,6 @@ class ShardingPolicy:
 
 
 REPLICATED = ShardingPolicy.replicated()
-
-
-def refuse_sharded_world(sharding: ShardingPolicy, world) -> None:
-    """The part of FSDP over a rank world not ported yet raises, naming
-    its slice: a world with a model axis (7c-3).  Gather-all and
-    layer-streamed FSDP over ranks pass."""
-    if not sharding.is_sharded or world is None:
-        return
-    if world.model != 1:
-        raise NotImplementedError(
-            f"{sharding.describe()} over a world with a model axis of "
-            f"{world.model} is not ported yet; it belongs to "
-            f"{FSDP_MODEL_SLICE}")
 
 
 @dataclass
@@ -177,7 +171,8 @@ def pod_members(plan, pod: int) -> Tuple[int, ...]:
 def rank_slices(buffers, plan, world) -> tuple:
     """This rank's block of ``(P_eff, n_b)`` global shard buffers: its
     pod's row, its column slice (``n_b / pod_size`` wide, at its shard
-    coordinate), as new ``(1, n_b / pod_size)`` tensors."""
+    coordinate), as new ``(1, n_b / pod_size)`` tensors.  Under a model
+    axis the buffers are those of this rank's model coordinate."""
     axis = plan.sharding.shard_axis
     pod, s = world.pod_of(axis), world.shard_coord(axis)
     out = []
@@ -190,10 +185,60 @@ def rank_slices(buffers, plan, world) -> tuple:
 def join_rank_slices(stacked, plan) -> tuple:
     """Every dp rank's ``(1, n_b / pod_size)`` blocks, stacked ``(P,
     n_b / pod_size)`` in dp-rank order, -> the ``(P_eff, n_b)`` global
-    buffers: each pod's members' slices joined in shard-axis order."""
+    buffers: each pod's members' slices joined in shard-axis order (under
+    a model axis, one model coordinate's ranks and buffers)."""
     members = [pod_members(plan, e) for e in range(plan.P_eff)]
     return tuple(torch.stack([torch.cat([b[r] for r in rows])
                               for rows in members]) for b in stacked)
+
+
+def _lead_dims(dims):
+    """A placement of one replica's tree, for its ``(R, ...)`` rows."""
+    return tr.tree_map(lambda d: d + 1, dims)
+
+
+def model_rank_slices(buffers, whole_plan, plan, world, dims, *,
+                      dtype=None) -> tuple:
+    """A model-1 FSDP state's ``(P_eff, n_b)`` buffers, laid out by
+    ``whole_plan`` (the model's whole tree) -> this rank's ``(1, n_b /
+    pod_size)`` slices of ``plan``'s buffers (its model coordinate's
+    slice tree): its pod's tree unpacked, its model slices taken by
+    ``dims`` (``common.placement`` of one replica's whole tree), packed
+    through ``plan`` and cut at its shard coordinate.  ``dtype`` packs
+    every bucket in it (float32 for the moments); at ``model`` 1,
+    :func:`rank_slices`."""
+    if world.model == 1:
+        return rank_slices(buffers, plan, world)
+    from repro_torch.models import common as cm
+    pod = world.pod_of(plan.sharding.shard_axis)
+    tree = bucketing.unpack(tuple(b[pod:pod + 1] for b in buffers),
+                            whole_plan.shard_layout, cast=dtype is None)
+    tree = cm.take_slices(tree, _lead_dims(dims), world.model_world)
+    packed = bucketing.pack(tree, plan.shard_layout, dtype=dtype)
+    s = world.shard_coord(plan.sharding.shard_axis)
+    return tuple(b[:, s * (b.shape[1] // plan.shard_size):
+                   (s + 1) * (b.shape[1] // plan.shard_size)].clone()
+                 for b in packed)
+
+
+def join_model_slices(stacked, whole_plan, plan, model: int, dims, *,
+                      dtype=None) -> tuple:
+    """Every torch rank's ``(1, n_b / pod_size)`` slices, stacked ``(P x
+    model, n)`` in torch-rank order (``dp_rank * model + model_rank``),
+    -> the model-1 ``(P_eff, n_b)`` buffers of ``whole_plan``: each model
+    coordinate's ranks joined into its ``(P_eff, n_b)`` buffers
+    (:func:`join_rank_slices`), unpacked through ``plan``, the coordinates'
+    slice trees joined by ``dims`` (as :func:`model_rank_slices` takes
+    it) and packed through ``whole_plan`` (``dtype`` as there).  At
+    ``model`` 1, :func:`join_rank_slices`."""
+    if model == 1:
+        return join_rank_slices(stacked, plan)
+    from repro_torch.models import common as cm
+    trees = [bucketing.unpack(join_rank_slices(
+        tuple(b[m::model] for b in stacked), plan), plan.shard_layout,
+        cast=dtype is None) for m in range(model)]
+    tree = cm.join_slices(trees, _lead_dims(dims))
+    return bucketing.pack(tree, whole_plan.shard_layout, dtype=dtype)
 
 
 def _pack_rows(stacked_tree, layout, n_rows: int, dtype=None) -> tuple:

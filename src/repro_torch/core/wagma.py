@@ -28,8 +28,7 @@ from typing import Optional, Sequence
 from repro_torch.core import grouping
 from repro_torch.core import plan as plan_mod
 from repro_torch.core import tree as tr
-from repro_torch.core.replica import (REPLICATED, ShardingPolicy,
-                                      refuse_sharded_world)
+from repro_torch.core.replica import REPLICATED, ShardingPolicy
 
 # WagmaConfig(group_size=..., tau=..., fused=...) is the plan's config.
 WagmaConfig = plan_mod.AveragingConfig
@@ -55,7 +54,6 @@ class WagmaAverager:
             raise ValueError(
                 f"topology axes {topology.axis_names}/{topology.axis_sizes} "
                 f"do not match dp axes {self.axis_names}/{self.axis_sizes}")
-        refuse_sharded_world(sharding, world)
         self.topology = topology
         self.sharding = sharding
         self.world = world

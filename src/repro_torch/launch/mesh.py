@@ -33,7 +33,9 @@ same slice of every pod, the pod view's ``dp_group``: its all-reduces).
 ``Topology.drop_axis``: a world over the remaining dp axes whose rank is
 this rank's pod and whose peers are the members at this rank's shard
 coordinate, so the plan's butterfly, ring and mean run pod to pod on the
-slices unchanged.
+slices unchanged.  Under a model axis every group is made once a model
+coordinate: a pod's members and a shard coordinate's pods at this rank's
+model coordinate, which hold the same slices of the model.
 
 The backend is the caller's explicit choice, never switched silently:
 ``nccl`` hands device tensors to the collectives and needs one card per
@@ -73,8 +75,9 @@ class RankWorld:
 
     ``shard_axis`` names the FSDP shard axis the world was started for
     (``init_rank_world``), ``shard_group`` this rank's pod's group and
-    ``coord_groups`` the group of each shard coordinate.  A pod view
-    (:meth:`drop_axis`) lists its ranks' torch ranks in ``torch_ranks``.
+    ``coord_groups`` the group of each shard coordinate, both at this
+    rank's model coordinate.  A pod view (:meth:`drop_axis`) lists its
+    ranks' torch ranks in ``torch_ranks``.
     """
     axis_names: Tuple[str, ...]
     axis_sizes: Tuple[int, ...]
@@ -154,7 +157,8 @@ class RankWorld:
         return self.coords[self._axis_index(name)]
 
     def shard_members(self, name: str) -> Tuple[int, ...]:
-        """The torch ranks of this rank's pod, in shard-axis order."""
+        """The torch ranks of this rank's pod at its model coordinate, in
+        shard-axis order."""
         ax = self._axis_index(name)
         coords = list(self.coords)
         out = []
@@ -166,14 +170,11 @@ class RankWorld:
     def drop_axis(self, name: str) -> "RankWorld":
         """The pod view: a world over the dp axes but ``name`` whose rank
         is this rank's pod and whose peers are each pod's member at this
-        rank's shard coordinate (their all-reduces over that coordinate's
-        group, summed in pod order).  FSDP over a model axis is not
-        ported (``replica.refuse_sharded_world``)."""
+        rank's shard coordinate and model coordinate (their all-reduces
+        over that coordinate's group, summed in pod order)."""
         ax = self._axis_index(name)
         if len(self.axis_names) == 1:
             raise ValueError("cannot drop the only dp axis")
-        if self.model != 1:
-            raise ValueError("a pod view of a world with a model axis")
         keep = [i for i in range(len(self.axis_names)) if i != ax]
         names = tuple(self.axis_names[i] for i in keep)
         sizes = tuple(self.axis_sizes[i] for i in keep)
@@ -260,9 +261,9 @@ def init_rank_world(data: int, pod: Optional[int] = None, *, model: int = 1,
     ``LOCAL_RANK``, ``LOCAL_WORLD_SIZE``) and return this rank's world.
     ``data x pod x model`` must equal the world size; with ``model`` > 1
     every rank creates the model and dp groups, with ``shard_axis`` (FSDP
-    within a pod, at ``model`` 1) the pod groups and the shard
-    coordinates' groups.  A process already in the group only creates the
-    groups of the world it asks for (every rank must ask alike)."""
+    within a pod) the pod groups and the shard coordinates' groups, one
+    set a model coordinate.  A process already in the group only creates
+    the groups of the world it asks for (every rank must ask alike)."""
     names, sizes = dp_axes(data, pod)
     world_size = int(os.environ["WORLD_SIZE"])
     rank = int(os.environ["RANK"])
@@ -296,23 +297,26 @@ def init_rank_world(data: int, pod: Optional[int] = None, *, model: int = 1,
                       groups.get(("dp", model_rank)))
     if shard_axis is None:
         return world
-    if model != 1:
-        from repro_torch.core.replica import FSDP_MODEL_SLICE
-        raise NotImplementedError(
-            f"FSDP within a pod over a world with a model axis belongs to "
-            f"{FSDP_MODEL_SLICE}")
     ax = world._axis_index(shard_axis)
     probe = lambda r: dataclasses.replace(world, rank=r)
     pods = {}
     for r in range(p):          # every pod's members, in shard-axis order
         pods.setdefault(probe(r).pod_of(shard_axis), []).append(r)
-    pod_groups = [dist.new_group(pods[e]) for e in sorted(pods)]
-    coord_groups = tuple(dist.new_group(
-        [members[c] for _, members in sorted(pods.items())])
-        for c in range(sizes[ax]))
+    pod_groups, coord_groups = {}, {}
+    for m in range(model):      # each model coordinate's torch ranks
+        torch_rank = lambda d: d * model + m
+        for e in sorted(pods):
+            pod_groups[(e, m)] = dist.new_group(
+                [torch_rank(d) for d in pods[e]])
+        for c in range(sizes[ax]):
+            coord_groups[(c, m)] = dist.new_group(
+                [torch_rank(members[c]) for _, members in
+                 sorted(pods.items())])
     return dataclasses.replace(
-        world, shard_axis=shard_axis, coord_groups=coord_groups,
-        shard_group=pod_groups[world.pod_of(shard_axis)])
+        world, shard_axis=shard_axis,
+        coord_groups=tuple(coord_groups[(c, model_rank)]
+                           for c in range(sizes[ax])),
+        shard_group=pod_groups[(world.pod_of(shard_axis), model_rank)])
 
 
 def shutdown() -> None:
@@ -350,6 +354,14 @@ def gather_rows(world: RankWorld, tree):
                          world.torch_rank_of(0))
     return None if out is None else tr.tree_unflatten(
         tr.tree_flatten(tree)[1], out)
+
+
+def gather_world_rows(world: RankWorld, tree) -> Optional[tuple]:
+    """Every torch rank's ``(1, ...)`` row of each leaf of ``tree`` (a
+    tuple of buffers) stacked ``(P * model, ...)`` on torch rank 0 in
+    torch-rank order, CPU tensors (``None`` on the other ranks)."""
+    out = _gather_leaves(world, tree, world.P * world.model)
+    return None if out is None else tuple(out)
 
 
 def gather_model_slices(world: RankWorld, tree, dims):

@@ -23,6 +23,9 @@ rank, as JAX lays them over a mesh's ``pod`` and ``data`` axes.
     python -m torch.distributed.run --standalone --nproc-per-node 8 \\
         -m repro_torch.launch.train --arch tinyllama-1.1b --data-axis 2 \\
         --pod-axis 4 --pod-dcn --sharding fsdp --streamed --group-size 2
+    python -m torch.distributed.run --standalone --nproc-per-node 8 \\
+        -m repro_torch.launch.train --arch tinyllama-1.1b --data-axis 2 \\
+        --pod-axis 2 --model-axis 2 --pod-dcn --sharding fsdp --streamed
 
 runs on the CUDA card; ``REPRO_TORCH_DEVICE=cpu`` asks for the CPU (add
 ``--smoke`` there).  Under torchrun (``WORLD_SIZE`` > 1) each rank trains
@@ -40,10 +43,11 @@ over the ranks); a checkpoint gathers the slices on rank 0 and is the
 one-device run's, byte for byte.  ``--streamed`` adds the layer-streamed
 engine (``core/streaming.py``), the dense family's only, on one device or
 under torchrun (each span's all-gathers posted before the previous span
-computes, its reduce-scatters as soon as its VJP ends).  Flags of the JAX
-launcher whose feature is not ported yet raise, naming their slice
-(ROADMAP.md): ``--sharding fsdp`` with ``--model-axis`` > 1 is slice
-7c-3's.
+computes, its reduce-scatters as soon as its VJP ends).  With
+``--model-axis`` > 1 as well, each member rank holds its shard slice of
+its model coordinate's buckets (the sharded plan compiled over its slice
+tree); the checkpoint is still the one-device run's layout, every model
+coordinate's slices joined.
 """
 
 from __future__ import annotations
@@ -61,10 +65,10 @@ from repro_torch.configs import get_config
 from repro_torch.configs.base import InputShape
 from repro_torch.core.baselines import AVERAGERS, make_averager
 from repro_torch.core.plan import Topology
-from repro_torch.core.replica import (FSDP_MODEL_SLICE, REPLICATED,
-                                      ReplicaState, ShardingPolicy,
-                                      join_rank_slices, map_opt_state,
-                                      pod_members, rank_slices)
+from repro_torch.core.replica import (REPLICATED, ReplicaState,
+                                      ShardingPolicy, join_model_slices,
+                                      map_opt_state, model_rank_slices,
+                                      pod_members)
 from repro_torch.core import tree as tr
 from repro_torch.data import make_batch_fn
 from repro_torch.launch import mesh
@@ -73,7 +77,7 @@ from repro_torch.models.registry import build_model
 from repro_torch.optim import adamw, sgd
 from repro_torch.serve.handoff import serving_weights_from_state
 from repro_torch.train import build_train_step, init_replica_state
-from repro_torch.train.train_step import plan_of
+from repro_torch.train.train_step import model_dims, plan_of, whole_plan_of
 
 # a moe model's metrics beside the loss, logged with it
 ROUTER_METRICS = ("load_balance", "router_z", "moe_dropped")
@@ -168,21 +172,28 @@ class Trainer:
         """The state's params and moments on this run's device (the count
         stays on the host), checked against the replica count (the pod
         count under FSDP).  A rank keeps its own row of the ``(P, ...)``
-        state, and with a model world its slices of it."""
+        state, and with a model world its slices of it; an FSDP member
+        its column slices of its pod's row (with a model world, of its
+        model coordinate's buffers), from a model-1 run's state."""
         rows = tr.tree_leaves(state.params)[0].shape[0]
         if rows != self.averager.P_eff:
             raise ValueError(f"state has {rows} replica rows; this run has "
                              f"{self.averager.P_eff}")
         if self.sharding.is_sharded and self.world is not None:
             # a member's column slices of its pod's row, its pod's count
-            plan, world = self.plan(), self.world
+            plan, whole, world = self.plan(), self.whole_plan(), self.world
             pod = world.pod_of(self.sharding.shard_axis)
-            put = lambda t: tuple(a.to(self.device)
-                                  for a in rank_slices(t, plan, world))
-            return ReplicaState(put(state.params),
-                                map_opt_state(state.opt_state, put,
-                                              lambda c: c[pod:pod + 1].cpu()),
-                                state.step, state.phase)
+            dims = model_dims(self.model, whole)
+
+            def put(t, dtype=None):
+                return tuple(a.to(self.device) for a in model_rank_slices(
+                    t, whole, plan, world, dims, dtype=dtype))
+            return ReplicaState(
+                put(state.params),
+                map_opt_state(state.opt_state,
+                              lambda t: put(t, torch.float32),
+                              lambda c: c[pod:pod + 1].cpu()),
+                state.step, state.phase)
         r = self._rows()
         mw = self.model.model_world
 
@@ -205,11 +216,18 @@ class Trainer:
 
     def plan(self):
         """The compiled AveragingPlan the train step executes (under FSDP
-        the sharded plan, compiled from the model's full tree; streamed,
-        from its layered tree)."""
+        the sharded plan, compiled from the model's full tree, with a
+        model world from this rank's slice tree; streamed, from its
+        layered tree)."""
         if self.sharding.is_sharded:
             return plan_of(self.model, self.averager)
         return self.averager.plan_for(self.state.params)
+
+    def whole_plan(self):
+        """Under FSDP the plan whose layout the gathered state, the
+        checkpoint and a warm start hold: the model-1 run's
+        (:meth:`plan`'s own without a model world)."""
+        return whole_plan_of(self.model, self.averager)
 
     def _step_fn(self, t: int):
         sync = self.averager.sync_due(t)
@@ -254,26 +272,34 @@ class Trainer:
         is the one a model-1 run would hold; under FSDP (gather-all or
         streamed), every member's column slices joined into its pod's row,
         the one-process run's ``(P_eff, n_b)`` state in its plan's flat or
-        grouped layout."""
+        grouped layout (with a model world, every model coordinate's
+        buffers joined into the model-1 run's)."""
         st = self.state
+        moments = None
         if self.world is None:
-            get = lambda t: tr.tree_map(lambda a: a.cpu(), t)
+            get = get_count = lambda t: tr.tree_map(lambda a: a.cpu(), t)
         elif self.sharding.is_sharded:
             # every member's slices joined into each pod's row; a pod's
             # count from its first member (its members skip together)
-            plan = self.plan()
+            plan, whole = self.plan(), self.whole_plan()
             firsts = [pod_members(plan, e)[0] for e in range(plan.P_eff)]
+            dims = model_dims(self.model, whole)
 
-            def get(t):
-                rows = mesh.gather_rows(self.world, t)
-                if rows is None:
-                    return None
-                return (join_rank_slices(rows, plan)
-                        if isinstance(t, tuple) else rows[firsts])
+            def get(t, dtype=None):
+                rows = mesh.gather_world_rows(self.world, t)
+                return None if rows is None else join_model_slices(
+                    rows, whole, plan, self.world.model, dims, dtype=dtype)
+
+            def get_count(c):
+                rows = mesh.gather_rows(self.world, c)
+                return None if rows is None else rows[firsts]
+
+            moments = lambda t: get(t, torch.float32)
         else:
-            get = lambda t: mesh.gather_model_slices(
+            get = get_count = lambda t: mesh.gather_model_slices(
                 self.world, t, cm.placement(self.cfg, t, self.world.model))
-        params, opt = get(st.params), map_opt_state(st.opt_state, get, get)
+        params = get(st.params)
+        opt = map_opt_state(st.opt_state, moments or get, get_count)
         if self.world is not None and self.world.torch_rank != 0:
             return None
         return ReplicaState(params, opt, st.step, st.phase)
@@ -305,7 +331,8 @@ class Trainer:
         if state is None:
             return None
         return serving_weights_from_state(
-            state, plan=self.plan() if self.sharding.is_sharded else None,
+            state,
+            plan=self.whole_plan() if self.sharding.is_sharded else None,
             model=self.model)
 
     def run(self, steps: int, log_every: int = 10, ckpt_dir=None,
@@ -382,10 +409,6 @@ def main():
     if not args.data_axis:
         raise SystemExit("give --data-axis: the number of replicas")
     fsdp = args.sharding == "fsdp"
-    if fsdp and n_model > 1:
-        raise NotImplementedError(
-            f"--sharding fsdp with --model-axis {n_model} belongs to "
-            f"{FSDP_MODEL_SLICE}")
 
     device = os.environ.get("REPRO_TORCH_DEVICE", "cuda")
     world = None

@@ -31,8 +31,10 @@ and the loss the vocab-parallel cross-entropy (chunked at vocab >=
 
 ``layered`` is the dense family's per-layer decomposition for the
 layer-streamed FSDP engine (``core/streaming.py``): stem -> superblock
-spans -> head, its ``head_loss`` the tail of ``loss``.  Other families
-have none (``None``), and streamed FSDP refuses them.
+spans -> head, its ``head_loss`` the tail of ``loss``, with a model
+world on the rank's slices (the vocab-parallel lookup and
+cross-entropy).  Other families have none (``None``), and streamed FSDP
+refuses them.
 """
 
 from __future__ import annotations
@@ -140,28 +142,34 @@ def _loss(cfg, forward_train, chunked: bool, text_slice: int = 0,
     return loss_fn
 
 
-def _dense_layered(cfg, chunked: bool) -> cm.LayeredModel:
-    """Layered decomposition of the dense family (one span a superblock).
+def _dense_layered(cfg, chunked: bool, mw=None) -> cm.LayeredModel:
+    """Layered decomposition of the dense family (one span a superblock),
+    on a model rank's slices with a model world ``mw``.
 
     ``head_loss`` is the tail of :func:`_loss` for a dense model: the final
-    norm, the (chunked) unembed and cross-entropy, ``{"ce", "loss"}`` as
-    the metrics (dense has no aux losses)."""
+    norm, the (chunked) unembed and cross-entropy (vocab-parallel where
+    the placement splits the vocab), ``{"ce", "loss"}`` as the metrics
+    (dense has no aux losses)."""
     n_sb, _, _ = tfm.superblock_layout(cfg)
 
     def stem(stem_tree, batch):
-        return tfm.stem_apply(cfg, stem_tree, batch["tokens"])
+        return tfm.stem_apply(cfg, stem_tree, batch["tokens"], mw=mw)
 
     def span(k, span_tree, x, positions, remat=True):
-        return tfm.span_apply(cfg, span_tree, x, positions, remat=remat)
+        return tfm.span_apply(cfg, span_tree, x, positions, remat=remat,
+                              mw=mw)
 
     def head_loss(head_tree, stem_tree, x, positions, batch):
         x = tfm.norm_apply(cfg, x, head_tree["ln_f"])
         up = tfm.head_params_for_unembed(stem_tree, head_tree)
+        vmw = mw if tfm.vocab_split(cfg, up, mw) else None
         if chunked:
-            ce = _chunked_ce(cfg, up, x, batch["labels"], batch.get("mask"))
+            ce = _chunked_ce(cfg, up, x, batch["labels"], batch.get("mask"),
+                             vmw)
         else:
-            ce = cm.softmax_cross_entropy(tfm.unembed(cfg, up, x),
-                                          batch["labels"], batch.get("mask"))
+            ce = cm.softmax_cross_entropy(tfm.unembed(cfg, up, x, mw),
+                                          batch["labels"], batch.get("mask"),
+                                          vmw)
         return ce, {"ce": ce, "loss": ce}
 
     return cm.LayeredModel(
@@ -261,10 +269,8 @@ def build_model(cfg, device="cuda", model_world=None) -> ModelAPI:
         prefill=prefill,
         decode_step=lambda params, caches, token, pos: mod.decode_step(
             cfg, params, caches, token, pos, **tp),
-        # the layered engine over a model world (FSDP under a model axis):
-        # slice 7c-3
-        layered=(_dense_layered(cfg, chunked)
-                 if cfg.family == "dense" and mw is None else None),
+        layered=(_dense_layered(cfg, chunked, mw)
+                 if cfg.family == "dense" else None),
         model_world=mw,
     )
 

@@ -429,7 +429,8 @@ def _stack(xs, lead: int):
 
 
 def split_layered(cfg, params, lead: int = 0):
-    """Full param tree -> ``{"stem", "layers", "head"}`` (views).
+    """Full param tree (or a model rank's slice tree) -> ``{"stem",
+    "layers", "head"}`` (views).
 
     One span per superblock, the unit ``forward_train`` recomputes, so
     ``span_apply(k, ...)`` composed over k is the training forward.
@@ -456,10 +457,11 @@ def merge_layered(cfg, layered, lead: int = 0):
     return params
 
 
-def stem_apply(cfg, stem, tokens, prefix_embeds=None):
+def stem_apply(cfg, stem, tokens, prefix_embeds=None, mw=None):
     """Embedding stem: tokens -> (x, positions), ``forward_train``'s
-    prologue."""
-    x = embed_with_prefix(cfg, {"emb": stem["emb"]}, tokens, prefix_embeds)
+    prologue (a vocab-parallel lookup with a vocab-split ``emb``)."""
+    x = embed_with_prefix(cfg, {"emb": stem["emb"]}, tokens, prefix_embeds,
+                          mw)
     return x, _positions(x)
 
 

@@ -93,7 +93,12 @@ model group.  The non-finite guard takes the MIN of its flag over the
 model group, so one bad slice skips the whole replica.  The plan is
 compiled over the rank's own leaves and averages them over its dp group:
 the combine is elementwise, so the gathered average is the whole rows'
-average.
+average.  Under FSDP (gather-all or layer-streamed) the sharded plan is
+compiled over the rank's slice tree too, so each rank holds its shard
+slice of its model coordinate's buckets, and the guard is the MIN over
+the model group and then over the pod at its model coordinate: every
+one of a pod's ``pod_size x model`` ranks agrees, as the reference's
+global ``isfinite`` under GSPMD does.
 
 Step variants: the host loop (``launch/train.py`` ``Trainer._step_fn``)
 calls ``averager.phase_for_step(t)``/``sync_due(t)`` and runs one of
@@ -141,18 +146,55 @@ def layered_of(model):
     return model.layered
 
 
-def plan_of(model, averager):
-    """The averager's compiled plan for the model's params tree (one
-    replica's structure, from the family's ``param_specs``), as the JAX
-    step's ``_plan_of``: a sharded plan is compiled from the full tree,
-    never from a state's shard buffers; a streamed one from the layered
-    tree (``layered.split`` of the specs)."""
+def _param_specs(model, whole: bool = False):
+    """One replica's params as Specs (the family's ``param_specs``): with
+    a model world this rank's slices of them unless ``whole``; layered
+    under the streamed policy."""
     from repro_torch.models.convert import PARAM_SPECS
     specs = PARAM_SPECS[model.cfg.family](model.cfg)
+    mw = model.model_world
+    if mw is not None and not whole:
+        specs = cm.take_slices(specs, cm.placement(model.cfg, specs,
+                                                   mw.size), mw)
+    return specs
+
+
+def plan_of(model, averager):
+    """The averager's compiled plan for the model's params tree (one
+    replica's structure, from the family's ``param_specs``; with a model
+    world this rank's slice tree), as the JAX step's ``_plan_of``: a
+    sharded plan is compiled from the full tree, never from a state's
+    shard buffers; a streamed one from the layered tree (``layered.split``
+    of the specs)."""
+    specs = _param_specs(model)
     if averager.sharding.is_sharded and averager.sharding.streamed:
         specs = layered_of(model).split(specs)
     return averager.plan_for(tr.tree_map(
         lambda s: tr.Spec((1,) + tuple(s.shape), s.dtype), specs))
+
+
+def whole_plan_of(model, averager):
+    """The sharded plan of the model's whole tree in one process: the
+    layout of a model-1 run's state, which a model world's gathered state
+    and checkpoint keep (:func:`plan_of` itself without a model world)."""
+    plan = plan_of(model, averager)
+    if model.model_world is None:
+        return plan
+    specs = _param_specs(model, whole=True)
+    if plan.sharding.streamed:
+        specs = layered_of(model).split(specs)
+    return plan_mod.compile_plan(plan.topology, specs, plan.cfg,
+                                 plan.sharding)
+
+
+def model_dims(model, plan) -> Optional[object]:
+    """The placement of one replica's whole tree over the model ranks
+    (``common.placement`` of ``whole_plan_of``'s storage tree), which
+    ``replica.model_rank_slices`` and ``join_model_slices`` read; ``None``
+    without a model world."""
+    mw = model.model_world
+    return None if mw is None else cm.placement(model.cfg,
+                                                plan.storage_struct, mw.size)
 
 
 def init_replica_state(model, optimizer, averager,
@@ -163,7 +205,8 @@ def init_replica_state(model, optimizer, averager,
     ``fsdp_within_pod``: one init packed into the plan's shard layout and
     broadcast to ``(P_eff, n_b)`` buffers, float32 moments of the same
     shapes and a ``(P_eff,)`` count; over ranks this rank's ``(1, n_b /
-    pod_size)`` slices of them and a ``(1,)`` count."""
+    pod_size)`` slices of them (of its model coordinate's buffers, packed
+    from the slices ``model.init`` returns) and a ``(1,)`` count."""
     if averager.sharding.is_sharded and averager.world is not None:
         plan = plan_of(model, averager)
         params0 = model.init(generator)

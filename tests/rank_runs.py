@@ -653,8 +653,8 @@ def fsdp_trainer(world, arch, init, trainer_kw, seq_len, global_batch,
     """The port's FSDP ``Trainer`` over ``world`` (gather-all, or
     layer-streamed) on the hierarchical topology (each link class's
     budget pinned to ``budget`` bytes where given), warm-started from the
-    FSDP checkpoint ``init`` (either layout: a restore across them goes
-    through the canonical tree)."""
+    model-1 FSDP checkpoint ``init`` (either layout: a restore across them
+    goes through the canonical tree)."""
     from repro_torch.checkpoint import load_replica_state
     from repro_torch.core.plan import Topology
     from repro_torch.launch.train import Trainer
@@ -668,8 +668,8 @@ def fsdp_trainer(world, arch, init, trainer_kw, seq_len, global_batch,
               seed=0, sharding="fsdp", streamed=streamed, topology=topology)
     trainer = Trainer(cfg, data, pod_axis=pod, world=world, **kw)
     state = load_replica_state(init, fsdp_state_template(
-        cfg, trainer.plan()), sharding=trainer.sharding,
-        plan=trainer.plan(), layered=trainer.model.layered)
+        cfg, trainer.whole_plan()), sharding=trainer.sharding,
+        plan=trainer.whole_plan(), layered=trainer.model.layered)
     trainer.state = trainer._put_state(state)
     return trainer
 
@@ -937,6 +937,104 @@ def streamed_ranks_worker(world, out, inits, runs, seq_len, global_batch,
     return res
 
 
+# ---------------------------------------------------------------------------
+# FSDP within a pod under a model axis
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def other_coordinate_partners(plan):
+    """The planted fault of the pod view: each rank's butterfly partners
+    are the other pods' members at its shard coordinate but at the OTHER
+    model coordinate (torch rank XOR 1 at model 2), so slices of two
+    coordinates' layouts are averaged together."""
+    import dataclasses
+    from repro_torch.core import plan as plan_mod
+    real = plan.wire
+    view = real.world
+    ranks = tuple(t if e == view.rank else t ^ 1
+                  for e, t in enumerate(view.torch_ranks))
+    plan.wire = plan_mod.RankWire(dataclasses.replace(view, torch_ranks=ranks))
+    try:
+        yield
+    finally:
+        plan.wire = real
+
+
+def nan_at_model_rank(trainer, world, bad: int, t: int, pod_min_only: bool
+                      ) -> float:
+    """Step ``t`` with a NaN in the first element of the gradient of
+    member ``bad`` at model rank 1 alone; ``pod_min_only`` (the planted
+    fault) leaves the MIN over the model group out of the guard.  Returns
+    the step's skipped share."""
+    from repro_torch.core import tree as tr
+    from repro_torch.train import train_step
+    vag, finite = train_step.value_and_grad, train_step.replica_all_finite
+
+    def poisoned(model, params, batch):
+        grads, metrics = vag(model, params, batch)
+        tr.tree_leaves(grads)[0].view(-1)[0] = float("nan")
+        return grads, metrics
+    if world.rank == bad and world.model_rank == 1:
+        train_step.value_and_grad = poisoned
+    if pod_min_only:
+        train_step.replica_all_finite = \
+            lambda model, grads: train_step.tree_all_finite(grads)
+    try:
+        trainer.step_once(t)
+    finally:
+        train_step.value_and_grad, train_step.replica_all_finite = vag, finite
+    return trainer.last_metrics["skipped_nonfinite"]
+
+
+def fsdp_model_worker(world, out, inits, trainer_kw, seq_len, global_batch,
+                      steps, bad):
+    """FSDP within a pod under a model axis (data x pod x model ranks, the
+    shard axis data): the gather-all and the layer-streamed ``Trainer``
+    for ``steps`` steps each from the model-1 checkpoint ``inits[tag]``
+    (every streamed fwd+bwd's event log held to the schedule), rank 0
+    writing the gathered state to ``out/<tag>``; then one group step from
+    the gather-all init, right (``out/one_step``) and with the pod view
+    pairing the other model coordinate (``out/mispaired``); then one step
+    with a NaN in member ``bad``'s gradient at model rank 1, under the
+    guard (``guard/count``) and under a guard without the MIN over the
+    model group (``pod_min_only/count``)."""
+    from repro_torch.core import streaming
+    arch = "tinyllama-1.1b"
+    make = lambda tag, streamed=False: fsdp_trainer(
+        world, arch, inits[tag], trainer_kw, seq_len, global_batch,
+        streamed=streamed)
+    res = {}
+    for tag, streamed in (("gather_all", False), ("streamed", True)):
+        trainer = make(tag, streamed)
+        plan = trainer.plan()
+        plan.stream_log = [] if streamed else None
+        res[f"{tag}/losses"] = np.asarray(
+            [trainer.step_once(t) for t in range(steps)])
+        res[f"{tag}/skipped"] = np.asarray(trainer.skipped_nonfinite)
+        if streamed:
+            res[f"{tag}/logs"] = np.asarray(len(
+                [streaming.check_stream_event_log(r, plan)
+                 for r in plan.stream_log]))
+            plan.stream_log = None
+        res[f"{tag}/slices"] = np.asarray(
+            [b.shape[1] for b in trainer.state.params])
+        trainer.save_checkpoint(os.path.join(out, tag))
+    for tag, planted in (("one_step", False), ("mispaired", True)):
+        trainer = make("gather_all")
+        if planted:
+            with other_coordinate_partners(trainer.plan()):
+                trainer.step_once(0)
+        else:
+            trainer.step_once(0)
+        trainer.save_checkpoint(os.path.join(out, tag))
+    for tag, planted in (("guard", False), ("pod_min_only", True)):
+        trainer = make("gather_all")
+        res[f"{tag}/skipped"] = np.asarray(nan_at_model_rank(
+            trainer, world, bad, 0, planted))
+        res[f"{tag}/count"] = trainer.state.opt_state.count.numpy()
+    return res
+
+
 def _spec_tree(cfg):
     """The whole params tree of ``cfg`` as Specs."""
     from repro_torch.models.convert import PARAM_SPECS
@@ -984,4 +1082,5 @@ WORKERS = {"plan": plan_worker, "trainer": trainer_worker,
            "routed_count": routed_count_worker,
            "loss_grads": loss_grads_worker,
            "fsdp_ranks": fsdp_ranks_worker,
-           "streamed_ranks": streamed_ranks_worker}
+           "streamed_ranks": streamed_ranks_worker,
+           "fsdp_model": fsdp_model_worker}

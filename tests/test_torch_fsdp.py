@@ -503,8 +503,9 @@ def test_streamed_and_rank_worlds_raise_naming_slice_7b():
     tests/test_torch_streaming.py).  Over a rank world the gather-all and
     the streamed plans and both averagers build (slices 7c-1 and 7c-2,
     tests/test_torch_fsdp_ranks.py and tests/test_torch_streamed_ranks.py),
-    each averaging on the world's pod view; only a world with a model axis
-    raises, naming slice 7c-3."""
+    each averaging on the world's pod view; over a world with a model axis
+    they build too (slice 7c-3, tests/test_torch_fsdp_model.py), and the
+    pod view keeps this rank's model coordinate."""
     from repro_torch.core.replica import (FSDP_MODEL_SLICE,
                                           FSDP_STREAMED_SLICE)
     from repro_torch.launch.mesh import RankWorld
@@ -552,12 +553,22 @@ def test_streamed_and_rank_worlds_raise_naming_slice_7b():
                 (1, (1, 3))
             assert [tuple(s.shape) for s in plan.shard_struct()] == \
                 [(n // 2,) for n in plan.shard_layout.bucket_sizes]
-        model_world = RankWorld(("data", "pod"), (2, 2), 0,
-                                torch.device("cpu"), "gloo", model=2)
+        # model rank 1 of dp rank 1 (data 1, pod 0): torch rank 3
+        model_world = RankWorld(("data", "pod"), (2, 2), 1,
+                                torch.device("cpu"), "gloo", model=2,
+                                model_rank=1)
+        assert "ported" in FSDP_MODEL_SLICE
         for pol in (FSDP, streamed):
-            with pytest.raises(NotImplementedError, match="slice 7c-3") as e:
-                build(pol, model_world)
-            assert FSDP_MODEL_SLICE in str(e.value)
+            built = build(pol, model_world)
+            plan = built if name == "plan" else built.plan_for(
+                tr.tree_map(lambda v: tr.Spec((1,) + tuple(v.shape),
+                                              v.dtype), trees[pol]))
+            assert plan.world == model_world and plan.P_eff == 2
+            assert plan.shard_layout.grouped == pol.streamed
+            # pod to pod at data 1, model 1: torch ranks 1 * 2 + 1, 3 * 2 + 1
+            assert (plan.wire.world.rank, plan.wire.world.torch_ranks) == \
+                (0, (3, 7))
+            assert model_world.shard_members("data") == (1, 3)
 
 
 # ---------------------------------------------------------------------------

@@ -26,8 +26,8 @@ Every rank check runs in one world of 8 gloo ranks on the CPU
 
 Then the launcher under torchrun (``--sharding fsdp --pod-dcn
 --ckpt-dir``) against the one-process launcher; under torchrun
-``--streamed`` passes its checks (slice 7c-2), and a model axis with FSDP
-raises naming slice 7c-3.
+``--streamed`` (slice 7c-2) and a model axis with FSDP (slice 7c-3) pass
+its checks.
 """
 
 import os
@@ -429,8 +429,8 @@ def test_cli_streamed_and_model_axis_fsdp_raise_naming_their_parts(
     """Under torchrun ``--streamed`` is ported (slice 7c-2): it passes the
     launcher's checks and reaches the rank world's start, which it asks
     for the shard axis.  ``--sharding fsdp`` with ``--model-axis`` 2 is
-    slice 7c-3's and still raises before any rank joins a process
-    group."""
+    ported too (slice 7c-3): it asks the rank world's start for the model
+    axis and the shard axis alike."""
     for k, v in dict(WORLD_SIZE="8", RANK="0", LOCAL_RANK="0",
                      LOCAL_WORLD_SIZE="8", REPRO_TORCH_DEVICE="cpu").items():
         monkeypatch.setenv(k, v)
@@ -452,6 +452,8 @@ def test_cli_streamed_and_model_axis_fsdp_raise_naming_their_parts(
         train_mod.main()
     assert asked["shard_axis"] == "data" and asked["model"] == 1
     monkeypatch.setattr(sys, "argv", argv + ["--model-axis", "2"])
-    with pytest.raises(NotImplementedError) as e:
+    assert "ported" in FSDP_MODEL_SLICE
+    asked.clear()
+    with pytest.raises(Reached):
         train_mod.main()
-    assert FSDP_MODEL_SLICE in str(e.value)
+    assert asked["shard_axis"] == "data" and asked["model"] == 2

@@ -289,8 +289,9 @@ def test_streamed_policy_and_refusals():
     """``streamed=True`` is a policy of its own (a plan distinct from the
     gather-all one); it needs FSDP, a layered tree and a dense model.
     Over a rank world it builds (slice 7c-2, ported: its averager and its
-    plan, whose butterfly runs on the world's pod view); only a world with
-    a model axis raises, naming slice 7c-3."""
+    plan, whose butterfly runs on the world's pod view), and over a world
+    with a model axis too (slice 7c-3), its pod view at this rank's model
+    coordinate."""
     from repro_torch.core.baselines import make_averager
     from repro_torch.core.replica import (FSDP_MODEL_SLICE,
                                           FSDP_STREAMED_SLICE)
@@ -329,11 +330,16 @@ def test_streamed_policy_and_refusals():
     assert rank_plan.wire.world.torch_ranks == (0, 2)
     assert rank_plan.n_stream_spans == 2
     model_world = RankWorld(("data", "pod"), (2, 2), 0, torch.device("cpu"),
-                            "gloo", model=2)
-    with pytest.raises(NotImplementedError, match="slice 7c-3") as e:
-        make_averager("wagma", ("data", "pod"), (2, 2), topology=t,
-                      sharding=STREAM, world=model_world)
-    assert FSDP_MODEL_SLICE in str(e.value)
+                            "gloo", model=2, model_rank=1)
+    assert "7c-3" in FSDP_MODEL_SLICE and "ported" in FSDP_MODEL_SLICE
+    model_plan = make_averager(
+        "wagma", ("data", "pod"), (2, 2), topology=t, sharding=STREAM,
+        world=model_world).plan_for(tr.tree_map(
+            lambda s: tr.Spec((1,) + tuple(s.shape), s.dtype),
+            _ttree(GROUPED)))
+    assert model_plan.world is model_world and model_plan.sharding == STREAM
+    # pod to pod at data 0 and model 1: torch ranks 0 * 2 + 1, 2 * 2 + 1
+    assert model_plan.wire.world.torch_ranks == (1, 5)
 
 
 # ---------------------------------------------------------------------------
